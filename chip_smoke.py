@@ -1,0 +1,555 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. build    — nvcc every kernel source (src/repro_torch/kernels/csrc);
+  2. kernels  — each hand-written kernel against its plain PyTorch version
+                at full gemma2-2b width (H=8, K=4, hd=256, page=16, bf16),
+                then checked again at the main path's shapes and timed
+                there beside its plain version, a one-call PyTorch
+                yardstick (scaled_dot_product_attention on the gathered
+                dense view, never called by the port) and its bound;
+  3. model    — full-width gemma2-2b (26 layers, random weights from a
+                seed): one prefill_chunk_paged and one decode_step_paged
+                through the kernels and through the plain walk, on copies
+                of one pool, logits compared;
+  4. engine   — the main path: Engine.run built by repro_torch.launch.serve
+                (derive_policy on h100-sxm, --max-batch 8, page 16, chunked
+                prefill) over 8 prompts of 300-1200 tokens and one of 4200
+                that crosses the 4096 window, 32 new tokens each, with the
+                kernels' launch counts zeroed just before and read after;
+  5. profile  — the same trace on a fresh engine under torch.profiler:
+                device time by kernel and the device's busy share;
+  6. generate — the sequential entry point on 2 prompts of 1000 tokens;
+  7. report   — one JSON line with every kernel's launches, error, times.
+Prints the card's name and power limit, one JSON line of kernel numbers,
+and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+result, without a CUDA device or without the repository beside it.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+# kernel vs plain version, fp32 of the bf16 outputs. Both compute in fp32
+# and differ only in summation order (about 1e-6 of a row's scale), then
+# round once to bf16, so an element may land one bf16 ulp apart: 2**-7 of
+# |ref|. The absolute term covers elements near zero and is tied to the
+# data: 2**-7 of the row's (one query head's hd values) max |ref|, one to
+# two bf16 ulps of that max. A fixed bound would not do: softmax over n
+# keys of N(0,1) scores gives |o| of about sqrt(e/n), 0.02-0.05 here.
+RTOL = ROW_ATOL = 2.0 ** -7
+# softcap cases scale q so that the scores (about N(0,1) after hd**-0.5)
+# spread to about N(0, 20**2) and reach the cap; the plain version run
+# without the cap must then miss the tolerance, else the case fails as
+# one that does not test the cap
+CAP_Q_SCALE = 20.0
+# full gemma2-2b attention width
+H, K, HD, PAGE = 8, 4, 256, 16
+WINDOW, CAP = 4096, 50.0
+# kernels vs plain walk through 26 bf16 layers: each layer's attention
+# output may differ by a bf16 ulp (2**-8 relative), and the residual
+# stream carries it on through every later layer, so logits are held to 3%
+# of the largest |logit| (about 8 bf16 ulps compounded), and must pick the
+# same greedy token wherever the plain top-2 margin exceeds that.
+LOGIT_RTOL = 0.03
+GEN = 32
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+# ------------------------------------------------------------- kernels ----
+def paged_case(seed, positions, Sq, n_blocks):
+    """Random bf16 pools with a poisoned scratch page 0, a query chunk and a
+    page table giving every sequence its own random pages (tails -> 0).
+    Returns the case with two queries: as drawn, and scaled for the
+    softcap cases (``CAP_Q_SCALE``)."""
+    import torch
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(positions)
+    P = B * n_blocks + 1
+    pool_k = torch.randn((P, PAGE, K, HD), generator=g, device=dev)
+    pool_v = torch.randn((P, PAGE, K, HD), generator=g, device=dev)
+    pool_k, pool_v = pool_k.bfloat16(), pool_v.bfloat16()
+    pool_k[0], pool_v[0] = 37.0, -53.0     # a leak past the mask shows
+    q = torch.randn((B, Sq, H, HD), generator=g, device=dev).bfloat16()
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    pt = torch.zeros((B, n_blocks), dtype=torch.int32)
+    for b, pos in enumerate(positions):
+        need = min((pos + Sq - 1) // PAGE + 1, n_blocks)
+        pt[b, :need] = perm[b * n_blocks:b * n_blocks + need]
+    pos_t = torch.tensor(positions, dtype=torch.int32, device=dev)
+    q_cap = (q.float() * CAP_Q_SCALE).bfloat16()
+    return {0.0: q, CAP: q_cap}, pool_k, pool_v, pt.to(dev), pos_t
+
+
+def walk_span(pos, Sq, n_blocks, window):
+    """[lo, hi] blocks a chunk at ``pos`` needs (the kernels' own range)."""
+    hi = min((pos + Sq - 1) // PAGE, n_blocks - 1)
+    lo = max((pos - window + 1) // PAGE, 0) if window else 0
+    return lo, hi
+
+
+def bound_ms(positions, Sq, n_blocks, window):
+    """Least time for the work these inputs need: every live K/V page read
+    once per kv head, q/table/positions read and the output written once,
+    over device memory; or 4*hd flops per valid (query head, key) pair over
+    the bf16 peak. Returns (ms, 'bytes' | 'operations')."""
+    B = len(positions)
+    kv = 0
+    valid = 0
+    for pos in positions:
+        lo, hi = walk_span(pos, Sq, n_blocks, window)
+        kv += max(hi - lo + 1, 0) * PAGE * K * HD * 2 * 2
+        for s in range(Sq):
+            qp = pos + s
+            first = max(qp - window + 1, 0) if window else 0
+            valid += max(min(qp, n_blocks * PAGE - 1) - first + 1, 0)
+    io = 2 * B * Sq * H * HD * 2 + B * n_blocks * 4 + B * 4
+    t_bytes = (kv + io) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * HD * valid * H / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_yardstick(q, pool_k, pool_v, pt, positions, window):
+    """One PyTorch call computing the same attention (without the softcap,
+    which SDPA lacks) on the gathered dense view: the library_ms
+    yardstick. The gather happens here, outside the timed call."""
+    import torch
+    import torch.nn.functional as F
+    B, Sq = q.shape[:2]
+    n_blocks = pt.shape[1]
+    T = n_blocks * PAGE
+    k = pool_k[pt.long()].reshape(B, T, K, HD).transpose(1, 2)
+    v = pool_v[pt.long()].reshape(B, T, K, HD).transpose(1, 2)
+    qpos = positions.long()[:, None] + torch.arange(Sq, device=q.device)
+    j = torch.arange(T, device=q.device)
+    mask = j[None, None, :] <= qpos[:, :, None]
+    if window:
+        mask &= j[None, None, :] > qpos[:, :, None] - window
+    mask = mask[:, None]
+    qt = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def mismatch(got, want):
+    """Elements of ``got`` outside the tolerance around ``want`` (fp32,
+    hd last)."""
+    rowmax = want.abs().amax(-1, keepdim=True)
+    return (got - want).abs() > ROW_ATOL * rowmax + RTOL * want.abs()
+
+
+def check_kernel(name, fwd, plain, qs, pk, pv, pt, pos, *, window, cap,
+                 live_rows=None):
+    """Hold one kernel call against its plain version over the rows that
+    are defined (``live_rows``: a padded chunk's rows past the table width
+    are garbage by contract), and print the case. With a cap, the plain
+    version without it must miss the tolerance. Returns max |err|."""
+    import torch
+    q = qs[cap]
+    got = fwd(q, pk, pv, pt, pos, window=window, cap=cap)
+    torch.cuda.synchronize()
+    want = plain(q, pk, pv, pt, pos, window=window, cap=cap)
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: non-finite output (window={window}, cap={cap})")
+    g, w = got.float(), want.float()
+    if live_rows is not None:
+        g, w = g[:, :live_rows], w[:, :live_rows]
+    err = float((g - w).abs().max())
+    typical = float(w.abs().mean())
+    shape = f"B={q.shape[0]} Sq={q.shape[1]} n_blocks={pt.shape[1]}"
+    bad = mismatch(g, w)
+    if bad.any():
+        fail(f"{name}: {int(bad.sum())} elements off, max |err| {err:.4g}, "
+             f"mean |ref| {typical:.4g} ({shape}, window={window}, "
+             f"cap={cap})")
+    if cap:
+        nocap = plain(q, pk, pv, pt, pos, window=window, cap=0.0).float()
+        if live_rows is not None:
+            nocap = nocap[:, :live_rows]
+        if not mismatch(nocap, w).any():
+            fail(f"{name}: without the softcap the plain version is within "
+                 f"tolerance too ({shape}, window={window}): the case does "
+                 f"not test the cap")
+    print(f"kernels: {name} {shape} window={window} cap={cap}: max |err| "
+          f"{err:.4g} = {err / typical:.4g} x mean |ref| ({typical:.4g})",
+          flush=True)
+    return err
+
+
+def phase_kernels(prefill_chunk: int, n_blocks_main: int):
+    """Phase 2: every kernel against its plain version, then timed at the
+    main path's shapes. Returns name -> partial kernel record."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    def decode(q, *a, **kw):
+        return pa.paged_attention_fwd(q[:, 0], *a, **kw)[:, None]
+
+    def decode_ref(q, *a, **kw):
+        return ref.paged_attention_ref(q[:, 0], *a, **kw)[:, None]
+
+    rng = np.random.default_rng(0)
+    dec_pos = sorted([0, 17, 4095, 4097, 4999]
+                     + rng.integers(1, 5000, 3).tolist())
+    dec_blocks = -(-5000 // PAGE) + 1
+    err = {"paged_attention_fwd": 0.0, "paged_prefill_fwd": 0.0}
+    cases = [
+        # decode, B=8, ragged positions crossing the 4096 window
+        ("paged_attention_fwd", decode, decode_ref, dec_pos, 1, dec_blocks,
+         None),
+        # prefill, Sq=512 chunks at non-zero starts, one crossing the window
+        ("paged_prefill_fwd", pa.paged_prefill_fwd, ref.paged_prefill_ref,
+         [1000, 4500], 512, 320, None),
+        # padded final chunk running past the table width (40 blocks)
+        ("paged_prefill_fwd", pa.paged_prefill_fwd, ref.paged_prefill_ref,
+         [512], 512, 40, 40 * PAGE - 512),
+    ]
+    for i, (name, fwd, plain, positions, Sq, n_blocks, live) in \
+            enumerate(cases):
+        case = paged_case(100 + i, positions, Sq, n_blocks)
+        for window in (0, 64, WINDOW):
+            for cap in (0.0, CAP):
+                e = check_kernel(name, fwd, plain, *case, window=window,
+                                 cap=cap, live_rows=live)
+                err[name] = max(err[name], e)
+        del case
+
+    # the main path's shapes, checked and then timed on the same inputs: a
+    # decode tick of 8 ragged sequences, the long prompt's first full
+    # prefill chunk, and (for the split between kernel and padding cost) a
+    # chunk of 2048 rows, not part of the kernels line
+    timed = [
+        ("paged_attention_fwd", decode, decode_ref, dec_pos, 1,
+         max(n_blocks_main, dec_blocks)),
+        ("paged_prefill_fwd", pa.paged_prefill_fwd, ref.paged_prefill_ref,
+         [0], prefill_chunk, n_blocks_main),
+    ]
+    if prefill_chunk != 2048:
+        timed.append(("paged_prefill_fwd", pa.paged_prefill_fwd,
+                      ref.paged_prefill_ref, [0], 2048, n_blocks_main))
+    records = {}
+    for name, fwd, plain, positions, Sq, n_blocks in timed:
+        qs, pk, pv, pt, pos = paged_case(7, positions, Sq, n_blocks)
+        q = qs[CAP]
+        ms = plain_ms = lib_ms = b_ms = 0.0
+        for window in (0, WINDOW):        # the path alternates global/local
+            e = check_kernel(name, fwd, plain, qs, pk, pv, pt, pos,
+                             window=window, cap=CAP)
+            err[name] = max(err[name], e)
+            ms += time_ms(lambda: fwd(q, pk, pv, pt, pos, window=window,
+                                      cap=CAP), reps=20) / 2
+            plain_ms += time_ms(lambda: plain(q, pk, pv, pt, pos,
+                                              window=window, cap=CAP),
+                                reps=2, warmup=1) / 2
+            lib_ms += time_ms(sdpa_yardstick(q, pk, pv, pt, pos, window),
+                              reps=10) / 2
+            t, by = bound_ms(positions, Sq, n_blocks, window)
+            b_ms += t / 2
+        print(f"kernels: {name} B={len(positions)} Sq={Sq} "
+              f"n_blocks={n_blocks}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {by})",
+              flush=True)
+        if name not in records:
+            records[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": b_ms,
+                             "bound_by": by}
+        del qs, q, pk, pv, pt, pos
+    for name in records:
+        records[name]["max_abs_err"] = err[name]
+    print(f"kernels: match plain versions (max |err| {json.dumps(err)}, "
+          f"tolerance {ROW_ATOL:.4g}*max|ref row| + {RTOL:.4g}*|ref|)",
+          flush=True)
+    torch.cuda.empty_cache()
+    return records
+
+
+KERNEL_SOURCES = {
+    "paged_attention_fwd": (
+        "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:144"),
+    "paged_prefill_fwd": (
+        "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:323"),
+}
+
+
+def phase_model(model, params):
+    """Phase 3: one chunk and one decode step of the full-width model
+    through the kernels and through the plain walk, on copies of one pool;
+    returns the largest logit difference."""
+    import torch
+    from repro_torch.models.params import tree_map
+
+    dev = params["embed"].device
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(3)
+    B, C, n_blocks = 2, 512, 80
+    pool = model.init_pool(B * n_blocks + 1, PAGE, device=dev)
+    pt = (torch.arange(B * n_blocks, dtype=torch.int32)
+          .reshape(B, n_blocks) + 1).to(dev)
+    toks = torch.randint(2, cfg.vocab_size, (B, 2 * C + 1), generator=g,
+                         dtype=torch.int32).to(dev)
+    start = torch.zeros((B,), dtype=torch.int32, device=dev)
+    model.prefill_chunk_paged(params, pool, pt, toks[:, :C], start,
+                              kernel="cuda")           # resident prefix
+    logits = {}
+    for mode in ("cuda", "ref"):
+        copy = tree_map(torch.clone, pool)
+        hidden, _ = model.prefill_chunk_paged(
+            params, copy, pt, toks[:, C:2 * C], start + C, kernel=mode)
+        step, _ = model.decode_step_paged(
+            params, copy, pt, toks[:, 2 * C:], start + 2 * C, kernel=mode)
+        logits[mode] = {"chunk": model.unembed(params, hidden[:, -1:]),
+                        "decode": step}
+        del copy
+    err = 0.0
+    for what in ("chunk", "decode"):
+        a, b = logits["cuda"][what][:, 0], logits["ref"][what][:, 0]
+        if not torch.isfinite(a).all():
+            fail(f"model {what}: non-finite logits")
+        d = float((a - b).abs().max())
+        tol = LOGIT_RTOL * float(b.abs().max())
+        top2 = torch.topk(b, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        same = a.argmax(-1) == b.argmax(-1)
+        if d > tol or not bool((same | ~clear).all()):
+            fail(f"model {what}: kernel vs plain logits differ by {d:.4g} "
+                 f"(tolerance {tol:.4g}), greedy tokens "
+                 f"{a.argmax(-1).tolist()} vs {b.argmax(-1).tolist()}")
+        err = max(err, d)
+        print(f"model: {what} logits kernel vs plain max |diff| {d:.4g} "
+              f"(tolerance {tol:.4g}, |logit| up to "
+              f"{float(b.abs().max()):.3g})", flush=True)
+    del logits, pool
+    torch.cuda.empty_cache()
+    return err
+
+
+def main_trace(cfg):
+    """8 prompts of 300-1200 tokens and one of 4200 (it crosses the 4096
+    window of the local layers), GEN new tokens each."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(0)
+    lens = rng.integers(300, 1201, 8).tolist() + [4200]
+    return [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, S)
+                    .astype(np.int32), max_new=GEN)
+            for i, S in enumerate(lens)]
+
+
+def phase_engine(model, params, pa):
+    """Phase 4: the main path, through the launcher's own construction."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(
+        ["--arch", "gemma2-2b", "--max-batch", "8", "--page-size",
+         str(PAGE)])
+    reqs = main_trace(model.cfg)
+    max_len = max(len(r.prompt) + r.max_new for r in reqs)
+    policy = serve.make_policy(model.cfg, model, args, max_len)
+    print(f"engine: admission[{args.hw}] max_batch={policy.max_batch} "
+          f"prefill_chunk={policy.prefill_chunk} pages={policy.num_pages} "
+          f"max_model_len={policy.max_model_len}", flush=True)
+    engine = serve.make_engine(model, params, policy, args)
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    outs = engine.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(pa.LAUNCHES)
+    for r in reqs:
+        o = outs[r.rid]
+        if len(o) != len(r.prompt) + r.max_new:
+            fail(f"engine: request {r.rid} returned {len(o)} tokens, "
+                 f"want {len(r.prompt) + r.max_new}")
+        if not np.array_equal(o[:len(r.prompt)], r.prompt) or \
+                o.min() < 0 or o.max() >= model.cfg.vocab_size:
+            fail(f"engine: request {r.rid} output malformed")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"engine: kernel {name} was never launched on the main "
+                 f"path")
+    st = engine.stats
+    gen_total = st["decode_tokens"] + st["prefills"]
+    ticks = engine.telemetry.ticks
+    dec = [t.measured_s for t in ticks if t.kind == "decode"]
+    chk = [t.measured_s for t in ticks if t.kind == "chunk"]
+    rows = sum(t.q_len for t in ticks if t.kind == "chunk")
+    real = sum(t.tokens for t in ticks if t.kind == "chunk")
+    print(f"engine: prefill chunks ran {rows} query rows for {real} prompt "
+          f"tokens: {100 * (1 - real / rows):.1f}% padding", flush=True)
+    print(f"engine: served {len(reqs)} requests, {gen_total} tokens in "
+          f"{dt:.3f} s ({gen_total / dt:.2f} tok/s), "
+          f"{st['decode_ticks']} decode ticks (mean "
+          f"{1e3 * sum(dec) / len(dec):.3f} ms), {st['prefill_chunks']} "
+          f"prefill chunks (mean {1e3 * sum(chk) / len(chk):.3f} ms), "
+          f"{st['preemptions']} preemptions; launches {json.dumps(launches)}",
+          flush=True)
+    return launches, policy, args
+
+
+def phase_profile(model, params, policy, args):
+    """Where the main path's device time goes: the same trace once more on
+    a fresh engine under torch.profiler. Returns (kernel name -> device
+    ms, device-busy ms, wall ms); device numbers are None when the
+    profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+
+    engine = serve.make_engine(model, params, policy, args)
+    reqs = main_trace(model.cfg)
+    torch.cuda.synchronize()
+    # device activity only: host-op events would multiply the trace and
+    # its post-processing without adding device time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    if busy <= 0:
+        print("profile: the profiler saw no device time (not measured)",
+              flush=True)
+        return None, None, wall_ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile: main path {wall_ms:.1f} ms wall, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%, idle "
+          f"{100 * (1 - busy / wall_ms):.1f}%); top device time: "
+          + "; ".join(f"{k[:60]} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in top), flush=True)
+    return by_name, busy, wall_ms
+
+
+def phase_generate(model, params):
+    """Phase 5: the sequential entry point on the card."""
+    import torch
+    from repro_torch.launch.serve import generate
+    g = torch.Generator().manual_seed(5)
+    prompt = torch.randint(2, model.cfg.vocab_size, (2, 1000), generator=g,
+                           dtype=torch.int32).to(params["embed"].device)
+    t0 = time.perf_counter()
+    out = generate(model, params, prompt, 16, page_size=PAGE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if out.shape != (2, 1016) or not torch.equal(out[:, :1000], prompt) \
+            or int(out.min()) < 0 or int(out.max()) >= model.cfg.vocab_size:
+        fail(f"generate: malformed output {tuple(out.shape)}")
+    print(f"generate: 2 x 1000-token prompts + 16 tokens in {dt:.3f} s",
+          flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import build
+        from repro_torch.kernels import paged_attention as pa
+        from repro_torch.models.api import build_model
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is not beside this "
+              f"script ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+
+    secs = build.build_all()
+    print(f"build: {json.dumps(secs)} s of nvcc, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    model = build_model(get_config("gemma2-2b"))
+    from repro_torch.launch import serve
+    probe = serve.make_policy(
+        model.cfg, model, serve.build_parser().parse_args(
+            ["--arch", "gemma2-2b", "--max-batch", "8"]),
+        max(len(r.prompt) + r.max_new for r in main_trace(model.cfg)))
+    records = phase_kernels(prefill_chunk=probe.prefill_chunk,
+                            n_blocks_main=probe.pages_per_seq)
+
+    t1 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    print(f"model: gemma2-2b {model.param_count()} params "
+          f"({model.param_bytes() / 1e9:.2f} GB) initialised in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    phase_model(model, params)
+    launches, policy, args = phase_engine(model, params, pa)
+    phase_profile(model, params, policy, args)
+    phase_generate(model, params)
+
+    line = {"kernels": []}
+    for name, (route, source, replaces) in KERNEL_SOURCES.items():
+        r = records[name]
+        line["kernels"].append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(card_line())
+    print(json.dumps(line))
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,136 @@
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
+
+These define the semantics on the port's side: the CPU path of every
+kernel wrapper, and what ``chip_smoke.py`` holds each CUDA kernel against
+on the card. They mirror ``repro.kernels.ref`` function for function.
+The quantization helpers come with the KV-quant slice.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+
+# ------------------------------------------------------ paged attention ----
+def _paged_block_walk(q, load_k, load_v, K, hd, page, n_blocks, positions, *,
+                      window, cap):
+    """Shared block-walk body for the paged attention refs. ``load_k``/
+    ``load_v`` map a block index to its fp32 (B, page, K, hd) tile.
+
+    q is (B, Sq, H, hd): Sq == 1 is the decode walk, Sq > 1 the
+    chunked-prefill walk — query t of sequence b sits at absolute position
+    ``positions[b] + t`` and attends causally to every pool slot at or
+    before it (the resident prompt prefix plus the chunk's own already-
+    written K/V).
+
+    Walks the blocks ``[min(first qpos) - window + 1, max(last qpos)]``
+    across the batch in a Python loop, so the dense chronological
+    (B, n_blocks*page, K, hd) KV view is never built and local-window
+    layers walk only their window. Scores are staged per block into a
+    (B,K,G,Sq,T) fp32 buffer so the softmax is one full-row pass, as in the
+    reference."""
+    B, Sq, H, _ = q.shape
+    G = H // K
+    T = n_blocks * page
+    scale = hd ** -0.5
+    NEG = -2.0 ** 30
+    dev = q.device
+    # (B, Sq, K, G, hd) -> (B, K, G, Sq, hd): head h = k*G + g
+    qf = q.to(F32).reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4)
+    qpos = positions.long()[:, None] + torch.arange(Sq, device=dev)
+
+    # blocks any query needs; a final chunk padded past the page-table
+    # width must not walk past it (its overrun rows are garbage by
+    # contract).
+    hi = min((int(positions.max()) + Sq - 1) // page + 1, n_blocks)
+    lo = max((int(positions.min()) - window + 1) // page, 0) if window else 0
+
+    s_buf = torch.full((B, K, G, Sq, T), NEG, dtype=F32, device=dev)
+    for i in range(lo, hi):
+        s = torch.einsum("bkgsd,bpkd->bkgsp", qf, load_k(i)) * scale
+        if cap:
+            s = cap * torch.tanh(s / cap)
+        kpos = i * page + torch.arange(page, device=dev)
+        valid = kpos[None, None, :] <= qpos[:, :, None]          # (B, Sq, p)
+        if window:
+            valid &= kpos[None, None, :] > qpos[:, :, None] - window
+        s_buf[..., i * page:(i + 1) * page] = torch.where(
+            valid[:, None, None], s, NEG)
+    w = torch.softmax(s_buf, dim=-1)
+
+    o = torch.zeros((B, K, G, Sq, hd), dtype=F32, device=dev)
+    for i in range(lo, hi):
+        o += torch.einsum("bkgsp,bpkd->bkgsd",
+                          w[..., i * page:(i + 1) * page], load_v(i))
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def paged_attention_ref(q, pool_k, pool_v, page_table, positions, *,
+                        window=0, cap=0.0):
+    """Block-walking paged decode attention.
+
+    q (B, H, hd) one query token per sequence; pool_k/v (P, page, K, hd);
+    page_table (B, n_blocks) int32, unused tails pointing at scratch page 0;
+    positions (B,) int32 absolute position of the query token. H = K*G."""
+    return paged_prefill_ref(q[:, None], pool_k, pool_v, page_table,
+                             positions, window=window, cap=cap)[:, 0]
+
+
+def paged_prefill_ref(q, pool_k, pool_v, page_table, positions, *,
+                      window=0, cap=0.0):
+    """Block-walking chunked-prefill attention.
+
+    q (B, Sq, H, hd) one prompt chunk per sequence, whose K/V are already
+    in the pool; positions (B,) int32 absolute position of each chunk's
+    FIRST token. Query t attends to pool slots at kpos <= positions[b] + t.
+    """
+    hd = q.shape[-1]
+    _, page, K, _ = pool_k.shape
+    pt = page_table.long()
+    return _paged_block_walk(
+        q, lambda i: pool_k[pt[:, i]].to(F32),
+        lambda i: pool_v[pt[:, i]].to(F32),
+        K, hd, page, page_table.shape[1], positions, window=window, cap=cap)
+
+
+def _dense_kv(pool, page_table):
+    B = page_table.shape[0]
+    K, hd = pool.shape[2], pool.shape[3]
+    return pool[page_table.long()].reshape(B, -1, K, hd)
+
+
+def paged_attention_dense_ref(q, pool_k, pool_v, page_table, positions, *,
+                              window=0, cap=0.0):
+    """Dense decode oracle: gather pages chronologically, mask, softmax.
+    Test-only — it builds exactly the (B, T, K, hd) view the walk avoids."""
+    return paged_prefill_dense_ref(q[:, None], pool_k, pool_v, page_table,
+                                   positions, window=window, cap=cap)[:, 0]
+
+
+def paged_prefill_dense_ref(q, pool_k, pool_v, page_table, positions, *,
+                            window=0, cap=0.0):
+    """Dense chunked-prefill oracle. Test-only. q (B, Sq, H, hd); positions
+    (B,) chunk-start positions."""
+    B, Sq, H, hd = q.shape
+    K = pool_k.shape[2]
+    k = _dense_kv(pool_k, page_table)
+    v = _dense_kv(pool_v, page_table)
+    T = k.shape[1]
+    G = H // K
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bshd,bkhd->bhsk", q.to(F32), k.to(F32)) * (hd ** -0.5)
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    dev = q.device
+    qpos = positions.long()[:, None] + torch.arange(Sq, device=dev)
+    j = torch.arange(T, device=dev)
+    valid = j[None, None, :] <= qpos[:, :, None]                 # (B, Sq, T)
+    if window:
+        valid &= j[None, None, :] > qpos[:, :, None] - window
+    s = torch.where(valid[:, None], s, -2.0 ** 30)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhsk,bkhd->bshd", w, v.to(F32))
+    return out.to(q.dtype)

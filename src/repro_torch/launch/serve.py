@@ -1,0 +1,251 @@
+"""Serving launcher (port of ``repro.launch.serve``) — a thin CLI over the
+continuous-batching engine, with the sequential batched ``generate`` kept
+as the reference baseline.
+
+``python -m repro_torch.launch.serve --arch gemma2-2b --max-batch 8``
+``python -m repro_torch.launch.serve --arch gemma2-2b --tiny --device cpu``
+``python -m repro_torch.launch.serve --arch gemma2-2b --tiny --device cpu \\
+  --sequential``
+
+Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
+device and no CPU request it stops with an error. The reference's
+``--mesh``, ``--kv-bits``, ``--kv-policy``, ``--quant-policy``,
+``--autotune`` and ``--serving-config`` flags come with their slices.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import get_config, tiny_config
+from repro_torch.core.hardware_model import DEFAULT_HW, HARDWARES
+from repro_torch.models.api import build_model
+from repro_torch.models.params import tree_map
+from repro_torch.serving.engine import Engine, Request, derive_policy
+
+
+def resolve_device(name: str = "cuda") -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. No silent fallback to the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "--device cpu (device='cpu') to run on the CPU")
+    return device
+
+
+def _identity_paged_pool(cache, B: int, max_len: int, page: int):
+    """Scatter a full-layout prefill cache into a fresh identity-mapped page
+    pool: sequence b's logical block i lives at physical page 1 + b*ppseq
+    + i (page 0 stays the scratch page, as in the engine)."""
+    ppseq = -(-max_len // page)
+    span = ppseq * page
+    device = next(iter(cache["sub0"].values())).device
+    pt = (torch.arange(B * ppseq, dtype=torch.int32, device=device)
+          .reshape(B, ppseq) + 1)
+
+    def to_pages(c):                     # (G, B, S, K, hd) full layout
+        c = F.pad(c, (0, 0, 0, 0, 0, span - c.shape[2]))
+        c = c.reshape(c.shape[0], B * ppseq, page, *c.shape[3:])
+        pool = torch.zeros((c.shape[0], B * ppseq + 1) + c.shape[2:],
+                           dtype=c.dtype, device=c.device)
+        pool[:, 1:] = c
+        return pool
+
+    return tree_map(to_pages, cache), pt
+
+
+def _sample(logits, temperature, generator):
+    logits = logits[:, -1]
+    if temperature <= 0.0 or generator is None:
+        return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator).to(torch.int32)
+
+
+def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
+             generator=None, page_size: int = 16, kernel: str = "auto"):
+    """prompt (B, S) int32 on the parameters' device -> (B, S+gen_len).
+
+    Sequential baseline: one fixed batch, no admission — kept as the
+    exactness reference. It prefills the whole prompt with the dense
+    forward (prompts under 2048 tokens) and decodes through the same
+    paged-attention walk as the engine over an identity page table."""
+    B, S = prompt_tokens.shape
+    logits, cache = model.prefill(params, {"tokens": prompt_tokens},
+                                  cache_layout="full")
+    pool, pt = _identity_paged_pool(cache, B, S + gen_len, page_size)
+    out = [prompt_tokens.to(torch.int32)]
+    tok = _sample(logits, temperature, generator)
+    for i in range(gen_len):
+        out.append(tok)
+        if i == gen_len - 1:
+            break
+        positions = torch.full((B,), S + i, dtype=torch.int32,
+                               device=prompt_tokens.device)
+        logits, pool = model.decode_step_paged(params, pool, pt, tok,
+                                               positions, kernel=kernel)
+        tok = _sample(logits, temperature, generator)
+    return torch.cat(out, dim=1)
+
+
+def _make_requests(args, cfg):
+    rng = np.random.default_rng(0)
+    reqs = []
+    lo = min(4, args.prompt_len)
+    for i in range(args.requests):
+        S = int(rng.integers(lo, args.prompt_len + 1))
+        prompt = rng.integers(2, cfg.vocab_size, S).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=prompt, max_new=args.gen))
+    return reqs
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--hw", default=DEFAULT_HW, choices=sorted(HARDWARES),
+                    help="roofline target the admission policy is sized "
+                         "for")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "PyTorch versions of the kernels)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="engine mode: number of requests in the trace")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="sequential mode: fixed batch size")
+    ap.add_argument("--max-batch", type=int, default=0,
+                    help="override the policy's max in-flight batch")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV pool page size in tokens (both modes)")
+    ap.add_argument("--paged-kernel", default="auto",
+                    choices=("auto", "cuda", "ref"),
+                    help="paged-attention path: the CUDA kernels, the plain "
+                         "PyTorch block walk, or auto (CUDA on the card)")
+    ap.add_argument("--reserve-upfront", action="store_true",
+                    help="legacy admission: reserve every page of "
+                         "prompt+max_new at admission instead of growing "
+                         "lazily with preemption")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="engine mode: override the policy's prompt chunk "
+                         "(tokens per prefill tick; 0 keeps the derived "
+                         "value)")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="engine mode: prefill whole prompts (under 2048 "
+                         "tokens) into padding buckets in one forward")
+    ap.add_argument("--expected-occupancy", type=float, default=None,
+                    help="fraction of max_model_len the admission policy "
+                         "assumes a typical sequence occupies (default "
+                         "0.5, or 1.0 with --reserve-upfront)")
+    ap.add_argument("--sequential", action="store_true",
+                    help="fixed-batch generate loop instead of the engine")
+    ap.add_argument("--trace-out", default="",
+                    help="engine mode: write the telemetry Chrome trace "
+                         "to this path and print the telemetry summary")
+    return ap
+
+
+def make_policy(cfg, model, args, max_model_len: int):
+    """The admission policy the engine runs under: derived on ``--hw`` for
+    ``max_model_len``, with the batch/chunk overrides applied."""
+    occupancy = args.expected_occupancy
+    if occupancy is None:
+        occupancy = 1.0 if args.reserve_upfront else 0.5
+    policy = derive_policy(cfg, HARDWARES[args.hw],
+                           max_model_len=max_model_len,
+                           page_size=args.page_size,
+                           expected_occupancy=occupancy,
+                           param_bytes=model.param_bytes())
+    over = {}
+    if args.max_batch:
+        over["max_batch"] = args.max_batch
+    if args.prefill_chunk:
+        over["prefill_chunk"] = args.prefill_chunk
+    return dataclasses.replace(policy, **over) if over else policy
+
+
+def make_engine(model, params, policy, args) -> Engine:
+    return Engine(model, params, policy, temperature=args.temperature,
+                  paged_kernel=args.paged_kernel,
+                  reserve_upfront=args.reserve_upfront,
+                  chunked_prefill=not args.no_chunked_prefill)
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.prompt_len < 1:
+        ap.error("--prompt-len must be >= 1")
+    if args.sequential and args.trace_out:
+        ap.error("--trace-out applies to engine mode only; the sequential "
+                 "baseline has no telemetry recorder")
+    device = resolve_device(args.device)
+    # fp32 products stay fp32 (the fp32 unembed, the logits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device)
+
+    if args.sequential:
+        rng = np.random.default_rng(0)
+        prompt = torch.from_numpy(rng.integers(
+            2, cfg.vocab_size, (args.batch, args.prompt_len))
+            .astype(np.int32)).to(device)
+        gen = torch.Generator(device=device).manual_seed(1) \
+            if args.temperature > 0 else None
+        t0 = time.time()
+        out = generate(model, params, prompt, args.gen,
+                       temperature=args.temperature, generator=gen,
+                       page_size=args.page_size, kernel=args.paged_kernel)
+        out = out.cpu().numpy()
+        dt = time.time() - t0
+        print(f"{cfg.name}: generated {args.gen} tokens x batch "
+              f"{args.batch} in {dt:.2f}s "
+              f"({args.gen * args.batch / dt:.1f} tok/s) on {device}")
+        print("sample:", out[0, args.prompt_len:args.prompt_len + 16])
+        return
+
+    policy = make_policy(cfg, model, args, args.prompt_len + args.gen)
+    print(f"admission[{args.hw}]: max_batch={policy.max_batch} "
+          f"prefill_chunk={policy.prefill_chunk} "
+          f"chunked={not args.no_chunked_prefill} "
+          f"quant={policy.quant_bits}b "
+          f"kv={policy.kv_bits or 'bf16'} pages={policy.num_pages} "
+          f"page_size={policy.page_size} "
+          f"(est decode {policy.est_decode_s * 1e3:.2f}ms/step)")
+    reqs = _make_requests(args, cfg)
+    engine = make_engine(model, params, policy, args)
+    t0 = time.time()
+    outs = engine.run(reqs)
+    dt = time.time() - t0
+    gen_total = engine.stats["decode_tokens"] + engine.stats["prefills"]
+    print(f"{cfg.name}: served {len(reqs)} requests, {gen_total} tokens in "
+          f"{dt:.2f}s ({gen_total / dt:.1f} tok/s, "
+          f"{engine.stats['decode_ticks']} decode ticks, "
+          f"{engine.stats['prefill_chunks']} prefill chunks, "
+          f"{engine.stats['preemptions']} preemptions, "
+          f"{engine.stats['grown_pages']} pages grown) on {device}")
+    first = outs[0]
+    print("sample:", first[len(reqs[0].prompt):len(reqs[0].prompt) + 16])
+    if args.trace_out:
+        from repro_torch.serving.telemetry import summarize, \
+            write_chrome_trace
+        write_chrome_trace(engine.telemetry, args.trace_out)
+        print(f"telemetry: wrote Chrome trace to {args.trace_out} "
+              f"(open in https://ui.perfetto.dev)")
+        print(summarize(engine.telemetry))
+
+
+if __name__ == "__main__":
+    main()

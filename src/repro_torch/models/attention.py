@@ -1,0 +1,175 @@
+"""GQA attention (port of ``repro.models.attention``): the dense path for
+short whole-prompt forwards, and the paged decode / chunked-prefill paths
+over the serving engine's bf16 page pool.
+
+Layout conventions, as in the reference:
+  activations x          (B, S, D)
+  q                      (B, S, H, hd)
+  k, v                   (B, S, K, hd)     H = K * G (GQA groups)
+  page pool (one layer)  (P, page, K, hd)
+Attention logits are fp32; RoPE is applied at cache-write time (absolute
+positions).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.models.params import PDef
+
+F32 = torch.float32
+NEG_INF = -2.0 ** 30  # large-but-finite; avoids NaNs for fully-masked rows
+FLASH_MIN = 2048      # the reference's dense flash path starts here
+
+
+def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int):
+    return {
+        "wq": PDef((d_model, n_heads, head_dim),
+                   ("embed", "heads", "head_dim"), "scaled"),
+        "wk": PDef((d_model, n_kv, head_dim),
+                   ("embed", "kv_heads", "head_dim"), "scaled"),
+        "wv": PDef((d_model, n_kv, head_dim),
+                   ("embed", "kv_heads", "head_dim"), "scaled"),
+        "wo": PDef((n_heads, head_dim, d_model),
+                   ("heads", "head_dim", "embed"), "scaled"),
+    }
+
+
+def qkv(p, x, theta: float, positions):
+    """Project and rope. positions: (B, S) absolute positions (or None)."""
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
+    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
+    if theta > 0 and positions is not None:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def _out_proj(o, p):
+    return torch.einsum("bsnh,nhd->bsd", o, p["wo"])
+
+
+def _attend(q, k, v, mask, cap: float):
+    """Dense attention for short sequences. mask broadcastable to
+    (B,H,S,T). Returns (B,S,H,hd)."""
+    hd = q.shape[-1]
+    G = q.shape[2] // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), k.to(F32))
+    s = softcap(s * (hd ** -0.5), cap)
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, v.to(F32))
+    return o.to(q.dtype)
+
+
+def causal_mask(S: int, T: int, device=None):
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    return (j <= i)[None, None]
+
+
+def local_mask(S: int, T: int, window: int, device=None):
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    return ((j <= i) & (j > i - window))[None, None]
+
+
+def attention_fwd(p, x, kind: str, cfg, positions):
+    """Whole-sequence attention. Returns (out (B,S,D), cache_entry) with
+    the roped k/v in chronological (full) layout, ready for the page pool.
+
+    kind: "global" | "local". Sequences of FLASH_MIN tokens or more take
+    the reference's flash path, which is not ported yet."""
+    B, S, D = x.shape
+    if S >= FLASH_MIN:
+        raise NotImplementedError(
+            f"whole-prompt attention over {S} >= {FLASH_MIN} tokens needs "
+            f"the flash_attention_fwd kernel (ROADMAP Queue 2, item 5); "
+            f"use chunked prefill")
+    q, k, v = qkv(p, x, cfg.rope_theta, positions)
+    if kind == "local":
+        mask = local_mask(S, S, cfg.window_size, device=x.device)
+    else:
+        mask = causal_mask(S, S, device=x.device)
+    o = _attend(q, k, v, mask, cfg.attn_softcap)
+    return _out_proj(o, p), {"k": k, "v": v}
+
+
+def _bf16_pools(pool_k, pool_v):
+    if isinstance(pool_k, dict) or isinstance(pool_v, dict):
+        raise NotImplementedError(
+            "quantized (int8/int4) KV pools come with the KV-quant slice "
+            "(ROADMAP Queue 1, item 6)")
+
+
+def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
+                           kind: str, cfg, *, kernel: str = "auto"):
+    """Slot-indexed one-token decode against a paged KV pool.
+
+    x           (B, 1, D)   one new token's activations per sequence
+    pool_k/v    (P, page, K, hd) bf16, this layer's page pool
+    page_table  (B, n_pages) int32; unused tails point at scratch page 0
+    positions   (B,) int32  absolute position of the incoming token
+    kernel      "auto" | "cuda" | "ref" — kernels/ops.py dispatch
+
+    The new k/v are written in place into page
+    ``page_table[b, pos // page]`` slot ``pos % page`` (the reference
+    donates the pool to get the same in-place update); attention then walks
+    the sequence's pages. Returns (out (B,1,D), pool_k, pool_v), the pools
+    being the updated input tensors.
+    """
+    _bf16_pools(pool_k, pool_v)
+    page = pool_k.shape[1]
+    q, k_new, v_new = qkv(p, x, cfg.rope_theta, positions[:, None])
+    pos = positions.long()
+    pids = page_table.long().gather(1, (pos // page)[:, None])[:, 0]
+    slots = pos % page
+    # idle batch slots all write the scratch page: duplicates there are
+    # harmless garbage, whichever write lands last
+    pool_k[pids, slots] = k_new[:, 0].to(pool_k.dtype)
+    pool_v[pids, slots] = v_new[:, 0].to(pool_v.dtype)
+    window = cfg.window_size if kind == "local" else 0
+    o = kops.paged_attention(q[:, 0], pool_k, pool_v, page_table, positions,
+                             window=window, cap=cfg.attn_softcap,
+                             mode=kernel)[:, None]
+    return _out_proj(o, p), pool_k, pool_v
+
+
+def attention_prefill_paged(p, x, pool_k, pool_v, page_table, positions,
+                            kind: str, cfg, *, kernel: str = "auto"):
+    """Chunked prefill against a paged KV pool (prefill-with-cache).
+
+    x           (B, Sq, D)  one prompt chunk's activations per sequence
+    positions   (B,) int32  absolute position of each chunk's FIRST token
+
+    The chunk's roped k/v are written in place into their pages first —
+    token t at page ``page_table[b, (pos+t) // page]`` slot
+    ``(pos+t) % page`` — then attention walks the pages: query t attends
+    to every pool slot at ``kpos <= positions[b] + t``. Returns
+    (out (B, Sq, D), pool_k, pool_v).
+    """
+    _bf16_pools(pool_k, pool_v)
+    page = pool_k.shape[1]
+    B, Sq, _ = x.shape
+    n_blocks = page_table.shape[1]
+    abs_pos = positions.long()[:, None] + torch.arange(Sq, device=x.device)
+    q, k_new, v_new = qkv(p, x, cfg.rope_theta, abs_pos)
+    # A final chunk padded past the page-table width routes its overflow
+    # rows to the scratch page; they may write it more than once, which is
+    # harmless but order-dependent garbage.
+    blocks = abs_pos // page                                    # (B, Sq)
+    pids = page_table.long().gather(1, blocks.clamp(max=n_blocks - 1))
+    pids = torch.where(blocks < n_blocks, pids, 0)
+    slots = abs_pos % page
+    pool_k[pids, slots] = k_new.to(pool_k.dtype)
+    pool_v[pids, slots] = v_new.to(pool_v.dtype)
+    window = cfg.window_size if kind == "local" else 0
+    o = kops.paged_attention_prefill(q, pool_k, pool_v, page_table,
+                                     positions, window=window,
+                                     cap=cfg.attn_softcap, mode=kernel)
+    return _out_proj(o, p), pool_k, pool_v

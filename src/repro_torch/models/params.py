@@ -1,0 +1,81 @@
+"""Parameter-definition DSL (port of ``repro.models.params``).
+
+Every model declares its parameters once as a nested dict of ``PDef``
+leaves (shape + logical axes + init); ``init_params`` materializes it as a
+nested dict of tensors with the same keys. Leaves are visited in sorted key
+order, as JAX flattens a dict.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass
+class PDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"     # normal | zeros | ones | scaled(fan_in)
+    scale: float = 1.0
+    dtype: Any = torch.bfloat16
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn, tree):
+    """Map ``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    """Leaves of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def stacked(defs, n: int):
+    """Prepend a stacked layer dimension to every PDef in a subtree."""
+    return tree_map(lambda d: PDef((n,) + d.shape, ("layer",) + d.axes,
+                                   d.init, d.scale, d.dtype), defs)
+
+
+def _init_leaf(d: PDef, generator, device, dtype):
+    dt = dtype or d.dtype
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dt, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dt, device=device)
+    if d.init == "scaled":
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale / math.sqrt(max(fan_in, 1))
+    else:
+        std = d.scale * 0.02
+    a = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return a.mul_(std).to(dt)
+
+
+def init_params(defs, generator: torch.Generator, device, dtype=None):
+    """Materialize ``defs`` on ``device`` from ``generator`` (a generator of
+    that device). Leaves draw from the generator in sorted key order."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        return _init_leaf(tree, generator, device, dtype)
+    return walk(defs)
+
+
+def param_count(defs) -> int:
+    return int(sum(math.prod(d.shape) for d in tree_leaves(defs)))
+
+
+def param_bytes(defs) -> int:
+    return int(sum(math.prod(d.shape) * d.dtype.itemsize
+                   for d in tree_leaves(defs)))

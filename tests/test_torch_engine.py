@@ -1,0 +1,210 @@
+"""The port's serving engine (src/repro_torch/serving/engine) on tiny
+gemma2-2b, teacher-forced against the reference model, and against the
+port's own sequential ``generate``.
+
+The reference's "engine == generate, token for token" does not hold as an
+oracle under every jax release (ROADMAP Queue 3), so the engine is held to
+per-row logits instead: every row the engine samples from is compared
+with the reference ``model.forward`` logits for the same prefix, and each
+greedy token must be the reference argmax unless the reference's top-2
+margin is within the tolerance (a near tie either side may break).
+
+Tolerance: fp32 parameters, so the weights round nowhere; the engine's
+page pool stores k/v in bf16 (as serving does) where the reference's
+dense forward keeps them in fp32. On this tiny model (fan-in-scaled init,
+residual stream ~70) that rounding moves a logit by up to ~0.2, with a
+median near 0.03. Rows are held to 0.25 at most and 0.05 in the median.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import tiny_config as j_tiny  # noqa: E402
+from repro.models.api import build_model as j_build  # noqa: E402
+from repro_torch.configs import tiny_config as t_tiny  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models.api import build_model as t_build  # noqa: E402
+from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.serving.engine import AdmissionPolicy, Engine, \
+    Request  # noqa: E402
+from repro_torch.serving.engine import engine as engine_mod  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROW_TOL = 0.25
+ROW_MEDIAN_TOL = 0.05
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = j_build(j_tiny("gemma2-2b"))
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jm.init(jax.random.PRNGKey(0)))
+    tm = t_build(t_tiny("gemma2-2b"))
+    return jm, jp, tm, from_jax_params(jax.tree.map(np.asarray, jp))
+
+
+def _policy(**kw):
+    base = dict(hw_name="test", max_model_len=64, page_size=8,
+                num_pages=10_000, max_batch=4, prefill_chunk=8,
+                quant_bits=16, decode_slo_s=0.03, est_decode_s=0.0,
+                est_prefill_s=0.0)
+    base.update(kw)
+    return AdmissionPolicy(**base)
+
+
+def _trace(n=7, seed=0):
+    """n requests with prompts of 4-44 tokens and 4-15 new tokens."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+        2, 512, int(rng.integers(4, 45))).astype(np.int32),
+        max_new=int(rng.integers(4, 16))) for i in range(n)]
+
+
+def _run_recording(monkeypatch, engine, reqs):
+    """Serve ``reqs``; returns (outputs, {(rid, output index): logits row}).
+    The engine evaluates ``_step_generator(seq)`` just before the
+    ``sample_token`` call it feeds, which names the row's request and the
+    output index it samples."""
+    rows, current = {}, {}
+    sample = engine_mod.sample_token
+
+    def step_generator(seq):
+        current["key"] = (seq.req.rid,
+                          len(seq.req.prompt) + len(seq.generated))
+        return None
+
+    def recording_sample(row, temperature, generator):
+        rows[current["key"]] = np.array(row)
+        return sample(row, temperature, generator)
+
+    monkeypatch.setattr(engine, "_step_generator", step_generator)
+    monkeypatch.setattr(engine_mod, "sample_token", recording_sample)
+    return engine.run(reqs), rows
+
+
+def _check_teacher_forced(jm, jp, reqs, outs, rows):
+    errs = []
+    for r in reqs:
+        o = outs[r.rid]
+        assert len(o) == len(r.prompt) + r.max_new
+        logits = np.asarray(jm.forward(
+            jp, {"tokens": jnp.asarray(o[None, :-1])},
+            cache_layout="full")[0][0])
+        for idx in range(len(r.prompt), len(o)):
+            want = logits[idx - 1]
+            errs.append(float(np.abs(rows[(r.rid, idx)] - want).max()))
+            top2 = np.sort(want)[-2:]
+            assert o[idx] == want.argmax() or top2[1] - top2[0] <= ROW_TOL, \
+                (r.rid, idx)
+    assert max(errs) <= ROW_TOL, max(errs)
+    assert float(np.median(errs)) <= ROW_MEDIAN_TOL, np.median(errs)
+
+
+def test_engine_teacher_forced_matches_reference(models, monkeypatch):
+    """7 requests, chunked prefill (chunk 8, page 8, max_batch 4): every
+    sampled row matches the reference forward on the same prefix."""
+    jm, jp, tm, tp = models
+    reqs = _trace()
+    engine = Engine(tm, tp, _policy())
+    outs, rows = _run_recording(monkeypatch, engine, reqs)
+    assert engine.stats["prefill_chunks"] > len(reqs)   # multi-chunk prompts
+    assert engine.kv.allocator.num_allocated == 0
+    _check_teacher_forced(jm, jp, reqs, outs, rows)
+
+
+def test_engine_forced_preemption_teacher_forced(models, monkeypatch):
+    """A pool of 8 usable pages for 3 growing sequences forces
+    youngest-first preemption and re-prefill of prompt-extensions; rows
+    sampled after resumption still match the reference."""
+    jm, jp, tm, tp = models
+    reqs = [Request(rid=i, prompt=np.random.default_rng(10 + i).integers(
+        2, 512, 12).astype(np.int32), max_new=20) for i in range(4)]
+    engine = Engine(tm, tp, _policy(max_batch=3, num_pages=9))
+    outs, rows = _run_recording(monkeypatch, engine, reqs)
+    assert engine.stats["preemptions"] > 0
+    assert engine.kv.allocator.num_allocated == 0
+    _check_teacher_forced(jm, jp, reqs, outs, rows)
+
+
+def test_engine_matches_port_generate(models):
+    """The port's engine against the port's sequential generate, greedy:
+    tokens agree up to the first near tie, where the teacher-forced top-2
+    margin must be within the tolerance."""
+    _, _, tm, tp = models
+    reqs = _trace(n=5, seed=1)
+    outs = Engine(tm, tp, _policy(max_batch=3)).run(reqs)
+    for r in reqs:
+        want = generate(tm, tp, torch.from_numpy(r.prompt[None]),
+                        r.max_new, page_size=8)[0].numpy()
+        got = outs[r.rid]
+        diff = np.nonzero(want != got)[0]
+        if diff.size:
+            i = int(diff[0])
+            assert i >= len(r.prompt)
+            logits = tm.forward(tp, {"tokens": torch.from_numpy(
+                got[None, :i])})[0][0, -1].numpy()
+            top2 = np.sort(logits)[-2:]
+            assert top2[1] - top2[0] <= ROW_TOL, (r.rid, i)
+
+
+def test_engine_unported_options_raise(models):
+    """Quantized weights or KV pools and a mesh wait for their slices and
+    say so instead of serving something else."""
+    _, _, tm, tp = models
+    with pytest.raises(NotImplementedError):
+        Engine(tm, tp, _policy(quant_bits=8))
+    with pytest.raises(NotImplementedError):
+        Engine(tm, tp, _policy(kv_bits=(8,)))
+    with pytest.raises(NotImplementedError):
+        Engine(tm, tp, _policy(), mesh=object())
+
+
+def test_engine_whole_prompt_prefill_teacher_forced(models, monkeypatch):
+    """chunked_prefill=False: each prompt runs once through the dense
+    forward, padded to the chunk quantum, and is written into its pages
+    (PagedKVPool.write_prefill); rows still match the reference."""
+    jm, jp, tm, tp = models
+    reqs = _trace(n=4, seed=2)
+    engine = Engine(tm, tp, _policy(), chunked_prefill=False)
+    outs, rows = _run_recording(monkeypatch, engine, reqs)
+    assert engine.stats["prefill_chunks"] == 0
+    assert engine.stats["prefills"] == len(reqs)
+    _check_teacher_forced(jm, jp, reqs, outs, rows)
+
+
+def test_serve_cli_on_cpu(tmp_path, capsys):
+    """The launcher end to end on the CPU at tiny size: engine mode with a
+    telemetry trace, and the sequential generate mode."""
+    from repro_torch.launch import serve
+    trace = tmp_path / "trace.json"
+    serve.main(["--arch", "gemma2-2b", "--tiny", "--device", "cpu",
+                "--requests", "3", "--prompt-len", "12", "--gen", "4",
+                "--max-batch", "2", "--prefill-chunk", "8",
+                "--trace-out", str(trace)])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 12 tokens" in out and trace.exists()
+    serve.main(["--arch", "gemma2-2b", "--tiny", "--device", "cpu",
+                "--sequential", "--batch", "2", "--prompt-len", "6",
+                "--gen", "3"])
+    assert "generated 3 tokens x batch 2" in capsys.readouterr().out
+
+
+def test_sampling_is_seeded_per_request_and_step(models):
+    """temperature > 0 draws from a generator seeded by (seed, rid, step):
+    the same trace samples the same tokens whatever the batch size, and
+    another seed samples others."""
+    _, _, tm, tp = models
+    reqs = _trace(n=4, seed=3)
+
+    def serve(max_batch, seed):
+        return Engine(tm, tp, _policy(max_batch=max_batch), temperature=1.0,
+                      seed=seed).run(reqs)
+
+    a, b, c = serve(4, 0), serve(2, 0), serve(4, 1)
+    assert all(np.array_equal(a[r.rid], b[r.rid]) for r in reqs)
+    assert any(not np.array_equal(a[r.rid], c[r.rid]) for r in reqs)
