@@ -6,24 +6,35 @@
 Phases, each fatal on failure:
   1. build    — nvcc every kernel source (src/repro_torch/kernels/csrc);
   2. kernels  — each hand-written kernel against its plain PyTorch version
-                at full gemma2-2b width (H=8, K=4, hd=256, page=16, bf16),
-                then checked again at the main path's shapes and timed
-                there beside its plain version, a one-call PyTorch
-                yardstick (scaled_dot_product_attention on the gathered
-                dense view, never called by the port) and its bound;
+                at full gemma2-2b width (H=8, K=4, hd=256, page=16, bf16
+                q; bf16 pools, and int8 and packed int4 pools with fp32
+                scales for the fused-dequant pair), then checked again at
+                the main path's shapes and timed there beside its plain
+                version, a one-call PyTorch yardstick
+                (scaled_dot_product_attention on the gathered dense view,
+                dequantized beforehand for a quantized pool; never called
+                by the port) and its bound;
   3. model    — full-width gemma2-2b (26 layers, random weights from a
-                seed): one prefill_chunk_paged and one decode_step_paged
+                seed): one prefill_chunk_paged and decode_step_paged ticks
                 through the kernels and through the plain walk, on copies
-                of one pool, logits compared;
+                of one pool, logits compared — on a bf16 pool, then on the
+                mixed pool (int4 local layers, int8 global ones);
   4. engine   — the main path: Engine.run built by repro_torch.launch.serve
                 (derive_policy on h100-sxm, --max-batch 8, page 16, chunked
                 prefill) over 8 prompts of 300-1200 tokens and one of 4200
                 that crosses the 4096 window, 32 new tokens each, with the
                 kernels' launch counts zeroed just before and read after;
-  5. profile  — the same trace on a fresh engine under torch.profiler:
-                device time by kernel and the device's busy share;
+                once on the bf16 pool (the two bf16 kernels launched, the
+                quant pair not) and once with --kv-policy {"sub0": 4,
+                "sub1": 8} (the quant pair launched, the bf16 pair not);
+  5. profile  — each of those traces again on a fresh engine under
+                torch.profiler: device time by kernel, device busy share;
   6. generate — the sequential entry point on 2 prompts of 1000 tokens;
-  7. report   — one JSON line with every kernel's launches, error, times.
+  7. drift    — greedy_drift of the int8 and the mixed pool against the
+                bf16 pool, teacher-forced through the kernels over one
+                1000-token prompt and 32 steps (printed; only a non-finite
+                value fails);
+  8. report   — one JSON line with every kernel's launches, error, times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
@@ -33,6 +44,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,6 +66,14 @@ RTOL = ROW_ATOL = 2.0 ** -7
 # without the cap must then miss the tolerance, else the case fails as
 # one that does not test the cap
 CAP_Q_SCALE = 20.0
+# the quantized cases: the same tolerance. The kernel and its plain
+# version dequantize each element to the same fp32 number (code * scale,
+# one fp32 multiply) and then do the bf16 case's arithmetic.
+# The main path's KV policy: int4 on the local layers (sub0), int8 on the
+# global ones (sub1).
+KV_POLICY = {"sub0": 4, "sub1": 8}
+# a quantized scratch page is poisoned in its codes and its scales
+POISON_CODE, POISON_SCALE = 127, 1e4
 # full gemma2-2b attention width
 H, K, HD, PAGE = 8, 4, 256, 16
 WINDOW, CAP = 4096, 50.0
@@ -94,20 +114,34 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 # ------------------------------------------------------------- kernels ----
-def paged_case(seed, positions, Sq, n_blocks):
-    """Random bf16 pools with a poisoned scratch page 0, a query chunk and a
+def paged_case(seed, positions, Sq, n_blocks, bits=16):
+    """Random pools with a poisoned scratch page 0, a query chunk and a
     page table giving every sequence its own random pages (tails -> 0).
-    Returns the case with two queries: as drawn, and scaled for the
-    softcap cases (``CAP_Q_SCALE``)."""
+    ``bits`` 16: bf16 pools (pool_k, pool_v); 8 or 4: N(0,1) K/V quantized
+    by the pool writers' mapping, (codes_k, scale_k, codes_v, scale_v),
+    page 0's codes and scales poisoned. Returns the case with two queries:
+    as drawn, and scaled for the softcap cases (``CAP_Q_SCALE``)."""
     import torch
+    from repro_torch.kernels import ref
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     B = len(positions)
     P = B * n_blocks + 1
     pool_k = torch.randn((P, PAGE, K, HD), generator=g, device=dev)
     pool_v = torch.randn((P, PAGE, K, HD), generator=g, device=dev)
-    pool_k, pool_v = pool_k.bfloat16(), pool_v.bfloat16()
-    pool_k[0], pool_v[0] = 37.0, -53.0     # a leak past the mask shows
+    if bits == 16:
+        pool_k, pool_v = pool_k.bfloat16(), pool_v.bfloat16()
+        pool_k[0], pool_v[0] = 37.0, -53.0     # a leak past the mask shows
+        pools = (pool_k, pool_v)
+    else:
+        kq, ks = ref.quantize_kv(pool_k, bits)
+        vq, vs = ref.quantize_kv(pool_v, bits)
+        del pool_k, pool_v
+        for t in (kq, vq):
+            t[0] = POISON_CODE
+        for t in (ks, vs):
+            t[0] = POISON_SCALE
+        pools = (kq, ks, vq, vs)
     q = torch.randn((B, Sq, H, HD), generator=g, device=dev).bfloat16()
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
         seed)) + 1
@@ -117,7 +151,7 @@ def paged_case(seed, positions, Sq, n_blocks):
         pt[b, :need] = perm[b * n_blocks:b * n_blocks + need]
     pos_t = torch.tensor(positions, dtype=torch.int32, device=dev)
     q_cap = (q.float() * CAP_Q_SCALE).bfloat16()
-    return {0.0: q, CAP: q_cap}, pool_k, pool_v, pt.to(dev), pos_t
+    return {0.0: q, CAP: q_cap}, pools, pt.to(dev), pos_t
 
 
 def walk_span(pos, Sq, n_blocks, window):
@@ -127,17 +161,20 @@ def walk_span(pos, Sq, n_blocks, window):
     return lo, hi
 
 
-def bound_ms(positions, Sq, n_blocks, window):
+def bound_ms(positions, Sq, n_blocks, window, bits=16):
     """Least time for the work these inputs need: every live K/V page read
-    once per kv head, q/table/positions read and the output written once,
-    over device memory; or 4*hd flops per valid (query head, key) pair over
-    the bf16 peak. Returns (ms, 'bytes' | 'operations')."""
+    once per kv head (``bits`` per stored element, and a quantized pool's
+    4-byte K and V scale per slot and kv head), q/table/positions read
+    and the output written once, over device memory; or 4*hd flops per
+    valid (query head, key) pair over the bf16 peak. Returns
+    (ms, 'bytes' | 'operations')."""
     B = len(positions)
+    per_slot = 2 * HD * bits // 8 + (8 if bits < 16 else 0)  # per kv head
     kv = 0
     valid = 0
     for pos in positions:
         lo, hi = walk_span(pos, Sq, n_blocks, window)
-        kv += max(hi - lo + 1, 0) * PAGE * K * HD * 2 * 2
+        kv += max(hi - lo + 1, 0) * PAGE * K * per_slot
         for s in range(Sq):
             qp = pos + s
             first = max(qp - window + 1, 0) if window else 0
@@ -146,6 +183,18 @@ def bound_ms(positions, Sq, n_blocks, window):
     t_bytes = (kv + io) / HBM_BYTES_PER_S * 1e3
     t_ops = 4.0 * HD * valid * H / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dense_pools(pools, bits):
+    """bf16 (pool_k, pool_v) holding what a case's pools hold: the pools
+    themselves, or a quantized pool dequantized (for the SDPA yardstick,
+    outside its timing)."""
+    if bits == 16:
+        return pools
+    from repro_torch.kernels import ref
+    kq, ks, vq, vs = pools
+    return (ref.dequantize_kv(kq, ks, bits).bfloat16(),
+            ref.dequantize_kv(vq, vs, bits).bfloat16())
 
 
 def sdpa_yardstick(q, pool_k, pool_v, pt, positions, window):
@@ -177,19 +226,20 @@ def mismatch(got, want):
     return (got - want).abs() > ROW_ATOL * rowmax + RTOL * want.abs()
 
 
-def check_kernel(name, fwd, plain, qs, pk, pv, pt, pos, *, window, cap,
-                 live_rows=None):
+def check_kernel(name, fwd, plain, qs, pools, pt, pos, *, window, cap,
+                 live_rows=None, bits=16):
     """Hold one kernel call against its plain version over the rows that
     are defined (``live_rows``: a padded chunk's rows past the table width
     are garbage by contract), and print the case. With a cap, the plain
     version without it must miss the tolerance. Returns max |err|."""
     import torch
     q = qs[cap]
-    got = fwd(q, pk, pv, pt, pos, window=window, cap=cap)
+    got = fwd(q, *pools, pt, pos, window=window, cap=cap)
     torch.cuda.synchronize()
-    want = plain(q, pk, pv, pt, pos, window=window, cap=cap)
+    want = plain(q, *pools, pt, pos, window=window, cap=cap)
     if not torch.isfinite(got.float()).all():
-        fail(f"{name}: non-finite output (window={window}, cap={cap})")
+        fail(f"{name}: non-finite output (bits={bits}, window={window}, "
+             f"cap={cap})")
     g, w = got.float(), want.float()
     if live_rows is not None:
         g, w = g[:, :live_rows], w[:, :live_rows]
@@ -199,20 +249,52 @@ def check_kernel(name, fwd, plain, qs, pk, pv, pt, pos, *, window, cap,
     bad = mismatch(g, w)
     if bad.any():
         fail(f"{name}: {int(bad.sum())} elements off, max |err| {err:.4g}, "
-             f"mean |ref| {typical:.4g} ({shape}, window={window}, "
-             f"cap={cap})")
+             f"mean |ref| {typical:.4g} ({shape}, bits={bits}, "
+             f"window={window}, cap={cap})")
     if cap:
-        nocap = plain(q, pk, pv, pt, pos, window=window, cap=0.0).float()
+        nocap = plain(q, *pools, pt, pos, window=window, cap=0.0).float()
         if live_rows is not None:
             nocap = nocap[:, :live_rows]
         if not mismatch(nocap, w).any():
             fail(f"{name}: without the softcap the plain version is within "
-                 f"tolerance too ({shape}, window={window}): the case does "
-                 f"not test the cap")
-    print(f"kernels: {name} {shape} window={window} cap={cap}: max |err| "
-          f"{err:.4g} = {err / typical:.4g} x mean |ref| ({typical:.4g})",
-          flush=True)
+                 f"tolerance too ({shape}, bits={bits}, window={window}): "
+                 f"the case does not test the cap")
+    print(f"kernels: {name} {shape} bits={bits} window={window} cap={cap}: "
+          f"max |err| {err:.4g} = {err / typical:.4g} x mean |ref| "
+          f"({typical:.4g})", flush=True)
     return err
+
+
+def kernel_specs():
+    """name -> (kernel wrapper, plain version, pool bits it takes, decode?).
+    Every callable takes (q (B, Sq, H, hd), *pools, pt, pos, ...)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    def dec(fn):
+        return lambda q, *a, **kw: fn(q[:, 0], *a, **kw)[:, None]
+
+    return {
+        "paged_attention_fwd": (dec(pa.paged_attention_fwd),
+                                dec(ref.paged_attention_ref), (16,), True),
+        "paged_prefill_fwd": (pa.paged_prefill_fwd, ref.paged_prefill_ref,
+                              (16,), False),
+        "paged_attention_quant_fwd": (dec(pa.paged_attention_quant_fwd),
+                                      dec(ref.paged_attention_quant_ref),
+                                      (8, 4), True),
+        "paged_prefill_quant_fwd": (pa.paged_prefill_quant_fwd,
+                                    ref.paged_prefill_quant_ref, (8, 4),
+                                    False),
+    }
+
+
+# (bits, window) of the layers the main path runs each kernel on: a global
+# (window 0) and a local (window 4096) layer, bf16 for the bf16 pair; for
+# the quant pair the KV_POLICY pool's int8 global and int4 local layers
+MAIN_LAYERS = {"paged_attention_fwd": ((16, 0), (16, WINDOW)),
+               "paged_prefill_fwd": ((16, 0), (16, WINDOW)),
+               "paged_attention_quant_fwd": ((8, 0), (4, WINDOW)),
+               "paged_prefill_quant_fwd": ((8, 0), (4, WINDOW))}
 
 
 def phase_kernels(prefill_chunk: int, n_blocks_main: int):
@@ -220,81 +302,83 @@ def phase_kernels(prefill_chunk: int, n_blocks_main: int):
     main path's shapes. Returns name -> partial kernel record."""
     import numpy as np
     import torch
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import ref
 
-    def decode(q, *a, **kw):
-        return pa.paged_attention_fwd(q[:, 0], *a, **kw)[:, None]
-
-    def decode_ref(q, *a, **kw):
-        return ref.paged_attention_ref(q[:, 0], *a, **kw)[:, None]
-
+    specs = kernel_specs()
     rng = np.random.default_rng(0)
     dec_pos = sorted([0, 17, 4095, 4097, 4999]
                      + rng.integers(1, 5000, 3).tolist())
     dec_blocks = -(-5000 // PAGE) + 1
-    err = {"paged_attention_fwd": 0.0, "paged_prefill_fwd": 0.0}
-    cases = [
+    err = {name: 0.0 for name in specs}
+    decode_cases = [
         # decode, B=8, ragged positions crossing the 4096 window
-        ("paged_attention_fwd", decode, decode_ref, dec_pos, 1, dec_blocks,
-         None),
+        (dec_pos, 1, dec_blocks, None)]
+    prefill_cases = [
         # prefill, Sq=512 chunks at non-zero starts, one crossing the window
-        ("paged_prefill_fwd", pa.paged_prefill_fwd, ref.paged_prefill_ref,
-         [1000, 4500], 512, 320, None),
+        ([1000, 4500], 512, 320, None),
         # padded final chunk running past the table width (40 blocks)
-        ("paged_prefill_fwd", pa.paged_prefill_fwd, ref.paged_prefill_ref,
-         [512], 512, 40, 40 * PAGE - 512),
-    ]
-    for i, (name, fwd, plain, positions, Sq, n_blocks, live) in \
-            enumerate(cases):
-        case = paged_case(100 + i, positions, Sq, n_blocks)
-        for window in (0, 64, WINDOW):
-            for cap in (0.0, CAP):
-                e = check_kernel(name, fwd, plain, *case, window=window,
-                                 cap=cap, live_rows=live)
-                err[name] = max(err[name], e)
-        del case
+        ([512], 512, 40, 40 * PAGE - 512)]
+    for i, (name, (fwd, plain, bit_set, is_dec)) in enumerate(specs.items()):
+        for bits in bit_set:
+            for c, (positions, Sq, n_blocks, live) in enumerate(
+                    decode_cases if is_dec else prefill_cases):
+                case = paged_case(100 + 10 * i + c, positions, Sq, n_blocks,
+                                  bits)
+                for window in (0, 64, WINDOW):
+                    for cap in (0.0, CAP):
+                        e = check_kernel(name, fwd, plain, *case,
+                                         window=window, cap=cap,
+                                         live_rows=live, bits=bits)
+                        err[name] = max(err[name], e)
+                del case
 
-    # the main path's shapes, checked and then timed on the same inputs: a
-    # decode tick of 8 ragged sequences, the long prompt's first full
-    # prefill chunk, and (for the split between kernel and padding cost) a
-    # chunk of 2048 rows, not part of the kernels line
-    timed = [
-        ("paged_attention_fwd", decode, decode_ref, dec_pos, 1,
-         max(n_blocks_main, dec_blocks)),
-        ("paged_prefill_fwd", pa.paged_prefill_fwd, ref.paged_prefill_ref,
-         [0], prefill_chunk, n_blocks_main),
-    ]
-    if prefill_chunk != 2048:
-        timed.append(("paged_prefill_fwd", pa.paged_prefill_fwd,
-                      ref.paged_prefill_ref, [0], 2048, n_blocks_main))
+    # the main path's shapes, checked at every (bits, window) and then
+    # timed on the same inputs at the main path's layers: a decode tick of
+    # 8 ragged sequences, the long prompt's first full prefill chunk, and
+    # (for the split between kernel and padding cost) a bf16 chunk of 2048
+    # rows, not part of the kernels line
+    timed = []
+    for name, (_, _, bit_set, is_dec) in specs.items():
+        if is_dec:
+            timed.append((name, bit_set, dec_pos, 1,
+                          max(n_blocks_main, dec_blocks)))
+        else:
+            timed.append((name, bit_set, [0], prefill_chunk, n_blocks_main))
+            if prefill_chunk != 2048 and 16 in bit_set:
+                timed.append((name, bit_set, [0], 2048, n_blocks_main))
     records = {}
-    for name, fwd, plain, positions, Sq, n_blocks in timed:
-        qs, pk, pv, pt, pos = paged_case(7, positions, Sq, n_blocks)
-        q = qs[CAP]
+    for name, bit_set, positions, Sq, n_blocks in timed:
+        fwd, plain = specs[name][:2]
         ms = plain_ms = lib_ms = b_ms = 0.0
-        for window in (0, WINDOW):        # the path alternates global/local
-            e = check_kernel(name, fwd, plain, qs, pk, pv, pt, pos,
-                             window=window, cap=CAP)
-            err[name] = max(err[name], e)
-            ms += time_ms(lambda: fwd(q, pk, pv, pt, pos, window=window,
-                                      cap=CAP), reps=20) / 2
-            plain_ms += time_ms(lambda: plain(q, pk, pv, pt, pos,
-                                              window=window, cap=CAP),
-                                reps=2, warmup=1) / 2
-            lib_ms += time_ms(sdpa_yardstick(q, pk, pv, pt, pos, window),
-                              reps=10) / 2
-            t, by = bound_ms(positions, Sq, n_blocks, window)
-            b_ms += t / 2
+        for bits in bit_set:
+            qs, pools, pt, pos = paged_case(7, positions, Sq, n_blocks, bits)
+            q = qs[CAP]
+            for window in (0, WINDOW):
+                e = check_kernel(name, fwd, plain, qs, pools, pt, pos,
+                                 window=window, cap=CAP, bits=bits)
+                err[name] = max(err[name], e)
+                if (bits, window) not in MAIN_LAYERS[name]:
+                    continue              # checked, not on the main path
+                ms += time_ms(lambda: fwd(q, *pools, pt, pos, window=window,
+                                          cap=CAP), reps=20) / 2
+                plain_ms += time_ms(lambda: plain(q, *pools, pt, pos,
+                                                  window=window, cap=CAP),
+                                    reps=2, warmup=1) / 2
+                lib_ms += time_ms(sdpa_yardstick(
+                    q, *dense_pools(pools, bits), pt, pos, window),
+                    reps=10) / 2
+                t, by = bound_ms(positions, Sq, n_blocks, window, bits)
+                b_ms += t / 2
+            del qs, q, pools, pt, pos
+        layers = ", ".join(f"bits {b} window {w}"
+                           for b, w in MAIN_LAYERS[name])
         print(f"kernels: {name} B={len(positions)} Sq={Sq} "
-              f"n_blocks={n_blocks}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {by})",
-              flush=True)
+              f"n_blocks={n_blocks}, mean of {layers}: {ms:.4f} ms (plain "
+              f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms by {by})", flush=True)
         if name not in records:
             records[name] = {"ms": ms, "plain_ms": plain_ms,
                              "library_ms": lib_ms, "bound_ms": b_ms,
                              "bound_by": by}
-        del qs, q, pk, pv, pt, pos
     for name in records:
         records[name]["max_abs_err"] = err[name]
     print(f"kernels: match plain versions (max |err| {json.dumps(err)}, "
@@ -311,24 +395,35 @@ KERNEL_SOURCES = {
     "paged_prefill_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:323"),
+    "paged_attention_quant_fwd": (
+        "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:227"),
+    "paged_prefill_quant_fwd": (
+        "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:410"),
 }
+BF16_KERNELS = ("paged_attention_fwd", "paged_prefill_fwd")
+QUANT_KERNELS = ("paged_attention_quant_fwd", "paged_prefill_quant_fwd")
 
 
-def phase_model(model, params):
-    """Phase 3: one chunk and one decode step of the full-width model
-    through the kernels and through the plain walk, on copies of one pool;
-    returns the largest logit difference."""
+def phase_model(model, params, kv_bits=None, ticks=1):
+    """Phase 3: one chunk and ``ticks`` decode steps of the full-width
+    model through the kernels and through the plain walk, on copies of one
+    pool (bf16, or quantized under ``kv_bits``); returns the largest logit
+    difference."""
     import torch
     from repro_torch.models.params import tree_map
 
     dev = params["embed"].device
     cfg = model.cfg
+    label = f"model[kv={kv_bits or 'bf16'}]"
     g = torch.Generator().manual_seed(3)
     B, C, n_blocks = 2, 512, 80
-    pool = model.init_pool(B * n_blocks + 1, PAGE, device=dev)
+    pool = model.init_pool(B * n_blocks + 1, PAGE, device=dev,
+                           kv_bits=kv_bits)
     pt = (torch.arange(B * n_blocks, dtype=torch.int32)
           .reshape(B, n_blocks) + 1).to(dev)
-    toks = torch.randint(2, cfg.vocab_size, (B, 2 * C + 1), generator=g,
+    toks = torch.randint(2, cfg.vocab_size, (B, 2 * C + ticks), generator=g,
                          dtype=torch.int32).to(dev)
     start = torch.zeros((B,), dtype=torch.int32, device=dev)
     model.prefill_chunk_paged(params, pool, pt, toks[:, :C], start,
@@ -338,27 +433,29 @@ def phase_model(model, params):
         copy = tree_map(torch.clone, pool)
         hidden, _ = model.prefill_chunk_paged(
             params, copy, pt, toks[:, C:2 * C], start + C, kernel=mode)
-        step, _ = model.decode_step_paged(
-            params, copy, pt, toks[:, 2 * C:], start + 2 * C, kernel=mode)
-        logits[mode] = {"chunk": model.unembed(params, hidden[:, -1:]),
-                        "decode": step}
+        logits[mode] = {"chunk": model.unembed(params, hidden[:, -1:])}
+        for t in range(ticks):
+            step, _ = model.decode_step_paged(
+                params, copy, pt, toks[:, 2 * C + t:2 * C + t + 1],
+                start + 2 * C + t, kernel=mode)
+            logits[mode][f"decode{t}" if ticks > 1 else "decode"] = step
         del copy
     err = 0.0
-    for what in ("chunk", "decode"):
+    for what in logits["ref"]:
         a, b = logits["cuda"][what][:, 0], logits["ref"][what][:, 0]
         if not torch.isfinite(a).all():
-            fail(f"model {what}: non-finite logits")
+            fail(f"{label} {what}: non-finite logits")
         d = float((a - b).abs().max())
         tol = LOGIT_RTOL * float(b.abs().max())
         top2 = torch.topk(b, 2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > tol
         same = a.argmax(-1) == b.argmax(-1)
         if d > tol or not bool((same | ~clear).all()):
-            fail(f"model {what}: kernel vs plain logits differ by {d:.4g} "
+            fail(f"{label} {what}: kernel vs plain logits differ by {d:.4g} "
                  f"(tolerance {tol:.4g}), greedy tokens "
                  f"{a.argmax(-1).tolist()} vs {b.argmax(-1).tolist()}")
         err = max(err, d)
-        print(f"model: {what} logits kernel vs plain max |diff| {d:.4g} "
+        print(f"{label}: {what} logits kernel vs plain max |diff| {d:.4g} "
               f"(tolerance {tol:.4g}, |logit| up to "
               f"{float(b.abs().max()):.3g})", flush=True)
     del logits, pool
@@ -378,21 +475,27 @@ def main_trace(cfg):
             for i, S in enumerate(lens)]
 
 
-def phase_engine(model, params, pa):
-    """Phase 4: the main path, through the launcher's own construction."""
+def phase_engine(model, params, pa, extra_args=(), expect=BF16_KERNELS,
+                 bf16_pages=None):
+    """Phase 4: the main path, through the launcher's own construction
+    (``extra_args`` added to its command line). The kernels in ``expect``
+    must launch during the run and every other kernel must not."""
     import numpy as np
     import torch
     from repro_torch.launch import serve
 
     args = serve.build_parser().parse_args(
         ["--arch", "gemma2-2b", "--max-batch", "8", "--page-size",
-         str(PAGE)])
+         str(PAGE), *extra_args])
     reqs = main_trace(model.cfg)
     max_len = max(len(r.prompt) + r.max_new for r in reqs)
     policy = serve.make_policy(model.cfg, model, args, max_len)
-    print(f"engine: admission[{args.hw}] max_batch={policy.max_batch} "
-          f"prefill_chunk={policy.prefill_chunk} pages={policy.num_pages} "
-          f"max_model_len={policy.max_model_len}", flush=True)
+    label = f"engine[kv={policy.kv_bits or 'bf16'}]"
+    print(f"{label}: admission[{args.hw}] max_batch={policy.max_batch} "
+          f"prefill_chunk={policy.prefill_chunk} pages={policy.num_pages}"
+          + (f" (bf16 policy: {bf16_pages} pages, "
+             f"{policy.num_pages / bf16_pages:.2f}x)" if bf16_pages else "")
+          + f" max_model_len={policy.max_model_len}", flush=True)
     engine = serve.make_engine(model, params, policy, args)
     pa.reset_launches()
     t0 = time.perf_counter()
@@ -403,15 +506,18 @@ def phase_engine(model, params, pa):
     for r in reqs:
         o = outs[r.rid]
         if len(o) != len(r.prompt) + r.max_new:
-            fail(f"engine: request {r.rid} returned {len(o)} tokens, "
+            fail(f"{label}: request {r.rid} returned {len(o)} tokens, "
                  f"want {len(r.prompt) + r.max_new}")
         if not np.array_equal(o[:len(r.prompt)], r.prompt) or \
                 o.min() < 0 or o.max() >= model.cfg.vocab_size:
-            fail(f"engine: request {r.rid} output malformed")
+            fail(f"{label}: request {r.rid} output malformed")
     for name, n in launches.items():
-        if n <= 0:
-            fail(f"engine: kernel {name} was never launched on the main "
+        if name in expect and n <= 0:
+            fail(f"{label}: kernel {name} was never launched on the main "
                  f"path")
+        if name not in expect and n:
+            fail(f"{label}: kernel {name} was launched {n} times on a path "
+                 f"that should not reach it")
     st = engine.stats
     gen_total = st["decode_tokens"] + st["prefills"]
     ticks = engine.telemetry.ticks
@@ -419,9 +525,9 @@ def phase_engine(model, params, pa):
     chk = [t.measured_s for t in ticks if t.kind == "chunk"]
     rows = sum(t.q_len for t in ticks if t.kind == "chunk")
     real = sum(t.tokens for t in ticks if t.kind == "chunk")
-    print(f"engine: prefill chunks ran {rows} query rows for {real} prompt "
+    print(f"{label}: prefill chunks ran {rows} query rows for {real} prompt "
           f"tokens: {100 * (1 - real / rows):.1f}% padding", flush=True)
-    print(f"engine: served {len(reqs)} requests, {gen_total} tokens in "
+    print(f"{label}: served {len(reqs)} requests, {gen_total} tokens in "
           f"{dt:.3f} s ({gen_total / dt:.2f} tok/s), "
           f"{st['decode_ticks']} decode ticks (mean "
           f"{1e3 * sum(dec) / len(dec):.3f} ms), {st['prefill_chunks']} "
@@ -442,6 +548,7 @@ def phase_profile(model, params, policy, args):
 
     engine = serve.make_engine(model, params, policy, args)
     reqs = main_trace(model.cfg)
+    label = f"profile[kv={policy.kv_bits or 'bf16'}]"
     torch.cuda.synchronize()
     # device activity only: host-op events would multiply the trace and
     # its post-processing without adding device time
@@ -451,22 +558,26 @@ def phase_profile(model, params, policy, args):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
+    launched = 0
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0.0)
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+            key = e.key.replace("(anonymous namespace)::", "")
+            by_name[key] = by_name.get(key, 0.0) + us / 1e3
+            launched += e.count
     busy = sum(by_name.values())
     if busy <= 0:
-        print("profile: the profiler saw no device time (not measured)",
+        print(f"{label}: the profiler saw no device time (not measured)",
               flush=True)
         return None, None, wall_ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"profile: main path {wall_ms:.1f} ms wall, device busy "
+    print(f"{label}: main path {wall_ms:.1f} ms wall, device busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%, idle "
-          f"{100 * (1 - busy / wall_ms):.1f}%); top device time: "
-          + "; ".join(f"{k[:60]} {v:.1f} ms ({100 * v / busy:.1f}%)"
+          f"{100 * (1 - busy / wall_ms):.1f}%), {launched} device "
+          f"activities; top device time: "
+          + "; ".join(f"{k[:80]} {v:.1f} ms ({100 * v / busy:.1f}%)"
                       for k, v in top), flush=True)
     return by_name, busy, wall_ms
 
@@ -487,6 +598,38 @@ def phase_generate(model, params):
         fail(f"generate: malformed output {tuple(out.shape)}")
     print(f"generate: 2 x 1000-token prompts + 16 tokens in {dt:.3f} s",
           flush=True)
+
+
+def phase_drift(model, params):
+    """Phase 7: teacher-forced logit drift of the int8 and the KV_POLICY
+    pool against the bf16 pool, through the kernels, over one 1000-token
+    prompt and its 32-token greedy continuation. Printed, not gated: the
+    weights are random, so the size of the drift says nothing about a
+    trained model; only a non-finite value fails."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving.kvquant import greedy_drift, \
+        teacher_forced_logits
+
+    g = torch.Generator().manual_seed(11)
+    prompt = torch.randint(2, model.cfg.vocab_size, (1, 1000), generator=g,
+                           dtype=torch.int32).to(params["embed"].device)
+    tokens = generate(model, params, prompt, GEN + 1,
+                      page_size=PAGE)[0].cpu().numpy()
+    t0 = time.perf_counter()
+    fp = teacher_forced_logits(model, params, tokens, 1000, page_size=PAGE)
+    for kv_bits in (8, KV_POLICY):
+        rep = greedy_drift(model, params, tokens, 1000, kv_bits=kv_bits,
+                           page_size=PAGE, fp_logits=fp)
+        if not np.isfinite(rep["max_abs"]):
+            fail(f"drift[kv={kv_bits}]: non-finite logits")
+        print(f"drift[kv={json.dumps(kv_bits)}]: max |logit drift| "
+              f"{rep['max_abs']:.4g} over {len(fp)} teacher-forced steps "
+              f"(|logit| up to {float(np.abs(fp).max()):.3g}); greedy "
+              f"flips at steps {rep['flip_steps']}; smallest bf16 top-2 "
+              f"margin {float(rep['margins'].min()):.4g}", flush=True)
+    print(f"drift: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -528,16 +671,26 @@ def main() -> int:
           f"({model.param_bytes() / 1e9:.2f} GB) initialised in "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
     phase_model(model, params)
+    phase_model(model, params, kv_bits=KV_POLICY, ticks=3)
     launches, policy, args = phase_engine(model, params, pa)
     phase_profile(model, params, policy, args)
+    with tempfile.TemporaryDirectory() as tmp:
+        policy_file = Path(tmp) / "kv_policy.json"
+        policy_file.write_text(json.dumps(KV_POLICY))
+        q_launches, q_policy, q_args = phase_engine(
+            model, params, pa, ["--kv-policy", str(policy_file)],
+            expect=QUANT_KERNELS, bf16_pages=policy.num_pages)
+    phase_profile(model, params, q_policy, q_args)
     phase_generate(model, params)
+    phase_drift(model, params)
 
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         r = records[name]
+        n = launches[name] if name in BF16_KERNELS else q_launches[name]
         line["kernels"].append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

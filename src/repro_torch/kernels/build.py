@@ -32,7 +32,9 @@ SIGNATURES = {
     "paged_attention": {
         "paged_decode_bf16": (_I, [_P] * 6 + [_I] * 7 + [_F, _P]),
         "paged_prefill_bf16": (_I, [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
-        "paged_smem_bytes": (ctypes.c_size_t, [_I, _I, _I]),
+        "paged_decode_quant": (_I, [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+        "paged_prefill_quant": (_I, [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P]),
+        "paged_smem_bytes": (ctypes.c_size_t, [_I] * 4),
         "paged_error_string": (ctypes.c_char_p, [_I]),
     },
 }

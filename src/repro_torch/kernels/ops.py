@@ -45,3 +45,32 @@ def paged_attention_prefill(q, pool_k, pool_v, page_table, positions, *,
                                      positions, window=window, cap=cap)
     return pa.paged_prefill_fwd(q, pool_k, pool_v, page_table, positions,
                                 window=window, cap=cap)
+
+
+def paged_attention_quant(q, pool_k, k_scale, pool_v, v_scale, page_table,
+                          positions, *, window=0, cap=0.0,
+                          mode: str = "auto"):
+    """Fused-dequant paged decode over a quantized pool: pool_k/v
+    (P, page, K, hd_store) int8 (hd_store = hd for int8, hd//2 for int4),
+    k/v_scale (P, page, K) fp32."""
+    if _paged_mode(mode, q) == "ref":
+        return ref.paged_attention_quant_ref(
+            q, pool_k, k_scale, pool_v, v_scale, page_table, positions,
+            window=window, cap=cap)
+    return pa.paged_attention_quant_fwd(
+        q, pool_k, k_scale, pool_v, v_scale, page_table, positions,
+        window=window, cap=cap)
+
+
+def paged_attention_prefill_quant(q, pool_k, k_scale, pool_v, v_scale,
+                                  page_table, positions, *, window=0,
+                                  cap=0.0, mode: str = "auto"):
+    """Fused-dequant chunked prefill over a quantized pool (the chunk's K/V
+    already quantized into it); ``positions`` holds the chunk starts."""
+    if _paged_mode(mode, q) == "ref":
+        return ref.paged_prefill_quant_ref(
+            q, pool_k, k_scale, pool_v, v_scale, page_table, positions,
+            window=window, cap=cap)
+    return pa.paged_prefill_quant_fwd(
+        q, pool_k, k_scale, pool_v, v_scale, page_table, positions,
+        window=window, cap=cap)

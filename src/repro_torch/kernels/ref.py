@@ -2,8 +2,11 @@
 
 These define the semantics on the port's side: the CPU path of every
 kernel wrapper, and what ``chip_smoke.py`` holds each CUDA kernel against
-on the card. They mirror ``repro.kernels.ref`` function for function.
-The quantization helpers come with the KV-quant slice.
+on the card. They mirror ``repro.kernels.ref`` function for function:
+the paged walks over bf16 and quantized (int8, or int4 packed along hd)
+page pools, and the KV-cache storage mapping the pool writers and the
+fused-dequant kernels agree on bit for bit. The weight-quant matmul
+oracles come with their slice.
 """
 from __future__ import annotations
 
@@ -12,11 +15,90 @@ import torch
 F32 = torch.float32
 
 
+# ----------------------------------------------------- KV-cache quant ------
+def kv_qmax(bits: int) -> float:
+    """Symmetric integer range for a KV bitwidth (int8 -> 127, int4 -> 7)."""
+    if bits not in (4, 8):
+        raise ValueError(f"KV cache bits must be 4 or 8, got {bits}")
+    return 2.0 ** (bits - 1) - 1.0
+
+
+def pack_int4_hd(q):
+    """Pack int4 codes two per byte along head_dim (the minor axis):
+    element 2i rides the low nibble, 2i+1 the high nibble.
+    (..., hd) int8 in [-7, 7] -> (..., hd//2) int8."""
+    assert q.shape[-1] % 2 == 0, q.shape
+    lo = q[..., 0::2] & 0x0F
+    hi = (q[..., 1::2] & 0x0F) << 4
+    return (lo | hi).to(torch.int8)
+
+
+def unpack_int4_hd(packed):
+    """Inverse of pack_int4_hd: (..., hd//2) int8 -> (..., hd) int8 in
+    [-7, 7] (arithmetic shifts on int8 sign-extend the nibbles)."""
+    p = packed.to(torch.int8)
+    lo = (p << 4) >> 4
+    hi = p >> 4
+    out = torch.stack([lo, hi], dim=-1)           # (..., hd//2, 2)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def quantize_kv(x, bits: int, *, granularity: str = "token"):
+    """Symmetric per-head KV quantization (the pool-write semantics).
+
+    x (..., K, hd); for ``granularity="page"`` the third-from-last axis is
+    the page-slot axis. "token": one scale per (leading..., K), amax over
+    hd — what the paged pool stores, so decode never re-scales a page in
+    place. "page": one scale per (page, K), amax over (slot, hd).
+
+    Returns (stored, scale): stored int8, packed along hd when bits == 4;
+    scale fp32 with the reduced axes dropped. Rounding is half to even, as
+    ``jnp.round``."""
+    qmax = kv_qmax(bits)
+    xf = x.to(F32)
+    if granularity == "token":
+        scale = xf.abs().amax(dim=-1) / qmax + 1e-12            # (..., K)
+        div = scale[..., None]
+    elif granularity == "page":
+        scale = xf.abs().amax(dim=(-3, -1)) / qmax + 1e-12      # (..., K)
+        div = scale[..., None, :, None]
+    else:
+        raise ValueError(f"unknown scale granularity {granularity!r}")
+    q = torch.clamp(torch.round(xf / div), -qmax, qmax).to(torch.int8)
+    if bits == 4:
+        q = pack_int4_hd(q)
+    return q, scale.to(F32)
+
+
+def dequantize_kv(stored, scale, bits: int, *, granularity: str = "token"):
+    """Inverse of quantize_kv -> fp32: each element is float(code) times
+    its scale, one fp32 multiply."""
+    q = unpack_int4_hd(stored) if bits == 4 else stored
+    if granularity == "token":
+        return q.to(F32) * scale[..., None]
+    if granularity == "page":
+        return q.to(F32) * scale[..., None, :, None]
+    raise ValueError(f"unknown scale granularity {granularity!r}")
+
+
+def kv_bits_of(stored, hd: int) -> int:
+    """The stored KV bitwidth from the minor-axis size: int4 packs two
+    codes per byte along hd, so the shape itself says which."""
+    if stored.shape[-1] == hd:
+        return 8
+    if stored.shape[-1] * 2 == hd:
+        return 4
+    raise ValueError(
+        f"stored KV minor dim {stored.shape[-1]} matches neither int8 ({hd}) "
+        f"nor packed int4 ({hd // 2})")
+
+
 # ------------------------------------------------------ paged attention ----
 def _paged_block_walk(q, load_k, load_v, K, hd, page, n_blocks, positions, *,
                       window, cap):
-    """Shared block-walk body for the paged attention refs. ``load_k``/
-    ``load_v`` map a block index to its fp32 (B, page, K, hd) tile.
+    """Shared block-walk body for the bf16 and quantized paged attention
+    refs. ``load_k``/``load_v`` map a block index to its fp32
+    (B, page, K, hd) tile: a pool gather, or a gather and dequantization.
 
     q is (B, Sq, H, hd): Sq == 1 is the decode walk, Sq > 1 the
     chunked-prefill walk — query t of sequence b sits at absolute position
@@ -91,6 +173,42 @@ def paged_prefill_ref(q, pool_k, pool_v, page_table, positions, *,
     return _paged_block_walk(
         q, lambda i: pool_k[pt[:, i]].to(F32),
         lambda i: pool_v[pt[:, i]].to(F32),
+        K, hd, page, page_table.shape[1], positions, window=window, cap=cap)
+
+
+def paged_attention_quant_ref(q, pool_k, k_scale, pool_v, v_scale,
+                              page_table, positions, *, window=0, cap=0.0):
+    """Block-walking paged decode attention over a quantized page pool.
+
+    q (B, H, hd); pool_k/v (P, page, K, hd_store) int8 — hd_store == hd for
+    int8 KV, hd // 2 for int4 packed along hd (pack_int4_hd); k_scale/
+    v_scale (P, page, K) fp32 per-slot, per-kv-head scales; page_table and
+    positions as in paged_attention_ref. Each block is dequantized inside
+    the walk: only a (B, page, K, hd) fp32 tile is ever built."""
+    return paged_prefill_quant_ref(q[:, None], pool_k, k_scale, pool_v,
+                                   v_scale, page_table, positions,
+                                   window=window, cap=cap)[:, 0]
+
+
+def paged_prefill_quant_ref(q, pool_k, k_scale, pool_v, v_scale,
+                            page_table, positions, *, window=0, cap=0.0):
+    """Chunked-prefill walk over a quantized page pool: the chunk's K/V are
+    already quantized into the pool, and each block is dequantized inside
+    the walk as in paged_attention_quant_ref. q (B, Sq, H, hd); positions
+    (B,) chunk-start positions (see paged_prefill_ref)."""
+    hd = q.shape[-1]
+    _, page, K, _ = pool_k.shape
+    bits = kv_bits_of(pool_k, hd)
+    pt = page_table.long()
+
+    def loader(pool, scales):
+        def load(i):
+            pids = pt[:, i]
+            return dequantize_kv(pool[pids], scales[pids], bits)
+        return load
+
+    return _paged_block_walk(
+        q, loader(pool_k, k_scale), loader(pool_v, v_scale),
         K, hd, page, page_table.shape[1], positions, window=window, cap=cap)
 
 

@@ -6,16 +6,23 @@ as the reference baseline.
 ``python -m repro_torch.launch.serve --arch gemma2-2b --tiny --device cpu``
 ``python -m repro_torch.launch.serve --arch gemma2-2b --tiny --device cpu \\
   --sequential``
+``python -m repro_torch.launch.serve --arch gemma2-2b --max-batch 8 \\
+  --kv-bits 8``
+``python -m repro_torch.launch.serve --arch gemma2-2b --max-batch 8 \\
+  --kv-policy POLICY.json``   (e.g. ``{"sub0": 4, "sub1": 8}``)
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
-device and no CPU request it stops with an error. The reference's
-``--mesh``, ``--kv-bits``, ``--kv-policy``, ``--quant-policy``,
-``--autotune`` and ``--serving-config`` flags come with their slices.
+device and no CPU request it stops with an error. ``--kv-bits`` and
+``--kv-policy`` serve from a quantized KV pool (serving/kvquant); the
+HAQ-searched ``--kv-policy haq`` raises until its search is ported. The
+reference's ``--mesh``, ``--quant-policy``, ``--autotune`` and
+``--serving-config`` flags come with their slices.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -26,6 +33,7 @@ from repro_torch.configs import get_config, tiny_config
 from repro_torch.core.hardware_model import DEFAULT_HW, HARDWARES
 from repro_torch.models.api import build_model
 from repro_torch.models.params import tree_map
+from repro_torch.models.transformer import normalize_kv_bits
 from repro_torch.serving.engine import Engine, Request, derive_policy
 
 
@@ -150,12 +158,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-out", default="",
                     help="engine mode: write the telemetry Chrome trace "
                          "to this path and print the telemetry summary")
+    ap.add_argument("--kv-bits", type=int, default=16, choices=(4, 8, 16),
+                    help="engine mode: stored KV-cache bits for the paged "
+                         "pool, uniform across layers (16 = bf16; 8/4 = "
+                         "int pages with per-token per-head scales, "
+                         "dequantized inside the paged-attention walk)")
+    ap.add_argument("--kv-policy", default="",
+                    help="engine mode: per-layer KV bit policy, a json file "
+                         "mapping sub-layer slots to bits, e.g. "
+                         "'{\"sub0\": 4, \"sub1\": 8}'; overrides "
+                         "--kv-bits. 'haq' (the searched policy) is not "
+                         "ported yet")
     return ap
+
+
+def kv_bits_arg(cfg, args):
+    """The KV bit spec ``--kv-bits``/``--kv-policy`` ask for: None (bf16),
+    an int, or a per-sub-layer tuple from the policy file."""
+    if args.kv_policy == "haq":
+        raise NotImplementedError(
+            "--kv-policy haq needs the HAQ search over KV sites "
+            "(serving/kvquant/policy.py), which waits for core/haq.py and "
+            "core/rl/ddpg.py (ROADMAP Queue 1, item 10); pass a json policy "
+            "file instead")
+    if args.kv_policy:
+        with open(args.kv_policy) as f:
+            return normalize_kv_bits(cfg, json.load(f))
+    return None if args.kv_bits == 16 else args.kv_bits
 
 
 def make_policy(cfg, model, args, max_model_len: int):
     """The admission policy the engine runs under: derived on ``--hw`` for
-    ``max_model_len``, with the batch/chunk overrides applied."""
+    ``max_model_len`` and the KV bits asked for, with the batch/chunk
+    overrides applied."""
     occupancy = args.expected_occupancy
     if occupancy is None:
         occupancy = 1.0 if args.reserve_upfront else 0.5
@@ -163,7 +198,8 @@ def make_policy(cfg, model, args, max_model_len: int):
                            max_model_len=max_model_len,
                            page_size=args.page_size,
                            expected_occupancy=occupancy,
-                           param_bytes=model.param_bytes())
+                           param_bytes=model.param_bytes(),
+                           kv_bits=kv_bits_arg(cfg, args))
     over = {}
     if args.max_batch:
         over["max_batch"] = args.max_batch
@@ -184,6 +220,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.prompt_len < 1:
         ap.error("--prompt-len must be >= 1")
+    if args.sequential and (args.kv_policy or args.kv_bits != 16):
+        ap.error("--kv-bits/--kv-policy apply to engine mode only; the "
+                 "sequential baseline is the bf16 exactness reference")
     if args.sequential and args.trace_out:
         ap.error("--trace-out applies to engine mode only; the sequential "
                  "baseline has no telemetry recorder")

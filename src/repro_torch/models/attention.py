@@ -1,12 +1,15 @@
 """GQA attention (port of ``repro.models.attention``): the dense path for
 short whole-prompt forwards, and the paged decode / chunked-prefill paths
-over the serving engine's bf16 page pool.
+over the serving engine's page pool — bf16, or quantized int8/int4 with
+per-token scales (serving/kvquant).
 
 Layout conventions, as in the reference:
   activations x          (B, S, D)
   q                      (B, S, H, hd)
   k, v                   (B, S, K, hd)     H = K * G (GQA groups)
-  page pool (one layer)  (P, page, K, hd)
+  page pool (one layer)  (P, page, K, hd) bf16, or
+                         {"q": (P, page, K, hd_store) int8,
+                          "scale": (P, page, K) fp32}
 Attention logits are fp32; RoPE is applied at cache-write time (absolute
 positions).
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.layers import apply_rope, softcap
 from repro_torch.models.params import PDef
 
@@ -100,11 +104,37 @@ def attention_fwd(p, x, kind: str, cfg, positions):
     return _out_proj(o, p), {"k": k, "v": v}
 
 
-def _bf16_pools(pool_k, pool_v):
-    if isinstance(pool_k, dict) or isinstance(pool_v, dict):
-        raise NotImplementedError(
-            "quantized (int8/int4) KV pools come with the KV-quant slice "
-            "(ROADMAP Queue 1, item 6)")
+def write_kv(pool, index, new):
+    """Store ``new`` (..., K, hd) k or v in place at ``pool[index]``: a
+    bf16 pool takes it as it is, a quantized {"q", "scale"} pool its int
+    codes and per-token scales (kernels/ref.py::quantize_kv). Every pool
+    writer goes through here."""
+    if isinstance(pool, dict):
+        codes, scale = kref.quantize_kv(
+            new, kref.kv_bits_of(pool["q"], new.shape[-1]))
+        pool["q"][index] = codes
+        pool["scale"][index] = scale
+    else:
+        pool[index] = new.to(pool.dtype)
+
+
+def _page_size(pool) -> int:
+    return (pool["q"] if isinstance(pool, dict) else pool).shape[1]
+
+
+def _walk(q, pool_k, pool_v, page_table, positions, window, cap, kernel,
+          *, prefill: bool):
+    """The paged walk over this layer's pools through kernels/ops.py: the
+    quantized pair for {"q", "scale"} pools, the bf16 pair otherwise."""
+    if isinstance(pool_k, dict):
+        fn = kops.paged_attention_prefill_quant if prefill \
+            else kops.paged_attention_quant
+        return fn(q, pool_k["q"], pool_k["scale"], pool_v["q"],
+                  pool_v["scale"], page_table, positions, window=window,
+                  cap=cap, mode=kernel)
+    fn = kops.paged_attention_prefill if prefill else kops.paged_attention
+    return fn(q, pool_k, pool_v, page_table, positions, window=window,
+              cap=cap, mode=kernel)
 
 
 def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
@@ -112,31 +142,32 @@ def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
     """Slot-indexed one-token decode against a paged KV pool.
 
     x           (B, 1, D)   one new token's activations per sequence
-    pool_k/v    (P, page, K, hd) bf16, this layer's page pool
+    pool_k/v    this layer's page pool: (P, page, K, hd) bf16, or the
+                quantized {"q", "scale"} dicts (int8, or int4 packed
+                along hd — the bitwidth is read from the stored shape)
     page_table  (B, n_pages) int32; unused tails point at scratch page 0
     positions   (B,) int32  absolute position of the incoming token
     kernel      "auto" | "cuda" | "ref" — kernels/ops.py dispatch
 
     The new k/v are written in place into page
     ``page_table[b, pos // page]`` slot ``pos % page`` (the reference
-    donates the pool to get the same in-place update); attention then walks
-    the sequence's pages. Returns (out (B,1,D), pool_k, pool_v), the pools
-    being the updated input tensors.
+    donates the pool to get the same in-place update), quantized on write
+    for a quantized pool; attention then walks the sequence's pages,
+    dequantizing inside the walk. Returns (out (B,1,D), pool_k, pool_v),
+    the pools being the updated inputs.
     """
-    _bf16_pools(pool_k, pool_v)
-    page = pool_k.shape[1]
+    page = _page_size(pool_k)
     q, k_new, v_new = qkv(p, x, cfg.rope_theta, positions[:, None])
     pos = positions.long()
     pids = page_table.long().gather(1, (pos // page)[:, None])[:, 0]
     slots = pos % page
     # idle batch slots all write the scratch page: duplicates there are
     # harmless garbage, whichever write lands last
-    pool_k[pids, slots] = k_new[:, 0].to(pool_k.dtype)
-    pool_v[pids, slots] = v_new[:, 0].to(pool_v.dtype)
+    write_kv(pool_k, (pids, slots), k_new[:, 0])
+    write_kv(pool_v, (pids, slots), v_new[:, 0])
     window = cfg.window_size if kind == "local" else 0
-    o = kops.paged_attention(q[:, 0], pool_k, pool_v, page_table, positions,
-                             window=window, cap=cfg.attn_softcap,
-                             mode=kernel)[:, None]
+    o = _walk(q[:, 0], pool_k, pool_v, page_table, positions, window,
+              cfg.attn_softcap, kernel, prefill=False)[:, None]
     return _out_proj(o, p), pool_k, pool_v
 
 
@@ -145,16 +176,16 @@ def attention_prefill_paged(p, x, pool_k, pool_v, page_table, positions,
     """Chunked prefill against a paged KV pool (prefill-with-cache).
 
     x           (B, Sq, D)  one prompt chunk's activations per sequence
+    pool_k/v    as in attention_decode_paged
     positions   (B,) int32  absolute position of each chunk's FIRST token
 
     The chunk's roped k/v are written in place into their pages first —
     token t at page ``page_table[b, (pos+t) // page]`` slot
-    ``(pos+t) % page`` — then attention walks the pages: query t attends
-    to every pool slot at ``kpos <= positions[b] + t``. Returns
-    (out (B, Sq, D), pool_k, pool_v).
+    ``(pos+t) % page``, quantized on write for a quantized pool — then
+    attention walks the pages: query t attends to every pool slot at
+    ``kpos <= positions[b] + t``. Returns (out (B, Sq, D), pool_k, pool_v).
     """
-    _bf16_pools(pool_k, pool_v)
-    page = pool_k.shape[1]
+    page = _page_size(pool_k)
     B, Sq, _ = x.shape
     n_blocks = page_table.shape[1]
     abs_pos = positions.long()[:, None] + torch.arange(Sq, device=x.device)
@@ -166,10 +197,9 @@ def attention_prefill_paged(p, x, pool_k, pool_v, page_table, positions,
     pids = page_table.long().gather(1, blocks.clamp(max=n_blocks - 1))
     pids = torch.where(blocks < n_blocks, pids, 0)
     slots = abs_pos % page
-    pool_k[pids, slots] = k_new.to(pool_k.dtype)
-    pool_v[pids, slots] = v_new.to(pool_v.dtype)
+    write_kv(pool_k, (pids, slots), k_new)
+    write_kv(pool_v, (pids, slots), v_new)
     window = cfg.window_size if kind == "local" else 0
-    o = kops.paged_attention_prefill(q, pool_k, pool_v, page_table,
-                                     positions, window=window,
-                                     cap=cfg.attn_softcap, mode=kernel)
+    o = _walk(q, pool_k, pool_v, page_table, positions, window,
+              cfg.attn_softcap, kernel, prefill=True)
     return _out_proj(o, p), pool_k, pool_v

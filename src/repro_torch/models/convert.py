@@ -5,14 +5,16 @@ already turned into numpy arrays (``jax.tree.map(np.asarray, params)``,
 done by the caller, so this module never touches JAX) and returns the
 port's nested dict of tensors under the same keys: ``blocks/sub{j}/attn/wq``
 keeps its ``(n_groups, d, H, hd)`` stacking. bf16 leaves (numpy dtype
-``bfloat16`` from ml_dtypes) become bf16 tensors exactly.
+``bfloat16`` from ml_dtypes) become bf16 tensors exactly. The same works
+for a page pool, whose quantized slots hold int8 codes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8}
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:

@@ -286,24 +286,41 @@ def normalize_kv_bits(cfg, kv_bits) -> Optional[Tuple[int, ...]]:
 
 
 def pool_specs(cfg, num_pages: int, page_size: int, kv_bits=None):
-    """Paged-KV-pool layout: per sub-layer slot, k/v pools of shape
-    (n_groups, num_pages, page_size, K, hd) bf16, as (shape, dtype) pairs.
-    Page ids are shared across layers. Quantized pools (``kv_bits``) come
-    with the KV-quant slice."""
+    """Paged-KV-pool layout, as (shape, dtype) pairs: per sub-layer slot,
+    k/v pools of shape (n_groups, num_pages, page_size, K, hd) bf16. Page
+    ids are shared across layers.
+
+    ``kv_bits`` (see normalize_kv_bits) selects the quantized layout per
+    sub-layer slot: 16 keeps the bf16 pools; 8/4 store
+    ``{"q": int8 (n_groups, num_pages, page_size, K, hd_store),
+       "scale": fp32 (n_groups, num_pages, page_size, K)}``
+    with hd_store = hd for int8 and hd//2 for int4 (two codes per byte
+    along head_dim). Scales are per page slot (token) and per kv head, so
+    quantize-on-write never re-scales resident tokens (serving/kvquant)."""
     _require_dense(cfg, "paged KV pool")
-    if normalize_kv_bits(cfg, kv_bits) is not None:
-        raise NotImplementedError(
-            "quantized KV pools come with the KV-quant slice (ROADMAP "
-            "Queue 1, item 6)")
+    hd = cfg.resolved_head_dim
+    K = cfg.num_kv_heads
     P = period_of(cfg)
-    shape = (cfg.num_layers // P, num_pages, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    spec = (shape, torch.bfloat16)
-    return {f"sub{j}": {"k": spec, "v": spec} for j in range(P)}
+    n_groups = cfg.num_layers // P
+    bits = normalize_kv_bits(cfg, kv_bits) or (16,) * P
+
+    def kv_spec(b):
+        if b == 16:
+            return ((n_groups, num_pages, page_size, K, hd), torch.bfloat16)
+        hd_store = hd if b == 8 else hd // 2
+        return {"q": ((n_groups, num_pages, page_size, K, hd_store),
+                      torch.int8),
+                "scale": ((n_groups, num_pages, page_size, K), F32)}
+
+    return {f"sub{j}": {"k": kv_spec(bits[j]), "v": kv_spec(bits[j])}
+            for j in range(P)}
 
 
 def init_pool(cfg, num_pages: int, page_size: int, *, device, kv_bits=None):
-    return {s: {kv: torch.zeros(shape, dtype=dt, device=device)
-                for kv, (shape, dt) in c.items()}
-            for s, c in pool_specs(cfg, num_pages, page_size,
-                                   kv_bits).items()}
+    def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        shape, dtype = spec
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return make(pool_specs(cfg, num_pages, page_size, kv_bits))

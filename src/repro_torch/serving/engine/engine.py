@@ -26,8 +26,10 @@ eagerly and updates the pool in place. Every tick emits a telemetry
 ``torch.cuda.synchronize()`` on the card before the timer stops, next to
 the admission roofline's prediction for the same dispatch shape.
 
-Not ported yet: HAQ weight quantization (``policy.quant_bits < 16``),
-quantized KV pools (``policy.kv_bits``) and the SPMD mesh — each raises
+``policy.kv_bits`` selects a quantized KV pool (int8, int4 or mixed per
+sub-layer slot, serving/kvquant): every pool writer quantizes on write and
+attention runs the fused-dequant walks. Not ported yet: HAQ weight
+quantization (``policy.quant_bits < 16``) and the SPMD mesh — each raises
 NotImplementedError.
 """
 from __future__ import annotations

@@ -13,6 +13,9 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from repro_torch.models.attention import write_kv
+from repro_torch.models.params import tree_leaves
+
 
 class PageAllocator:
     """Free-list allocator over ``num_pages`` physical pages (page 0 is the
@@ -102,7 +105,8 @@ class JitLRU:
 
 class PagedKVPool:
     """Device pool tensors + the allocator that tracks their occupancy.
-    bf16 pools only; quantized pools come with the KV-quant slice."""
+    Each sub-layer slot's k/v pool is bf16, or quantized ({"q", "scale"},
+    see serving/kvquant) under ``kv_bits``."""
 
     WRITE_JIT_CAP = 8   # LRU cap on per-(n_pages, cache_len) writers
 
@@ -131,7 +135,12 @@ class PagedKVPool:
         ``start..start+cache_len`` of the sequence lands at that offset
         within ``pages`` (chunk boundaries must be page-aligned). Pages
         past the span's end are (re)padded, so spans must be written in
-        chunk order."""
+        chunk order.
+
+        Quantized slots quantize on write (models/attention.py::
+        write_kv): the bf16 prefill pages become int8/int4 codes plus
+        per-token scales (padding slots quantize too, harmlessly — they
+        stay behind the mask)."""
         page = self.page_size
         if start % page:
             raise ValueError(
@@ -152,12 +161,10 @@ class PagedKVPool:
                             c = torch.nn.functional.pad(
                                 c, (0, 0, 0, 0, 0, span - Sp))
                         c = c.reshape(c.shape[0], n, page, *c.shape[2:])
-                        dst = pool[slot][name]
-                        dst[:, idx] = c.to(dst.dtype)
+                        write_kv(pool[slot][name], (slice(None), idx), c)
             return write
 
         fn = self._write_jit.get((n, Sp), make)
         idx = torch.tensor(pages, dtype=torch.long,
-                           device=next(iter(self.pool["sub0"].values()))
-                           .device)
+                           device=tree_leaves(self.pool)[0].device)
         fn(self.pool, cache, idx)

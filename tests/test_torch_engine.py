@@ -153,13 +153,12 @@ def test_engine_matches_port_generate(models):
 
 
 def test_engine_unported_options_raise(models):
-    """Quantized weights or KV pools and a mesh wait for their slices and
-    say so instead of serving something else."""
+    """Quantized weights and a mesh wait for their slices and say so
+    instead of serving something else (quantized KV pools are served:
+    tests/test_torch_kvquant.py)."""
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError):
         Engine(tm, tp, _policy(quant_bits=8))
-    with pytest.raises(NotImplementedError):
-        Engine(tm, tp, _policy(kv_bits=(8,)))
     with pytest.raises(NotImplementedError):
         Engine(tm, tp, _policy(), mesh=object())
 

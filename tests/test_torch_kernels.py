@@ -1,7 +1,9 @@
 """Port kernels (src/repro_torch/kernels): the plain PyTorch paged walks
 against the reference's JAX walks and Pallas kernels (interpret mode) on
-the same numpy inputs, the port's dense oracles, the dispatch contract,
-and — on a card only — the CUDA kernels against their plain versions."""
+the same numpy inputs, the port's dense oracles and the dispatch
+contract. The CUDA kernels are held against their plain versions in
+tests/test_torch_cuda.py, which imports no JAX so that it runs on the
+card; the quantized walks' CPU parity is in tests/test_torch_kvquant.py."""
 import numpy as np
 import pytest
 
@@ -14,35 +16,13 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from test_torch_cases import paged_case as _case  # noqa: E402
 
 torch.set_num_threads(1)
 
 # fp32 parity: both walks do the same fp32 arithmetic and differ only in
 # summation order, so outputs of magnitude ~1 agree to well under 1e-5.
 TOL = 1e-5
-
-
-def _case(B, Sq, H, K, hd, page, n_blocks, *, num_pages=11, seed=0,
-          overrun=False):
-    """Random fp32 pools (numpy) with a poisoned scratch page 0, ragged
-    chunk starts (one at 0), shuffled pages and scratch-page tails.
-    ``overrun`` puts the last sequence's chunk past the table width."""
-    rng = np.random.default_rng(seed)
-    pool_k = rng.standard_normal((num_pages, page, K, hd)).astype(np.float32)
-    pool_v = rng.standard_normal((num_pages, page, K, hd)).astype(np.float32)
-    pool_k[0] = 37.0                          # a masking bug reads these
-    pool_v[0] = -53.0
-    q = rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
-    positions = rng.integers(0, n_blocks * page - Sq + 1, B).astype(np.int32)
-    positions[0] = 0
-    if overrun:
-        positions[-1] = n_blocks * page - Sq // 2
-    pt = np.zeros((B, n_blocks), np.int32)
-    for b in range(B):
-        need = min((positions[b] + Sq - 1) // page + 1, n_blocks)
-        pt[b, :need] = rng.choice(np.arange(1, num_pages), need,
-                                  replace=False)
-    return q, pool_k, pool_v, pt, positions
 
 
 def _both(args):
@@ -154,40 +134,6 @@ def test_dispatch_modes_on_cpu():
         tops.paged_attention_prefill(q[:, None], pk, pv, pt, pos,
                                      mode="pallas")
     assert tpa.LAUNCHES == {"paged_attention_fwd": 0,
-                            "paged_prefill_fwd": 0}
-
-
-def _bf16_close(got, want):
-    """Kernel vs plain version, both fp32 inside and rounded once to bf16:
-    one bf16 ulp of the element (2**-7 * |want|) plus 2**-7 of the row's
-    max |want| for elements near zero — tied to the data, since softmax
-    outputs shrink as contexts grow."""
-    rowmax = want.abs().amax(-1, keepdim=True)
-    return bool(torch.all((got - want).abs()
-                          <= 2.0 ** -7 * (rowmax + want.abs())))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("window,cap", [(0, 0.0), (64, 50.0)])
-def test_cuda_kernels_match_plain(window, cap):
-    """On a card: both CUDA kernels against their plain versions at full
-    gemma2-2b head width, bf16, at the tolerance chip_smoke.py states. With
-    a cap, q is scaled so the scores reach it, and the plain version
-    without the cap must miss the tolerance."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    q, pk, pv, pt, pos = _case(3, 40, 8, 4, 256, 16, 8, num_pages=30)
-    if cap:
-        q = q * 20.0      # scores about N(0, 20**2): the cap bites
-    dev = "cuda"
-    q, pk, pv = (torch.from_numpy(a).to(dev).bfloat16() for a in (q, pk, pv))
-    pt, pos = torch.from_numpy(pt).to(dev), torch.from_numpy(pos).to(dev)
-    for fwd, plain, qq in (
-            (tpa.paged_prefill_fwd, tref.paged_prefill_ref, q),
-            (tpa.paged_attention_fwd, tref.paged_attention_ref, q[:, 0])):
-        got = fwd(qq, pk, pv, pt, pos, window=window, cap=cap).float()
-        want = plain(qq, pk, pv, pt, pos, window=window, cap=cap).float()
-        assert _bf16_close(got, want)
-        if cap:
-            nocap = plain(qq, pk, pv, pt, pos, window=window).float()
-            assert not _bf16_close(nocap, want)
+                            "paged_prefill_fwd": 0,
+                            "paged_attention_quant_fwd": 0,
+                            "paged_prefill_quant_fwd": 0}
