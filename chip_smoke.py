@@ -5,31 +5,47 @@
 
 Phases, each fatal on failure:
   1. build    — nvcc every kernel source (src/repro_torch/kernels/csrc);
-  2. kernels  — each hand-written kernel against its plain PyTorch version
-                at full gemma2-2b width (H=8, K=4, hd=256, page=16, bf16
-                q; bf16 pools, and int8 and packed int4 pools with fp32
-                scales for the fused-dequant pair), then checked again at
-                the main path's shapes and timed there beside its plain
-                version, a one-call PyTorch yardstick
+  2. kernels  — each hand-written kernel against its plain PyTorch version.
+                Paged attention at full gemma2-2b width (H=8, K=4, hd=256,
+                page=16, bf16 q; bf16 pools, and int8 and packed int4 pools
+                with fp32 scales for the fused-dequant pair), then checked
+                again at the main path's shapes and timed there beside its
+                plain version, a one-call PyTorch yardstick
                 (scaled_dot_product_attention on the gathered dense view,
                 dequantized beforehand for a quantized pool; never called
-                by the port) and its bound;
+                by the port) and its bound. The weight-quantized matmuls
+                (W8A16, W4A16, W8A8) at every (K, N) the quantized paths
+                launch, ragged M and the main paths' rows (2, 8, 2000,
+                4096), bf16 and fp32 x, per-channel and per-tensor scales
+                (fp32 outputs within an fp32 ulp of the row's max per
+                tensor-core step, W8A8's int32 products exact), then checked and timed on the same inputs
+                at (2304 -> 9216), M = 8 and 4096, beside their plain
+                versions, torch.matmul on the dequantized bf16 weight
+                (torch._int_mm for W8A8) and their bounds;
   3. model    — full-width gemma2-2b (26 layers, random weights from a
                 seed): one prefill_chunk_paged and decode_step_paged ticks
                 through the kernels and through the plain walk, on copies
                 of one pool, logits compared — on a bf16 pool, then on the
-                mixed pool (int4 local layers, int8 global ones);
+                mixed pool (int4 local layers, int8 global ones); then with
+                the weights stored at 8 and at 4 bits (serving/quant.py),
+                through dequant_dot's kernels against its plain version,
+                and the bytes the stored weights hold against bf16;
   4. engine   — the main path: Engine.run built by repro_torch.launch.serve
                 (derive_policy on h100-sxm, --max-batch 8, page 16, chunked
                 prefill) over 8 prompts of 300-1200 tokens and one of 4200
                 that crosses the 4096 window, 32 new tokens each, with the
                 kernels' launch counts zeroed just before and read after;
                 once on the bf16 pool (the two bf16 kernels launched, the
-                quant pair not) and once with --kv-policy {"sub0": 4,
-                "sub1": 8} (the quant pair launched, the bf16 pair not);
+                quant pair not), once with --kv-policy {"sub0": 4,
+                "sub1": 8} (the quant pair launched, the bf16 pair not),
+                and once with the policy's quant_bits set to 4 (int4 FFN
+                weights, int8 attention projections: per decode tick and
+                chunk 104 W8A16 and 78 W4A16 launches, no W8A8);
   5. profile  — each of those traces again on a fresh engine under
                 torch.profiler: device time by kernel, device busy share;
-  6. generate — the sequential entry point on 2 prompts of 1000 tokens;
+  6. generate — the sequential entry point on 2 prompts of 1000 tokens,
+                then again through make_quant_dot's kernels (W4A16 FFN in
+                and gate, W8A8 FFN out, W8A16 lm_head; launches counted);
   7. drift    — greedy_drift of the int8 and the mixed pool against the
                 bf16 pool, teacher-forced through the kernels over one
                 1000-token prompt and 32 steps (printed; only a non-finite
@@ -388,6 +404,237 @@ def phase_kernels(prefill_chunk: int, n_blocks_main: int):
     return records
 
 
+# ---------------------------------------------------- quantized matmuls ----
+INT8_OPS = 1979e12              # H100 SXM dense int8 tensor-core peak
+# (K, N) of every matmul the weight-quantized paths launch at gemma2-2b
+# width: q, k/v, o, FFN in/gate, FFN out, and the lm_head of the hook path
+QMM_SHAPES = ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+              (9216, 2304), (2304, 256000))
+QMM_RAGGED_M = (1, 5, 37, 1000)
+# the rows the main paths give each shape: the engine's decode tick (8
+# sequences) and prefill chunk (4096 rows) on every projection; generate's
+# decode step (2 sequences) and prefill (2 x 1000 tokens, the lm_head
+# unembedding all of them) on the FFN and the lm_head
+LM_HEAD = (2304, 256000)
+QMM_MAIN_M = {**{kn: (2, 8, 2000, 4096) for kn in QMM_SHAPES
+                 if kn != LM_HEAD}, LM_HEAD: (2, 2000)}
+QMM_TIMED = (2304, 9216)        # timed at M = 8 (decode) and 4096 (a chunk)
+# fp32 x through W8A16/W4A16: the kernel splits x into three bf16 terms
+# (x = x0 + x1 + x2 exactly) whose products with the integer codes are
+# exact, so what separates kernel and plain version is fp32 accumulation.
+# The tensor cores' fp32 accumulation may drop up to an fp32 ulp of the
+# running sum per mma step (it truncates), and there are 3 * K / 16 steps
+# (three x terms, 16-deep steps), so such outputs are held to
+# 3K/16 * 2**-23 of the row's max |ref| (5e-5 at K = 2304, 2e-4 at 9216).
+# The plain version on x rounded to bf16 once (about 1e-3 of a typical
+# output off) must miss that bound, else the case could not tell a kernel
+# that drops x's low bits.
+def fp32_row_atol(K: int) -> float:
+    return 3 * K / 16 * 2.0 ** -23
+
+
+def qmm_specs():
+    """name -> (kernel wrapper, plain version, weight quantizer). Every
+    callable takes (x, codes, scale) with x as the caller gives it; W8A8
+    quantizes x per tensor first, as ops.quant_matmul does, and casts to
+    x's dtype."""
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import ref
+
+    def a8(fn):
+        def call(x, codes, scale):
+            xq, xs = ref.quantize_a8(x)
+            return fn(xq, xs, codes, scale, out_dtype=x.dtype)
+        return call
+
+    return {
+        "quant_matmul_w8a16": (qm.quant_matmul_w8a16,
+                               ref.quant_matmul_w8a16, ref.quantize_w8),
+        "quant_matmul_w4a16": (qm.quant_matmul_w4a16,
+                               ref.quant_matmul_w4a16,
+                               ref.quantize_w4_packed),
+        "quant_matmul_w8a8": (a8(qm.quant_matmul_w8a8),
+                              a8(ref.quant_matmul_w8a8), ref.quantize_w8),
+    }
+
+
+def fp32_mismatch(got, want, K):
+    """Elements of ``got`` further than fp32_row_atol(K) of the row's max
+    |want| from ``want`` (fp32, N last)."""
+    rowmax = want.abs().amax(-1, keepdim=True)
+    return (got - want).abs() > fp32_row_atol(K) * rowmax
+
+
+# fp32-x W8A16/W4A16 cases: the largest |err| / row max |ref| seen
+FP32_SEEN = {}
+
+
+def check_qmm(name, fwd, plain, x, codes, scale, what):
+    """Hold one weight-quantized matmul against its plain version on x:
+    bf16 outputs within the kernel tolerance; fp32 outputs of W8A16/W4A16
+    within fp32_row_atol(K) of the row's max, which x rounded to bf16 must
+    miss (the ratio err / row max is kept in ``FP32_SEEN``); fp32 outputs
+    of W8A8 equal bit for bit (the int32 products exact). Returns max
+    |err|."""
+    import torch
+    got = fwd(x, codes, scale)
+    torch.cuda.synchronize()
+    want = plain(x, codes, scale)
+    M, K = x.shape
+    N = codes.shape[1]
+    if got.dtype != x.dtype or got.shape != (M, N) or \
+            not torch.isfinite(got.float()).all():
+        fail(f"{name}: bad output {got.dtype} {tuple(got.shape)} ({what})")
+    gf, wf = got.float(), want.float()
+    e = float((gf - wf).abs().max())
+    fp32 = x.dtype == torch.float32
+    if fp32 and name == "quant_matmul_w8a8":
+        if not torch.equal(got, want):
+            fail(f"{name}: fp32 output differs from the plain version's "
+                 f"by up to {e:.4g} ({what}): the int32 products are not "
+                 f"exact")
+        return e
+    if fp32:
+        ratio = float(((gf - wf).abs() / wf.abs().amax(-1, keepdim=True))
+                      .max())
+        FP32_SEEN[name] = max(FP32_SEEN.get(name, 0.0), ratio)
+    bad = fp32_mismatch(gf, wf, K) if fp32 else mismatch(gf, wf)
+    if bad.any():
+        fail(f"{name}: {int(bad.sum())} elements off, max |err| {e:.4g} "
+             f"({what}, {'fp32 bound' if fp32 else 'bf16 bound'})")
+    if fp32 and not fp32_mismatch(
+            plain(x.bfloat16().float(), codes, scale), wf, K).any():
+        fail(f"{name}: x rounded to bf16 stays within the fp32 bound "
+             f"({what}): the case cannot see a kernel that drops x's low "
+             f"bits")
+    return e
+
+
+def qmm_bound_ms(name, M, K, N):
+    """Least time for one call: x, the stored codes, the scales and the
+    bf16 output moved once over device memory, or 2*M*K*N operations over
+    the bf16 (W8A16, W4A16) or int8 (W8A8) tensor-core peak."""
+    code_bytes = K * N // 2 if name == "quant_matmul_w4a16" else K * N
+    x_bytes = M * K * (1 if name == "quant_matmul_w8a8" else 2)
+    t_bytes = (x_bytes + code_bytes + 4 * N + 4 + 2 * M * N) \
+        / HBM_BYTES_PER_S * 1e3
+    peak = INT8_OPS if name == "quant_matmul_w8a8" else BF16_FLOPS
+    t_ops = 2.0 * M * K * N / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_qmm_kernels():
+    """Phase 2, the weight-quantized matmuls: each kernel against its
+    plain version (``check_qmm``) at every (K, N) the paths launch, ragged
+    M and the rows the main paths give that shape, bf16 and fp32 x,
+    per-channel and per-tensor scales; then each checked again and timed
+    on the same inputs at (2304 -> 9216), M = 8 and 4096, beside its plain
+    version, a one-call PyTorch yardstick the port never calls and its
+    bound. Returns name -> kernel record (the M = 4096 numbers) and prints
+    both."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import ref
+
+    specs = qmm_specs()
+    err = {name: 0.0 for name in specs}
+    g = torch.Generator(device="cuda").manual_seed(21)
+    neg_pairs = 0
+    for K, N in QMM_SHAPES:
+        Ms = QMM_RAGGED_M + QMM_MAIN_M[(K, N)]
+        w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+        for name, (fwd, plain, quantize) in specs.items():
+            codes, scale = quantize(w)
+            if name == "quant_matmul_w4a16":
+                # bytes whose two nibbles are both negative codes
+                neg_pairs += int(((codes.to(torch.int16) & 0x88) == 0x88)
+                                 .sum())
+            for per_tensor in (False, True):
+                s = scale.amax().reshape(1) if per_tensor else scale
+                for M in Ms:
+                    x = torch.randn((M, K), generator=g, device="cuda")
+                    for dt in (torch.bfloat16, torch.float32):
+                        e = check_qmm(name, fwd, plain, x.to(dt), codes, s,
+                                      f"M={M}, K={K}, N={N}, {dt}, "
+                                      f"per_tensor={per_tensor}")
+                        err[name] = max(err[name], e)
+                    del x
+                    torch.cuda.empty_cache()
+            del codes, scale
+        print(f"kernels: quant matmuls (K={K}, N={N}) match plain at M "
+              f"{Ms}, bf16/fp32 x, per-channel/per-tensor scales",
+              flush=True)
+        del w
+        torch.cuda.empty_cache()
+    if neg_pairs == 0:
+        fail("quant_matmul_w4a16: no byte held two negative codes")
+    print(f"kernels: W4A16 cases held {neg_pairs} bytes with both nibbles "
+          f"negative; fp32 W8A16/W4A16 outputs within 3K/16 * 2**-23 x row "
+          f"max |ref| (largest |err| / row max {json.dumps(FP32_SEEN)}; x "
+          f"rounded to bf16 misses it); W8A8 fp32 outputs equal the plain "
+          f"version's (exact int32 products)", flush=True)
+
+    # checked, then timed, on the kernels' own inputs: W8A8 gets x
+    # quantized beforehand
+    K, N = QMM_TIMED
+    records = {}
+    w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+    for name, (fwd, plain, quantize) in specs.items():
+        codes, scale = quantize(w)
+        unpacked = ref.unpack_w4(codes) if name == "quant_matmul_w4a16" \
+            else codes
+        w_bf16 = (unpacked.float() * scale).bfloat16()   # yardstick's weight
+        w_col = codes.t().contiguous().t()    # column-major B for _int_mm
+        row = {}
+        for M in (8, 4096):
+            x = torch.randn((M, K), generator=g,
+                            device="cuda").bfloat16()
+            what = f"timed inputs, M={M}, K={K}, N={N}"
+            err[name] = max(err[name], check_qmm(name, fwd, plain, x, codes,
+                                                 scale, what))
+            if name == "quant_matmul_w8a8":
+                xq, xs = ref.quantize_a8(x)
+                args = (xq, xs, codes, scale)
+                kernel, plain_fn = qm.quant_matmul_w8a8, \
+                    ref.quant_matmul_w8a8
+                # the timed call's accumulator, exact: fp32 out bit for bit
+                if not torch.equal(kernel(*args, out_dtype=torch.float32),
+                                   plain_fn(*args, out_dtype=torch.float32)):
+                    fail(f"{name}: fp32 output differs from the plain "
+                         f"version's ({what}): the int32 products are not "
+                         f"exact")
+            else:
+                args = (x, codes, scale)
+                kernel, plain_fn = fwd, plain
+            ms = time_ms(lambda: kernel(*args), reps=20)
+            plain_ms = time_ms(lambda: plain_fn(*args), reps=5)
+            if name != "quant_matmul_w8a8":
+                lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), reps=20)
+            elif M > 16:                      # _int_mm's shape rule
+                lib_ms = time_ms(lambda: torch._int_mm(xq, w_col), reps=20)
+            else:
+                lib_ms = None
+            b_ms, by = qmm_bound_ms(name, M, K, N)
+            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"kernels: {name} M={M} K={K} N={N}: {ms:.4f} ms (plain "
+                  f"{plain_ms:.3f} ms, library {lib}, bound {b_ms:.5f} ms "
+                  f"by {by}; {2e-9 * M * K * N / ms:.1f} T(FL)OP/s)",
+                  flush=True)
+            row[M] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": by}
+            del x
+        records[name] = dict(row[4096], max_abs_err=err[name],
+                             decode=row[8])
+        del codes, scale, unpacked, w_bf16, w_col
+    del w
+    torch.cuda.empty_cache()
+    print(f"kernels: quant matmuls match plain versions (max |err| "
+          f"{json.dumps(err)}; bf16 tolerance {ROW_ATOL:.4g}*max|ref row| + "
+          f"{RTOL:.4g}*|ref|, fp32 3K/16*2**-23*max|ref row|)",
+          flush=True)
+    return records
+
+
 KERNEL_SOURCES = {
     "paged_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -401,22 +648,78 @@ KERNEL_SOURCES = {
     "paged_prefill_quant_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:410"),
+    "quant_matmul_w8a16": (
+        "cuda", "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "src/repro/kernels/quant_matmul.py:47"),
+    "quant_matmul_w4a16": (
+        "cuda", "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "src/repro/kernels/quant_matmul.py:94"),
+    "quant_matmul_w8a8": (
+        "cuda", "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "src/repro/kernels/quant_matmul.py:141"),
 }
 BF16_KERNELS = ("paged_attention_fwd", "paged_prefill_fwd")
 QUANT_KERNELS = ("paged_attention_quant_fwd", "paged_prefill_quant_fwd")
+# the engine's weight-quantized main path: stored int4 FFN weights and int8
+# attention projections over the bf16 pool
+WQ_KERNELS = BF16_KERNELS + ("quant_matmul_w8a16", "quant_matmul_w4a16")
+WQ_BITS = 4
+# the generate path through the HAQ dot hook's kernels: W4A16 on FFN in and
+# gate, W8A8 on FFN out, W8A16 on the (tied) lm_head
+GEN_QUANT_POLICY = {"ffn_in": (4, 16), "ffn_gate": (4, 16),
+                    "ffn_out": (8, 8), "lm_head": (8, 16)}
 
 
-def phase_model(model, params, kv_bits=None, ticks=1):
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict of parameters."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quant_matmul as qm
+    pa.reset_launches()
+    qm.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quant_matmul as qm
+    return {**pa.LAUNCHES, **qm.LAUNCHES}
+
+
+def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None):
     """Phase 3: one chunk and ``ticks`` decode steps of the full-width
     model through the kernels and through the plain walk, on copies of one
     pool (bf16, or quantized under ``kv_bits``); returns the largest logit
-    difference."""
+    difference. With ``w_bits`` the parameters are stored at that width
+    (serving/quant.py) and the two sides differ in the ``dot`` hook alone:
+    the weight-quantized matmul kernels (``make_dequant_dot("cuda")``)
+    against the plain dequantize-then-matmul (``"ref"``), both over the
+    paged kernels."""
     import torch
     from repro_torch.models.params import tree_map
 
     dev = params["embed"].device
     cfg = model.cfg
-    label = f"model[kv={kv_bits or 'bf16'}]"
+    if w_bits:
+        from repro_torch.serving.quant import make_dequant_dot, \
+            quantize_params
+        bf16_bytes = tensor_bytes(params)
+        params = quantize_params(params, default_bits=w_bits)
+        torch.cuda.synchronize()
+        label = f"model[w={w_bits}b]"
+        print(f"{label}: parameters held {tensor_bytes(params) / 1e9:.4f} GB "
+              f"against {bf16_bytes / 1e9:.4f} GB in bf16 "
+              f"({tensor_bytes(params) / bf16_bytes:.4f}x), from the "
+              f"tensors", flush=True)
+        sides = {"cuda": {"kernel": "cuda", "dot": make_dequant_dot("cuda")},
+                 "ref": {"kernel": "cuda", "dot": make_dequant_dot("ref")}}
+    else:
+        label = f"model[kv={kv_bits or 'bf16'}]"
+        sides = {m: {"kernel": m, "dot": None} for m in ("cuda", "ref")}
     g = torch.Generator().manual_seed(3)
     B, C, n_blocks = 2, 512, 80
     pool = model.init_pool(B * n_blocks + 1, PAGE, device=dev,
@@ -427,17 +730,18 @@ def phase_model(model, params, kv_bits=None, ticks=1):
                          dtype=torch.int32).to(dev)
     start = torch.zeros((B,), dtype=torch.int32, device=dev)
     model.prefill_chunk_paged(params, pool, pt, toks[:, :C], start,
-                              kernel="cuda")           # resident prefix
+                              **sides["cuda"])         # resident prefix
     logits = {}
-    for mode in ("cuda", "ref"):
+    for mode, kw in sides.items():
         copy = tree_map(torch.clone, pool)
         hidden, _ = model.prefill_chunk_paged(
-            params, copy, pt, toks[:, C:2 * C], start + C, kernel=mode)
-        logits[mode] = {"chunk": model.unembed(params, hidden[:, -1:])}
+            params, copy, pt, toks[:, C:2 * C], start + C, **kw)
+        logits[mode] = {"chunk": model.unembed(params, hidden[:, -1:],
+                                               dot=kw["dot"])}
         for t in range(ticks):
             step, _ = model.decode_step_paged(
                 params, copy, pt, toks[:, 2 * C + t:2 * C + t + 1],
-                start + 2 * C + t, kernel=mode)
+                start + 2 * C + t, **kw)
             logits[mode][f"decode{t}" if ticks > 1 else "decode"] = step
         del copy
     err = 0.0
@@ -475,11 +779,16 @@ def main_trace(cfg):
             for i, S in enumerate(lens)]
 
 
-def phase_engine(model, params, pa, extra_args=(), expect=BF16_KERNELS,
-                 bf16_pages=None):
+def phase_engine(model, params, extra_args=(), expect=BF16_KERNELS,
+                 bf16_pages=None, quant_bits=None, bf16_summary=None):
     """Phase 4: the main path, through the launcher's own construction
-    (``extra_args`` added to its command line). The kernels in ``expect``
-    must launch during the run and every other kernel must not."""
+    (``extra_args`` added to its command line; ``quant_bits`` overrides
+    the derived policy's weight bits, as the reference's tests do). The
+    kernels in ``expect`` must launch during the run and every other
+    kernel must not; with quantized weights every decode tick and chunk
+    launches W8A16 on the 4 attention projections and W4A16 on the 3 FFN
+    matmuls of each layer. Returns (launches, policy, args, summary)."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.launch import serve
@@ -490,19 +799,24 @@ def phase_engine(model, params, pa, extra_args=(), expect=BF16_KERNELS,
     reqs = main_trace(model.cfg)
     max_len = max(len(r.prompt) + r.max_new for r in reqs)
     policy = serve.make_policy(model.cfg, model, args, max_len)
-    label = f"engine[kv={policy.kv_bits or 'bf16'}]"
+    if quant_bits:
+        policy = dataclasses.replace(policy, quant_bits=quant_bits)
+    label = f"engine[kv={policy.kv_bits or 'bf16'}, " \
+        f"quant={policy.quant_bits}b]"
     print(f"{label}: admission[{args.hw}] max_batch={policy.max_batch} "
           f"prefill_chunk={policy.prefill_chunk} pages={policy.num_pages}"
           + (f" (bf16 policy: {bf16_pages} pages, "
              f"{policy.num_pages / bf16_pages:.2f}x)" if bf16_pages else "")
+          + f" quant={policy.quant_bits}b"
           + f" max_model_len={policy.max_model_len}", flush=True)
     engine = serve.make_engine(model, params, policy, args)
-    pa.reset_launches()
+    torch.cuda.synchronize()
+    reset_all_launches()
     t0 = time.perf_counter()
     outs = engine.run(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(pa.LAUNCHES)
+    launches = all_launches()
     for r in reqs:
         o = outs[r.rid]
         if len(o) != len(r.prompt) + r.max_new:
@@ -519,6 +833,15 @@ def phase_engine(model, params, pa, extra_args=(), expect=BF16_KERNELS,
             fail(f"{label}: kernel {name} was launched {n} times on a path "
                  f"that should not reach it")
     st = engine.stats
+    if policy.quant_bits < 16:
+        calls = st["decode_ticks"] + st["prefill_chunks"]
+        L = model.cfg.num_layers
+        for name, per_layer in (("quant_matmul_w8a16", 4),
+                                ("quant_matmul_w4a16", 3)):
+            if launches[name] != per_layer * L * calls:
+                fail(f"{label}: {name} launched {launches[name]} times, "
+                     f"want {per_layer * L} per decode tick and chunk "
+                     f"({calls} of them)")
     gen_total = st["decode_tokens"] + st["prefills"]
     ticks = engine.telemetry.ticks
     dec = [t.measured_s for t in ticks if t.kind == "decode"]
@@ -534,7 +857,13 @@ def phase_engine(model, params, pa, extra_args=(), expect=BF16_KERNELS,
           f"prefill chunks (mean {1e3 * sum(chk) / len(chk):.3f} ms), "
           f"{st['preemptions']} preemptions; launches {json.dumps(launches)}",
           flush=True)
-    return launches, policy, args
+    summary = {"tok_s": gen_total / dt, "decode_ms": 1e3 * sum(dec) / len(dec),
+               "chunk_ms": 1e3 * sum(chk) / len(chk)}
+    if bf16_summary:
+        print(f"{label}: against the bf16 run: "
+              + ", ".join(f"{k} {summary[k]:.3f} vs {bf16_summary[k]:.3f}"
+                          for k in summary), flush=True)
+    return launches, policy, args, summary
 
 
 def phase_profile(model, params, policy, args):
@@ -548,7 +877,8 @@ def phase_profile(model, params, policy, args):
 
     engine = serve.make_engine(model, params, policy, args)
     reqs = main_trace(model.cfg)
-    label = f"profile[kv={policy.kv_bits or 'bf16'}]"
+    label = f"profile[kv={policy.kv_bits or 'bf16'}, " \
+        f"quant={policy.quant_bits}b]"
     torch.cuda.synchronize()
     # device activity only: host-op events would multiply the trace and
     # its post-processing without adding device time
@@ -600,6 +930,44 @@ def phase_generate(model, params):
           flush=True)
 
 
+def phase_generate_quant(model, params):
+    """Phase 6, quantized: ``generate`` through the HAQ dot hook's kernels
+    (``make_quant_dot(GEN_QUANT_POLICY, use_kernel=True)``) on 2 prompts of
+    1000 tokens, launches zeroed before and read after: per forward (the
+    prefill and each decode step) W4A16 on FFN in and gate and W8A8 on FFN
+    out of every layer, and W8A16 on the lm_head. Returns the launches."""
+    import torch
+    from repro_torch.core.quantization import make_quant_dot
+    from repro_torch.launch.serve import generate
+    g = torch.Generator().manual_seed(6)
+    prompt = torch.randint(2, model.cfg.vocab_size, (2, 1000), generator=g,
+                           dtype=torch.int32).to(params["embed"].device)
+    dot = make_quant_dot(GEN_QUANT_POLICY, use_kernel=True)
+    gen = 16
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = generate(model, params, prompt, gen, page_size=PAGE, dot=dot)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    if out.shape != (2, 1000 + gen) or not torch.equal(out[:, :1000], prompt) \
+            or int(out.min()) < 0 or int(out.max()) >= model.cfg.vocab_size:
+        fail(f"generate[quant]: malformed output {tuple(out.shape)}")
+    L, forwards = model.cfg.num_layers, gen
+    want = {"quant_matmul_w4a16": 2 * L * forwards,
+            "quant_matmul_w8a8": L * forwards,
+            "quant_matmul_w8a16": forwards}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"generate[quant]: {name} launched {launches[name]} times, "
+                 f"want {n} ({forwards} forwards)")
+    print(f"generate[quant]: 2 x 1000-token prompts + {gen} tokens through "
+          f"{json.dumps(GEN_QUANT_POLICY)} in {dt:.3f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
 def phase_drift(model, params):
     """Phase 7: teacher-forced logit drift of the int8 and the KV_POLICY
     pool against the bf16 pool, through the kernels, over one 1000-token
@@ -640,7 +1008,6 @@ def main() -> int:
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build
-        from repro_torch.kernels import paged_attention as pa
         from repro_torch.models.api import build_model
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this "
@@ -662,6 +1029,7 @@ def main() -> int:
         max(len(r.prompt) + r.max_new for r in main_trace(model.cfg)))
     records = phase_kernels(prefill_chunk=probe.prefill_chunk,
                             n_blocks_main=probe.pages_per_seq)
+    records.update(phase_qmm_kernels())
 
     t1 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
@@ -672,22 +1040,36 @@ def main() -> int:
           f"{time.perf_counter() - t1:.1f} s", flush=True)
     phase_model(model, params)
     phase_model(model, params, kv_bits=KV_POLICY, ticks=3)
-    launches, policy, args = phase_engine(model, params, pa)
+    for w_bits in (8, 4):
+        phase_model(model, params, w_bits=w_bits)
+    launches, policy, args, bf16_summary = phase_engine(model, params)
     phase_profile(model, params, policy, args)
     with tempfile.TemporaryDirectory() as tmp:
         policy_file = Path(tmp) / "kv_policy.json"
         policy_file.write_text(json.dumps(KV_POLICY))
-        q_launches, q_policy, q_args = phase_engine(
-            model, params, pa, ["--kv-policy", str(policy_file)],
-            expect=QUANT_KERNELS, bf16_pages=policy.num_pages)
+        q_launches, q_policy, q_args, _ = phase_engine(
+            model, params, ["--kv-policy", str(policy_file)],
+            expect=QUANT_KERNELS, bf16_pages=policy.num_pages,
+            bf16_summary=bf16_summary)
     phase_profile(model, params, q_policy, q_args)
+    w_launches, w_policy, w_args, _ = phase_engine(
+        model, params, expect=WQ_KERNELS, quant_bits=WQ_BITS,
+        bf16_summary=bf16_summary)
+    phase_profile(model, params, w_policy, w_args)
     phase_generate(model, params)
+    g_launches = phase_generate_quant(model, params)
     phase_drift(model, params)
 
+    # launches per kernel from the run of the path it serves
+    source_run = {**{k: launches for k in BF16_KERNELS},
+                  **{k: q_launches for k in QUANT_KERNELS},
+                  "quant_matmul_w8a16": w_launches,
+                  "quant_matmul_w4a16": w_launches,
+                  "quant_matmul_w8a8": g_launches}
     line = {"kernels": []}
     for name, (route, source, replaces) in KERNEL_SOURCES.items():
         r = records[name]
-        n = launches[name] if name in BF16_KERNELS else q_launches[name]
+        n = source_run[name][name]
         line["kernels"].append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": n,

@@ -4,15 +4,92 @@ These define the semantics on the port's side: the CPU path of every
 kernel wrapper, and what ``chip_smoke.py`` holds each CUDA kernel against
 on the card. They mirror ``repro.kernels.ref`` function for function:
 the paged walks over bf16 and quantized (int8, or int4 packed along hd)
-page pools, and the KV-cache storage mapping the pool writers and the
-fused-dequant kernels agree on bit for bit. The weight-quant matmul
-oracles come with their slice.
+page pools, the KV-cache storage mapping the pool writers and the
+fused-dequant kernels agree on bit for bit, and the weight-quantized
+matmuls (W8A16, W4A16 with int4 packed along K, W8A8) with the quantizers
+that feed them.
 """
 from __future__ import annotations
 
 import torch
 
 F32 = torch.float32
+
+
+# --------------------------------------------------------- quant matmul ----
+def quantize_w8(w):
+    """Per-output-channel symmetric int8. Returns (q int8 (K,N), scale (N,)
+    fp32), q contiguous whatever the layout of ``w``."""
+    wf = w.to(F32)
+    scale = wf.abs().amax(dim=0) / 127.0 + 1e-12
+    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return q.contiguous(), scale
+
+
+def quantize_w4_packed(w):
+    """Per-channel symmetric int4, two values packed per int8 along K (the
+    rows): row 2i rides the low nibble, 2i+1 the high one. Returns
+    (packed int8 (K//2, N), scale (N,) fp32)."""
+    K = w.shape[0]
+    assert K % 2 == 0, K
+    wf = w.to(F32)
+    scale = wf.abs().amax(dim=0) / 7.0 + 1e-12
+    q = torch.round(wf / scale).clamp(-7, 7).to(torch.int8)
+    return pack_w4(q).contiguous(), scale
+
+
+def pack_w4(q):
+    """Pack int4 codes two per byte along K, the second-to-last axis: row
+    2i rides the low nibble, 2i+1 the high one. (..., K, N) int8 in
+    [-7, 7] -> (..., K//2, N) int8. The one definition of this format on
+    the port's side (serving/quant.py stores weights in it too)."""
+    lo = q[..., 0::2, :] & 0x0F
+    hi = (q[..., 1::2, :] & 0x0F) << 4
+    return (lo | hi).to(torch.int8)
+
+
+def unpack_w4(packed):
+    """Inverse of ``pack_w4``: (..., K//2, N) int8 -> (..., K, N) int8 in
+    [-7, 7] (arithmetic shifts on int8 sign-extend the nibbles)."""
+    p = packed.to(torch.int8)
+    lo = (p << 4) >> 4
+    hi = p >> 4
+    *lead, K2, N = p.shape
+    return torch.stack([lo, hi], dim=-2).reshape(*lead, K2 * 2, N)
+
+
+def quantize_a8(x):
+    """Per-tensor symmetric int8 activations. Returns (q int8, scale ()
+    fp32)."""
+    xf = x.to(F32)
+    scale = (xf.abs().amax() + 1e-12) / 127.0
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quant_matmul_w8a16(x, w_q, scale):
+    """x (M,K) bf16/f32, w_q (K,N) int8, scale (N,) -> (M,N) x.dtype: the
+    product in fp32, times the per-column scale, cast once."""
+    out = x.to(F32) @ w_q.to(F32)
+    return (out * scale[None, :]).to(x.dtype)
+
+
+def quant_matmul_w4a16(x, packed, scale):
+    return quant_matmul_w8a16(x, unpack_w4(packed), scale)
+
+
+def w8a8_accumulator(x_q, w_q):
+    """The exact int32 product of int8 x (M,K) and int8 w (K,N). Taken in
+    fp64, where every partial sum (|acc| <= 127**2 * K < 2**53) is exact,
+    because an integer matmul has no CUDA path in PyTorch."""
+    return (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
+
+
+def quant_matmul_w8a8(x_q, x_scale, w_q, w_scale, out_dtype=torch.bfloat16):
+    """int8 x int8 -> int32 accumulate -> rescale (acc * x_scale) * w_scale,
+    in the reference's order, cast to ``out_dtype``."""
+    acc = w8a8_accumulator(x_q, w_q)
+    return (acc.to(F32) * x_scale * w_scale[None, :]).to(out_dtype)
 
 
 # ----------------------------------------------------- KV-cache quant ------

@@ -10,13 +10,18 @@ as the reference baseline.
   --kv-bits 8``
 ``python -m repro_torch.launch.serve --arch gemma2-2b --max-batch 8 \\
   --kv-policy POLICY.json``   (e.g. ``{"sub0": 4, "sub1": 8}``)
+``python -m repro_torch.launch.serve --arch gemma2-2b --sequential \\
+  --quant-policy QUANT.json``  (e.g. ``{"ffn_in": [4, 16]}``)
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no CPU request it stops with an error. ``--kv-bits`` and
 ``--kv-policy`` serve from a quantized KV pool (serving/kvquant); the
-HAQ-searched ``--kv-policy haq`` raises until its search is ported. The
-reference's ``--mesh``, ``--quant-policy``, ``--autotune`` and
-``--serving-config`` flags come with their slices.
+HAQ-searched ``--kv-policy haq`` raises until its search is ported.
+``--quant-policy`` (sequential mode only, as in the reference) maps HAQ
+sites to ``[w_bits, a_bits]`` and serves through ``make_quant_dot``'s
+fake-quant hook; the engine's weight quantization comes from the
+admission policy's ``quant_bits``. The reference's ``--mesh``,
+``--autotune`` and ``--serving-config`` flags come with their slices.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import get_config, tiny_config
 from repro_torch.core.hardware_model import DEFAULT_HW, HARDWARES
+from repro_torch.core.quantization import make_quant_dot
 from repro_torch.models.api import build_model
 from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import normalize_kv_bits
@@ -77,16 +83,19 @@ def _sample(logits, temperature, generator):
 
 
 def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
-             generator=None, page_size: int = 16, kernel: str = "auto"):
+             generator=None, page_size: int = 16, kernel: str = "auto",
+             dot=None):
     """prompt (B, S) int32 on the parameters' device -> (B, S+gen_len).
 
     Sequential baseline: one fixed batch, no admission — kept as the
     exactness reference. It prefills the whole prompt with the dense
     forward (prompts under 2048 tokens) and decodes through the same
-    paged-attention walk as the engine over an identity page table."""
+    paged-attention walk as the engine over an identity page table.
+    ``dot`` (e.g. ``make_quant_dot(policy)``) overrides every matmul of
+    both."""
     B, S = prompt_tokens.shape
     logits, cache = model.prefill(params, {"tokens": prompt_tokens},
-                                  cache_layout="full")
+                                  cache_layout="full", dot=dot)
     pool, pt = _identity_paged_pool(cache, B, S + gen_len, page_size)
     out = [prompt_tokens.to(torch.int32)]
     tok = _sample(logits, temperature, generator)
@@ -97,7 +106,8 @@ def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
         positions = torch.full((B,), S + i, dtype=torch.int32,
                                device=prompt_tokens.device)
         logits, pool = model.decode_step_paged(params, pool, pt, tok,
-                                               positions, kernel=kernel)
+                                               positions, kernel=kernel,
+                                               dot=dot)
         tok = _sample(logits, temperature, generator)
     return torch.cat(out, dim=1)
 
@@ -155,6 +165,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "0.5, or 1.0 with --reserve-upfront)")
     ap.add_argument("--sequential", action="store_true",
                     help="fixed-batch generate loop instead of the engine")
+    ap.add_argument("--quant-policy", default="",
+                    help="json file: {site: [w_bits, a_bits]} "
+                         "(sequential mode only)")
     ap.add_argument("--trace-out", default="",
                     help="engine mode: write the telemetry Chrome trace "
                          "to this path and print the telemetry summary")
@@ -220,6 +233,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.prompt_len < 1:
         ap.error("--prompt-len must be >= 1")
+    if args.quant_policy and not args.sequential:
+        ap.error("--quant-policy applies to --sequential mode only; the "
+                 "engine derives its quantization from the admission policy")
     if args.sequential and (args.kv_policy or args.kv_bits != 16):
         ap.error("--kv-bits/--kv-policy apply to engine mode only; the "
                  "sequential baseline is the bf16 exactness reference")
@@ -237,6 +253,13 @@ def main(argv=None):
                         device)
 
     if args.sequential:
+        dot = None
+        if args.quant_policy:
+            with open(args.quant_policy) as f:
+                qpolicy = {k: tuple(v) for k, v in json.load(f).items()}
+            dot = make_quant_dot(qpolicy)
+            print(f"serving with quantization policy over "
+                  f"{len(qpolicy)} sites")
         rng = np.random.default_rng(0)
         prompt = torch.from_numpy(rng.integers(
             2, cfg.vocab_size, (args.batch, args.prompt_len))
@@ -246,7 +269,8 @@ def main(argv=None):
         t0 = time.time()
         out = generate(model, params, prompt, args.gen,
                        temperature=args.temperature, generator=gen,
-                       page_size=args.page_size, kernel=args.paged_kernel)
+                       page_size=args.page_size, kernel=args.paged_kernel,
+                       dot=dot)
         out = out.cpu().numpy()
         dt = time.time() - t0
         print(f"{cfg.name}: generated {args.gen} tokens x batch "

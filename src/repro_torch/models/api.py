@@ -1,7 +1,10 @@
 """Model facade (port of ``repro.models.api``): ``build_model(cfg)``
 returns a ``Model`` with the entry points the serving engine and
 ``launch.serve.generate`` call. Parameters are nested dicts of tensors
-with the reference's pytree keys (see models/convert.py)."""
+with the reference's pytree keys (see models/convert.py). The ``dot``
+hook threads HAQ quantization through every matmul: it receives
+(x, w, site_name) and returns the product (core/quantization.py,
+serving/quant.py)."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,40 +35,41 @@ class Model:
 
     # -- compute ------------------------------------------------------------
     def forward(self, params, batch, *, want_cache=False,
-                unembed_mode="full", cache_layout="full"):
+                unembed_mode="full", cache_layout="full", dot=None):
         return transformer.forward(params, batch, self.cfg,
                                    want_cache=want_cache,
                                    unembed_mode=unembed_mode,
-                                   cache_layout=cache_layout)
+                                   cache_layout=cache_layout, dot=dot)
 
     def prefill(self, params, batch, *, cache_layout="full",
-                unembed_mode="last"):
+                unembed_mode="last", dot=None):
         logits, cache, _, _ = self.forward(params, batch, want_cache=True,
                                            unembed_mode=unembed_mode,
-                                           cache_layout=cache_layout)
+                                           cache_layout=cache_layout,
+                                           dot=dot)
         return logits, cache
 
-    def unembed(self, params, hidden):
+    def unembed(self, params, hidden, *, dot=None):
         """Project hidden states (B, S, D) to fp32 logits."""
-        return transformer.unembed(params, hidden, self.cfg)
+        return transformer.unembed(params, hidden, self.cfg, dot=dot)
 
     def decode_step_paged(self, params, pool, page_table, token, positions,
-                          *, kernel="auto"):
+                          *, kernel="auto", dot=None):
         """Continuous-batching decode over the paged pool (updated in
         place). ``kernel``: "auto" (CUDA kernel on CUDA tensors, plain walk
         on CPU ones), "cuda" or "ref"."""
         return transformer.decode_step_paged(params, pool, page_table, token,
                                              positions, self.cfg,
-                                             kernel=kernel)
+                                             kernel=kernel, dot=dot)
 
     def prefill_chunk_paged(self, params, pool, page_table, tokens,
-                            positions, *, kernel="auto"):
+                            positions, *, kernel="auto", dot=None):
         """Chunked prefill of tokens (B, Sq) starting at ``positions[b]``;
         returns (hidden (B, Sq, D), pool). See
         transformer.prefill_chunk_paged."""
         return transformer.prefill_chunk_paged(params, pool, page_table,
                                                tokens, positions, self.cfg,
-                                               kernel=kernel)
+                                               kernel=kernel, dot=dot)
 
     # -- caches -------------------------------------------------------------
     def pool_specs(self, num_pages: int, page_size: int, kv_bits=None):

@@ -40,19 +40,29 @@ def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int):
     }
 
 
-def qkv(p, x, theta: float, positions):
-    """Project and rope. positions: (B, S) absolute positions (or None)."""
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
+def _proj_in(x, w, name):
+    return torch.einsum("bsd,dnh->bsnh", x, w)
+
+
+def _proj_out(o, w, name):
+    return torch.einsum("bsnh,nhd->bsd", o, w)
+
+
+def qkv(p, x, theta: float, positions, *, dot=None):
+    """Project and rope. positions: (B, S) absolute positions (or None).
+    dot: optional (x, w, name) -> y override (sites attn_q/k/v)."""
+    dot = dot or _proj_in
+    q = dot(x, p["wq"], "attn_q")
+    k = dot(x, p["wk"], "attn_k")
+    v = dot(x, p["wv"], "attn_v")
     if theta > 0 and positions is not None:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
     return q, k, v
 
 
-def _out_proj(o, p):
-    return torch.einsum("bsnh,nhd->bsd", o, p["wo"])
+def _out_proj(o, p, dot=None):
+    return (dot or _proj_out)(o, p["wo"], "attn_o")
 
 
 def _attend(q, k, v, mask, cap: float):
@@ -83,7 +93,7 @@ def local_mask(S: int, T: int, window: int, device=None):
     return ((j <= i) & (j > i - window))[None, None]
 
 
-def attention_fwd(p, x, kind: str, cfg, positions):
+def attention_fwd(p, x, kind: str, cfg, positions, *, dot=None):
     """Whole-sequence attention. Returns (out (B,S,D), cache_entry) with
     the roped k/v in chronological (full) layout, ready for the page pool.
 
@@ -95,13 +105,13 @@ def attention_fwd(p, x, kind: str, cfg, positions):
             f"whole-prompt attention over {S} >= {FLASH_MIN} tokens needs "
             f"the flash_attention_fwd kernel (ROADMAP Queue 2, item 5); "
             f"use chunked prefill")
-    q, k, v = qkv(p, x, cfg.rope_theta, positions)
+    q, k, v = qkv(p, x, cfg.rope_theta, positions, dot=dot)
     if kind == "local":
         mask = local_mask(S, S, cfg.window_size, device=x.device)
     else:
         mask = causal_mask(S, S, device=x.device)
     o = _attend(q, k, v, mask, cfg.attn_softcap)
-    return _out_proj(o, p), {"k": k, "v": v}
+    return _out_proj(o, p, dot), {"k": k, "v": v}
 
 
 def write_kv(pool, index, new):
@@ -138,7 +148,8 @@ def _walk(q, pool_k, pool_v, page_table, positions, window, cap, kernel,
 
 
 def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
-                           kind: str, cfg, *, kernel: str = "auto"):
+                           kind: str, cfg, *, kernel: str = "auto",
+                           dot=None):
     """Slot-indexed one-token decode against a paged KV pool.
 
     x           (B, 1, D)   one new token's activations per sequence
@@ -148,6 +159,7 @@ def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
     page_table  (B, n_pages) int32; unused tails point at scratch page 0
     positions   (B,) int32  absolute position of the incoming token
     kernel      "auto" | "cuda" | "ref" — kernels/ops.py dispatch
+    dot         optional (x, w, name) -> y override of the projections
 
     The new k/v are written in place into page
     ``page_table[b, pos // page]`` slot ``pos % page`` (the reference
@@ -157,7 +169,8 @@ def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
     the pools being the updated inputs.
     """
     page = _page_size(pool_k)
-    q, k_new, v_new = qkv(p, x, cfg.rope_theta, positions[:, None])
+    q, k_new, v_new = qkv(p, x, cfg.rope_theta, positions[:, None],
+                          dot=dot)
     pos = positions.long()
     pids = page_table.long().gather(1, (pos // page)[:, None])[:, 0]
     slots = pos % page
@@ -168,11 +181,12 @@ def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
     window = cfg.window_size if kind == "local" else 0
     o = _walk(q[:, 0], pool_k, pool_v, page_table, positions, window,
               cfg.attn_softcap, kernel, prefill=False)[:, None]
-    return _out_proj(o, p), pool_k, pool_v
+    return _out_proj(o, p, dot), pool_k, pool_v
 
 
 def attention_prefill_paged(p, x, pool_k, pool_v, page_table, positions,
-                            kind: str, cfg, *, kernel: str = "auto"):
+                            kind: str, cfg, *, kernel: str = "auto",
+                            dot=None):
     """Chunked prefill against a paged KV pool (prefill-with-cache).
 
     x           (B, Sq, D)  one prompt chunk's activations per sequence
@@ -189,7 +203,7 @@ def attention_prefill_paged(p, x, pool_k, pool_v, page_table, positions,
     B, Sq, _ = x.shape
     n_blocks = page_table.shape[1]
     abs_pos = positions.long()[:, None] + torch.arange(Sq, device=x.device)
-    q, k_new, v_new = qkv(p, x, cfg.rope_theta, abs_pos)
+    q, k_new, v_new = qkv(p, x, cfg.rope_theta, abs_pos, dot=dot)
     # A final chunk padded past the page-table width routes its overflow
     # rows to the scratch page; they may write it more than once, which is
     # harmless but order-dependent garbage.
@@ -202,4 +216,4 @@ def attention_prefill_paged(p, x, pool_k, pool_v, page_table, positions,
     window = cfg.window_size if kind == "local" else 0
     o = _walk(q, pool_k, pool_v, page_table, positions, window,
               cfg.attn_softcap, kernel, prefill=True)
-    return _out_proj(o, p), pool_k, pool_v
+    return _out_proj(o, p, dot), pool_k, pool_v

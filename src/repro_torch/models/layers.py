@@ -72,13 +72,21 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def ffn_apply(p, x: torch.Tensor, activation: str) -> torch.Tensor:
-    h = x @ p["w_in"]
+def _matmul(x, w, name):
+    return x @ w
+
+
+def ffn_apply(p, x: torch.Tensor, activation: str, *,
+              dot=None) -> torch.Tensor:
+    """dot: optional (x, w, name) -> y override (the HAQ quantized path,
+    sites ffn_in, ffn_gate, ffn_out)."""
+    dot = dot or _matmul
+    h = dot(x, p["w_in"], "ffn_in")
     if "w_gate" in p:
-        h = _act(x @ p["w_gate"], activation) * h
+        h = _act(dot(x, p["w_gate"], "ffn_gate"), activation) * h
     else:
         h = _act(h, activation)
-    return h @ p["w_out"]
+    return dot(h, p["w_out"], "ffn_out")
 
 
 def embed_defs(vocab: int, d_model: int):

@@ -94,9 +94,9 @@ def param_defs(cfg) -> dict:
 
 
 # ----------------------------------------------------------------- blocks ----
-def _ffn_half(p, x, cfg):
+def _ffn_half(p, x, cfg, dot):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    f = ffn_apply(p["ffn"], h, cfg.activation)
+    f = ffn_apply(p["ffn"], h, cfg.activation, dot=dot)
     if cfg.sandwich_norm:
         f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
     return x + f
@@ -108,28 +108,29 @@ def _attn_residual(p, x, a, cfg):
     return x + a
 
 
-def _dense_block_fwd(p, x, kind, cfg, positions):
+def _dense_block_fwd(p, x, kind, cfg, positions, dot):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, cache = attn.attention_fwd(p["attn"], h, kind["attn"], cfg, positions)
-    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg), cache
+    a, cache = attn.attention_fwd(p["attn"], h, kind["attn"], cfg, positions,
+                                  dot=dot)
+    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg, dot), cache
 
 
 def _dense_block_decode_paged(p, x, pool_kv, page_table, positions, kind,
-                              cfg, kernel):
+                              cfg, kernel, dot):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, _, _ = attn.attention_decode_paged(
         p["attn"], h, pool_kv["k"], pool_kv["v"], page_table, positions,
-        kind["attn"], cfg, kernel=kernel)
-    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg)
+        kind["attn"], cfg, kernel=kernel, dot=dot)
+    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg, dot)
 
 
 def _dense_block_prefill_paged(p, x, pool_kv, page_table, positions, kind,
-                               cfg, kernel):
+                               cfg, kernel, dot):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, _, _ = attn.attention_prefill_paged(
         p["attn"], h, pool_kv["k"], pool_kv["v"], page_table, positions,
-        kind["attn"], cfg, kernel=kernel)
-    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg)
+        kind["attn"], cfg, kernel=kernel, dot=dot)
+    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg, dot)
 
 
 # ---------------------------------------------------------------- embed ----
@@ -141,19 +142,28 @@ def embed_tokens(params, tokens, cfg):
     return x
 
 
-def unembed(params, x, cfg):
+def unembed(params, x, cfg, *, dot=None):
     """Project hidden states (..., D) to fp32 logits.
 
-    The reference contracts the bf16 operands with an fp32 result
-    (``preferred_element_type=f32``); a bf16 ``torch.matmul`` would round
-    the logits to bf16. Both operands are upcast to fp32 instead — every
+    With a ``dot`` hook the logits are ``dot(x, w, "lm_head")`` cast to
+    fp32 afterwards, as the reference does: a bf16 weight (the tied
+    embedding under ``dequant_dot``, or a site the hook leaves alone)
+    gives bf16-rounded logits there too.
+
+    Without a hook the reference contracts the bf16 operands with an fp32
+    result (``preferred_element_type=f32``); a bf16 ``torch.matmul`` would
+    round the logits to bf16. Both operands are upcast to fp32 instead — every
     bf16 product is exact in fp32, so this is the same contraction — at
     the price of a transient fp32 copy of the weight per call (2.36 GB for
     the tied gemma2-2b table) rather than a resident one. Callers that
     need fp32 parity on the card keep TF32 off
     (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = softcap(x.to(F32) @ w.to(F32), cfg.logit_softcap)
+    if dot is None:
+        logits = x.to(F32) @ w.to(F32)
+    else:
+        logits = dot(x, w, "lm_head").to(F32)
+    logits = softcap(logits, cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:  # mask vocab-padding columns
         pad_mask = torch.arange(cfg.padded_vocab,
                                 device=x.device) < cfg.vocab_size
@@ -163,7 +173,8 @@ def unembed(params, x, cfg):
 
 # --------------------------------------------------------------- forward ----
 def forward(params, batch, cfg, *, want_cache: bool,
-            unembed_mode: str = "full", cache_layout: str = "full"):
+            unembed_mode: str = "full", cache_layout: str = "full",
+            dot=None):
     """Full-sequence forward (prefill).
 
     unembed_mode: "full" -> logits (B,S,V); "last" -> logits (B,1,V);
@@ -172,6 +183,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
     (n_groups, B, S, K, hd) per sub-layer slot (what the paged engine
     copies into its pool); the reference's ring layout for dense decode is
     not ported.
+    dot: optional (x, w, name) -> y override of every matmul site.
     Returns (logits_or_hidden, caches or None, aux 0.0, loss_mask None).
     """
     _require_dense(cfg, "forward")
@@ -187,7 +199,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
         f"sub{j}": {"k": [], "v": []} for j in range(period_of(cfg))}
     for g, j, kind in _layers(cfg):
         x, c = _dense_block_fwd(_group(params["blocks"][f"sub{j}"], g), x,
-                                kind, cfg, positions)
+                                kind, cfg, positions, dot)
         if want_cache:
             caches[f"sub{j}"]["k"].append(c["k"])
             caches[f"sub{j}"]["v"].append(c["v"])
@@ -200,38 +212,39 @@ def forward(params, batch, cfg, *, want_cache: bool,
         return x, out_cache, 0.0, None
     if unembed_mode == "last":
         x = x[:, -1:]
-    return unembed(params, x, cfg), out_cache, 0.0, None
+    return unembed(params, x, cfg, dot=dot), out_cache, 0.0, None
 
 
 # ----------------------------------------------------------- paged decode ----
 def decode_step_paged(params, pool, page_table, token, positions, cfg, *,
-                      kernel="auto"):
+                      kernel="auto", dot=None):
     """Batched slot-indexed decode against a paged KV pool.
 
     token (B,1) int32; positions (B,) int32 per-sequence absolute
     positions; pool is the dict from ``init_pool`` and page_table
     (B, n_pages) maps each sequence's logical blocks to physical pages
     (shared across layers). ``kernel`` selects the paged-attention path
-    (see attention_decode_paged). The pool is updated in place.
-    Returns (logits (B,1,V), pool)."""
+    (see attention_decode_paged); ``dot`` overrides every matmul site.
+    The pool is updated in place. Returns (logits (B,1,V), pool)."""
     _require_dense(cfg, "paged decode")
     x = embed_tokens(params, token, cfg)
     for g, j, kind in _layers(cfg):
         x = _dense_block_decode_paged(
             _group(params["blocks"][f"sub{j}"], g), x,
             _group(pool[f"sub{j}"], g), page_table, positions, kind, cfg,
-            kernel)
+            kernel, dot)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params, x, cfg), pool
+    return unembed(params, x, cfg, dot=dot), pool
 
 
 # --------------------------------------------------------- paged prefill ----
 def prefill_chunk_paged(params, pool, page_table, tokens, positions, cfg, *,
-                        kernel="auto"):
+                        kernel="auto", dot=None):
     """One chunked-prefill step: run ``tokens`` (B, Sq) — a contiguous
     prompt chunk whose first token sits at ``positions[b]`` — through every
     layer, writing each layer's chunk K/V into the pool in place and
-    attending over the pool itself (resident prefix + the chunk).
+    attending over the pool itself (resident prefix + the chunk);
+    ``dot`` overrides every matmul site.
 
     Returns (hidden (B, Sq, D) final-norm hidden states, pool); the caller
     unembeds only the rows it needs."""
@@ -241,7 +254,7 @@ def prefill_chunk_paged(params, pool, page_table, tokens, positions, cfg, *,
         x = _dense_block_prefill_paged(
             _group(params["blocks"][f"sub{j}"], g), x,
             _group(pool[f"sub{j}"], g), page_table, positions, kind, cfg,
-            kernel)
+            kernel, dot)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), pool
 
 

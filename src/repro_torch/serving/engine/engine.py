@@ -28,9 +28,13 @@ the admission roofline's prediction for the same dispatch shape.
 
 ``policy.kv_bits`` selects a quantized KV pool (int8, int4 or mixed per
 sub-layer slot, serving/kvquant): every pool writer quantizes on write and
-attention runs the fused-dequant walks. Not ported yet: HAQ weight
-quantization (``policy.quant_bits < 16``) and the SPMD mesh — each raises
-NotImplementedError.
+attention runs the fused-dequant walks. ``policy.quant_bits < 16`` serves
+HAQ-quantized weights (serving/quant.py): the matmul weights are stored
+int8 or int4 and the ``dequant_dot`` hook reaches every matmul of the
+decode, chunk and whole-prompt prefill calls and the unembed — the W8A16
+and W4A16 kernels on the stored codes on the card. Not ported yet: the
+SPMD mesh, which raises NotImplementedError (with or without quantized
+weights).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import normalize_kv_bits, sublayer_kinds
+from repro_torch.serving import quant as squant
 from repro_torch.serving.engine.admission import AdmissionPolicy, \
     RooflinePredictor
 from repro_torch.serving.engine.pool import JitLRU, PagedKVPool
@@ -79,18 +84,21 @@ class Engine:
                 f"the port's engine serves the dense family only so far; "
                 f"{cfg.name} (family={cfg.family!r}, "
                 f"frontend={cfg.frontend!r}) waits for its slice (ROADMAP)")
-        if policy.quant_bits < 16:
-            raise NotImplementedError(
-                "HAQ weight-quantized serving comes with its slice (ROADMAP "
-                "Queue 1, item 7)")
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded engine comes with its slice (ROADMAP Queue 1, "
-                "item 9)")
+                "item 9); like the reference's, it will refuse quantized "
+                "weights")
         self.model = model
         self.policy = policy
         self.temperature = temperature
         self.seed = seed
+        dot = None
+        if policy.quant_bits < 16:
+            params = squant.quantize_params(
+                params, default_bits=policy.quant_bits)
+            dot = squant.dequant_dot
+        self._dot = dot
         self.params = params
         self.device = params["embed"].device
         self.telemetry = telemetry if telemetry is not None else Telemetry()
@@ -122,9 +130,10 @@ class Engine:
             # unembed only the last real prompt position
             hidden, cache, _, _ = model.forward(
                 self.params, {"tokens": toks}, want_cache=True,
-                unembed_mode="none", cache_layout="full")
+                unembed_mode="none", cache_layout="full", dot=dot)
             return model.unembed(self.params,
-                                 hidden[:, last_idx:last_idx + 1]), cache
+                                 hidden[:, last_idx:last_idx + 1],
+                                 dot=dot), cache
 
         self._prefill_jits = JitLRU(self.PREFILL_JIT_CAP)
         self._make_prefill = lambda: prefill_body
@@ -320,7 +329,7 @@ class Engine:
         hidden, self.kv.pool = self.model.prefill_chunk_paged(
             self.params, self.kv.pool, self._tensor(pt), self._tensor(toks),
             self._tensor(np.asarray([start], np.int32)),
-            kernel=self._kernel)
+            kernel=self._kernel, dot=self._dot)
         # fence before the step's stall timer stops: launches are async
         _sync(self.device)
         pred = self._predict("chunk", 1, C)
@@ -334,7 +343,7 @@ class Engine:
         if end == S:
             row = S - 1 - start
             logits = self.model.unembed(self.params,
-                                        hidden[:, row:row + 1])
+                                        hidden[:, row:row + 1], dot=self._dot)
             self._first_token(seq, logits[0, 0].cpu().numpy())
         return pred
 
@@ -385,7 +394,7 @@ class Engine:
         logits, self.kv.pool = self.model.decode_step_paged(
             self.params, self.kv.pool, self._tensor(pt),
             self._tensor(tokens), self._tensor(positions),
-            kernel=self._kernel)
+            kernel=self._kernel, dot=self._dot)
         # fence before the host transfer so the tick's measured duration
         # is launch + compute, not whenever the stream drains
         _sync(self.device)

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on a card only: the bf16 pair and the fused-dequant pair over
-int8 and packed-int4 pools, at full gemma2-2b head width. Imports no JAX
+int8 and packed-int4 pools, at full gemma2-2b head width, and the three
+weight-quantized matmuls (W8A16, W4A16, W8A8). Imports no JAX
 (the card's machine has none); run there, from the repository root, with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -12,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
+from repro_torch.kernels import quant_matmul as tqm  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from test_torch_cases import bf16_close, paged_case  # noqa: E402
 
@@ -74,3 +76,98 @@ def test_cuda_quant_kernels_match_plain(bits, window, cap):
         if cap:
             nocap = plain(qq, *pools, pt, pos, window=window).float()
             assert not bf16_close(nocap, want)
+
+
+def _qmm_inputs(M, K, N, per_tensor, seed=0):
+    """Random weights quantized both ways, bf16 and fp32 x (on the card).
+    ``per_tensor`` replaces the per-channel scales by one (1,) scale, as
+    serving/quant.py stores them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device="cuda")
+    x = torch.randn((M, K), generator=g, device="cuda")
+    q8, s8 = tref.quantize_w8(w)
+    q4, s4 = tref.quantize_w4_packed(w)
+    if per_tensor:
+        s8, s4 = s8.amax().reshape(1), s4.amax().reshape(1)
+    return x, (q8, s8), (q4, s4)
+
+
+# fp32 x through W8A16/W4A16: the kernel splits x into three bf16 terms
+# whose products with the integer codes are exact, so what separates it
+# from the plain version is fp32 accumulation: the tensor cores may drop
+# up to an fp32 ulp of the running sum per mma step, over 3 * K / 16
+# steps. Outputs are held to that many ulps of the row's max |ref|
+# (chip_smoke.py states the same bound); a kernel that rounds x to bf16
+# once (about 1e-3 of a typical output off) misses it.
+def fp32_close(got, want, K):
+    rowmax = want.abs().amax(-1, keepdim=True)
+    return bool(((got - want).abs() <= 3 * K / 16 * 2.0 ** -23 * rowmax)
+                .all())
+
+
+def _launched(name, fn):
+    before = tqm.LAUNCHES[name]
+    out = fn()
+    assert tqm.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [5, 37])
+@pytest.mark.parametrize("per_tensor", [False, True])
+def test_cuda_quant_matmul_match_plain(M, per_tensor):
+    """On a card: the three weight-quantized matmuls against their plain
+    versions at a ragged M, bf16 and fp32 x, per-channel and per-tensor
+    scales; one launch counted per call. W8A16/W4A16 are held to the
+    kernel tolerance with bf16 x (one bf16 ulp of the element plus one of
+    the row's max, from summation order) and to ``fp32_close`` with fp32
+    x, which x rounded to bf16 must miss; W8A8 with an fp32 output must
+    equal its plain version bit for bit — the int32 accumulator is exact
+    and the rescale runs in the same order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    x, (q8, s8), (q4, s4) = _qmm_inputs(M, 256, 192, per_tensor)
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(dt)
+        for name, fn, plain, w, s in (
+                ("quant_matmul_w8a16", tqm.quant_matmul_w8a16,
+                 tref.quant_matmul_w8a16, q8, s8),
+                ("quant_matmul_w4a16", tqm.quant_matmul_w4a16,
+                 tref.quant_matmul_w4a16, q4, s4)):
+            got = _launched(name, lambda: fn(xd, w, s))
+            assert got.dtype == dt and got.shape == (M, 192)
+            want = plain(xd, w, s).float()
+            if dt == torch.float32:
+                assert fp32_close(got, want, xd.shape[1])
+                # control: x rounded to bf16 once must miss that bound
+                assert not fp32_close(plain(xd.bfloat16().float(), w, s),
+                                      want, xd.shape[1])
+            else:
+                assert bf16_close(got.float(), want)
+        xq, xs = tref.quantize_a8(xd)
+        got = _launched("quant_matmul_w8a8", lambda: tqm.quant_matmul_w8a8(
+            xq, xs, q8, s8, out_dtype=dt))
+        want = tref.quant_matmul_w8a8(xq, xs, q8, s8, out_dtype=dt)
+        if dt == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            assert bf16_close(got.float(), want.float())
+
+
+@pytest.mark.cuda
+def test_cuda_quant_matmul_refuses_bad_inputs():
+    """On a card: a CPU weight beside a CUDA x, a misaligned x and a K
+    that is not a multiple of the tile each raise, and launch nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    x, (q8, s8), _ = _qmm_inputs(8, 256, 128, False)
+    xb = x.bfloat16()
+    before = dict(tqm.LAUNCHES)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul_w8a16(xb, q8.cpu(), s8)
+    buf = torch.zeros(8 * 256 + 1, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        tqm.quant_matmul_w8a16(buf[1:].view(8, 256), q8, s8)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul_w8a16(xb[:, :96].contiguous(), q8[:96], s8)
+    assert tqm.LAUNCHES == before

@@ -153,14 +153,16 @@ def test_engine_matches_port_generate(models):
 
 
 def test_engine_unported_options_raise(models):
-    """Quantized weights and a mesh wait for their slices and say so
-    instead of serving something else (quantized KV pools are served:
-    tests/test_torch_kvquant.py)."""
+    """A mesh waits for its slice and says so instead of serving something
+    else, with bf16 weights and with quantized ones, as the reference
+    refuses a mesh with quant_bits < 16 (quantized KV pools and quantized
+    weights are served: tests/test_torch_kvquant.py,
+    tests/test_torch_weight_quant.py)."""
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError):
-        Engine(tm, tp, _policy(quant_bits=8))
-    with pytest.raises(NotImplementedError):
         Engine(tm, tp, _policy(), mesh=object())
+    with pytest.raises(NotImplementedError):
+        Engine(tm, tp, _policy(quant_bits=8), mesh=object())
 
 
 def test_engine_whole_prompt_prefill_teacher_forced(models, monkeypatch):
