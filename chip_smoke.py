@@ -13,39 +13,53 @@ Phases, each fatal on failure:
                 plain version, a one-call PyTorch yardstick
                 (scaled_dot_product_attention on the gathered dense view,
                 dequantized beforehand for a quantized pool; never called
-                by the port) and its bound. The weight-quantized matmuls
-                (W8A16, W4A16, W8A8) at every (K, N) the quantized paths
-                launch, ragged M and the main paths' rows (2, 8, 2000,
-                4096), bf16 and fp32 x, per-channel and per-tensor scales
-                (fp32 outputs within an fp32 ulp of the row's max per
-                tensor-core step, W8A8's int32 products exact), then checked and timed on the same inputs
-                at (2304 -> 9216), M = 8 and 4096, beside their plain
-                versions, torch.matmul on the dequantized bf16 weight
-                (torch._int_mm for W8A8) and their bounds;
+                by the port) and its bound. Flash attention at the
+                whole-prompt path's shapes (S = 4096 and 8192, global and
+                local layers, cap 0 and 50), then timed there beside its
+                plain version, SDPA and its bound. The weight-quantized
+                matmuls (W8A16, W4A16, W8A8) at every (K, N) the quantized
+                paths launch, ragged M and the main paths' rows (2, 8,
+                2000, 4096), bf16 and fp32 x, per-channel and per-tensor
+                scales (fp32 outputs within an fp32 ulp of the row's max
+                per tensor-core step, W8A8's int32 products exact), then
+                checked and timed on the same inputs at (2304 -> 9216),
+                M = 8 and 4096, beside their plain versions, torch.matmul
+                on the dequantized bf16 weight (torch._int_mm for W8A8)
+                and their bounds. Kernels and yardsticks are timed on the
+                device (device_ms: a CUDA graph of the calls), the plain
+                versions from the host (time_ms);
   3. model    — full-width gemma2-2b (26 layers, random weights from a
                 seed): one prefill_chunk_paged and decode_step_paged ticks
                 through the kernels and through the plain walk, on copies
-                of one pool, logits compared — on a bf16 pool, then on the
-                mixed pool (int4 local layers, int8 global ones); then with
-                the weights stored at 8 and at 4 bits (serving/quant.py),
-                through dequant_dot's kernels against its plain version,
-                and the bytes the stored weights hold against bf16;
+                of one pool, logits compared — on a bf16 pool; one
+                whole-prompt forward of 4096 tokens through flash
+                attention and through its plain version; the chunk and
+                ticks again on the mixed pool (int4 local layers, int8
+                global ones); then with the weights stored at 8 and at 4
+                bits (serving/quant.py), through dequant_dot's kernels
+                against its plain version, and the bytes the stored
+                weights hold against bf16;
   4. engine   — the main path: Engine.run built by repro_torch.launch.serve
                 (derive_policy on h100-sxm, --max-batch 8, page 16, chunked
                 prefill) over 8 prompts of 300-1200 tokens and one of 4200
                 that crosses the 4096 window, 32 new tokens each, with the
                 kernels' launch counts zeroed just before and read after;
                 once on the bf16 pool (the two bf16 kernels launched, the
-                quant pair not), once with --kv-policy {"sub0": 4,
-                "sub1": 8} (the quant pair launched, the bf16 pair not),
-                and once with the policy's quant_bits set to 4 (int4 FFN
-                weights, int8 attention projections: per decode tick and
-                chunk 104 W8A16 and 78 W4A16 launches, no W8A8);
+                quant pair not), once with --no-chunked-prefill (whole
+                prompts padded to 4096 and 8192 rows: 26 flash launches per
+                prefill and 26 paged decode launches per tick, no chunk
+                kernel), once with --kv-policy {"sub0": 4, "sub1": 8} (the
+                quant pair launched, the bf16 pair not), and once with the
+                policy's quant_bits set to 4 (int4 FFN weights, int8
+                attention projections: per decode tick and chunk 104 W8A16
+                and 78 W4A16 launches, no W8A8);
   5. profile  — each of those traces again on a fresh engine under
                 torch.profiler: device time by kernel, device busy share;
-  6. generate — the sequential entry point on 2 prompts of 1000 tokens,
-                then again through make_quant_dot's kernels (W4A16 FFN in
-                and gate, W8A8 FFN out, W8A16 lm_head; launches counted);
+  6. generate — the sequential entry point on 2 prompts of 1000 tokens, on
+                2 prompts of 2560 tokens (flash prefill; launches counted),
+                then on 1000 tokens through make_quant_dot's kernels (W4A16
+                FFN in and gate, W8A8 FFN out, W8A16 lm_head; launches
+                counted);
   7. drift    — greedy_drift of the int8 and the mixed pool against the
                 bf16 pool, teacher-forced through the kernels over one
                 1000-token prompt and 32 steps (printed; only a non-finite
@@ -115,6 +129,10 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms of ``fn()`` called ``reps`` times back to back from the
+    host, between CUDA events: the plain versions, whose host loops and
+    host reads make them unfit for a CUDA graph. At tens of microseconds a
+    call, the host sets this pace (see device_ms)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -127,6 +145,41 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, arg_sets=((),), reps: int = 20, replays: int = 3) -> float:
+    """Device ms of one ``fn(*args)``: ``reps`` calls, cycling through
+    ``arg_sets``, captured once in a CUDA graph and replayed ``replays``
+    times between CUDA events, so the host's launch cost is out of the
+    measurement (back-to-back host calls of a 30-70 us kernel time the
+    wrapper's Python). Give ``arg_sets`` several copies of inputs smaller
+    than the 50 MB L2, so each call reads them from device memory as the
+    main path does, not from the previous call's L2 lines."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm up (builds, workspaces)
+        for args in arg_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (replays * reps)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 # ------------------------------------------------------------- kernels ----
@@ -261,7 +314,8 @@ def check_kernel(name, fwd, plain, qs, pools, pt, pos, *, window, cap,
         g, w = g[:, :live_rows], w[:, :live_rows]
     err = float((g - w).abs().max())
     typical = float(w.abs().mean())
-    shape = f"B={q.shape[0]} Sq={q.shape[1]} n_blocks={pt.shape[1]}"
+    shape = f"B={q.shape[0]} Sq={q.shape[1]}" + (
+        f" n_blocks={pt.shape[1]}" if pt is not None else "")
     bad = mismatch(g, w)
     if bad.any():
         fail(f"{name}: {int(bad.sum())} elements off, max |err| {err:.4g}, "
@@ -374,12 +428,12 @@ def phase_kernels(prefill_chunk: int, n_blocks_main: int):
                 err[name] = max(err[name], e)
                 if (bits, window) not in MAIN_LAYERS[name]:
                     continue              # checked, not on the main path
-                ms += time_ms(lambda: fwd(q, *pools, pt, pos, window=window,
-                                          cap=CAP), reps=20) / 2
+                ms += device_ms(lambda: fwd(q, *pools, pt, pos,
+                                            window=window, cap=CAP)) / 2
                 plain_ms += time_ms(lambda: plain(q, *pools, pt, pos,
                                                   window=window, cap=CAP),
                                     reps=2, warmup=1) / 2
-                lib_ms += time_ms(sdpa_yardstick(
+                lib_ms += device_ms(sdpa_yardstick(
                     q, *dense_pools(pools, bits), pt, pos, window),
                     reps=10) / 2
                 t, by = bound_ms(positions, Sq, n_blocks, window, bits)
@@ -404,6 +458,118 @@ def phase_kernels(prefill_chunk: int, n_blocks_main: int):
     return records
 
 
+# ------------------------------------------------------ flash attention ----
+# the whole-prompt main path's shapes: the engine pads short prompts to one
+# 4096-row prefill chunk and the 4200-token prompt to 8192 rows
+FLASH_S = (4096, 8192)
+# (window, label) of the layers each whole-prompt forward runs: global and
+# local (the 4096 window bites at 8192)
+FLASH_LAYERS = ((0, "global"), (WINDOW, "local"))
+
+
+def flash_case(seed, S):
+    """Full-width q (B=1, S, 8 heads), k, v (4 kv heads), hd 256, bf16,
+    from a seed: q as drawn and scaled for the softcap cases."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((1, S, H, HD), generator=g, device="cuda")
+    k = torch.randn((1, S, K, HD), generator=g, device="cuda").bfloat16()
+    v = torch.randn((1, S, K, HD), generator=g, device="cuda").bfloat16()
+    return {0.0: q.bfloat16(), CAP: (q * CAP_Q_SCALE).bfloat16()}, k, v
+
+
+def flash_valid_pairs(S, window):
+    """(query, key) pairs a causal layer over S tokens attends to: S(S+1)/2
+    without a window, min(i + 1, window) summed over the rows with one."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_bound_ms(S, window):
+    """Least time for one call: q, k, v read and the output written once
+    over device memory, or 4*hd flops per valid (query head, key) pair
+    over the bf16 peak. Returns (ms, 'bytes' | 'operations')."""
+    t_bytes = 2 * (2 * S * H * HD + 2 * S * K * HD) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * HD * H * flash_valid_pairs(S, window) / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_sdpa(q, k, v, window):
+    """One PyTorch call computing the same attention without the softcap
+    (SDPA has none): is_causal for a global layer, a boolean mask for a
+    local one. The library_ms yardstick; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def phase_flash_kernels():
+    """Phase 2, flash attention: the kernel against its plain version at
+    the whole-prompt path's shapes (S = 4096 and 8192, global and local
+    layers, cap 0 and 50 with the cap control), then timed on the same
+    inputs at cap 50 beside the plain version, SDPA and the bound, as the
+    mean of a global and a local layer, and printed. Returns the kernel
+    record at S = 4096, the padded length of most prompts."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def fwd(q, k, v, pt, pos, *, window, cap):
+        return fa.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                      cap=cap)
+
+    def plain(q, k, v, pt, pos, *, window, cap):
+        return ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                       cap=cap)
+
+    err = 0.0
+    rows = {}
+    for S in FLASH_S:
+        qs, k, v = flash_case(40 + S // 4096, S)
+        for window, _ in FLASH_LAYERS:
+            for cap in (0.0, CAP):
+                err = max(err, check_kernel("flash_attention_fwd", fwd,
+                                            plain, qs, (k, v), None, None,
+                                            window=window, cap=cap))
+                torch.cuda.empty_cache()
+        q = qs[CAP]
+        ms = plain_ms = lib_ms = b_ms = 0.0
+        parts = []
+        for window, label in FLASH_LAYERS:
+            t = device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, causal=True, window=window, cap=CAP), reps=10)
+            p = time_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=True, window=window, cap=CAP), reps=2,
+                warmup=1)
+            torch.cuda.empty_cache()
+            lib = device_ms(flash_sdpa(q, k, v, window), reps=10)
+            bnd, by = flash_bound_ms(S, window)
+            tflops = 4e-9 * HD * H * flash_valid_pairs(S, window) / t
+            parts.append(f"{label} {t:.4f} ms ({tflops:.1f} TFLOP/s)")
+            ms, plain_ms, lib_ms, b_ms = (ms + t / 2, plain_ms + p / 2,
+                                          lib_ms + lib / 2, b_ms + bnd / 2)
+        print(f"kernels: flash_attention_fwd B=1 S={S} H={H} K={K} hd={HD} "
+              f"cap {CAP}: {'; '.join(parts)}; mean {ms:.4f} ms (plain "
+              f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms by {by})", flush=True)
+        rows[S] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": by}
+        del qs, q, k, v
+        torch.cuda.empty_cache()
+    print(f"kernels: flash_attention_fwd matches its plain version (max "
+          f"|err| {err:.4g}, tolerance {ROW_ATOL:.4g}*max|ref row| + "
+          f"{RTOL:.4g}*|ref|)", flush=True)
+    return dict(rows[FLASH_S[0]], max_abs_err=err)
+
+
 # ---------------------------------------------------- quantized matmuls ----
 INT8_OPS = 1979e12              # H100 SXM dense int8 tensor-core peak
 # (K, N) of every matmul the weight-quantized paths launch at gemma2-2b
@@ -419,6 +585,9 @@ LM_HEAD = (2304, 256000)
 QMM_MAIN_M = {**{kn: (2, 8, 2000, 4096) for kn in QMM_SHAPES
                  if kn != LM_HEAD}, LM_HEAD: (2, 2000)}
 QMM_TIMED = (2304, 9216)        # timed at M = 8 (decode) and 4096 (a chunk)
+# bytes of weight copies the timed calls cycle through: four times the
+# H100's 50 MB L2, as a decode tick streams 26 layers' weights past it
+QMM_COLD_BYTES = 200 * 10 ** 6
 # fp32 x through W8A16/W4A16: the kernel splits x into three bf16 terms
 # (x = x0 + x1 + x2 exactly) whose products with the integer codes are
 # exact, so what separates kernel and plain version is fp32 accumulation.
@@ -606,14 +775,24 @@ def phase_qmm_kernels():
             else:
                 args = (x, codes, scale)
                 kernel, plain_fn = fwd, plain
-            ms = time_ms(lambda: kernel(*args), reps=20)
+            # distinct copies of the weights, QMM_COLD_BYTES in all, so
+            # that each timed call reads its codes from device memory
+            copies = max(1, -(-QMM_COLD_BYTES // codes.nbytes))
+            arg_sets = [args] + [(args[0], args[1], args[2].clone(),
+                                  args[3]) if name == "quant_matmul_w8a8"
+                                 else (args[0], args[1].clone(), args[2])
+                                 for _ in range(copies - 1)]
+            ms = device_ms(kernel, arg_sets)
             plain_ms = time_ms(lambda: plain_fn(*args), reps=5)
             if name != "quant_matmul_w8a8":
-                lib_ms = time_ms(lambda: torch.matmul(x, w_bf16), reps=20)
+                lib_ms = device_ms(torch.matmul, [(x, w_bf16)] + [
+                    (x, w_bf16.clone()) for _ in range(copies - 1)])
             elif M > 16:                      # _int_mm's shape rule
-                lib_ms = time_ms(lambda: torch._int_mm(xq, w_col), reps=20)
+                lib_ms = device_ms(torch._int_mm, [(xq, w_col)] + [
+                    (xq, w_col.clone()) for _ in range(copies - 1)])
             else:
                 lib_ms = None
+            del arg_sets
             b_ms, by = qmm_bound_ms(name, M, K, N)
             lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
             print(f"kernels: {name} M={M} K={K} N={N}: {ms:.4f} ms (plain "
@@ -648,6 +827,9 @@ KERNEL_SOURCES = {
     "paged_prefill_quant_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:410"),
+    "flash_attention_fwd": (
+        "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:88"),
     "quant_matmul_w8a16": (
         "cuda", "src/repro_torch/kernels/csrc/quant_matmul.cu",
         "src/repro/kernels/quant_matmul.py:47"),
@@ -660,6 +842,9 @@ KERNEL_SOURCES = {
 }
 BF16_KERNELS = ("paged_attention_fwd", "paged_prefill_fwd")
 QUANT_KERNELS = ("paged_attention_quant_fwd", "paged_prefill_quant_fwd")
+# the whole-prompt main path (--no-chunked-prefill): flash attention in
+# every prefill forward, the bf16 paged decode walk
+WHOLE_KERNELS = ("flash_attention_fwd", "paged_attention_fwd")
 # the engine's weight-quantized main path: stored int4 FFN weights and int8
 # attention projections over the bf16 pool
 WQ_KERNELS = BF16_KERNELS + ("quant_matmul_w8a16", "quant_matmul_w4a16")
@@ -678,16 +863,19 @@ def tensor_bytes(tree) -> int:
 
 
 def reset_all_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import quant_matmul as qm
     pa.reset_launches()
+    fa.reset_launches()
     qm.reset_launches()
 
 
 def all_launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import quant_matmul as qm
-    return {**pa.LAUNCHES, **qm.LAUNCHES}
+    return {**pa.LAUNCHES, **fa.LAUNCHES, **qm.LAUNCHES}
 
 
 def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None):
@@ -744,26 +932,67 @@ def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None):
                 start + 2 * C + t, **kw)
             logits[mode][f"decode{t}" if ticks > 1 else "decode"] = step
         del copy
-    err = 0.0
-    for what in logits["ref"]:
-        a, b = logits["cuda"][what][:, 0], logits["ref"][what][:, 0]
-        if not torch.isfinite(a).all():
-            fail(f"{label} {what}: non-finite logits")
-        d = float((a - b).abs().max())
-        tol = LOGIT_RTOL * float(b.abs().max())
-        top2 = torch.topk(b, 2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > tol
-        same = a.argmax(-1) == b.argmax(-1)
-        if d > tol or not bool((same | ~clear).all()):
-            fail(f"{label} {what}: kernel vs plain logits differ by {d:.4g} "
-                 f"(tolerance {tol:.4g}), greedy tokens "
-                 f"{a.argmax(-1).tolist()} vs {b.argmax(-1).tolist()}")
-        err = max(err, d)
-        print(f"{label}: {what} logits kernel vs plain max |diff| {d:.4g} "
-              f"(tolerance {tol:.4g}, |logit| up to "
-              f"{float(b.abs().max()):.3g})", flush=True)
+    err = max(compare_logits(label, what, logits["cuda"][what][:, 0],
+                             logits["ref"][what][:, 0])
+              for what in logits["ref"])
     del logits, pool
     torch.cuda.empty_cache()
+    return err
+
+
+def compare_logits(label, what, a, b):
+    """Kernel-path logits ``a`` against plain-path logits ``b`` (rows, V):
+    within LOGIT_RTOL of the largest |b|, and the same greedy token
+    wherever b's top-2 margin exceeds that. Returns max |a - b|."""
+    import torch
+    if not torch.isfinite(a).all():
+        fail(f"{label} {what}: non-finite logits")
+    d = float((a - b).abs().max())
+    tol = LOGIT_RTOL * float(b.abs().max())
+    top2 = torch.topk(b, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    same = a.argmax(-1) == b.argmax(-1)
+    if d > tol or not bool((same | ~clear).all()):
+        fail(f"{label} {what}: kernel vs plain logits differ by {d:.4g} "
+             f"(tolerance {tol:.4g}), greedy tokens "
+             f"{a.argmax(-1).tolist()} vs {b.argmax(-1).tolist()}")
+    print(f"{label}: {what} logits kernel vs plain max |diff| {d:.4g} "
+          f"(tolerance {tol:.4g}, |logit| up to "
+          f"{float(b.abs().max()):.3g})", flush=True)
+    return d
+
+
+def phase_model_whole(model, params, S=4096):
+    """Phase 3, whole prompt: one full-width forward over S tokens with
+    every layer's attention through flash_attention_fwd (kernel "cuda",
+    one launch per layer counted) and through its plain version ("ref");
+    the logits of rows spread over the prompt compared. Returns the
+    largest logit difference."""
+    import torch
+    dev = params["embed"].device
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(2, model.cfg.vocab_size, (1, S), generator=g,
+                         dtype=torch.int32).to(dev)
+    rows = torch.tensor([0, 511, 2047, 2048, 3071, S - 1], device=dev)
+    L = model.cfg.num_layers
+    logits = {}
+    for mode in ("cuda", "ref"):
+        torch.cuda.synchronize()
+        reset_all_launches()
+        hidden, _, _, _ = model.forward(params, {"tokens": toks},
+                                        unembed_mode="none", kernel=mode)
+        n = all_launches()["flash_attention_fwd"]
+        if n != (L if mode == "cuda" else 0):
+            fail(f"model[whole-prompt]: kernel {mode!r} launched "
+                 f"flash_attention_fwd {n} times over {L} layers")
+        logits[mode] = model.unembed(params, hidden[:, rows])[0]
+        del hidden
+        torch.cuda.empty_cache()
+    err = compare_logits(f"model[whole-prompt S={S}]",
+                         f"rows {rows.tolist()}", logits["cuda"],
+                         logits["ref"])
+    print(f"model[whole-prompt S={S}]: {L} flash_attention_fwd launches per "
+          f"forward", flush=True)
     return err
 
 
@@ -787,7 +1016,9 @@ def phase_engine(model, params, extra_args=(), expect=BF16_KERNELS,
     kernels in ``expect`` must launch during the run and every other
     kernel must not; with quantized weights every decode tick and chunk
     launches W8A16 on the 4 attention projections and W4A16 on the 3 FFN
-    matmuls of each layer. Returns (launches, policy, args, summary)."""
+    matmuls of each layer; with --no-chunked-prefill every whole-prompt
+    prefill launches flash attention once per layer. Returns (launches,
+    policy, args, summary)."""
     import dataclasses
     import numpy as np
     import torch
@@ -833,9 +1064,20 @@ def phase_engine(model, params, extra_args=(), expect=BF16_KERNELS,
             fail(f"{label}: kernel {name} was launched {n} times on a path "
                  f"that should not reach it")
     st = engine.stats
+    ticks = engine.telemetry.ticks
+    L = model.cfg.num_layers
+    if not engine.chunked:
+        # one flash launch per layer in each whole-prompt prefill, one
+        # paged decode launch per layer in each decode tick
+        n_pre = sum(t.kind == "prefill" for t in ticks)
+        for name, per, n in (("flash_attention_fwd", "prefill", n_pre),
+                             ("paged_attention_fwd", "decode tick",
+                              st["decode_ticks"])):
+            if launches[name] != L * n:
+                fail(f"{label}: {name} launched {launches[name]} times, "
+                     f"want {L} per {per} ({n} of them)")
     if policy.quant_bits < 16:
         calls = st["decode_ticks"] + st["prefill_chunks"]
-        L = model.cfg.num_layers
         for name, per_layer in (("quant_matmul_w8a16", 4),
                                 ("quant_matmul_w4a16", 3)):
             if launches[name] != per_layer * L * calls:
@@ -843,22 +1085,28 @@ def phase_engine(model, params, extra_args=(), expect=BF16_KERNELS,
                      f"want {per_layer * L} per decode tick and chunk "
                      f"({calls} of them)")
     gen_total = st["decode_tokens"] + st["prefills"]
-    ticks = engine.telemetry.ticks
+    kind = "chunk" if engine.chunked else "prefill"
     dec = [t.measured_s for t in ticks if t.kind == "decode"]
-    chk = [t.measured_s for t in ticks if t.kind == "chunk"]
-    rows = sum(t.q_len for t in ticks if t.kind == "chunk")
-    real = sum(t.tokens for t in ticks if t.kind == "chunk")
-    print(f"{label}: prefill chunks ran {rows} query rows for {real} prompt "
+    pre = [t for t in ticks if t.kind == kind]
+    rows = sum(t.q_len for t in pre)
+    real = sum(t.tokens for t in pre)
+    print(f"{label}: {kind} ticks ran {rows} query rows for {real} prompt "
           f"tokens: {100 * (1 - real / rows):.1f}% padding", flush=True)
+    pre_ms = 1e3 * sum(t.measured_s for t in pre) / len(pre)
+    by_len = {}
+    for t in pre:
+        by_len.setdefault(t.q_len, []).append(1e3 * t.measured_s)
+    print(f"{label}: {kind} ticks by padded rows: " + ", ".join(
+        f"{n} rows x{len(v)} mean {sum(v) / len(v):.3f} ms"
+        for n, v in sorted(by_len.items())), flush=True)
     print(f"{label}: served {len(reqs)} requests, {gen_total} tokens in "
           f"{dt:.3f} s ({gen_total / dt:.2f} tok/s), "
           f"{st['decode_ticks']} decode ticks (mean "
-          f"{1e3 * sum(dec) / len(dec):.3f} ms), {st['prefill_chunks']} "
-          f"prefill chunks (mean {1e3 * sum(chk) / len(chk):.3f} ms), "
-          f"{st['preemptions']} preemptions; launches {json.dumps(launches)}",
-          flush=True)
+          f"{1e3 * sum(dec) / len(dec):.3f} ms), {len(pre)} {kind} ticks "
+          f"(mean {pre_ms:.3f} ms), {st['preemptions']} preemptions; "
+          f"launches {json.dumps(launches)}", flush=True)
     summary = {"tok_s": gen_total / dt, "decode_ms": 1e3 * sum(dec) / len(dec),
-               "chunk_ms": 1e3 * sum(chk) / len(chk)}
+               "prefill_ms": pre_ms}
     if bf16_summary:
         print(f"{label}: against the bf16 run: "
               + ", ".join(f"{k} {summary[k]:.3f} vs {bf16_summary[k]:.3f}"
@@ -928,6 +1176,39 @@ def phase_generate(model, params):
         fail(f"generate: malformed output {tuple(out.shape)}")
     print(f"generate: 2 x 1000-token prompts + 16 tokens in {dt:.3f} s",
           flush=True)
+
+
+def phase_generate_long(model, params, S=2560, gen=16):
+    """Phase 6, long prompts: ``generate`` on 2 prompts of S tokens through
+    the kernels, launches zeroed before and read after: its whole-prompt
+    prefill launches flash_attention_fwd once per layer, each of its
+    gen - 1 decode steps the paged decode kernel once per layer, and
+    nothing else. Returns the launches."""
+    import torch
+    from repro_torch.launch.serve import generate
+    g = torch.Generator().manual_seed(7)
+    prompt = torch.randint(2, model.cfg.vocab_size, (2, S), generator=g,
+                           dtype=torch.int32).to(params["embed"].device)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = generate(model, params, prompt, gen, page_size=PAGE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    if out.shape != (2, S + gen) or not torch.equal(out[:, :S], prompt) \
+            or int(out.min()) < 0 or int(out.max()) >= model.cfg.vocab_size:
+        fail(f"generate[S={S}]: malformed output {tuple(out.shape)}")
+    L = model.cfg.num_layers
+    want = {"flash_attention_fwd": L, "paged_attention_fwd": L * (gen - 1)}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            fail(f"generate[S={S}]: {name} launched {n} times, want "
+                 f"{want.get(name, 0)}")
+    print(f"generate[S={S}]: 2 x {S}-token prompts + {gen} tokens in "
+          f"{dt:.3f} s through the kernels; launches {json.dumps(launches)}",
+          flush=True)
+    return launches
 
 
 def phase_generate_quant(model, params):
@@ -1029,6 +1310,7 @@ def main() -> int:
         max(len(r.prompt) + r.max_new for r in main_trace(model.cfg)))
     records = phase_kernels(prefill_chunk=probe.prefill_chunk,
                             n_blocks_main=probe.pages_per_seq)
+    records["flash_attention_fwd"] = phase_flash_kernels()
     records.update(phase_qmm_kernels())
 
     t1 = time.perf_counter()
@@ -1039,11 +1321,16 @@ def main() -> int:
           f"({model.param_bytes() / 1e9:.2f} GB) initialised in "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
     phase_model(model, params)
+    phase_model_whole(model, params)
     phase_model(model, params, kv_bits=KV_POLICY, ticks=3)
     for w_bits in (8, 4):
         phase_model(model, params, w_bits=w_bits)
     launches, policy, args, bf16_summary = phase_engine(model, params)
     phase_profile(model, params, policy, args)
+    wp_launches, wp_policy, wp_args, _ = phase_engine(
+        model, params, ["--no-chunked-prefill"], expect=WHOLE_KERNELS,
+        bf16_summary=bf16_summary)
+    phase_profile(model, params, wp_policy, wp_args)
     with tempfile.TemporaryDirectory() as tmp:
         policy_file = Path(tmp) / "kv_policy.json"
         policy_file.write_text(json.dumps(KV_POLICY))
@@ -1057,12 +1344,14 @@ def main() -> int:
         bf16_summary=bf16_summary)
     phase_profile(model, params, w_policy, w_args)
     phase_generate(model, params)
+    phase_generate_long(model, params)
     g_launches = phase_generate_quant(model, params)
     phase_drift(model, params)
 
     # launches per kernel from the run of the path it serves
     source_run = {**{k: launches for k in BF16_KERNELS},
                   **{k: q_launches for k in QUANT_KERNELS},
+                  "flash_attention_fwd": wp_launches,
                   "quant_matmul_w8a16": w_launches,
                   "quant_matmul_w4a16": w_launches,
                   "quant_matmul_w8a8": g_launches}

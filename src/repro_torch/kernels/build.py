@@ -37,6 +37,10 @@ SIGNATURES = {
         "paged_smem_bytes": (ctypes.c_size_t, [_I] * 4),
         "paged_error_string": (ctypes.c_char_p, [_I]),
     },
+    "flash_attention": {
+        "flash_fwd_bf16": (_I, [_P] * 4 + [_I] * 8 + [_F, _P]),
+        "flash_error_string": (ctypes.c_char_p, [_I]),
+    },
     "quant_matmul": {
         "qmm_wa16": (_I, [_P] * 4 + [_I] * 6 + [_P]),
         "qmm_w8a8": (_I, [_P] * 5 + [_I] * 5 + [_P]),

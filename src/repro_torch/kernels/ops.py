@@ -2,9 +2,9 @@
 
 ``mode`` works like ``repro.kernels.ops._paged_mode``:
   "auto" — the kernel's wrapper (kernels/paged_attention.py,
-           kernels/quant_matmul.py), which launches the CUDA kernel for
-           CUDA tensors and takes the plain version (kernels/ref.py) for
-           CPU tensors;
+           kernels/flash_attention.py, kernels/quant_matmul.py), which
+           launches the CUDA kernel for CUDA tensors and takes the plain
+           version (kernels/ref.py) for CPU tensors;
   "cuda" — the CUDA kernel, or an error;
   "ref"  — the plain version, chosen explicitly (tests, and the plain side
            of chip_smoke.py's comparisons).
@@ -13,6 +13,7 @@ version.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.kernels import ref
@@ -124,3 +125,14 @@ def paged_attention_prefill_quant(q, pool_k, k_scale, pool_v, v_scale,
     return pa.paged_prefill_quant_fwd(
         q, pool_k, k_scale, pool_v, v_scale, page_table, positions,
         window=window, cap=cap)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
+                    mode: str = "auto"):
+    """Dense flash-attention forward (whole-prompt prefill): q (B, S, H,
+    hd) over k, v (B, T, K, hd), causal and/or a local window, softcap."""
+    if resolve_mode(mode, q, "flash-attention") == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       cap=cap)
+    return fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                  cap=cap)

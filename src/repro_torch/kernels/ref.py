@@ -7,7 +7,7 @@ the paged walks over bf16 and quantized (int8, or int4 packed along hd)
 page pools, the KV-cache storage mapping the pool writers and the
 fused-dequant kernels agree on bit for bit, and the weight-quantized
 matmuls (W8A16, W4A16 with int4 packed along K, W8A8) with the quantizers
-that feed them.
+that feed them, and the dense attention oracle behind flash attention.
 """
 from __future__ import annotations
 
@@ -328,4 +328,36 @@ def paged_prefill_dense_ref(q, pool_k, pool_v, page_table, positions, *,
     s = torch.where(valid[:, None], s, -2.0 ** 30)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhsk,bkhd->bshd", w, v.to(F32))
+    return out.to(q.dtype)
+
+
+# ------------------------------------------------------ flash attention ----
+def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0):
+    """Dense attention oracle, the plain version of flash_attention_fwd.
+
+    q (B, S, H, hd), k/v (B, T, K, hd), H = K*G (GQA: kv head k serves
+    query heads k*G .. k*G+G-1). fp32 scores scaled by hd**-0.5, then the
+    softcap, then the mask (key j <= query i if ``causal``, and
+    j > i - ``window`` if ``window``) to -1e30, softmax, and the output cast
+    to q.dtype. Builds the (B, H, S, T) fp32 scores the kernel avoids."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), k.to(F32))
+    s = s * (hd ** -0.5)
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= j > i - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(F32))
     return out.to(q.dtype)

@@ -88,14 +88,17 @@ def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
     """prompt (B, S) int32 on the parameters' device -> (B, S+gen_len).
 
     Sequential baseline: one fixed batch, no admission — kept as the
-    exactness reference. It prefills the whole prompt with the dense
-    forward (prompts under 2048 tokens) and decodes through the same
-    paged-attention walk as the engine over an identity page table.
-    ``dot`` (e.g. ``make_quant_dot(policy)``) overrides every matmul of
-    both."""
+    exactness reference. It prefills the whole prompt with the
+    whole-sequence forward (flash attention for prompts of 2048 tokens or
+    more, which must then be a multiple of 512 long, as in the reference)
+    and decodes through the same paged-attention walk as the engine over
+    an identity page table. ``kernel`` selects the attention kernels of
+    both; ``dot`` (e.g. ``make_quant_dot(policy)``) overrides every matmul
+    of both."""
     B, S = prompt_tokens.shape
     logits, cache = model.prefill(params, {"tokens": prompt_tokens},
-                                  cache_layout="full", dot=dot)
+                                  cache_layout="full", dot=dot,
+                                  kernel=kernel)
     pool, pt = _identity_paged_pool(cache, B, S + gen_len, page_size)
     out = [prompt_tokens.to(torch.int32)]
     tok = _sample(logits, temperature, generator)
@@ -146,8 +149,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV pool page size in tokens (both modes)")
     ap.add_argument("--paged-kernel", default="auto",
                     choices=("auto", "cuda", "ref"),
-                    help="paged-attention path: the CUDA kernels, the plain "
-                         "PyTorch block walk, or auto (CUDA on the card)")
+                    help="attention kernels, paged and whole-prompt: the "
+                         "CUDA kernels, their plain PyTorch versions, or "
+                         "auto (CUDA on the card)")
     ap.add_argument("--reserve-upfront", action="store_true",
                     help="legacy admission: reserve every page of "
                          "prompt+max_new at admission instead of growing "
@@ -157,8 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(tokens per prefill tick; 0 keeps the derived "
                          "value)")
     ap.add_argument("--no-chunked-prefill", action="store_true",
-                    help="engine mode: prefill whole prompts (under 2048 "
-                         "tokens) into padding buckets in one forward")
+                    help="engine mode: prefill whole prompts, padded to a "
+                         "multiple of the prefill chunk, in one forward "
+                         "(flash attention from 2048 padded tokens on)")
     ap.add_argument("--expected-occupancy", type=float, default=None,
                     help="fraction of max_model_len the admission policy "
                          "assumes a typical sequence occupies (default "

@@ -35,18 +35,23 @@ class Model:
 
     # -- compute ------------------------------------------------------------
     def forward(self, params, batch, *, want_cache=False,
-                unembed_mode="full", cache_layout="full", dot=None):
+                unembed_mode="full", cache_layout="full", dot=None,
+                kernel="auto"):
+        """Whole-sequence forward; ``kernel`` picks the flash-attention
+        path of sequences of FLASH_MIN tokens or more: "auto" (CUDA kernel
+        on CUDA tensors, plain version on CPU ones), "cuda" or "ref"."""
         return transformer.forward(params, batch, self.cfg,
                                    want_cache=want_cache,
                                    unembed_mode=unembed_mode,
-                                   cache_layout=cache_layout, dot=dot)
+                                   cache_layout=cache_layout, dot=dot,
+                                   kernel=kernel)
 
     def prefill(self, params, batch, *, cache_layout="full",
-                unembed_mode="last", dot=None):
+                unembed_mode="last", dot=None, kernel="auto"):
         logits, cache, _, _ = self.forward(params, batch, want_cache=True,
                                            unembed_mode=unembed_mode,
                                            cache_layout=cache_layout,
-                                           dot=dot)
+                                           dot=dot, kernel=kernel)
         return logits, cache
 
     def unembed(self, params, hidden, *, dot=None):

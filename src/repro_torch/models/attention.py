@@ -1,7 +1,8 @@
-"""GQA attention (port of ``repro.models.attention``): the dense path for
-short whole-prompt forwards, and the paged decode / chunked-prefill paths
-over the serving engine's page pool — bf16, or quantized int8/int4 with
-per-token scales (serving/kvquant).
+"""GQA attention (port of ``repro.models.attention``): whole-prompt
+forwards — dense for short sequences, flash attention (models/flash.py)
+from ``FLASH_MIN`` tokens on — and the paged decode / chunked-prefill
+paths over the serving engine's page pool — bf16, or quantized int8/int4
+with per-token scales (serving/kvquant).
 
 Layout conventions, as in the reference:
   activations x          (B, S, D)
@@ -19,12 +20,12 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.models import flash as flash_lib
 from repro_torch.models.layers import apply_rope, softcap
 from repro_torch.models.params import PDef
 
 F32 = torch.float32
 NEG_INF = -2.0 ** 30  # large-but-finite; avoids NaNs for fully-masked rows
-FLASH_MIN = 2048      # the reference's dense flash path starts here
 
 
 def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int):
@@ -93,24 +94,27 @@ def local_mask(S: int, T: int, window: int, device=None):
     return ((j <= i) & (j > i - window))[None, None]
 
 
-def attention_fwd(p, x, kind: str, cfg, positions, *, dot=None):
+def attention_fwd(p, x, kind: str, cfg, positions, *, dot=None,
+                  kernel: str = "auto"):
     """Whole-sequence attention. Returns (out (B,S,D), cache_entry) with
     the roped k/v in chronological (full) layout, ready for the page pool.
 
-    kind: "global" | "local". Sequences of FLASH_MIN tokens or more take
-    the reference's flash path, which is not ported yet."""
+    kind: "global" | "local". Sequences of ``flash.FLASH_MIN`` tokens or
+    more go through flash attention (models/flash.py), whose ``kernel``
+    mode ("auto" | "cuda" | "ref", kernels/ops.py) picks the CUDA kernel
+    or its plain version; shorter ones through the dense ``_attend``, as
+    in the reference."""
     B, S, D = x.shape
-    if S >= FLASH_MIN:
-        raise NotImplementedError(
-            f"whole-prompt attention over {S} >= {FLASH_MIN} tokens needs "
-            f"the flash_attention_fwd kernel (ROADMAP Queue 2, item 5); "
-            f"use chunked prefill")
     q, k, v = qkv(p, x, cfg.rope_theta, positions, dot=dot)
-    if kind == "local":
-        mask = local_mask(S, S, cfg.window_size, device=x.device)
+    if S >= flash_lib.FLASH_MIN:
+        o = flash_lib.flash_attention(q, k, v, kind, cfg.window_size,
+                                      cfg.attn_softcap, kernel=kernel)
     else:
-        mask = causal_mask(S, S, device=x.device)
-    o = _attend(q, k, v, mask, cfg.attn_softcap)
+        if kind == "local":
+            mask = local_mask(S, S, cfg.window_size, device=x.device)
+        else:
+            mask = causal_mask(S, S, device=x.device)
+        o = _attend(q, k, v, mask, cfg.attn_softcap)
     return _out_proj(o, p, dot), {"k": k, "v": v}
 
 

@@ -108,10 +108,10 @@ def _attn_residual(p, x, a, cfg):
     return x + a
 
 
-def _dense_block_fwd(p, x, kind, cfg, positions, dot):
+def _dense_block_fwd(p, x, kind, cfg, positions, dot, kernel):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn.attention_fwd(p["attn"], h, kind["attn"], cfg, positions,
-                                  dot=dot)
+                                  dot=dot, kernel=kernel)
     return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg, dot), cache
 
 
@@ -174,7 +174,7 @@ def unembed(params, x, cfg, *, dot=None):
 # --------------------------------------------------------------- forward ----
 def forward(params, batch, cfg, *, want_cache: bool,
             unembed_mode: str = "full", cache_layout: str = "full",
-            dot=None):
+            dot=None, kernel: str = "auto"):
     """Full-sequence forward (prefill).
 
     unembed_mode: "full" -> logits (B,S,V); "last" -> logits (B,1,V);
@@ -184,6 +184,9 @@ def forward(params, batch, cfg, *, want_cache: bool,
     copies into its pool); the reference's ring layout for dense decode is
     not ported.
     dot: optional (x, w, name) -> y override of every matmul site.
+    kernel: the flash-attention mode ("auto" | "cuda" | "ref") of the
+    layers' whole-sequence attention from FLASH_MIN tokens on
+    (models/flash.py); shorter sequences attend densely.
     Returns (logits_or_hidden, caches or None, aux 0.0, loss_mask None).
     """
     _require_dense(cfg, "forward")
@@ -199,7 +202,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
         f"sub{j}": {"k": [], "v": []} for j in range(period_of(cfg))}
     for g, j, kind in _layers(cfg):
         x, c = _dense_block_fwd(_group(params["blocks"][f"sub{j}"], g), x,
-                                kind, cfg, positions, dot)
+                                kind, cfg, positions, dot, kernel)
         if want_cache:
             caches[f"sub{j}"]["k"].append(c["k"])
             caches[f"sub{j}"]["v"].append(c["v"])

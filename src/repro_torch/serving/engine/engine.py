@@ -6,7 +6,9 @@ One ``step()``:
   1. admission — backfill free batch slots from the FIFO queue (page-
      and slot-gated, see scheduler.py). In chunked mode (default) nothing
      runs yet; with ``chunked_prefill=False`` the whole prompt runs here,
-     padded to the policy's bucket, and is scattered into its pages;
+     padded to the policy's bucket, through the model's whole-sequence
+     forward (flash attention from 2048 padded tokens on), and is
+     scattered into its pages;
   2. chunked prefill — every mid-prefill sequence advances by at most ONE
      ``policy.prefill_chunk``-token chunk: the chunk's K/V are written
      into the sequence's pages and its attention walks the pool (resident
@@ -20,9 +22,11 @@ One ``step()``:
      page and are ignored), through the paged decode kernel;
   5. eviction — finished sequences free their pages/slot immediately.
 
-The reference jits its step closures and donates the pool; this port runs
-eagerly and updates the pool in place. Every tick emits a telemetry
-``TickEvent`` whose measured time is fenced with
+``paged_kernel`` ("auto" | "cuda" | "ref", kernels/ops.py) selects every
+attention kernel the engine reaches: the paged walks and whole-prompt
+flash attention. The reference jits its step closures and donates the
+pool; this port runs eagerly and updates the pool in place. Every tick
+emits a telemetry ``TickEvent`` whose measured time is fenced with
 ``torch.cuda.synchronize()`` on the card before the timer stops, next to
 the admission roofline's prediction for the same dispatch shape.
 
@@ -130,7 +134,8 @@ class Engine:
             # unembed only the last real prompt position
             hidden, cache, _, _ = model.forward(
                 self.params, {"tokens": toks}, want_cache=True,
-                unembed_mode="none", cache_layout="full", dot=dot)
+                unembed_mode="none", cache_layout="full", dot=dot,
+                kernel=paged_kernel)
             return model.unembed(self.params,
                                  hidden[:, last_idx:last_idx + 1],
                                  dot=dot), cache

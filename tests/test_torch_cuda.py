@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on a card only: the bf16 pair and the fused-dequant pair over
-int8 and packed-int4 pools, at full gemma2-2b head width, and the three
-weight-quantized matmuls (W8A16, W4A16, W8A8). Imports no JAX
+int8 and packed-int4 pools, at full gemma2-2b head width, flash attention
+(whole-prompt prefill), and the three weight-quantized matmuls (W8A16,
+W4A16, W8A8). Imports no JAX
 (the card's machine has none); run there, from the repository root, with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -12,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import quant_matmul as tqm  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -76,6 +78,92 @@ def test_cuda_quant_kernels_match_plain(bits, window, cap):
         if cap:
             nocap = plain(qq, *pools, pt, pos, window=window).float()
             assert not bf16_close(nocap, want)
+
+
+def _flash_inputs(S, T, H, K, hd, q_scale=1.0, seed=0):
+    """Random bf16 q (1, S, H, hd), k and v (1, T, K, hd) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = (torch.randn((1, S, H, hd), generator=g, device="cuda")
+         * q_scale).bfloat16()
+    k = torch.randn((1, T, K, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((1, T, K, hd), generator=g, device="cuda").bfloat16()
+    return q, k, v
+
+
+def _flash_launched(fn):
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    out = fn()
+    assert tfa.LAUNCHES["flash_attention_fwd"] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 64, 4096])
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("H,K", [(4, 4), (8, 4)])
+def test_cuda_flash_matches_plain(window, cap, H, K):
+    """On a card: the flash kernel against its plain version, causal over
+    4608 tokens (past the 4096 window) at gemma2-2b's head width, G = 1
+    and 2, at the tolerance of test_cuda_kernels_match_plain; one launch
+    counted. With a cap, q is scaled so the scores reach it, and the plain
+    version without the cap must miss the tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, k, v = _flash_inputs(4608, 4608, H, K, 256,
+                            q_scale=20.0 if cap else 1.0)
+    got = _flash_launched(lambda: tfa.flash_attention_fwd(
+        q, k, v, causal=True, window=window, cap=cap))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = tref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                    cap=cap).float()
+    assert bf16_close(got.float(), want)
+    if cap:
+        nocap = tref.flash_attention_ref(q, k, v, causal=True,
+                                         window=window).float()
+        assert not bf16_close(nocap, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("T,window", [(640, 0), (640, 64), (200, 0)])
+def test_cuda_flash_full_attention(hd, T, window):
+    """On a card: causal=False with T != S (S = 300, neither a multiple of
+    the 128-row tile nor of the 64-key tile; T past S and short of it),
+    with and without a window, every head width the kernel is built for,
+    G = 2. Every query keeps a valid key."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, k, v = _flash_inputs(300, T, 8, 4, hd, seed=hd + T)
+    got = _flash_launched(lambda: tfa.flash_attention_fwd(
+        q, k, v, causal=False, window=window))
+    want = tref.flash_attention_ref(q, k, v, causal=False,
+                                    window=window).float()
+    assert bf16_close(got.float(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_bad_inputs():
+    """On a card: fp32 q, a CPU k beside CUDA q, a non-contiguous q, an
+    unsupported head width, H not a multiple of K and a misaligned q each
+    raise, and launch nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, k, v = _flash_inputs(256, 256, 8, 4, 128)
+    before = dict(tfa.LAUNCHES)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_fwd(q.float(), k, v)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(*_flash_inputs(256, 256, 8, 4, 96))
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(*_flash_inputs(256, 256, 6, 4, 128))
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        tfa.flash_attention_fwd(buf[1:].view(q.shape), k, v)
+    assert tfa.LAUNCHES == before
 
 
 def _qmm_inputs(M, K, N, per_tensor, seed=0):
