@@ -13,7 +13,10 @@ Phases, each fatal on failure:
                 plain version, a one-call PyTorch yardstick
                 (scaled_dot_product_attention on the gathered dense view,
                 dequantized beforehand for a quantized pool; never called
-                by the port) and its bound. Flash attention at the
+                by the port) and its bound, with its launch plan
+                (decode: n_split and the split and combine grids;
+                prefill: its row tiles) and its achieved GB/s (decode) or
+                TFLOP/s (prefill) per main-path layer. Flash attention at the
                 whole-prompt path's shapes (S = 4096 and 8192, global and
                 local layers, cap 0 and 50), then timed there beside its
                 plain version, SDPA and its bound. The weight-quantized
@@ -54,7 +57,9 @@ Phases, each fatal on failure:
                 attention projections: per decode tick and chunk 104 W8A16
                 and 78 W4A16 launches, no W8A8);
   5. profile  — each of those traces again on a fresh engine under
-                torch.profiler: device time by kernel, device busy share;
+                torch.profiler: device time by kernel and by row of the
+                kernel table (a paged decode call's split and combine
+                kernels summed under its row), device busy share;
   6. generate — the sequential entry point on 2 prompts of 1000 tokens, on
                 2 prompts of 2560 tokens (flash prefill; launches counted),
                 then on 1000 tokens through make_quant_dot's kernels (W4A16
@@ -230,13 +235,12 @@ def walk_span(pos, Sq, n_blocks, window):
     return lo, hi
 
 
-def bound_ms(positions, Sq, n_blocks, window, bits=16):
-    """Least time for the work these inputs need: every live K/V page read
+def paged_work(positions, Sq, n_blocks, window, bits=16):
+    """(bytes, flops) the work these inputs need: every live K/V page read
     once per kv head (``bits`` per stored element, and a quantized pool's
     4-byte K and V scale per slot and kv head), q/table/positions read
-    and the output written once, over device memory; or 4*hd flops per
-    valid (query head, key) pair over the bf16 peak. Returns
-    (ms, 'bytes' | 'operations')."""
+    and the output written once; 4*hd flops per valid (query head, key)
+    pair."""
     B = len(positions)
     per_slot = 2 * HD * bits // 8 + (8 if bits < 16 else 0)  # per kv head
     kv = 0
@@ -249,9 +253,30 @@ def bound_ms(positions, Sq, n_blocks, window, bits=16):
             first = max(qp - window + 1, 0) if window else 0
             valid += max(min(qp, n_blocks * PAGE - 1) - first + 1, 0)
     io = 2 * B * Sq * H * HD * 2 + B * n_blocks * 4 + B * 4
-    t_bytes = (kv + io) / HBM_BYTES_PER_S * 1e3
-    t_ops = 4.0 * HD * valid * H / BF16_FLOPS * 1e3
+    return kv + io, 4.0 * HD * valid * H
+
+
+def bound_ms(positions, Sq, n_blocks, window, bits=16):
+    """Least time for ``paged_work``: its bytes over device memory or its
+    flops over the bf16 peak, the larger. Returns (ms, 'bytes' |
+    'operations')."""
+    nbytes, flops = paged_work(positions, Sq, n_blocks, window, bits)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def paged_plan(is_dec, B, Sq, n_blocks):
+    """The launch plan of a paged kernel at these shapes, as the wrapper
+    makes it: decode's split count and grids, prefill's row tiles."""
+    from repro_torch.kernels import paged_attention as pa
+    if is_dec:
+        g = pa.decode_grid(B, H, K, n_blocks, PAGE)
+        return (f"n_split={g[2]}, split grid {g} = {g[0] * g[1] * g[2]} "
+                f"CTAs, combine grid ({B}, {H})")
+    g = pa.prefill_grid(B, Sq, H, K)
+    return (f"{pa.PREFILL_ROWS}-row x {pa.PREFILL_TILE}-key tiles, grid "
+            f"{g} = {g[0] * g[1] * g[2]} CTAs")
 
 
 def dense_pools(pools, bits):
@@ -417,8 +442,9 @@ def phase_kernels(prefill_chunk: int, n_blocks_main: int):
                 timed.append((name, bit_set, [0], 2048, n_blocks_main))
     records = {}
     for name, bit_set, positions, Sq, n_blocks in timed:
-        fwd, plain = specs[name][:2]
+        fwd, plain, _, is_dec = specs[name]
         ms = plain_ms = lib_ms = b_ms = 0.0
+        rates = []
         for bits in bit_set:
             qs, pools, pt, pos = paged_case(7, positions, Sq, n_blocks, bits)
             q = qs[CAP]
@@ -428,8 +454,16 @@ def phase_kernels(prefill_chunk: int, n_blocks_main: int):
                 err[name] = max(err[name], e)
                 if (bits, window) not in MAIN_LAYERS[name]:
                     continue              # checked, not on the main path
-                ms += device_ms(lambda: fwd(q, *pools, pt, pos,
-                                            window=window, cap=CAP)) / 2
+                t = device_ms(lambda: fwd(q, *pools, pt, pos, window=window,
+                                          cap=CAP))
+                ms += t / 2
+                nbytes, flops = paged_work(positions, Sq, n_blocks, window,
+                                           bits)
+                rates.append(f"bits {bits} window {window} {t:.4f} ms = "
+                             + (f"{nbytes / t / 1e6:.0f} GB/s of "
+                                f"{HBM_BYTES_PER_S / 1e9:.0f}" if is_dec
+                                else f"{flops / t / 1e9:.1f} TFLOP/s of "
+                                f"{BF16_FLOPS / 1e12:.0f}"))
                 plain_ms += time_ms(lambda: plain(q, *pools, pt, pos,
                                                   window=window, cap=CAP),
                                     reps=2, warmup=1) / 2
@@ -441,8 +475,10 @@ def phase_kernels(prefill_chunk: int, n_blocks_main: int):
             del qs, q, pools, pt, pos
         layers = ", ".join(f"bits {b} window {w}"
                            for b, w in MAIN_LAYERS[name])
+        plan = paged_plan(is_dec, len(positions), Sq, n_blocks)
         print(f"kernels: {name} B={len(positions)} Sq={Sq} "
-              f"n_blocks={n_blocks}, mean of {layers}: {ms:.4f} ms (plain "
+              f"n_blocks={n_blocks}, {plan}; {'; '.join(rates)}; mean of "
+              f"{layers}: {ms:.4f} ms (plain "
               f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} "
               f"ms by {by})", flush=True)
         if name not in records:
@@ -840,6 +876,19 @@ KERNEL_SOURCES = {
         "cuda", "src/repro_torch/kernels/csrc/quant_matmul.cu",
         "src/repro/kernels/quant_matmul.py:141"),
 }
+# the device kernels each row of the kernel table launches, by name
+# prefix in the profiler's key (anonymous namespaces dropped): a decode
+# wrapper call is a split kernel and a combine kernel, summed under its row
+DEVICE_ROWS = {
+    "paged_attention_fwd": ("paged_decode_split_kernel<Bf16Pool",
+                            "paged_decode_combine_kernel<Bf16Pool"),
+    "paged_prefill_fwd": ("paged_prefill_kernel<Bf16Pool",),
+    "paged_attention_quant_fwd": ("paged_decode_split_kernel<Int",
+                                  "paged_decode_combine_kernel<Int"),
+    "paged_prefill_quant_fwd": ("paged_prefill_kernel<Int",),
+    "flash_attention_fwd": ("flash_fwd_kernel",),
+    "quant matmuls": ("qmm_kernel",),
+}
 BF16_KERNELS = ("paged_attention_fwd", "paged_prefill_fwd")
 QUANT_KERNELS = ("paged_attention_quant_fwd", "paged_prefill_quant_fwd")
 # the whole-prompt main path (--no-chunked-prefill): flash attention in
@@ -1150,6 +1199,18 @@ def phase_profile(model, params, policy, args):
         print(f"{label}: the profiler saw no device time (not measured)",
               flush=True)
         return None, None, wall_ms
+    rows = []
+    for row, prefixes in DEVICE_ROWS.items():
+        parts = [(k, v) for k, v in by_name.items()
+                 if any(k.startswith(p) or f" {p}" in k for p in prefixes)]
+        total = sum(v for _, v in parts)
+        if total:
+            rows.append(f"{row} {total:.1f} ms ({100 * total / busy:.1f}%)"
+                        + (" = " + " + ".join(
+                            f"{k.split('<')[0].split(' ')[-1]} {v:.1f}"
+                            for k, v in parts) if len(parts) > 1 else ""))
+    print(f"{label}: device time by kernel-table row: " + "; ".join(rows),
+          flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label}: main path {wall_ms:.1f} ms wall, device busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%, idle "

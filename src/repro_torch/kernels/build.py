@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``build/kernels/`` at the
-repository root, named by a hash of the source and the flags: a changed
-source builds anew, an unchanged one is loaded as it is. The library is
-bound with ``ctypes``. Nothing here runs at import; the first wrapper call
+repository root, named by a hash of the source, the headers it includes
+(``csrc/common.cuh``) and the flags: a changed source or header builds
+anew, an unchanged one is loaded as it is. The library is bound with
+``ctypes``. Nothing here runs at import; the first wrapper call
 on a CUDA tensor builds and loads.
 
     python -m repro_torch.kernels.build     # build every kernel, print times
@@ -14,12 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -30,11 +32,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of each library's entry points: name -> (restype, argtypes)
 SIGNATURES = {
     "paged_attention": {
-        "paged_decode_bf16": (_I, [_P] * 6 + [_I] * 7 + [_F, _P]),
-        "paged_prefill_bf16": (_I, [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
-        "paged_decode_quant": (_I, [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
-        "paged_prefill_quant": (_I, [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P]),
-        "paged_smem_bytes": (ctypes.c_size_t, [_I] * 4),
+        "paged_decode_bf16": (_I, [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
+        "paged_prefill_bf16": (_I, [_P] * 6 + [_I] * 8 + [_F, _P]),
+        "paged_decode_quant": (_I, [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
+        "paged_prefill_quant": (_I, [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
+        "paged_smem_bytes": (ctypes.c_size_t, [_I] * 3),
         "paged_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
@@ -64,9 +66,31 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes with ``#include
+    "..."`` (resolved beside the including file), recursively, in a fixed
+    order."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, every header the
+    source includes and the flags: an edit to any of them builds anew."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

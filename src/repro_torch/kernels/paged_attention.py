@@ -7,20 +7,26 @@ decode) and ``paged_prefill_fwd`` (chunked prefill) over a bf16 page pool,
 ``paged_attention_quant_fwd`` and ``paged_prefill_quant_fwd`` over a
 quantized one (int8, or int4 packed two per byte along hd, with fp32
 per-slot, per-head scales; the bitwidth is read from the stored shape).
-All four walk ``page_table[b]`` page by page with an fp32 online softmax,
-the softcap before the mask and the local window, dequantize each element
-as it is read, and never build the dense chronological KV view.
+All four walk ``page_table[b]`` with an fp32 online softmax, the softcap
+before the mask and the local window, and never build the dense
+chronological KV view.
 
-What bounds them on the H100: the bytes of the live K/V pages (codes and
-scales, for a quantized pool) each (sequence, kv head) walks, over
-3.35 TB/s. The design loads each page once per kv head for all G query
-heads (decode) or a BM-row tile of them (prefill), streams pages in their
-stored width through a two-stage cp.async ring, and keeps the softmax
-state in shared memory — see the source's header note.
+What bounds them on the H100: decode, the bytes of the live K/V pages
+over 3.35 TB/s; prefill, its operations over the tensor cores' rate. The
+decode wrappers launch two kernels: a split kernel, grid (B, K*G/GC,
+n_split), whose CTAs each walk an equal share of their sequence's own
+32-key tiles through a three-stage cp.async ring and leave fp32 partials
+(m, l, acc) in a scratch tensor this module allocates, then a combine
+kernel that merges them in a fixed order. ``decode_splits`` picks n_split
+from the shapes alone, never from ``positions`` (no host read, so a CUDA
+graph can capture the call). The prefill wrappers launch one
+tensor-core kernel (mma.sync) over 128-row tiles of the chunk's fused
+(Sq*G) rows and 64-key K/V tiles; a quantized pool's codes become bf16
+tiles once per landed tile. See the source's header note.
 
 On a CPU tensor each wrapper returns its plain version from
-``kernels/ref.py``; on a CUDA tensor it launches the kernel or raises.
-``LAUNCHES`` counts kernel launches per wrapper, nothing else.
+``kernels/ref.py``; on a CUDA tensor it launches the kernels or raises.
+``LAUNCHES`` counts wrapper calls that launched, one per call.
 """
 from __future__ import annotations
 
@@ -30,12 +36,21 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 # launches of each kernel; a wrapper adds one where it launches, and only
-# there (chip_smoke.py zeroes these around the main path)
+# there, one per call even where the call launches the split and the
+# combine kernels (chip_smoke.py zeroes these around the main path)
 LAUNCHES = {"paged_attention_fwd": 0, "paged_prefill_fwd": 0,
             "paged_attention_quant_fwd": 0, "paged_prefill_quant_fwd": 0}
 
-PREFILL_BM = 32       # query rows (of the flattened Sq*G) per prefill CTA
 SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
+HEAD_DIMS = (64, 128, 256)    # the head widths the kernels are built for
+DECODE_TILE = 32      # keys per decode ring stage, the unit a split takes
+DECODE_THREADS = 256  # threads per decode split CTA: hd/8 lanes per walker
+PREFILL_ROWS = 128    # fused (Sq*G) query rows per prefill CTA
+PREFILL_TILE = 64     # keys per prefill K/V tile
+# decode splits: about two split CTAs per SM of the H100's 132, each split
+# keeping at least MIN_SPLIT_TILES tiles of the table's width
+SPLIT_TARGET_CTAS = 2 * 132
+MIN_SPLIT_TILES = 4
 
 
 def reset_launches() -> None:
@@ -43,7 +58,54 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check(q, pool_k, pool_v, page_table, positions, rows, scales=()):
+def decode_splits(B: int, K: int, n_blocks: int, page: int) -> int:
+    """Splits per (sequence, kv head) of the decode walk, from the shapes
+    alone: enough for SPLIT_TARGET_CTAS CTAs over B*K pairs, at most one
+    per MIN_SPLIT_TILES 32-key tiles of the page table's width, at least
+    one. Each sequence's CTAs share its own live tiles (``split_tiles``);
+    splits past them walk nothing."""
+    tiles = -(-n_blocks * page // DECODE_TILE)
+    want = -(-SPLIT_TARGET_CTAS // max(B * K, 1))
+    return max(1, min(want, tiles // MIN_SPLIT_TILES))
+
+
+def head_group(G: int) -> int:
+    """Query heads one decode split CTA serves (the kernel's GC): 4, 2 or
+    1, the largest that divides G; G/GC CTAs share a kv head."""
+    return 4 if G % 4 == 0 else 2 if G % 2 == 0 else 1
+
+
+def decode_grid(B: int, H: int, K: int, n_blocks: int, page: int):
+    """The decode split kernel's grid (B, K*G/GC, n_split)."""
+    return (B, K * (H // K) // head_group(H // K),
+            decode_splits(B, K, n_blocks, page))
+
+
+def prefill_grid(B: int, Sq: int, H: int, K: int):
+    """The prefill kernel's grid (B, K, 128-row tiles of the Sq*G rows)."""
+    return (B, K, -(-Sq * (H // K) // PREFILL_ROWS))
+
+
+def decode_blocks(pos: int, window: int, page: int, n_blocks: int):
+    """[lo, hi] blocks the decode query at ``pos`` needs (the kernel's and
+    the Pallas kernel's _block_range, hi clamped to the table width);
+    lo > hi when it needs none."""
+    hi = min(pos // page, n_blocks - 1)
+    lo = max((pos - window + 1) // page, 0) if window else 0
+    return lo, hi
+
+
+def split_tiles(lo: int, hi: int, page: int, split: int, n_split: int):
+    """[t0, t1): the 32-key tiles split ``split`` of ``n_split`` walks of
+    the blocks [lo, hi] (as the kernel computes them): an equal contiguous
+    share of the tiles that hold them."""
+    t_lo = lo * page // DECODE_TILE
+    n_t = (hi * page + page - 1) // DECODE_TILE - t_lo + 1 if lo <= hi else 0
+    return (t_lo + split * n_t // n_split,
+            t_lo + (split + 1) * n_t // n_split)
+
+
+def _check(q, pool_k, pool_v, page_table, positions, prefill, scales=()):
     """Validate a launch; ``scales`` (k_scale, v_scale) marks a quantized
     pool. Returns (library, bits of the pool)."""
     named = (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
@@ -81,10 +143,15 @@ def _check(q, pool_k, pool_v, page_table, positions, rows, scales=()):
         raise ValueError(f"scales must be (P, page, K) = "
                          f"{tuple(pool_k.shape[:3])}, got "
                          f"{[tuple(s.shape) for s in scales]}")
-    if hd % 32 or hd > 256:
-        raise ValueError(f"kernel needs hd % 32 == 0 and hd <= 256, got {hd}")
-    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned (cp.async)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"kernels are built for hd in {HEAD_DIMS}, got {hd}")
+    if DECODE_TILE % page:
+        raise ValueError(f"kernels need a page size dividing {DECODE_TILE}, "
+                         f"got {page}")
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16 \
+            or q.data_ptr() % 16:
+        raise ValueError("q and the pools must be 16-byte aligned "
+                         "(16-byte loads, cp.async)")
     if any(s.data_ptr() % 4 for s in scales):
         raise ValueError("scales must be 4-byte aligned (cp.async)")
     B = q.shape[0]
@@ -93,11 +160,19 @@ def _check(q, pool_k, pool_v, page_table, positions, rows, scales=()):
         raise ValueError("page_table must be (B, n_blocks) and positions "
                          "(B,)")
     lib = build.load("paged_attention")
-    smem = lib.paged_smem_bytes(rows, hd, page, bits)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"page={page}, hd={hd}, {rows} rows need {smem} B "
-                         f"of shared memory, over {SMEM_LIMIT}")
+    smem = lib.paged_smem_bytes(int(prefill), hd, bits)
+    if not 0 < smem <= SMEM_LIMIT:
+        raise ValueError(f"hd={hd}, {bits}-bit pool: the kernel needs {smem} "
+                         f"B of shared memory, over {SMEM_LIMIT}")
     return lib, bits
+
+
+def _partials(q, n_split: int):
+    """fp32 scratch for the decode split kernel's partials: acc
+    (B, H, n_split, hd), then (m, l) (B, H, n_split, 2)."""
+    B, H, hd = q.shape
+    return torch.empty(B * H * n_split * (hd + 2), dtype=torch.float32,
+                       device=q.device)
 
 
 def _raise_on(lib, rc: int, name: str) -> None:
@@ -116,14 +191,17 @@ def paged_attention_fwd(q, pool_k, pool_v, page_table, positions, *,
                                        positions, window=window, cap=cap)
     B, H, hd = q.shape
     _, page, K, _ = pool_k.shape
-    lib, _ = _check(q, pool_k, pool_v, page_table, positions, H // K)
+    lib, _ = _check(q, pool_k, pool_v, page_table, positions, False)
+    n_blocks = page_table.shape[1]
+    n_split = decode_splits(B, K, n_blocks, page)
+    part = _partials(q, n_split)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.paged_decode_bf16(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        page_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        B, H, K, hd, page, page_table.shape[1], int(window), float(cap),
-        stream)
+        page_table.data_ptr(), positions.data_ptr(), part.data_ptr(),
+        out.data_ptr(), B, H, K, hd, page, n_blocks, int(window),
+        float(cap), n_split, stream)
     _raise_on(lib, rc, "paged_attention_fwd")
     LAUNCHES["paged_attention_fwd"] += 1
     return out
@@ -139,14 +217,14 @@ def paged_prefill_fwd(q, pool_k, pool_v, page_table, positions, *,
                                      positions, window=window, cap=cap)
     B, Sq, H, hd = q.shape
     _, page, K, _ = pool_k.shape
-    lib, _ = _check(q, pool_k, pool_v, page_table, positions, PREFILL_BM)
+    lib, _ = _check(q, pool_k, pool_v, page_table, positions, True)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.paged_prefill_bf16(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         page_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
         B, Sq, H, K, hd, page, page_table.shape[1], int(window), float(cap),
-        PREFILL_BM, stream)
+        stream)
     _raise_on(lib, rc, "paged_prefill_fwd")
     LAUNCHES["paged_prefill_fwd"] += 1
     return out
@@ -164,15 +242,18 @@ def paged_attention_quant_fwd(q, pool_k, k_scale, pool_v, v_scale,
             window=window, cap=cap)
     B, H, hd = q.shape
     _, page, K, _ = pool_k.shape
-    lib, bits = _check(q, pool_k, pool_v, page_table, positions, H // K,
+    lib, bits = _check(q, pool_k, pool_v, page_table, positions, False,
                        (k_scale, v_scale))
+    n_blocks = page_table.shape[1]
+    n_split = decode_splits(B, K, n_blocks, page)
+    part = _partials(q, n_split)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.paged_decode_quant(
         q.data_ptr(), pool_k.data_ptr(), k_scale.data_ptr(),
         pool_v.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), B, H, K, hd, page,
-        page_table.shape[1], int(window), float(cap), bits, stream)
+        positions.data_ptr(), part.data_ptr(), out.data_ptr(), B, H, K, hd,
+        page, n_blocks, int(window), float(cap), bits, n_split, stream)
     _raise_on(lib, rc, "paged_attention_quant_fwd")
     LAUNCHES["paged_attention_quant_fwd"] += 1
     return out
@@ -190,7 +271,7 @@ def paged_prefill_quant_fwd(q, pool_k, k_scale, pool_v, v_scale,
             window=window, cap=cap)
     B, Sq, H, hd = q.shape
     _, page, K, _ = pool_k.shape
-    lib, bits = _check(q, pool_k, pool_v, page_table, positions, PREFILL_BM,
+    lib, bits = _check(q, pool_k, pool_v, page_table, positions, True,
                        (k_scale, v_scale))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -198,8 +279,7 @@ def paged_prefill_quant_fwd(q, pool_k, k_scale, pool_v, v_scale,
         q.data_ptr(), pool_k.data_ptr(), k_scale.data_ptr(),
         pool_v.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
         positions.data_ptr(), out.data_ptr(), B, Sq, H, K, hd, page,
-        page_table.shape[1], int(window), float(cap), PREFILL_BM, bits,
-        stream)
+        page_table.shape[1], int(window), float(cap), bits, stream)
     _raise_on(lib, rc, "paged_prefill_quant_fwd")
     LAUNCHES["paged_prefill_quant_fwd"] += 1
     return out

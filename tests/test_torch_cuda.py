@@ -1,6 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on a card only: the bf16 pair and the fused-dequant pair over
-int8 and packed-int4 pools, at full gemma2-2b head width, flash attention
+int8 and packed-int4 pools, at full gemma2-2b head width (and the split
+decode walk's and the tensor-core prefill walk's edges: B = 1/8/64, empty
+splits, window and diagonal edges, ragged and padded chunks, other head
+widths and groups), flash attention
 (whole-prompt prefill), and the three weight-quantized matmuls (W8A16,
 W4A16, W8A8). Imports no JAX
 (the card's machine has none); run there, from the repository root, with
@@ -78,6 +81,146 @@ def test_cuda_quant_kernels_match_plain(bits, window, cap):
         if cap:
             nocap = plain(qq, *pools, pt, pos, window=window).float()
             assert not bf16_close(nocap, want)
+
+
+# the paged kernels' plain versions and wrappers by pool bits: (decode
+# kernel, its plain version, prefill kernel, its plain version)
+_PAGED = {16: (tpa.paged_attention_fwd, tref.paged_attention_ref,
+               tpa.paged_prefill_fwd, tref.paged_prefill_ref)}
+_PAGED[8] = _PAGED[4] = (tpa.paged_attention_quant_fwd,
+                         tref.paged_attention_quant_ref,
+                         tpa.paged_prefill_quant_fwd,
+                         tref.paged_prefill_quant_ref)
+PAGE = 16
+
+
+def _pool_case(positions, Sq, n_blocks, bits, *, H=8, K=4, hd=256,
+               num_pages=257, seed=0):
+    """On the card: N(0, 1) pools (bf16, or quantized by the pool writers'
+    mapping) whose scratch page 0 is poisoned, a chunk of Sq queries per
+    sequence (as drawn, and scaled by 20 so that the scores reach a cap of
+    50), and a page table giving each sequence's live blocks random pages
+    (drawn with replacement) and its tails page 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B = len(positions)
+    pk = torch.randn((num_pages, PAGE, K, hd), generator=g, device="cuda")
+    pv = torch.randn((num_pages, PAGE, K, hd), generator=g, device="cuda")
+    if bits == 16:
+        pk, pv = pk.bfloat16(), pv.bfloat16()
+        pk[0], pv[0] = 37.0, -53.0
+        pools = (pk, pv)
+    else:
+        kq, ks = tref.quantize_kv(pk, bits)
+        vq, vs = tref.quantize_kv(pv, bits)
+        kq[0], vq[0], ks[0], vs[0] = 127, 127, 1e4, 1e4
+        pools = (kq, ks, vq, vs)
+    q = torch.randn((B, Sq, H, hd), generator=g, device="cuda")
+    qs = {0.0: q.bfloat16(), 50.0: (q * 20.0).bfloat16()}
+    cpu = torch.Generator().manual_seed(seed)
+    pt = torch.zeros((B, n_blocks), dtype=torch.int32)
+    for b, pos in enumerate(positions):
+        need = min((pos + Sq - 1) // PAGE + 1, n_blocks)
+        pt[b, :need] = torch.randint(1, num_pages, (need,), generator=cpu,
+                                     dtype=torch.int32)
+    pos_t = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    return qs, pools, pt.cuda(), pos_t
+
+
+def _paged_launched(name, fn):
+    before = tpa.LAUNCHES[name]
+    out = fn()
+    assert tpa.LAUNCHES[name] == before + 1
+    return out
+
+
+def _check_paged(fwd, plain, q, pools, pt, pos, window, cap, live=None):
+    """One kernel call against its plain version (over the rows a padded
+    chunk defines, ``live``), one launch counted; with a cap, the plain
+    version without it must miss the tolerance."""
+    name = fwd.__name__
+    got = _paged_launched(name, lambda: fwd(q, *pools, pt, pos,
+                                            window=window, cap=cap))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    want = plain(q, *pools, pt, pos, window=window, cap=cap).float()
+    g = got.float()
+    if live is not None:
+        g, want = g[:, :live], want[:, :live]
+    assert bf16_close(g, want), (name, window, cap)
+    if cap:
+        nocap = plain(q, *pools, pt, pos, window=window).float()
+        if live is not None:
+            nocap = nocap[:, :live]
+        assert not bf16_close(nocap, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_cuda_decode_split_edges(bits, B):
+    """On a card: the split decode walk and its combine over each pool
+    type at B = 1 (the most splits), 8 and 64, positions cycling through
+    {9000, 0, 15, 16, 4095, 4096} (page edges, the 4096 window's edge, a
+    long walk), a page table 400 blocks wider than the longest live range
+    (so most splits of the short sequences walk nothing), windows {0, 64,
+    4096} and caps {0, 50}, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    # B = 1 walks the longest sequence (a lone position 0 would leave the
+    # cap nothing to change)
+    positions = [(9000, 0, 15, 16, 4095, 4096)[i % 6] for i in range(B)]
+    n_blocks = 9000 // PAGE + 1 + 400
+    qs, pools, pt, pos = _pool_case(positions, 1, n_blocks, bits, seed=B)
+    fwd, plain = _PAGED[bits][:2]
+    n_split = tpa.decode_splits(B, 4, n_blocks, PAGE)
+    assert n_split >= 1 and (B > 8 or B * 4 * n_split >= 132)
+    for window in (0, 64, 4096):
+        for cap in (0.0, 50.0):
+            _check_paged(fwd, plain, qs[cap][:, 0].contiguous(), pools, pt,
+                         pos, window, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("positions,Sq,n_blocks,live", [
+    # 400 fused rows (not a multiple of 128); chunks whose 64-position
+    # tiles straddle the diagonal, the window edge (64, and 4096 at
+    # positions 4000-4289) and a page edge
+    ([0, 4000, 4090], 200, 300, None),
+    # a padded final chunk running past the page-table width
+    ([512], 256, 40, 40 * PAGE - 512),
+])
+def test_cuda_prefill_tile_edges(bits, positions, Sq, n_blocks, live):
+    """On a card: the tensor-core prefill walk over each pool type at
+    windows {0, 64, 4096} and caps {0, 50}, against the plain version over
+    the rows the chunk defines."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    qs, pools, pt, pos = _pool_case(positions, Sq, n_blocks, bits,
+                                    seed=Sq + bits)
+    fwd, plain = _PAGED[bits][2:]
+    for window in (0, 64, 4096):
+        for cap in (0.0, 50.0):
+            _check_paged(fwd, plain, qs[cap], pools, pt, pos, window, cap,
+                         live)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("H,K,hd", [(8, 2, 128), (6, 2, 64), (4, 4, 256)])
+def test_cuda_paged_head_shapes(bits, H, K, hd):
+    """On a card: both walks at the other head widths (64, 128) and head
+    groups (G = 4: one CTA per kv head; G = 3: one per query head; G = 1)
+    the kernels are built for, window 64, cap 50."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    positions = [5, 700, 1500]
+    qs, pools, pt, pos = _pool_case(positions, 40, 100, bits, H=H, K=K,
+                                    hd=hd, num_pages=64, seed=H + hd)
+    dec, dplain, pre, pplain = _PAGED[bits]
+    q = qs[50.0]
+    _check_paged(dec, dplain, q[:, 0].contiguous(), pools, pt, pos, 64, 50.0)
+    _check_paged(pre, pplain, q, pools, pt, pos, 64, 50.0)
 
 
 def _flash_inputs(S, T, H, K, hd, q_scale=1.0, seed=0):
