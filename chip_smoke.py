@@ -76,6 +76,7 @@ result, without a CUDA device or without the repository beside it.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -188,9 +189,11 @@ def device_ms(fn, arg_sets=((),), reps: int = 20, replays: int = 3) -> float:
 
 
 # ------------------------------------------------------------- kernels ----
-def paged_case(seed, positions, Sq, n_blocks, bits=16):
+def paged_case(seed, positions, Sq, n_blocks, bits=16, *, heads=(H, K),
+               hd=HD, page=PAGE):
     """Random pools with a poisoned scratch page 0, a query chunk and a
-    page table giving every sequence its own random pages (tails -> 0).
+    page table giving every sequence its own random pages (tails -> 0), at
+    ``heads`` (query, kv) heads of width ``hd`` over pages of ``page``.
     ``bits`` 16: bf16 pools (pool_k, pool_v); 8 or 4: N(0,1) K/V quantized
     by the pool writers' mapping, (codes_k, scale_k, codes_v, scale_v),
     page 0's codes and scales poisoned. Returns the case with two queries:
@@ -201,8 +204,9 @@ def paged_case(seed, positions, Sq, n_blocks, bits=16):
     g = torch.Generator(device=dev).manual_seed(seed)
     B = len(positions)
     P = B * n_blocks + 1
-    pool_k = torch.randn((P, PAGE, K, HD), generator=g, device=dev)
-    pool_v = torch.randn((P, PAGE, K, HD), generator=g, device=dev)
+    n_q, n_kv = heads
+    pool_k = torch.randn((P, page, n_kv, hd), generator=g, device=dev)
+    pool_v = torch.randn((P, page, n_kv, hd), generator=g, device=dev)
     if bits == 16:
         pool_k, pool_v = pool_k.bfloat16(), pool_v.bfloat16()
         pool_k[0], pool_v[0] = 37.0, -53.0     # a leak past the mask shows
@@ -216,12 +220,12 @@ def paged_case(seed, positions, Sq, n_blocks, bits=16):
         for t in (ks, vs):
             t[0] = POISON_SCALE
         pools = (kq, ks, vq, vs)
-    q = torch.randn((B, Sq, H, HD), generator=g, device=dev).bfloat16()
+    q = torch.randn((B, Sq, n_q, hd), generator=g, device=dev).bfloat16()
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
         seed)) + 1
     pt = torch.zeros((B, n_blocks), dtype=torch.int32)
     for b, pos in enumerate(positions):
-        need = min((pos + Sq - 1) // PAGE + 1, n_blocks)
+        need = min((pos + Sq - 1) // page + 1, n_blocks)
         pt[b, :need] = perm[b * n_blocks:b * n_blocks + need]
     pos_t = torch.tensor(positions, dtype=torch.int32, device=dev)
     q_cap = (q.float() * CAP_Q_SCALE).bfloat16()
@@ -843,6 +847,45 @@ def phase_qmm_kernels():
         del codes, scale, unpacked, w_bf16, w_col
     del w
     torch.cuda.empty_cache()
+
+    # a decode tick (M = 8) on every projection: the wgmma kernels' K
+    # splits, two calls bit-identical (the reduce sums in a fixed order),
+    # timed beside cuBLAS on the bf16 weights, each call on cold weights
+    for K, N in QMM_SHAPES:
+        if (K, N) == LM_HEAD:
+            continue
+        w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+        x = torch.randn((8, K), generator=g, device="cuda").bfloat16()
+        for name in ("quant_matmul_w8a16", "quant_matmul_w4a16"):
+            fwd, plain, quantize = specs[name]
+            codes, scale = quantize(w)
+            what = f"decode, M=8, K={K}, N={N}"
+            err[name] = max(err[name], check_qmm(name, fwd, plain, x, codes,
+                                                 scale, what))
+            if not torch.equal(fwd(x, codes, scale), fwd(x, codes, scale)):
+                fail(f"{name}: two calls differ ({what})")
+            copies = max(1, -(-QMM_COLD_BYTES // codes.nbytes))
+            reps = max(20, min(copies, 200))
+            ms = device_ms(fwd, [(x, c, scale) for c in [codes] + [
+                codes.clone() for _ in range(copies - 1)]], reps)
+            unpacked = ref.unpack_w4(codes) if name == \
+                "quant_matmul_w4a16" else codes
+            w_bf16 = (unpacked.float() * scale).bfloat16()
+            lcopies = max(1, -(-QMM_COLD_BYTES // w_bf16.nbytes))
+            lib_ms = device_ms(torch.matmul, [(x, b) for b in [w_bf16] + [
+                w_bf16.clone() for _ in range(lcopies - 1)]],
+                max(20, min(lcopies, 200)))
+            b_ms, by = qmm_bound_ms(name, 8, K, N)
+            n_split = qm.qmm_splits(8, N, K)
+            print(f"kernels: {name} M=8 K={K} N={N}: {ms:.4f} ms, "
+                  f"{n_split} K splits (library {lib_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms by {by})", flush=True)
+            records[name].setdefault("decode_shapes", {})[f"{K}x{N}"] = {
+                "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "n_split": n_split}
+            del codes, scale, unpacked, w_bf16
+            torch.cuda.empty_cache()
+        del w, x
     print(f"kernels: quant matmuls match plain versions (max |err| "
           f"{json.dumps(err)}; bf16 tolerance {ROW_ATOL:.4g}*max|ref row| + "
           f"{RTOL:.4g}*|ref|, fp32 3K/16*2**-23*max|ref row|)",
@@ -887,7 +930,7 @@ DEVICE_ROWS = {
                                   "paged_decode_combine_kernel<Int"),
     "paged_prefill_quant_fwd": ("paged_prefill_kernel<Int",),
     "flash_attention_fwd": ("flash_fwd_kernel",),
-    "quant matmuls": ("qmm_kernel",),
+    "quant matmuls": ("wq_kernel", "splitk_reduce_kernel", "qmm_kernel"),
 }
 BF16_KERNELS = ("paged_attention_fwd", "paged_prefill_fwd")
 QUANT_KERNELS = ("paged_attention_quant_fwd", "paged_prefill_quant_fwd")
@@ -1207,7 +1250,8 @@ def phase_profile(model, params, policy, args):
         if total:
             rows.append(f"{row} {total:.1f} ms ({100 * total / busy:.1f}%)"
                         + (" = " + " + ".join(
-                            f"{k.split('<')[0].split(' ')[-1]} {v:.1f}"
+                            f"{k.split('(')[0].removeprefix('void ')} "
+                            f"{v:.1f}"
                             for k, v in parts) if len(parts) > 1 else ""))
     print(f"{label}: device time by kernel-table row: " + "; ".join(rows),
           flush=True)
@@ -1342,6 +1386,161 @@ def phase_drift(model, params):
     print(f"drift: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ------------------------------------------------ tiny gemma2-2b (hd 32) --
+# tiny gemma2-2b (the reference's tiny_config): 4 query heads, 2 kv heads of
+# width 32, a local window of 32; served at pages of 16 and 64 (a page of 64
+# spans two 32-key decode tiles), the kernels also checked at pages of 2
+TINY_HEADS, TINY_HD, TINY_WINDOW = (4, 2), 32, 32
+TINY_PAGES = (16, 64)
+TINY_KERNEL_PAGES = (2, 16, 64, 128)
+TINY_GEN = 16
+
+
+def phase_tiny_kernels():
+    """Phase 1b: every attention kernel at hd 32 against its plain version
+    (tolerance as phase 2): decode and prefill over bf16, int8 and int4
+    pools at pages below, at and above the 32-key decode tile, positions
+    across the tiny window and page edges, windows {0, 32} and caps {0,
+    50}; flash over 2560 tokens. A failure ends the run."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    positions = [0, 31, 33, 64, 129, 300]
+    for page in TINY_KERNEL_PAGES:
+        for name, (fwd, plain, bit_set, is_dec) in kernel_specs().items():
+            Sq = 1 if is_dec else 70
+            n_blocks = (max(positions) + Sq) // page + 3
+            for bits in bit_set:
+                qs, pools, pt, pos = paged_case(
+                    300 + page + bits, positions, Sq, n_blocks, bits,
+                    heads=TINY_HEADS, hd=TINY_HD, page=page)
+                for window in (0, TINY_WINDOW):
+                    for cap in (0.0, CAP):
+                        check_kernel(f"{name}[hd=32 page={page}]", fwd,
+                                     plain, qs, pools, pt, pos,
+                                     window=window, cap=cap, bits=bits)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    S = 2560
+    n_q, n_kv = TINY_HEADS
+    q = torch.randn((1, S, n_q, TINY_HD), generator=g, device="cuda")
+    k = torch.randn((1, S, n_kv, TINY_HD), generator=g,
+                    device="cuda").bfloat16()
+    v = torch.randn((1, S, n_kv, TINY_HD), generator=g,
+                    device="cuda").bfloat16()
+    qs = {0.0: q.bfloat16(), CAP: (q * CAP_Q_SCALE).bfloat16()}
+
+    def fwd(q, k, v, pt, pos, *, window, cap):
+        return fa.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                      cap=cap)
+
+    def plain(q, k, v, pt, pos, *, window, cap):
+        return ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                       cap=cap)
+
+    for window in (0, TINY_WINDOW):
+        for cap in (0.0, CAP):
+            check_kernel("flash_attention_fwd[hd=32]", fwd, plain, qs,
+                         (k, v), None, None, window=window, cap=cap)
+
+
+def tiny_trace(cfg, whole: bool):
+    """Chunked runs: 8 prompts of 40-100 tokens (past the window of 32 and
+    page edges). Whole-prompt runs: 4 prompts of FLASH_MIN = 2048 tokens,
+    so that the engine (which pads a prompt to its 2048-row bucket) and
+    ``generate`` (which pads nothing) both prefill through flash on the
+    same rows. TINY_GEN new tokens each."""
+    import numpy as np
+    from repro_torch.models.flash import FLASH_MIN
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(3)
+    lens = [FLASH_MIN] * 4 if whole else rng.integers(40, 101, 8).tolist()
+    return [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, S)
+                    .astype(np.int32), max_new=TINY_GEN)
+            for i, S in enumerate(lens)]
+
+
+def phase_tiny_engine(kv_policy_file):
+    """Phase 1c: the north star's tiny main path on the card: tiny
+    gemma2-2b served by the engine with ``--paged-kernel cuda`` at pages of
+    16 and 64, chunked (32-token chunks) and whole-prompt (2048-token
+    prompts, through flash), over a bf16 pool and the KV_POLICY pool. Each
+    run must launch the attention kernels of its path (and no other), and
+    give tokens identical to the port's own ``generate`` on each prompt:
+    kernel "cuda", the same page size and pool (bf16, or the KV_POLICY
+    bits quantized on write), prefilling as the run does (``generate``'s
+    ``prefill_chunk``, or its whole-sequence forward)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import tiny_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+
+    model = build_model(tiny_config("gemma2-2b"))
+    cfg = model.cfg
+    if cfg.resolved_head_dim != TINY_HD or \
+            (cfg.num_heads, cfg.num_kv_heads) != TINY_HEADS:
+        fail(f"tiny gemma2-2b is not hd {TINY_HD}, heads {TINY_HEADS}")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    for page, chunked, kv in itertools.product(TINY_PAGES, (True, False),
+                                                (False, True)):
+        reqs = tiny_trace(cfg, whole=not chunked)
+        max_len = max(len(r.prompt) + r.max_new for r in reqs)
+        argv = ["--arch", "gemma2-2b", "--tiny", "--paged-kernel", "cuda",
+                "--page-size", str(page), "--max-batch", "8"]
+        argv += ["--prefill-chunk", "32"] if chunked else \
+            ["--no-chunked-prefill", "--prefill-chunk", "2048"]
+        if kv:
+            argv += ["--kv-policy", str(kv_policy_file)]
+        args = serve.build_parser().parse_args(argv)
+        policy = serve.make_policy(cfg, model, args, max_len)
+        engine = serve.make_engine(model, params, policy, args)
+        label = (f"tiny[page={page} {'chunked' if chunked else 'whole'} "
+                 f"kv={policy.kv_bits or 'bf16'}]")
+        dec = "paged_attention_quant_fwd" if kv else "paged_attention_fwd"
+        pre = ("paged_prefill_quant_fwd" if kv else "paged_prefill_fwd") \
+            if chunked else "flash_attention_fwd"
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        outs = engine.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = all_launches()
+        # the oracle: generate over the same pool, prefilling as the run
+        # does (32-token chunks through the paged walk, or the whole
+        # prompt through the whole-sequence forward)
+        want = {r.rid: serve.generate(
+            model, params, torch.from_numpy(r.prompt[None]).cuda(),
+            r.max_new, page_size=page, kernel="cuda", kv_bits=policy.kv_bits,
+            prefill_chunk=policy.prefill_chunk if chunked else 0)[0]
+            .cpu().numpy() for r in reqs}
+        for name, n in launches.items():
+            if name in (dec, pre) and n <= 0:
+                fail(f"{label}: kernel {name} was never launched")
+            if name not in (dec, pre) and n:
+                fail(f"{label}: kernel {name} launched {n} times on a path "
+                     f"that should not reach it")
+        same = 0
+        for r in reqs:
+            got, ref_toks = outs[r.rid], want[r.rid]
+            if got.shape != ref_toks.shape:
+                fail(f"{label}: request {r.rid} returned {got.shape}, "
+                     f"generate {ref_toks.shape}")
+            diff = np.nonzero(got != ref_toks)[0]
+            if diff.size:
+                i = int(diff[0])
+                fail(f"{label}: request {r.rid} (prompt {len(r.prompt)}) "
+                     f"differs from generate at token {i}: "
+                     f"{got[i:i + 4].tolist()} vs "
+                     f"{ref_toks[i:i + 4].tolist()}")
+            same += 1
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"{label}: {same}/{len(reqs)} requests token-identical to "
+              f"generate, {engine.stats['decode_ticks']} decode ticks in "
+              f"{dt:.3f} s; launches {json.dumps(ran)}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1362,6 +1561,12 @@ def main() -> int:
     secs = build.build_all()
     print(f"build: {json.dumps(secs)} s of nvcc, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase_tiny_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        policy_file = Path(tmp) / "kv_policy.json"
+        policy_file.write_text(json.dumps(KV_POLICY))
+        phase_tiny_engine(policy_file)
 
     model = build_model(get_config("gemma2-2b"))
     from repro_torch.launch import serve

@@ -44,7 +44,7 @@
 // Semantics kept from the reference: the scale multiplies the fp32 score
 // (q k^T) * hd**-0.5, which equals the Pallas kernel's (q * hd**-0.5) k^T
 // exactly when hd**-0.5 is a power of two (hd = 64, 256) and within an
-// fp32 rounding otherwise (hd = 128); softcap cap*tanh(s/cap) before the
+// fp32 rounding otherwise (hd = 32, 128); softcap cap*tanh(s/cap) before the
 // mask; masked scores -1e30 and m starting at -1e30 (not -inf), so a kv
 // tile wholly masked for a row that meets it first gives exp(0) weights
 // that the first valid tile's correction exp(-1e30 - m) = 0 wipes, as in
@@ -292,7 +292,7 @@ const char* flash_error_string(int code) {
 }
 
 // q/out (B, S, H, hd) bf16; k/v (B, T, K, hd) bf16, all contiguous and
-// 16-B aligned; hd in {64, 128, 256}; H a multiple of K; causal 0 or 1;
+// 16-B aligned; hd in {32, 64, 128, 256}; H a multiple of K; causal 0 or 1;
 // window 0 (none) or the local window; cap 0 (none) or the softcap.
 // Returns cudaGetLastError().
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
@@ -314,6 +314,7 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 32) return launch<32>(a, B, stream);
   if (hd == 64) return launch<64>(a, B, stream);
   if (hd == 128) return launch<128>(a, B, stream);
   if (hd == 256) return launch<256>(a, B, stream);

@@ -37,9 +37,14 @@
 //     one is computed. Copies are coalesced (a warp's lanes take
 //     consecutive 16-B pieces of a row) and each thread reads its rows'
 //     page ids a tile ahead (TileCopy), so no table read stalls a copy.
-//     Pages of a tile outside [lo, hi] are zero-filled, not read;
+//     Key j of the walk lies in block j / page at offset j % page, so a
+//     tile holds 32/page pages (page <= 32) or a 32-key run of one page
+//     (page 64, 128). Pages of a tile outside [lo, hi] are zero-filled,
+//     not read;
 //   * each group of hd/8 lanes is a walker with its own keys of every
-//     stage and its own fp32 online-softmax state (m, l, acc) in
+//     stage (256 threads; 128 at hd = 32, one 4-lane walker per key, 8 to
+//     a warp, whose shuffles stay inside the walker's aligned lanes) and
+//     its own fp32 online-softmax state (m, l, acc) in
 //     registers: a lane holds 8 hd elements of q and of acc per query
 //     head, reads 8 elements of a key with one 16-B (bf16), 8-B (int8) or
 //     4-B (int4) load, dequantizes in registers (the scale multiplies the
@@ -60,7 +65,8 @@
 //     positions[b] + s) of one kv head, 8 warps of 16 rows, the longest
 //     walks launched first (blockIdx.z reversed);
 //   * K/V stream through a two-stage cp.async ring of 64-key tiles (64/page
-//     pages each, gathered through page_table[b] at their stored width),
+//     pages each, or half a page of 128, gathered through page_table[b] at
+//     their stored width),
 //     over the tiles [lo, hi] the rows need, hi clamped to the page-table
 //     width for a padded final chunk;
 //   * both products run on mma.sync m16n8k16 bf16 with fp32 accumulators,
@@ -92,7 +98,8 @@
 // before the mask; masked scores -1e30 and m starting at -1e30 (never
 // -inf); l clamped at 1e-30; blocks outside [lo, hi] skipped; page-table
 // tails at scratch page 0 never read (they lie past hi); head h = k*G + g;
-// the output rounded to bf16. wgmma and TMA are later work.
+// the output rounded to bf16. Built for hd in {32, 64, 128, 256} and
+// pages of 1 to 128 keys in powers of two. wgmma and TMA are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -180,35 +187,41 @@ struct TileCopy {
   static_assert(kRow % 16 == 0 && kPieces <= kThreads, "tile copy");
   int row0, piece;
   bool active;
-  int pid[kPasses];   // page ids of the fetched tile's rows, -1: not live
+  // pool slots (page id * page + offset in the page) of the fetched tile's
+  // rows, -1: not live
+  int slot[kPasses];
 
   __device__ explicit TileCopy(int tid)
       : row0(tid / kPieces), piece(tid % kPieces),
         active(tid < kRows * kPieces) {}
 
-  // page ids of tile t's rows (keys t*kRows + row); any = false: none
+  // slots of tile t's rows, keys t*kRows + row: block key / page at offset
+  // key % page, so a tile may hold several pages (page < kRows) or part of
+  // one (page > kRows); any = false: none
   __device__ void fetch(const int* pt, int t, int page, int lo, int hi,
                         bool any) {
 #pragma unroll
     for (int p = 0; p < kPasses; ++p) {
-      const int blk = (t * kRows + row0 + p * kRowsPerPass) / page;
-      pid[p] = any && active && blk >= lo && blk <= hi ? pt[blk] : -1;
+      const int key = t * kRows + row0 + p * kRowsPerPass;
+      const int blk = key / page;
+      slot[p] = any && active && blk >= lo && blk <= hi
+                    ? pt[blk] * page + key % page
+                    : -1;
     }
   }
 
   // the fetched tile into stage (K rows, V rows, then the scales)
   __device__ void issue(uint8_t* ks, const uint8_t* pool_k,
                         const uint8_t* pool_v, const float* k_scale,
-                        const float* v_scale, int page, int K, int kh) const {
+                        const float* v_scale, int K, int kh) const {
     if (!active) return;
     uint8_t* vs = ks + kRows * kRowPitch;
     float* sc = reinterpret_cast<float*>(vs + kRows * kRowPitch);
 #pragma unroll
     for (int p = 0; p < kPasses; ++p) {
       const int r = row0 + p * kRowsPerPass;
-      const bool live = pid[p] >= 0;
-      const size_t row =
-          live ? ((size_t)pid[p] * page + r % page) * K + kh : 0;
+      const bool live = slot[p] >= 0;
+      const size_t row = live ? (size_t)slot[p] * K + kh : 0;
       cp_async16(ks + r * kRowPitch + piece * 16,
                  pool_k + row * kRow + piece * 16, live);
       cp_async16(vs + r * kRowPitch + piece * 16,
@@ -231,7 +244,12 @@ constexpr int kCombineThreads = 128;
 template <class Pool, int HD, int GC>
 struct DecodeLayout {
   static constexpr int kLanesPerKey = HD / 8;
-  static constexpr int kWalkers = kDecThreads / kLanesPerKey;
+  // one walker per key of a stage at most: 256 threads from hd = 64 up,
+  // 128 (32 walkers of 4 lanes, 8 to a warp) at hd = 32
+  static constexpr int kThreads =
+      kDecKeys * kLanesPerKey < kDecThreads ? kDecKeys * kLanesPerKey
+                                            : kDecThreads;
+  static constexpr int kWalkers = kThreads / kLanesPerKey;
   static constexpr int kKeysPerWalker = kDecKeys / kWalkers;
   static constexpr int kRow = HD * Pool::kBits / 8;   // stored bytes a key
   static constexpr int kTile = kDecKeys * kRow;       // one K or V stage
@@ -290,10 +308,10 @@ __global__ void __launch_bounds__(kDecThreads)
   const int* pt = a.page_table + (size_t)b * a.n_blocks;
 
   // one stage: 32 rows of K, 32 of V, then (quantized) their scales
-  TileCopy<kDecKeys, kDecThreads, kRow, kRow, Pool::kQuant> copy(tid);
+  TileCopy<kDecKeys, L::kThreads, kRow, kRow, Pool::kQuant> copy(tid);
   auto issue = [&](int slot) {
     copy.issue(smem + slot * L::kStage, a.pool_k, a.pool_v, a.k_scale,
-               a.v_scale, page, a.K, kh);
+               a.v_scale, a.K, kh);
   };
 
   // q in fp32, pre-scaled by hd**-0.5 as the reference does
@@ -423,7 +441,7 @@ __global__ void __launch_bounds__(kDecThreads)
                          acc[g][7] * f);
   }
   __syncthreads();
-  for (int idx = tid; idx < GC * HD; idx += kDecThreads) {
+  for (int idx = tid; idx < GC * HD; idx += L::kThreads) {
     const int g = idx / HD, d = idx % HD;
     float sum = 0.f;
     for (int v = 0; v < NW; ++v) sum += macc[(v * GC + g) * HD + d];
@@ -549,7 +567,7 @@ __global__ void __launch_bounds__(kPThreads, 1)
       threadIdx.x);
   auto issue = [&](int st) {
     copy.issue(ring + st * L::kStage, a.pool_k, a.pool_v, a.k_scale,
-               a.v_scale, page, a.K, kh);
+               a.v_scale, a.K, kh);
   };
 
   float acc[HD / 8][4];
@@ -723,6 +741,14 @@ __global__ void __launch_bounds__(kPThreads, 1)
 }
 
 // ---------------------------------------------------------------- launch --
+// The page sizes the walks take: the powers of two from 1 to 128, which
+// divide a 32-key decode tile (several pages a tile) or are a multiple of
+// it (part of a page a tile); kernels/paged_attention.py states the same
+// rule and raises on any other.
+bool page_supported(int page) {
+  return page > 0 && page <= 128 && (page & (page - 1)) == 0;
+}
+
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(
@@ -731,12 +757,14 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 template <class Pool, int HD, int GC>
 int decode_launch(const DecodeArgs& a, int B, cudaStream_t stream) {
-  constexpr int smem = DecodeLayout<Pool, HD, GC>::kBytes;
+  using L = DecodeLayout<Pool, HD, GC>;
+  constexpr int smem = L::kBytes;
   auto split = paged_decode_split_kernel<Pool, HD, GC>;
   cudaError_t err = allow_smem(split, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int G = a.H / a.K;
-  split<<<dim3(B, a.K * (G / GC), a.n_split), kDecThreads, smem, stream>>>(a);
+  split<<<dim3(B, a.K * (G / GC), a.n_split), L::kThreads, smem, stream>>>(
+      a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_decode_combine_kernel<Pool><<<dim3(B, a.H), kCombineThreads, 0,
@@ -756,9 +784,10 @@ int decode_gc(const DecodeArgs& a, int B, cudaStream_t stream) {
 template <class Pool>
 int decode_hd(const DecodeArgs& a, int B, int hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || a.K <= 0 || a.H % a.K || a.n_split <= 0 || a.page <= 0 ||
-      kDecKeys % a.page)
+  if (B <= 0 || a.K <= 0 || a.H % a.K || a.n_split <= 0 ||
+      !page_supported(a.page))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 32) return decode_gc<Pool, 32>(a, B, st);
   if (hd == 64) return decode_gc<Pool, 64>(a, B, st);
   if (hd == 128) return decode_gc<Pool, 128>(a, B, st);
   if (hd == 256) return decode_gc<Pool, 256>(a, B, st);
@@ -781,9 +810,10 @@ int prefill_launch(const PrefillArgs& a, int B, cudaStream_t stream) {
 template <class Pool>
 int prefill_hd(const PrefillArgs& a, int B, int hd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || a.Sq <= 0 || a.K <= 0 || a.H % a.K || a.page <= 0 ||
-      kBN % a.page)
+  if (B <= 0 || a.Sq <= 0 || a.K <= 0 || a.H % a.K ||
+      !page_supported(a.page))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 32) return prefill_launch<Pool, 32>(a, B, st);
   if (hd == 64) return prefill_launch<Pool, 64>(a, B, st);
   if (hd == 128) return prefill_launch<Pool, 128>(a, B, st);
   if (hd == 256) return prefill_launch<Pool, 256>(a, B, st);
@@ -799,6 +829,7 @@ size_t smem_of(int prefill) {
 
 template <class Pool>
 size_t smem_hd(int prefill, int hd) {
+  if (hd == 32) return smem_of<Pool, 32>(prefill);
   if (hd == 64) return smem_of<Pool, 64>(prefill);
   if (hd == 128) return smem_of<Pool, 128>(prefill);
   if (hd == 256) return smem_of<Pool, 256>(prefill);

@@ -26,30 +26,80 @@
 // quantized decode is for; at a 4096-row prefill chunk the operations,
 // 2*M*K*N, over the tensor cores' rate.
 //
-// What the design does about it:
-//   * one tiled product, three operand readers: each CTA owns a BM x 64
-//     output tile and walks K in 64-deep steps; the raw x tile and the raw
-//     stored weight tile (int8, or packed int4 at half the rows) stream
-//     through a two-stage ring of 16-B cp.async copies, so codes cross
-//     device memory at their stored width and x rows past M are
-//     zero-filled (ragged M: decode runs M = 8, a chunk M = 4096);
-//   * each step converts the staged weight tile once, in shared memory,
-//     into the layout the tensor cores read: bf16 codes (exact, |code| <=
-//     127) for W8A16/W4A16, int8 for W8A8, transposed to (n, k) so a
-//     B fragment is one 32-bit load;
-//   * products run as mma.sync on the tensor cores: m16n8k16 bf16 x bf16
-//     into fp32 for bf16 x; for fp32 x the tile is split once into three
-//     bf16 terms (x = x0 + x1 + x2 exactly), each multiplied by the exact
-//     codes, so x loses nothing to bf16 and only the tensor cores' fp32
-//     accumulation (which may drop up to an ulp of the running sum per
-//     step) separates the result from an fp32 product; m16n8k32 s8 x s8
-//     into int32 for W8A8, which is exact;
-//   * the epilogue applies the scale(s) and the cast, and guards rows
-//     past M. Two tiles: 128 x 64 with 8 warps for M > 32, 16 x 64 with 4
-//     warps for decode-sized M, so a decode launch spreads over N/64 CTAs.
-// The TPU kernel carried its accumulator across a sequential K grid axis
-// in VMEM; here the K loop runs inside the CTA. wgmma, TMA, a deeper ring
-// and split-K (more CTAs at decode) are later work.
+// Two kernels. The wrapper picks one by x's dtype alone.
+//
+// wq_kernel: bf16 x, W8A16 and W4A16 — what the engine runs. One wgmma
+// product for both regimes, out^T = W^T x^T:
+//   * a CTA is one warpgroup (128 threads) owning 64*MT output channels
+//     (MT = 2 when N is a multiple of 128, else 1) by BT tokens. The
+//     tokens sit on wgmma's N axis, so one kernel serves a decode tick
+//     (BT = 8 at M <= 8) and a 4096-row chunk (BT = 128) at two widths:
+//     m64nBTk16, MT products per 16-deep step;
+//   * the weight tile is wgmma's A operand from registers. Each thread
+//     reads its rows' codes from shared memory as stored (one 32-bit load
+//     gives four channels of one k, or of one packed k pair) and converts
+//     them in registers, exactly (|code| <= 127): int8 through the fp32
+//     magic number 2**23 (a byte permute and a subtraction, then the top
+//     halves of two floats as one bf16x2), int4 through the bf16 magic
+//     number 128 (each nibble, biased by 8, is the mantissa of 136 + code,
+//     then one bf16x2 subtraction). No shared-memory conversion pass and
+//     no barrier for it. Thread (warp w, row group g) owns the 2*MT
+//     consecutive channels 2*MT*(8w + g) + (0 .. 2*MT-1), row g of tile t
+//     taking channel 2t and row g+8 channel 2t+1, so its loads are whole
+//     words and its epilogue stores 2*MT outputs at once;
+//   * the x tile (BT tokens x 64 k, bf16, 128-byte rows) is the B operand
+//     in shared memory, K-major under the 128-byte swizzle that the TMA
+//     copy writes; rows past M are the copy's zero fill;
+//   * a ring of 4 stages (6 for BT <= 32, where a CTA streams codes and
+//     little else) is fed by TMA (cp.async.bulk.tensor, 2-D tensor maps
+//     encoded per call) on one mbarrier per stage: x at 2 bytes and codes
+//     at their stored width, 1 byte or half a byte per weight, so the
+//     codes cross device memory once per token tile. One thread issues a
+//     stage's two copies after every thread has passed the wgmma wait of
+//     the step that last read it;
+//   * each 16-deep step is its own wgmma group, up to 3 in flight: a
+//     step's codes are converted while the three steps before it run on
+//     the tensor cores. wgmma reads A from the registers while it runs,
+//     so a fragment is rewritten only after the group that read it is
+//     done (a wait, and the old registers held live past it, or the
+//     compiler may reuse them while the product still reads them);
+//   * at M = 4096 a CTA's 128 x 128 tile re-reads x N/128 times (72 at N =
+//     9216; a 128 x 64 tile would read it 144 times) and the codes M/128
+//     times;
+//   * split-K at decode: where (N / 64 MT) * ceil(M / BT) CTAs are fewer
+//     than the card's 132 SMs, the wrapper (kernels/quant_matmul.py::
+//     qmm_splits) splits the K steps into n_split equal chunks (n_split
+//     divides K/64) so that the grid has at least 132 CTAs. Each writes
+//     fp32 partials to a scratch (n_split, M, N) that the wrapper
+//     allocates; splitk_reduce_kernel sums them in split order (no
+//     atomics: deterministic), applies the scale and rounds to bf16;
+//   * accumulation in fp32 in the tensor cores; the scale and the cast in
+//     the epilogue (or the reduce).
+// What bounds each regime: a decode tick reads 1 or 0.5 byte per weight
+// and does 2*M flops on it, so the codes' bytes; the split spreads them
+// over at least 132 CTAs. A 4096-row chunk does 2*4096 flops per weight,
+// so the tensor cores' rate; the 128 x 128 tile, the TMA ring and the
+// register-side conversion keep them fed.
+//
+// qmm_kernel (the mma.sync template): fp32 x through W8A16/W4A16, and
+// W8A8.
+//   * each CTA owns a BM x 64 output tile and walks K in 64-deep steps; x
+//     and the stored weight tile stream through a two-stage ring of 16-B
+//     cp.async copies; each step converts the staged weight tile once, in
+//     shared memory, into (n, k) bf16 codes (int8 for W8A8);
+//   * mma.sync on the tensor cores: for fp32 x the tile is split once into
+//     three bf16 terms (x = x0 + x1 + x2 exactly), each multiplied by the
+//     exact codes, so x loses nothing to bf16 and only the tensor cores'
+//     fp32 accumulation (which may drop up to an ulp of the running sum
+//     per step) separates the result from an fp32 product; m16n8k32 s8 x
+//     s8 into int32 for W8A8, which is exact;
+//   * 128 x 64 tiles with 8 warps for M > 32, 16 x 64 with 4 warps below.
+// The engine does not run these cases (the model computes in bf16;
+// serving/quant.py stores no W8A8 weights); moving them to wgmma is later
+// work. The TPU kernels carried the accumulator across a sequential K grid
+// axis in VMEM; here the K loop runs inside the CTA.
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched
+                    // from the driver at run time (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +113,7 @@ namespace {
 constexpr int kBK = 64;       // K per step
 constexpr int kBN = 64;       // output columns per CTA
 
-enum XKind { kXBf16 = 0, kXF32 = 1, kXI8 = 2 };
+enum XKind { kXF32 = 1, kXI8 = 2 };
 
 template <int BM_, int WM_, int WN_>
 struct Tile {
@@ -75,12 +125,12 @@ struct Tile {
 using LargeTile = Tile<128, 4, 2>;   // 256 threads, 32 x 32 per warp
 using SmallTile = Tile<16, 1, 4>;    // 128 threads, 16 x 16 per warp
 
-// The three operand readers: x kind and weight bits fix the staged tile
-// sizes, the converted layouts and the product.
+// The operand readers: x kind and weight bits fix the staged tile sizes,
+// the converted layouts and the product.
 template <int XK, int WBITS>
 struct Reader {
   static constexpr bool kS8 = XK == kXI8;
-  static constexpr int kXBytes = XK == kXF32 ? 4 : (XK == kXBf16 ? 2 : 1);
+  static constexpr int kXBytes = XK == kXF32 ? 4 : 1;
   static constexpr int kXTerms = XK == kXF32 ? 3 : 0;   // split x tiles
   static constexpr int kWRows = WBITS == 4 ? kBK / 2 : kBK;  // stored rows
   static constexpr int kXPitch = kBK * kXBytes + 16;   // staged x row, bytes
@@ -295,21 +345,12 @@ __global__ void __launch_bounds__(T::kThreads)
           bf[j][0] = ld32(b);
           bf[j][1] = ld32(b + 16);
         }
-        constexpr int kTerms = R::kXTerms ? R::kXTerms : 1;
-        for (int term = 0; term < kTerms; ++term) {
-          const uint8_t* xt;
-          int pitch;
-          if constexpr (R::kXTerms) {
-            xt = xc + term * T::BM * R::kXcPitch;
-            pitch = R::kXcPitch;
-          } else {
-            xt = stage;
-            pitch = R::kXPitch;
-          }
+        for (int term = 0; term < R::kXTerms; ++term) {
+          const uint8_t* xt = xc + term * T::BM * R::kXcPitch;
           for (int i = 0; i < T::MT; ++i) {
             const uint8_t* r0 =
-                xt + (wr0 + i * 16 + g) * pitch + 2 * (kk + 2 * t);
-            const uint8_t* r1 = r0 + 8 * pitch;
+                xt + (wr0 + i * 16 + g) * R::kXcPitch + 2 * (kk + 2 * t);
+            const uint8_t* r1 = r0 + 8 * R::kXcPitch;
             uint32_t af[4] = {ld32(r0), ld32(r1), ld32(r0 + 16),
                               ld32(r1 + 16)};
             for (int j = 0; j < T::NT; ++j)
@@ -383,6 +424,524 @@ Args make_args(const void* x, const void* w, const void* scale,
   return a;
 }
 
+
+// ------------------------------------------- wgmma path: bf16 x (wq_*) --
+constexpr int kWgThreads = 128;   // one warpgroup
+constexpr int kWgK = 64;          // K per ring stage (one TMA box of x)
+
+template <int MT, int BT, int WBITS>
+struct WgLayout {
+  static constexpr int kBC = 64 * MT;                  // channels a CTA
+  static constexpr int kXTile = BT * kWgK * 2;         // bf16, 128-B rows
+  static constexpr int kWRows = WBITS == 4 ? kWgK / 2 : kWgK;  // stored
+  static constexpr int kWTile = kWRows * kBC;
+  static constexpr int kStage = kXTile + kWTile;
+  static constexpr int kStages = BT >= 64 ? 4 : 6;
+  // the ring, its barriers, and slack to align the ring to 1024 B (the
+  // 128-byte swizzle's period)
+  static constexpr int kBytes = kStages * kStage + 8 * kStages + 1024;
+  static_assert(kXTile % 1024 == 0 && kWTile % 1024 == 0, "wq layout");
+};
+
+struct WqArgs {
+  const float* scale;   // (N,) or (1,)
+  __nv_bfloat16* out;   // (M, N), written when n_split == 1
+  float* part;          // (n_split, M, N) fp32 partials otherwise
+  int M, N, K, scale_stride, n_split;
+};
+
+template <int N>
+struct Wgmma;
+
+// d (64 x N fp32, the m64nN accumulator fragment) += a (64 x 16 bf16, the
+// thread's A fragment registers) * B (16 x N bf16 at the descriptor).
+template <>
+struct Wgmma<8> {
+  __device__ static void run(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  __device__ static void run(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ static void run(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ static void run(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ static void run(float* d, const uint32_t* a, uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products.
+template <int R>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Registers the asynchronous products may still read: held live (not
+// reused by the compiler) up to this point.
+template <int R>
+__device__ __forceinline__ void hold(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the barrier's phase of this parity. A copy that never lands
+// (a bad tensor map) traps after ~2**30 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 30)) asm volatile("trap;");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 2-D TMA box (c0 along the inner dimension, c1 along the outer) into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a K-major bf16 tile of 128-byte rows under the
+// 128-byte swizzle: 8-row groups 1024 B apart (SBO), LBO unused (1).
+__device__ __forceinline__ uint64_t x_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
+         (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// Byte offset `off` of a code tile of BC-byte rows as TMA's swizzle
+// stores it: 128-byte rows (BC = 128) XOR address bits 4-6 with 7-9,
+// 64-byte rows (BC = 64) bits 4-5 with 7-8.
+template <int BC>
+__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
+  return BC == 128 ? off ^ ((off >> 3) & 0x70) : off ^ ((off >> 3) & 0x30);
+}
+
+// 2*MT codes (bytes) of stored row `row` at the thread's channels `cb`.
+template <int MT>
+__device__ __forceinline__ uint32_t load_codes(const uint8_t* tile, int row,
+                                               int cb) {
+  const uint32_t off = swizzled<64 * MT>(row * 64 * MT + cb);
+  if constexpr (MT == 2) return *reinterpret_cast<const uint32_t*>(tile + off);
+  return *reinterpret_cast<const uint16_t*>(tile + off);
+}
+
+// Byte j of four int8 codes (pre-XORed with 0x80: c + 128) as an fp32:
+// the bits 0x4B0000?? are 2**23 + c + 128, exact.
+__device__ __forceinline__ float code8(uint32_t biased, int j) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 | j)) -
+         8388736.0f;
+}
+
+// Two fp32 integers of at most 8 significant bits as one bf16x2 (lo in
+// the low half): their top halves, exact.
+__device__ __forceinline__ uint32_t pack_hi(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Byte j of a packed int4 word as bf16x2 (low nibble: row 2i, in the low
+// half; high nibble: row 2i+1): each nibble XOR 8 is code + 8 in [0, 15],
+// the mantissa of 128 + code + 8 in bf16 (0x4300 | code + 8), less 136.
+__device__ __forceinline__ uint32_t code4x2(uint32_t word, int j) {
+  const uint32_t t = word >> (8 * j);
+  uint32_t v = ((t & 0xFu) | ((t << 12) & 0xF0000u)) ^ 0x43084308u;
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  h = __hsub2(h, __floats2bfloat162_rn(136.0f, 136.0f));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// grid (N / (64 MT), ceil(M / BT), n_split), kWgThreads threads.
+template <int MT, int BT, int WBITS>
+__global__ void __launch_bounds__(kWgThreads)
+    wq_kernel(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap wmap, const WqArgs a) {
+  using L = WgLayout<MT, BT, WBITS>;
+  constexpr int S = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * L::kStage);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int n0 = blockIdx.x * L::kBC, m0 = blockIdx.y * BT;
+  const int steps = a.K / kWgK / a.n_split;    // this split's K steps
+  const int step0 = blockIdx.z * steps;
+  const int cb = 2 * MT * (8 * warp + gid);    // the thread's channels
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int i) {   // K step step0 + i into its stage
+    uint8_t* st = ring + (i % S) * L::kStage;
+    uint64_t* bar = &full[i % S];
+    mbar_expect_tx(bar, L::kStage);
+    tma_2d(st, &xmap, (step0 + i) * kWgK, m0, bar);
+    tma_2d(st + L::kXTile, &wmap, n0, (step0 + i) * L::kWRows, bar);
+  };
+  if (tid == 0)
+    for (int i = 0; i < S - 1 && i < steps; ++i) issue(i);
+
+  float acc[MT][BT / 2];
+#pragma unroll
+  for (int t = 0; t < MT; ++t)
+#pragma unroll
+    for (int e = 0; e < BT / 2; ++e) acc[t][e] = 0.f;
+
+  // Each K step is 4 16-deep steps, each its own wgmma group: convert
+  // that step's codes into its A fragments af[kk] (af[kk][t] = rows gid,
+  // gid+8 of tile t: channels cb+2t, cb+2t+1; k 2tig, +1 and 2tig+8, +9),
+  // issue its MT products, commit. wgmma reads A from the registers while
+  // it runs, so af[kk] is rewritten only after the group that last read
+  // it (the previous K step's kk-th) is done: wait until at most 3 groups
+  // are in flight, the old fragments held live past the wait. The
+  // conversion of one 16-deep step thus overlaps the products of the
+  // three before it.
+  uint32_t af[4][MT][4] = {};
+  for (int i = 0; i < steps; ++i) {
+    mbar_wait(&full[i % S], (i / S) & 1);
+    const uint8_t* xs = ring + (i % S) * L::kStage;
+    const uint8_t* ws = xs + L::kXTile;
+    const uint64_t desc = x_desc(xs);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t w[4];
+      if constexpr (WBITS == 8) {
+        const int r = 16 * kk + 2 * tig;
+        w[0] = load_codes<MT>(ws, r, cb) ^ 0x80808080u;
+        w[1] = load_codes<MT>(ws, r + 1, cb) ^ 0x80808080u;
+        w[2] = load_codes<MT>(ws, r + 8, cb) ^ 0x80808080u;
+        w[3] = load_codes<MT>(ws, r + 9, cb) ^ 0x80808080u;
+      } else {
+        const int p = 8 * kk + tig;    // packed rows: k pairs
+        w[0] = load_codes<MT>(ws, p, cb);
+        w[1] = load_codes<MT>(ws, p + 4, cb);
+      }
+      wgmma_wait<3>();
+      hold<MT * 4>(&af[kk][0][0]);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * t + h;
+          if constexpr (WBITS == 8) {
+            af[kk][t][h] = pack_hi(code8(w[0], j), code8(w[1], j));
+            af[kk][t][2 + h] = pack_hi(code8(w[2], j), code8(w[3], j));
+          } else {
+            af[kk][t][h] = code4x2(w[0], j);
+            af[kk][t][2 + h] = code4x2(w[1], j);
+          }
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+        Wgmma<BT>::run(acc[t], af[kk][t], desc + 2 * kk);   // +32 B of k
+      wgmma_commit();
+    }
+    // step i-1's groups are done (at most step i's first 3 in flight) in
+    // every thread: its stage may be refilled
+    __syncthreads();
+    if (tid == 0 && i + S - 1 < steps) issue(i + S - 1);
+  }
+  wgmma_wait<0>();
+  hold<4 * MT * 4>(&af[0][0][0]);
+#pragma unroll
+  for (int t = 0; t < MT; ++t) fence_acc<BT / 2>(acc[t]);
+
+  // epilogue: acc[t][4j + 2h + c] is channel cb + 2t + h, token
+  // m0 + 8j + 2tig + c
+  const int n = n0 + cb;
+  float sc[2 * MT];
+#pragma unroll
+  for (int c = 0; c < 2 * MT; ++c)
+    sc[c] = a.n_split == 1 ? a.scale[(n + c) * a.scale_stride] : 1.f;
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int m = m0 + 8 * j + 2 * tig + c;
+      if (m >= a.M) continue;
+      float v[2 * MT];
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          v[2 * t + h] = acc[t][4 * j + 2 * h + c] * sc[2 * t + h];
+      if (a.n_split == 1) {
+        __nv_bfloat16* dst = a.out + static_cast<size_t>(m) * a.N + n;
+        if constexpr (MT == 2) {
+          *reinterpret_cast<uint2*>(dst) =
+              make_uint2(bf16x2(v[0], v[1]), bf16x2(v[2], v[3]));
+        } else {
+          *reinterpret_cast<uint32_t*>(dst) = bf16x2(v[0], v[1]);
+        }
+      } else {
+        float* dst = a.part +
+                     (static_cast<size_t>(blockIdx.z) * a.M + m) * a.N + n;
+        if constexpr (MT == 2) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
+        } else {
+          *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+        }
+      }
+    }
+  }
+}
+
+// The split-K partials (n_split, M, N) summed in split order, times the
+// scale, rounded to bf16: four outputs a thread.
+__global__ void __launch_bounds__(256)
+    splitk_reduce_kernel(const float* part, const float* scale,
+                         int scale_stride, __nv_bfloat16* out, int M, int N,
+                         int n_split) {
+  const size_t e =
+      (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  const size_t MN = static_cast<size_t>(M) * N;
+  if (e >= MN) return;
+  float4 s = *reinterpret_cast<const float4*>(part + e);
+  for (int i = 1; i < n_split; ++i) {
+    const float4 p = *reinterpret_cast<const float4*>(part + i * MN + e);
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
+  const int n = static_cast<int>(e % N);
+  const float* sc = scale + static_cast<size_t>(n) * scale_stride;
+  *reinterpret_cast<uint2*>(out + e) =
+      make_uint2(bf16x2(s.x * sc[0], s.y * sc[scale_stride]),
+                 bf16x2(s.z * sc[2 * scale_stride],
+                        s.w * sc[3 * scale_stride]));
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda); null if the driver has none.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major tensor (rows x cols elements of `bytes` each, `pitch`
+// bytes a row) read in boxes of box_rows x box_cols; rows past the tensor
+// read as zeros.
+bool encode_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+               int bytes, int rows, int cols, int box_rows, int box_cols,
+               CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MT, int BT, int WBITS>
+int wq_launch(const void* x, const void* w, const WqArgs& a,
+              cudaStream_t stream) {
+  using L = WgLayout<MT, BT, WBITS>;
+  CUtensorMap xmap, wmap;
+  if (!encode_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.M, a.K,
+                 BT, kWgK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                 a.K / kWgK * L::kWRows, a.N, L::kWRows, L::kBC,
+                 MT == 2 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = wq_kernel<MT, BT, WBITS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.N / L::kBC, (a.M + BT - 1) / BT, a.n_split);
+  kernel<<<grid, kWgThreads, L::kBytes, stream>>>(xmap, wmap, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return static_cast<int>(err);
+  const size_t quads = static_cast<size_t>(a.M) * a.N / 4;
+  splitk_reduce_kernel<<<static_cast<unsigned>((quads + 255) / 256), 256, 0,
+                         stream>>>(a.part, a.scale, a.scale_stride, a.out,
+                                   a.M, a.N, a.n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The token tile: the least of 8, 16, 32, 64 that holds M, else 128
+// (kernels/quant_matmul.py::token_tile).
+template <int MT, int WBITS>
+int wq_tokens(const void* x, const void* w, const WqArgs& a,
+              cudaStream_t stream) {
+  if (a.M <= 8) return wq_launch<MT, 8, WBITS>(x, w, a, stream);
+  if (a.M <= 16) return wq_launch<MT, 16, WBITS>(x, w, a, stream);
+  if (a.M <= 32) return wq_launch<MT, 32, WBITS>(x, w, a, stream);
+  if (a.M <= 64) return wq_launch<MT, 64, WBITS>(x, w, a, stream);
+  return wq_launch<MT, 128, WBITS>(x, w, a, stream);
+}
+
+template <int WBITS>
+int wq_channels(const void* x, const void* w, const WqArgs& a,
+                cudaStream_t stream) {
+  if (a.N % 128 == 0) return wq_tokens<2, WBITS>(x, w, a, stream);
+  return wq_tokens<1, WBITS>(x, w, a, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -392,19 +951,40 @@ const char* qmm_error_string(int code) {
 }
 
 // W8A16 (bits 8: w (K, N) int8) and W4A16 (bits 4: w (K/2, N) int8, two
-// codes per byte along K). x (M, K) bf16 (x_f32 0) or fp32 (x_f32 1);
-// scale fp32, (N,) with scale_stride 1 or (1,) with 0; out (M, N) of x's
-// type. K and N multiples of 64. Returns cudaGetLastError().
-int qmm_wa16(const void* x, const void* w, const void* scale, void* out,
-             int M, int N, int K, int scale_stride, int x_f32, int bits,
-             void* stream) {
+// codes per byte along K) over bf16 x (M, K): the wgmma kernel. scale
+// fp32, (N,) with scale_stride 1 or (1,) with 0; out (M, N) bf16. K and N
+// multiples of 64, n_split dividing K/64; part: fp32 scratch of
+// n_split*M*N floats when n_split > 1 (else unused). Launches the product
+// and, split, the reduce on `stream`. Returns cudaGetLastError().
+int qmm_wa16_bf16(const void* x, const void* w, const void* scale, void* out,
+                  void* part, int M, int N, int K, int scale_stride, int bits,
+                  int n_split, void* stream) {
+  if (M <= 0 || N % 64 || K % kWgK || n_split <= 0 ||
+      (K / kWgK) % n_split || (n_split > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WqArgs a;
+  a.scale = static_cast<const float*>(scale);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.part = static_cast<float*>(part);
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.scale_stride = scale_stride;
+  a.n_split = n_split;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits == 8) return wq_channels<8>(x, w, a, st);
+  if (bits == 4) return wq_channels<4>(x, w, a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// W8A16/W4A16 as qmm_wa16_bf16, over fp32 x (M, K) into an fp32 out: the
+// mma.sync template (three bf16 terms of x).
+int qmm_wa16_f32(const void* x, const void* w, const void* scale, void* out,
+                 int M, int N, int K, int scale_stride, int bits,
+                 void* stream) {
   const Args a = make_args(x, w, scale, nullptr, out, M, N, K, scale_stride);
-  if (bits == 8)
-    return x_f32 ? launch<kXF32, 8, float>(a, stream)
-                 : launch<kXBf16, 8, __nv_bfloat16>(a, stream);
-  if (bits == 4)
-    return x_f32 ? launch<kXF32, 4, float>(a, stream)
-                 : launch<kXBf16, 4, __nv_bfloat16>(a, stream);
+  if (bits == 8) return launch<kXF32, 8, float>(a, stream);
+  if (bits == 4) return launch<kXF32, 4, float>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -31,7 +31,7 @@ from repro_torch.kernels import ref
 # there (chip_smoke.py zeroes it around the main path)
 LAUNCHES = {"flash_attention_fwd": 0}
 
-HEAD_DIMS = (64, 128, 256)    # the head widths the kernel is built for
+HEAD_DIMS = (32, 64, 128, 256)   # the head widths the kernel is built for
 
 
 def reset_launches() -> None:

@@ -24,6 +24,9 @@ tensor-core kernel (mma.sync) over 128-row tiles of the chunk's fused
 (Sq*G) rows and 64-key K/V tiles; a quantized pool's codes become bf16
 tiles once per landed tile. See the source's header note.
 
+The kernels are built for hd in ``HEAD_DIMS`` and pages of
+``PAGE_SIZES`` keys; ``check_geometry`` raises on any other.
+
 On a CPU tensor each wrapper returns its plain version from
 ``kernels/ref.py``; on a CUDA tensor it launches the kernels or raises.
 ``LAUNCHES`` counts wrapper calls that launched, one per call.
@@ -42,9 +45,12 @@ LAUNCHES = {"paged_attention_fwd": 0, "paged_prefill_fwd": 0,
             "paged_attention_quant_fwd": 0, "paged_prefill_quant_fwd": 0}
 
 SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
-HEAD_DIMS = (64, 128, 256)    # the head widths the kernels are built for
+HEAD_DIMS = (32, 64, 128, 256)   # the head widths the kernels are built for
+# the page sizes the kernels take: powers of two that divide DECODE_TILE
+# (several pages a tile) or are a multiple of it (part of a page a tile)
+PAGE_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
 DECODE_TILE = 32      # keys per decode ring stage, the unit a split takes
-DECODE_THREADS = 256  # threads per decode split CTA: hd/8 lanes per walker
+DECODE_THREADS = 256  # threads per decode split CTA (at most; decode_threads)
 PREFILL_ROWS = 128    # fused (Sq*G) query rows per prefill CTA
 PREFILL_TILE = 64     # keys per prefill K/V tile
 # decode splits: about two split CTAs per SM of the H100's 132, each split
@@ -67,6 +73,13 @@ def decode_splits(B: int, K: int, n_blocks: int, page: int) -> int:
     tiles = -(-n_blocks * page // DECODE_TILE)
     want = -(-SPLIT_TARGET_CTAS // max(B * K, 1))
     return max(1, min(want, tiles // MIN_SPLIT_TILES))
+
+
+def decode_threads(hd: int) -> int:
+    """Threads of a decode split CTA (the kernel's DecodeLayout::kThreads):
+    hd/8 lanes per walker and at most one walker per key of a tile, so
+    DECODE_THREADS from hd = 64 up and 128 at hd = 32."""
+    return min(DECODE_THREADS, DECODE_TILE * hd // 8)
 
 
 def head_group(G: int) -> int:
@@ -105,9 +118,36 @@ def split_tiles(lo: int, hi: int, page: int, split: int, n_split: int):
             t_lo + (split + 1) * n_t // n_split)
 
 
+def tile_slots(pt_row, t: int, rows: int, page: int, lo: int, hi: int):
+    """Pool slots (page id * page + offset) of the ``rows`` keys of tile
+    ``t`` (keys t*rows .. t*rows + rows - 1), as the kernels' copies compute
+    them: key j lies in block j // page at offset j % page; -1 where the
+    block is outside the live [lo, hi] (a zero-filled row)."""
+    out = []
+    for r in range(rows):
+        key = t * rows + r
+        blk = key // page
+        out.append(int(pt_row[blk]) * page + key % page
+                   if lo <= blk <= hi else -1)
+    return out
+
+
+def check_geometry(hd: int, page: int) -> None:
+    """Raise ValueError unless the kernels are built for head width ``hd``
+    and take pages of ``page`` keys (no fallback to the plain walk)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"kernels are built for hd in {HEAD_DIMS}, got {hd}")
+    if page not in PAGE_SIZES:
+        raise ValueError(f"kernels take a page size that divides "
+                         f"{DECODE_TILE} or is a multiple of it, up to 128 "
+                         f"(one of {PAGE_SIZES}), got {page}")
+
+
 def _check(q, pool_k, pool_v, page_table, positions, prefill, scales=()):
     """Validate a launch; ``scales`` (k_scale, v_scale) marks a quantized
     pool. Returns (library, bits of the pool)."""
+    if pool_k.dim() == 4:
+        check_geometry(q.shape[-1], pool_k.shape[1])
     named = (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
              ("page_table", page_table), ("positions", positions))
     if scales:
@@ -143,11 +183,6 @@ def _check(q, pool_k, pool_v, page_table, positions, prefill, scales=()):
         raise ValueError(f"scales must be (P, page, K) = "
                          f"{tuple(pool_k.shape[:3])}, got "
                          f"{[tuple(s.shape) for s in scales]}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"kernels are built for hd in {HEAD_DIMS}, got {hd}")
-    if DECODE_TILE % page:
-        raise ValueError(f"kernels need a page size dividing {DECODE_TILE}, "
-                         f"got {page}")
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16 \
             or q.data_ptr() % 16:
         raise ValueError("q and the pools must be 16-byte aligned "

@@ -15,10 +15,14 @@ kernels take it, or (1,), one per tensor as ``serving/quant.py`` stores it
 
 What bounds them on the H100: at decode (M = 8) the bytes of the stored
 codes over 3.35 TB/s, which int4 halves; at a 4096-row prefill chunk the
-operations over the tensor cores' rate. The design — one tiled product
-whose K loop stages x and the codes at their stored width through a
-cp.async ring, converts the code tile once in shared memory and runs
-``mma.sync`` on it — is described in the source's header note.
+operations over the tensor cores' rate. W8A16/W4A16 over bf16 x (what the
+engine runs) launch one ``wgmma`` product, out^T = W^T x^T: the codes,
+converted in registers, are its A operand and the tokens its N axis
+(``token_tile``), fed by a TMA ring; where the grid would have fewer CTAs
+than the card's 132 SMs (a decode tick), K is split (``qmm_splits``) into
+fp32 partials that a second kernel sums in a fixed order. fp32 x and W8A8
+keep the ``mma.sync`` template (``qmm_kernel``). The wrapper picks the kernel by x's
+dtype alone. See the source's header note.
 
 On a CPU tensor each wrapper returns its plain version from
 ``kernels/ref.py``; on a CUDA tensor it launches the kernel or raises.
@@ -37,11 +41,39 @@ LAUNCHES = {"quant_matmul_w8a16": 0, "quant_matmul_w4a16": 0,
             "quant_matmul_w8a8": 0}
 
 TILE = 64             # K and N must be multiples of this (the CTA tile)
+SMS = 132             # the H100's SMs: the least CTAs a split grid fills
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def token_tile(M: int) -> int:
+    """Tokens a wgmma CTA takes (wgmma's N): the least of 8, 16, 32, 64
+    that holds M, else 128."""
+    for bt in (8, 16, 32, 64):
+        if M <= bt:
+            return bt
+    return 128
+
+
+def channel_tile(N: int) -> int:
+    """Output channels a wgmma CTA takes: two m64 tiles where N allows."""
+    return 128 if N % 128 == 0 else 64
+
+
+def qmm_splits(M: int, N: int, K: int) -> int:
+    """K splits of the wgmma product, from the shapes alone: 1 when the
+    (N / channel_tile) * ceil(M / token_tile) CTAs fill the SMS, else the
+    least divisor of the K/64 steps that gives at least SMS CTAs (equal,
+    64-aligned chunks), or one step a split."""
+    ctas = N // channel_tile(N) * -(-M // token_tile(M))
+    steps = K // TILE
+    if ctas >= SMS:
+        return 1
+    return next((s for s in range(2, steps + 1)
+                 if steps % s == 0 and (ctas * s >= SMS or s == steps)), 1)
 
 
 def _check(name, x, w, scale, x_dtypes, rows_per_k, x_scale=None):
@@ -90,14 +122,24 @@ def _raise_on(lib, rc: int, name: str) -> None:
 
 
 def _wa16(name, x, w, scale, rows_per_k):
+    """bf16 x: the wgmma kernel (and, split, its reduce); fp32 x: the
+    mma.sync template."""
     lib, M, N, K, stride = _check(name, x, w, scale,
                                   (torch.bfloat16, torch.float32),
                                   rows_per_k)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.qmm_wa16(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                      out.data_ptr(), M, N, K, stride,
-                      int(x.dtype == torch.float32), 8 // rows_per_k, stream)
+    bits = 8 // rows_per_k
+    if x.dtype == torch.bfloat16:
+        n_split = qmm_splits(M, N, K)
+        part = torch.empty(n_split * M * N if n_split > 1 else 0,
+                           dtype=torch.float32, device=x.device)
+        rc = lib.qmm_wa16_bf16(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                               out.data_ptr(), part.data_ptr() or None, M, N,
+                               K, stride, bits, n_split, stream)
+    else:
+        rc = lib.qmm_wa16_f32(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                              out.data_ptr(), M, N, K, stride, bits, stream)
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out

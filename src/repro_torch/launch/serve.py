@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs import get_config, tiny_config
 from repro_torch.core.hardware_model import DEFAULT_HW, HARDWARES
 from repro_torch.core.quantization import make_quant_dot
+from repro_torch.models import attention
 from repro_torch.models.api import build_model
 from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import normalize_kv_bits
@@ -74,6 +75,45 @@ def _identity_paged_pool(cache, B: int, max_len: int, page: int):
     return tree_map(to_pages, cache), pt
 
 
+def _quantized_like(model, pool, kv_bits):
+    """An identity pool's pages written into a pool of ``kv_bits`` (codes
+    and per-token scales where a slot is quantized), through the pool
+    writer the engine uses."""
+    pages0 = next(iter(pool["sub0"].values()))
+    out = model.init_pool(pages0.shape[1], pages0.shape[2], kv_bits=kv_bits,
+                          device=pages0.device)
+    for slot, kv in pool.items():
+        for name, pages in kv.items():
+            attention.write_kv(out[slot][name], (slice(None),), pages)
+    return out
+
+
+def _chunked_prefill(model, params, prompt_tokens, gen_len, page_size,
+                     kernel, dot, kv_bits, chunk):
+    """The prompt (B, S) in ``chunk``-token steps through
+    ``prefill_chunk_paged`` over a fresh identity-mapped pool (the last
+    chunk padded, its padding rows behind the mask). Returns (logits of
+    the last prompt row (B, 1, V), pool, page table)."""
+    B, S = prompt_tokens.shape
+    padded = -(-S // chunk) * chunk
+    ppseq = -(-max(S + gen_len, padded) // page_size)
+    device = prompt_tokens.device
+    pool = model.init_pool(B * ppseq + 1, page_size, kv_bits=kv_bits,
+                           device=device)
+    pt = (torch.arange(B * ppseq, dtype=torch.int32, device=device)
+          .reshape(B, ppseq) + 1)
+    toks = torch.zeros((B, padded), dtype=torch.int32, device=device)
+    toks[:, :S] = prompt_tokens
+    for start in range(0, S, chunk):
+        hidden, pool = model.prefill_chunk_paged(
+            params, pool, pt, toks[:, start:start + chunk],
+            torch.full((B,), start, dtype=torch.int32, device=device),
+            kernel=kernel, dot=dot)
+    row = S - 1 - (padded - chunk)
+    return (model.unembed(params, hidden[:, row:row + 1], dot=dot), pool,
+            pt)
+
+
 def _sample(logits, temperature, generator):
     logits = logits[:, -1]
     if temperature <= 0.0 or generator is None:
@@ -84,7 +124,7 @@ def _sample(logits, temperature, generator):
 
 def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
              generator=None, page_size: int = 16, kernel: str = "auto",
-             dot=None):
+             dot=None, kv_bits=None, prefill_chunk: int = 0):
     """prompt (B, S) int32 on the parameters' device -> (B, S+gen_len).
 
     Sequential baseline: one fixed batch, no admission — kept as the
@@ -94,12 +134,23 @@ def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
     and decodes through the same paged-attention walk as the engine over
     an identity page table. ``kernel`` selects the attention kernels of
     both; ``dot`` (e.g. ``make_quant_dot(policy)``) overrides every matmul
-    of both."""
+    of both. ``kv_bits`` (as ``--kv-bits``/``--kv-policy`` give it)
+    quantizes the pool on write, as the engine's pool does;
+    ``prefill_chunk`` > 0 prefills the prompt in chunks of that many
+    tokens through the paged prefill walk over the pool, as the engine's
+    chunked prefill does, instead of the whole-sequence forward."""
     B, S = prompt_tokens.shape
-    logits, cache = model.prefill(params, {"tokens": prompt_tokens},
-                                  cache_layout="full", dot=dot,
-                                  kernel=kernel)
-    pool, pt = _identity_paged_pool(cache, B, S + gen_len, page_size)
+    if prefill_chunk:
+        logits, pool, pt = _chunked_prefill(
+            model, params, prompt_tokens, gen_len, page_size, kernel, dot,
+            kv_bits, prefill_chunk)
+    else:
+        logits, cache = model.prefill(params, {"tokens": prompt_tokens},
+                                      cache_layout="full", dot=dot,
+                                      kernel=kernel)
+        pool, pt = _identity_paged_pool(cache, B, S + gen_len, page_size)
+        if kv_bits is not None:
+            pool = _quantized_like(model, pool, kv_bits)
     out = [prompt_tokens.to(torch.int32)]
     tok = _sample(logits, temperature, generator)
     for i in range(gen_len):

@@ -95,7 +95,7 @@ PAGE = 16
 
 
 def _pool_case(positions, Sq, n_blocks, bits, *, H=8, K=4, hd=256,
-               num_pages=257, seed=0):
+               num_pages=257, seed=0, page=PAGE):
     """On the card: N(0, 1) pools (bf16, or quantized by the pool writers'
     mapping) whose scratch page 0 is poisoned, a chunk of Sq queries per
     sequence (as drawn, and scaled by 20 so that the scores reach a cap of
@@ -103,8 +103,8 @@ def _pool_case(positions, Sq, n_blocks, bits, *, H=8, K=4, hd=256,
     (drawn with replacement) and its tails page 0."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     B = len(positions)
-    pk = torch.randn((num_pages, PAGE, K, hd), generator=g, device="cuda")
-    pv = torch.randn((num_pages, PAGE, K, hd), generator=g, device="cuda")
+    pk = torch.randn((num_pages, page, K, hd), generator=g, device="cuda")
+    pv = torch.randn((num_pages, page, K, hd), generator=g, device="cuda")
     if bits == 16:
         pk, pv = pk.bfloat16(), pv.bfloat16()
         pk[0], pv[0] = 37.0, -53.0
@@ -119,7 +119,7 @@ def _pool_case(positions, Sq, n_blocks, bits, *, H=8, K=4, hd=256,
     cpu = torch.Generator().manual_seed(seed)
     pt = torch.zeros((B, n_blocks), dtype=torch.int32)
     for b, pos in enumerate(positions):
-        need = min((pos + Sq - 1) // PAGE + 1, n_blocks)
+        need = min((pos + Sq - 1) // page + 1, n_blocks)
         pt[b, :need] = torch.randint(1, num_pages, (need,), generator=cpu,
                                      dtype=torch.int32)
     pos_t = torch.tensor(positions, dtype=torch.int32, device="cuda")
@@ -223,6 +223,49 @@ def test_cuda_paged_head_shapes(bits, H, K, hd):
     _check_paged(pre, pplain, q, pools, pt, pos, 64, 50.0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("page", [2, 16, 64, 128])
+def test_cuda_paged_tiny_heads(bits, page):
+    """On a card: both walks at tiny gemma2-2b's heads (H = 4, K = 2,
+    hd = 32: 4-lane decode walkers, two k16 steps of q.k^T; an int4 row
+    is one 16-B piece) over pages below, at and above the 32-key decode
+    tile (a 64-key prefill tile is half a page of 128), positions across
+    the tiny window of 32 and page edges, a 70-token chunk, windows {0,
+    32} and caps {0, 50}, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    positions = [0, 31, 33, 64, 129, 300]
+    n_blocks = (300 + 70) // page + 3
+    qs, pools, pt, pos = _pool_case(positions, 70, n_blocks, bits, H=4,
+                                    K=2, hd=32, num_pages=6 * n_blocks + 1,
+                                    seed=page + bits, page=page)
+    dec, dplain, pre, pplain = _PAGED[bits]
+    for window in (0, 32):
+        for cap in (0.0, 50.0):
+            q = qs[cap]
+            _check_paged(dec, dplain, q[:, 0].contiguous(), pools, pt, pos,
+                         window, cap)
+            _check_paged(pre, pplain, q, pools, pt, pos, window, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [48, 96, 256])
+def test_cuda_paged_refuses_other_pages(page):
+    """On a card: a page outside 1-128 in powers of two raises ValueError
+    and launches nothing (no fallback to the plain walk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    qs, pools, pt, pos = _pool_case([10, 100], 8, 4, 16, H=4, K=2, hd=32,
+                                    num_pages=9, page=page)
+    before = dict(tpa.LAUNCHES)
+    with pytest.raises(ValueError, match="page size"):
+        tpa.paged_attention_fwd(qs[0.0][:, 0].contiguous(), *pools, pt, pos)
+    with pytest.raises(ValueError, match="page size"):
+        tpa.paged_prefill_fwd(qs[0.0], *pools, pt, pos)
+    assert tpa.LAUNCHES == before
+
+
 def _flash_inputs(S, T, H, K, hd, q_scale=1.0, seed=0):
     """Random bf16 q (1, S, H, hd), k and v (1, T, K, hd) on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -267,7 +310,30 @@ def test_cuda_flash_matches_plain(window, cap, H, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("window", [0, 32])
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+def test_cuda_flash_tiny_heads(window, cap):
+    """On a card: flash at tiny gemma2-2b's heads (H = 4, K = 2, hd = 32:
+    two k16 steps of q.k^T, four n8 tiles of P.v per warp), causal over
+    2560 tokens, the tiny window of 32, against the plain version; with a
+    cap the plain version without it must miss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, k, v = _flash_inputs(2560, 2560, 4, 2, 32,
+                            q_scale=20.0 if cap else 1.0, seed=7)
+    got = _flash_launched(lambda: tfa.flash_attention_fwd(
+        q, k, v, causal=True, window=window, cap=cap))
+    want = tref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                    cap=cap).float()
+    assert bf16_close(got.float(), want)
+    if cap:
+        nocap = tref.flash_attention_ref(q, k, v, causal=True,
+                                         window=window).float()
+        assert not bf16_close(nocap, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("T,window", [(640, 0), (640, 64), (200, 0)])
 def test_cuda_flash_full_attention(hd, T, window):
     """On a card: causal=False with T != S (S = 300, neither a multiple of
@@ -402,3 +468,80 @@ def test_cuda_quant_matmul_refuses_bad_inputs():
     with pytest.raises(ValueError):
         tqm.quant_matmul_w8a16(xb[:, :96].contiguous(), q8[:96], s8)
     assert tqm.LAUNCHES == before
+
+
+# gemma2-2b's (K, N) the quant matmuls run at (chip_smoke.py QMM_SHAPES)
+# and the rows the main paths give them
+QMM_SHAPES = ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+              (9216, 2304), (2304, 256000))
+QMM_ROWS = (1, 2, 8, 37, 2000, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", QMM_SHAPES)
+@pytest.mark.parametrize("per_tensor", [False, True])
+def test_cuda_wgmma_quant_matmul_shapes(K, N, per_tensor):
+    """On a card: the wgmma W8A16 and W4A16 over bf16 x at every shape the
+    paths launch, M in {1, 2, 8, 37, 2000, 4096} (split-K at the small
+    ones on all but the lm_head), per-channel and per-tensor scales,
+    within the bf16 bound of the plain version; one launch counted per
+    call; a split call run twice gives the same bits (a fixed-order
+    reduce, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    g = torch.Generator(device="cuda").manual_seed(K + N)
+    w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+    for name, fn, plain, quantize in (
+            ("quant_matmul_w8a16", tqm.quant_matmul_w8a16,
+             tref.quant_matmul_w8a16, tref.quantize_w8),
+            ("quant_matmul_w4a16", tqm.quant_matmul_w4a16,
+             tref.quant_matmul_w4a16, tref.quantize_w4_packed)):
+        codes, scale = quantize(w)
+        if per_tensor:
+            scale = scale.amax().reshape(1)
+        for M in QMM_ROWS:
+            if N == 256000 and M == 4096:
+                continue              # the lm_head unembeds 2000 rows
+            x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+            got = _launched(name, lambda: fn(x, codes, scale))
+            assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+            assert bf16_close(got.float(), plain(x, codes, scale).float()), \
+                (name, K, N, M)
+            if tqm.qmm_splits(M, N, K) > 1:
+                assert torch.equal(fn(x, codes, scale), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_fp32_x_takes_the_mma_template(bits):
+    """On a card: fp32 x goes to the mma.sync template (its entry
+    point, not the wgmma one, is called) and meets its 3K/16 * 2**-23
+    bound, which x rounded to bf16 misses; bf16 x goes to the wgmma one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.kernels import build
+    x, (q8, s8), (q4, s4) = _qmm_inputs(37, 2304, 1024, False, seed=bits)
+    fn, plain, w, s = (tqm.quant_matmul_w8a16, tref.quant_matmul_w8a16,
+                       q8, s8) if bits == 8 else \
+        (tqm.quant_matmul_w4a16, tref.quant_matmul_w4a16, q4, s4)
+    lib = build.load("quant_matmul")
+    calls = []
+    entries = {e: getattr(lib, e) for e in ("qmm_wa16_f32", "qmm_wa16_bf16")}
+    for entry, orig in entries.items():
+
+        def spy(*args, _orig=orig, _entry=entry):
+            calls.append(_entry)
+            return _orig(*args)
+        setattr(lib, entry, spy)
+    try:
+        got = fn(x, w, s)
+        assert calls == ["qmm_wa16_f32"] and got.dtype == torch.float32
+        want = plain(x, w, s).float()
+        assert fp32_close(got, want, x.shape[1])
+        assert not fp32_close(plain(x.bfloat16().float(), w, s), want,
+                              x.shape[1])
+        fn(x.bfloat16(), w, s)
+        assert calls == ["qmm_wa16_f32", "qmm_wa16_bf16"]
+    finally:
+        for entry, orig in entries.items():
+            setattr(lib, entry, orig)

@@ -152,6 +152,27 @@ def test_engine_matches_port_generate(models):
             assert top2[1] - top2[0] <= ROW_TOL, (r.rid, i)
 
 
+@pytest.mark.parametrize("chunked,kv_bits,page", [
+    (True, (4, 8), 64), (False, (4, 8), 16), (True, None, 64)])
+def test_engine_matches_generate_on_its_pool(models, chunked, kv_bits,
+                                             page):
+    """generate over the engine's own pool (a quantized one, written as
+    the engine writes it) and prefilling as the engine does (its chunks
+    through the paged walk, or the whole prompt) gives the engine's tokens
+    exactly, at pages wider than the 32-key decode tile: the oracle the
+    card's tiny runs use."""
+    _, _, tm, tp = models
+    reqs = _trace(n=4, seed=2)
+    outs = Engine(tm, tp, _policy(max_batch=3, page_size=page,
+                                  kv_bits=kv_bits),
+                  chunked_prefill=chunked).run(reqs)
+    for r in reqs:
+        want = generate(tm, tp, torch.from_numpy(r.prompt[None]),
+                        r.max_new, page_size=page, kv_bits=kv_bits,
+                        prefill_chunk=8 if chunked else 0)[0].numpy()
+        assert np.array_equal(outs[r.rid], want), r.rid
+
+
 def test_engine_unported_options_raise(models):
     """A mesh waits for its slice and says so instead of serving something
     else, with bf16 weights and with quantized ones, as the reference

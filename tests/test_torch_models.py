@@ -190,6 +190,105 @@ def test_three_chunk_prefill_matches(models, dtype):
         _check_pool(tpool, jpool)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_decode_step_paged_page64_matches(models, dtype):
+    """One decode step over pages of 64 keys, wider than the kernels'
+    32-key decode tile: positions before, at and past the tiny window and
+    past the first page edge; logits and the written pool."""
+    jm, tm, params = models
+    cfg = jm.cfg
+    page, n_blocks, B = 64, 3, 4
+    num_pages = B * n_blocks + 1
+    pool = _pool_state(cfg, num_pages, page, seed=5)
+    positions = np.array([5, 33, 64, 150], np.int32)
+    rng = np.random.default_rng(6)
+    pt = np.zeros((B, n_blocks), np.int32)
+    perm = rng.permutation(np.arange(1, num_pages))
+    for b in range(B):
+        need = positions[b] // page + 1
+        pt[b, :need] = perm[b * n_blocks:b * n_blocks + need]
+    tok = rng.integers(2, cfg.vocab_size, (B, 1)).astype(np.int32)
+
+    def jax_step(p):
+        return jm.decode_step_paged(p, _to_jax(pool), jnp.asarray(pt),
+                                    jnp.asarray(tok), jnp.asarray(positions),
+                                    kernel="ref")
+
+    want, jpool = jax_step(params[dtype][0])
+    got, tpool = tm.decode_step_paged(
+        params[dtype][1], _to_torch(pool), torch.from_numpy(pt),
+        torch.from_numpy(tok), torch.from_numpy(positions))
+    _check_logits(got, want, dtype, jax_step(params["fp32"][0])[0])
+    if dtype == "fp32":
+        _check_pool(tpool, jpool)
+
+
+# A chunk reads back the k/v that it and earlier chunks wrote to the bf16
+# pool. The two packages compute those k/v in fp32 in other orders, so a
+# few round to neighbouring bf16 values (the one-ulp pool check), and a
+# row over ~100 keys then moves by up to ~2e-3 (1.8e-3 measured on these
+# inputs, at pages of 4 and 64 alike): the fp32 rows of a 100-token
+# prompt are held to 5e-3. So is the port at page 64 against itself at
+# page 4: only the order of the walk changes, which is enough to round a
+# few k/v the other way (8.1e-4 measured).
+POOL_READBACK_TOL = 5e-3
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_prefill_chunks_page64_match(models, dtype):
+    """A 100-token prompt in chunks of 24 over pages of 64 keys (a chunk
+    lies inside one page or crosses into the next): every chunk's last
+    real row against the reference, and against the port itself over
+    pages of 4 holding the same slots. (The k/v the chunks write drift
+    past one bf16 ulp over 100 tokens; the decode test checks the pool.)"""
+    jm, tm, params = models
+    cfg = jm.cfg
+    page, n_blocks, C, S = 64, 2, 24, 100
+    pool = _pool_state(cfg, n_blocks + 2, page, seed=7)
+    pt = np.array([[3, 1]], np.int32)
+    rng = np.random.default_rng(8)
+    prompt = rng.integers(2, cfg.vocab_size, S).astype(np.int32)
+    # the same slots as pages of 4: page p of 64 is pages 16p .. 16p+15
+    pool4 = {sub: {kv: a.reshape(a.shape[0], -1, 4, *a.shape[3:])
+                   for kv, a in d.items()} for sub, d in pool.items()}
+    pt4 = (16 * pt[:, :, None] + np.arange(16)).reshape(1, -1)
+
+    def chunks():
+        for start in range(0, S, C):
+            toks = np.zeros((1, C), np.int32)
+            toks[0, :min(C, S - start)] = prompt[start:start + C]
+            yield start, toks, min(C, S - start) - 1
+
+    def run_jax(p):
+        jpool, rows = _to_jax(pool), []
+        for start, toks, last in chunks():
+            h, jpool = jm.prefill_chunk_paged(
+                p, jpool, jnp.asarray(pt), jnp.asarray(toks),
+                jnp.asarray([start], jnp.int32), kernel="ref")
+            rows.append(jm.unembed(p, h[:, last:last + 1]))
+        return rows, jpool
+
+    def run_torch(p, pool, pt):
+        tpool, rows = _to_torch(pool), []
+        for start, toks, last in chunks():
+            h, tpool = tm.prefill_chunk_paged(
+                p, tpool, torch.from_numpy(pt), torch.from_numpy(toks),
+                torch.tensor([start], dtype=torch.int32))
+            rows.append(tm.unembed(p, h[:, last:last + 1]))
+        return rows, tpool
+
+    want, _ = run_jax(params[dtype][0])
+    got, _ = run_torch(params[dtype][1], pool, pt)
+    got4, _ = run_torch(params[dtype][1], pool4, pt4)
+    want32, _ = run_jax(params["fp32"][0])
+    for g, g4, w, w32 in zip(got, got4, want, want32):
+        if dtype == "fp32":
+            assert np.abs(_np(g) - _np(w)).max() < POOL_READBACK_TOL
+            assert np.abs(_np(g) - _np(g4)).max() < POOL_READBACK_TOL
+        else:
+            _check_logits(g, w, dtype, w32)
+
+
 class _ShapeLog(TorchDispatchMode):
     """Records the shape of every tensor an op returns."""
 

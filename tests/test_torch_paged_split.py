@@ -130,7 +130,7 @@ def emulate_split_decode(q, pools, pt, pos, *, window, cap, bits,
     n_blocks = pt.shape[1]
     if n_split is None:
         n_split = tpa.decode_splits(B, Kh, n_blocks, page)
-    NW = tpa.DECODE_THREADS // (hd // 8)        # walkers per CTA
+    NW = tpa.decode_threads(hd) // (hd // 8)    # walkers per CTA
     KPW = tpa.DECODE_TILE // NW                 # keys per walker per tile
     qf = q.to(F32).reshape(B, Kh, G, hd) * hd ** -0.5
     out = torch.empty((B, Kh, G, hd), dtype=F32)
@@ -424,3 +424,183 @@ def test_prefill_rounding_points_within_tolerance(bits, window):
                                    cap=50.0, bits=bits,
                                    drop_k_scale=True).float()
         assert not bf16_close(no_scale, want)
+
+
+# ------------------------------------ tiny heads (hd 32), pages 1-128 ----
+TINY_H, TINY_K, TINY_HD, TINY_WINDOW = 4, 2, 32, 32
+
+
+@pytest.mark.parametrize("page", [48, 96, 256, 3, 0])
+def test_wrappers_refuse_other_pages(page):
+    """A page outside 1-128 in powers of two raises ValueError with the
+    rule, before anything reaches a kernel (no fallback); so does an hd
+    outside HEAD_DIMS."""
+    q = torch.zeros((2, TINY_H, TINY_HD), dtype=torch.bfloat16)
+    pool = torch.zeros((3, max(page, 1), TINY_K, TINY_HD),
+                       dtype=torch.bfloat16)
+    pt = torch.zeros((2, 4), dtype=torch.int32)
+    pos = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="page size"):
+        tpa.check_geometry(TINY_HD, page)
+    if page:
+        with pytest.raises(ValueError, match="page size"):
+            tpa._check(q, pool, pool, pt, pos, False)
+    for hd in (16, 48, 512):
+        with pytest.raises(ValueError, match="hd"):
+            tpa.check_geometry(hd, 16)
+
+
+@pytest.mark.parametrize("page", tpa.PAGE_SIZES)
+def test_wrappers_take_every_page_and_hd(page):
+    """Every page of PAGE_SIZES and hd of HEAD_DIMS passes the geometry
+    rule; on CPU tensors the launch check then stops at the device."""
+    for hd in tpa.HEAD_DIMS:
+        tpa.check_geometry(hd, page)
+    assert TINY_HD in tpa.HEAD_DIMS
+    q = torch.zeros((2, TINY_H, TINY_HD), dtype=torch.bfloat16)
+    pool = torch.zeros((3, page, TINY_K, TINY_HD), dtype=torch.bfloat16)
+    pt = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tpa._check(q, pool, pool, pt, torch.zeros((2,), dtype=torch.int32),
+                   False)
+
+
+@pytest.mark.parametrize("page", tpa.PAGE_SIZES)
+@pytest.mark.parametrize("rows", [tpa.DECODE_TILE, tpa.PREFILL_TILE])
+def test_tile_slots_match_block_walk(page, rows):
+    """The kernels' copies address key j of a tile as pool slot
+    page_table[j // page] * page + j % page: at every page size, for
+    decode (32-key) and prefill (64-key) tiles, the rows they gather are
+    the rows of the plain walk's chronological block view, and the rows
+    of blocks outside [lo, hi] are the zero-filled ones."""
+    rng = np.random.default_rng(page + rows)
+    n_blocks = max(2, 512 // page)
+    num_pages = n_blocks + 5
+    pool = torch.from_numpy(rng.standard_normal(
+        (num_pages, page, TINY_K, TINY_HD)).astype(np.float32))
+    pt = rng.permutation(np.arange(1, num_pages))[:n_blocks].astype(np.int32)
+    # the plain walk's view: block i is pool[pt[i]], its keys in order
+    dense = torch.cat([pool[int(pt[i])] for i in range(n_blocks)])
+    flat = pool.reshape(num_pages * page, TINY_K, TINY_HD)
+    T = n_blocks * page
+    for lo, hi in ((0, n_blocks - 1), (1, n_blocks - 2), (n_blocks // 2,
+                                                          n_blocks // 2)):
+        for t in range(-(-T // rows)):
+            slots = tpa.tile_slots(pt, t, rows, page, lo, hi)
+            for r, slot in enumerate(slots):
+                key = t * rows + r
+                live = lo <= key // page <= hi
+                assert (slot >= 0) == live, (t, r)
+                if live:
+                    assert torch.equal(flat[slot], dense[key])
+
+
+@pytest.mark.parametrize("page", [1, 4, 32, 64, 128])
+@pytest.mark.parametrize("window", [0, TINY_WINDOW, 300])
+def test_split_tiles_cover_every_key_once(page, window):
+    """With a page smaller than, equal to or larger than the 32-key tile,
+    the splits' tiles restricted to the live blocks cover each key of
+    [lo, hi] exactly once, in order, for every split count."""
+    n_blocks = max(2, 2048 // page)
+    for pos in (0, 1, 31, 32, 33, 63, 64, 127, 128, 129, 1000,
+                n_blocks * page - 1, n_blocks * page + 7):
+        lo, hi = tpa.decode_blocks(pos, window, page, n_blocks)
+        want = [k for k in range(lo * page, (hi + 1) * page)] \
+            if lo <= hi else []
+        for n_split in (1, 2, 3, 7, 64):
+            seen = []
+            for split in range(n_split):
+                t0, t1 = tpa.split_tiles(lo, hi, page, split, n_split)
+                keys = range(t0 * tpa.DECODE_TILE, t1 * tpa.DECODE_TILE)
+                seen += [k for k in keys if lo <= k // page <= hi]
+            assert seen == want, (pos, n_split)
+
+
+@pytest.mark.parametrize("H,K,GC", [(TINY_H, TINY_K, 2), (4, 4, 1)])
+def test_decode_plan_tiny_heads(H, K, GC):
+    """Tiny gemma2-2b's heads (H = 4, K = 2: G = 2) and G = 1: the head
+    group, the grid and the split count from the shapes alone; at hd 32
+    the split CTA has 128 threads, 32 walkers of 4 lanes, one key each."""
+    assert tpa.head_group(H // K) == GC
+    assert tpa.decode_threads(TINY_HD) == 128
+    assert tpa.decode_threads(TINY_HD) // (TINY_HD // 8) == tpa.DECODE_TILE
+    for hd in (64, 128, 256):
+        assert tpa.decode_threads(hd) == tpa.DECODE_THREADS
+    for page in tpa.PAGE_SIZES:
+        for B, n_blocks in ((1, 1), (8, max(1, 128 // page)),
+                            (8, max(1, 4096 // page)), (64, 3)):
+            n = tpa.decode_splits(B, K, n_blocks, page)
+            tiles = -(-n_blocks * page // tpa.DECODE_TILE)
+            assert n >= 1 and (n == 1 or tiles // n >= tpa.MIN_SPLIT_TILES)
+            assert tpa.decode_grid(B, H, K, n_blocks, page) == \
+                (B, K * (H // K) // GC, n)
+
+
+def _tiny_case(bits, page, Sq, seed):
+    """Tiny gemma2-2b's attention shapes (H = 4, K = 2, hd = 32) over a
+    page pool of ``page`` keys: positions across the tiny window of 32 and
+    page edges, scratch page 0 poisoned in every tail. Returns torch
+    (q, pools, pt, pos): q (B, Sq, H, hd) bf16 (Sq = 0: (B, H, hd))."""
+    rng = np.random.default_rng(seed)
+    positions = np.array([0, 31, 33, 63, 64, 100, 129, 250], np.int32)
+    last = int(positions.max()) + max(Sq, 1)
+    n_blocks = last // page + 2
+    num_pages = len(positions) * n_blocks + 1
+    shape = (num_pages, page, TINY_K, TINY_HD)
+    pk = rng.standard_normal(shape).astype(np.float32)
+    pv = rng.standard_normal(shape).astype(np.float32)
+    pt = np.zeros((len(positions), n_blocks), np.int32)
+    perm = rng.permutation(np.arange(1, num_pages))
+    for b, p in enumerate(positions):
+        need = (p + max(Sq, 1) - 1) // page + 1
+        pt[b, :need] = perm[b * n_blocks:b * n_blocks + need]
+    if bits == 16:
+        pk[0], pv[0] = POISON
+        pools = tuple(torch.from_numpy(a).bfloat16() for a in (pk, pv))
+    else:
+        kq, ks = tref.quantize_kv(torch.from_numpy(pk), bits)
+        vq, vs = tref.quantize_kv(torch.from_numpy(pv), bits)
+        kq[0], vq[0], ks[0], vs[0] = 127, 127, 1e4, 1e4
+        pools = (kq, ks, vq, vs)
+    qshape = (len(positions), Sq, TINY_H, TINY_HD) if Sq \
+        else (len(positions), TINY_H, TINY_HD)
+    q = torch.from_numpy(rng.standard_normal(qshape).astype(np.float32))
+    return (q.bfloat16(), pools, torch.from_numpy(pt),
+            torch.from_numpy(positions))
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("page", [2, 16, 64, 128])
+def test_split_decode_tiny_matches_plain_walks(bits, page):
+    """The split decode emulation at hd 32 (4-lane walkers, one key each)
+    and pages below, at and above the 32-key tile, with the tiny window of
+    32 and gemma2's cap of 50, equals the port's plain walk and the
+    reference's within 1e-5."""
+    q, pools, pt, pos = _tiny_case(bits, page, 0, seed=page + bits)
+    qf = q.float()
+    for window in (0, TINY_WINDOW):
+        got = emulate_split_decode(qf, pools, pt, pos, window=window,
+                                   cap=50.0, bits=bits)
+        t, j = _refs(bits, qf.numpy(), tuple(a.float().numpy()
+                                             if a.dtype == torch.bfloat16
+                                             else a.numpy() for a in pools),
+                     pt.numpy(), pos.numpy(), window, 50.0)
+        assert float((got - t).abs().max()) < TOL
+        assert float(np.abs(got.numpy() - j).max()) < TOL
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("page", [2, 64, 128])
+def test_prefill_tiny_rounding_points_within_tolerance(bits, page):
+    """The tensor-core prefill's rounding points at hd 32 (two k16 steps
+    of q.k^T, four n8 tiles of P.V per warp) over pages of 2 (32 pages a
+    64-key tile), 64 and 128 (half a page a tile), the tiny window, cap
+    50: within the kernels' bf16 tolerance of the plain walk."""
+    q, pools, pt, pos = _tiny_case(bits, page, 40, seed=page + bits)
+    plain = tref.paged_prefill_ref if bits == 16 \
+        else tref.paged_prefill_quant_ref
+    for window in (0, TINY_WINDOW):
+        want = plain(q, *pools, pt, pos, window=window, cap=50.0).float()
+        got = emulate_prefill(q, pools, pt, pos, window=window, cap=50.0,
+                              bits=bits).float()
+        assert bf16_close(got, want)
