@@ -27,8 +27,10 @@ Phases, each fatal on failure:
                 per tensor-core step, W8A8's int32 products exact), then
                 checked and timed on the same inputs at (2304 -> 9216),
                 M = 8 and 4096, beside their plain versions, torch.matmul
-                on the dequantized bf16 weight (torch._int_mm for W8A8)
-                and their bounds. Kernels and yardsticks are timed on the
+                on the dequantized bf16 weight (torch._int_mm for W8A8, on
+                x zero-padded to 24 rows at M = 8) and their bounds, and
+                at M = 8 on every projection with each launch plan.
+                Kernels and yardsticks are timed on the
                 device (device_ms: a CUDA graph of the calls), the plain
                 versions from the host (time_ms);
   3. model    — full-width gemma2-2b (26 layers, random weights from a
@@ -64,7 +66,8 @@ Phases, each fatal on failure:
                 2 prompts of 2560 tokens (flash prefill; launches counted),
                 then on 1000 tokens through make_quant_dot's kernels (W4A16
                 FFN in and gate, W8A8 FFN out, W8A16 lm_head; launches
-                counted);
+                counted), and with W8A8 alone on FFN out through the
+                kernel and through its plain version (token-identical);
   7. drift    — greedy_drift of the int8 and the mixed pool against the
                 bf16 pool, teacher-forced through the kernels over one
                 1000-token prompt and 32 steps (printed; only a non-finite
@@ -628,6 +631,7 @@ QMM_TIMED = (2304, 9216)        # timed at M = 8 (decode) and 4096 (a chunk)
 # bytes of weight copies the timed calls cycle through: four times the
 # H100's 50 MB L2, as a decode tick streams 26 layers' weights past it
 QMM_COLD_BYTES = 200 * 10 ** 6
+INT_MM_MIN_ROWS = 24            # torch._int_mm needs more than 16 rows
 # fp32 x through W8A16/W4A16: the kernel splits x into three bf16 terms
 # (x = x0 + x1 + x2 exactly) whose products with the integer codes are
 # exact, so what separates kernel and plain version is fp32 accumulation.
@@ -732,6 +736,55 @@ def qmm_bound_ms(name, M, K, N):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def qmm_call(name, x, codes, scale):
+    """(kernel wrapper, plain version, arguments) of one timed call: W8A8
+    takes x quantized beforehand, the others x as it is."""
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import ref
+    if name != "quant_matmul_w8a8":
+        return getattr(qm, name), getattr(ref, name), (x, codes, scale)
+    xq, xs = ref.quantize_a8(x)
+    return qm.quant_matmul_w8a8, ref.quant_matmul_w8a8, (xq, xs, codes,
+                                                          scale)
+
+
+def cold_weight_sets(args):
+    """The call's arguments with distinct copies of its codes (the
+    second-to-last argument), QMM_COLD_BYTES in all, so that each timed
+    call reads its codes from device memory."""
+    codes = args[-2]
+    copies = max(1, -(-QMM_COLD_BYTES // codes.nbytes))
+    return [args] + [args[:-2] + (codes.clone(), args[-1])
+                     for _ in range(copies - 1)]
+
+
+def qmm_library(name, x, codes, scale):
+    """(fn, arg sets on cold weights, label) of the one-call PyTorch
+    yardstick the port never calls: torch.matmul on the weight dequantized
+    to bf16 beforehand (W8A16, W4A16), or torch._int_mm on x quantized
+    beforehand and the codes as a column-major B (W8A8). _int_mm takes
+    more than 16 rows: fewer are zero-padded to INT_MM_MIN_ROWS, and the
+    label says so."""
+    import torch
+    from repro_torch.kernels import ref
+    if name == "quant_matmul_w8a8":
+        a, _ = ref.quantize_a8(x)
+        label = "torch._int_mm"
+        if a.shape[0] < INT_MM_MIN_ROWS:
+            a = torch.cat([a, a.new_zeros((INT_MM_MIN_ROWS - a.shape[0],
+                                           a.shape[1]))])
+            label += f" on x zero-padded to {INT_MM_MIN_ROWS} rows"
+        b = codes.t().contiguous().t()
+        fn = torch._int_mm
+    else:
+        unpacked = ref.unpack_w4(codes) if name == "quant_matmul_w4a16" \
+            else codes
+        a, b = x, (unpacked.float() * scale).bfloat16()
+        fn, label = torch.matmul, "torch.matmul on bf16 weights"
+    copies = max(1, -(-QMM_COLD_BYTES // b.nbytes))
+    return fn, [(a, b)] + [(a, b.clone()) for _ in range(copies - 1)], label
+
+
 def phase_qmm_kernels():
     """Phase 2, the weight-quantized matmuls: each kernel against its
     plain version (``check_qmm``) at every (K, N) the paths launch, ragged
@@ -743,7 +796,6 @@ def phase_qmm_kernels():
     both."""
     import torch
     from repro_torch.kernels import quant_matmul as qm
-    from repro_torch.kernels import ref
 
     specs = qmm_specs()
     err = {name: 0.0 for name in specs}
@@ -790,10 +842,6 @@ def phase_qmm_kernels():
     w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
     for name, (fwd, plain, quantize) in specs.items():
         codes, scale = quantize(w)
-        unpacked = ref.unpack_w4(codes) if name == "quant_matmul_w4a16" \
-            else codes
-        w_bf16 = (unpacked.float() * scale).bfloat16()   # yardstick's weight
-        w_col = codes.t().contiguous().t()    # column-major B for _int_mm
         row = {}
         for M in (8, 4096):
             x = torch.randn((M, K), generator=g,
@@ -801,89 +849,68 @@ def phase_qmm_kernels():
             what = f"timed inputs, M={M}, K={K}, N={N}"
             err[name] = max(err[name], check_qmm(name, fwd, plain, x, codes,
                                                  scale, what))
-            if name == "quant_matmul_w8a8":
-                xq, xs = ref.quantize_a8(x)
-                args = (xq, xs, codes, scale)
-                kernel, plain_fn = qm.quant_matmul_w8a8, \
-                    ref.quant_matmul_w8a8
+            kernel, plain_fn, args = qmm_call(name, x, codes, scale)
+            if name == "quant_matmul_w8a8" and not torch.equal(
+                    kernel(*args, out_dtype=torch.float32),
+                    plain_fn(*args, out_dtype=torch.float32)):
                 # the timed call's accumulator, exact: fp32 out bit for bit
-                if not torch.equal(kernel(*args, out_dtype=torch.float32),
-                                   plain_fn(*args, out_dtype=torch.float32)):
-                    fail(f"{name}: fp32 output differs from the plain "
-                         f"version's ({what}): the int32 products are not "
-                         f"exact")
-            else:
-                args = (x, codes, scale)
-                kernel, plain_fn = fwd, plain
-            # distinct copies of the weights, QMM_COLD_BYTES in all, so
-            # that each timed call reads its codes from device memory
-            copies = max(1, -(-QMM_COLD_BYTES // codes.nbytes))
-            arg_sets = [args] + [(args[0], args[1], args[2].clone(),
-                                  args[3]) if name == "quant_matmul_w8a8"
-                                 else (args[0], args[1].clone(), args[2])
-                                 for _ in range(copies - 1)]
-            ms = device_ms(kernel, arg_sets)
+                fail(f"{name}: fp32 output differs from the plain "
+                     f"version's ({what}): the int32 products are not "
+                     f"exact")
+            ms = device_ms(kernel, cold_weight_sets(args))
             plain_ms = time_ms(lambda: plain_fn(*args), reps=5)
-            if name != "quant_matmul_w8a8":
-                lib_ms = device_ms(torch.matmul, [(x, w_bf16)] + [
-                    (x, w_bf16.clone()) for _ in range(copies - 1)])
-            elif M > 16:                      # _int_mm's shape rule
-                lib_ms = device_ms(torch._int_mm, [(xq, w_col)] + [
-                    (xq, w_col.clone()) for _ in range(copies - 1)])
-            else:
-                lib_ms = None
-            del arg_sets
+            lib_fn, lib_sets, lib_label = qmm_library(name, x, codes, scale)
+            lib_ms = device_ms(lib_fn, lib_sets)
+            del lib_sets
             b_ms, by = qmm_bound_ms(name, M, K, N)
-            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            plan = qm.qmm_plan(M, N, K)
             print(f"kernels: {name} M={M} K={K} N={N}: {ms:.4f} ms (plain "
-                  f"{plain_ms:.3f} ms, library {lib}, bound {b_ms:.5f} ms "
-                  f"by {by}; {2e-9 * M * K * N / ms:.1f} T(FL)OP/s)",
-                  flush=True)
+                  f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms "
+                  f"[{lib_label}], bound {b_ms:.5f} ms by {by}; "
+                  f"{2e-9 * M * K * N / ms:.1f} T(FL)OP/s; plan BT "
+                  f"{plan['BT']} MT {plan['MT']} n_split {plan['n_split']} "
+                  f"grid {plan['grid']})", flush=True)
             row[M] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": b_ms, "bound_by": by}
-            del x
+                      "library": lib_label, "bound_ms": b_ms,
+                      "bound_by": by, "plan": plan}
+            del x, args
         records[name] = dict(row[4096], max_abs_err=err[name],
                              decode=row[8])
-        del codes, scale, unpacked, w_bf16, w_col
+        del codes, scale
     del w
     torch.cuda.empty_cache()
 
-    # a decode tick (M = 8) on every projection: the wgmma kernels' K
-    # splits, two calls bit-identical (the reduce sums in a fixed order),
-    # timed beside cuBLAS on the bf16 weights, each call on cold weights
+    # a decode tick (M = 8) on every projection: the wgmma kernels' launch
+    # plans (K splits), two calls bit-identical (the reduces sum in a fixed
+    # order), timed beside the library call, each call on cold weights
     for K, N in QMM_SHAPES:
         if (K, N) == LM_HEAD:
             continue
         w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
         x = torch.randn((8, K), generator=g, device="cuda").bfloat16()
-        for name in ("quant_matmul_w8a16", "quant_matmul_w4a16"):
-            fwd, plain, quantize = specs[name]
+        for name, (fwd, plain, quantize) in specs.items():
             codes, scale = quantize(w)
             what = f"decode, M=8, K={K}, N={N}"
             err[name] = max(err[name], check_qmm(name, fwd, plain, x, codes,
                                                  scale, what))
-            if not torch.equal(fwd(x, codes, scale), fwd(x, codes, scale)):
+            kernel, _, args = qmm_call(name, x, codes, scale)
+            if not torch.equal(kernel(*args), kernel(*args)):
                 fail(f"{name}: two calls differ ({what})")
-            copies = max(1, -(-QMM_COLD_BYTES // codes.nbytes))
-            reps = max(20, min(copies, 200))
-            ms = device_ms(fwd, [(x, c, scale) for c in [codes] + [
-                codes.clone() for _ in range(copies - 1)]], reps)
-            unpacked = ref.unpack_w4(codes) if name == \
-                "quant_matmul_w4a16" else codes
-            w_bf16 = (unpacked.float() * scale).bfloat16()
-            lcopies = max(1, -(-QMM_COLD_BYTES // w_bf16.nbytes))
-            lib_ms = device_ms(torch.matmul, [(x, b) for b in [w_bf16] + [
-                w_bf16.clone() for _ in range(lcopies - 1)]],
-                max(20, min(lcopies, 200)))
+            sets = cold_weight_sets(args)
+            ms = device_ms(kernel, sets, max(20, min(len(sets), 200)))
+            lib_fn, lib_sets, lib_label = qmm_library(name, x, codes, scale)
+            lib_ms = device_ms(lib_fn, lib_sets,
+                               max(20, min(len(lib_sets), 200)))
             b_ms, by = qmm_bound_ms(name, 8, K, N)
-            n_split = qm.qmm_splits(8, N, K)
-            print(f"kernels: {name} M=8 K={K} N={N}: {ms:.4f} ms, "
-                  f"{n_split} K splits (library {lib_ms:.4f} ms, bound "
-                  f"{b_ms:.5f} ms by {by})", flush=True)
+            plan = qm.qmm_plan(8, N, K)
+            print(f"kernels: {name} M=8 K={K} N={N}: {ms:.4f} ms, plan BT "
+                  f"{plan['BT']} MT {plan['MT']} n_split {plan['n_split']} "
+                  f"grid {plan['grid']} (library {lib_ms:.4f} ms "
+                  f"[{lib_label}], bound {b_ms:.5f} ms by {by})", flush=True)
             records[name].setdefault("decode_shapes", {})[f"{K}x{N}"] = {
                 "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
-                "n_split": n_split}
-            del codes, scale, unpacked, w_bf16
+                "n_split": plan["n_split"]}
+            del codes, scale, args, sets, lib_sets
             torch.cuda.empty_cache()
         del w, x
     print(f"kernels: quant matmuls match plain versions (max |err| "
@@ -930,7 +957,8 @@ DEVICE_ROWS = {
                                   "paged_decode_combine_kernel<Int"),
     "paged_prefill_quant_fwd": ("paged_prefill_kernel<Int",),
     "flash_attention_fwd": ("flash_fwd_kernel",),
-    "quant matmuls": ("wq_kernel", "splitk_reduce_kernel", "qmm_kernel"),
+    "quant matmuls": ("wq_kernel", "splitk_reduce_kernel", "w8a8_kernel",
+                      "splitk_reduce_s32_kernel", "qmm_kernel"),
 }
 BF16_KERNELS = ("paged_attention_fwd", "paged_prefill_fwd")
 QUANT_KERNELS = ("paged_attention_quant_fwd", "paged_prefill_quant_fwd")
@@ -1351,6 +1379,35 @@ def phase_generate_quant(model, params):
     print(f"generate[quant]: 2 x 1000-token prompts + {gen} tokens through "
           f"{json.dumps(GEN_QUANT_POLICY)} in {dt:.3f} s; launches "
           f"{json.dumps(launches)}", flush=True)
+
+    # W8A8 alone on FFN out, through the kernel and through its plain
+    # version: the kernel's bf16 outputs equal the plain version's bit for
+    # bit, so the generated tokens must be identical
+    from repro_torch.kernels import ops as kops
+    base = make_quant_dot({})
+
+    def w8a8_only(mode):
+        def site(x, w, name):
+            if name == "ffn_out" and w.dim() == 2:
+                return kops.quant_matmul(x, w, w_bits=8, a_bits=8, mode=mode)
+            return base(x, w, name)
+        return site
+
+    toks = {}
+    for mode in ("cuda", "ref"):
+        reset_all_launches()
+        toks[mode] = generate(model, params, prompt, gen, page_size=PAGE,
+                              dot=w8a8_only(mode))
+        torch.cuda.synchronize()
+        n = all_launches()["quant_matmul_w8a8"]
+        if n != (L * forwards if mode == "cuda" else 0):
+            fail(f"generate[w8a8 {mode}]: W8A8 launched {n} times")
+    if not torch.equal(toks["cuda"], toks["ref"]):
+        fail("generate[w8a8]: the kernel's tokens differ from the plain "
+             "version's")
+    print(f"generate[w8a8]: W8A8 on FFN out through the kernel "
+          f"({L * forwards} launches) and through its plain version: "
+          f"{gen} tokens x 2 identical", flush=True)
     return launches
 
 
@@ -1389,19 +1446,24 @@ def phase_drift(model, params):
 # ------------------------------------------------ tiny gemma2-2b (hd 32) --
 # tiny gemma2-2b (the reference's tiny_config): 4 query heads, 2 kv heads of
 # width 32, a local window of 32; served at pages of 16 and 64 (a page of 64
-# spans two 32-key decode tiles), the kernels also checked at pages of 2
+# spans two 32-key decode tiles), chunked and whole-prompt, and at a page of
+# 48 chunked (tiles that start in the middle of a page); the kernels also
+# checked at pages below, at and above the tiles, and at pages that neither
+# divide a tile nor are a multiple of one (3, 24, 48, 96)
 TINY_HEADS, TINY_HD, TINY_WINDOW = (4, 2), 32, 32
 TINY_PAGES = (16, 64)
-TINY_KERNEL_PAGES = (2, 16, 64, 128)
+TINY_CHUNKED_PAGES = (48,)
+TINY_KERNEL_PAGES = (2, 16, 64, 128, 3, 24, 48, 96, 256)
 TINY_GEN = 16
 
 
 def phase_tiny_kernels():
     """Phase 1b: every attention kernel at hd 32 against its plain version
     (tolerance as phase 2): decode and prefill over bf16, int8 and int4
-    pools at pages below, at and above the 32-key decode tile, positions
-    across the tiny window and page edges, windows {0, 32} and caps {0,
-    50}; flash over 2560 tokens. A failure ends the run."""
+    pools at pages below, at and above the 32-key decode tile and pages
+    whose tiles start mid-page (TINY_KERNEL_PAGES), positions across the
+    tiny window and page edges, windows {0, 32} and caps {0, 50}; flash
+    over 2560 tokens. A failure ends the run."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1463,7 +1525,8 @@ def phase_tiny_engine(kv_policy_file):
     """Phase 1c: the north star's tiny main path on the card: tiny
     gemma2-2b served by the engine with ``--paged-kernel cuda`` at pages of
     16 and 64, chunked (32-token chunks) and whole-prompt (2048-token
-    prompts, through flash), over a bf16 pool and the KV_POLICY pool. Each
+    prompts, through flash), and at a page of 48 chunked, over a bf16 pool
+    and the KV_POLICY pool. Each
     run must launch the attention kernels of its path (and no other), and
     give tokens identical to the port's own ``generate`` on each prompt:
     kernel "cuda", the same page size and pool (bf16, or the KV_POLICY
@@ -1482,8 +1545,10 @@ def phase_tiny_engine(kv_policy_file):
         fail(f"tiny gemma2-2b is not hd {TINY_HD}, heads {TINY_HEADS}")
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
-    for page, chunked, kv in itertools.product(TINY_PAGES, (True, False),
-                                                (False, True)):
+    runs = list(itertools.product(TINY_PAGES, (True, False), (False, True)))
+    runs += list(itertools.product(TINY_CHUNKED_PAGES, (True,),
+                                   (False, True)))
+    for page, chunked, kv in runs:
         reqs = tiny_trace(cfg, whole=not chunked)
         max_len = max(len(r.prompt) + r.max_new for r in reqs)
         argv = ["--arch", "gemma2-2b", "--tiny", "--paged-kernel", "cuda",

@@ -1,19 +1,27 @@
-"""Time the port's W8A16/W4A16 kernels (src/repro_torch/kernels/
-quant_matmul.py, bf16 x) on the card at gemma2-2b's five projection shapes
-(K, N), at a decode tick's M = 8 and a prefill chunk's M = 4096, beside
-one cuBLAS call on the same weights pre-dequantized to bf16 (a yardstick
-the port never calls) and the bound (bytes over 3.35 TB/s or operations
-over 989 TFLOP/s, the larger). With ``--other DIR`` (a checkout of another
-commit, such as the parent, unpacked under a git-ignored directory) the
-other checkout's kernels are timed too, in turns: other, this, this,
-other, each in its own process, so both are compared on one card in one
-call. Needs a CUDA card; prints one line per case and a JSON summary.
+"""Time the port's weight-quantized matmul kernels (src/repro_torch/
+kernels/quant_matmul.py: W8A16 and W4A16 over bf16 x, W8A8 over x
+quantized to int8 beforehand) on the card at gemma2-2b's five projection
+shapes (K, N), at a decode tick's M = 8 and a prefill chunk's M = 4096,
+beside one PyTorch call the port never calls (a yardstick): cuBLAS on the
+weights pre-dequantized to bf16 for W8A16/W4A16, ``torch._int_mm`` on the
+int8 codes for W8A8 (which needs more than 16 rows: at M = 8 it takes x
+zero-padded to 24 rows, labelled so), and the bound (bytes over 3.35 TB/s
+or operations over 989 TFLOP/s bf16 / 1979 TOP/s int8, the larger). With
+``--other DIR`` (a checkout of another commit, such as the parent,
+unpacked under a git-ignored directory) the other checkout's kernels are
+timed too, in turns: other, this, this, other, each in its own process,
+so both are compared on one card in one call. ``--sass`` instead counts,
+per kernel instance of the built quant_matmul library, the tensor-core
+instructions ``cuobjdump -sass`` shows (HGMMA/IGMMA: wgmma; HMMA/IMMA:
+mma.sync). Needs a CUDA card (and, for ``--sass``, the CUDA toolkit);
+prints one line per case and a JSON summary.
 
-    python scripts/bench_torch_qmm.py [--other DIR] [--out FILE]
+    python scripts/bench_torch_qmm.py [--other DIR] [--out FILE] [--sass]
 """
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -24,8 +32,10 @@ PROJECTIONS = ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
 ROWS = (8, 4096)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 COLD_BYTES = 200 * 10 ** 6     # weight copies cycled past the 50 MB L2
-KERNELS = ("quant_matmul_w8a16", "quant_matmul_w4a16")
+KERNELS = ("quant_matmul_w8a16", "quant_matmul_w4a16", "quant_matmul_w8a8")
+INT_MM_MIN_ROWS = 24           # torch._int_mm needs more than 16 rows
 
 
 def device_ms(fn, arg_sets, reps):
@@ -60,11 +70,48 @@ def device_ms(fn, arg_sets, reps):
 
 
 def bound_ms(name, M, K, N):
+    w8a8 = name == "quant_matmul_w8a8"
     code_bytes = K * N // 2 if name == "quant_matmul_w4a16" else K * N
-    t_bytes = (2 * M * K + code_bytes + 4 * N + 2 * M * N) \
+    x_bytes = M * K * (1 if w8a8 else 2)
+    t_bytes = (x_bytes + code_bytes + 4 * N + 2 * M * N) \
         / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * M * K * N / BF16_FLOPS * 1e3
+    t_ops = 2.0 * M * K * N / (INT8_OPS if w8a8 else BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_call(name, x, codes, unpacked, scale, cold):
+    """(fn, arg sets, label) of the yardstick: cuBLAS on the weight
+    dequantized to bf16, or torch._int_mm on x quantized to int8 (zero-
+    padded to INT_MM_MIN_ROWS rows where it has fewer) and the codes as a
+    column-major B; ``cold`` bytes of weight copies."""
+    import torch
+    from repro_torch.kernels import ref
+    if name != "quant_matmul_w8a8":
+        w = (unpacked.float() * scale).bfloat16()
+        a = x
+        fn, label = torch.matmul, "torch.matmul"
+    else:
+        a, _ = ref.quantize_a8(x)
+        if a.shape[0] < INT_MM_MIN_ROWS:
+            a = torch.cat([a, a.new_zeros((INT_MM_MIN_ROWS - a.shape[0],
+                                           a.shape[1]))])
+            label = f"torch._int_mm, x padded to {INT_MM_MIN_ROWS} rows"
+        else:
+            label = "torch._int_mm"
+        w = codes.t().contiguous().t()
+        fn = torch._int_mm
+    copies = max(1, math.ceil(cold / w.nbytes))
+    return fn, [(a, w)] + [(a, w.clone()) for _ in range(copies - 1)], \
+        label
+
+
+def kernel_args(name, x, codes, scale):
+    """The wrapper's arguments: W8A8 takes x quantized beforehand."""
+    if name != "quant_matmul_w8a8":
+        return (x, codes, scale)
+    from repro_torch.kernels import ref
+    xq, xs = ref.quantize_a8(x)
+    return (xq, xs, codes, scale)
 
 
 def worker(root: Path, library: bool):
@@ -80,7 +127,8 @@ def worker(root: Path, library: bool):
     for K, N in PROJECTIONS:
         w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
         for name, quantize in zip(KERNELS, (ref.quantize_w8,
-                                            ref.quantize_w4_packed)):
+                                            ref.quantize_w4_packed,
+                                            ref.quantize_w8)):
             fwd = getattr(qm, name)
             codes, scale = quantize(w)
             copies = max(1, math.ceil(COLD_BYTES / codes.nbytes))
@@ -90,25 +138,46 @@ def worker(root: Path, library: bool):
                 else codes
             for M in ROWS:
                 x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
-                row = {"ms": device_ms(fwd, [(x, c, scale) for c in weights],
-                                       reps)}
+                args = kernel_args(name, x, codes, scale)
+                sets = [args[:-2] + (c, args[-1]) for c in weights]
+                row = {"ms": device_ms(fwd, sets, reps)}
                 if plan is not None:
                     row["n_split"] = plan(M, N, K)
                 if library:
-                    w_bf16 = (unpacked.float() * scale).bfloat16()
-                    copies_l = max(1, math.ceil(COLD_BYTES / w_bf16.nbytes))
-                    lib_w = [w_bf16] + [w_bf16.clone()
-                                        for _ in range(copies_l - 1)]
+                    fn, lib_sets, row["library"] = library_call(
+                        name, x, codes, unpacked, scale, COLD_BYTES)
                     row["library_ms"] = device_ms(
-                        torch.matmul, [(x, b) for b in lib_w],
-                        max(20, min(copies_l, 200)))
-                    del lib_w, w_bf16
+                        fn, lib_sets, max(20, min(len(lib_sets), 200)))
+                    del lib_sets
                 row["bound_ms"], row["bound_by"] = bound_ms(name, M, K, N)
                 out[f"{name} M={M} K={K} N={N}"] = row
-                del x
+                del x, args, sets
             del weights, codes, scale, unpacked
             torch.cuda.empty_cache()
     print(json.dumps(out))
+
+
+def sass_counts() -> dict:
+    """Kernel instance -> {instruction: count} of the tensor-core
+    instructions in this checkout's built quant_matmul library."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    build.compile_library("quant_matmul")
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run(
+        [str(tool), "-sass", str(build.library_path("quant_matmul"))],
+        capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            continue
+        op = re.search(r"\b(HGMMA|IGMMA|HMMA|IMMA)\.", line)
+        if op and fn:
+            c = counts.setdefault(fn, {})
+            c[op.group(1)] = c.get(op.group(1), 0) + 1
+    return counts
 
 
 def card_line() -> str:
@@ -123,11 +192,22 @@ def main() -> int:
     ap.add_argument("--other", default="",
                     help="root of another checkout to time in turns")
     ap.add_argument("--out", default="", help="write the JSON summary here")
+    ap.add_argument("--sass", action="store_true",
+                    help="count tensor-core SASS instructions and stop")
     ap.add_argument("--worker", default="", help=argparse.SUPPRESS)
     ap.add_argument("--library", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         worker(Path(args.worker).resolve(), args.library)
+        return 0
+    if args.sass:
+        counts = sass_counts()
+        totals = {}
+        for fn, c in sorted(counts.items()):
+            print(f"{fn}: {json.dumps(c)}")
+            for op, n in c.items():
+                totals[op] = totals.get(op, 0) + n
+        print(json.dumps({"sass_totals": totals}))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -151,6 +231,7 @@ def main() -> int:
     for case, first in runs["this"][0].items():
         row = {"ms": [r[case]["ms"] for r in runs["this"]],
                "library_ms": first.get("library_ms"),
+               "library": first.get("library"),
                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                "n_split": first.get("n_split")}
         if runs["other"]:
@@ -158,7 +239,8 @@ def main() -> int:
         summary["cases"][case] = row
         other = f" other {row['other_ms']}" if runs["other"] else ""
         print(f"{case}: ms {row['ms']}{other} library "
-              f"{row['library_ms']} bound {row['bound_ms']:.5f} "
+              f"{row['library_ms']} ({row['library']}) bound "
+              f"{row['bound_ms']:.5f} "
               f"({row['bound_by']}) n_split {row['n_split']}", flush=True)
     print(summary["card"])
     print(json.dumps(summary))

@@ -46,7 +46,7 @@ SIGNATURES = {
     "quant_matmul": {
         "qmm_wa16_bf16": (_I, [_P] * 5 + [_I] * 6 + [_P]),
         "qmm_wa16_f32": (_I, [_P] * 4 + [_I] * 5 + [_P]),
-        "qmm_w8a8": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+        "qmm_w8a8": (_I, [_P] * 6 + [_I] * 6 + [_P]),
         "qmm_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -37,10 +37,13 @@
 //     one is computed. Copies are coalesced (a warp's lanes take
 //     consecutive 16-B pieces of a row) and each thread reads its rows'
 //     page ids a tile ahead (TileCopy), so no table read stalls a copy.
-//     Key j of the walk lies in block j / page at offset j % page, so a
-//     tile holds 32/page pages (page <= 32) or a 32-key run of one page
-//     (page 64, 128). Pages of a tile outside [lo, hi] are zero-filled,
-//     not read;
+//     Key j of the walk lies in block j / page at offset j % page, for
+//     any page: a tile may hold several pages, part of one, or the end
+//     of one page and the start of the next (page 48: keys 32-63 are
+//     the last 16 of block 0 and the first 16 of block 1). Rows of a
+//     tile whose block lies outside [lo, hi] are zero-filled, not read,
+//     and their keys lie outside [k_lo, k_hi], so the key mask drops
+//     them as well;
 //   * each group of hd/8 lanes is a walker with its own keys of every
 //     stage (256 threads; 128 at hd = 32, one 4-lane walker per key, 8 to
 //     a warp, whose shuffles stay inside the walker's aligned lanes) and
@@ -64,11 +67,11 @@
 //     tile of the chunk's position-major fused rows r = s*G + g (position
 //     positions[b] + s) of one kv head, 8 warps of 16 rows, the longest
 //     walks launched first (blockIdx.z reversed);
-//   * K/V stream through a two-stage cp.async ring of 64-key tiles (64/page
-//     pages each, or half a page of 128, gathered through page_table[b] at
-//     their stored width),
-//     over the tiles [lo, hi] the rows need, hi clamped to the page-table
-//     width for a padded final chunk;
+//   * K/V stream through a two-stage cp.async ring of 64-key tiles
+//     (gathered row by row through page_table[b] at their stored width,
+//     whatever the page), over the tiles [lo, hi] that hold the blocks
+//     the rows need (rounded outward to whole tiles), hi clamped to the
+//     page-table width for a padded final chunk;
 //   * both products run on mma.sync m16n8k16 bf16 with fp32 accumulators,
 //     the (m, l, acc) state of each warp's 16 rows in registers; only kv
 //     tiles that cross the diagonal, the window edge or the table's end
@@ -98,8 +101,10 @@
 // before the mask; masked scores -1e30 and m starting at -1e30 (never
 // -inf); l clamped at 1e-30; blocks outside [lo, hi] skipped; page-table
 // tails at scratch page 0 never read (they lie past hi); head h = k*G + g;
-// the output rounded to bf16. Built for hd in {32, 64, 128, 256} and
-// pages of 1 to 128 keys in powers of two. wgmma and TMA are later work.
+// the output rounded to bf16. Built for hd in {32, 64, 128, 256}; pages
+// of any size from 1 key (a pool slot, page id * page + offset, is a
+// 32-bit index: the wrapper refuses pools of 2**31 slots or more). wgmma
+// and TMA are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -196,8 +201,8 @@ struct TileCopy {
         active(tid < kRows * kPieces) {}
 
   // slots of tile t's rows, keys t*kRows + row: block key / page at offset
-  // key % page, so a tile may hold several pages (page < kRows) or part of
-  // one (page > kRows); any = false: none
+  // key % page, so a tile may hold several pages, part of one, or the
+  // ends of two (any page); any = false: none
   __device__ void fetch(const int* pt, int t, int page, int lo, int hi,
                         bool any) {
 #pragma unroll
@@ -741,13 +746,11 @@ __global__ void __launch_bounds__(kPThreads, 1)
 }
 
 // ---------------------------------------------------------------- launch --
-// The page sizes the walks take: the powers of two from 1 to 128, which
-// divide a 32-key decode tile (several pages a tile) or are a multiple of
-// it (part of a page a tile); kernels/paged_attention.py states the same
-// rule and raises on any other.
-bool page_supported(int page) {
-  return page > 0 && page <= 128 && (page & (page - 1)) == 0;
-}
+// The page sizes the walks take: any from 1 key, since every copy
+// addresses its row's block and offset on its own (TileCopy::fetch);
+// kernels/paged_attention.py states the same rule and raises on pages
+// below 1.
+bool page_supported(int page) { return page > 0; }
 
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {

@@ -24,8 +24,13 @@ tensor-core kernel (mma.sync) over 128-row tiles of the chunk's fused
 (Sq*G) rows and 64-key K/V tiles; a quantized pool's codes become bf16
 tiles once per landed tile. See the source's header note.
 
-The kernels are built for hd in ``HEAD_DIMS`` and pages of
-``PAGE_SIZES`` keys; ``check_geometry`` raises on any other.
+The kernels are built for hd in ``HEAD_DIMS`` and take pages of any
+size from 1 key up (the reference's own rule): a 32-key decode tile or a
+64-key prefill tile may hold several pages, part of one, or start in the
+middle of one page and end in the middle of the next, since the copies
+address key j at pool slot ``page_table[j // page] * page + j % page``
+(``tile_slots``). ``check_geometry`` raises on any other hd and on pages
+below 1.
 
 On a CPU tensor each wrapper returns its plain version from
 ``kernels/ref.py``; on a CUDA tensor it launches the kernels or raises.
@@ -46,9 +51,8 @@ LAUNCHES = {"paged_attention_fwd": 0, "paged_prefill_fwd": 0,
 
 SMEM_LIMIT = 232448   # bytes of shared memory one H100 block may use
 HEAD_DIMS = (32, 64, 128, 256)   # the head widths the kernels are built for
-# the page sizes the kernels take: powers of two that divide DECODE_TILE
-# (several pages a tile) or are a multiple of it (part of a page a tile)
-PAGE_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
+# the kernels address a pool slot (page id * page + offset) in 32 bits
+MAX_POOL_SLOTS = 2 ** 31 - 1
 DECODE_TILE = 32      # keys per decode ring stage, the unit a split takes
 DECODE_THREADS = 256  # threads per decode split CTA (at most; decode_threads)
 PREFILL_ROWS = 128    # fused (Sq*G) query rows per prefill CTA
@@ -134,13 +138,13 @@ def tile_slots(pt_row, t: int, rows: int, page: int, lo: int, hi: int):
 
 def check_geometry(hd: int, page: int) -> None:
     """Raise ValueError unless the kernels are built for head width ``hd``
-    and take pages of ``page`` keys (no fallback to the plain walk)."""
+    and ``page`` is a page size, at least 1 key (no fallback to the plain
+    walk)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"kernels are built for hd in {HEAD_DIMS}, got {hd}")
-    if page not in PAGE_SIZES:
-        raise ValueError(f"kernels take a page size that divides "
-                         f"{DECODE_TILE} or is a multiple of it, up to 128 "
-                         f"(one of {PAGE_SIZES}), got {page}")
+    if page < 1:
+        raise ValueError(f"kernels take a page size of at least 1 key, got "
+                         f"{page}")
 
 
 def _check(q, pool_k, pool_v, page_table, positions, prefill, scales=()):
@@ -148,6 +152,11 @@ def _check(q, pool_k, pool_v, page_table, positions, prefill, scales=()):
     pool. Returns (library, bits of the pool)."""
     if pool_k.dim() == 4:
         check_geometry(q.shape[-1], pool_k.shape[1])
+        if pool_k.shape[0] * pool_k.shape[1] > MAX_POOL_SLOTS:
+            raise ValueError(f"a pool of {pool_k.shape[0]} pages of "
+                             f"{pool_k.shape[1]} keys has more than "
+                             f"{MAX_POOL_SLOTS} slots (the kernels' 32-bit "
+                             f"slot index)")
     named = (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
              ("page_table", page_table), ("positions", positions))
     if scales:

@@ -20,9 +20,13 @@ engine runs) launch one ``wgmma`` product, out^T = W^T x^T: the codes,
 converted in registers, are its A operand and the tokens its N axis
 (``token_tile``), fed by a TMA ring; where the grid would have fewer CTAs
 than the card's 132 SMs (a decode tick), K is split (``qmm_splits``) into
-fp32 partials that a second kernel sums in a fixed order. fp32 x and W8A8
-keep the ``mma.sync`` template (``qmm_kernel``). The wrapper picks the kernel by x's
-dtype alone. See the source's header note.
+fp32 partials that a second kernel sums in a fixed order. W8A8 runs the
+same design on an s8 ``wgmma`` (the codes wgmma's A operand as stored,
+int8 x its B operand) into an exact int32 accumulator; split, its int32
+partials are summed and rescaled by a second kernel, so an fp32 output is
+bit-identical to the plain version at any split count. fp32 x through
+W8A16/W4A16 keeps the ``mma.sync`` template (``qmm_kernel``). The wrapper
+picks the kernel by x's dtype alone. See the source's header note.
 
 On a CPU tensor each wrapper returns its plain version from
 ``kernels/ref.py``; on a CUDA tensor it launches the kernel or raises.
@@ -61,6 +65,15 @@ def token_tile(M: int) -> int:
 def channel_tile(N: int) -> int:
     """Output channels a wgmma CTA takes: two m64 tiles where N allows."""
     return 128 if N % 128 == 0 else 64
+
+
+def qmm_plan(M: int, N: int, K: int) -> dict:
+    """The wgmma kernels' launch plan: token tile BT, m64 tiles MT per
+    CTA, K splits and the product's grid (N / 64 MT, ceil(M / BT),
+    n_split)."""
+    bt, bc, n_split = token_tile(M), channel_tile(N), qmm_splits(M, N, K)
+    return {"BT": bt, "MT": bc // 64, "n_split": n_split,
+            "grid": (N // bc, -(-M // bt), n_split)}
 
 
 def qmm_splits(M: int, N: int, K: int) -> int:
@@ -115,6 +128,14 @@ def _check(name, x, w, scale, x_dtypes, rows_per_k, x_scale=None):
     return build.load("quant_matmul"), M, N, K, int(scale.shape[0] != 1)
 
 
+def _split_scratch(M: int, N: int, K: int, dtype, device):
+    """(n_split, partials): the wgmma product's K splits and, split, its
+    (n_split, M, N) scratch of ``dtype`` (empty when unsplit)."""
+    n_split = qmm_splits(M, N, K)
+    return n_split, torch.empty(n_split * M * N if n_split > 1 else 0,
+                                dtype=dtype, device=device)
+
+
 def _raise_on(lib, rc: int, name: str) -> None:
     if rc:
         raise RuntimeError(f"{name} launch failed: "
@@ -131,9 +152,7 @@ def _wa16(name, x, w, scale, rows_per_k):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bits = 8 // rows_per_k
     if x.dtype == torch.bfloat16:
-        n_split = qmm_splits(M, N, K)
-        part = torch.empty(n_split * M * N if n_split > 1 else 0,
-                           dtype=torch.float32, device=x.device)
+        n_split, part = _split_scratch(M, N, K, torch.float32, x.device)
         rc = lib.qmm_wa16_bf16(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                                out.data_ptr(), part.data_ptr() or None, M, N,
                                K, stride, bits, n_split, stream)
@@ -174,9 +193,11 @@ def quant_matmul_w8a8(x_q, x_scale, w_q, w_scale, out_dtype=torch.bfloat16):
                                   x_scale=x_scale)
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
+    n_split, part = _split_scratch(M, N, K, torch.int32, x_q.device)
     rc = lib.qmm_w8a8(x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(),
-                      w_scale.data_ptr(), out.data_ptr(), M, N, K, stride,
-                      int(out_dtype == torch.float32), stream)
+                      w_scale.data_ptr(), out.data_ptr(),
+                      part.data_ptr() or None, M, N, K, stride,
+                      int(out_dtype == torch.float32), n_split, stream)
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out

@@ -1,8 +1,11 @@
 """Inputs shared by the port's kernel tests (this module holds no test):
-random paged-attention cases (numpy) and the kernel-vs-plain tolerance.
-Imports no JAX, so the tests that run on the card can use it there."""
+random paged-attention cases (numpy), the kernel-vs-plain tolerance and
+the quant matmuls' split-K chunks. Imports no JAX, so the tests that run
+on the card can use it there."""
 import numpy as np
 import torch
+
+from repro_torch.kernels import quant_matmul as tqm
 
 
 def paged_case(B, Sq, H, K, hd, page, n_blocks, *, num_pages=11, seed=0,
@@ -36,3 +39,11 @@ def bf16_close(got, want):
     rowmax = want.abs().amax(-1, keepdim=True)
     return bool(torch.all((got - want).abs()
                           <= 2.0 ** -7 * (rowmax + want.abs())))
+
+
+def split_chunks(K, n_split):
+    """[(k0, k1)]: the K range split i of a wgmma quant matmul walks (the
+    kernels' step0 = i * steps, steps = K / 64 / n_split), in order."""
+    steps = K // tqm.TILE // n_split
+    return [(i * steps * tqm.TILE, (i + 1) * steps * tqm.TILE)
+            for i in range(n_split)]

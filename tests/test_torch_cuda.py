@@ -250,19 +250,52 @@ def test_cuda_paged_tiny_heads(bits, page):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("page", [48, 96, 256])
-def test_cuda_paged_refuses_other_pages(page):
-    """On a card: a page outside 1-128 in powers of two raises ValueError
-    and launches nothing (no fallback to the plain walk)."""
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("page", [3, 24, 48, 96, 256])
+def test_cuda_paged_any_page(bits, page):
+    """On a card: both walks over each pool type at pages that do not
+    divide a 32-key decode tile or a 64-key prefill tile and are not a
+    multiple of one (3, 24, 48, 96), so that tiles start in the middle of
+    a page and end in the middle of the next, and at 256 (eight decode
+    tiles and four prefill tiles a page): tiny gemma2-2b's heads, then
+    full width (hd 256, G = 2), a 70-token chunk, positions across the
+    windows (32 and 64 keys, both cutting mid-page) and page edges,
+    windows {0, the window} and caps {0, 50}, against the plain
+    version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
-    qs, pools, pt, pos = _pool_case([10, 100], 8, 4, 16, H=4, K=2, hd=32,
-                                    num_pages=9, page=page)
+    dec, dplain, pre, pplain = _PAGED[bits]
+    for H, K, hd, win in ((4, 2, 32, 32), (8, 4, 256, 64)):
+        positions = [0, 31, 33, 47, 48, 95, 129, 300]
+        n_blocks = (300 + 70) // page + 3
+        qs, pools, pt, pos = _pool_case(
+            positions, 70, n_blocks, bits, H=H, K=K, hd=hd,
+            num_pages=len(positions) * n_blocks + 1, seed=page + bits + hd,
+            page=page)
+        for window in (0, win):
+            for cap in (0.0, 50.0):
+                q = qs[cap]
+                _check_paged(dec, dplain, q[:, 0].contiguous(), pools, pt,
+                             pos, window, cap)
+                _check_paged(pre, pplain, q, pools, pt, pos, window, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [0])
+def test_cuda_paged_refuses_other_pages(page):
+    """On a card: a page below 1 raises ValueError and launches nothing
+    (no fallback to the plain walk)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q = torch.zeros((2, 4, 32), dtype=torch.bfloat16, device="cuda")
+    pool = torch.zeros((3, page, 2, 32), dtype=torch.bfloat16, device="cuda")
+    pt = torch.zeros((2, 4), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((2,), dtype=torch.int32, device="cuda")
     before = dict(tpa.LAUNCHES)
     with pytest.raises(ValueError, match="page size"):
-        tpa.paged_attention_fwd(qs[0.0][:, 0].contiguous(), *pools, pt, pos)
+        tpa.paged_attention_fwd(q, pool, pool, pt, pos)
     with pytest.raises(ValueError, match="page size"):
-        tpa.paged_prefill_fwd(qs[0.0], *pools, pt, pos)
+        tpa.paged_prefill_fwd(q[:, None], pool, pool, pt, pos)
     assert tpa.LAUNCHES == before
 
 
@@ -509,6 +542,51 @@ def test_cuda_wgmma_quant_matmul_shapes(K, N, per_tensor):
                 (name, K, N, M)
             if tqm.qmm_splits(M, N, K) > 1:
                 assert torch.equal(fn(x, codes, scale), got)
+
+
+W8A8_ROWS = (1, 2, 5, 8, 37, 1000, 2000, 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", QMM_SHAPES)
+@pytest.mark.parametrize("per_tensor", [False, True])
+def test_cuda_w8a8_shapes(K, N, per_tensor):
+    """On a card: W8A8 on the s8 wgmma kernel at every shape the paths
+    launch, M in {1, 2, 5, 8, 37, 1000, 2000, 4096} (split-K wherever
+    qmm_splits says; the lm_head unembeds at most 2000 rows), per-channel
+    and per-tensor scales: the fp32 output equals the plain version bit
+    for bit (an exact int32 accumulator, the rescale in the plain
+    version's order, at every split count), the bf16 output equals the
+    plain version's fp32 output rounded once; one launch counted per
+    call; a split call run twice gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    g = torch.Generator(device="cuda").manual_seed(K + N + 1)
+    w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+    codes, scale = tref.quantize_w8(w)
+    if per_tensor:
+        scale = scale.amax().reshape(1)
+    name = "quant_matmul_w8a8"
+    for M in W8A8_ROWS:
+        if N == 256000 and M == 4096:
+            continue
+        xq, xs = tref.quantize_a8(torch.randn((M, K), generator=g,
+                                              device="cuda"))
+        want = tref.quant_matmul_w8a8(xq, xs, codes, scale,
+                                      out_dtype=torch.float32)
+        got = _launched(name, lambda: tqm.quant_matmul_w8a8(
+            xq, xs, codes, scale, out_dtype=torch.float32))
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        assert torch.equal(got, want), (K, N, M, tqm.qmm_plan(M, N, K))
+        got16 = _launched(name, lambda: tqm.quant_matmul_w8a8(
+            xq, xs, codes, scale))
+        assert got16.dtype == torch.bfloat16
+        assert torch.equal(got16, want.bfloat16()), (K, N, M)
+        if tqm.qmm_splits(M, N, K) > 1:
+            assert torch.equal(tqm.quant_matmul_w8a8(
+                xq, xs, codes, scale, out_dtype=torch.float32), got)
+        del want, got, got16
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

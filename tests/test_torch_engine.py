@@ -153,14 +153,15 @@ def test_engine_matches_port_generate(models):
 
 
 @pytest.mark.parametrize("chunked,kv_bits,page", [
-    (True, (4, 8), 64), (False, (4, 8), 16), (True, None, 64)])
+    (True, (4, 8), 64), (False, (4, 8), 16), (True, None, 64),
+    (True, None, 48), (True, (4, 8), 48)])
 def test_engine_matches_generate_on_its_pool(models, chunked, kv_bits,
                                              page):
     """generate over the engine's own pool (a quantized one, written as
     the engine writes it) and prefilling as the engine does (its chunks
     through the paged walk, or the whole prompt) gives the engine's tokens
-    exactly, at pages wider than the 32-key decode tile: the oracle the
-    card's tiny runs use."""
+    exactly, at pages wider than the 32-key decode tile and at pages of 48
+    (tiles that start mid-page): the oracle the card's tiny runs use."""
     _, _, tm, tp = models
     reqs = _trace(n=4, seed=2)
     outs = Engine(tm, tp, _policy(max_batch=3, page_size=page,

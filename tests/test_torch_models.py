@@ -190,17 +190,15 @@ def test_three_chunk_prefill_matches(models, dtype):
         _check_pool(tpool, jpool)
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-def test_decode_step_paged_page64_matches(models, dtype):
-    """One decode step over pages of 64 keys, wider than the kernels'
-    32-key decode tile: positions before, at and past the tiny window and
-    past the first page edge; logits and the written pool."""
+def _decode_step_paged_case(models, dtype, page, n_blocks, positions):
+    """One decode step of B = len(positions) sequences over pages of
+    ``page`` keys, through both packages: logits and the written pool."""
     jm, tm, params = models
     cfg = jm.cfg
-    page, n_blocks, B = 64, 3, 4
+    B = len(positions)
     num_pages = B * n_blocks + 1
     pool = _pool_state(cfg, num_pages, page, seed=5)
-    positions = np.array([5, 33, 64, 150], np.int32)
+    positions = np.array(positions, np.int32)
     rng = np.random.default_rng(6)
     pt = np.zeros((B, n_blocks), np.int32)
     perm = rng.permutation(np.arange(1, num_pages))
@@ -223,6 +221,24 @@ def test_decode_step_paged_page64_matches(models, dtype):
         _check_pool(tpool, jpool)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_decode_step_paged_page64_matches(models, dtype):
+    """One decode step over pages of 64 keys, wider than the kernels'
+    32-key decode tile: positions before, at and past the tiny window and
+    past the first page edge; logits and the written pool."""
+    _decode_step_paged_case(models, dtype, 64, 3, [5, 33, 64, 150])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_decode_step_paged_page48_matches(models, dtype):
+    """One decode step over pages of 48 keys, which neither divide the
+    kernels' 32-key decode tile nor are a multiple of it: the tiny window
+    of 32 starts mid-page (at 64: keys 33-64 span blocks 0 and 1; at 150:
+    blocks 2 and 3), a position on a page edge (96); logits and the written
+    pool."""
+    _decode_step_paged_case(models, dtype, 48, 4, [5, 64, 96, 150])
+
+
 # A chunk reads back the k/v that it and earlier chunks wrote to the bf16
 # pool. The two packages compute those k/v in fp32 in other orders, so a
 # few round to neighbouring bf16 values (the one-ulp pool check), and a
@@ -234,24 +250,23 @@ def test_decode_step_paged_page64_matches(models, dtype):
 POOL_READBACK_TOL = 5e-3
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-def test_prefill_chunks_page64_match(models, dtype):
-    """A 100-token prompt in chunks of 24 over pages of 64 keys (a chunk
-    lies inside one page or crosses into the next): every chunk's last
-    real row against the reference, and against the port itself over
-    pages of 4 holding the same slots. (The k/v the chunks write drift
-    past one bf16 ulp over 100 tokens; the decode test checks the pool.)"""
+def _prefill_chunks_case(models, dtype, page, pt):
+    """A 100-token prompt in chunks of 24 over pages of ``page`` keys (page
+    table ``pt``) through both packages: every chunk's last real row
+    against the reference, and against the port itself over pages of 4
+    holding the same slots."""
     jm, tm, params = models
     cfg = jm.cfg
-    page, n_blocks, C, S = 64, 2, 24, 100
-    pool = _pool_state(cfg, n_blocks + 2, page, seed=7)
-    pt = np.array([[3, 1]], np.int32)
+    C, S = 24, 100
+    pt = np.array(pt, np.int32)
+    pool = _pool_state(cfg, pt.shape[1] + 2, page, seed=7)
     rng = np.random.default_rng(8)
     prompt = rng.integers(2, cfg.vocab_size, S).astype(np.int32)
-    # the same slots as pages of 4: page p of 64 is pages 16p .. 16p+15
-    pool4 = {sub: {kv: a.reshape(a.shape[0], -1, 4, *a.shape[3:])
-                   for kv, a in d.items()} for sub, d in pool.items()}
-    pt4 = (16 * pt[:, :, None] + np.arange(16)).reshape(1, -1)
+    # the same slots as pages of 4: page p is pages sub*p .. sub*p + sub-1
+    sub = page // 4
+    pool4 = {name: {kv: a.reshape(a.shape[0], -1, 4, *a.shape[3:])
+                    for kv, a in d.items()} for name, d in pool.items()}
+    pt4 = (sub * pt[:, :, None] + np.arange(sub)).reshape(1, -1)
 
     def chunks():
         for start in range(0, S, C):
@@ -287,6 +302,25 @@ def test_prefill_chunks_page64_match(models, dtype):
             assert np.abs(_np(g) - _np(g4)).max() < POOL_READBACK_TOL
         else:
             _check_logits(g, w, dtype, w32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_prefill_chunks_page64_match(models, dtype):
+    """A 100-token prompt in chunks of 24 over pages of 64 keys (a chunk
+    lies inside one page or crosses into the next): every chunk's last
+    real row against the reference, and against the port itself over
+    pages of 4 holding the same slots. (The k/v the chunks write drift
+    past one bf16 ulp over 100 tokens; the decode test checks the pool.)"""
+    _prefill_chunks_case(models, dtype, 64, [[3, 1]])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_prefill_chunks_page48_match(models, dtype):
+    """The same prompt over pages of 48 keys, which neither divide a
+    64-key prefill tile nor are a multiple of it (the chunks at 24 and 72
+    cross page edges, and the tiny window of 32 starts mid-page), against
+    the reference and against the port over pages of 4."""
+    _prefill_chunks_case(models, dtype, 48, [[3, 1, 4]])
 
 
 class _ShapeLog(TorchDispatchMode):

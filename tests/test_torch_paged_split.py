@@ -426,34 +426,82 @@ def test_prefill_rounding_points_within_tolerance(bits, window):
         assert not bf16_close(no_scale, want)
 
 
-# ------------------------------------ tiny heads (hd 32), pages 1-128 ----
+# ------------------------------------- tiny heads (hd 32), any page ----
 TINY_H, TINY_K, TINY_HD, TINY_WINDOW = 4, 2, 32, 32
+# pages below, at and above the 32-key decode and 64-key prefill tiles, and
+# pages that neither divide a tile nor are a multiple of one (3, 24, 48,
+# 96), whose tiles start in the middle of a page and end in the next
+PAGES = (1, 2, 3, 4, 8, 16, 24, 32, 48, 64, 96, 128, 256)
+ODD_PAGES = (3, 24, 48, 96)
 
 
-@pytest.mark.parametrize("page", [48, 96, 256, 3, 0])
+@pytest.mark.parametrize("page", [0, -1])
 def test_wrappers_refuse_other_pages(page):
-    """A page outside 1-128 in powers of two raises ValueError with the
-    rule, before anything reaches a kernel (no fallback); so does an hd
-    outside HEAD_DIMS."""
+    """A page below 1 raises ValueError with the rule, before anything
+    reaches a kernel (no fallback); so does an hd outside HEAD_DIMS."""
     q = torch.zeros((2, TINY_H, TINY_HD), dtype=torch.bfloat16)
-    pool = torch.zeros((3, max(page, 1), TINY_K, TINY_HD),
+    pool = torch.zeros((3, max(page, 0), TINY_K, TINY_HD),
                        dtype=torch.bfloat16)
     pt = torch.zeros((2, 4), dtype=torch.int32)
     pos = torch.zeros((2,), dtype=torch.int32)
     with pytest.raises(ValueError, match="page size"):
         tpa.check_geometry(TINY_HD, page)
-    if page:
-        with pytest.raises(ValueError, match="page size"):
-            tpa._check(q, pool, pool, pt, pos, False)
+    with pytest.raises(ValueError, match="page size"):
+        tpa._check(q, pool, pool, pt, pos, False)
     for hd in (16, 48, 512):
         with pytest.raises(ValueError, match="hd"):
             tpa.check_geometry(hd, 16)
 
 
-@pytest.mark.parametrize("page", tpa.PAGE_SIZES)
+@pytest.mark.parametrize("page", [3, 24, 48, 96, 256])
+def test_wrappers_take_any_page(page):
+    """Pages that neither divide a 32-key decode tile nor are a multiple of
+    one, and a page of eight decode tiles, pass the geometry rule at every
+    hd of HEAD_DIMS; on CPU tensors the launch check then stops at the
+    device, not at the page."""
+    for hd in tpa.HEAD_DIMS:
+        tpa.check_geometry(hd, page)
+    q = torch.zeros((2, TINY_H, TINY_HD), dtype=torch.bfloat16)
+    pool = torch.zeros((3, page, TINY_K, TINY_HD), dtype=torch.bfloat16)
+    pt = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tpa._check(q, pool, pool, pt, torch.zeros((2,), dtype=torch.int32),
+                   False)
+
+
+def test_wrappers_refuse_pools_past_32_bit_slots():
+    """A pool of 2**31 slots or more (page id * page + offset) raises
+    before anything reaches a kernel: the kernels index slots in 32 bits.
+    The shape alone decides (an expanded view holds no memory)."""
+    q = torch.zeros((2, TINY_H, TINY_HD), dtype=torch.bfloat16)
+    pt = torch.zeros((2, 4), dtype=torch.int32)
+    pos = torch.zeros((2,), dtype=torch.int32)
+    pool = torch.zeros((1, 1, TINY_K, TINY_HD), dtype=torch.bfloat16) \
+        .expand(2 ** 25, 64, TINY_K, TINY_HD)
+    with pytest.raises(ValueError, match="slots"):
+        tpa._check(q, pool, pool, pt, pos, False)
+
+
+def test_every_config_head_width_is_built():
+    """Every attention-bearing config the port registers (num_heads > 0),
+    full and tiny_config, resolves to a head width the kernels are built
+    for (HEAD_DIMS): a config added with another width fails here, on the
+    CPU, and not at its first launch on the card."""
+    from repro_torch.configs import ARCHS, tiny_config
+    widths = set()
+    for name, cfg in ARCHS.items():
+        for c in (cfg, tiny_config(name)):
+            if c.num_heads:
+                hd = c.resolved_head_dim
+                assert hd in tpa.HEAD_DIMS, (c.name, hd)
+                widths.add(hd)
+    assert widths == set(tpa.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("page", PAGES)
 def test_wrappers_take_every_page_and_hd(page):
-    """Every page of PAGE_SIZES and hd of HEAD_DIMS passes the geometry
-    rule; on CPU tensors the launch check then stops at the device."""
+    """Every page of PAGES and hd of HEAD_DIMS passes the geometry rule; on
+    CPU tensors the launch check then stops at the device."""
     for hd in tpa.HEAD_DIMS:
         tpa.check_geometry(hd, page)
     assert TINY_HD in tpa.HEAD_DIMS
@@ -465,7 +513,7 @@ def test_wrappers_take_every_page_and_hd(page):
                    False)
 
 
-@pytest.mark.parametrize("page", tpa.PAGE_SIZES)
+@pytest.mark.parametrize("page", PAGES)
 @pytest.mark.parametrize("rows", [tpa.DECODE_TILE, tpa.PREFILL_TILE])
 def test_tile_slots_match_block_walk(page, rows):
     """The kernels' copies address key j of a tile as pool slot
@@ -495,12 +543,13 @@ def test_tile_slots_match_block_walk(page, rows):
                     assert torch.equal(flat[slot], dense[key])
 
 
-@pytest.mark.parametrize("page", [1, 4, 32, 64, 128])
+@pytest.mark.parametrize("page", [1, 4, 32, 64, 128, 3, 24, 48, 96, 256])
 @pytest.mark.parametrize("window", [0, TINY_WINDOW, 300])
 def test_split_tiles_cover_every_key_once(page, window):
     """With a page smaller than, equal to or larger than the 32-key tile,
-    the splits' tiles restricted to the live blocks cover each key of
-    [lo, hi] exactly once, in order, for every split count."""
+    or one whose tiles start mid-page (3, 24, 48, 96), the splits' tiles
+    restricted to the live blocks cover each key of [lo, hi] exactly once,
+    in order, for every split count."""
     n_blocks = max(2, 2048 // page)
     for pos in (0, 1, 31, 32, 33, 63, 64, 127, 128, 129, 1000,
                 n_blocks * page - 1, n_blocks * page + 7):
@@ -516,6 +565,54 @@ def test_split_tiles_cover_every_key_once(page, window):
             assert seen == want, (pos, n_split)
 
 
+@pytest.mark.parametrize("page", [*ODD_PAGES, 256])
+def test_tiles_mid_page_are_masked_and_clipped(page):
+    """The kernels' tile arithmetic at pages whose tiles start mid-page
+    (and at 256, eight decode tiles and four prefill tiles a page), for
+    every position up to past the table's end and windows that cut
+    mid-page. Decode: a key of the split tiles whose block lies outside
+    [lo, hi] (block lo - 1 at a window edge, hi + 1 at the end) is outside
+    the key mask [k_lo, k_hi] too, and k_hi clips the last tile at the
+    table's end. Prefill (64-key tiles over a 128-row chunk tile): the tile
+    range [lo, hi] rounds outward, holding every key of the blocks the
+    rows need, and a key of a tile whose block is outside them is masked
+    for every row."""
+    n_blocks = max(3, 640 // page)
+    T = n_blocks * page
+    if page == 256:
+        assert page // tpa.DECODE_TILE == 8 and page // tpa.PREFILL_TILE == 4
+    for window in (0, TINY_WINDOW, 100):
+        for pos in range(0, T + 40, 7):
+            lo, hi = tpa.decode_blocks(pos, window, page, n_blocks)
+            k_hi = min(pos, T - 1)
+            k_lo = max(pos - window + 1, 0) if window else 0
+            t0, t1 = tpa.split_tiles(lo, hi, page, 0, 1)
+            for key in range(t0 * tpa.DECODE_TILE, t1 * tpa.DECODE_TILE):
+                live = lo <= key // page <= hi
+                if not live:
+                    assert not k_lo <= key <= k_hi, (pos, window, key)
+                if key >= T:
+                    assert key > k_hi
+        for p0 in range(0, T, 37):
+            for R0, R1 in ((0, 70), (64, 128)):   # a row tile's rows (G = 1)
+                q_first, q_last = p0 + R0, p0 + R1 - 1
+                hi_blk = min(q_last // page, n_blocks - 1)
+                lo_blk = max((q_first - window + 1) // page, 0) \
+                    if window else 0
+                lo = lo_blk * page // tpa.PREFILL_TILE
+                hi = (hi_blk * page + page - 1) // tpa.PREFILL_TILE
+                assert lo * tpa.PREFILL_TILE <= lo_blk * page
+                assert (hi + 1) * tpa.PREFILL_TILE >= (hi_blk + 1) * page
+                for key in range(lo * tpa.PREFILL_TILE,
+                                 (hi + 1) * tpa.PREFILL_TILE):
+                    if lo_blk <= key // page <= hi_blk:
+                        continue
+                    for qp in range(q_first, q_last + 1):
+                        valid = key < T and key <= qp and \
+                            (not window or key > qp - window)
+                        assert not valid, (p0, R0, window, key, qp)
+
+
 @pytest.mark.parametrize("H,K,GC", [(TINY_H, TINY_K, 2), (4, 4, 1)])
 def test_decode_plan_tiny_heads(H, K, GC):
     """Tiny gemma2-2b's heads (H = 4, K = 2: G = 2) and G = 1: the head
@@ -526,7 +623,7 @@ def test_decode_plan_tiny_heads(H, K, GC):
     assert tpa.decode_threads(TINY_HD) // (TINY_HD // 8) == tpa.DECODE_TILE
     for hd in (64, 128, 256):
         assert tpa.decode_threads(hd) == tpa.DECODE_THREADS
-    for page in tpa.PAGE_SIZES:
+    for page in PAGES:
         for B, n_blocks in ((1, 1), (8, max(1, 128 // page)),
                             (8, max(1, 4096 // page)), (64, 3)):
             n = tpa.decode_splits(B, K, n_blocks, page)
@@ -570,12 +667,15 @@ def _tiny_case(bits, page, Sq, seed):
 
 
 @pytest.mark.parametrize("bits", [16, 8, 4])
-@pytest.mark.parametrize("page", [2, 16, 64, 128])
+@pytest.mark.parametrize("page", [2, 16, 64, 128, *ODD_PAGES])
 def test_split_decode_tiny_matches_plain_walks(bits, page):
     """The split decode emulation at hd 32 (4-lane walkers, one key each)
-    and pages below, at and above the 32-key tile, with the tiny window of
-    32 and gemma2's cap of 50, equals the port's plain walk and the
-    reference's within 1e-5."""
+    and pages below, at and above the 32-key tile, and pages whose tiles
+    start mid-page (3, 24, 48, 96: at 48 a tile holds the end of one block
+    and the start of the next, and the tiny window of 32 starts mid-page,
+    so a tile may hold keys of block lo - 1, zero-filled and masked), with
+    gemma2's cap of 50, equals the port's plain walk and the reference's
+    within 1e-5."""
     q, pools, pt, pos = _tiny_case(bits, page, 0, seed=page + bits)
     qf = q.float()
     for window in (0, TINY_WINDOW):
@@ -590,12 +690,14 @@ def test_split_decode_tiny_matches_plain_walks(bits, page):
 
 
 @pytest.mark.parametrize("bits", [16, 8, 4])
-@pytest.mark.parametrize("page", [2, 64, 128])
+@pytest.mark.parametrize("page", [2, 64, 128, *ODD_PAGES])
 def test_prefill_tiny_rounding_points_within_tolerance(bits, page):
     """The tensor-core prefill's rounding points at hd 32 (two k16 steps
     of q.k^T, four n8 tiles of P.V per warp) over pages of 2 (32 pages a
-    64-key tile), 64 and 128 (half a page a tile), the tiny window, cap
-    50: within the kernels' bf16 tolerance of the plain walk."""
+    64-key tile), 64 and 128 (half a page a tile) and pages whose 64-key
+    tiles start mid-page (3, 24, 48, 96; the tile range rounded outward),
+    the tiny window, cap 50: within the kernels' bf16 tolerance of the
+    plain walk."""
     q, pools, pt, pos = _tiny_case(bits, page, 40, seed=page + bits)
     plain = tref.paged_prefill_ref if bits == 16 \
         else tref.paged_prefill_quant_ref

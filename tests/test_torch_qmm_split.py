@@ -24,21 +24,13 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import quant_matmul as tqm  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from test_torch_cases import bf16_close  # noqa: E402
+from test_torch_cases import bf16_close, split_chunks  # noqa: E402
 
 torch.set_num_threads(1)
 
 # gemma2-2b's projections (K, N): q/o, the kv pair, ffn in/gate, ffn out
 PROJECTIONS = ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
                (9216, 2304))
-
-
-def split_chunks(K, n_split):
-    """[(k0, k1)]: the K range split i walks (the kernel's step0 = i *
-    steps, steps = K / 64 / n_split), in order."""
-    steps = K // tqm.TILE // n_split
-    return [(i * steps * tqm.TILE, (i + 1) * steps * tqm.TILE)
-            for i in range(n_split)]
 
 
 def test_tiles():
