@@ -19,7 +19,9 @@ Phases, each fatal on failure:
                 TFLOP/s (prefill) per main-path layer. Flash attention at the
                 whole-prompt path's shapes (S = 4096 and 8192, global and
                 local layers, cap 0 and 50), then timed there beside its
-                plain version, SDPA and its bound. The weight-quantized
+                plain version, SDPA (is_causal where the window reaches
+                every key) and its bound, per layer and as their mean,
+                each layer's share of its bound printed. The weight-quantized
                 matmuls (W8A16, W4A16, W8A8) at every (K, N) the quantized
                 paths launch, ragged M and the main paths' rows (2, 8,
                 2000, 4096), bf16 and fp32 x, per-channel and per-tensor
@@ -540,12 +542,13 @@ def flash_bound_ms(S, window):
 
 def flash_sdpa(q, k, v, window):
     """One PyTorch call computing the same attention without the softcap
-    (SDPA has none): is_causal for a global layer, a boolean mask for a
-    local one. The library_ms yardstick; the port never calls it."""
+    (SDPA has none): is_causal for a global layer and for a local one
+    whose window reaches every key (window >= S: the same mask), a boolean
+    mask otherwise. The library_ms yardstick; the port never calls it."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if not window:
+    if not window or window >= q.shape[1]:
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
     i = torch.arange(q.shape[1], device=q.device)
@@ -558,7 +561,8 @@ def phase_flash_kernels():
     """Phase 2, flash attention: the kernel against its plain version at
     the whole-prompt path's shapes (S = 4096 and 8192, global and local
     layers, cap 0 and 50 with the cap control), then timed on the same
-    inputs at cap 50 beside the plain version, SDPA and the bound, as the
+    inputs at cap 50 beside the plain version, SDPA and the bound, per
+    layer (with the layer's share of its bound) and as the
     mean of a global and a local layer, and printed. Returns the kernel
     record at S = 4096, the padded length of most prompts."""
     import torch
@@ -596,7 +600,9 @@ def phase_flash_kernels():
             lib = device_ms(flash_sdpa(q, k, v, window), reps=10)
             bnd, by = flash_bound_ms(S, window)
             tflops = 4e-9 * HD * H * flash_valid_pairs(S, window) / t
-            parts.append(f"{label} {t:.4f} ms ({tflops:.1f} TFLOP/s)")
+            parts.append(f"{label} {t:.4f} ms ({tflops:.1f} TFLOP/s, "
+                         f"{100 * bnd / t:.1f}% of its bound {bnd:.4f} ms; "
+                         f"sdpa {lib:.4f} ms)")
             ms, plain_ms, lib_ms, b_ms = (ms + t / 2, plain_ms + p / 2,
                                           lib_ms + lib / 2, b_ms + bnd / 2)
         print(f"kernels: flash_attention_fwd B=1 S={S} H={H} K={K} hd={HD} "

@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``build/kernels/`` at the
 repository root, named by a hash of the source, the headers it includes
-(``csrc/common.cuh``) and the flags: a changed source or header builds
-anew, an unchanged one is loaded as it is. The library is bound with
-``ctypes``. Nothing here runs at import; the first wrapper call
+(``csrc/common.cuh``, ``csrc/hopper.cuh``) and the flags: a changed source
+or header builds anew, an unchanged one is loaded as it is. The library is
+bound with ``ctypes``. Nothing here runs at import; the first wrapper call
 on a CUDA tensor builds and loads.
 
     python -m repro_torch.kernels.build     # build every kernel, print times
@@ -40,7 +40,7 @@ SIGNATURES = {
         "paged_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
-        "flash_fwd_bf16": (_I, [_P] * 4 + [_I] * 8 + [_F, _P]),
+        "flash_fwd_bf16": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
         "flash_error_string": (ctypes.c_char_p, [_I]),
     },
     "quant_matmul": {

@@ -10,9 +10,11 @@ tokens or more (``chunked_prefill=False`` in the engine, and ``generate``).
 
 What bounds it on the H100: the operations, 4*hd flops per valid (query
 head, key) pair, over the tensor cores' rate. The kernel runs both
-products on the tensor cores (mma.sync, fp32 accumulation), loads each
-64-key K/V tile once for a 128-row tile of the fused (S*G) query rows of
-one kv head, streams K/V through a two-stage cp.async ring and skips kv
+products on wgmma (fp32 accumulation, P from registers), feeds them by
+TMA into K and V rings on mbarriers, has two consumer warpgroups take
+turns at the tensor cores so that one's softcap and exp overlap the
+other's products, loads each K/V tile once for 128 fused rows (the G
+heads of one kv head over ``flash_plan``'s P positions) and skips kv
 tiles above the diagonal or below the window — see the source's header
 note.
 
@@ -21,6 +23,8 @@ On a CPU tensor the wrapper returns its plain version
 the kernel or raises. ``LAUNCHES`` counts kernel launches, nothing else.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -32,6 +36,47 @@ from repro_torch.kernels import ref
 LAUNCHES = {"flash_attention_fwd": 0}
 
 HEAD_DIMS = (32, 64, 128, 256)   # the head widths the kernel is built for
+ROWS = 128                       # fused query rows a CTA (the kernel's kBM)
+
+
+def kv_tile(hd: int) -> int:
+    """Keys a kv tile of the kernel (its Layout::kBN): 80 at hd 256, where
+    the P V accumulator takes 128 registers a thread and two K and two V
+    stages of 80 keys fill the shared memory beside q, else 128."""
+    return 80 if hd == 256 else 128
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """The kernel's work split over a (sequence, kv head) pair:
+    ``positions`` query positions a CTA (its G heads each: ``positions * G
+    <= ROWS`` fused rows, row r = p*G + g), ``tiles`` CTAs, ``bn`` keys a
+    kv tile. The kernel takes ``positions``; it derives the CTA count and
+    each CTA's kv-tile range from it and the shapes itself
+    (``flash_fwd_kernel``: CTA i takes row tile ``tiles - 1 - i``, from
+    the first position's window start to the last position's diagonal),
+    and ``tests/test_torch_flash_hopper.py`` checks a mirror of that
+    range against the reference's mask."""
+    S: int
+    T: int
+    causal: bool
+    window: int
+    positions: int
+    bn: int
+    tiles: int
+
+
+def flash_plan(S: int, T: int, G: int, causal: bool, window: int,
+               hd: int) -> FlashPlan:
+    """The kernel's work split, from the shapes alone: ROWS // G
+    positions a CTA, ceil(S / positions) CTAs per (sequence, kv head),
+    kv tiles of ``kv_tile(hd)`` keys."""
+    if not 1 <= G <= ROWS:
+        raise ValueError(f"flash kernel: G = H/K must be in 1..{ROWS}, "
+                         f"got {G}")
+    P = ROWS // G
+    return FlashPlan(S, T, bool(causal), int(window), P, kv_tile(hd),
+                     -(-S // P))
 
 
 def reset_launches() -> None:
@@ -53,7 +98,7 @@ def _check(q, k, v, window) -> None:
                              f"contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"flash attention kernel: {name} must be "
-                             f"16-byte aligned (cp.async)")
+                             f"16-byte aligned (TMA)")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, S, H, hd) and k, v (B, T, K, hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -87,12 +132,14 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, cap=0.0):
     _check(q, k, v, int(window))
     B, S, H, hd = q.shape
     _, T, K, _ = k.shape
+    plan = flash_plan(S, T, H // K, bool(causal), int(window), hd)
     lib = build.load("flash_attention")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), B, S, T, H, K, hd, int(causal),
-                            int(window), float(cap), stream)
+                            out.data_ptr(), B, S, T, H, K, hd,
+                            plan.positions, int(causal), int(window),
+                            float(cap), stream)
     if rc:
         raise RuntimeError(f"flash_attention_fwd launch failed: "
                            f"{lib.flash_error_string(rc).decode()}")

@@ -10,7 +10,7 @@ keeps its shape contract (S and T multiples of their 512-row blocks, or
 shorter than one) and its attention kinds.
 
 The reference's custom-VJP backward waits for the training slice (ROADMAP
-Queue 1, item 11): the forward is a ``torch.autograd.Function`` whose
+Queue 1, item 9): the forward is a ``torch.autograd.Function`` whose
 backward raises, so a caller that needs a gradient is told so instead of
 getting a wrong one.
 """
@@ -37,7 +37,7 @@ class _FlashForward(torch.autograd.Function):
         raise NotImplementedError(
             "flash attention's backward (the reference's custom VJP in "
             "repro.models.flash) comes with the training slice (ROADMAP "
-            "Queue 1, item 11); the port's flash attention is forward-only")
+            "Queue 1, item 9); the port's flash attention is forward-only")
 
 
 def flash_attention(q, k, v, kind: str = "global", window: int = 0,

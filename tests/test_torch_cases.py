@@ -1,6 +1,6 @@
 """Inputs shared by the port's kernel tests (this module holds no test):
-random paged-attention cases (numpy), the kernel-vs-plain tolerance and
-the quant matmuls' split-K chunks. Imports no JAX, so the tests that run
+random paged-attention cases (numpy), the kernel-vs-plain tolerance, the
+quant matmuls' split-K chunks and flash attention's rounding probe. Imports no JAX, so the tests that run
 on the card can use it there."""
 import numpy as np
 import torch
@@ -47,3 +47,31 @@ def split_chunks(K, n_split):
     steps = K // tqm.TILE // n_split
     return [(i * steps * tqm.TILE, (i + 1) * steps * tqm.TILE)
             for i in range(n_split)]
+
+
+# the constant v of ``flash_rounding_probe`` and the bf16 value a row
+# gives when l is summed over the unrounded weights
+PROBE_V = 1.875
+PROBE_V_UNROUNDED_L = 1.8671875
+
+
+def flash_rounding_probe(hd, S=64, T=256, H=4, K=2, device="cpu"):
+    """bf16 q (1, S, H, hd), k, v (1, T, K, hd) for full attention
+    (causal=False, no window, no cap) on which the rounding of P shows in
+    the bf16 output. hd is 64 or 256 (hd**-0.5 a power of two, so the
+    scores are exact): q is e_0; key 0 scores 1.0 and every other key
+    0.310546875, so each other weight is exp(-0.689453125) = 0.50185,
+    which rounds to bf16 0.5, 2**-8 * 0.95 below it; v is PROBE_V
+    everywhere. An output that is a convex combination of v rows, as with
+    l summed over the same rounded weights that multiply v, is PROBE_V
+    exactly; with l over the unrounded weights, every row is PROBE_V *
+    128.5 / 128.97 = 1.86814, which rounds to PROBE_V_UNROUNDED_L."""
+    assert hd in (64, 256) and T >= 2
+    root = hd ** 0.5                     # 8 or 16: exact in bf16
+    q = torch.zeros((1, S, H, hd))
+    q[..., 0] = 1.0
+    k = torch.zeros((1, T, K, hd))
+    k[:, 0, :, 0] = root                 # score 1.0
+    k[:, 1:, :, 0] = 2.484375 * root / 8  # score 0.310546875
+    v = torch.full((1, T, K, hd), PROBE_V)
+    return tuple(t.bfloat16().to(device) for t in (q, k, v))

@@ -4,8 +4,9 @@ int8 and packed-int4 pools, at full gemma2-2b head width (and the split
 decode walk's and the tensor-core prefill walk's edges: B = 1/8/64, empty
 splits, window and diagonal edges, ragged and padded chunks, other head
 widths and groups), flash attention
-(whole-prompt prefill), and the three weight-quantized matmuls (W8A16,
-W4A16, W8A8). Imports no JAX
+(whole-prompt prefill: every head width, query-head group, batch, ragged
+S and T, grids under and over the card's SMs), and the three
+weight-quantized matmuls (W8A16, W4A16, W8A8). Imports no JAX
 (the card's machine has none); run there, from the repository root, with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -20,7 +21,8 @@ from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import quant_matmul as tqm  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from test_torch_cases import bf16_close, paged_case  # noqa: E402
+from test_torch_cases import (PROBE_V, bf16_close,  # noqa: E402
+                              flash_rounding_probe, paged_case)
 
 
 @pytest.mark.cuda
@@ -299,13 +301,13 @@ def test_cuda_paged_refuses_other_pages(page):
     assert tpa.LAUNCHES == before
 
 
-def _flash_inputs(S, T, H, K, hd, q_scale=1.0, seed=0):
-    """Random bf16 q (1, S, H, hd), k and v (1, T, K, hd) on the card."""
+def _flash_inputs(S, T, H, K, hd, q_scale=1.0, seed=0, B=1):
+    """Random bf16 q (B, S, H, hd), k and v (B, T, K, hd) on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = (torch.randn((1, S, H, hd), generator=g, device="cuda")
+    q = (torch.randn((B, S, H, hd), generator=g, device="cuda")
          * q_scale).bfloat16()
-    k = torch.randn((1, T, K, hd), generator=g, device="cuda").bfloat16()
-    v = torch.randn((1, T, K, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, T, K, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, T, K, hd), generator=g, device="cuda").bfloat16()
     return q, k, v
 
 
@@ -370,7 +372,7 @@ def test_cuda_flash_tiny_heads(window, cap):
 @pytest.mark.parametrize("T,window", [(640, 0), (640, 64), (200, 0)])
 def test_cuda_flash_full_attention(hd, T, window):
     """On a card: causal=False with T != S (S = 300, neither a multiple of
-    the 128-row tile nor of the 64-key tile; T past S and short of it),
+    the 128-row tile nor of the kv tile; T past S and short of it),
     with and without a window, every head width the kernel is built for,
     G = 2. Every query keeps a valid key."""
     if not torch.cuda.is_available():
@@ -381,6 +383,102 @@ def test_cuda_flash_full_attention(hd, T, window):
     want = tref.flash_attention_ref(q, k, v, causal=False,
                                     window=window).float()
     assert bf16_close(got.float(), want)
+
+
+def _check_flash(S, T, H, K, hd, *, causal=True, window=0, cap=0.0, B=1,
+                 seed=0):
+    """One kernel launch on random inputs against the plain version at the
+    kernel tolerance; with a cap, q is scaled so that scores reach it and
+    the plain version without the cap must miss."""
+    q, k, v = _flash_inputs(S, T, H, K, hd, q_scale=20.0 if cap else 1.0,
+                            seed=seed, B=B)
+    got = _flash_launched(lambda: tfa.flash_attention_fwd(
+        q, k, v, causal=causal, window=window, cap=cap))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    kw = dict(causal=causal, window=window)
+    want = tref.flash_attention_ref(q, k, v, cap=cap, **kw).float()
+    assert bf16_close(got.float(), want)
+    if cap:
+        assert not bf16_close(tref.flash_attention_ref(q, k, v, **kw).float(),
+                              want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 12])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (64, 50.0)])
+def test_cuda_flash_groups(G, window, cap):
+    """On a card: every query-head group the configs have (G = 1 whisper,
+    2 gemma2, 3 granite-moe, 4 granite, 5 llama4, 6 nemotron, 12 mistral-
+    large) at hd 128 over 1000 causal tokens: the q box's 128 // G
+    positions, rows past P*G idle where G does not divide 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _check_flash(1000, 1000, 2 * G, 2, 128, window=window, cap=cap, seed=G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (0, 50.0), (64, 50.0),
+                                        (4096, 0.0)])
+def test_cuda_flash_head_widths(hd, window, cap):
+    """On a card: every head width the kernel is built for (64-byte rows
+    under the 64-byte swizzle at hd 32, one to four 128-byte chunks
+    above; 80-key tiles at hd 256, 128 below) at G = 2, causal over 700
+    tokens, windows 0, 64 and 4096 and caps 0 and 50."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _check_flash(700, 700, 4, 2, hd, window=window, cap=cap, seed=hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 256])
+def test_cuda_flash_batch(hd):
+    """On a card: B = 2 sequences (the q box's and the K/V boxes' fourth
+    coordinate), causal over 1500 tokens, window 512, cap 50."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _check_flash(1500, 1500, 8, 4, hd, window=512, cap=50.0, B=2, seed=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T", [(300, 200), (300, 640), (640, 300),
+                                 (37, 640), (5, 5), (1, 1), (1, 300)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_ragged(S, T, causal):
+    """On a card: S and T that are multiples of neither the positions a
+    CTA takes nor the kv tile (keys past T are TMA's zero fill, dropped by
+    the mask; positions past S are zero rows, never stored), and S below
+    the 64 positions a G = 2 tile takes, causal and not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _check_flash(S, T, 8, 4, 256, causal=causal, seed=S + T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,S", [(1, 1, 640), (1, 4, 2048), (2, 4, 4096)])
+def test_cuda_flash_grid(B, K, S):
+    """On a card: grids of 10, 128 and 512 CTAs, under and over the card's
+    132 SMs (G = 2, hd 256, causal, cap 50)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _check_flash(S, S, 2 * K, K, 256, cap=50.0, B=B, seed=B * K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 256])
+def test_cuda_flash_l_over_rounded_weights(hd):
+    """On a card: on ``flash_rounding_probe``'s inputs (constant v, every
+    weight but one rounding down by nearly 2**-8 to bf16), the kernel's
+    output is v in every element: l is summed over the same rounded
+    weights that multiply v. l over the unrounded weights would give the
+    bf16 value one ulp below v in every element, which the kernel
+    tolerance cannot tell apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, k, v = flash_rounding_probe(hd, device="cuda")
+    got = _flash_launched(lambda: tfa.flash_attention_fwd(
+        q, k, v, causal=False, window=0, cap=0.0))
+    assert bool((got == PROBE_V).all())
 
 
 @pytest.mark.cuda
