@@ -74,7 +74,22 @@ Phases, each fatal on failure:
                 bf16 pool, teacher-forced through the kernels over one
                 1000-token prompt and 32 steps (printed; only a non-finite
                 value fails);
-  8. report   — one JSON line with every kernel's launches, error, times.
+  8. haq      — (a) the HAQ search over the KV sites on h100-sxm (16
+                episodes): bits within the sensitivity gate, within budget
+                or at the gated floor, bytes per token and the roofline
+                decode tick against bf16; then the main trace served by
+                ``--kv-policy haq`` through the quant pair (and the bf16
+                pair where a slot stays bf16); (b) HAQ's weight search
+                over the 7 decode sites (10 episodes, so the agents
+                train), each policy's ``Model.loss`` through the
+                fake-quant hook on the card over a (1, 512) batch: losses
+                finite, the best within budget or at the floor; (c)
+                ``serve.main --autotune 32`` on 4 prompts of up to 256
+                tokens, then ``--serving-config`` on its record: the
+                paged kernels launched in calibration and validation,
+                candidates, decode tok/s of the default and the winner,
+                the Spearman rank correlation and the calibration scales;
+  9. report   — one JSON line with every kernel's launches, error, times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
@@ -1449,6 +1464,177 @@ def phase_drift(model, params):
     print(f"drift: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------- HAQ search and autotuner --
+# the autotune part's trace: 4 prompts of 4-256 tokens, 16 new tokens each
+AUTOTUNE_ARGS = ["--arch", "gemma2-2b", "--requests", "4", "--prompt-len",
+                 "256", "--gen", "16", "--max-batch", "8"]
+AUTOTUNE_BUDGET = 32
+WEIGHT_HAQ_EPISODES = 10    # the agents train at episode 10 (7 sites x 10
+                            # transitions fill the 64-row replay batch)
+
+
+def phase_haq_kv(model, params, bf16_pages, bf16_summary):
+    """Phase 8a: the HAQ search over the full-width model's KV sites on
+    h100-sxm (16 episodes), its bits checked against the sensitivity gate
+    and the budget; then the main trace served through the launcher's
+    own ``--kv-policy haq`` path (its 8-episode search), through the
+    quant pair where every slot is quantized and both pairs where a slot
+    stays bf16."""
+    from repro_torch.core.haq import enumerate_kv_sites
+    from repro_torch.core.hardware_model import H100_SXM
+    from repro_torch.serving.kvquant import allowed_kv_bits, \
+        search_kv_policy
+
+    cfg = model.cfg
+    max_len = max(len(r.prompt) + r.max_new for r in main_trace(cfg))
+    t0 = time.perf_counter()
+    res = search_kv_policy(cfg, H100_SXM, max_model_len=max_len,
+                           episodes=16)
+    dt = time.perf_counter() - t0
+    sites = enumerate_kv_sites(cfg, 1, max_len)
+    for s, b in zip(sites, res["bits"]):
+        if b not in allowed_kv_bits(s):
+            fail(f"haq[kv]: {s.name} searched to {b} bits, outside its "
+                 f"gate {allowed_kv_bits(s)}")
+    floor = tuple(min(allowed_kv_bits(s)) for s in sites)
+    if res["resource"] > res["budget"] and res["bits"] != floor:
+        fail(f"haq[kv]: {res['bits']} over budget ({res['resource']} > "
+             f"{res['budget']}) with a slot above its gated floor {floor}")
+    print(f"haq[kv]: searched bits {res['policy']} in {dt:.2f} s (16 "
+          f"episodes, agent on the host); {res['kv_bytes_per_token']} "
+          f"B/token against bf16's {res['kv_bytes_per_token_fp']} "
+          f"({res['kv_bytes_per_token'] / res['kv_bytes_per_token_fp']:.4f}"
+          f"x); roofline decode tick (h100-sxm, B=1, ctx {max_len}) "
+          f"{1e3 * res['est_decode_s']:.6f} ms against bf16's "
+          f"{1e3 * res['est_decode_s_fp']:.6f} ms; resident bytes "
+          f"{res['resource']:.6g} against a budget of {res['budget']:.6g}",
+          flush=True)
+    launcher = search_kv_policy(cfg, H100_SXM, max_model_len=max_len,
+                                episodes=8)["bits"]
+    expect = QUANT_KERNELS if all(b < 16 for b in launcher) \
+        else QUANT_KERNELS + BF16_KERNELS
+    t0 = time.perf_counter()
+    _, policy, _, _ = phase_engine(
+        model, params, ["--kv-policy", "haq"], expect=expect,
+        bf16_pages=bf16_pages, bf16_summary=bf16_summary)
+    if tuple(policy.kv_bits) != tuple(launcher):
+        fail(f"haq[kv]: the launcher served kv={policy.kv_bits}, its "
+             f"search gives {launcher}")
+    print(f"haq[kv]: served on the searched pool {policy.kv_bits} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_haq_weights(model, params):
+    """Phase 8b: HAQ's weight search on full-width gemma2-2b's 7 decode
+    sites (batch 8) on h100-sxm, each policy scored by ``Model.loss``
+    through the fake-quant hook on the card over one (1, 512) batch of
+    random tokens from seed 0; losses finite, the best policy within the
+    budget or at the all-minimum floor (the reference test's check)."""
+    import math
+    import torch
+    from repro_torch.core import haq
+    from repro_torch.core.hardware_model import H100_SXM
+    from repro_torch.core.quantization import make_quant_dot
+
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(2, cfg.vocab_size, (1, 512), generator=g,
+                           dtype=torch.int32).to(params["embed"].device)
+    batch = {"tokens": tokens, "labels": tokens}
+    losses = []
+
+    def eval_policy(policy):
+        loss = float(model.loss(params, batch, dot=make_quant_dot(policy)))
+        if not math.isfinite(loss):
+            fail(f"haq[weights]: non-finite loss {loss} at {policy}")
+        losses.append(loss)
+        return loss
+
+    t0 = time.perf_counter()
+    bf16 = float(model.loss(params, batch))
+    sites = haq.enumerate_sites(cfg, 8, 1, decode=True)
+    res = haq.search(cfg, sites, eval_policy,
+                     haq.HAQConfig(episodes=WEIGHT_HAQ_EPISODES),
+                     hw=H100_SXM)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    best = res["best"]
+    floor = haq.resource(sites, [(min(haq.W_BITS), min(haq.A_BITS))]
+                         * len(sites), H100_SXM, "latency")
+    if not (best["resource"] <= best["budget"] * (1 + 1e-12)
+            or abs(best["resource"] - floor) <= 1e-12 * floor):
+        fail(f"haq[weights]: best policy at {best['resource']} s over its "
+             f"budget {best['budget']} s and above the floor {floor} s")
+    agent = res["agents"][0]
+    trained = agent.episode >= agent.cfg.warmup_episodes \
+        and agent.buffer.n >= agent.cfg.batch
+    print(f"haq[weights]: {len(losses)} policies scored in {dt:.1f} s "
+          f"({WEIGHT_HAQ_EPISODES} episodes, {agent.buffer.n} transitions, "
+          f"agents trained: {trained}); best {best['policy']}; "
+          f"roofline latency {1e3 * best['resource']:.6f} ms against a "
+          f"budget of {1e3 * best['budget']:.6f} ms (W8A8 "
+          f"{1e3 * best['base_resource']:.6f} ms); loss "
+          f"{best['loss']:.6f} against the bf16 model's {bf16:.6f} "
+          f"(all sites 16 bits: {res['base_loss']:.6f}); episode losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+
+
+def phase_autotune():
+    """Phase 8c: ``serve.main --autotune`` on full-width gemma2-2b (the
+    launcher builds its own model from seed 0), then ``--serving-config``
+    on the record it wrote. Launches are counted over each call; the
+    calibration and validation engines' launches are the first call's
+    less the second's (both end by serving the winner on the same
+    trace), and the paged kernels must be among them."""
+    import torch
+    from repro_torch.launch import serve
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_file = Path(tmp) / "serving.json"
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        serve.main(AUTOTUNE_ARGS + ["--autotune", str(AUTOTUNE_BUDGET),
+                                    "--autotune-out", str(out_file)])
+        torch.cuda.synchronize()
+        tuned = all_launches()
+        t1 = time.perf_counter()
+        reset_all_launches()
+        serve.main(AUTOTUNE_ARGS + ["--serving-config", str(out_file)])
+        torch.cuda.synchronize()
+        served = all_launches()
+        t2 = time.perf_counter()
+        record = json.loads(out_file.read_text())
+    validation = {k: tuned[k] - served[k] for k in tuned}
+    for names in (("paged_attention_fwd", "paged_attention_quant_fwd"),
+                  ("paged_prefill_fwd", "paged_prefill_quant_fwd")):
+        if sum(validation[k] for k in names) <= 0:
+            fail(f"autotune: no launch of {names} during calibration and "
+                 f"validation ({json.dumps(validation)})")
+        if sum(served[k] for k in names) <= 0:
+            fail(f"autotune: --serving-config never launched {names}")
+    prov = record["provenance"]
+    corr = prov["rank_correlation"]
+    print(f"autotune: {prov['candidates']} candidates "
+          f"({prov['admissible']} admissible), winner "
+          f"{record['knobs']} kv_bits={record['kv_bits']}; measured "
+          f"decode {prov['measured_decode_tok_s']:.3f} tok/s against the "
+          f"default's {prov['default_decode_tok_s']:.3f} "
+          f"({prov['searched_vs_default']:.4f}x); predicted "
+          f"{prov['predicted_decode_tok_s']:.3f}; Spearman rank "
+          f"correlation predicted vs measured: "
+          + ("n/a (fewer than 3 measured or a constant side)"
+             if corr is None else f"{corr:.4f}"), flush=True)
+    cal = prov["calibration"]
+    print(f"autotune: calibration kinds {sorted(cal['by_kind'])}, scales "
+          f"by kind {json.dumps(cal['by_kind'])}, by shape "
+          f"{json.dumps(cal['by_shape'])}", flush=True)
+    print(f"autotune: launches in calibration and validation "
+          f"{json.dumps(validation)}; --serving-config "
+          f"{json.dumps(served)}; --autotune call {t1 - t0:.1f} s, "
+          f"--serving-config call {t2 - t1:.1f} s", flush=True)
+
+
 # ------------------------------------------------ tiny gemma2-2b (hd 32) --
 # tiny gemma2-2b (the reference's tiny_config): 4 query heads, 2 kv heads of
 # width 32, a local window of 32; served at pages of 16 and 64 (a page of 64
@@ -1684,6 +1870,14 @@ def main() -> int:
     phase_generate_long(model, params)
     g_launches = phase_generate_quant(model, params)
     phase_drift(model, params)
+    t_haq = time.perf_counter()
+    phase_haq_kv(model, params, policy.num_pages, bf16_summary)
+    t_w = time.perf_counter()
+    phase_haq_weights(model, params)
+    t_a = time.perf_counter()
+    phase_autotune()
+    print(f"haq: KV part {t_w - t_haq:.1f} s, weight part {t_a - t_w:.1f} "
+          f"s, autotune part {time.perf_counter() - t_a:.1f} s", flush=True)
 
     # launches per kernel from the run of the path it serves
     source_run = {**{k: launches for k in BF16_KERNELS},

@@ -1,10 +1,19 @@
 """Analytic roofline hardware model (port of
-``repro.core.hardware_model``, the parts the admission policy calls).
+``repro.core.hardware_model``): the paper's "hardware in the loop" for
+HAQ's latency/energy/size feedback and the admission policy's sizing.
 
 Per-op costs (flops, weight bytes, activation bytes, collective bytes)
 priced on a ``Hardware`` target as the max of compute, memory and
-collective time. Plain Python floats: the reference's traced-array
-support serves its HAQ/NAS gradients, which are not ported yet.
+collective time (``latency``), as joules (``energy``), or as FLOPs per
+memory byte (``intensity``). Plain Python floats: the reference's
+traced-array support serves its NAS latency loss, whose ``ssd_cost``
+comes with the NAS slice.
+
+The energy constants (``pj_per_flop``, ``pj_per_hbm_byte``,
+``pj_per_ici_byte``) are the reference's public-literature scale values
+for every target, ``h100-sxm`` included: they were not measured on an
+H100, so an ``energy``-mode search ranks policies, it does not price the
+card.
 
 Targets: the reference's three TPU v5e entries, kept for comparison, and
 ``h100-sxm`` — NVIDIA's data-sheet numbers for one H100 SXM: 989 TFLOP/s
@@ -27,6 +36,10 @@ class Hardware:
     hbm_bw: float = 819e9             # bytes/s per chip
     ici_bw: float = 50e9              # bytes/s per link
     hbm_bytes: float = 16 * 2**30
+    # energy constants (public-literature scale values, not measured)
+    pj_per_flop: float = 0.25         # bf16 MAC ~0.2-0.3 pJ on 5nm-class
+    pj_per_hbm_byte: float = 120.0
+    pj_per_ici_byte: float = 40.0
 
     def peak_flops(self, w_bits) -> float:
         """Matmul peak vs weight precision: weights of 8 bits or fewer run
@@ -60,19 +73,36 @@ class OpCost:
     act_bytes: float
     coll_bytes: float = 0.0
 
-    def latency(self, hw: Hardware, w_bits=16) -> float:
+    def _bytes(self, w_bits, a_bits) -> float:
+        return (self.weight_bytes * w_bits / 16.0
+                + self.act_bytes * a_bits / 16.0)
+
+    def latency(self, hw: Hardware, w_bits=16, a_bits=16) -> float:
         t_comp = self.flops / (hw.peak_flops(w_bits) * hw.chips)
-        bytes_total = self.weight_bytes * w_bits / 16.0 + self.act_bytes
-        t_mem = bytes_total / (hw.hbm_bw * hw.chips)
+        t_mem = self._bytes(w_bits, a_bits) / (hw.hbm_bw * hw.chips)
         t_coll = self.coll_bytes / (hw.ici_bw * hw.chips)
         return max(t_comp, t_mem, t_coll)
 
+    def energy(self, hw: Hardware, w_bits=16, a_bits=16) -> float:
+        # MAC energy scales ~linearly with operand width
+        e_flop = self.flops * hw.pj_per_flop * 1e-12 * \
+            min(w_bits, a_bits) / 16.0
+        e_mem = self._bytes(w_bits, a_bits) * hw.pj_per_hbm_byte * 1e-12
+        e_coll = self.coll_bytes * hw.pj_per_ici_byte * 1e-12
+        return e_flop + e_mem + e_coll
+
+    def intensity(self, w_bits=16, a_bits=16) -> float:
+        """Operational intensity (FLOPs per memory byte)."""
+        return self.flops / max(self._bytes(w_bits, a_bits), 1.0)
+
 
 # ------------------------------------------------------------- op costs ----
-def linear_cost(tokens: int, d_in: int, d_out: int, *,
-                tp: int = 1) -> OpCost:
-    """Dense matmul (tokens, d_in) x (d_in, d_out), TP-sharded on d_out."""
-    di, do = mxu_pad(d_in), mxu_pad(d_out)
+def linear_cost(tokens: int, d_in: int, d_out: int, *, tp: int = 1,
+                pad: bool = True) -> OpCost:
+    """Dense matmul (tokens, d_in) x (d_in, d_out), TP-sharded on d_out;
+    ``pad`` rounds both dims up to the matrix-unit tile."""
+    di = mxu_pad(d_in) if pad else float(d_in)
+    do = mxu_pad(d_out) if pad else float(d_out)
     return OpCost(
         flops=2.0 * tokens * di * do,
         weight_bytes=di * do * 2.0,

@@ -10,18 +10,27 @@ as the reference baseline.
   --kv-bits 8``
 ``python -m repro_torch.launch.serve --arch gemma2-2b --max-batch 8 \\
   --kv-policy POLICY.json``   (e.g. ``{"sub0": 4, "sub1": 8}``)
+``python -m repro_torch.launch.serve --arch gemma2-2b --max-batch 8 \\
+  --kv-policy haq``
+``python -m repro_torch.launch.serve --arch gemma2-2b --max-batch 8 \\
+  --autotune 32 --autotune-out SERVING_gemma2.json``
+``python -m repro_torch.launch.serve --arch gemma2-2b --max-batch 8 \\
+  --serving-config SERVING_gemma2.json``
 ``python -m repro_torch.launch.serve --arch gemma2-2b --sequential \\
   --quant-policy QUANT.json``  (e.g. ``{"ffn_in": [4, 16]}``)
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no CPU request it stops with an error. ``--kv-bits`` and
-``--kv-policy`` serve from a quantized KV pool (serving/kvquant); the
-HAQ-searched ``--kv-policy haq`` raises until its search is ported.
-``--quant-policy`` (sequential mode only, as in the reference) maps HAQ
-sites to ``[w_bits, a_bits]`` and serves through ``make_quant_dot``'s
-fake-quant hook; the engine's weight quantization comes from the
-admission policy's ``quant_bits``. The reference's ``--mesh``,
-``--autotune`` and ``--serving-config`` flags come with their slices.
+``--kv-policy`` serve from a quantized KV pool (serving/kvquant);
+``--kv-policy haq`` runs the HAQ search over KV sites first.
+``--autotune`` searches the serving config (serving/autotune: calibrate
+on the trace, search, validate the top candidates on the engine) and
+serves with the measured winner; ``--serving-config`` loads a searched
+config back. ``--quant-policy`` (sequential mode only, as in the
+reference) maps HAQ sites to ``[w_bits, a_bits]`` and serves through
+``make_quant_dot``'s fake-quant hook; the engine's weight quantization
+comes from the admission policy's ``quant_bits``. The reference's
+``--mesh`` waits for the sharded engine.
 """
 from __future__ import annotations
 
@@ -233,23 +242,46 @@ def build_parser() -> argparse.ArgumentParser:
                          "int pages with per-token per-head scales, "
                          "dequantized inside the paged-attention walk)")
     ap.add_argument("--kv-policy", default="",
-                    help="engine mode: per-layer KV bit policy, a json file "
-                         "mapping sub-layer slots to bits, e.g. "
+                    help="engine mode: per-layer KV bit policy — 'haq' "
+                         "runs the HAQ search over KV sites "
+                         "(serving/kvquant/policy.py: roofline feedback, "
+                         "sensitivity-gated int4), or a json file mapping "
+                         "sub-layer slots to bits, e.g. "
                          "'{\"sub0\": 4, \"sub1\": 8}'; overrides "
-                         "--kv-bits. 'haq' (the searched policy) is not "
-                         "ported yet")
+                         "--kv-bits")
+    ap.add_argument("--serving-config", default="",
+                    help="engine mode: load a searched serving config JSON "
+                         "(serving/autotune, written by --autotune-out) "
+                         "instead of hand-picking knobs; it owns page "
+                         "size, prefill chunk, occupancy, KV policy and "
+                         "the batch cap")
+    ap.add_argument("--autotune", type=int, default=0, metavar="BUDGET",
+                    help="engine mode: autotune the serving config before "
+                         "serving — calibrate the admission roofline on a "
+                         "warmup run, search the config space (DDPG + "
+                         "evolution) with this many objective evaluations, "
+                         "validate the top candidates on the engine, and "
+                         "serve the trace with the measured winner "
+                         "(0 = off)")
+    ap.add_argument("--autotune-out", default="",
+                    help="with --autotune: write the searched serving "
+                         "config JSON here for --serving-config to load "
+                         "back ('' disables)")
     return ap
 
 
-def kv_bits_arg(cfg, args):
+def kv_bits_arg(cfg, args, max_model_len: int):
     """The KV bit spec ``--kv-bits``/``--kv-policy`` ask for: None (bf16),
-    an int, or a per-sub-layer tuple from the policy file."""
+    an int, or a per-sub-layer tuple — searched on ``--hw`` for
+    ``max_model_len`` (``haq``) or from the policy file."""
     if args.kv_policy == "haq":
-        raise NotImplementedError(
-            "--kv-policy haq needs the HAQ search over KV sites "
-            "(serving/kvquant/policy.py), which waits for core/haq.py and "
-            "core/rl/ddpg.py (ROADMAP Queue 1, item 10); pass a json policy "
-            "file instead")
+        from repro_torch.serving.kvquant import search_kv_policy
+        res = search_kv_policy(cfg, HARDWARES[args.hw],
+                               max_model_len=max_model_len, episodes=8)
+        print(f"kvquant[haq]: {res['policy']} "
+              f"({res['kv_bytes_per_token_fp']}->"
+              f"{res['kv_bytes_per_token']} B/token)")
+        return res["bits"]
     if args.kv_policy:
         with open(args.kv_policy) as f:
             return normalize_kv_bits(cfg, json.load(f))
@@ -268,13 +300,62 @@ def make_policy(cfg, model, args, max_model_len: int):
                            page_size=args.page_size,
                            expected_occupancy=occupancy,
                            param_bytes=model.param_bytes(),
-                           kv_bits=kv_bits_arg(cfg, args))
+                           kv_bits=kv_bits_arg(cfg, args, max_model_len))
     over = {}
     if args.max_batch:
         over["max_batch"] = args.max_batch
     if args.prefill_chunk:
         over["prefill_chunk"] = args.prefill_chunk
     return dataclasses.replace(policy, **over) if over else policy
+
+
+def serving_config_policy(ap, cfg, model, params, args, reqs,
+                          max_model_len: int):
+    """The admission policy a searched serving config gives:
+    ``--serving-config`` loads one, ``--autotune`` searches one on
+    ``reqs`` (and writes it to ``--autotune-out``). One device: the
+    space's mesh dimension is 1 until the sharded engine is ported."""
+    from repro_torch.serving.autotune import (ConfigSpace,
+                                              autotune_serving_config,
+                                              load_serving_config,
+                                              save_serving_config)
+    hw = HARDWARES[args.hw]
+    space = ConfigSpace(cfg, hw, max_model_len=max_model_len,
+                        max_devices=1, max_batch_cap=args.max_batch or 8,
+                        param_bytes=model.param_bytes())
+    if args.serving_config:
+        sc, record = load_serving_config(args.serving_config)
+        if (record.get("arch"), record.get("hw"),
+                record.get("max_model_len")) != \
+                (cfg.name, hw.name, max_model_len):
+            print(f"serving-config: note — searched for "
+                  f"{record.get('arch')}@{record.get('max_model_len')} "
+                  f"on {record.get('hw')}, serving "
+                  f"{cfg.name}@{max_model_len} on {hw.name}")
+        print(f"serving-config[{record.get('hw')}]: {sc.as_dict()}")
+    else:
+        t0 = time.time()
+        tune = autotune_serving_config(model, params, space, reqs,
+                                       budget=args.autotune, seed=0)
+        sc = tune.winner.scored.config
+        corr = tune.rank_correlation
+        print(f"autotune[{hw.name}]: {tune.search.evaluated} "
+              f"candidates ({tune.search.admissible} admissible) in "
+              f"{time.time() - t0:.1f}s -> "
+              f"{tune.winner.decode_tok_s:.1f} decode tok/s vs "
+              f"default {tune.default.decode_tok_s:.1f} "
+              f"({tune.searched_vs_default:.2f}x), rank corr "
+              + ("n/a" if corr is None else f"{corr:.2f}"))
+        print(f"autotune[{hw.name}]: winner {sc.as_dict()}")
+        if args.autotune_out:
+            save_serving_config(args.autotune_out, tune.record(space))
+            print(f"autotune: wrote {args.autotune_out} "
+                  f"(load with --serving-config)")
+    bad = space.violations(sc)
+    if bad:
+        ap.error(f"serving config not admissible for {cfg.name}@"
+                 f"{max_model_len} on {hw.name}: {'; '.join(bad)}")
+    return space.to_policy(sc)
 
 
 def make_engine(model, params, policy, args) -> Engine:
@@ -298,6 +379,18 @@ def main(argv=None):
     if args.sequential and args.trace_out:
         ap.error("--trace-out applies to engine mode only; the sequential "
                  "baseline has no telemetry recorder")
+    if args.sequential and (args.autotune or args.serving_config):
+        ap.error("--autotune/--serving-config apply to engine mode only; "
+                 "the sequential baseline has no admission policy to tune")
+    if args.autotune and args.serving_config:
+        ap.error("--serving-config loads a finished search; drop it or "
+                 "drop --autotune")
+    if args.autotune_out and not args.autotune:
+        ap.error("--autotune-out only makes sense with --autotune")
+    if (args.autotune or args.serving_config) and (
+            args.kv_policy or args.kv_bits != 16):
+        ap.error("--kv-bits/--kv-policy are knobs the serving config "
+                 "owns; drop them when using --autotune/--serving-config")
     device = resolve_device(args.device)
     # fp32 products stay fp32 (the fp32 unembed, the logits)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -335,7 +428,13 @@ def main(argv=None):
         print("sample:", out[0, args.prompt_len:args.prompt_len + 16])
         return
 
-    policy = make_policy(cfg, model, args, args.prompt_len + args.gen)
+    max_len = args.prompt_len + args.gen
+    reqs = _make_requests(args, cfg)
+    if args.serving_config or args.autotune:
+        policy = serving_config_policy(ap, cfg, model, params, args, reqs,
+                                       max_len)
+    else:
+        policy = make_policy(cfg, model, args, max_len)
     print(f"admission[{args.hw}]: max_batch={policy.max_batch} "
           f"prefill_chunk={policy.prefill_chunk} "
           f"chunked={not args.no_chunked_prefill} "
@@ -343,7 +442,6 @@ def main(argv=None):
           f"kv={policy.kv_bits or 'bf16'} pages={policy.num_pages} "
           f"page_size={policy.page_size} "
           f"(est decode {policy.est_decode_s * 1e3:.2f}ms/step)")
-    reqs = _make_requests(args, cfg)
     engine = make_engine(model, params, policy, args)
     t0 = time.time()
     outs = engine.run(reqs)

@@ -46,6 +46,18 @@ class Model:
                                    cache_layout=cache_layout, dot=dot,
                                    kernel=kernel)
 
+    def loss(self, params, batch, *, dot=None):
+        """Mean next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (chunked, transformer.chunked_ce): HAQ's
+        quality feedback. Forward only, under ``torch.no_grad()``; the
+        training path and its backward wait for their slice."""
+        with torch.no_grad():
+            hidden, _, aux, _ = self.forward(params, batch,
+                                             unembed_mode="none", dot=dot)
+            ce = transformer.chunked_ce(params, hidden, batch["labels"],
+                                        self.cfg, dot=dot)
+        return ce + 0.01 * aux
+
     def prefill(self, params, batch, *, cache_layout="full",
                 unembed_mode="last", dot=None, kernel="auto"):
         logits, cache, _, _ = self.forward(params, batch, want_cache=True,

@@ -171,6 +171,37 @@ def unembed(params, x, cfg, *, dot=None):
     return logits
 
 
+# ------------------------------------------------------------ chunked CE ----
+def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
+               loss_mask=None):
+    """Next-token cross-entropy without materializing (B, S, V) logits:
+    the unembed and log-sum-exp run per ``chunk`` rows, so peak live
+    memory is (B, chunk, V). Forward only: the reference's rematerialized
+    scan serves its backward, which waits for the training slice. The
+    mask and the padding of the last chunk are the reference's."""
+    xs = hidden[:, :-1]
+    ls = labels[:, 1:].long()
+    B, n, D = xs.shape
+    mask = torch.ones((B, n), dtype=F32, device=xs.device) \
+        if loss_mask is None else loss_mask[:, 1:].to(F32)
+    chunk = min(chunk, n)
+    pad = (-n) % chunk
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
+        ls = torch.nn.functional.pad(ls, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=F32, device=xs.device)
+    cnt = torch.zeros((), dtype=F32, device=xs.device)
+    for c in range(0, n + pad, chunk):
+        logits = unembed(params, xs[:, c:c + chunk], cfg, dot=dot)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ls[:, c:c + chunk, None])[..., 0]
+        mc = mask[:, c:c + chunk]
+        tot = tot + torch.sum((logz - gold) * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 # --------------------------------------------------------------- forward ----
 def forward(params, batch, cfg, *, want_cache: bool,
             unembed_mode: str = "full", cache_layout: str = "full",

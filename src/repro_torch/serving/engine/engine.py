@@ -81,7 +81,8 @@ class Engine:
                  temperature: float = 0.0, seed: int = 0,
                  paged_kernel: str = "auto", reserve_upfront: bool = False,
                  chunked_prefill: bool = True, mesh=None,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None,
+                 roofline_scales=None):
         cfg = model.cfg
         if cfg.is_encdec or cfg.family != "dense" or cfg.frontend != "none":
             raise NotImplementedError(
@@ -106,7 +107,11 @@ class Engine:
         self.params = params
         self.device = params["embed"].device
         self.telemetry = telemetry if telemetry is not None else Telemetry()
-        self._predict = RooflinePredictor(cfg, policy)
+        # ``roofline_scales`` (a telemetry.ScaleLookup fitted on this host
+        # by telemetry.calibrate) turns each tick's roofline prediction
+        # into the calibrated one the autotuner searches on
+        self._predict = RooflinePredictor(cfg, policy,
+                                          scales=roofline_scales)
 
         # Allocate only the pages max_batch concurrent sequences can use,
         # capped by what the target's memory holds (policy.num_pages) and

@@ -46,12 +46,16 @@ online-softmax block loop.
 
 Bit policy
 ----------
-A policy is given by hand: an int, or a per-sub-layer dict such as
+A policy is given by hand — an int, or a per-sub-layer dict such as
 ``{"sub0": 4, "sub1": 8}`` (int4 on gemma2's local layers, int8 on its
-global ones), through ``normalize_kv_bits``. The reference's HAQ search
-over KV sites (``policy.py``: ``search_kv_policy``, ``kv_sensitivity``,
-``allowed_kv_bits``) is not ported yet: it needs ``core/haq.py`` and
-``core/rl/ddpg.py`` (ROADMAP Queue 1, item 10).
+global ones), through ``normalize_kv_bits`` — or searched:
+``policy.search_kv_policy`` runs the paper's HAQ loop over KV sites
+(core/haq.py::enumerate_kv_sites, one per sub-layer slot): DDPG proposes
+per-site bits, the roofline prices them (hardware_model.attention_cost
+with ``kv_bits``, admission.step_latency for the whole tick), the
+paper's sequential back-off enforces the budget, and an attention-
+sensitivity proxy gates which sites may drop to int4 (sliding-window
+layers first). ``--kv-policy haq`` serves on the searched pool.
 
 The bf16 pool remains the exactness baseline; quantized greedy drift
 against it is measured by ``drift.greedy_drift``.
@@ -63,7 +67,11 @@ from repro_torch.serving.kvquant.quantize import (dequantize_kv, kv_bits_of,
                                                   pack_int4_hd, quantize_kv,
                                                   quantize_pool,
                                                   unpack_int4_hd)
+from repro_torch.serving.kvquant.policy import (allowed_kv_bits,
+                                                kv_sensitivity,
+                                                search_kv_policy)
 
 __all__ = ["quantize_kv", "dequantize_kv", "kv_bits_of", "pack_int4_hd",
            "unpack_int4_hd", "quantize_pool", "normalize_kv_bits",
+           "search_kv_policy", "kv_sensitivity", "allowed_kv_bits",
            "greedy_drift", "teacher_forced_logits"]

@@ -534,7 +534,7 @@ def test_quant_decode_never_builds_dense_fp_kv(models, kv_bits):
 def test_serve_kv_flags_on_cpu(tmp_path, capsys):
     """--kv-policy (json) and --kv-bits serve the trace on the CPU, and the
     admission line names the policy as derive_policy keeps it; 'haq'
-    raises until its search is ported; both flags are refused with
+    searches the bits and serves on them; both flags are refused with
     --sequential."""
     from repro_torch.launch import serve
     policy = tmp_path / "kv.json"
@@ -547,8 +547,10 @@ def test_serve_kv_flags_on_cpu(tmp_path, capsys):
         serve.main(base + flags)
         out = capsys.readouterr().out
         assert want in out and "served 3 requests, 12 tokens" in out
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        serve.main(base + ["--kv-policy", "haq"])
+    serve.main(base + ["--kv-policy", "haq"])
+    out = capsys.readouterr().out
+    assert "kvquant[haq]: {'kv_sub0': 4, 'kv_sub1': 8}" in out
+    assert "kv=(4, 8)" in out and "served 3 requests, 12 tokens" in out
     with pytest.raises(SystemExit):
         serve.main(base + ["--sequential", "--kv-bits", "8"])
     with pytest.raises(SystemExit):
