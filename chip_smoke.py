@@ -34,11 +34,20 @@ Phases, each fatal on failure:
                 at M = 8 on every projection with each launch plan.
                 Kernels and yardsticks are timed on the
                 device (device_ms: a CUDA graph of the calls), the plain
-                versions from the host (time_ms);
+                versions from the host (time_ms). Before the full-width
+                phases: every attention kernel at hd 32 (1b), tiny
+                gemma2-2b (1c) and tiny granite-moe (1d) served on the
+                kernels, token-identical to generate; after them (2b) the
+                paged pair and flash at granite-moe's geometry (hd 64,
+                G = 3, decode GC = 1) checked and timed beside plain, SDPA
+                and the bound;
   3. model    — full-width gemma2-2b (26 layers, random weights from a
                 seed): one prefill_chunk_paged and decode_step_paged ticks
                 through the kernels and through the plain walk, on copies
-                of one pool, logits compared — on a bf16 pool; one
+                of one pool, every kernel call also held against its plain
+                version on its own inputs, logits compared where the
+                model's own sensitivity to a rounding allows — on a bf16
+                pool; one
                 whole-prompt forward of 4096 tokens through flash
                 attention and through its plain version; the chunk and
                 ticks again on the mixed pool (int4 local layers, int8
@@ -89,13 +98,25 @@ Phases, each fatal on failure:
                 paged kernels launched in calibration and validation,
                 candidates, decode tok/s of the default and the winner,
                 the Spearman rank correlation and the calibration scales;
-  9. report   — one JSON line with every kernel's launches, error, times.
+  9. amc      — AMC (core/amc.py) on full-width gemma2-2b, then (its
+                parameters freed) on full-width granite-moe-3b-a800m:
+                target 0.5, 8 episodes, the greedy rollout and uniform
+                keep 0.5, each policy's ratios, FLOPs fraction, loss
+                (Model.loss on one (1, 4096) batch, flash in every layer)
+                and seconds; pruned experts routed around;
+ 10. moe      — granite-moe served: phase 3's check, the main trace
+                through the launcher (tok/s, ticks against gemma2-2b's,
+                the dropped share of routed pairs per chunk, 0 at decode),
+                its profile, and ``serve.main --arch granite-moe-3b-a800m
+                --max-batch 8``;
+ 11. report   — one JSON line with every kernel's launches, error, times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import subprocess
@@ -133,6 +154,12 @@ POISON_CODE, POISON_SCALE = 127, 1e4
 # full gemma2-2b attention width
 H, K, HD, PAGE = 8, 4, 256, 16
 WINDOW, CAP = 4096, 50.0
+GEMMA = (H, K, HD)
+# full granite-moe-3b-a800m attention: 24 query heads over 8 kv heads of
+# width 64 (G = 3, so a decode split CTA serves GC = 1 query head); no
+# softcap, every layer global
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_GEO = (24, 8, 64)
 # kernels vs plain walk through 26 bf16 layers: each layer's attention
 # output may differ by a bf16 ulp (2**-8 relative), and the residual
 # stream carries it on through every later layer, so logits are held to 3%
@@ -259,12 +286,13 @@ def walk_span(pos, Sq, n_blocks, window):
     return lo, hi
 
 
-def paged_work(positions, Sq, n_blocks, window, bits=16):
-    """(bytes, flops) the work these inputs need: every live K/V page read
-    once per kv head (``bits`` per stored element, and a quantized pool's
-    4-byte K and V scale per slot and kv head), q/table/positions read
-    and the output written once; 4*hd flops per valid (query head, key)
-    pair."""
+def paged_work(positions, Sq, n_blocks, window, bits=16, geo=GEMMA):
+    """(bytes, flops) the work these inputs need at heads and width ``geo``
+    (H, K, hd): every live K/V page read once per kv head (``bits`` per
+    stored element, and a quantized pool's 4-byte K and V scale per slot
+    and kv head), q/table/positions read and the output written once;
+    4*hd flops per valid (query head, key) pair."""
+    H, K, HD = geo
     B = len(positions)
     per_slot = 2 * HD * bits // 8 + (8 if bits < 16 else 0)  # per kv head
     kv = 0
@@ -280,20 +308,21 @@ def paged_work(positions, Sq, n_blocks, window, bits=16):
     return kv + io, 4.0 * HD * valid * H
 
 
-def bound_ms(positions, Sq, n_blocks, window, bits=16):
+def bound_ms(positions, Sq, n_blocks, window, bits=16, geo=GEMMA):
     """Least time for ``paged_work``: its bytes over device memory or its
     flops over the bf16 peak, the larger. Returns (ms, 'bytes' |
     'operations')."""
-    nbytes, flops = paged_work(positions, Sq, n_blocks, window, bits)
+    nbytes, flops = paged_work(positions, Sq, n_blocks, window, bits, geo)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_plan(is_dec, B, Sq, n_blocks):
+def paged_plan(is_dec, B, Sq, n_blocks, geo=GEMMA):
     """The launch plan of a paged kernel at these shapes, as the wrapper
     makes it: decode's split count and grids, prefill's row tiles."""
     from repro_torch.kernels import paged_attention as pa
+    H, K, _ = geo
     if is_dec:
         g = pa.decode_grid(B, H, K, n_blocks, PAGE)
         return (f"n_split={g[2]}, split grid {g} = {g[0] * g[1] * g[2]} "
@@ -322,6 +351,7 @@ def sdpa_yardstick(q, pool_k, pool_v, pt, positions, window):
     import torch
     import torch.nn.functional as F
     B, Sq = q.shape[:2]
+    K, HD = pool_k.shape[-2:]
     n_blocks = pt.shape[1]
     T = n_blocks * PAGE
     k = pool_k[pt.long()].reshape(B, T, K, HD).transpose(1, 2)
@@ -527,10 +557,12 @@ FLASH_S = (4096, 8192)
 FLASH_LAYERS = ((0, "global"), (WINDOW, "local"))
 
 
-def flash_case(seed, S):
-    """Full-width q (B=1, S, 8 heads), k, v (4 kv heads), hd 256, bf16,
-    from a seed: q as drawn and scaled for the softcap cases."""
+def flash_case(seed, S, geo=GEMMA):
+    """Full-width q (B=1, S, H heads), k, v (K kv heads) of width hd, bf16,
+    from a seed (``geo`` = (H, K, hd), gemma2-2b's 8, 4, 256 by default):
+    q as drawn and scaled for the softcap cases."""
     import torch
+    H, K, HD = geo
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((1, S, H, HD), generator=g, device="cuda")
     k = torch.randn((1, S, K, HD), generator=g, device="cuda").bfloat16()
@@ -546,10 +578,11 @@ def flash_valid_pairs(S, window):
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def flash_bound_ms(S, window):
+def flash_bound_ms(S, window, geo=GEMMA):
     """Least time for one call: q, k, v read and the output written once
     over device memory, or 4*hd flops per valid (query head, key) pair
     over the bf16 peak. Returns (ms, 'bytes' | 'operations')."""
+    H, K, HD = geo
     t_bytes = 2 * (2 * S * H * HD + 2 * S * K * HD) / HBM_BYTES_PER_S * 1e3
     t_ops = 4.0 * HD * H * flash_valid_pairs(S, window) / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1019,7 +1052,8 @@ def all_launches() -> dict:
     return {**pa.LAUNCHES, **fa.LAUNCHES, **qm.LAUNCHES}
 
 
-def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None):
+def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None,
+                tag=""):
     """Phase 3: one chunk and ``ticks`` decode steps of the full-width
     model through the kernels and through the plain walk, on copies of one
     pool (bf16, or quantized under ``kv_bits``); returns the largest logit
@@ -1027,7 +1061,18 @@ def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None):
     (serving/quant.py) and the two sides differ in the ``dot`` hook alone:
     the weight-quantized matmul kernels (``make_dequant_dot("cuda")``)
     against the plain dequantize-then-matmul (``"ref"``), both over the
-    paged kernels."""
+    paged kernels. Every paged attention call of the kernel side is held
+    against its plain version on the same inputs (``attention_calls``,
+    the phase 2 tolerance), and the logits are held to LOGIT_RTOL where
+    the model's own sensitivity allows it: the plain side run once more
+    with a seeded tenth of each attention output moved by 2**-7 of its
+    value (a bf16 ulp or two) gives the logit change such a rounding alone
+    makes; where that exceeds
+    the bound (random-weight granite-moe amplifies it to O(1) logits over
+    32 layers), the logits are printed beside it and the per-call checks
+    carry the comparison. A moe model's routing is shared
+    (``shared_routing``): the plain side runs first and the others take
+    its experts."""
     import torch
     from repro_torch.models.params import tree_map
 
@@ -1039,7 +1084,7 @@ def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None):
         bf16_bytes = tensor_bytes(params)
         params = quantize_params(params, default_bits=w_bits)
         torch.cuda.synchronize()
-        label = f"model[w={w_bits}b]"
+        label = f"model[{tag}w={w_bits}b]"
         print(f"{label}: parameters held {tensor_bytes(params) / 1e9:.4f} GB "
               f"against {bf16_bytes / 1e9:.4f} GB in bf16 "
               f"({tensor_bytes(params) / bf16_bytes:.4f}x), from the "
@@ -1047,7 +1092,7 @@ def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None):
         sides = {"cuda": {"kernel": "cuda", "dot": make_dequant_dot("cuda")},
                  "ref": {"kernel": "cuda", "dot": make_dequant_dot("ref")}}
     else:
-        label = f"model[kv={kv_bits or 'bf16'}]"
+        label = f"model[{tag}kv={kv_bits or 'bf16'}]"
         sides = {m: {"kernel": m, "dot": None} for m in ("cuda", "ref")}
     g = torch.Generator().manual_seed(3)
     B, C, n_blocks = 2, 512, 80
@@ -1061,24 +1106,147 @@ def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None):
     model.prefill_chunk_paged(params, pool, pt, toks[:, :C], start,
                               **sides["cuda"])         # resident prefix
     logits = {}
-    for mode, kw in sides.items():
-        copy = tree_map(torch.clone, pool)
-        hidden, _ = model.prefill_chunk_paged(
-            params, copy, pt, toks[:, C:2 * C], start + C, **kw)
-        logits[mode] = {"chunk": model.unembed(params, hidden[:, -1:],
-                                               dot=kw["dot"])}
-        for t in range(ticks):
-            step, _ = model.decode_step_paged(
-                params, copy, pt, toks[:, 2 * C + t:2 * C + t + 1],
-                start + 2 * C + t, **kw)
-            logits[mode][f"decode{t}" if ticks > 1 else "decode"] = step
-        del copy
-    err = max(compare_logits(label, what, logits["cuda"][what][:, 0],
-                             logits["ref"][what][:, 0])
-              for what in logits["ref"])
+    calls = {}
+    with shared_routing(cfg) as replay:
+        for run, mode, probe in (("ref", "ref", {}),
+                                 ("cuda", "cuda", {"check": True}),
+                                 ("ulp", "ref", {"perturb": True})):
+            kw = sides[mode]
+            replay(run != "ref")
+            copy = tree_map(torch.clone, pool)
+            with attention_calls(**probe) as calls[run]:
+                hidden, _ = model.prefill_chunk_paged(
+                    params, copy, pt, toks[:, C:2 * C], start + C, **kw)
+                logits[run] = {"chunk": model.unembed(
+                    params, hidden[:, -1:], dot=kw["dot"])}
+                for t in range(ticks):
+                    step, _ = model.decode_step_paged(
+                        params, copy, pt, toks[:, 2 * C + t:2 * C + t + 1],
+                        start + 2 * C + t, **kw)
+                    logits[run][f"decode{t}" if ticks > 1 else "decode"] = \
+                        step
+            del copy
+    checked = calls["cuda"]
+    print(f"{label}: {checked['n']} paged attention calls of the kernel "
+          f"side each within tolerance of the plain walk on its inputs "
+          f"(max |err| {checked['err']:.4g})", flush=True)
+    V = cfg.vocab_size          # the vocab-padding columns sit at -1e9
+    err = 0.0
+    for what in logits["ref"]:
+        a, b = (logits[r][what][:, 0, :V] for r in ("cuda", "ref"))
+        ulp = float((logits["ulp"][what][:, 0, :V] - b).abs().max())
+        if ulp <= LOGIT_RTOL * float(b.abs().max()):
+            err = max(err, compare_logits(label, what, a, b))
+            continue
+        if not torch.isfinite(a).all():
+            fail(f"{label} {what}: non-finite logits")
+        d = float((a - b).abs().max())
+        err = max(err, d)
+        print(f"{label}: {what} logits kernel vs plain max |diff| {d:.4g}; "
+              f"a bf16 ulp on a tenth of the plain walk's attention "
+              f"outputs alone moves them by {ulp:.4g} (|logit| up to "
+              f"{float(b.abs().max()):.3g}, bound {LOGIT_RTOL}): the model "
+              f"amplifies rounding past the bound, so the per-call checks "
+              f"hold the kernels", flush=True)
     del logits, pool
     torch.cuda.empty_cache()
     return err
+
+
+@contextlib.contextmanager
+def shared_routing(cfg):
+    """For a moe model, the experts each token is routed to, recorded in
+    one run of calls and replayed in the next: yields ``replay(on)``,
+    called before each run (off: record, on: replay). The replayed run
+    takes the recorded experts (and so the same capacity drops) and
+    recomputes their gates from its own probabilities. Routing is
+    discrete: one bf16 ulp of attention output may tip a near-tie between
+    two experts, or which pair a full expert drops, and so move a row's
+    logits by far more than any kernel error; with the routing shared,
+    kernels and plain walk are compared on the same experts. A dense
+    model runs unchanged."""
+    import torch
+    from repro_torch.models import moe
+
+    routes, state = [], {"replay": False, "i": 0}
+    route = moe.route
+
+    def shared(p, xf, mcfg):
+        probs, gates, idx = route(p, xf, mcfg)
+        if not state["replay"]:
+            routes.append(idx)
+            return probs, gates, idx
+        idx = routes[state["i"]]
+        state["i"] += 1
+        gates = probs.gather(1, idx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        return probs, gates, idx
+
+    def replay(on):
+        state["replay"], state["i"] = on, 0
+
+    if cfg.moe:
+        moe.route = shared
+    try:
+        yield replay
+    finally:
+        moe.route = route
+    if cfg.moe and state["i"] != len(routes):
+        fail(f"shared routing: {len(routes)} routings recorded, "
+             f"{state['i']} replayed")
+
+
+@contextlib.contextmanager
+def attention_calls(check=False, perturb=False):
+    """The paged attention walks of kernels/ops.py, wrapped for one run of
+    calls. ``check``: each call that runs a kernel also runs its plain
+    version on the same inputs and fails unless every element is within
+    the phase 2 tolerance (``mismatch``). ``perturb``: each output comes
+    back with a seeded tenth of its elements moved by 2**-7 of their value
+    (a bf16 ulp or two: a rounding-sized change, for the model's own
+    sensitivity). Yields
+    {"n": calls checked, "err": largest |err|}."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    names = ("paged_attention", "paged_attention_prefill",
+             "paged_attention_quant", "paged_attention_prefill_quant")
+    originals = {n: getattr(kops, n) for n in names}
+    stats = {"n": 0, "err": 0.0}
+
+    def wrap(name, fn):
+        def call(*args, mode="auto", **kw):
+            out = fn(*args, mode=mode, **kw)
+            if check and out.is_cuda and mode != "ref":
+                want = fn(*args, mode="ref", **kw).float()
+                got = out.float()
+                if mismatch(got, want).any():
+                    fail(f"{name}: kernel call {stats['n']} off its plain "
+                         f"version by up to "
+                         f"{float((got - want).abs().max()):.4g}")
+                stats["n"] += 1
+                stats["err"] = max(stats["err"],
+                                   float((got - want).abs().max()))
+            if perturb:
+                g = torch.Generator(device=out.device).manual_seed(
+                    stats["n"])
+                stats["n"] += 1
+                hit = torch.rand(out.shape, generator=g,
+                                 device=out.device) < 0.1
+                sign = torch.randint(0, 2, out.shape, generator=g,
+                                     device=out.device) * 2 - 1
+                out = (out.float() * (1 + hit * sign * 2.0 ** -7)) \
+                    .to(out.dtype)
+            return out
+        return call
+
+    for n, fn in originals.items():
+        setattr(kops, n, wrap(n, fn))
+    try:
+        yield stats
+    finally:
+        for n, fn in originals.items():
+            setattr(kops, n, fn)
 
 
 def compare_logits(label, what, a, b):
@@ -1150,7 +1318,8 @@ def main_trace(cfg):
 
 
 def phase_engine(model, params, extra_args=(), expect=BF16_KERNELS,
-                 bf16_pages=None, quant_bits=None, bf16_summary=None):
+                 bf16_pages=None, quant_bits=None, bf16_summary=None,
+                 tag=""):
     """Phase 4: the main path, through the launcher's own construction
     (``extra_args`` added to its command line; ``quant_bits`` overrides
     the derived policy's weight bits, as the reference's tests do). The
@@ -1166,14 +1335,14 @@ def phase_engine(model, params, extra_args=(), expect=BF16_KERNELS,
     from repro_torch.launch import serve
 
     args = serve.build_parser().parse_args(
-        ["--arch", "gemma2-2b", "--max-batch", "8", "--page-size",
+        ["--arch", model.cfg.name, "--max-batch", "8", "--page-size",
          str(PAGE), *extra_args])
     reqs = main_trace(model.cfg)
     max_len = max(len(r.prompt) + r.max_new for r in reqs)
     policy = serve.make_policy(model.cfg, model, args, max_len)
     if quant_bits:
         policy = dataclasses.replace(policy, quant_bits=quant_bits)
-    label = f"engine[kv={policy.kv_bits or 'bf16'}, " \
+    label = f"engine[{tag}kv={policy.kv_bits or 'bf16'}, " \
         f"quant={policy.quant_bits}b]"
     print(f"{label}: admission[{args.hw}] max_batch={policy.max_batch} "
           f"prefill_chunk={policy.prefill_chunk} pages={policy.num_pages}"
@@ -1249,24 +1418,26 @@ def phase_engine(model, params, extra_args=(), expect=BF16_KERNELS,
     summary = {"tok_s": gen_total / dt, "decode_ms": 1e3 * sum(dec) / len(dec),
                "prefill_ms": pre_ms}
     if bf16_summary:
-        print(f"{label}: against the bf16 run: "
+        print(f"{label}: against gemma2-2b's bf16 run: "
               + ", ".join(f"{k} {summary[k]:.3f} vs {bf16_summary[k]:.3f}"
                           for k in summary), flush=True)
     return launches, policy, args, summary
 
 
-def phase_profile(model, params, policy, args):
-    """Where the main path's device time goes: the same trace once more on
-    a fresh engine under torch.profiler. Returns (kernel name -> device
-    ms, device-busy ms, wall ms); device numbers are None when the
-    profiler saw no device time."""
+def phase_profile(model, params, policy, args, tag="", n_top=8,
+                  n_requests=None):
+    """Where the main path's device time goes: the same trace (or its
+    first ``n_requests``) once more on a fresh engine under
+    torch.profiler. Returns (kernel name -> device ms, device-busy ms,
+    wall ms); device numbers are None when the profiler saw no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
 
     engine = serve.make_engine(model, params, policy, args)
-    reqs = main_trace(model.cfg)
-    label = f"profile[kv={policy.kv_bits or 'bf16'}, " \
+    reqs = main_trace(model.cfg)[:n_requests]
+    label = f"profile[{tag}kv={policy.kv_bits or 'bf16'}, " \
         f"quant={policy.quant_bits}b]"
     torch.cuda.synchronize()
     # device activity only: host-op events would multiply the trace and
@@ -1304,8 +1475,9 @@ def phase_profile(model, params, policy, args):
                             for k, v in parts) if len(parts) > 1 else ""))
     print(f"{label}: device time by kernel-table row: " + "; ".join(rows),
           flush=True)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"{label}: main path {wall_ms:.1f} ms wall, device busy "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    print(f"{label}: main path ({len(reqs)} requests) {wall_ms:.1f} ms "
+          f"wall, device busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%, idle "
           f"{100 * (1 - busy / wall_ms):.1f}%), {launched} device "
           f"activities; top device time: "
@@ -1647,6 +1819,7 @@ TINY_PAGES = (16, 64)
 TINY_CHUNKED_PAGES = (48,)
 TINY_KERNEL_PAGES = (2, 16, 64, 128, 3, 24, 48, 96, 256)
 TINY_GEN = 16
+TINY_MOE_PAGES = (16, 48)
 
 
 def phase_tiny_kernels():
@@ -1718,16 +1891,9 @@ def phase_tiny_engine(kv_policy_file):
     gemma2-2b served by the engine with ``--paged-kernel cuda`` at pages of
     16 and 64, chunked (32-token chunks) and whole-prompt (2048-token
     prompts, through flash), and at a page of 48 chunked, over a bf16 pool
-    and the KV_POLICY pool. Each
-    run must launch the attention kernels of its path (and no other), and
-    give tokens identical to the port's own ``generate`` on each prompt:
-    kernel "cuda", the same page size and pool (bf16, or the KV_POLICY
-    bits quantized on write), prefilling as the run does (``generate``'s
-    ``prefill_chunk``, or its whole-sequence forward)."""
-    import numpy as np
+    and the KV_POLICY pool (tiny_engine_run)."""
     import torch
     from repro_torch.configs import tiny_config
-    from repro_torch.launch import serve
     from repro_torch.models.api import build_model
 
     model = build_model(tiny_config("gemma2-2b"))
@@ -1741,61 +1907,374 @@ def phase_tiny_engine(kv_policy_file):
     runs += list(itertools.product(TINY_CHUNKED_PAGES, (True,),
                                    (False, True)))
     for page, chunked, kv in runs:
-        reqs = tiny_trace(cfg, whole=not chunked)
-        max_len = max(len(r.prompt) + r.max_new for r in reqs)
-        argv = ["--arch", "gemma2-2b", "--tiny", "--paged-kernel", "cuda",
-                "--page-size", str(page), "--max-batch", "8"]
-        argv += ["--prefill-chunk", "32"] if chunked else \
-            ["--no-chunked-prefill", "--prefill-chunk", "2048"]
-        if kv:
-            argv += ["--kv-policy", str(kv_policy_file)]
-        args = serve.build_parser().parse_args(argv)
-        policy = serve.make_policy(cfg, model, args, max_len)
-        engine = serve.make_engine(model, params, policy, args)
-        label = (f"tiny[page={page} {'chunked' if chunked else 'whole'} "
-                 f"kv={policy.kv_bits or 'bf16'}]")
-        dec = "paged_attention_quant_fwd" if kv else "paged_attention_fwd"
-        pre = ("paged_prefill_quant_fwd" if kv else "paged_prefill_fwd") \
-            if chunked else "flash_attention_fwd"
-        torch.cuda.synchronize()
-        reset_all_launches()
+        tiny_engine_run(model, params, "gemma2-2b", page, chunked,
+                        kv_policy_file if kv else None)
+
+
+def phase_tiny_moe_engine():
+    """Phase 1d: tiny granite-moe (the reference's tiny_config: hd 32, 4
+    experts top 2 at capacity 4.0, drop-free) served through the kernels
+    at pages of 16 and 48, chunked, on the bf16 pool (tiny_engine_run)."""
+    import torch
+    from repro_torch.configs import tiny_config
+    from repro_torch.models.api import build_model
+
+    model = build_model(tiny_config(MOE_ARCH))
+    if model.cfg.resolved_head_dim != TINY_HD or \
+            model.cfg.moe.capacity_factor != 4.0:
+        fail(f"tiny {MOE_ARCH} is not hd {TINY_HD} at capacity 4.0")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    for page in TINY_MOE_PAGES:
+        tiny_engine_run(model, params, MOE_ARCH, page, True, None)
+
+
+def tiny_engine_run(model, params, arch, page, chunked, kv_policy_file):
+    """One tiny run: the engine built by the launcher (``--tiny
+    --paged-kernel cuda --page-size page``, 32-token chunks or whole
+    prompts of 2048 tokens through flash, the KV_POLICY pool where
+    ``kv_policy_file`` is given) must launch the attention kernels of its
+    path (and no other), and give tokens identical to the port's own
+    ``generate`` on each prompt: kernel "cuda", the same page size and
+    pool (bf16, or the KV_POLICY bits quantized on write), prefilling as
+    the run does (``generate``'s ``prefill_chunk``, or its whole-sequence
+    forward)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+
+    cfg = model.cfg
+    reqs = tiny_trace(cfg, whole=not chunked)
+    max_len = max(len(r.prompt) + r.max_new for r in reqs)
+    argv = ["--arch", arch, "--tiny", "--paged-kernel", "cuda",
+            "--page-size", str(page), "--max-batch", "8"]
+    argv += ["--prefill-chunk", "32"] if chunked else \
+        ["--no-chunked-prefill", "--prefill-chunk", "2048"]
+    if kv_policy_file:
+        argv += ["--kv-policy", str(kv_policy_file)]
+    args = serve.build_parser().parse_args(argv)
+    policy = serve.make_policy(cfg, model, args, max_len)
+    engine = serve.make_engine(model, params, policy, args)
+    kv = policy.kv_bits is not None
+    label = (f"tiny[{cfg.name} page={page} "
+             f"{'chunked' if chunked else 'whole'} "
+             f"kv={policy.kv_bits or 'bf16'}]")
+    dec = "paged_attention_quant_fwd" if kv else "paged_attention_fwd"
+    pre = ("paged_prefill_quant_fwd" if kv else "paged_prefill_fwd") \
+        if chunked else "flash_attention_fwd"
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    outs = engine.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    # the oracle: generate over the same pool, prefilling as the run
+    # does (32-token chunks through the paged walk, or the whole
+    # prompt through the whole-sequence forward)
+    want = {r.rid: serve.generate(
+        model, params, torch.from_numpy(r.prompt[None]).cuda(),
+        r.max_new, page_size=page, kernel="cuda", kv_bits=policy.kv_bits,
+        prefill_chunk=policy.prefill_chunk if chunked else 0)[0]
+        .cpu().numpy() for r in reqs}
+    for name, n in launches.items():
+        if name in (dec, pre) and n <= 0:
+            fail(f"{label}: kernel {name} was never launched")
+        if name not in (dec, pre) and n:
+            fail(f"{label}: kernel {name} launched {n} times on a path "
+                 f"that should not reach it")
+    same = 0
+    for r in reqs:
+        got, ref_toks = outs[r.rid], want[r.rid]
+        if got.shape != ref_toks.shape:
+            fail(f"{label}: request {r.rid} returned {got.shape}, "
+                 f"generate {ref_toks.shape}")
+        diff = np.nonzero(got != ref_toks)[0]
+        if diff.size:
+            i = int(diff[0])
+            fail(f"{label}: request {r.rid} (prompt {len(r.prompt)}) "
+                 f"differs from generate at token {i}: "
+                 f"{got[i:i + 4].tolist()} vs "
+                 f"{ref_toks[i:i + 4].tolist()}")
+        same += 1
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"{label}: {same}/{len(reqs)} requests token-identical to "
+          f"generate, {engine.stats['decode_ticks']} decode ticks in "
+          f"{dt:.3f} s; launches {json.dumps(ran)}", flush=True)
+
+
+# ------------------------------------------- granite-moe and AMC (G = 3) --
+# AMC (core/amc.py) on each full-width model: a FLOPs target of 0.5 over
+# AMC_EPISODES exploring episodes and the greedy rollout, every policy
+# scored by Model.loss on one held-out (1, AMC_S) batch of seeded tokens
+# (flash attention in every layer: AMC_S >= FLASH_MIN), then the uniform
+# baseline at keep 0.5
+AMC_TARGET, AMC_EPISODES, AMC_S = 0.5, 8, 4096
+
+
+def phase_moe_kernels(prefill_chunk: int, n_blocks_main: int):
+    """Phase 2b: the three kernels granite-moe's paths run, at its
+    geometry (MOE_GEO: hd 64, G = 3, decode GC = 1; page 16, no cap,
+    global): paged_attention_fwd on a decode tick of 8 ragged sequences,
+    paged_prefill_fwd on a ``prefill_chunk``-row chunk, flash_attention_fwd
+    causal at S = 4096 (an AMC episode's loss). Each is held against its
+    plain version at the phase 2 tolerance, then timed on the same inputs
+    beside the plain version, SDPA and its bound, and printed. Returns
+    name -> record."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    nq, nkv, hd = MOE_GEO
+    if pa.head_group(nq // nkv) != 1:
+        fail(f"granite-moe's G = {nq // nkv} should give decode GC = 1")
+    specs = kernel_specs()
+    rng = np.random.default_rng(0)
+    dec_pos = sorted([0, 17, 4095, 4097, 4999]
+                     + rng.integers(1, 5000, 3).tolist())
+    dec_blocks = max(n_blocks_main, -(-5000 // PAGE) + 1)
+    records = {}
+    for name, positions, Sq, n_blocks in (
+            ("paged_attention_fwd", dec_pos, 1, dec_blocks),
+            ("paged_prefill_fwd", [0], prefill_chunk, n_blocks_main)):
+        fwd, plain, _, is_dec = specs[name]
+        qs, pools, pt, pos = paged_case(500 + Sq, positions, Sq, n_blocks,
+                                        heads=(nq, nkv), hd=hd)
+        err = check_kernel(f"{name}[G=3 hd=64]", fwd, plain, qs, pools, pt,
+                           pos, window=0, cap=0.0)
+        q = qs[0.0]
+        ms = device_ms(lambda: fwd(q, *pools, pt, pos, window=0, cap=0.0))
+        plain_ms = time_ms(lambda: plain(q, *pools, pt, pos, window=0,
+                                         cap=0.0), reps=2, warmup=1)
+        lib_ms = device_ms(sdpa_yardstick(q, *pools, pt, pos, 0), reps=10)
+        b_ms, by = bound_ms(positions, Sq, n_blocks, 0, geo=MOE_GEO)
+        records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": by}
+        print(f"kernels[G=3]: {name} B={len(positions)} Sq={Sq} "
+              f"n_blocks={n_blocks} H={nq} K={nkv} hd={hd}, "
+              f"{paged_plan(is_dec, len(positions), Sq, n_blocks, MOE_GEO)}"
+              f": {ms:.4f} ms (plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms by {by}, {100 * b_ms / ms:.1f}% of "
+              f"it)", flush=True)
+        del qs, q, pools, pt, pos
+        torch.cuda.empty_cache()
+    S = 4096
+    qs, k, v = flash_case(60, S, geo=MOE_GEO)
+    q = qs[0.0]
+
+    def ffwd(q, k, v, pt, pos, *, window, cap):
+        return fa.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                      cap=cap)
+
+    def fplain(q, k, v, pt, pos, *, window, cap):
+        return ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                       cap=cap)
+
+    err = check_kernel("flash_attention_fwd[G=3 hd=64]", ffwd, fplain, qs,
+                       (k, v), None, None, window=0, cap=0.0)
+    ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+                   reps=10)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                       reps=2, warmup=1)
+    torch.cuda.empty_cache()
+    lib_ms = device_ms(flash_sdpa(q, k, v, 0), reps=10)
+    b_ms, by = flash_bound_ms(S, 0, geo=MOE_GEO)
+    records["flash_attention_fwd"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by}
+    print(f"kernels[G=3]: flash_attention_fwd B=1 S={S} H={nq} K={nkv} "
+          f"hd={hd} causal: {ms:.4f} ms (plain {plain_ms:.3f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {by}, "
+          f"{100 * b_ms / ms:.1f}% of it)", flush=True)
+    del qs, q, k, v
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_amc(model, params):
+    """Phase 9: AMC on the full-width model: ``amc.search`` (AMC_TARGET,
+    AMC_EPISODES) and ``amc.uniform_baseline`` at keep 0.5, every policy
+    scored by ``Model.loss`` on one (1, AMC_S) batch of seeded tokens.
+    Each scored policy is recorded where the env masks it
+    (``amc.apply_ratios``, wrapped for the phase): its ratios, its FLOPs
+    fraction, its loss, the seconds from masking to loss, and the flash
+    launches of its loss (one per layer). Fails unless every FLOPs
+    fraction is within the target, every loss is finite, flash attention
+    ran in every layer of every loss, and (moe layers) the experts each
+    mask prunes have every router logit at -1e8 or below and the kept
+    ones none. Returns the phase's summary."""
+    import math
+    import torch
+    from repro_torch.core import amc, pruning
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = model.cfg
+    label = f"amc[{cfg.name}]"
+    g = torch.Generator().manual_seed(9)
+    toks = torch.randint(2, cfg.vocab_size, (1, AMC_S), generator=g,
+                         dtype=torch.int32).cuda()
+    batch = {"tokens": toks, "labels": toks}
+    layers = amc.enumerate_layers(model, 4096)
+    total = sum(l.flops for l in layers)
+    rows = []
+    apply_ratios = amc.apply_ratios
+
+    def node(tree, path):
+        for key in path:
+            tree = tree[key]
+        return tree
+
+    def recording_apply(p, lays, ratios):
         t0 = time.perf_counter()
-        outs = engine.run(reqs)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = all_launches()
-        # the oracle: generate over the same pool, prefilling as the run
-        # does (32-token chunks through the paged walk, or the whole
-        # prompt through the whole-sequence forward)
-        want = {r.rid: serve.generate(
-            model, params, torch.from_numpy(r.prompt[None]).cuda(),
-            r.max_new, page_size=page, kernel="cuda", kv_bits=policy.kv_bits,
-            prefill_chunk=policy.prefill_chunk if chunked else 0)[0]
-            .cpu().numpy() for r in reqs}
-        for name, n in launches.items():
-            if name in (dec, pre) and n <= 0:
-                fail(f"{label}: kernel {name} was never launched")
-            if name not in (dec, pre) and n:
-                fail(f"{label}: kernel {name} launched {n} times on a path "
-                     f"that should not reach it")
-        same = 0
-        for r in reqs:
-            got, ref_toks = outs[r.rid], want[r.rid]
-            if got.shape != ref_toks.shape:
-                fail(f"{label}: request {r.rid} returned {got.shape}, "
-                     f"generate {ref_toks.shape}")
-            diff = np.nonzero(got != ref_toks)[0]
-            if diff.size:
-                i = int(diff[0])
-                fail(f"{label}: request {r.rid} (prompt {len(r.prompt)}) "
-                     f"differs from generate at token {i}: "
-                     f"{got[i:i + 4].tolist()} vs "
-                     f"{ref_toks[i:i + 4].tolist()}")
-            same += 1
-        ran = {k: v for k, v in launches.items() if v}
-        print(f"{label}: {same}/{len(reqs)} requests token-identical to "
-              f"generate, {engine.stats['decode_ticks']} decode ticks in "
-              f"{dt:.3f} s; launches {json.dumps(ran)}", flush=True)
+        masked = apply_ratios(p, lays, ratios)
+        used = 0.0
+        for l, r in zip(lays, ratios):
+            used += l.flops * r
+        for l, r in zip(lays, ratios):
+            if l.kind != "moe":
+                continue
+            keep = pruning.keep_mask(
+                pruning.expert_importance(node(p, l.path)), r) > 0
+            router = node(masked, l.path)["router"]
+            low = (router <= -1e8).flatten(0, -2).all(0)
+            if not torch.equal(low, ~keep):
+                fail(f"{label}: {l.name} at keep {r:.4f}: router columns "
+                     f"at <= -1e8 {low.nonzero().flatten().tolist()}, "
+                     f"pruned experts {(~keep).nonzero().flatten().tolist()}")
+        rows.append({"ratios": list(ratios), "flops_frac": used / total,
+                     "t0": t0})
+        return masked
+
+    def eval_loss(p):
+        t0 = time.perf_counter()
+        before = fa.LAUNCHES["flash_attention_fwd"]
+        loss = float(model.loss(p, batch))
+        n = fa.LAUNCHES["flash_attention_fwd"] - before
+        if n != cfg.num_layers or not math.isfinite(loss):
+            fail(f"{label}: Model.loss {loss} with {n} flash launches over "
+                 f"{cfg.num_layers} layers")
+        if rows and "loss" not in rows[-1]:
+            rows[-1].update(loss=loss, flash=n,
+                            s=time.perf_counter() - rows[-1]["t0"])
+        else:
+            base.update(loss=loss, s=time.perf_counter() - t0)
+        return loss
+
+    base = {}
+    acfg = amc.AMCConfig(target=AMC_TARGET, episodes=AMC_EPISODES)
+    amc.apply_ratios = recording_apply
+    try:
+        t0 = time.perf_counter()
+        res = amc.search(model, params, eval_loss, acfg)
+        search_s = time.perf_counter() - t0
+        uni = amc.uniform_baseline(model, params, eval_loss, 0.5)
+    finally:
+        amc.apply_ratios = apply_ratios
+    torch.cuda.empty_cache()
+    if len(rows) != AMC_EPISODES + 2:
+        fail(f"{label}: {len(rows)} policies scored, want "
+             f"{AMC_EPISODES + 2}")
+    names = [f"episode {i}" for i in range(AMC_EPISODES)] + \
+        ["greedy", "uniform"]
+    for name, row in zip(names, rows):
+        if row["flops_frac"] > AMC_TARGET + 1e-6:
+            fail(f"{label}: {name} FLOPs fraction {row['flops_frac']:.6f} "
+                 f"over the target {AMC_TARGET}")
+        print(f"{label}: {name}: ratios "
+              f"{[round(r, 4) for r in row['ratios']]} flops_frac "
+              f"{row['flops_frac']:.6f} loss {row['loss']:.6f} "
+              f"({row['s']:.3f} s, {row['flash']} flash launches)",
+              flush=True)
+    per_ep = sum(r["s"] for r in rows[:-1]) / (AMC_EPISODES + 1)
+    print(f"{label}: {len(layers)} prunable layers "
+          f"{[l.name for l in layers]}; base loss {base['loss']:.6f} "
+          f"({base['s']:.3f} s); best {res['best']['loss']:.6f} at "
+          f"flops_frac {res['best']['flops_frac']:.6f}; uniform keep 0.5 "
+          f"{uni['loss']:.6f}; search {search_s:.1f} s, {per_ep:.3f} s per "
+          f"episode (masking and loss); "
+          f"{sum(r['flash'] for r in rows)} flash launches", flush=True)
+    return {"s_per_episode": per_ep, "search_s": search_s}
+
+
+def phase_moe_serve(model, params, gemma_summary):
+    """Phase 10: full-width granite-moe served. (a) one chunk and one
+    decode step through the kernels against the plain walk (phase 3);
+    (b) the main trace through the launcher's own construction
+    (``--arch granite-moe-3b-a800m --max-batch 8``, chunked, bf16 pool):
+    the bf16 paged pair launched and nothing else, tok/s and tick times
+    against gemma2-2b's bf16 run; (c) its first 4 requests profiled
+    (phase 5); (d)
+    the share of routed (token, expert) pairs each chunk tick of (b)
+    dropped past capacity (``moe.dispatch`` wrapped for the run), which
+    must be 0 in every decode tick; (e) ``serve.main`` itself on its
+    default trace, the paged pair launched."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    tag = f"{cfg.name} "
+    phase_model(model, params, tag=tag)
+    # every dispatch of the timed run counts its dropped pairs on the
+    # device (one reduction a layer, no host read until the run ends)
+    calls = []
+    dispatch = moe.dispatch
+
+    def counting(idx, C, E):
+        order, keep, dest = dispatch(idx, C, E)
+        calls.append((idx.shape[0], keep.numel(), (~keep).sum()))
+        return order, keep, dest
+
+    moe.dispatch = counting
+    try:
+        launches, policy, args, summary = phase_engine(
+            model, params, tag=tag, bf16_summary=gemma_summary)
+    finally:
+        moe.dispatch = dispatch
+    # the first 4 requests: the profiler's post-processing grows with the
+    # ~60 device activities a moe layer adds to every tick
+    phase_profile(model, params, policy, args, tag=tag, n_top=14,
+                  n_requests=4)
+    L = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    ticks = [calls[i:i + L] for i in range(0, len(calls), L)]
+    chunk, decode = [], [0, 0]
+    for tick in ticks:
+        pairs = sum(c[1] for c in tick)
+        dropped = int(sum(c[2] for c in tick))
+        if tick[0][0] <= policy.max_batch:        # one row a sequence
+            decode[0] += pairs
+            decode[1] += dropped
+        else:
+            chunk.append((tick[0][0], dropped / pairs))
+    if decode[1]:
+        fail(f"moe[{cfg.name}]: decode ticks dropped {decode[1]} of "
+             f"{decode[0]} routed pairs; decode is drop-free by capacity")
+    print(f"moe[{cfg.name}]: routed pairs dropped past capacity "
+          f"(capacity_factor {cfg.moe.capacity_factor}, {L} moe layers): "
+          f"decode ticks {decode[1]}/{decode[0]}; chunk ticks "
+          + ", ".join(f"{100 * share:.3f}%" for _, share in chunk)
+          + f" (rows {sorted({n for n, _ in chunk})}; capacity "
+          f"{moe.capacity(policy.prefill_chunk, cfg.moe)} of "
+          f"{policy.prefill_chunk} rows x {cfg.moe.experts_per_token} / "
+          f"{cfg.moe.num_experts} experts)", flush=True)
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    serve.main(["--arch", MOE_ARCH, "--max-batch", "8"])
+    torch.cuda.synchronize()
+    cli = all_launches()
+    for name in BF16_KERNELS:
+        if cli[name] <= 0:
+            fail(f"serve.main --arch {MOE_ARCH}: kernel {name} was never "
+                 f"launched")
+    print(f"moe[{cfg.name}]: serve.main --arch {MOE_ARCH} --max-batch 8 "
+          f"in {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps({k: v for k, v in cli.items() if v})}", flush=True)
+    return launches, summary
 
 
 def main() -> int:
@@ -1824,17 +2303,25 @@ def main() -> int:
         policy_file = Path(tmp) / "kv_policy.json"
         policy_file.write_text(json.dumps(KV_POLICY))
         phase_tiny_engine(policy_file)
+    phase_tiny_moe_engine()
 
     model = build_model(get_config("gemma2-2b"))
+    moe_model = build_model(get_config(MOE_ARCH))
     from repro_torch.launch import serve
-    probe = serve.make_policy(
-        model.cfg, model, serve.build_parser().parse_args(
-            ["--arch", "gemma2-2b", "--max-batch", "8"]),
-        max(len(r.prompt) + r.max_new for r in main_trace(model.cfg)))
-    records = phase_kernels(prefill_chunk=probe.prefill_chunk,
-                            n_blocks_main=probe.pages_per_seq)
+
+    def probe(m):
+        return serve.make_policy(
+            m.cfg, m, serve.build_parser().parse_args(
+                ["--arch", m.cfg.name, "--max-batch", "8"]),
+            max(len(r.prompt) + r.max_new for r in main_trace(m.cfg)))
+
+    gp, mp = probe(model), probe(moe_model)
+    records = phase_kernels(prefill_chunk=gp.prefill_chunk,
+                            n_blocks_main=gp.pages_per_seq)
     records["flash_attention_fwd"] = phase_flash_kernels()
     records.update(phase_qmm_kernels())
+    moe_records = phase_moe_kernels(prefill_chunk=mp.prefill_chunk,
+                                    n_blocks_main=mp.pages_per_seq)
 
     t1 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
@@ -1878,6 +2365,31 @@ def main() -> int:
     phase_autotune()
     print(f"haq: KV part {t_w - t_haq:.1f} s, weight part {t_a - t_w:.1f} "
           f"s, autotune part {time.perf_counter() - t_a:.1f} s", flush=True)
+    t_amc = time.perf_counter()
+    amc_gemma = phase_amc(model, params)
+
+    # gemma2-2b's parameters go before granite-moe's are made
+    del params
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    moe_params = moe_model.init(
+        torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    print(f"model: {MOE_ARCH} {moe_model.param_count()} params "
+          f"({moe_model.param_bytes() / 1e9:.2f} GB) initialised in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    amc_moe = phase_amc(moe_model, moe_params)
+    t_serve = time.perf_counter()
+    moe_launches, _ = phase_moe_serve(moe_model, moe_params, bf16_summary)
+    del moe_params
+    torch.cuda.empty_cache()
+    print(f"granite-moe: kernels at G=3 {json.dumps(moe_records)}; "
+          f"launches on its served trace "
+          f"{json.dumps({k: moe_launches[k] for k in BF16_KERNELS})}; "
+          f"AMC s per episode gemma2-2b {amc_gemma['s_per_episode']:.3f}, "
+          f"{MOE_ARCH} {amc_moe['s_per_episode']:.3f}; AMC part "
+          f"{t_serve - t_amc:.1f} s, serving part "
+          f"{time.perf_counter() - t_serve:.1f} s", flush=True)
 
     # launches per kernel from the run of the path it serves
     source_run = {**{k: launches for k in BF16_KERNELS},

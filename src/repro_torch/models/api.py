@@ -1,6 +1,7 @@
 """Model facade (port of ``repro.models.api``): ``build_model(cfg)``
 returns a ``Model`` with the entry points the serving engine and
-``launch.serve.generate`` call. Parameters are nested dicts of tensors
+``launch.serve.generate`` call, for the dense and moe families (the
+others raise NotImplementedError, models/transformer.py). Parameters are nested dicts of tensors
 with the reference's pytree keys (see models/convert.py). The ``dot``
 hook threads HAQ quantization through every matmul: it receives
 (x, w, site_name) and returns the product (core/quantization.py,
@@ -48,9 +49,10 @@ class Model:
 
     def loss(self, params, batch, *, dot=None):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
-        ``batch["labels"]`` (chunked, transformer.chunked_ce): HAQ's
-        quality feedback. Forward only, under ``torch.no_grad()``; the
-        training path and its backward wait for their slice."""
+        ``batch["labels"]`` (chunked, transformer.chunked_ce) plus 0.01 x
+        the moe layers' load-balance loss, as the reference's: HAQ's and
+        AMC's quality feedback. Forward only, under ``torch.no_grad()``;
+        the training path and its backward wait for their slice."""
         with torch.no_grad():
             hidden, _, aux, _ = self.forward(params, batch,
                                              unembed_mode="none", dot=dot)

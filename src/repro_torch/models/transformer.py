@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for the dense family (port of
+"""Decoder-only LM assembly for the dense and moe families (port of
 ``repro.models.transformer``).
 
 Parameters keep the reference's stacking: layers are grouped by
@@ -7,8 +7,10 @@ Parameters keep the reference's stacking: layers are grouped by
 Where the reference scans over groups with ``lax.scan``, this port runs a
 Python loop over ``n_groups x period`` on per-group views.
 
-The moe, ssm, hybrid, encdec and vlm families wait for their slices and
-raise NotImplementedError.
+A moe sub-layer slot (``cfg.is_moe_layer``) holds a ``moe`` subtree in
+place of ``ffn`` and runs models/moe.py's routed experts; ``forward``
+sums their load-balance losses into its ``aux``. The ssm, hybrid, encdec
+and vlm families wait for their slices and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (embed_defs, ffn_apply, ffn_defs,
                                        norm_def, rms_norm, softcap)
 from repro_torch.models.params import PDef, stacked, tree_map
@@ -25,10 +28,11 @@ from repro_torch.models.params import PDef, stacked, tree_map
 F32 = torch.float32
 
 
-def _require_dense(cfg, what: str) -> None:
-    if cfg.family != "dense" or cfg.is_encdec or cfg.frontend != "none":
+def _require_ported(cfg, what: str) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.is_encdec \
+            or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{what}: the port serves the dense family only so far; "
+            f"{what}: the port serves the dense and moe families so far; "
             f"{cfg.name} (family={cfg.family!r}) waits for its slice "
             f"(ROADMAP)")
 
@@ -62,15 +66,18 @@ def _group(tree, g: int):
 
 
 # ------------------------------------------------------------ param defs ----
-def _dense_sublayer_defs(cfg) -> dict:
+def _dense_sublayer_defs(cfg, kind) -> dict:
     d = cfg.d_model
     defs: Dict[str, Any] = {
         "ln1": norm_def(d),
         "attn": attn.attn_defs(d, cfg.num_heads, cfg.num_kv_heads,
                                cfg.resolved_head_dim),
         "ln2": norm_def(d),
-        "ffn": ffn_defs(d, cfg.d_ff, cfg.activation),
     }
+    if kind["moe"]:
+        defs["moe"] = moe_lib.moe_defs(d, cfg.moe)
+    else:
+        defs["ffn"] = ffn_defs(d, cfg.d_ff, cfg.activation)
     if cfg.sandwich_norm:
         defs["ln1_post"] = norm_def(d)
         defs["ln2_post"] = norm_def(d)
@@ -78,7 +85,7 @@ def _dense_sublayer_defs(cfg) -> dict:
 
 
 def param_defs(cfg) -> dict:
-    _require_dense(cfg, "param_defs")
+    _require_ported(cfg, "param_defs")
     d = cfg.d_model
     defs: Dict[str, Any] = {"embed": embed_defs(cfg.padded_vocab, d),
                             "final_norm": norm_def(d)}
@@ -86,20 +93,27 @@ def param_defs(cfg) -> dict:
         defs["lm_head"] = PDef((d, cfg.padded_vocab), ("embed", "vocab"),
                                "scaled")
     P = period_of(cfg)
+    kinds = sublayer_kinds(cfg)
     assert cfg.num_layers % P == 0, (cfg.name, cfg.num_layers, P)
-    defs["blocks"] = {f"sub{j}": stacked(_dense_sublayer_defs(cfg),
+    defs["blocks"] = {f"sub{j}": stacked(_dense_sublayer_defs(cfg, kinds[j]),
                                          cfg.num_layers // P)
                       for j in range(P)}
     return defs
 
 
 # ----------------------------------------------------------------- blocks ----
-def _ffn_half(p, x, cfg, dot):
+def _ffn_half(p, x, kind, cfg, dot):
+    """The feed-forward half of a block: (x + f, the moe aux loss or
+    0.0)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    f = ffn_apply(p["ffn"], h, cfg.activation, dot=dot)
+    if kind["moe"]:
+        f, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe, cfg.activation,
+                                   dot=dot)
+    else:
+        f, aux = ffn_apply(p["ffn"], h, cfg.activation, dot=dot), 0.0
     if cfg.sandwich_norm:
         f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
-    return x + f
+    return x + f, aux
 
 
 def _attn_residual(p, x, a, cfg):
@@ -112,7 +126,8 @@ def _dense_block_fwd(p, x, kind, cfg, positions, dot, kernel):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn.attention_fwd(p["attn"], h, kind["attn"], cfg, positions,
                                   dot=dot, kernel=kernel)
-    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg, dot), cache
+    x, aux = _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot)
+    return x, cache, aux
 
 
 def _dense_block_decode_paged(p, x, pool_kv, page_table, positions, kind,
@@ -121,7 +136,7 @@ def _dense_block_decode_paged(p, x, pool_kv, page_table, positions, kind,
     a, _, _ = attn.attention_decode_paged(
         p["attn"], h, pool_kv["k"], pool_kv["v"], page_table, positions,
         kind["attn"], cfg, kernel=kernel, dot=dot)
-    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg, dot)
+    return _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot)[0]
 
 
 def _dense_block_prefill_paged(p, x, pool_kv, page_table, positions, kind,
@@ -130,7 +145,7 @@ def _dense_block_prefill_paged(p, x, pool_kv, page_table, positions, kind,
     a, _, _ = attn.attention_prefill_paged(
         p["attn"], h, pool_kv["k"], pool_kv["v"], page_table, positions,
         kind["attn"], cfg, kernel=kernel, dot=dot)
-    return _ffn_half(p, _attn_residual(p, x, a, cfg), cfg, dot)
+    return _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot)[0]
 
 
 # ---------------------------------------------------------------- embed ----
@@ -218,9 +233,11 @@ def forward(params, batch, cfg, *, want_cache: bool,
     kernel: the flash-attention mode ("auto" | "cuda" | "ref") of the
     layers' whole-sequence attention from FLASH_MIN tokens on
     (models/flash.py); shorter sequences attend densely.
-    Returns (logits_or_hidden, caches or None, aux 0.0, loss_mask None).
+    Returns (logits_or_hidden, caches or None, aux, loss_mask None): aux
+    is the fp32 scalar tensor sum of the moe layers' load-balance losses
+    (the float 0.0 for the dense family).
     """
-    _require_dense(cfg, "forward")
+    _require_ported(cfg, "forward")
     if cache_layout != "full":
         raise NotImplementedError(
             "the port keeps chronological ('full') caches only; the ring "
@@ -231,9 +248,11 @@ def forward(params, batch, cfg, *, want_cache: bool,
     positions = torch.arange(S, device=x.device).expand(B, S)
     caches: Dict[str, Dict[str, list]] = {
         f"sub{j}": {"k": [], "v": []} for j in range(period_of(cfg))}
+    aux_total = 0.0
     for g, j, kind in _layers(cfg):
-        x, c = _dense_block_fwd(_group(params["blocks"][f"sub{j}"], g), x,
-                                kind, cfg, positions, dot, kernel)
+        x, c, aux = _dense_block_fwd(_group(params["blocks"][f"sub{j}"], g),
+                                     x, kind, cfg, positions, dot, kernel)
+        aux_total = aux_total + aux
         if want_cache:
             caches[f"sub{j}"]["k"].append(c["k"])
             caches[f"sub{j}"]["v"].append(c["v"])
@@ -243,10 +262,10 @@ def forward(params, batch, cfg, *, want_cache: bool,
         out_cache = {s: {kv: torch.stack(lst) for kv, lst in c.items()}
                      for s, c in caches.items()}
     if unembed_mode == "none":
-        return x, out_cache, 0.0, None
+        return x, out_cache, aux_total, None
     if unembed_mode == "last":
         x = x[:, -1:]
-    return unembed(params, x, cfg, dot=dot), out_cache, 0.0, None
+    return unembed(params, x, cfg, dot=dot), out_cache, aux_total, None
 
 
 # ----------------------------------------------------------- paged decode ----
@@ -260,7 +279,7 @@ def decode_step_paged(params, pool, page_table, token, positions, cfg, *,
     (shared across layers). ``kernel`` selects the paged-attention path
     (see attention_decode_paged); ``dot`` overrides every matmul site.
     The pool is updated in place. Returns (logits (B,1,V), pool)."""
-    _require_dense(cfg, "paged decode")
+    _require_ported(cfg, "paged decode")
     x = embed_tokens(params, token, cfg)
     for g, j, kind in _layers(cfg):
         x = _dense_block_decode_paged(
@@ -282,7 +301,7 @@ def prefill_chunk_paged(params, pool, page_table, tokens, positions, cfg, *,
 
     Returns (hidden (B, Sq, D) final-norm hidden states, pool); the caller
     unembeds only the rows it needs."""
-    _require_dense(cfg, "paged prefill")
+    _require_ported(cfg, "paged prefill")
     x = embed_tokens(params, tokens, cfg)
     for g, j, kind in _layers(cfg):
         x = _dense_block_prefill_paged(
@@ -344,7 +363,7 @@ def pool_specs(cfg, num_pages: int, page_size: int, kv_bits=None):
     with hd_store = hd for int8 and hd//2 for int4 (two codes per byte
     along head_dim). Scales are per page slot (token) and per kv head, so
     quantize-on-write never re-scales resident tokens (serving/kvquant)."""
-    _require_dense(cfg, "paged KV pool")
+    _require_ported(cfg, "paged KV pool")
     hd = cfg.resolved_head_dim
     K = cfg.num_kv_heads
     P = period_of(cfg)

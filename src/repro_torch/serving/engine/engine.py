@@ -39,6 +39,10 @@ decode, chunk and whole-prompt prefill calls and the unembed — the W8A16
 and W4A16 kernels on the stored codes on the card. Not ported yet: the
 SPMD mesh, which raises NotImplementedError (with or without quantized
 weights).
+
+The dense and moe families are served; a moe layer routes every row of a
+tick, padding rows and idle slots included, through its fixed-capacity
+expert dispatch (models/moe.py), as the reference's does.
 """
 from __future__ import annotations
 
@@ -84,15 +88,16 @@ class Engine:
                  telemetry: Optional[Telemetry] = None,
                  roofline_scales=None):
         cfg = model.cfg
-        if cfg.is_encdec or cfg.family != "dense" or cfg.frontend != "none":
+        if cfg.is_encdec or cfg.family not in ("dense", "moe") \
+                or cfg.frontend != "none":
             raise NotImplementedError(
-                f"the port's engine serves the dense family only so far; "
-                f"{cfg.name} (family={cfg.family!r}, "
+                f"the port's engine serves the dense and moe families so "
+                f"far; {cfg.name} (family={cfg.family!r}, "
                 f"frontend={cfg.frontend!r}) waits for its slice (ROADMAP)")
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded engine comes with its slice (ROADMAP Queue 1, "
-                "item 9); like the reference's, it will refuse quantized "
+                "item 10); like the reference's, it will refuse quantized "
                 "weights")
         self.model = model
         self.policy = policy

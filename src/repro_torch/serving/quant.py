@@ -14,7 +14,8 @@ codes. On CPU tensors it is the reference's function: dequantize to the
 activation dtype, then the einsum. On CUDA tensors it runs the W8A16
 (``q``) or W4A16 (``q4``) kernel on the stored codes, the per-tensor scale
 read with a stride of 0; 3-D projections go in as 2-D views — wq/wk/wv as
-(d, H*hd), wo as (H*hd, d) against x viewed as (B*S, H*hd). The kernel
+(d, H*hd), wo as (H*hd, d) against x viewed as (B*S, H*hd); a moe
+site's expert batch runs one launch per expert. The kernel
 scales the fp32 product where the plain version rounds the dequantized
 weight to bf16 first, so the two agree to rounding, not bit for bit.
 Non-dict weights (the tied embedding at ``lm_head``) run as a plain
@@ -118,12 +119,16 @@ def _dequant_plain(x, w):
     return torch.einsum(_einsum_for(x, wde), x, wde)
 
 
-def _dequant_kernel(x, w):
+def _dequant_kernel(x, w, name):
     """W8A16 (``q``) or W4A16 (``q4``) on the stored codes, 3-D
-    projections as 2-D views."""
+    projections as 2-D views; the moe sites' expert batches (x (E, C, d)
+    against codes (E, d, f), one scale) one expert at a time."""
     packed = "q4" in w
     codes = w["q4"] if packed else w["q"]
     fn = qmm.quant_matmul_w4a16 if packed else qmm.quant_matmul_w8a16
+    if name.startswith("moe_"):
+        return torch.stack([fn(x[e].contiguous(), codes[e], w["scale"])
+                            for e in range(codes.shape[0])])
     if codes.dim() == 2:
         K = codes.shape[0] * (2 if packed else 1)
         lead, w2 = x.shape[:-1], codes
@@ -149,7 +154,7 @@ def make_dequant_dot(mode: str = "auto"):
         if kops.resolve_mode(mode, x, "dequant_dot") == "ref" \
                 or not x.is_cuda:
             return _dequant_plain(x, w)
-        return _dequant_kernel(x, w)
+        return _dequant_kernel(x, w, name)
     return dot
 
 

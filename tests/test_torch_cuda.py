@@ -721,3 +721,188 @@ def test_cuda_fp32_x_takes_the_mma_template(bits):
     finally:
         for entry, orig in entries.items():
             setattr(lib, entry, orig)
+
+
+# ------------------------------------------------- granite-moe on the card --
+# full granite-moe-3b-a800m attention: 24 query heads over 8 kv heads
+# (G = 3, so a decode split CTA serves GC = 1 head) of width 64
+MOE_H, MOE_K, MOE_HD = 24, 8, 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (64, 50.0)])
+def test_cuda_paged_kernels_at_granite_moe_geometry(window, cap):
+    """On a card: the bf16 decode and prefill kernels at hd 64, G = 3
+    (decode GC = 1), page 16, ragged positions and a padded chunk, against
+    their plain versions, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    assert tpa.head_group(MOE_H // MOE_K) == 1
+    fwd, plain, pfwd, pplain = _PAGED[16]
+    positions = [0, 17, 700, 4095, 4097, 2000, 33, 1500]
+    qs, pools, pt, pos = _pool_case(positions, 1, 4200 // PAGE + 2, 16,
+                                    H=MOE_H, K=MOE_K, hd=MOE_HD, seed=3)
+    _check_paged(fwd, plain, qs[cap][:, 0].contiguous(), pools, pt, pos,
+                 window, cap)
+    qs, pools, pt, pos = _pool_case([0, 300, 900], 512, 90, 16, H=MOE_H,
+                                    K=MOE_K, hd=MOE_HD, seed=4)
+    _check_paged(pfwd, pplain, qs[cap], pools, pt, pos, window, cap,
+                 live=90 * PAGE - 900)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2048, 4096])
+def test_cuda_flash_at_granite_moe_geometry(S):
+    """On a card: flash attention at hd 64, 24 heads over 8 (G = 3),
+    causal, the S an AMC episode's ``Model.loss`` runs at."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _check_flash(S, S, MOE_H, MOE_K, MOE_HD, seed=S)
+
+
+def _moe_layer(seed=0):
+    """Full granite-moe width moe params on the card, from a seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.params import init_params
+    cfg = get_config("granite-moe-3b-a800m")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, init_params(tmoe.moe_defs(cfg.d_model, cfg.moe), g, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 4096])
+def test_cuda_moe_apply_is_deterministic(T):
+    """On a card: moe_apply at full granite-moe width (40 experts, top 8,
+    capacity 1.25) on a decode tick's rows (8) and a chunk's (4096, where
+    pairs drop): two calls give the same bits (no atomics in the combine),
+    and the drop-free decode tick keeps every routed pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.models import moe as tmoe
+    cfg, p = _moe_layer()
+    g = torch.Generator(device="cuda").manual_seed(T)
+    x = torch.randn((1, T, cfg.d_model), generator=g,
+                    device="cuda").bfloat16()
+    y1, a1 = tmoe.moe_apply(p, x, cfg.moe, cfg.activation)
+    y2, a2 = tmoe.moe_apply(p, x, cfg.moe, cfg.activation)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
+    assert bool(torch.isfinite(y1.float()).all())
+    _, _, idx = tmoe.route(p, x.reshape(T, -1), cfg.moe)
+    _, keep, _ = tmoe.dispatch(idx, tmoe.capacity(T, cfg.moe),
+                               cfg.moe.num_experts)
+    if T == 8:
+        assert bool(keep.all())
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_moe_engine_matches_generate():
+    """On a card: tiny granite-moe (hd 32, capacity 4.0) served through
+    the kernels at pages 16 and 48, chunked: the engine's tokens equal the
+    port's ``generate`` over the same pool, request by request."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    import numpy as np
+    from repro_torch.configs import tiny_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import AdmissionPolicy, Engine, Request
+    model = build_model(tiny_config("granite-moe-3b-a800m"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(2, 512, int(n))
+                    .astype(np.int32), max_new=8)
+            for i, n in enumerate(rng.integers(20, 90, 5))]
+    for page in (16, 48):
+        policy = AdmissionPolicy(
+            hw_name="test", max_model_len=128, page_size=page,
+            num_pages=10_000, max_batch=4, prefill_chunk=32, quant_bits=16,
+            decode_slo_s=0.03, est_decode_s=0.0, est_prefill_s=0.0)
+        before = dict(tpa.LAUNCHES)
+        outs = Engine(model, params, policy, paged_kernel="cuda").run(reqs)
+        for name in ("paged_attention_fwd", "paged_prefill_fwd"):
+            assert tpa.LAUNCHES[name] > before[name], name
+        for r in reqs:
+            want = generate(model, params,
+                            torch.from_numpy(r.prompt[None]).cuda(),
+                            r.max_new, page_size=page, kernel="cuda",
+                            prefill_chunk=32)[0].cpu().numpy()
+            assert np.array_equal(outs[r.rid], want), (page, r.rid)
+
+
+@pytest.mark.cuda
+def test_cuda_amc_masked_loss_matches_cpu():
+    """On a card: one ``amc.apply_ratios`` on tiny granite-moe (bf16
+    parameters from one seed, keep 0.5: one of two kv groups and two of
+    four experts) gives the CPU's masked parameters bit for bit, and
+    ``Model.loss`` over 2048 tokens (flash in every layer on the card, its
+    plain version on the CPU) the CPU's loss within the logits bound
+    chip_smoke.py holds kernel logits to, 3% of the largest |logit|,
+    carried to the mean cross-entropy: twice that, since a token's CE
+    moves by at most twice its largest logit change."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.configs import tiny_config
+    from repro_torch.core import amc
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(tiny_config("granite-moe-3b-a800m"))
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(2, 512, (1, 2048),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    layers = amc.enumerate_layers(model, 4096)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = amc.apply_ratios(tree_map(lambda a: a.to(dev), cpu), layers,
+                             [0.5] * len(layers))
+        batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+        before = tfa.LAUNCHES["flash_attention_fwd"]
+        loss = float(model.loss(p, batch))
+        n = tfa.LAUNCHES["flash_attention_fwd"] - before
+        out[dev] = (tree_map(lambda a: a.cpu(), p), loss, n)
+    (p_cpu, l_cpu, n_cpu), (p_gpu, l_gpu, n_gpu) = out["cpu"], out["cuda"]
+    assert n_cpu == 0 and n_gpu == model.cfg.num_layers
+    for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_gpu)):
+        assert torch.equal(a, b)
+    z = model.forward(p_cpu, {"tokens": toks})[0][..., :model.cfg.vocab_size]
+    assert abs(l_gpu - l_cpu) <= 2 * 0.03 * float(z.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_dequant_dot_on_expert_batches(bits):
+    """On a card: ``dequant_dot`` at the moe sites of full granite-moe
+    width (x (40, C, d) against stored (40, d, f) codes, one per-layer
+    scale): the W8A16/W4A16 kernels one expert at a time, one launch per
+    expert, against the kernels' plain versions expert by expert, at the
+    kernels' bf16 tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.serving import quant as squant
+    cfg, p = _moe_layer(seed=bits)
+    q = squant.quantize_params({"blocks": {"sub0": {"moe": {
+        k: v[None] for k, v in p.items() if k != "router"}}}},
+        default_bits=bits)["blocks"]["sub0"]["moe"]
+    q = {k: {kk: vv[0] for kk, vv in v.items()} for k, v in q.items()}
+    E, C = cfg.moe.num_experts, 64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((E, C, cfg.d_model), generator=g,
+                    device="cuda").bfloat16()
+    h = torch.randn((E, C, cfg.moe.d_ff_expert), generator=g,
+                    device="cuda").bfloat16()
+    name = "quant_matmul_w4a16" if bits == 4 else "quant_matmul_w8a16"
+    plain = getattr(tref, name)
+    for a, site, key in ((x, "moe_in", "w_in"), (x, "moe_gate", "w_gate"),
+                         (h, "moe_out", "w_out")):
+        w = q[key]
+        codes = w["q4"] if bits == 4 else w["q"]
+        before = tqm.LAUNCHES[name]
+        got = squant.dequant_dot(a, w, site).float()
+        assert tqm.LAUNCHES[name] == before + E
+        want = torch.stack([plain(a[e], codes[e], w["scale"])
+                            for e in range(E)]).float()
+        assert got.shape == want.shape and got.shape[:2] == (E, C)
+        assert bf16_close(got, want), site
