@@ -109,7 +109,27 @@ Phases, each fatal on failure:
                 the dropped share of routed pairs per chunk, 0 at decode),
                 its profile, and ``serve.main --arch granite-moe-3b-a800m
                 --max-batch 8``;
- 11. report   — one JSON line with every kernel's launches, error, times.
+ 12. train    — after phase 10, every serving parameter freed: (a) the
+                flash kernel's lse (within 2**-8 of the plain version's;
+                ``out`` bit-identical with and without it) and the
+                backward (models/flash.py: kernel forward, plain PyTorch
+                backward) against autograd of the fp32 dense plain
+                version, at B = 2, S = 4096: hd 256, G 2 global and local,
+                cap 50 and 0; hd 64, G 3; the backward timed beside SDPA's
+                forward and backward and its bound; (b) full-width
+                gemma2-2b trained by ``python -m repro_torch.launch.train
+                --batch 2 --seq 4096 --steps 8 --ckpt-every 0`` (remat on):
+                26 x 2 flash launches a step and no other kernel, losses
+                and grad norms finite, the last loss below the first; step
+                time, tokens/s, peak memory and, over one more step, the
+                device busy share; (c) one full-width step's gradients
+                through the kernel against the plain flash path, per leaf,
+                bounded by a control run (the plain path with the kernel's
+                rounding as noise); (d) tiny gemma2-2b (S = 2048, flash at
+                hd 32) trained 6 steps against 3 + checkpoint + restore +
+                3, bit for bit;
+ 11. report   — one JSON line with every kernel's launches (flash's from
+                phase 12's training run), error, times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
@@ -117,8 +137,10 @@ result, without a CUDA device or without the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -2277,6 +2299,387 @@ def phase_moe_serve(model, params, gemma_summary):
     return launches, summary
 
 
+# ------------------------------------------------------------- training ----
+# phase 12's full-width run: `python -m repro_torch.launch.train` with
+# these flags (remat on, the reference's default)
+TRAIN_ARGS = ["--arch", "gemma2-2b", "--batch", "2", "--seq", "4096",
+              "--steps", "8", "--ckpt-every", "0", "--log-every", "1"]
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 8
+# the kernel's lse against the plain version's: its l sums the
+# bf16-rounded weights (up to 2**-9 of each) and its scores carry the
+# softcap2 and ex2.approx errors (within 5e-5 at a cap of 50)
+LSE_ATOL = 2.0 ** -8
+# dq, dk, dv from the kernel's out and lse through the backward, against
+# autograd of the fp32 dense plain version, per element of each gradient's
+# max |g|: P off by the lse's 2**-9, delta = dout . out read from the bf16
+# out, each gradient rounded to bf16 (an emulation of those errors on the
+# CPU reaches 4.2e-3)
+BWD_TOL = 2.0 ** -6
+# (H, K, hd, S, window, cap) of phase 12(a): gemma2-2b's heads, global and
+# local (window 4096), cap 50 and 0; granite-moe's (G 3, no cap)
+TRAIN_GEOS = ((8, 4, 256, 4096, 0, CAP), (8, 4, 256, 4096, 0, 0.0),
+              (8, 4, 256, 4096, WINDOW, CAP), (24, 8, 64, 4096, 0, 0.0))
+
+
+def flash_bwd_bound_ms(B, S, window, geo):
+    """The backward's least time: 2.5x the forward's operations (the
+    forward's two products and the backward's five, at twice the flops of
+    the forward's two) over the bf16 peak; its bytes (q, k, v, out, dout
+    and lse read once, dq, dk, dv written once) over the memory rate are
+    far below."""
+    H, K, hd = geo
+    ops = 2.5 * 4.0 * hd * H * B * flash_valid_pairs(S, window)
+    byts = 2 * B * S * hd * (4 * H + 4 * K) + 4 * B * H * S
+    return max(ops / BF16_FLOPS, byts / HBM_BYTES_PER_S) * 1e3
+
+
+def sdpa_train_ms(q, k, v, dout, reps=5):
+    """SDPA's forward and backward on the same bf16 q, k, v (no softcap:
+    SDPA has none; causal): the yardstick beside the backward, never
+    called by the port."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def step():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        torch.autograd.grad(o, (qt, kt, vt), dt)
+    return time_ms(step, reps=reps)
+
+
+def phase_train_flash():
+    """Phase 12(a): the flash kernel's lse and the backward at the
+    training path's shapes (B = 2, S = 4096). The kernel's lse within
+    LSE_ATOL of the plain version's, ``out`` with the lse asked for equal
+    bit for bit to ``out`` without it; dq, dk, dv through the kernel's
+    forward and models/flash.py's backward against autograd of the fp32
+    dense plain version (BWD_TOL); the backward's time (plain PyTorch,
+    CUDA events around host calls) beside SDPA's forward and backward and
+    its bound. Returns the backward's row at gemma2-2b's global layer."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import flash as mflash
+
+    rows = {}
+    lse_err = bwd_err = 0.0
+    for H, K, hd, S, window, cap in TRAIN_GEOS:
+        g = torch.Generator(device="cuda").manual_seed(hd + window)
+        B = TRAIN_B
+        q = torch.randn((B, S, H, hd), generator=g, device="cuda")
+        q = (q * (CAP_Q_SCALE if cap else 1.0)).bfloat16()
+        k, v, = (torch.randn((B, S, K, hd), generator=g,
+                             device="cuda").bfloat16() for _ in range(2))
+        dout = torch.randn((B, S, H, hd), generator=g,
+                           device="cuda").bfloat16()
+        kw = dict(causal=True, window=window, cap=cap)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        if not torch.equal(out, fa.flash_attention_fwd(q, k, v, **kw)):
+            fail(f"train[flash H={H} hd={hd}]: out with the lse asked for "
+                 f"differs from out without it")
+        _, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        e = float((lse - want_lse).abs().max())
+        if not e <= LSE_ATOL:
+            fail(f"train[flash H={H} hd={hd} window={window} cap={cap}]: "
+                 f"lse off the plain version's by {e:.4g} > {LSE_ATOL:.4g}")
+        lse_err = max(lse_err, e)
+        del want_lse
+        # the backward through models/flash.py, the kernel in its forward
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        kind = "local" if window else "global"
+        fa.reset_launches()
+        o = mflash.flash_attention(*ins, kind, window, cap, kernel="cuda")
+        got = torch.autograd.grad(o, ins, dout)
+        if fa.LAUNCHES["flash_attention_fwd"] != 1:
+            fail("train[flash]: models/flash.py did not launch the kernel "
+                 "once")
+        del o, ins
+        torch.cuda.empty_cache()
+        ref_ins = [t.float().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention_ref(
+            *ref_ins, **kw), ref_ins, dout.float())
+        del ref_ins
+        errs = [float((a - b.float()).abs().max() / a.abs().max())
+                for a, b in zip(want, got)]
+        del want, got
+        torch.cuda.empty_cache()
+        if not max(errs) <= BWD_TOL:
+            fail(f"train[flash H={H} hd={hd} window={window} cap={cap}]: "
+                 f"dq, dk, dv off autograd of the fp32 plain version by "
+                 f"{errs} of max |g| > {BWD_TOL:.4g}")
+        bwd_err = max(bwd_err, max(errs))
+        ms = time_ms(lambda: mflash.flash_backward(
+            q, k, v, out, lse, dout, causal=True, window=window, cap=cap),
+            reps=3, warmup=1)
+        lib = sdpa_train_ms(q, k, v, dout)
+        fwd = device_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, return_lse=True, **kw), reps=10)
+        fwd_plain = device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                              reps=10)
+        bound = flash_bwd_bound_ms(B, S, window, (H, K, hd))
+        print(f"train[flash B={B} S={S} H={H} K={K} hd={hd} window={window}"
+              f" cap={cap}]: lse max |err| {e:.4g}; dq/dk/dv max |err| "
+              f"{', '.join(f'{x:.3g}' for x in errs)} of max |g|; backward "
+              f"{ms:.3f} ms (plain PyTorch, fp32) against its bound "
+              f"{bound:.4f} ms ({ms / bound:.1f}x); kernel forward with lse "
+              f"{fwd:.4f} ms, without {fwd_plain:.4f} ms; sdpa "
+              f"forward+backward (no cap) {lib:.3f} ms",
+              flush=True)
+        rows[(H, window, cap)] = {"ms": ms, "bound_ms": bound,
+                                  "library_ms": lib, "fwd_ms": fwd}
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    print(f"train[flash]: lse within {LSE_ATOL:.4g} (max {lse_err:.4g}); "
+          f"backward within {BWD_TOL:.4g} of max |g| (max {bwd_err:.4g})",
+          flush=True)
+    return rows[TRAIN_GEOS[0][0], 0, CAP]
+
+
+def train_busy_share(model, state, shape):
+    """One more full-width train step on ``state`` under torch.profiler:
+    (device busy ms, wall ms, the top device kernels as (name, ms))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import OptimConfig, TrainConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.training import steps
+
+    tcfg = TrainConfig(optim=OptimConfig(total_steps=TRAIN_STEPS,
+                                         warmup_steps=1))
+    step = steps.make_train_step(model, tcfg)
+    batch = dp.batch_for_model(model, shape, None, TRAIN_STEPS, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            us = us if us is not None else getattr(e, "self_cuda_time_total",
+                                                   0.0)
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return sum(by_name.values()), wall, top
+
+
+def phase_train_full():
+    """Phase 12(b): full-width gemma2-2b trained by ``launch.train`` (8
+    steps, B = 2 x S = 4096, remat on, no checkpoint), every kernel count
+    zeroed just before and read just after: flash_attention_fwd launched
+    26 x 2 a step (the forward and the backward's recompute), no other
+    kernel; every loss and grad norm finite, the last loss below the
+    first. Prints step time, tokens/s, peak memory and the device busy
+    share of one more step. Returns (the run's state, its launches)."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.api import build_model
+
+    L = 26
+    gc.collect()        # earlier phases' engines and pools, if in cycles
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = train_cli.main(TRAIN_ARGS + ["--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        if any(Path(tmp).iterdir()):
+            fail("train: --ckpt-every 0 wrote a checkpoint")
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = out["history"]
+    if [r["step"] for r in hist] != list(range(TRAIN_STEPS)):
+        fail(f"train: history steps {[r['step'] for r in hist]}")
+    bad = [r for r in hist if not (math.isfinite(r["loss"])
+                                   and math.isfinite(r["grad_norm"]))]
+    if bad:
+        fail(f"train: non-finite loss or grad norm {bad}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        fail(f"train: loss did not fall ({hist[0]['loss']} -> "
+             f"{hist[-1]['loss']})")
+    want = {"flash_attention_fwd": L * 2 * TRAIN_STEPS}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        fail(f"train: launches {got}, expected {want} (26 layers, the "
+             f"forward and the remat recompute, {TRAIN_STEPS} steps)")
+    dts = sorted(r["dt_s"] for r in hist[1:])
+    step_s = dts[len(dts) // 2]
+    model = build_model(get_config("gemma2-2b"))
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    busy, prof_wall, top = train_busy_share(model, out["state"], shape)
+    losses = ", ".join(f"{r['loss']:.4f}" for r in hist)
+    norms = ", ".join(f"{r['grad_norm']:.3f}" for r in hist)
+    print(f"train[gemma2-2b B={TRAIN_B} S={TRAIN_S}]: {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s (first step {hist[0]['dt_s']:.3f} s, median of the "
+          f"rest {step_s:.3f} s, {TRAIN_B * TRAIN_S / step_s:.0f} tokens/s); "
+          f"losses {losses}; grad norms {norms}; peak memory "
+          f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated above the "
+          f"{base / 1e9:.2f} GB allocated before); "
+          f"launches {json.dumps(got)}; one more step profiled: "
+          f"{prof_wall:.1f} ms wall, device busy {busy:.1f} ms "
+          f"({100 * busy / prof_wall:.1f}%); top device time: "
+          + "; ".join(f"{k[:70]} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in top), flush=True)
+    return out["state"], launches
+
+
+def _flash_perturbed(q, k, v, *, causal, window, cap, mode, return_lse=False):
+    """The plain flash forward with the kernel's rounding as noise: the
+    fp32 output moved by a random 2**-9 of itself before its bf16
+    rounding, and the lse by a random 2**-9 (phase 12(c)'s control)."""
+    import torch
+    from repro_torch.kernels import ref
+    out, lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal, window=window,
+                                       cap=cap, return_lse=True)
+    g = torch.Generator(device=q.device).manual_seed(int(q.shape[1]))
+    noise = (torch.rand(out.shape, generator=g, device=q.device) * 2 - 1)
+    out = (out * (1 + noise * 2.0 ** -9)).to(q.dtype)
+    lse = lse + (torch.rand(lse.shape, generator=g, device=q.device)
+                 * 2 - 1) * 2.0 ** -9
+    return (out, lse) if return_lse else out
+
+
+def phase_train_grads(params):
+    """Phase 12(c): one full-width step's gradients (B = 2 x S = 4096, remat
+    on) through the kernel (kernel "auto": 26 x 2 launches) and through the
+    plain flash path (kernel "ref": none), on the same batch and trained
+    params; per-leaf relative L2 distance. The bound comes from a control
+    run in the same call: the plain path with its flash outputs moved by
+    the kernel's own rounding (``_flash_perturbed``). Random-weight
+    attention is saturated (scores far past the cap), so the attention
+    projections' gradients are differences of nearly equal terms; each
+    leaf is held to max(0.05, 4x the control's distance)."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import flash as mflash
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+
+    model = build_model(get_config("gemma2-2b"))
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    batch = dp.batch_for_model(model, shape, None, 0, "cuda")
+    leaves = tree_leaves(params)
+    names = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for key in sorted(t):
+                walk(t[key], f"{path}/{key}" if path else key)
+        else:
+            names.append(path)
+    walk(params, "")
+
+    def grads(kernel):
+        for p in leaves:
+            p.requires_grad_(True)
+        reset_all_launches()
+        loss = model.loss(params, batch, remat=True, kernel=kernel)
+        g = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        torch.cuda.synchronize()
+        return float(loss.detach()), [x.float() for x in g], \
+            all_launches()["flash_attention_fwd"]
+
+    t0 = time.perf_counter()
+    l_k, g_k, n_k = grads("auto")
+    l_p, g_p, n_p = grads("ref")
+    if (n_k, n_p) != (26 * 2, 0):
+        fail(f"train[grads]: flash launches {n_k} (kernel) and {n_p} "
+             f"(plain), expected 52 and 0")
+
+    def dist(a, b):
+        return [float(torch.linalg.norm(x - y) / torch.linalg.norm(x))
+                for x, y in zip(a, b)]
+    d_k = dist(g_p, g_k)
+    g_p_norms = [torch.linalg.norm(x) for x in g_p]
+    del g_k
+    torch.cuda.empty_cache()
+    real = mflash.kops.flash_attention
+    mflash.kops.flash_attention = _flash_perturbed
+    try:
+        l_c, g_c, _ = grads("ref")
+    finally:
+        mflash.kops.flash_attention = real
+    d_c = dist(g_p, g_c)
+    del g_c, g_p
+    torch.cuda.empty_cache()
+    worst = sorted(zip(names, d_k, d_c), key=lambda r: -r[1])
+    # the whole gradient as one vector, every leaf weighted by its size
+    w = [float(x) ** 2 for x in g_p_norms]
+    whole_k = math.sqrt(sum(d * d * n for d, n in zip(d_k, w)) / sum(w))
+    whole_c = math.sqrt(sum(d * d * n for d, n in zip(d_c, w)) / sum(w))
+    over = [(n, a, c) for n, a, c in worst if not a <= max(0.05, 4 * c)]
+    print(f"train[grads]: loss kernel {l_k:.6f}, plain {l_p:.6f}, control "
+          f"{l_c:.6f}; per-leaf relative L2 kernel vs plain (control): "
+          + "; ".join(f"{n} {a:.3g} ({c:.3g})" for n, a, c in worst[:8])
+          + f"; median {sorted(d_k)[len(d_k) // 2]:.3g}; the whole "
+          f"gradient {whole_k:.3g} (control {whole_c:.3g}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if over:
+        fail(f"train[grads]: leaves past max(0.05, 4x the control): {over}")
+
+
+def phase_train_resume():
+    """Phase 12(d): tiny gemma2-2b on the card (S = 2048: flash's kernel at
+    hd 32) trained 6 steps in one run, and 3 steps, a checkpoint in a
+    temporary directory, a restore and 3 more: losses and final state
+    equal bit for bit."""
+    import torch
+    from repro_torch.configs import (OptimConfig, ShapeConfig, TrainConfig,
+                                     tiny_config)
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.loop import train
+
+    model = build_model(tiny_config("gemma2-2b"))
+    shape = ShapeConfig("t", 2048, 2, "train")
+    quiet = dict(device="cuda", log=lambda r: None)
+
+    def tcfg(d, every):
+        return TrainConfig(optim=OptimConfig(lr=1e-3, total_steps=6,
+                                             warmup_steps=1),
+                           checkpoint_dir=d, checkpoint_every=every,
+                           log_every=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_launches()
+        whole = train(model, shape, tcfg(f"{tmp}/a", 0), num_steps=6,
+                      **quiet)
+        n = all_launches()["flash_attention_fwd"]
+        train(model, shape, tcfg(f"{tmp}/b", 3), num_steps=3, **quiet)
+        rest = train(model, shape, tcfg(f"{tmp}/b", 3), num_steps=6,
+                     **quiet)
+    if Path(tmp).exists():
+        fail("train[resume]: the temporary directory was not removed")
+    la = [r["loss"] for r in whole["history"]][3:]
+    lb = [r["loss"] for r in rest["history"]]
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+             zip(tree_leaves(whole["state"]), tree_leaves(rest["state"]))]
+    exact = la == lb and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(whole["state"]),
+                                          tree_leaves(rest["state"])))
+    print(f"train[resume tiny gemma2-2b S=2048]: losses 3-5 {la} in one "
+          f"run, {lb} resumed; state max |diff| {max(diffs):.3g}; "
+          f"{n} flash launches in the 6-step run", flush=True)
+    if not exact:
+        fail("train[resume]: the resumed run differs from the whole run")
+    if n != model.cfg.num_layers * 2 * 6:
+        fail(f"train[resume]: {n} flash launches, expected "
+             f"{model.cfg.num_layers * 2 * 6}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2391,10 +2794,26 @@ def main() -> int:
           f"{t_serve - t_amc:.1f} s, serving part "
           f"{time.perf_counter() - t_serve:.1f} s", flush=True)
 
-    # launches per kernel from the run of the path it serves
+    # phase 12: the training path, every serving parameter freed
+    t_train = time.perf_counter()
+    bwd_row = phase_train_flash()
+    state, train_launches = phase_train_full()
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    phase_train_grads(params)
+    del params
+    torch.cuda.empty_cache()
+    phase_train_resume()
+    print(f"train: flash backward {json.dumps(bwd_row)}; whole-prompt "
+          f"serving path's flash launches {wp_launches['flash_attention_fwd']}"
+          f"; phase 12 in {time.perf_counter() - t_train:.1f} s", flush=True)
+
+    # launches per kernel from the run of the path it serves (flash: the
+    # training path, this slice's)
     source_run = {**{k: launches for k in BF16_KERNELS},
                   **{k: q_launches for k in QUANT_KERNELS},
-                  "flash_attention_fwd": wp_launches,
+                  "flash_attention_fwd": train_launches,
                   "quant_matmul_w8a16": w_launches,
                   "quant_matmul_w4a16": w_launches,
                   "quant_matmul_w8a8": g_launches}

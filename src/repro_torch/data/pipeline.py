@@ -1,0 +1,85 @@
+"""Deterministic synthetic LM data, host-sharded and restart-exact (port
+of ``repro.data.pipeline``).
+
+The batch of a step is a pure function of (seed, step): a restarted job
+resumes with byte-identical data and no shuffle state to checkpoint.
+Each process draws only its slice of the global batch. The rows are Zipf
+unigrams with a copied prefix (an induction signal), so the loss falls.
+The tokens come from numpy's generators exactly as the reference draws
+them, so both packages see the same bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_a: float = 1.4
+    copy_frac: float = 0.5      # fraction of sequence that is copied prefix
+
+
+def _host_slice(global_batch: int) -> tuple[int, int]:
+    """(first row, rows) of this process: its rank's share of the batch
+    under an initialised ``torch.distributed`` group, else all of it."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        n, idx = dist.get_world_size(), dist.get_rank()
+    else:
+        n, idx = 1, 0
+    per = global_batch // n
+    return idx * per, per
+
+
+def batch_at(dcfg: DataConfig, step: int, *, full: bool = False
+             ) -> Dict[str, np.ndarray]:
+    """The batch for ``step`` (pure function). full=True ignores host
+    slicing."""
+    start, per = (0, dcfg.global_batch) if full else _host_slice(
+        dcfg.global_batch)
+    rows = []
+    for r in range(start, start + per):
+        rng = np.random.default_rng(
+            (dcfg.seed * 1_000_003 + step) * 65_521 + r)
+        toks = np.clip(rng.zipf(dcfg.zipf_a, size=dcfg.seq_len), 2,
+                       dcfg.vocab_size - 1)
+        half = int(dcfg.seq_len * dcfg.copy_frac)
+        if half > 1:
+            toks[half:2 * half] = toks[:half]   # copy span (induction signal)
+        rows.append(toks)
+    tokens = np.stack(rows).astype(np.int32)
+    return {"tokens": tokens, "labels": tokens}
+
+
+def batches(dcfg: DataConfig, start_step: int = 0
+            ) -> Iterator[Dict[str, np.ndarray]]:
+    step = start_step
+    while True:
+        yield batch_at(dcfg, step)
+        step += 1
+
+
+def batch_for_model(model, shape, dcfg: Optional[DataConfig], step: int,
+                    device="cpu") -> Dict[str, torch.Tensor]:
+    """The model's batch for ``step`` as int32 tensors on ``device``. The
+    dense and moe families take tokens and labels; the others (frames,
+    patches) wait for their slices, as the model does."""
+    cfg = model.cfg
+    if cfg.family not in ("dense", "moe") or cfg.is_encdec \
+            or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"batch_for_model: the port trains the dense and moe families "
+            f"so far; {cfg.name} (family={cfg.family!r}) waits for its "
+            f"slice (ROADMAP)")
+    dcfg = dcfg or DataConfig(cfg.vocab_size, shape.seq_len,
+                              shape.global_batch)
+    b = batch_at(dcfg, step)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}

@@ -40,7 +40,7 @@ SIGNATURES = {
         "paged_error_string": (ctypes.c_char_p, [_I]),
     },
     "flash_attention": {
-        "flash_fwd_bf16": (_I, [_P] * 4 + [_I] * 9 + [_F, _P]),
+        "flash_fwd_bf16": (_I, [_P] * 5 + [_I] * 9 + [_F, _P]),
         "flash_error_string": (ctypes.c_char_p, [_I]),
     },
     "quant_matmul": {

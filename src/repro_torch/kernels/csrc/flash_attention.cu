@@ -83,6 +83,14 @@
 // at 1e-30; o / l taken as o * (1 / l), within an fp32 ulp; the output
 // rounded once to bf16. log2(e) is folded into the scale and the
 // exponentials are ex2.approx (within 2**-22 relative).
+//
+// For the backward (models/flash.py), a launch may also ask for each row's
+// log-sum-exp, (m + log2(l)) * ln 2 in natural units, written in the
+// epilogue by one lane of each row's quad into lse (B, H, S) fp32. l sums
+// the bf16-rounded weights, so the lse sits within about 2**-9 (one bf16
+// rounding of each weight, the same sign at worst) of the plain version's
+// m + log(l) over unrounded weights. A null lse writes nothing and leaves
+// out as it was.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,6 +103,7 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBM = 128;        // fused query rows a CTA
 constexpr int kThreads = 256;   // two consumer warpgroups
 constexpr int kSmem = 232448;   // shared memory a CTA may hold
@@ -124,6 +133,7 @@ struct Layout {
 
 struct Args {
   __nv_bfloat16* out;   // (B, S, H, hd)
+  float* lse;           // (B, H, S), or null: not written
   int S, T, H, K, G, P, tiles, causal, window;
   float cap, scale;
 };
@@ -407,9 +417,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r_top + 8 * h;
+    const float lsum = fmaxf(quad_sum(l[h]), 1e-30f);
     // one division a row, then products: within an fp32 ulp of o / l
-    const float inv = 1.f / fmaxf(quad_sum(l[h]), 1e-30f);
+    const float inv = 1.f / lsum;
     if (r >= a.G * a.P || qpos[h] >= a.S) continue;
+    // the row's log-sum-exp in natural units, m + log(l) of the reference
+    // with m kept in log2 units here; one lane of the quad writes it
+    if (a.lse != nullptr && tig == 0)
+      a.lse[((size_t)b * a.H + kh * a.G + r % a.G) * a.S + qpos[h]] =
+          (m[h] + log2f(lsum)) * kLn2;
     __nv_bfloat16* dst =
         a.out +
         ((size_t)(b * a.S + qpos[h]) * a.H + kh * a.G + r % a.G) * HD +
@@ -465,18 +481,21 @@ const char* flash_error_string(int code) {
 }
 
 // q/out (B, S, H, hd) bf16; k/v (B, T, K, hd) bf16, all contiguous and
-// 16-B aligned; hd in {32, 64, 128, 256}; H a multiple of K; P the
+// 16-B aligned; lse (B, H, S) fp32 or null (not written): each row's
+// log-sum-exp of its scaled, capped and masked scores, the backward's
+// input; hd in {32, 64, 128, 256}; H a multiple of K; P the
 // positions a CTA takes (kernels/flash_attention.py::flash_plan; P*H/K <=
 // 128); causal 0 or 1; window 0 (none) or the local window; cap 0 (none)
 // or the softcap. Returns cudaGetLastError().
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int T, int H, int K, int hd, int P,
-                   int causal, int window, float cap, void* stream) {
+                   void* lse, int B, int S, int T, int H, int K, int hd,
+                   int P, int causal, int window, float cap, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K || P <= 0 ||
       P * (H / K) > kBM)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.lse = static_cast<float*>(lse);
   a.S = S;
   a.T = T;
   a.H = H;

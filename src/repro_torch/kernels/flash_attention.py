@@ -117,31 +117,39 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=0, cap=0.0):
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, cap=0.0,
+                        return_lse=False):
     """q (B, S, H, hd) bf16; k, v (B, T, K, hd) bf16, H = K*G. ``causal``:
     key j <= query i; ``window`` > 0: key j > i - window (with or without
     ``causal``); ``cap`` > 0: scores softcapped before the mask. Returns
-    (B, S, H, hd) bf16. A query with no valid key at all (only possible
-    with ``causal=False``, a window, and the query past T + window - 2)
-    is undefined: the kernel averages v over the kv tiles it visits, as the
-    Pallas kernel does over its own, where the plain version averages all
-    of v."""
+    (B, S, H, hd) bf16, and with ``return_lse`` also each row's fp32
+    log-sum-exp (B, H, S), the backward's input (models/flash.py): the
+    kernel writes it in its epilogue, within about 2**-9 of the plain
+    version's (its l sums the bf16-rounded weights); without it the kernel
+    writes none and ``out`` is the same. A query with no valid key at all
+    (only possible with ``causal=False``, a window, and the query past
+    T + window - 2) is undefined: the kernel averages v over the kv tiles
+    it visits, as the Pallas kernel does over its own, where the plain
+    version averages all of v."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       cap=cap)
+                                       cap=cap, return_lse=return_lse)
     _check(q, k, v, int(window))
     B, S, H, hd = q.shape
     _, T, K, _ = k.shape
     plan = flash_plan(S, T, H // K, bool(causal), int(window), hd)
     lib = build.load("flash_attention")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            out.data_ptr(), B, S, T, H, K, hd,
-                            plan.positions, int(causal), int(window),
-                            float(cap), stream)
+                            out.data_ptr(),
+                            None if lse is None else lse.data_ptr(),
+                            B, S, T, H, K, hd, plan.positions, int(causal),
+                            int(window), float(cap), stream)
     if rc:
         raise RuntimeError(f"flash_attention_fwd launch failed: "
                            f"{lib.flash_error_string(rc).decode()}")
     LAUNCHES["flash_attention_fwd"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -128,11 +128,13 @@ def paged_attention_prefill_quant(q, pool_k, k_scale, pool_v, v_scale,
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
-                    mode: str = "auto"):
-    """Dense flash-attention forward (whole-prompt prefill): q (B, S, H,
-    hd) over k, v (B, T, K, hd), causal and/or a local window, softcap."""
+                    mode: str = "auto", return_lse: bool = False):
+    """Dense flash-attention forward (whole-prompt prefill, and training's
+    forward): q (B, S, H, hd) over k, v (B, T, K, hd), causal and/or a
+    local window, softcap; with ``return_lse`` also the rows' fp32
+    log-sum-exp (B, H, S)."""
     if resolve_mode(mode, q, "flash-attention") == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       cap=cap)
+                                       cap=cap, return_lse=return_lse)
     return fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                  cap=cap)
+                                  cap=cap, return_lse=return_lse)

@@ -332,14 +332,18 @@ def paged_prefill_dense_ref(q, pool_k, pool_v, page_table, positions, *,
 
 
 # ------------------------------------------------------ flash attention ----
-def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0):
+def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0,
+                        return_lse=False):
     """Dense attention oracle, the plain version of flash_attention_fwd.
 
     q (B, S, H, hd), k/v (B, T, K, hd), H = K*G (GQA: kv head k serves
     query heads k*G .. k*G+G-1). fp32 scores scaled by hd**-0.5, then the
     softcap, then the mask (key j <= query i if ``causal``, and
     j > i - ``window`` if ``window``) to -1e30, softmax, and the output cast
-    to q.dtype. Builds the (B, H, S, T) fp32 scores the kernel avoids."""
+    to q.dtype. With ``return_lse`` also the (B, H, S) fp32 log-sum-exp of
+    each row's masked scores, ``m + log(max(l, 1e-30))`` with m the row max
+    and l the sum of exp(s - m), as ``repro.models.flash._fwd_impl``
+    defines it. Builds the (B, H, S, T) fp32 scores the kernel avoids."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -359,5 +363,10 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, cap=0.0):
         mask &= j > i - window
     s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(F32))
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(F32)).to(q.dtype)
+    if not return_lse:
+        return out
+    del p
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    return out, m + torch.log(torch.clamp(l, min=1e-30))

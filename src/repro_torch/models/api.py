@@ -1,8 +1,9 @@
 """Model facade (port of ``repro.models.api``): ``build_model(cfg)``
-returns a ``Model`` with the entry points the serving engine and
-``launch.serve.generate`` call, for the dense and moe families (the
-others raise NotImplementedError, models/transformer.py). Parameters are nested dicts of tensors
-with the reference's pytree keys (see models/convert.py). The ``dot``
+returns a ``Model`` with the entry points the serving engine,
+``launch.serve.generate`` and the trainer (training/steps.py) call, for
+the dense and moe families (the others raise NotImplementedError,
+models/transformer.py). Parameters are nested dicts of tensors with the
+reference's pytree keys (see models/convert.py). The ``dot``
 hook threads HAQ quantization through every matmul: it receives
 (x, w, site_name) and returns the product (core/quantization.py,
 serving/quant.py)."""
@@ -37,27 +38,30 @@ class Model:
     # -- compute ------------------------------------------------------------
     def forward(self, params, batch, *, want_cache=False,
                 unembed_mode="full", cache_layout="full", dot=None,
-                kernel="auto"):
+                kernel="auto", remat=False):
         """Whole-sequence forward; ``kernel`` picks the flash-attention
         path of sequences of FLASH_MIN tokens or more: "auto" (CUDA kernel
-        on CUDA tensors, plain version on CPU ones), "cuda" or "ref"."""
+        on CUDA tensors, plain version on CPU ones), "cuda" or "ref".
+        ``remat`` recomputes each layer group in the backward
+        (transformer.forward)."""
         return transformer.forward(params, batch, self.cfg,
                                    want_cache=want_cache,
                                    unembed_mode=unembed_mode,
                                    cache_layout=cache_layout, dot=dot,
-                                   kernel=kernel)
+                                   kernel=kernel, remat=remat)
 
-    def loss(self, params, batch, *, dot=None):
+    def loss(self, params, batch, *, remat=False, dot=None, kernel="auto"):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (chunked, transformer.chunked_ce) plus 0.01 x
-        the moe layers' load-balance loss, as the reference's: HAQ's and
-        AMC's quality feedback. Forward only, under ``torch.no_grad()``;
-        the training path and its backward wait for their slice."""
-        with torch.no_grad():
-            hidden, _, aux, _ = self.forward(params, batch,
-                                             unembed_mode="none", dot=dot)
-            ce = transformer.chunked_ce(params, hidden, batch["labels"],
-                                        self.cfg, dot=dot)
+        the moe layers' load-balance loss, as the reference's: the
+        training objective (training/steps.py, whose gradients flow
+        through it, flash's backward included) and HAQ's and AMC's quality
+        feedback. Their parameters require no gradient, so scoring builds
+        no graph."""
+        hidden, _, aux, _ = self.forward(params, batch, unembed_mode="none",
+                                         dot=dot, kernel=kernel, remat=remat)
+        ce = transformer.chunked_ce(params, hidden, batch["labels"],
+                                    self.cfg, dot=dot)
         return ce + 0.01 * aux
 
     def prefill(self, params, batch, *, cache_layout="full",

@@ -6,21 +6,23 @@ done by the caller, so this module never touches JAX) and returns the
 port's nested dict of tensors under the same keys: ``blocks/sub{j}/attn/wq``
 keeps its ``(n_groups, d, H, hd)`` stacking. bf16 leaves (numpy dtype
 ``bfloat16`` from ml_dtypes) become bf16 tensors exactly. The same works
-for a page pool, whose quantized slots hold int8 codes.
+for a page pool, whose quantized slots hold int8 codes, and for a train
+state (``from_jax_state``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "int8": torch.int8}
+# the reference's leaf dtypes (numpy names) -> torch dtypes
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int8": torch.int8, "int32": torch.int32}
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
     a = np.asarray(a)
     name = a.dtype.name
-    if name not in _DTYPES:
+    if name not in DTYPES:
         raise TypeError(f"no torch dtype for parameter dtype {name!r}")
     if name == "bfloat16":       # exact: bf16 values are fp32 values
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -35,3 +37,16 @@ def from_jax_params(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
     return to_tensor(tree, device)
+
+
+def from_jax_state(state, device="cpu"):
+    """The reference's train state ``{"params", "opt": {"master", "m", "v",
+    "count"}}`` (leaves as numpy arrays; quantized moments as ``{"q",
+    "scale"}``) -> the port's (training/steps.py), same keys, dtypes and
+    shapes: the weights and optimizer state carried across for
+    training."""
+    if set(state) != {"params", "opt"} or \
+            set(state["opt"]) != {"master", "m", "v", "count"}:
+        raise ValueError("a train state is {'params', 'opt': {'master', "
+                         "'m', 'v', 'count'}}")
+    return from_jax_params(state, device)

@@ -1,4 +1,4 @@
-"""Whole-prompt attention for long sequences (port of
+"""Whole-sequence attention for long sequences (port of
 ``repro.models.flash``).
 
 Every whole-sequence forward of ``FLASH_MIN`` tokens or more goes through
@@ -9,10 +9,13 @@ The reference's XLA twin computes the same forward blockwise; this module
 keeps its shape contract (S and T multiples of their 512-row blocks, or
 shorter than one) and its attention kinds.
 
-The reference's custom-VJP backward waits for the training slice (ROADMAP
-Queue 1, item 9): the forward is a ``torch.autograd.Function`` whose
-backward raises, so a caller that needs a gradient is told so instead of
-getting a wrong one.
+The backward is the reference's custom VJP (``_bwd_impl``), a plain
+blockwise computation there too, in PyTorch here (``flash_backward``):
+P and dS recomputed per (512-row q block, 512-key kv block) pair from the
+forward's log-sum-exp, fp32 inside. When q, k or v needs a gradient the
+forward asks the kernel (or the plain version) for that lse and saves q,
+k, v, out and lse; the serving and search paths, whose tensors need none,
+launch the kernel without it.
 """
 from __future__ import annotations
 
@@ -20,24 +23,125 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
+F32 = torch.float32
+NEG = -1e30
 FLASH_MIN = 2048          # use flash from this q-length on
 BLOCK = 512               # the reference's q and kv blocks: they fix its
-                          # shape contract
+                          # shape contract and the backward's blocking
 KINDS = ("global", "local", "bidir")
 
 
-class _FlashForward(torch.autograd.Function):
+def _pair_mask(i: int, j: int, Qc: int, Kc: int, causal: bool, window: int,
+               device):
+    """q block i against kv block j: None where every pair is valid,
+    False where none is (the pair is skipped: its P and dS are exactly 0),
+    else the (Qc, Kc) bool mask of the reference's ``_block_mask``."""
+    q_lo, q_hi = i * Qc, i * Qc + Qc - 1
+    k_lo, k_hi = j * Kc, j * Kc + Kc - 1
+    if causal and k_lo > q_hi:
+        return False
+    if window and k_hi <= q_lo - window:
+        return False
+    if (not causal or k_hi <= q_lo) and (not window or k_lo > q_hi - window):
+        return None
+    qpos = torch.arange(q_lo, q_hi + 1, device=device)[:, None]
+    kpos = torch.arange(k_lo, k_hi + 1, device=device)[None, :]
+    m = torch.ones((Qc, Kc), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+def flash_backward(q, k, v, out, lse, dout, *, causal: bool, window: int,
+                   cap: float):
+    """dq, dk, dv of flash attention, the reference's ``_bwd_impl``.
+
+    q (B, S, H, hd), k/v (B, T, K, hd), out and dout (B, S, H, hd), lse
+    (B, H, S) fp32 from the forward. fp32 inside; each gradient is cast to
+    its input's dtype. Per block pair the scores are recomputed, softcapped
+    and masked, P = exp(s - lse) and dS = P (dP - delta) with delta the
+    rows' dout . out, times the softcap's chain (1 - tanh^2(raw / cap));
+    dq gains dS K, dv P^T dout and dk dS^T q (with the scale), on the
+    kv heads repeated G times and folded back to K at the end. The
+    reference makes two passes, one for dq and one for dk and dv, each
+    recomputing P and dS; here one pass over the pairs (q blocks outer,
+    kv blocks inner) updates all three from one P and dS, and each
+    accumulator still meets its terms in the reference's order. Pairs the
+    mask wholly excludes are skipped."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    Qc, Kc = min(BLOCK, S), min(BLOCK, T)
+    nq, nk = S // Qc, T // Kc
+
+    def heads_first(t):                        # (B, L, H, hd) fp32
+        return t.to(F32).transpose(1, 2)       # -> (B, H, L, hd)
+
+    qf, dof = heads_first(q), heads_first(dout)
+    kf = heads_first(k.repeat_interleave(G, dim=2) if G > 1 else k)
+    vf = heads_first(v.repeat_interleave(G, dim=2) if G > 1 else v)
+    delta = (dof * heads_first(out)).sum(-1)                  # (B, H, S)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for i in range(nq):
+        rows = slice(i * Qc, (i + 1) * Qc)
+        qi, do_i = qf[:, :, rows], dof[:, :, rows]
+        lse_i, delta_i = lse[:, :, rows, None], delta[:, :, rows, None]
+        for j in range(nk):
+            mask = _pair_mask(i, j, Qc, Kc, causal, window, q.device)
+            if mask is False:
+                continue
+            keys = slice(j * Kc, (j + 1) * Kc)
+            kj, vj = kf[:, :, keys], vf[:, :, keys]
+            raw = (qi @ kj.transpose(-1, -2)) * scale
+            if cap:
+                t = torch.tanh(raw / cap)
+                s = cap * t
+            else:
+                s = raw
+            if mask is not None:
+                s = torch.where(mask, s, NEG)
+            p = torch.exp(s - lse_i)
+            ds = p * ((do_i @ vj.transpose(-1, -2)) - delta_i)
+            if cap:
+                ds = ds * (1.0 - t * t)
+            dq[:, :, rows] += (ds @ kj) * scale
+            dv[:, :, keys] += p.transpose(-1, -2) @ do_i
+            dk[:, :, keys] += (ds.transpose(-1, -2) @ qi) * scale
+
+    def back(t, like, heads):                  # (B, H, L, hd) -> like's
+        t = t.transpose(1, 2)
+        if heads != t.shape[2]:                # fold the G repeats to K
+            t = t.reshape(t.shape[0], t.shape[1], heads, -1, hd).sum(3)
+        return t.to(like.dtype)
+
+    return back(dq, q, H), back(dk, k, K), back(dv, v, K)
+
+
+class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, cap, kernel):
-        return kops.flash_attention(q, k, v, causal=causal, window=window,
-                                    cap=cap, mode=kernel)
+    def forward(ctx, q, k, v, causal, window, cap, kernel, with_grad):
+        ctx.cfg = (causal, window, cap)
+        if not with_grad:
+            return kops.flash_attention(q, k, v, causal=causal,
+                                        window=window, cap=cap, mode=kernel)
+        out, lse = kops.flash_attention(q, k, v, causal=causal,
+                                        window=window, cap=cap, mode=kernel,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
-    def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash attention's backward (the reference's custom VJP in "
-            "repro.models.flash) comes with the training slice (ROADMAP "
-            "Queue 1, item 9); the port's flash attention is forward-only")
+    def backward(ctx, dout):
+        causal, window, cap = ctx.cfg
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=causal,
+                                    window=window, cap=cap)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, kind: str = "global", window: int = 0,
@@ -47,7 +151,9 @@ def flash_attention(q, k, v, kind: str = "global", window: int = 0,
     kind: "global" (causal), "local" (causal, keys within ``window`` of the
     query), "bidir" (full). ``kernel`` is the kernels/ops.py mode: "auto"
     (the CUDA kernel on CUDA tensors, the plain version on CPU ones),
-    "cuda" or "ref". Raises ValueError on lengths the reference rejects."""
+    "cuda" or "ref"; it picks the forward, and the backward is
+    ``flash_backward`` either way. Raises ValueError on lengths the
+    reference rejects."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}, not in {KINDS}")
     S, T = q.shape[1], k.shape[1]
@@ -58,6 +164,8 @@ def flash_attention(q, k, v, kind: str = "global", window: int = 0,
             f"T={T}")
     if kind == "local" and window <= 0:
         raise ValueError(f"local attention needs a window > 0, got {window}")
-    return _FlashForward.apply(q, k, v, kind != "bidir",
-                               int(window) if kind == "local" else 0,
-                               float(cap), kernel)
+    with_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _Flash.apply(q, k, v, kind != "bidir",
+                        int(window) if kind == "local" else 0, float(cap),
+                        kernel, with_grad)

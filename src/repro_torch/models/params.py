@@ -40,6 +40,17 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_unflatten(like, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in the nesting of ``like``."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+    return walk(like)
+
+
 def stacked(defs, n: int):
     """Prepend a stacked layer dimension to every PDef in a subtree."""
     return tree_map(lambda d: PDef((n,) + d.shape, ("layer",) + d.axes,

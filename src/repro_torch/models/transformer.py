@@ -18,6 +18,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -187,13 +188,24 @@ def unembed(params, x, cfg, *, dot=None):
 
 
 # ------------------------------------------------------------ chunked CE ----
+def _chunk_ce(params, xc, lc, mc, cfg, dot):
+    """Masked sum of one chunk's next-token losses."""
+    logits = unembed(params, xc, cfg, dot=dot)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return torch.sum((logz - gold) * mc)
+
+
 def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
                loss_mask=None):
     """Next-token cross-entropy without materializing (B, S, V) logits:
     the unembed and log-sum-exp run per ``chunk`` rows, so peak live
-    memory is (B, chunk, V). Forward only: the reference's rematerialized
-    scan serves its backward, which waits for the training slice. The
-    mask and the padding of the last chunk are the reference's."""
+    memory is (B, chunk, V). Where autograd records (training), each chunk
+    runs under a checkpoint, as the reference's rematerialized scan does:
+    its fp32 logits and the unembed's fp32 copy of the table are made
+    again in the backward, one chunk at a time, instead of kept for all
+    chunks (16 fp32 copies of the tied gemma2-2b table would be 38 GB).
+    The mask and the padding of the last chunk are the reference's."""
     xs = hidden[:, :-1]
     ls = labels[:, 1:].long()
     B, n, D = xs.shape
@@ -205,23 +217,22 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
         xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
         ls = torch.nn.functional.pad(ls, (0, pad))
         mask = torch.nn.functional.pad(mask, (0, pad))
+    remat = torch.is_grad_enabled() and xs.requires_grad
     tot = torch.zeros((), dtype=F32, device=xs.device)
-    cnt = torch.zeros((), dtype=F32, device=xs.device)
     for c in range(0, n + pad, chunk):
-        logits = unembed(params, xs[:, c:c + chunk], cfg, dot=dot)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ls[:, c:c + chunk, None])[..., 0]
-        mc = mask[:, c:c + chunk]
-        tot = tot + torch.sum((logz - gold) * mc)
-        cnt = cnt + torch.sum(mc)
+        args = (params, xs[:, c:c + chunk], ls[:, c:c + chunk],
+                mask[:, c:c + chunk], cfg, dot)
+        tot = tot + (checkpoint(_chunk_ce, *args, use_reentrant=False)
+                     if remat else _chunk_ce(*args))
+    cnt = torch.sum(mask)
     return tot / torch.clamp(cnt, min=1.0)
 
 
 # --------------------------------------------------------------- forward ----
 def forward(params, batch, cfg, *, want_cache: bool,
             unembed_mode: str = "full", cache_layout: str = "full",
-            dot=None, kernel: str = "auto"):
-    """Full-sequence forward (prefill).
+            dot=None, kernel: str = "auto", remat: bool = False):
+    """Full-sequence forward (training and prefill).
 
     unembed_mode: "full" -> logits (B,S,V); "last" -> logits (B,1,V);
     "none" -> final hidden states (B,S,D).
@@ -232,7 +243,12 @@ def forward(params, batch, cfg, *, want_cache: bool,
     dot: optional (x, w, name) -> y override of every matmul site.
     kernel: the flash-attention mode ("auto" | "cuda" | "ref") of the
     layers' whole-sequence attention from FLASH_MIN tokens on
-    (models/flash.py); shorter sequences attend densely.
+    (models/flash.py, whose backward serves training); shorter sequences
+    attend densely.
+    remat: run each group of ``period_of(cfg)`` sub-layers under a
+    checkpoint (the reference's ``jax.checkpoint(group_body)``): the
+    backward runs the group's forward again, flash kernel included,
+    instead of keeping its activations.
     Returns (logits_or_hidden, caches or None, aux, loss_mask None): aux
     is the fp32 scalar tensor sum of the moe layers' load-balance losses
     (the float 0.0 for the dense family).
@@ -246,16 +262,33 @@ def forward(params, batch, cfg, *, want_cache: bool,
     x = embed_tokens(params, tokens, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    P = period_of(cfg)
+    kinds = sublayer_kinds(cfg)
+
+    def group_body(h, aux, blocks):
+        kv = []
+        for j in range(P):
+            h, c, a = _dense_block_fwd(blocks[f"sub{j}"], h, kinds[j], cfg,
+                                       positions, dot, kernel)
+            aux = aux + a
+            kv.append(c if want_cache else None)
+        return h, aux, kv
+
     caches: Dict[str, Dict[str, list]] = {
-        f"sub{j}": {"k": [], "v": []} for j in range(period_of(cfg))}
+        f"sub{j}": {"k": [], "v": []} for j in range(P)}
     aux_total = 0.0
-    for g, j, kind in _layers(cfg):
-        x, c, aux = _dense_block_fwd(_group(params["blocks"][f"sub{j}"], g),
-                                     x, kind, cfg, positions, dot, kernel)
-        aux_total = aux_total + aux
+    for g in range(cfg.num_layers // P):
+        blocks = {f"sub{j}": _group(params["blocks"][f"sub{j}"], g)
+                  for j in range(P)}
+        if remat:
+            x, aux_total, kv = checkpoint(group_body, x, aux_total, blocks,
+                                          use_reentrant=False)
+        else:
+            x, aux_total, kv = group_body(x, aux_total, blocks)
         if want_cache:
-            caches[f"sub{j}"]["k"].append(c["k"])
-            caches[f"sub{j}"]["v"].append(c["v"])
+            for j, c in enumerate(kv):
+                caches[f"sub{j}"]["k"].append(c["k"])
+                caches[f"sub{j}"]["v"].append(c["v"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     out_cache = None
     if want_cache:

@@ -906,3 +906,67 @@ def test_cuda_dequant_dot_on_expert_batches(bits):
                             for e in range(E)]).float()
         assert got.shape == want.shape and got.shape[:2] == (E, C)
         assert bf16_close(got, want), site
+
+
+# the kernel's lse against the plain version's: the kernel's l sums the
+# bf16-rounded weights (up to 2**-9 of each, relative), and its scores
+# carry the softcap2 and ex2.approx errors (within 5e-5 at a cap of 50),
+# so its log-sum-exp sits within 2**-8 of the plain m + log(l)
+LSE_ATOL = 2.0 ** -8
+# the backward on the kernel's out and lse against autograd of the fp32
+# dense plain version: P off by the lse's 2**-9, delta = dout . out read
+# from the bf16 out, each gradient rounded to bf16; an emulation of those
+# errors on the CPU reaches 4.2e-3 of max |g|
+BWD_TOL = 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,K,hd,window,cap", [
+    (8, 4, 256, 0, 50.0), (8, 4, 256, 4096, 0.0), (8, 4, 256, 64, 50.0),
+    (24, 8, 64, 0, 0.0), (4, 2, 32, 32, 50.0)])
+def test_cuda_flash_lse(H, K, hd, window, cap):
+    """On a card: the kernel's lse within LSE_ATOL of the plain version's
+    at gemma2-2b's, granite-moe's and tiny heads; ``out`` with the lse
+    asked for equal bit for bit to ``out`` without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, k, v = _flash_inputs(2560, 2560, H, K, hd,
+                            q_scale=20.0 if cap else 1.0, seed=hd + H)
+    kw = dict(causal=True, window=window, cap=cap)
+    out, lse = _flash_launched(lambda: tfa.flash_attention_fwd(
+        q, k, v, return_lse=True, **kw))
+    assert lse.shape == (1, H, 2560) and lse.dtype == torch.float32
+    assert torch.equal(out, tfa.flash_attention_fwd(q, k, v, **kw))
+    _, want = tref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert float((lse - want).abs().max()) <= LSE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,K,hd,kind,cap", [
+    (8, 4, 256, "global", 50.0), (8, 4, 256, "local", 0.0),
+    (24, 8, 64, "global", 0.0)])
+def test_cuda_flash_backward(H, K, hd, kind, cap):
+    """On a card: models/flash.py's forward through the kernel (one launch,
+    with its lse) and its backward, dq, dk and dv within BWD_TOL of each
+    gradient's max |g| from autograd of the fp32 dense plain version, at
+    gemma2-2b's heads (hd 256, G 2) and granite-moe's (hd 64, G 3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.models import flash as tflash
+    S, window = 2048, (512 if kind == "local" else 0)
+    q, k, v = _flash_inputs(S, S, H, K, hd, q_scale=20.0 if cap else 1.0,
+                            seed=hd)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dout = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = _flash_launched(lambda: tflash.flash_attention(
+        *ins, kind, window, cap, kernel="cuda"))
+    got = torch.autograd.grad(out, ins, dout)
+    ref_ins = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(tref.flash_attention_ref(
+        *ref_ins, causal=True, window=window, cap=cap), ref_ins,
+        dout.float())
+    for a, b, t in zip(want, got, (q, k, v)):
+        assert b.dtype == torch.bfloat16 and b.shape == t.shape
+        err = float((a - b.float()).abs().max() / a.abs().max())
+        assert err <= BWD_TOL, err
