@@ -128,8 +128,32 @@ Phases, each fatal on failure:
                 rounding as noise); (d) tiny gemma2-2b (S = 2048, flash at
                 hd 32) trained 6 steps against 3 + checkpoint + restore +
                 3, bit for bit;
- 11. report   — one JSON line with every kernel's launches (flash's from
-                phase 12's training run), error, times.
+ 13. ssm      — after phase 12: (a) flash against its plain version at
+                zamba2-1.2b's shared attention (B 2, S 4096, 32/32 heads of
+                64: G = 1) and the NAS supernet's (S 2048, 8/4 heads of
+                64, windows 0, 1024, 4096), timed beside plain, SDPA and
+                the bound; (b) full-width mamba2-370m and zamba2-1.2b
+                (random weights) served by ``generate``'s dense-cache
+                branch on 2 prompts of 4096 tokens, 32 new tokens each:
+                flash launched once per shared-block application (7 per
+                zamba2 prefill, 0 for mamba2) and nothing else, the
+                prefill's logits through the kernel against the plain flash
+                path, tok/s, prefill and decode-step ms; (c) the
+                reference's contract prefill(S) + decode_step ==
+                forward(S+1) within 5e-2; (d) full-width gemma2-2b through
+                ``make_prefill_step`` over 4608 tokens (ring caches) and 16
+                ``make_serve_step`` decodes against ``decode_step_paged``
+                through the paged kernel, teacher-forced, within
+                LOGIT_RTOL;
+ 14. nas      — ``nas.search`` on the full 21-block backbone (8 warmup + 16
+                search steps, data at B 2 x S 2048, the LUT on h100-sxm at
+                B 8 x S 2048): flash launched once per attention op each
+                forward sampled, losses and alpha finite, the derived arch
+                and its latencies; each op's forward time at the LUT's
+                shape beside the LUT's roofline value (printed);
+ 11. report   — one JSON line with every kernel's launches (flash's summed
+                over phase 12's training run and phases 13-14's paths),
+                error, times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
@@ -1155,21 +1179,9 @@ def phase_model(model, params, kv_bits=None, ticks=1, w_bits=None,
     V = cfg.vocab_size          # the vocab-padding columns sit at -1e9
     err = 0.0
     for what in logits["ref"]:
-        a, b = (logits[r][what][:, 0, :V] for r in ("cuda", "ref"))
-        ulp = float((logits["ulp"][what][:, 0, :V] - b).abs().max())
-        if ulp <= LOGIT_RTOL * float(b.abs().max()):
-            err = max(err, compare_logits(label, what, a, b))
-            continue
-        if not torch.isfinite(a).all():
-            fail(f"{label} {what}: non-finite logits")
-        d = float((a - b).abs().max())
-        err = max(err, d)
-        print(f"{label}: {what} logits kernel vs plain max |diff| {d:.4g}; "
-              f"a bf16 ulp on a tenth of the plain walk's attention "
-              f"outputs alone moves them by {ulp:.4g} (|logit| up to "
-              f"{float(b.abs().max()):.3g}, bound {LOGIT_RTOL}): the model "
-              f"amplifies rounding past the bound, so the per-call checks "
-              f"hold the kernels", flush=True)
+        a, b, ulp = (logits[r][what][:, 0, :V]
+                     for r in ("cuda", "ref", "ulp"))
+        err = max(err, hold_logits(label, what, a, b, ulp))
     del logits, pool
     torch.cuda.empty_cache()
     return err
@@ -1218,10 +1230,14 @@ def shared_routing(cfg):
              f"{state['i']} replayed")
 
 
+PAGED_CALLS = ("paged_attention", "paged_attention_prefill",
+               "paged_attention_quant", "paged_attention_prefill_quant")
+
+
 @contextlib.contextmanager
-def attention_calls(check=False, perturb=False):
-    """The paged attention walks of kernels/ops.py, wrapped for one run of
-    calls. ``check``: each call that runs a kernel also runs its plain
+def attention_calls(check=False, perturb=False, names=PAGED_CALLS):
+    """The attention calls ``names`` of kernels/ops.py (by default the
+    paged walks), wrapped for one run of calls. ``check``: each call that runs a kernel also runs its plain
     version on the same inputs and fails unless every element is within
     the phase 2 tolerance (``mismatch``). ``perturb``: each output comes
     back with a seeded tenth of its elements moved by 2**-7 of their value
@@ -1231,8 +1247,6 @@ def attention_calls(check=False, perturb=False):
     import torch
     from repro_torch.kernels import ops as kops
 
-    names = ("paged_attention", "paged_attention_prefill",
-             "paged_attention_quant", "paged_attention_prefill_quant")
     originals = {n: getattr(kops, n) for n in names}
     stats = {"n": 0, "err": 0.0}
 
@@ -1290,6 +1304,29 @@ def compare_logits(label, what, a, b):
     print(f"{label}: {what} logits kernel vs plain max |diff| {d:.4g} "
           f"(tolerance {tol:.4g}, |logit| up to "
           f"{float(b.abs().max()):.3g})", flush=True)
+    return d
+
+
+def hold_logits(label, what, a, b, ulp):
+    """Kernel-path logits ``a`` against plain-path ``b`` (rows, V) with
+    ``compare_logits``, unless the control ``ulp`` (the plain path with a
+    bf16 ulp on a tenth of its attention outputs) already moves them past
+    LOGIT_RTOL: then the model amplifies rounding past the bound, the
+    per-call checks hold the kernel, and the difference is printed beside
+    the control's (phase 3's rule)."""
+    import torch
+    d_ulp = float((ulp - b).abs().max())
+    if d_ulp <= LOGIT_RTOL * float(b.abs().max()):
+        return compare_logits(label, what, a, b)
+    if not torch.isfinite(a).all():
+        fail(f"{label} {what}: non-finite logits")
+    d = float((a - b).abs().max())
+    print(f"{label}: {what} logits kernel vs plain max |diff| {d:.4g}; a "
+          f"bf16 ulp on a tenth of the plain path's attention outputs alone "
+          f"moves them by {d_ulp:.4g} (|logit| up to "
+          f"{float(b.abs().max()):.3g}, bound {LOGIT_RTOL}): the model "
+          f"amplifies rounding past the bound, so the per-call checks hold "
+          f"the kernel", flush=True)
     return d
 
 
@@ -2680,6 +2717,401 @@ def phase_train_resume():
              f"{model.cfg.num_layers * 2 * 6}")
 
 
+# ------------------------------------------------- the SSM family and NAS --
+# phase 13: full-width mamba2-370m (48 layers, d 1024) and zamba2-1.2b (38
+# layers, d 2048, its one shared attention block applied before each of 7
+# groups of mamba layers) served by generate's dense-cache branch
+SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+SSM_B, SSM_S, SSM_GEN = 2, 4096, 32
+# zamba2's shared attention (32 query heads over 32 kv heads of 64: G = 1)
+# and the NAS supernet's (8 over 4 heads of 64) at its windows
+ZAMBA_GEO = (32, 32, 64)
+NAS_GEO = (8, 4, 64)
+NAS_WINDOWS = (0, 1024, 4096)
+# the reference's own bounds on prefill(S) + decode_step against
+# forward(S+1) for the ssm and hybrid families
+# (tests/test_decode_equivalence.py): chunked SSD vs the recurrence in
+# bf16, and its fp32-exactness case
+CONTRACT_TOL = {"bf16": 5e-2, "fp32": 2e-3}
+# gemma2-2b's ring decode: a prompt past the 4096 window (a multiple of
+# flash's 512-row blocks), then decode steps
+RING_S, RING_STEPS = 4608, 16
+# phase 14: the NAS search on the full backbone (21 blocks, d 512): the
+# latency table at (8, 2048) on h100-sxm, data at (2, 2048)
+NAS_LUT_SHAPE = (8, 2048)
+NAS_DATA_SHAPE = (2, 2048)
+NAS_WARMUP, NAS_STEPS = 8, 16
+
+
+def flash_case_b(seed, B, S, geo):
+    """bf16 q (B, S, H, hd), k and v (B, S, K, hd) on the card."""
+    import torch
+    H_, K_, HD_ = geo
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H_, HD_), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B, S, K_, HD_), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B, S, K_, HD_), generator=g, device="cuda").bfloat16()
+    return q, k, v
+
+
+def phase_ssm_flash():
+    """Phase 13(a): flash against its plain version at zamba2's shared
+    attention (B 2, S 4096, 32/32 heads of 64, causal, no cap) and at the
+    NAS supernet's (B 2, S 2048, 8/4 heads of 64, windows 0, 1024 and
+    4096), each timed beside its plain version, SDPA and its bound.
+    Returns {label: row}."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    def fwd(q, k, v, pt, pos, *, window, cap):
+        return fa.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                      cap=cap)
+
+    def plain(q, k, v, pt, pos, *, window, cap):
+        return ref.flash_attention_ref(q, k, v, causal=True, window=window,
+                                       cap=cap)
+
+    rows = {}
+    cases = [("zamba2", ZAMBA_GEO, 4096, 0)] + [
+        (f"nas w{w}", NAS_GEO, 2048, w) for w in NAS_WINDOWS]
+    for i, (label, geo, S, window) in enumerate(cases):
+        q, k, v = flash_case_b(60 + i, SSM_B, S, geo)
+        err = check_kernel("flash_attention_fwd", fwd, plain, {0.0: q},
+                           (k, v), None, None, window=window, cap=0.0)
+        torch.cuda.empty_cache()
+        t = device_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, window=window), reps=10)
+        p = time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window), reps=2, warmup=1)
+        torch.cuda.empty_cache()
+        lib = device_ms(flash_sdpa(q, k, v, window), reps=10)
+        bnd, by = flash_bound_ms(S, window, geo)
+        bnd *= SSM_B
+        tflops = 4e-9 * geo[2] * geo[0] * SSM_B * \
+            flash_valid_pairs(S, window) / t
+        rows[label] = {"ms": t, "plain_ms": p, "library_ms": lib,
+                       "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+        print(f"ssm[flash {label}]: B={SSM_B} S={S} H={geo[0]} K={geo[1]} "
+              f"hd={geo[2]} window={window}: {t:.4f} ms ({tflops:.1f} "
+              f"TFLOP/s, {100 * bnd / t:.1f}% of its bound {bnd:.4f} ms by "
+              f"{by}); plain {p:.3f} ms; sdpa {lib:.4f} ms", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _ssm_prompt(cfg, seed, S=SSM_S):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(2, cfg.vocab_size, (SSM_B, S), generator=g,
+                         dtype=torch.int32).cuda()
+
+
+def phase_ssm_serve(arch):
+    """Phase 13(b, c) on one full-width family: (b) ``generate`` on 2
+    prompts of 4096 tokens, 32 new tokens, launches zeroed before and read
+    after (flash once per shared-block application, nothing else); the
+    prefill's logits through the kernel against the plain flash path;
+    tok/s, prefill ms and decode-step ms. (c) The reference's contract:
+    prefill(S) + decode_step against forward(S+1) at the last position,
+    within CONTRACT_TOL of the largest |logit|, in the bf16 parameters and
+    in fp32 copies (S = 4096 for mamba2; 2046 for zamba2, so both sides
+    attend densely and the fp32 run needs no bf16 kernel: flash takes
+    multiples of 512 from 2048 on). A bf16 result past its bound passes
+    only where (b)'s control shows the model amplifying a rounding past
+    it; the fp32 bound holds always. Returns the generate run's
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import hybrid_groups
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    print(f"ssm[{arch}]: {model.param_count()} params "
+          f"({model.param_bytes() / 1e9:.2f} GB) initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    apps = len(hybrid_groups(cfg)) if cfg.family == "hybrid" else 0
+    prompt = _ssm_prompt(cfg, 13)
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = serve.generate(model, params, prompt, SSM_GEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    if out.shape != (SSM_B, SSM_S + SSM_GEN) or \
+            not torch.equal(out[:, :SSM_S], prompt) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        fail(f"ssm[{arch}]: malformed output {tuple(out.shape)}")
+    for name, n in launches.items():
+        if n != (apps if name == "flash_attention_fwd" else 0):
+            fail(f"ssm[{arch}]: {name} launched {n} times in generate, "
+                 f"want {apps if name == 'flash_attention_fwd' else 0}")
+
+    # the prefill timed alone, and through the kernel against the plain
+    # flash path: every flash call of the kernel run also held against the
+    # plain version on its own inputs, and a control run (the plain path
+    # with a bf16 ulp on a tenth of each flash output) for the model's
+    # own sensitivity to rounding
+    V = cfg.vocab_size          # the vocab-padding columns sit at -1e9
+    logits, calls = {}, {}
+    for run, mode, probe in (("cuda", "cuda", {}), ("checked", "cuda",
+                                                    {"check": True}),
+                             ("ref", "ref", {}), ("ulp", "ref",
+                                                  {"perturb": True})):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with attention_calls(names=("flash_attention",), **probe) \
+                as calls[run]:
+            lg, cache = model.prefill(params, {"tokens": prompt},
+                                      cache_layout="full", kernel=mode)
+        torch.cuda.synchronize()
+        if run == "cuda":
+            prefill_ms = (time.perf_counter() - t1) * 1e3
+            keep = cache
+        logits[run] = lg[:, 0, :V]
+        del cache
+    if calls["checked"]["n"] != apps:
+        fail(f"ssm[{arch}]: {calls['checked']['n']} flash calls checked, "
+             f"want {apps}")
+    hold_logits(f"ssm[{arch}]", f"prefill S={SSM_S} (flash kernel vs plain;"
+                f" {apps} calls each within tolerance of the plain version, "
+                f"max |err| {calls['checked']['err']:.4g})",
+                logits["cuda"], logits["ref"], logits["ulp"])
+    cache = serve._grow_cache(keep, SSM_S, SSM_S + SSM_GEN)
+    del keep
+    tok = logits["cuda"].argmax(-1)[:, None].to(torch.int32)
+    steps = []
+    for i in range(SSM_GEN - 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, tok,
+                                      torch.tensor(SSM_S + i, device="cuda"))
+        tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t1) * 1e3)
+    del cache
+    torch.cuda.empty_cache()
+    step_ms = sorted(steps)[len(steps) // 2]
+    print(f"ssm[{arch}]: generate {SSM_B} x {SSM_S}-token prompts + "
+          f"{SSM_GEN} tokens in {dt:.3f} s ({SSM_B * SSM_GEN / dt:.1f} "
+          f"tok/s); prefill {prefill_ms:.1f} ms, decode step "
+          f"{step_ms:.2f} ms (median of {len(steps)}; min {min(steps):.2f},"
+          f" max {max(steps):.2f}); launches {json.dumps(launches)}",
+          flush=True)
+
+    # (c) the decode contract, in the bf16 parameters and in fp32 copies
+    amplifies = float((logits["ulp"] - logits["ref"]).abs().max()
+                      / logits["ref"].abs().max())
+    S = SSM_S if cfg.family == "ssm" else 2046
+    toks = _ssm_prompt(cfg, 14, S + 1)
+    p32 = tree_map(lambda a: a.float() if a.dtype == torch.bfloat16 else a,
+                   params)
+    for label, p in (("bf16", params), ("fp32", p32)):
+        full = model.forward(p, {"tokens": toks},
+                             unembed_mode="last")[0][:, 0, :V]
+        _, cache = model.prefill(p, {"tokens": toks[:, :S]})
+        cache = serve._grow_cache(cache, S, S + 1)
+        got = model.decode_step(p, cache, toks[:, S:],
+                                torch.tensor(S, device="cuda"))[0][:, 0, :V]
+        rel = float((got - full).abs().max() / full.abs().max())
+        tol = CONTRACT_TOL[label]
+        print(f"ssm[{arch}]: {label} prefill({S}) + decode_step vs "
+              f"forward({S + 1}): max |diff| {rel:.4g} of the largest "
+              f"|logit| ({float(full.abs().max()):.3g}; bound {tol})",
+              flush=True)
+        del cache
+        if rel < tol:
+            continue
+        if label == "bf16" and amplifies > tol:
+            print(f"ssm[{arch}]: bf16 contract past {tol}: the model moves "
+                  f"its logits by {amplifies:.4g} of their max under a bf16 "
+                  f"ulp on a tenth of its attention outputs (phase 13(b)'s "
+                  f"control), so the fp32 contract holds the decode path",
+                  flush=True)
+            continue
+        fail(f"ssm[{arch}]: {label} decode contract off by {rel:.4g}")
+    del p32, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ring_decode():
+    """Phase 13(d): full-width gemma2-2b through the reference's serve
+    step: ``make_prefill_step`` over 4608 tokens (ring caches: the local
+    layers' last 4096 positions in ring slots) and RING_STEPS
+    ``make_serve_step`` decodes, against ``decode_step_paged`` through the
+    paged decode kernel over the same prompt's identity page pool,
+    teacher-forced on the ring path's greedy tokens: every step's logits
+    within LOGIT_RTOL, greedy tokens equal where the margin allows.
+    Returns the flash launches of one prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.training import steps
+    model = build_model(get_config("gemma2-2b"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(15)
+    prompt = torch.randint(2, cfg.vocab_size, (SSM_B, RING_S), generator=g,
+                           dtype=torch.int32).cuda()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    logits, ring = steps.make_prefill_step(model)(params,
+                                                  {"tokens": prompt})
+    n_flash = all_launches()["flash_attention_fwd"]
+    if n_flash != cfg.num_layers:
+        fail(f"ring: prefill launched flash {n_flash} times, want "
+             f"{cfg.num_layers}")
+    if ring["sub0"]["k"].shape[2] != cfg.window_size:
+        fail(f"ring: local caches hold {ring['sub0']['k'].shape[2]} slots")
+    ring = {s: {kv: torch.nn.functional.pad(
+        a, (0, 0, 0, 0, 0, RING_STEPS)) if a.shape[2] == RING_S else a
+        for kv, a in c.items()} for s, c in ring.items()}
+    _, full = model.prefill(params, {"tokens": prompt},
+                                  cache_layout="full")
+    pool, pt = serve._identity_paged_pool(full, SSM_B, RING_S + RING_STEPS,
+                                          PAGE)
+    del full
+    torch.cuda.empty_cache()
+    serve_step = steps.make_serve_step(model)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    worst, ring_ms, paged_ms = 0.0, [], []
+    reset_all_launches()
+    for i in range(RING_STEPS):
+        pos = RING_S + i
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        a, ring = serve_step(params, ring, tok,
+                             torch.tensor(pos, device="cuda"))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        b, pool = model.decode_step_paged(
+            params, pool, pt, tok,
+            torch.full((SSM_B,), pos, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        ring_ms.append((t2 - t1) * 1e3)
+        paged_ms.append((time.perf_counter() - t2) * 1e3)
+        # the paged kernel's logits against the ring path's plain ones
+        worst = max(worst, compare_logits(
+            "ring", f"decode pos {pos} (paged kernel vs ring serve step)",
+            b[:, 0], a[:, 0]))
+        tok = a[:, -1].argmax(-1)[:, None].to(torch.int32)
+    n = all_launches()
+    if n["paged_attention_fwd"] != cfg.num_layers * RING_STEPS or \
+            n["flash_attention_fwd"]:
+        fail(f"ring: decode launches {json.dumps(n)}")
+    print(f"ring[gemma2-2b]: {RING_S}-token prompt x {SSM_B}, "
+          f"{RING_STEPS} steps: max logit diff {worst:.4g}; ring step "
+          f"{sorted(ring_ms)[RING_STEPS // 2]:.2f} ms, paged step "
+          f"{sorted(paged_ms)[RING_STEPS // 2]:.2f} ms (medians)",
+          flush=True)
+    del params, ring, pool
+    torch.cuda.empty_cache()
+    return n_flash
+
+
+def phase_nas():
+    """Phase 14: ``nas.search`` on the full backbone on the card, its LUT
+    on h100-sxm at (8, 2048) and data at (2, 2048): every sampled path
+    recorded, flash launched once for each attention op a forward ran
+    (its backward is plain), losses and alpha finite, the derived arch
+    with its expected and sampled latency; then each candidate op's
+    forward timed at the LUT's shape beside the LUT's roofline value
+    (printed, not gated). Returns the search's flash launches."""
+    import torch
+    from repro_torch.configs.supernet_lm import BACKBONE, CANDIDATE_OPS
+    from repro_torch.core import latency_table as lt
+    from repro_torch.core import nas
+    from repro_torch.core import supernet as sn
+    from repro_torch.core.hardware_model import H100_SXM
+    lut = lt.build_lut(BACKBONE, *NAS_LUT_SHAPE, H100_SXM)
+    data = nas.synthetic_lm_data(BACKBONE, *NAS_DATA_SHAPE, device="cuda")
+    ncfg = nas.NASConfig(steps=NAS_STEPS, warmup_steps=NAS_WARMUP,
+                         batch=NAS_DATA_SHAPE[0], seq=NAS_DATA_SHAPE[1],
+                         log_every=4)
+    sampled = []
+    real = sn.sample_gates
+
+    def recording(generator, alpha):
+        g = real(generator, alpha)
+        sampled.append(g.tolist())
+        return g
+    attn = {i for i, op in enumerate(CANDIDATE_OPS)
+            if sn.OP_SPECS[op]["arm"] == "attn"}
+    torch.cuda.synchronize()
+    reset_all_launches()
+    sn.sample_gates = recording
+    t0 = time.perf_counter()
+    try:
+        res = nas.search(data, hw=H100_SXM, ncfg=ncfg, lut=lut,
+                         device="cuda",
+                         progress=lambda r: print(
+                             f"nas: step {r['step']} weight loss "
+                             f"{r['weight_loss']:.4f} arch loss "
+                             f"{r['arch_loss']:.4f} val CE "
+                             f"{r['val_ce']:.4f} E[lat] "
+                             f"{r['e_lat_us']:.2f} us", flush=True))
+    finally:
+        sn.sample_gates = real
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = all_launches()
+    want = sum(g in attn for gates in sampled for g in gates)
+    if n["flash_attention_fwd"] != want or want == 0 or any(
+            v for k, v in n.items() if k != "flash_attention_fwd"):
+        fail(f"nas: launches {json.dumps(n)}, want {want} flash launches "
+             f"(attention ops sampled over {len(sampled)} steps)")
+    losses = [v for r in res["history"]
+              for v in (r["weight_loss"], r["arch_loss"], r["val_ce"])]
+    if not all(math.isfinite(v) for v in losses) or \
+            not bool(torch.isfinite(torch.from_numpy(res["alpha"])).all()):
+        fail(f"nas: non-finite losses or alpha: {res['history']}")
+    if len(res["arch"]) != BACKBONE.num_layers:
+        fail(f"nas: arch of {len(res['arch'])} blocks")
+    steps_n = NAS_WARMUP + 2 * NAS_STEPS
+    print(f"nas: {NAS_WARMUP} warmup + {NAS_STEPS} search steps on the "
+          f"{BACKBONE.num_layers}-block backbone (d {BACKBONE.d_model}) at "
+          f"B {NAS_DATA_SHAPE[0]} x S {NAS_DATA_SHAPE[1]} in {dt:.1f} s "
+          f"({1e3 * dt / steps_n:.1f} ms a weight or alpha step); "
+          f"{n['flash_attention_fwd']} flash launches; derived arch "
+          f"{res['arch']}; E[lat] {res['e_lat_us']:.2f} us, sampled "
+          f"{res['sampled_lat_us']:.2f} us, target {res['lat_ref_us']:.2f} "
+          f"us (h100-sxm roofline at B {NAS_LUT_SHAPE[0]} x S "
+          f"{NAS_LUT_SHAPE[1]})", flush=True)
+
+    # each op's forward alone at the LUT's shape beside its roofline value
+    params = res["params"]
+    B, S = NAS_LUT_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((B, S, BACKBONE.d_model), generator=g,
+                    device="cuda").bfloat16()
+    positions = torch.arange(S, device="cuda").expand(B, S)
+    parts = []
+    with torch.no_grad():
+        for j, op in enumerate(CANDIDATE_OPS):
+            block = params["blocks"][0][op]
+            ms = time_ms(lambda: sn._apply_op(op, block, x, BACKBONE,
+                                              positions), reps=5)
+            parts.append(f"{op} {ms:.3f} ms (LUT {1e3 * float(lut[0, j]):.4f}"
+                         f" ms)")
+    print(f"nas[roofline fidelity, B {B} x S {S}, h100-sxm]: "
+          + "; ".join(parts), flush=True)
+    del params, res, x
+    torch.cuda.empty_cache()
+    return n["flash_attention_fwd"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2809,11 +3241,31 @@ def main() -> int:
           f"serving path's flash launches {wp_launches['flash_attention_fwd']}"
           f"; phase 12 in {time.perf_counter() - t_train:.1f} s", flush=True)
 
+    # phase 13: the SSM family and the dense-cache decode
+    t_ssm = time.perf_counter()
+    ssm_flash = phase_ssm_flash()
+    ssm_launches = {arch: phase_ssm_serve(arch) for arch in SSM_ARCHS}
+    ring_flash = phase_ring_decode()
+    t_nas = time.perf_counter()
+    # phase 14: the NAS search
+    nas_flash = phase_nas()
+    flash_paths = {
+        "train": train_launches["flash_attention_fwd"],
+        **{f"generate {a}": n["flash_attention_fwd"]
+           for a, n in ssm_launches.items()},
+        "ring prefill gemma2-2b": ring_flash, "nas search": nas_flash}
+    print(f"ssm+nas: flash at the new geometries {json.dumps(ssm_flash)}; "
+          f"flash launches by path {json.dumps(flash_paths)}; phase 13 in "
+          f"{t_nas - t_ssm:.1f} s, phase 14 in "
+          f"{time.perf_counter() - t_nas:.1f} s", flush=True)
+
     # launches per kernel from the run of the path it serves (flash: the
-    # training path, this slice's)
+    # training path's, the SSM family's, the ring prefill's and the NAS
+    # search's, summed)
     source_run = {**{k: launches for k in BF16_KERNELS},
                   **{k: q_launches for k in QUANT_KERNELS},
-                  "flash_attention_fwd": train_launches,
+                  "flash_attention_fwd": {
+                      "flash_attention_fwd": sum(flash_paths.values())},
                   "quant_matmul_w8a16": w_launches,
                   "quant_matmul_w4a16": w_launches,
                   "quant_matmul_w8a8": g_launches}

@@ -6,8 +6,8 @@ Per-op costs (flops, weight bytes, activation bytes, collective bytes)
 priced on a ``Hardware`` target as the max of compute, memory and
 collective time (``latency``), as joules (``energy``), or as FLOPs per
 memory byte (``intensity``). Plain Python floats: the reference's
-traced-array support serves its NAS latency loss, whose ``ssd_cost``
-comes with the NAS slice.
+traced-array support serves its NAS latency loss; here the latency
+table (core/latency_table.py) prices ops once, as numpy, so floats do.
 
 The energy constants (``pj_per_flop``, ``pj_per_hbm_byte``,
 ``pj_per_ici_byte``) are the reference's public-literature scale values
@@ -141,6 +141,16 @@ def gather_cost(nbytes, shards: int) -> OpCost:
     n = max(int(shards), 1)
     return OpCost(flops=0.0, weight_bytes=0.0, act_bytes=0.0,
                   coll_bytes=float(nbytes) * (n - 1) / n)
+
+
+def ssd_cost(batch: int, seq: int, d_inner: int, d_state: int,
+             chunk: int) -> OpCost:
+    """Mamba2 SSD: intra-chunk quadratic + state updates."""
+    heads = max(d_inner // 64, 1)
+    intra = 2.0 * batch * seq * chunk * heads * 64
+    state = 4.0 * batch * seq * d_inner * d_state
+    return OpCost(flops=intra + state, weight_bytes=0.0,
+                  act_bytes=2.0 * batch * seq * d_inner * 2.0)
 
 
 def moe_cost(tokens: int, d_model: int, d_ff: int, n_experts: int,

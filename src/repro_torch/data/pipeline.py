@@ -70,15 +70,14 @@ def batches(dcfg: DataConfig, start_step: int = 0
 def batch_for_model(model, shape, dcfg: Optional[DataConfig], step: int,
                     device="cpu") -> Dict[str, torch.Tensor]:
     """The model's batch for ``step`` as int32 tensors on ``device``. The
-    dense and moe families take tokens and labels; the others (frames,
-    patches) wait for their slices, as the model does."""
+    token families (dense, moe, ssm, hybrid) take tokens and labels; the
+    others (frames, patches) wait for their slices, as the model does."""
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe") or cfg.is_encdec \
-            or cfg.frontend != "none":
+    if cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(
-            f"batch_for_model: the port trains the dense and moe families "
-            f"so far; {cfg.name} (family={cfg.family!r}) waits for its "
-            f"slice (ROADMAP)")
+            f"batch_for_model: the port trains the token families so far; "
+            f"{cfg.name} (family={cfg.family!r}) waits for its slice "
+            f"(ROADMAP)")
     dcfg = dcfg or DataConfig(cfg.vocab_size, shape.seq_len,
                               shape.global_batch)
     b = batch_at(dcfg, step)

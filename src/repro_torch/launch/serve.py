@@ -18,6 +18,8 @@ as the reference baseline.
   --serving-config SERVING_gemma2.json``
 ``python -m repro_torch.launch.serve --arch gemma2-2b --sequential \\
   --quant-policy QUANT.json``  (e.g. ``{"ffn_in": [4, 16]}``)
+``python -m repro_torch.launch.serve --arch mamba2-370m --sequential``
+``python -m repro_torch.launch.serve --arch zamba2-1.2b --sequential``
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no CPU request it stops with an error. ``--kv-bits`` and
@@ -29,8 +31,10 @@ serves with the measured winner; ``--serving-config`` loads a searched
 config back. ``--quant-policy`` (sequential mode only, as in the
 reference) maps HAQ sites to ``[w_bits, a_bits]`` and serves through
 ``make_quant_dot``'s fake-quant hook; the engine's weight quantization
-comes from the admission policy's ``quant_bits``. The reference's
-``--mesh`` waits for the sharded engine.
+comes from the admission policy's ``quant_bits``. The ssm and hybrid
+families (mamba2-370m, zamba2-1.2b) serve in ``--sequential`` mode only,
+over dense caches; the engine refuses them, as the reference's does. The
+reference's ``--mesh`` waits for the sharded engine.
 """
 from __future__ import annotations
 
@@ -123,6 +127,44 @@ def _chunked_prefill(model, params, prompt_tokens, gen_len, page_size,
             pt)
 
 
+def _grow_cache(cache, cur: int, max_len: int):
+    """Pad the dense KV caches (5-D leaves whose sequence axis holds the
+    prefill's ``cur`` positions) to ``max_len``. Mamba leaves are skipped
+    by key: their state is 5-D too."""
+    def grow(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: grow(v, k if key == "" else key)
+                    for k, v in tree.items()}
+        if tree.ndim == 5 and key != "mamba" and tree.shape[2] == cur:
+            return F.pad(tree, (0, 0, 0, 0, 0, max_len - cur))
+        return tree
+    return grow(cache)
+
+
+def _generate_dense(model, params, prompt_tokens, gen_len, temperature,
+                    generator, kernel, dot):
+    """The ssm and hybrid families' ``generate``: the whole-prompt prefill
+    (flash for the hybrid's shared attention from 2048 tokens on), its
+    caches grown to the decode length, then ``decode_step`` over them, as
+    the reference's non-paged branch does."""
+    B, S = prompt_tokens.shape
+    logits, cache = model.prefill(params, {"tokens": prompt_tokens},
+                                  cache_layout="full", dot=dot,
+                                  kernel=kernel)
+    cache = _grow_cache(cache, S, S + gen_len)
+    out = [prompt_tokens.to(torch.int32)]
+    tok = _sample(logits, temperature, generator)
+    for i in range(gen_len):
+        out.append(tok)
+        if i == gen_len - 1:
+            break
+        pos = torch.tensor(S + i, dtype=torch.int32,
+                           device=prompt_tokens.device)
+        logits, cache = model.decode_step(params, cache, tok, pos, dot=dot)
+        tok = _sample(logits, temperature, generator)
+    return torch.cat(out, dim=1)
+
+
 def _sample(logits, temperature, generator):
     logits = logits[:, -1]
     if temperature <= 0.0 or generator is None:
@@ -147,7 +189,20 @@ def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
     quantizes the pool on write, as the engine's pool does;
     ``prefill_chunk`` > 0 prefills the prompt in chunks of that many
     tokens through the paged prefill walk over the pool, as the engine's
-    chunked prefill does, instead of the whole-sequence forward."""
+    chunked prefill does, instead of the whole-sequence forward.
+
+    The ssm and hybrid families, which the engine does not serve, decode
+    over dense caches (``Model.decode_step``) as in the reference; for
+    them ``kv_bits`` and ``prefill_chunk``, the engine's knobs, raise
+    ValueError."""
+    if model.cfg.family in ("ssm", "hybrid"):
+        if kv_bits is not None or prefill_chunk:
+            raise ValueError(
+                f"kv_bits and prefill_chunk are paged-pool knobs; "
+                f"{model.cfg.name} (family={model.cfg.family!r}) decodes "
+                f"over dense caches")
+        return _generate_dense(model, params, prompt_tokens, gen_len,
+                               temperature, generator, kernel, dot)
     B, S = prompt_tokens.shape
     if prefill_chunk:
         logits, pool, pt = _chunked_prefill(

@@ -1,8 +1,9 @@
 """Model facade (port of ``repro.models.api``): ``build_model(cfg)``
 returns a ``Model`` with the entry points the serving engine,
-``launch.serve.generate`` and the trainer (training/steps.py) call, for
-the dense and moe families (the others raise NotImplementedError,
-models/transformer.py). Parameters are nested dicts of tensors with the
+``launch.serve.generate``, the trainer (training/steps.py) and the
+searches call, for the dense, moe, ssm and hybrid families (encdec and
+the vision frontend raise NotImplementedError, models/transformer.py).
+Parameters are nested dicts of tensors with the
 reference's pytree keys (see models/convert.py). The ``dot``
 hook threads HAQ quantization through every matmul: it receives
 (x, w, site_name) and returns the product (core/quantization.py,
@@ -37,12 +38,14 @@ class Model:
 
     # -- compute ------------------------------------------------------------
     def forward(self, params, batch, *, want_cache=False,
-                unembed_mode="full", cache_layout="full", dot=None,
+                unembed_mode="full", cache_layout="ring", dot=None,
                 kernel="auto", remat=False):
         """Whole-sequence forward; ``kernel`` picks the flash-attention
         path of sequences of FLASH_MIN tokens or more: "auto" (CUDA kernel
         on CUDA tensors, plain version on CPU ones), "cuda" or "ref".
-        ``remat`` recomputes each layer group in the backward
+        ``remat`` recomputes each layer group in the backward;
+        ``cache_layout`` "ring" gives the dense decode's caches, "full"
+        the chronological ones the page pool takes
         (transformer.forward)."""
         return transformer.forward(params, batch, self.cfg,
                                    want_cache=want_cache,
@@ -64,7 +67,7 @@ class Model:
                                     self.cfg, dot=dot)
         return ce + 0.01 * aux
 
-    def prefill(self, params, batch, *, cache_layout="full",
+    def prefill(self, params, batch, *, cache_layout="ring",
                 unembed_mode="last", dot=None, kernel="auto"):
         logits, cache, _, _ = self.forward(params, batch, want_cache=True,
                                            unembed_mode=unembed_mode,
@@ -75,6 +78,15 @@ class Model:
     def unembed(self, params, hidden, *, dot=None):
         """Project hidden states (B, S, D) to fp32 logits."""
         return transformer.unembed(params, hidden, self.cfg, dot=dot)
+
+    def decode_step(self, params, cache, token, pos, *, dot=None):
+        """One token (B, 1) at position ``pos`` over dense caches (a
+        ``prefill``'s, grown to the decode length, or ``init_cache``'s),
+        updated in place; returns (logits (B, 1, V), cache). The
+        reference's ``generate`` path for ssm and hybrid and
+        training/steps.py::make_serve_step."""
+        return transformer.decode_step(params, cache, token, pos, self.cfg,
+                                       dot=dot)
 
     def decode_step_paged(self, params, pool, page_table, token, positions,
                           *, kernel="auto", dot=None):
@@ -95,6 +107,14 @@ class Model:
                                                kernel=kernel, dot=dot)
 
     # -- caches -------------------------------------------------------------
+    def cache_specs(self, batch: int, seq_len: int):
+        """The dense decode caches as (shape, dtype) pairs."""
+        return transformer.cache_specs(self.cfg, batch, seq_len)
+
+    def init_cache(self, batch: int, seq_len: int, *, device):
+        return transformer.init_cache(self.cfg, batch, seq_len,
+                                      device=device)
+
     def pool_specs(self, num_pages: int, page_size: int, kv_bits=None):
         return transformer.pool_specs(self.cfg, num_pages, page_size,
                                       kv_bits=kv_bits)

@@ -1,13 +1,16 @@
 """GQA attention (port of ``repro.models.attention``): whole-prompt
 forwards — dense for short sequences, flash attention (models/flash.py)
-from ``FLASH_MIN`` tokens on — and the paged decode / chunked-prefill
-paths over the serving engine's page pool — bf16, or quantized int8/int4
-with per-token scales (serving/kvquant).
+from ``FLASH_MIN`` tokens on — the dense-cache decode over full-length or
+ring-buffer (local) caches, and the paged decode / chunked-prefill paths
+over the serving engine's page pool — bf16, or quantized int8/int4 with
+per-token scales (serving/kvquant).
 
 Layout conventions, as in the reference:
   activations x          (B, S, D)
   q                      (B, S, H, hd)
   k, v                   (B, S, K, hd)     H = K * G (GQA groups)
+  full KV cache          (B, S_max, K, hd)
+  ring KV cache (local)  (B, W, K, hd)     slot = position % W
   page pool (one layer)  (P, page, K, hd) bf16, or
                          {"q": (P, page, K, hd_store) int8,
                           "scale": (P, page, K) fp32}
@@ -116,6 +119,58 @@ def attention_fwd(p, x, kind: str, cfg, positions, *, dot=None,
             mask = causal_mask(S, S, device=x.device)
         o = _attend(q, k, v, mask, cfg.attn_softcap)
     return _out_proj(o, p, dot), {"k": k, "v": v}
+
+
+def _last_window_ring(k: torch.Tensor, W: int) -> torch.Tensor:
+    """The last W cached positions of k (B, S, K, hd) in ring layout: slot
+    s holds the position p of the last W with p % W == s."""
+    S = k.shape[1]
+    return torch.roll(k[:, S - W:S], shifts=S % W, dims=1)
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, idx) -> None:
+    """Write ``new`` (B,1,K,hd) in place at sequence slot ``idx`` (a scalar
+    tensor: no host read)."""
+    cache[:, idx] = new[:, 0].to(cache.dtype)
+
+
+def attention_decode(p, x, cache_k, cache_v, pos, kind: str, cfg, *,
+                     dot=None):
+    """One-token decode over a dense cache. x (B,1,D); pos a scalar int
+    tensor (the current position). A local layer whose cache holds
+    exactly ``window_size`` slots is a ring (slot ``pos % W``); every
+    other cache is chronological. The new k/v are written into the caches
+    in place; attention runs through the plain ``_attend``, as in the
+    reference, masked by each slot's absolute position.
+
+    Returns (out (B,1,D), cache_k, cache_v)."""
+    B = x.shape[0]
+    positions = pos.reshape(1, 1).expand(B, 1)
+    q, k_new, v_new = qkv(p, x, cfg.rope_theta, positions, dot=dot)
+    T = cache_k.shape[1]
+    s = torch.arange(T, device=x.device)
+    if kind == "local" and T == cfg.window_size:
+        slot = pos % T
+        _cache_write(cache_k, k_new, slot)
+        _cache_write(cache_v, v_new, slot)
+        # absolute position held by each slot (after this write)
+        abs_pos = pos - (pos - s) % T
+        mask = (abs_pos >= 0)[None, None, None, :]
+    else:
+        _cache_write(cache_k, k_new, pos)
+        _cache_write(cache_v, v_new, pos)
+        valid = s <= pos
+        if kind == "local":
+            valid &= s > pos - cfg.window_size
+        mask = valid[None, None, None, :]
+    o = _attend(q, cache_k, cache_v, mask, cfg.attn_softcap)
+    return _out_proj(o, p, dot), cache_k, cache_v
+
+
+def cache_len_for(kind: str, cfg, seq_len: int) -> int:
+    if kind == "local":
+        return min(cfg.window_size, seq_len)
+    return seq_len
 
 
 def write_kv(pool, index, new):

@@ -32,10 +32,12 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
 
 
 def from_jax_params(tree, device="cpu"):
-    """Nested dict of numpy arrays -> nested dict of tensors on
-    ``device``, same keys and shapes."""
+    """Nested dicts and lists of numpy arrays -> the same nesting of
+    tensors on ``device``, same keys and shapes."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [from_jax_params(v, device) for v in tree]
     return to_tensor(tree, device)
 
 

@@ -2,8 +2,10 @@
 
 Every model declares its parameters once as a nested dict of ``PDef``
 leaves (shape + logical axes + init); ``init_params`` materializes it as a
-nested dict of tensors with the same keys. Leaves are visited in sorted key
-order, as JAX flattens a dict.
+nested dict of tensors with the same keys. A subtree may also be a Python
+list (the NAS supernet's per-block parameters). Leaves are visited in
+sorted key order within a dict and in index order within a list, as JAX
+flattens them.
 """
 from __future__ import annotations
 
@@ -27,16 +29,21 @@ class PDef:
 
 
 def tree_map(fn, tree):
-    """Map ``fn`` over the leaves of a nested dict."""
+    """Map ``fn`` over the leaves of nested dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 def tree_leaves(tree):
-    """Leaves of a nested dict, in sorted key order."""
+    """Leaves of nested dicts and lists: sorted key order in a dict, index
+    order in a list."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -47,6 +54,8 @@ def tree_unflatten(like, leaves):
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
         return next(it)
     return walk(like)
 
@@ -75,12 +84,11 @@ def _init_leaf(d: PDef, generator, device, dtype):
 
 def init_params(defs, generator: torch.Generator, device, dtype=None):
     """Materialize ``defs`` on ``device`` from ``generator`` (a generator of
-    that device). Leaves draw from the generator in sorted key order."""
-    def walk(tree):
-        if isinstance(tree, dict):
-            return {k: walk(tree[k]) for k in sorted(tree)}
-        return _init_leaf(tree, generator, device, dtype)
-    return walk(defs)
+    that device). Leaves draw from the generator in ``tree_leaves``
+    order."""
+    leaves = [_init_leaf(d, generator, device, dtype)
+              for d in tree_leaves(defs)]
+    return tree_unflatten(defs, leaves)
 
 
 def param_count(defs) -> int:

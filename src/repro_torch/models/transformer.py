@@ -1,16 +1,22 @@
-"""Decoder-only LM assembly for the dense and moe families (port of
-``repro.models.transformer``).
+"""Decoder-only LM assembly for the dense, moe, ssm and hybrid families
+(port of ``repro.models.transformer``).
 
 Parameters keep the reference's stacking: layers are grouped by
 ``period`` sub-layer slots and each slot's parameters are stacked over
-``n_groups``, so ``blocks/sub{j}/attn/wq`` is ``(n_groups, d, H, hd)``.
-Where the reference scans over groups with ``lax.scan``, this port runs a
-Python loop over ``n_groups x period`` on per-group views.
+``n_groups``, so ``blocks/sub{j}/attn/wq`` is ``(n_groups, d, H, hd)``;
+the ssm and hybrid families stack their mamba layers (``mamba``,
+``mamba_ln``) over ``num_layers``, and the hybrid's one ``shared``
+attention block is applied before each group of ``hybrid_groups``
+mamba layers. Where the reference scans with ``lax.scan``, this port runs
+a Python loop on per-layer views.
 
 A moe sub-layer slot (``cfg.is_moe_layer``) holds a ``moe`` subtree in
 place of ``ffn`` and runs models/moe.py's routed experts; ``forward``
-sums their load-balance losses into its ``aux``. The ssm, hybrid, encdec
-and vlm families wait for their slices and raise NotImplementedError.
+sums their load-balance losses into its ``aux``. Decoding runs over the
+paged pool (``decode_step_paged``, the engine's) or over dense caches
+(``decode_step``, the reference's ``generate`` for ssm and hybrid and
+``make_serve_step``). The encdec family and the vision frontend wait for
+their slice and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed_defs, ffn_apply, ffn_defs,
                                        norm_def, rms_norm, softcap)
 from repro_torch.models.params import PDef, stacked, tree_map
@@ -30,12 +37,21 @@ F32 = torch.float32
 
 
 def _require_ported(cfg, what: str) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.is_encdec \
-            or cfg.frontend != "none":
+    if cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{what}: the port serves the dense and moe families so far; "
-            f"{cfg.name} (family={cfg.family!r}) waits for its slice "
-            f"(ROADMAP)")
+            f"{what}: the port runs the dense, moe, ssm and hybrid families "
+            f"so far; {cfg.name} (family={cfg.family!r}, "
+            f"frontend={cfg.frontend!r}) waits for its slice (ROADMAP)")
+
+
+def _require_paged(cfg, what: str) -> None:
+    """The paged pool holds attention KV: the ssm and hybrid families
+    decode over dense caches (``decode_step``), as in the reference."""
+    _require_ported(cfg, what)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{what} supports attention-cache families only, got "
+            f"{cfg.family!r}")
 
 
 # ------------------------------------------------------------- structure ----
@@ -59,6 +75,18 @@ def _layers(cfg):
     kinds = sublayer_kinds(cfg)
     return [(g, j, kinds[j]) for g in range(cfg.num_layers // P)
             for j in range(P)]
+
+
+def hybrid_groups(cfg):
+    """zamba2: sizes of mamba-layer groups between shared-attn
+    applications."""
+    k = cfg.shared_attn_every
+    L = cfg.num_layers
+    sizes = []
+    while L > 0:
+        sizes.append(min(k, L))
+        L -= k
+    return sizes
 
 
 def _group(tree, g: int):
@@ -93,6 +121,15 @@ def param_defs(cfg) -> dict:
     if not cfg.tie_embeddings:
         defs["lm_head"] = PDef((d, cfg.padded_vocab), ("embed", "vocab"),
                                "scaled")
+    if cfg.family in ("ssm", "hybrid"):
+        defs["mamba"] = stacked(ssm_lib.mamba_defs(cfg), cfg.num_layers)
+        defs["mamba_ln"] = stacked(norm_def(d), cfg.num_layers)
+        if cfg.family == "hybrid":
+            defs["shared"] = {
+                "fuse_in": PDef((2 * d, d), ("embed2", "embed"), "scaled"),
+                "fuse_out": PDef((d, d), ("embed2", "embed"), "scaled"),
+                **_dense_sublayer_defs(cfg, SHARED_KIND)}
+        return defs
     P = period_of(cfg)
     kinds = sublayer_kinds(cfg)
     assert cfg.num_layers % P == 0, (cfg.name, cfg.num_layers, P)
@@ -103,6 +140,9 @@ def param_defs(cfg) -> dict:
 
 
 # ----------------------------------------------------------------- blocks ----
+SHARED_KIND = {"attn": "global", "moe": False}   # the hybrid's shared block
+
+
 def _ffn_half(p, x, kind, cfg, dot):
     """The feed-forward half of a block: (x + f, the moe aux loss or
     0.0)."""
@@ -123,12 +163,57 @@ def _attn_residual(p, x, a, cfg):
     return x + a
 
 
-def _dense_block_fwd(p, x, kind, cfg, positions, dot, kernel):
+def _dense_block_fwd(p, x, kind, cfg, positions, dot, kernel, ring=False):
+    """``ring``: a local layer's cache in ring layout (dense decode)
+    instead of chronological (the page pool's)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn.attention_fwd(p["attn"], h, kind["attn"], cfg, positions,
                                   dot=dot, kernel=kernel)
     x, aux = _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot)
+    if ring and kind["attn"] == "local":
+        W = cfg.window_size
+        cache = {"k": _to_ring(cache["k"], W), "v": _to_ring(cache["v"], W)}
     return x, cache, aux
+
+
+def _to_ring(k: torch.Tensor, W: int) -> torch.Tensor:
+    """A chronological cache (B, S, K, hd) as a W-slot ring: the last W
+    positions rearranged, or (S < W) padded, position p in slot p."""
+    S = k.shape[1]
+    if S >= W:
+        return attn._last_window_ring(k, W)
+    return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, W - S))
+
+
+def _dense_block_decode(p, x, cache, pos, kind, cfg, dot):
+    """One token through a block over its dense caches (written in
+    place)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, _, _ = attn.attention_decode(p["attn"], h, cache["k"], cache["v"],
+                                    pos, kind["attn"], cfg, dot=dot)
+    return _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot)[0]
+
+
+def _shared_block_fwd(p, x, emb, cfg, positions, dot, kernel):
+    """The hybrid's shared block: x concatenated with the original
+    embedding, fused to d_model, one global dense block, projected back
+    and added to x."""
+    u = torch.cat([x, emb], dim=-1) @ p["fuse_in"]
+    u, cache, _ = _dense_block_fwd(p, u, SHARED_KIND, cfg, positions, dot,
+                                   kernel)
+    return x + u @ p["fuse_out"], cache
+
+
+def _shared_block_decode(p, x, emb, cache, pos, cfg, dot):
+    u = torch.cat([x, emb], dim=-1) @ p["fuse_in"]
+    u = _dense_block_decode(p, u, cache, pos, SHARED_KIND, cfg, dot)
+    return x + u @ p["fuse_out"]
+
+
+def _mamba_fwd(p, ln, x, cfg, dot):
+    y, cache = ssm_lib.mamba_block_fwd(p, rms_norm(x, ln, cfg.norm_eps), cfg,
+                                       dot=dot)
+    return x + y, cache
 
 
 def _dense_block_decode_paged(p, x, pool_kv, page_table, positions, kind,
@@ -230,38 +315,59 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
 
 # --------------------------------------------------------------- forward ----
 def forward(params, batch, cfg, *, want_cache: bool,
-            unembed_mode: str = "full", cache_layout: str = "full",
+            unembed_mode: str = "full", cache_layout: str = "ring",
             dot=None, kernel: str = "auto", remat: bool = False):
     """Full-sequence forward (training and prefill).
 
     unembed_mode: "full" -> logits (B,S,V); "last" -> logits (B,1,V);
     "none" -> final hidden states (B,S,D).
-    cache_layout: "full" -> chronological caches of shape
-    (n_groups, B, S, K, hd) per sub-layer slot (what the paged engine
-    copies into its pool); the reference's ring layout for dense decode is
-    not ported.
+    cache_layout: "ring" -> local layers' caches in ring layout
+    (``window_size`` slots, slot = position % W: the dense decode's);
+    "full" -> chronological caches of shape (n_groups, B, S, K, hd) per
+    sub-layer slot (what the paged engine copies into its pool). The ssm
+    family's caches are ``{"mamba": {"conv", "state"}}`` stacked over
+    layers; the hybrid's add ``"shared": {"k", "v"}`` stacked over the
+    shared block's applications.
     dot: optional (x, w, name) -> y override of every matmul site.
     kernel: the flash-attention mode ("auto" | "cuda" | "ref") of the
     layers' whole-sequence attention from FLASH_MIN tokens on
     (models/flash.py, whose backward serves training); shorter sequences
     attend densely.
-    remat: run each group of ``period_of(cfg)`` sub-layers under a
-    checkpoint (the reference's ``jax.checkpoint(group_body)``): the
-    backward runs the group's forward again, flash kernel included,
-    instead of keeping its activations.
+    remat: run each group of ``period_of(cfg)`` sub-layers (each mamba
+    layer) under a checkpoint (the reference's ``jax.checkpoint``): the
+    backward runs its forward again, flash kernel included, instead of
+    keeping its activations.
     Returns (logits_or_hidden, caches or None, aux, loss_mask None): aux
     is the fp32 scalar tensor sum of the moe layers' load-balance losses
-    (the float 0.0 for the dense family).
+    (the float 0.0 for the other families).
     """
     _require_ported(cfg, "forward")
-    if cache_layout != "full":
-        raise NotImplementedError(
-            "the port keeps chronological ('full') caches only; the ring "
-            "layout serves the reference's dense decode, not ported")
+    if cache_layout not in ("ring", "full"):
+        raise ValueError(f"cache_layout must be 'ring' or 'full', got "
+                         f"{cache_layout!r}")
+    ring = want_cache and cache_layout == "ring"
     tokens = batch["tokens"]
     x = embed_tokens(params, tokens, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.family in ("ssm", "hybrid"):
+        x, out_cache = _forward_mamba(params, x, cfg, positions, want_cache,
+                                      dot, kernel, remat)
+        aux_total = 0.0
+    else:
+        x, out_cache, aux_total = _forward_blocks(
+            params, x, cfg, positions, want_cache, ring, dot, kernel, remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if unembed_mode == "none":
+        return x, out_cache, aux_total, None
+    if unembed_mode == "last":
+        x = x[:, -1:]
+    return unembed(params, x, cfg, dot=dot), out_cache, aux_total, None
+
+
+def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
+                    kernel, remat):
+    """The dense and moe families' layer groups: (x, caches, aux)."""
     P = period_of(cfg)
     kinds = sublayer_kinds(cfg)
 
@@ -269,7 +375,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
         kv = []
         for j in range(P):
             h, c, a = _dense_block_fwd(blocks[f"sub{j}"], h, kinds[j], cfg,
-                                       positions, dot, kernel)
+                                       positions, dot, kernel, ring)
             aux = aux + a
             kv.append(c if want_cache else None)
         return h, aux, kv
@@ -289,16 +395,84 @@ def forward(params, batch, cfg, *, want_cache: bool,
             for j, c in enumerate(kv):
                 caches[f"sub{j}"]["k"].append(c["k"])
                 caches[f"sub{j}"]["v"].append(c["v"])
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     out_cache = None
     if want_cache:
         out_cache = {s: {kv: torch.stack(lst) for kv, lst in c.items()}
                      for s, c in caches.items()}
-    if unembed_mode == "none":
-        return x, out_cache, aux_total, None
-    if unembed_mode == "last":
-        x = x[:, -1:]
-    return unembed(params, x, cfg, dot=dot), out_cache, aux_total, None
+    return x, out_cache, aux_total
+
+
+def _forward_mamba(params, x, cfg, positions, want_cache, dot, kernel,
+                   remat):
+    """The ssm and hybrid families: every mamba layer in order, the
+    hybrid's shared block (on x and the original embedding) before each
+    of its ``hybrid_groups``. Returns (x, caches or None)."""
+    emb0 = x
+    groups = hybrid_groups(cfg) if cfg.family == "hybrid" \
+        else [cfg.num_layers]
+    convs, states, ks, vs = [], [], [], []
+    layer = 0
+    for size in groups:
+        if cfg.family == "hybrid":
+            x, sc = _shared_block_fwd(params["shared"], x, emb0, cfg,
+                                      positions, dot, kernel)
+            ks.append(sc["k"])
+            vs.append(sc["v"])
+        for l in range(layer, layer + size):
+            args = (_group(params["mamba"], l), params["mamba_ln"][l], x,
+                    cfg, dot)
+            x, mc = checkpoint(_mamba_fwd, *args, use_reentrant=False) \
+                if remat else _mamba_fwd(*args)
+            convs.append(mc["conv"])
+            states.append(mc["state"])
+        layer += size
+    if not want_cache:
+        return x, None
+    caches = {"mamba": {"conv": torch.stack(convs),
+                        "state": torch.stack(states)}}
+    if cfg.family == "hybrid":
+        caches["shared"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return x, caches
+
+
+# ----------------------------------------------------------------- decode ----
+def decode_step(params, cache, token, pos, cfg, *, dot=None):
+    """token (B,1) int32, pos a scalar int tensor (or int): the position of
+    the token. One step over the dense caches of ``cache_specs``' layout
+    (a prefill's, grown to the decode length), which it updates in place:
+    KV slots written, mamba conv windows and states replaced. Returns
+    (logits (B,1,V), cache)."""
+    _require_ported(cfg, "decode_step")
+    x = embed_tokens(params, token, cfg)
+    pos = torch.as_tensor(pos, device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        emb0 = x
+        groups = hybrid_groups(cfg) if cfg.family == "hybrid" \
+            else [cfg.num_layers]
+        mc = cache["mamba"]
+        layer = 0
+        for g, size in enumerate(groups):
+            if cfg.family == "hybrid":
+                x = _shared_block_decode(params["shared"], x, emb0,
+                                         _group(cache["shared"], g), pos,
+                                         cfg, dot)
+            for l in range(layer, layer + size):
+                ln = params["mamba_ln"][l]
+                y, new = ssm_lib.mamba_block_decode(
+                    _group(params["mamba"], l),
+                    rms_norm(x, ln, cfg.norm_eps), _group(mc, l), cfg,
+                    dot=dot)
+                mc["conv"][l] = new["conv"]
+                mc["state"][l] = new["state"]
+                x = x + y
+            layer += size
+    else:
+        for g, j, kind in _layers(cfg):
+            x = _dense_block_decode(
+                _group(params["blocks"][f"sub{j}"], g), x,
+                _group(cache[f"sub{j}"], g), pos, kind, cfg, dot)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params, x, cfg, dot=dot), cache
 
 
 # ----------------------------------------------------------- paged decode ----
@@ -312,7 +486,7 @@ def decode_step_paged(params, pool, page_table, token, positions, cfg, *,
     (shared across layers). ``kernel`` selects the paged-attention path
     (see attention_decode_paged); ``dot`` overrides every matmul site.
     The pool is updated in place. Returns (logits (B,1,V), pool)."""
-    _require_ported(cfg, "paged decode")
+    _require_paged(cfg, "paged decode")
     x = embed_tokens(params, token, cfg)
     for g, j, kind in _layers(cfg):
         x = _dense_block_decode_paged(
@@ -334,7 +508,7 @@ def prefill_chunk_paged(params, pool, page_table, tokens, positions, cfg, *,
 
     Returns (hidden (B, Sq, D) final-norm hidden states, pool); the caller
     unembeds only the rows it needs."""
-    _require_ported(cfg, "paged prefill")
+    _require_paged(cfg, "paged prefill")
     x = embed_tokens(params, tokens, cfg)
     for g, j, kind in _layers(cfg):
         x = _dense_block_prefill_paged(
@@ -396,7 +570,7 @@ def pool_specs(cfg, num_pages: int, page_size: int, kv_bits=None):
     with hd_store = hd for int8 and hd//2 for int4 (two codes per byte
     along head_dim). Scales are per page slot (token) and per kv head, so
     quantize-on-write never re-scales resident tokens (serving/kvquant)."""
-    _require_ported(cfg, "paged KV pool")
+    _require_paged(cfg, "paged KV pool")
     hd = cfg.resolved_head_dim
     K = cfg.num_kv_heads
     P = period_of(cfg)
@@ -416,10 +590,45 @@ def pool_specs(cfg, num_pages: int, page_size: int, kv_bits=None):
 
 
 def init_pool(cfg, num_pages: int, page_size: int, *, device, kv_bits=None):
-    def make(spec):
-        if isinstance(spec, dict):
-            return {k: make(v) for k, v in spec.items()}
-        shape, dtype = spec
-        return torch.zeros(shape, dtype=dtype, device=device)
+    return _zeros(pool_specs(cfg, num_pages, page_size, kv_bits), device)
 
-    return make(pool_specs(cfg, num_pages, page_size, kv_bits))
+
+# ------------------------------------------------------------ cache specs ----
+def cache_specs(cfg, batch: int, seq_len: int):
+    """The dense decode cache's layout as (shape, dtype) pairs: per
+    sub-layer slot k/v of (n_groups, B, T, K, hd) bf16, T = seq_len, or
+    the window for a local slot (its ring); the ssm family's mamba
+    conv/state stacked over layers; the hybrid's also the shared block's
+    k/v stacked over its applications."""
+    _require_ported(cfg, "cache_specs")
+    hd = cfg.resolved_head_dim
+    K = cfg.num_kv_heads
+
+    def kv(T, lead):
+        return {"k": (lead + (batch, T, K, hd), torch.bfloat16),
+                "v": (lead + (batch, T, K, hd), torch.bfloat16)}
+
+    if cfg.family in ("ssm", "hybrid"):
+        one = ssm_lib.mamba_cache_spec(cfg, batch)
+        out = {"mamba": {k: ((cfg.num_layers,) + shape, dtype)
+                         for k, (shape, dtype) in one.items()}}
+        if cfg.family == "hybrid":
+            out["shared"] = kv(seq_len, (len(hybrid_groups(cfg)),))
+        return out
+    P = period_of(cfg)
+    kinds = sublayer_kinds(cfg)
+    n_groups = cfg.num_layers // P
+    return {f"sub{j}": kv(attn.cache_len_for(kinds[j]["attn"], cfg, seq_len),
+                          (n_groups,))
+            for j in range(P)}
+
+
+def _zeros(spec, device):
+    if isinstance(spec, dict):
+        return {k: _zeros(v, device) for k, v in spec.items()}
+    shape, dtype = spec
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def init_cache(cfg, batch: int, seq_len: int, *, device):
+    return _zeros(cache_specs(cfg, batch, seq_len), device)

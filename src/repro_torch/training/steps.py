@@ -1,5 +1,6 @@
 """Step builders (port of ``repro.training.steps``): the train step the
-trainer loop (training/loop.py) runs, and the prefill step.
+trainer loop (training/loop.py) runs, the prefill step and the
+dense-cache serve step.
 
 ``dot`` is the HAQ quantized-matmul hook. Sequences of FLASH_MIN tokens
 or more attend through the flash kernel on CUDA tensors and its plain
@@ -82,10 +83,11 @@ def make_prefill_step(model, *, dot=None) -> Callable:
 
 
 def make_serve_step(model, *, dot=None) -> Callable:
-    """The reference's dense-cache decode step. The port has no
-    ``Model.decode_step`` yet (ROADMAP Queue 1, item 7); it serves through
-    the paged engine (serving/engine) instead."""
-    raise NotImplementedError(
-        "make_serve_step needs Model.decode_step over ring-layout caches, "
-        "which waits for ROADMAP Queue 1 item 7; serve through "
-        "repro_torch.serving.engine (decode_step_paged) meanwhile")
+    """The reference's dense-cache decode step: ``serve_step(params,
+    cache, token, pos) -> (logits, cache)`` over the caches of
+    ``make_prefill_step`` (ring layout for local layers), updated in
+    place."""
+    def serve_step(params, cache, token, pos):
+        return model.decode_step(params, cache, token, pos, dot=dot)
+
+    return serve_step

@@ -970,3 +970,72 @@ def test_cuda_flash_backward(H, K, hd, kind, cap):
         assert b.dtype == torch.bfloat16 and b.shape == t.shape
         err = float((a - b.float()).abs().max() / a.abs().max())
         assert err <= BWD_TOL, err
+
+
+# -------------------------------------------- the SSM family and NAS ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,K,S,window,B", [
+    (32, 32, 4096, 0, 2),          # zamba2-1.2b's shared attention, G = 1
+    (8, 4, 2048, 0, 1),            # the NAS supernet's attention ops
+    (8, 4, 2048, 1024, 1),
+    (8, 4, 2048, 4096, 1)])
+def test_cuda_flash_ssm_and_nas_geometries(H, K, S, window, B):
+    """On a card: flash at hd 64 at the geometries the hybrid's prefill and
+    the NAS search give it (G = 1 with 128 positions a CTA; 8 over 4 heads
+    at windows 0, 1024 and 4096 over 2048 tokens), against the plain
+    version at the kernel tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _check_flash(S, S, H, K, 64, window=window, B=B, seed=H + window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_cuda_generate_ssm_families_match_cpu(arch):
+    """On a card: tiny mamba2 and zamba2 through ``generate``'s dense-cache
+    branch (prompts of 2048 tokens: the hybrid's shared attention through
+    the flash kernel, once per application), against the CPU port's plain
+    path on the same parameters (its prefill and decode steps, the same
+    calls ``generate`` makes): greedy tokens identical wherever the CPU's
+    top-2 margin exceeds 3% of its largest |logit| (chip_smoke.py's
+    LOGIT_RTOL); the first differing token ends the comparison."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    from repro_torch.configs import tiny_config
+    from repro_torch.launch.serve import _grow_cache, generate
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import hybrid_groups
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(tiny_config(arch))
+    V, S, gen = model.cfg.vocab_size, 2048, 8
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    gpu = tree_map(lambda a: a.cuda(), cpu)
+    prompt = torch.randint(2, V, (2, S),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    before = tfa.LAUNCHES["flash_attention_fwd"]
+    got = generate(model, gpu, prompt.cuda(), gen).cpu()
+    n = tfa.LAUNCHES["flash_attention_fwd"] - before
+    apps = len(hybrid_groups(model.cfg)) \
+        if model.cfg.family == "hybrid" else 0
+    assert n == apps
+    # the CPU's plain path, step by step, with its logits
+    logits, cache = model.prefill(cpu, {"tokens": prompt},
+                                  cache_layout="full")
+    cache = _grow_cache(cache, S, S + gen)
+    steps = [logits[:, -1, :V]]
+    toks = [steps[0].argmax(-1)[:, None].to(torch.int32)]
+    for i in range(gen - 1):
+        logits, cache = model.decode_step(cpu, cache, toks[-1],
+                                          torch.tensor(S + i))
+        steps.append(logits[:, -1, :V])
+        toks.append(steps[-1].argmax(-1)[:, None].to(torch.int32))
+    want = torch.cat(toks, dim=1)
+    for b in range(2):
+        for t in range(gen):
+            if got[b, S + t] != want[b, t]:
+                top = torch.topk(steps[t][b].float(), 2).values
+                bound = 0.03 * float(steps[t][b].abs().max())
+                assert float(top[0] - top[1]) <= bound, (b, t)
+                break

@@ -221,7 +221,7 @@ def test_forward_long_matches_reference(models, S):
     want, wcache, _, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)},
                                     want_cache=True, cache_layout="full")
     got, gcache, _, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)},
-                                   want_cache=True)
+                                   want_cache=True, cache_layout="full")
     assert got.shape == want.shape
     assert _err(got, want) < LONG_LOGIT_TOL
     for slot in wcache:

@@ -433,14 +433,28 @@ def test_microbatched_train_step_matches_full():
 
 
 def test_prefill_step_and_serve_step():
+    """The prefill step gives the reference's default ring layout (the
+    local sub0's 16 positions in a 32-slot ring, global sub1's 16), and
+    the serve step decodes over it as Model.decode_step does
+    (tests/test_torch_dense_decode.py holds both against the
+    reference)."""
     tm = t_build(t_tiny("gemma2-2b"))
     params = tm.init(torch.Generator().manual_seed(0), "cpu")
-    toks = torch.from_numpy(_tokens(tm.cfg, 1, 16))
-    logits, cache = tsteps.make_prefill_step(tm)(params, {"tokens": toks})
-    want, _ = tm.prefill(params, {"tokens": toks})
-    assert torch.equal(logits, want) and cache["sub0"]["k"].shape[2] == 16
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsteps.make_serve_step(tm)
+    toks = torch.from_numpy(_tokens(tm.cfg, 1, 17))
+    logits, cache = tsteps.make_prefill_step(tm)(params,
+                                                 {"tokens": toks[:, :16]})
+    want, _ = tm.prefill(params, {"tokens": toks[:, :16]})
+    assert torch.equal(logits, want)
+    assert cache["sub0"]["k"].shape[2] == tm.cfg.window_size
+    assert cache["sub1"]["k"].shape[2] == 16
+    cache["sub1"] = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 1))
+                     for k, v in cache["sub1"].items()}
+    got, _ = tsteps.make_serve_step(tm)(params, cache, toks[:, 16:],
+                                        torch.tensor(16))
+    full = tm.forward(params, {"tokens": toks})[0][:, -1]
+    # the reference's own bound for it (tests/test_decode_equivalence.py)
+    assert float((got[:, 0] - full).abs().max()) < 2e-2 * float(
+        full.abs().max())
 
 
 def test_straggler_monitor_flags_slow_steps():
