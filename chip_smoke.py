@@ -151,9 +151,43 @@ Phases, each fatal on failure:
                 forward sampled, losses and alpha finite, the derived arch
                 and its latencies; each op's forward time at the LUT's
                 shape beside the LUT's roofline value (printed);
+ 15. encdec   — after phase 14: (a) flash against its plain version at
+                whisper-large-v3's geometry (20/20 heads of 64, G = 1):
+                the encoder's bidirectional 16384 x 16384, the decoder's
+                causal 2048, its cross attention 2048 x 16384 and a decode
+                step's 1 x 16384, and at llava's (32/8 heads of 128, G = 4)
+                causal 8192, then the paged decode at llava's heads over
+                8192 keys, each timed beside plain, SDPA and the bound;
+                (b) full-width whisper-large-v3 (32 + 32 layers, random
+                weights) served by make_prefill_step on 16384 frames and a
+                2048-token prompt and 16 greedy make_serve_step decodes:
+                96 flash launches in the prefill and 32 a step, nothing
+                else; then, with wq and wk times QK_SCALE (at the
+                reference's init a bf16 ulp moves the logits by more than
+                their size), the same path's logits against decode_fwd
+                teacher-forced through the plain flash version, phase 3's
+                rule; (c) trained by
+                ``launch.train --arch whisper-large-v3 --batch 2 --seq
+                4096 --steps 4`` (4096 frames, 512 decoder tokens): 32 x 2
+                flash launches a step, losses and parameters finite (the
+                random-init model's gradient norm overflows to inf, as the
+                reference's does); step time, peak memory, busy share;
+ 16. vlm      — full-width llava-next-mistral-7b (32 layers, d 4096,
+                7.24 B parameters, random weights): make_prefill_step on
+                2048 patch rows and 6144 tokens (32 flash launches), then
+                16 greedy steps through make_serve_step and through
+                decode_step_paged over the identity page pool (32 paged
+                decode launches a step): at the reference's init the paged
+                run teacher-forced on the dense tokens, its first step's
+                kernel calls held against the plain walk; with wq, wk
+                times QK_SCALE both free, equal tokens; logits held under
+                phase 3's rule both times; its training (AdamW at 16 bytes a
+                parameter) would not fit one 80 GB card and is left to the
+                CPU tests;
  11. report   — one JSON line with every kernel's launches (flash's summed
-                over phase 12's training run and phases 13-14's paths),
-                error, times.
+                over phase 12's training run and phases 13-16's paths, the
+                paged decode's over the main trace and llava's paged
+                steps), error, times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
@@ -3112,6 +3146,528 @@ def phase_nas():
     return n["flash_attention_fwd"]
 
 
+# ------------------------------------ the encoder-decoder and vision stub --
+# phase 15: whisper-large-v3 at full width (32 encoder and 32 decoder
+# layers, d 1280, 20/20 heads of 64: G = 1, no softcap, no RoPE) served
+# through make_prefill_step on 16384 frames and a 2048-token decoder
+# prompt, then W_STEPS greedy make_serve_step decodes: the encoder's flash
+# is bidirectional at 16384, the decoder's causal at 2048, its cross
+# attention 2048 x 16384 and each decode step's 1 x 16384 (T >= 8192);
+# then trained at the reference's train_4k (4096 frames, 512 decoder
+# tokens) with B 2
+WHISPER = "whisper-large-v3"
+WHISPER_GEO = (20, 20, 64)
+W_FRAMES, W_PROMPT, W_STEPS = 16384, 2048, 16
+W_TRAIN_ARGS = ["--arch", WHISPER, "--batch", "2", "--seq", "4096",
+                "--steps", "4", "--ckpt-every", "0", "--log-every", "1"]
+W_TRAIN_STEPS, W_TRAIN_B, W_TRAIN_S = 4, 2, 4096
+# phase 16: llava-next-mistral-7b at full width (32 layers, d 4096, 32/8
+# heads of 128: G = 4) prefilled through make_prefill_step on 2048 patch
+# rows and 6144 tokens (causal flash over the 8192 rows), then L_STEPS
+# greedy steps through the dense make_serve_step and through
+# decode_step_paged over the identity page pool (the paged decode kernel)
+LLAVA = "llava-next-mistral-7b"
+LLAVA_GEO = (32, 8, 128)
+L_PATCHES, L_TOKENS, L_STEPS = 2048, 6144, 16
+# the reference's init draws wq and wk with fan-in H (their (d, H, hd)
+# shape): at full width the scores reach a spread of ~256 and a bf16 ulp on
+# a tenth of the attention outputs moves the logits by more than their size
+# (phase 16's control at the init prints it). With wq and wk times 1/16
+# that control stays inside the 3% bound, so logits and tokens can be held
+# there (the CPU tests scale them by 1/8 at their widths for the same
+# reason)
+QK_SCALE = 1 / 16
+# kv heads the plain flash version takes at a time at these lengths: its
+# (B, H, S, T) fp32 scores for all 20 heads at 16384 x 16384 would be
+# 21.5 GB a copy
+PLAIN_KV_CHUNK = 4
+
+
+def plain_by_heads(q, k, v, *, causal, window=0, cap=0.0):
+    """The plain flash version (kernels/ref.py) over PLAIN_KV_CHUNK kv
+    heads and their query heads at a time: per head the same
+    arithmetic."""
+    import torch
+    from repro_torch.kernels import ref
+    G = q.shape[2] // k.shape[2]
+    c = PLAIN_KV_CHUNK
+    return torch.cat([ref.flash_attention_ref(
+        q[:, :, i * G:(i + c) * G], k[:, :, i:i + c], v[:, :, i:i + c],
+        causal=causal, window=window, cap=cap)
+        for i in range(0, k.shape[2], c)], dim=2)
+
+
+def flash_bound_full(B, S, T, causal, geo):
+    """Least time for one flash call of B sequences, S queries over T keys
+    (bidirectional: S*T pairs; causal with S == T: S(S+1)/2): its bytes
+    (q, k, v read and the output written once) over device memory or its
+    4*hd flops per valid (query head, key) pair over the bf16 peak."""
+    H, K, HD = geo
+    pairs = S * (S + 1) // 2 if causal else S * T
+    t_bytes = 2 * B * (2 * S * H * HD + 2 * T * K * HD) / HBM_BYTES_PER_S \
+        * 1e3
+    t_ops = 4.0 * HD * H * B * pairs / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_new_flash_geometries():
+    """Phases 15(a) and 16(a): flash at the geometries phases 15-16 give
+    it, each held against its plain version at the phase 2 tolerance on
+    seeded inputs of the main path's shapes, then timed beside the plain
+    version, SDPA and the bound: whisper's encoder (bidirectional, 16384
+    frames), decoder (causal, 2048), cross attention (2048 x 16384) and
+    decode step's cross attention (1 x 16384), at G 1, hd 64; llava's
+    prefill (causal, 8192) at G 4, hd 128. Then the paged decode at
+    llava's heads over one sequence at the first decode position (8192
+    keys, page 16). Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    rows = {}
+    cases = [("whisper encoder", WHISPER_GEO, W_FRAMES, W_FRAMES, False),
+             ("whisper decoder", WHISPER_GEO, W_PROMPT, W_PROMPT, True),
+             ("whisper cross", WHISPER_GEO, W_PROMPT, W_FRAMES, False),
+             ("whisper decode cross", WHISPER_GEO, 1, W_FRAMES, False),
+             ("llava prefill", LLAVA_GEO, L_PATCHES + L_TOKENS,
+              L_PATCHES + L_TOKENS, True)]
+    for i, (label, geo, S, T, causal) in enumerate(cases):
+        H_, K_, HD_ = geo
+        g = torch.Generator(device="cuda").manual_seed(70 + i)
+        q = torch.randn((1, S, H_, HD_), generator=g, device="cuda").bfloat16()
+        k = torch.randn((1, T, K_, HD_), generator=g, device="cuda").bfloat16()
+        v = torch.randn((1, T, K_, HD_), generator=g, device="cuda").bfloat16()
+
+        def fwd(q, k, v, pt, pos, *, window, cap):
+            return fa.flash_attention_fwd(q, k, v, causal=causal)
+
+        def plain(q, k, v, pt, pos, *, window, cap):
+            return plain_by_heads(q, k, v, causal=causal)
+
+        err = check_kernel(f"flash_attention_fwd[{label}]", fwd, plain,
+                           {0.0: q}, (k, v), None, None, window=0, cap=0.0)
+        torch.cuda.empty_cache()
+        t = device_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+                      reps=10)
+        p = time_ms(lambda: plain_by_heads(q, k, v, causal=causal), reps=2,
+                    warmup=1)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=10)
+        bnd, by = flash_bound_full(1, S, T, causal, geo)
+        plan = fa.flash_plan(S, T, H_ // K_, causal, 0, HD_)
+        rows[label] = {"ms": t, "plain_ms": p, "library_ms": lib,
+                       "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+        print(f"encdec+vlm[flash {label}]: S={S} T={T} H={H_} K={K_} "
+              f"hd={HD_} {'causal' if causal else 'full'}, {plan.tiles} "
+              f"row tiles of {plan.positions} positions: {t:.4f} ms "
+              f"({100 * bnd / t:.1f}% of its bound {bnd:.4f} ms by {by}); "
+              f"plain {p:.3f} ms; sdpa {lib:.4f} ms", flush=True)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    positions = [L_PATCHES + L_TOKENS]
+    n_blocks = -(-(L_PATCHES + L_TOKENS + L_STEPS) // PAGE)
+    qs, pools, pt, pos = paged_case(80, positions, 1, n_blocks,
+                                    heads=LLAVA_GEO[:2], hd=LLAVA_GEO[2])
+    q = qs[0.0][:, 0].contiguous()
+
+    def dec(q, *a, window, cap):
+        return pa.paged_attention_fwd(q[:, 0], *a, window=window,
+                                      cap=cap)[:, None]
+
+    def dplain(q, *a, window, cap):
+        return ref.paged_attention_ref(q[:, 0], *a, window=window,
+                                       cap=cap)[:, None]
+    err = check_kernel("paged_attention_fwd[llava decode]", dec, dplain,
+                       {0.0: q[:, None]}, pools, pt, pos, window=0, cap=0.0)
+    t = device_ms(lambda: pa.paged_attention_fwd(q, *pools, pt, pos))
+    p = time_ms(lambda: ref.paged_attention_ref(q, *pools, pt, pos), reps=2,
+                warmup=1)
+    lib = device_ms(sdpa_yardstick(q[:, None], *pools, pt, pos, 0), reps=10)
+    bnd, by = bound_ms(positions, 1, n_blocks, 0, geo=LLAVA_GEO)
+    rows["llava paged decode"] = {"ms": t, "plain_ms": p, "library_ms": lib,
+                                  "bound_ms": bnd, "bound_by": by,
+                                  "max_abs_err": err}
+    print(f"encdec+vlm[paged decode llava]: B=1 at position {positions[0]}, "
+          f"n_blocks={n_blocks}, H={LLAVA_GEO[0]} K={LLAVA_GEO[1]} "
+          f"hd={LLAVA_GEO[2]}, {paged_plan(True, 1, 1, n_blocks, LLAVA_GEO)}"
+          f": {t:.4f} ms ({100 * bnd / t:.1f}% of its bound {bnd:.4f} ms by "
+          f"{by}); plain {p:.3f} ms; sdpa {lib:.4f} ms", flush=True)
+    del qs, q, pools, pt, pos
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def perturbed_attend():
+    """The dense ``attention._attend`` (the dense-cache decode's
+    attention) with a seeded tenth of each output moved by 2**-7 of its
+    value, as ``attention_calls(perturb=True)`` moves the kernels' plain
+    calls: the control of the model's own sensitivity to rounding."""
+    import torch
+    from repro_torch.models import attention as attn
+    real = attn._attend
+    n = [0]
+
+    def moved(*args, **kw):
+        out = real(*args, **kw)
+        g = torch.Generator(device=out.device).manual_seed(n[0])
+        n[0] += 1
+        hit = torch.rand(out.shape, generator=g, device=out.device) < 0.1
+        sign = torch.randint(0, 2, out.shape, generator=g,
+                             device=out.device) * 2 - 1
+        return (out.float() * (1 + hit * sign * 2.0 ** -7)).to(out.dtype)
+    attn._attend = moved
+    try:
+        yield
+    finally:
+        attn._attend = real
+
+
+def scale_qk(attn_trees, f):
+    """wq and wk of every given attention subtree (stacked over layers)
+    times ``f``, in place."""
+    for t in attn_trees:
+        for n in ("wq", "wk"):
+            t[n].mul_(f)
+
+
+def whisper_decode(model, params, frames, prompt, label):
+    """make_prefill_step on (frames, prompt), the self-attention caches
+    grown (encdec.grow_cache: mk and mv stay), then W_STEPS greedy
+    make_serve_step decodes, every count zeroed before and read after.
+    Returns (launches, prefill ms, step ms, the tokens fed, the logits rows
+    of the prefill and each step (W_STEPS + 1, V))."""
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.training import steps
+    prefill, serve = steps.make_prefill_step(model), \
+        steps.make_serve_step(model)
+    V = model.cfg.vocab_size
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"frames": frames, "tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    n_prefill = all_launches()["flash_attention_fwd"]
+    cache = encdec.grow_cache(cache, W_PROMPT + W_STEPS)
+    if cache["mk"].shape[2] != W_FRAMES or \
+            cache["k"].shape[2] != W_PROMPT + W_STEPS:
+        fail(f"whisper[{label}]: caches "
+             f"{[(k, tuple(a.shape)) for k, a in cache.items()]}")
+    rows, fed, steps_ms = [logits[:, 0, :V]], [], []
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    for i in range(W_STEPS):
+        fed.append(tok)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, cache = serve(params, cache, tok,
+                          torch.tensor(W_PROMPT + i, device="cuda"))
+        tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        rows.append(lg[:, 0, :V])
+    launches = all_launches()
+    L = model.cfg.num_layers
+    want = {"flash_attention_fwd": 3 * L + L * W_STEPS}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want or n_prefill != 3 * L:
+        fail(f"whisper[{label}]: launches {got} ({n_prefill} in the "
+             f"prefill), want {want} (3 x {L} in the prefill, {L} a step)")
+    del cache
+    torch.cuda.empty_cache()
+    return (launches, prefill_ms, sorted(steps_ms)[W_STEPS // 2], fed,
+            torch.cat(rows))
+
+
+def phase_whisper_serve():
+    """Phase 15(b): full-width whisper-large-v3 (random weights, seed 0)
+    served by ``whisper_decode``: flash 32 x 3 in the prefill (encoder,
+    decoder, cross) and 32 a step (cross attention at S = 1), no other
+    kernel; prefill ms, decode-step ms and tok/s printed. At the
+    reference's init a bf16 ulp anywhere moves the logits by more than
+    their size, so the logits are held with wq and wk (encoder, decoder
+    and cross attention) times QK_SCALE: the same path again, its prefill's
+    and each step's logits against decode_fwd teacher-forced on the same
+    tokens through the plain flash version (on the kernel's encoder
+    memory), under phase 3's rule (hold_logits, its control the plain
+    path with a bf16 ulp on a tenth of its flash outputs). Returns the
+    launches of the run at the reference's init."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.api import build_model
+    cfg = get_config(WHISPER)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    print(f"whisper: {model.param_count()} params "
+          f"({model.param_bytes() / 1e9:.2f} GB) initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    frames = torch.randn((1, W_FRAMES, cfg.d_model), generator=g,
+                         device="cuda").bfloat16()
+    prompt = torch.randint(2, cfg.vocab_size, (1, W_PROMPT),
+                           generator=torch.Generator().manual_seed(18),
+                           dtype=torch.int32).cuda()
+    launches, prefill_ms, step_ms, _, _ = whisper_decode(
+        model, params, frames, prompt, "init")
+    print(f"whisper[serve]: {W_FRAMES} frames + {W_PROMPT}-token prompt: "
+          f"prefill {prefill_ms:.1f} ms; {W_STEPS} decode steps, median "
+          f"{step_ms:.2f} ms ({1e3 / step_ms:.1f} tok/s); launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}",
+          flush=True)
+
+    scale_qk([params["enc"]["attn"], params["dec"]["attn"],
+              params["dec"]["xattn"]], QK_SCALE)
+    _, _, _, fed, rows = whisper_decode(model, params, frames, prompt,
+                                        f"wq, wk x {QK_SCALE}")
+    # teacher-forced: prompt + the fed tokens, padded to flash's 512-row
+    # blocks (causal: the padding rows come after every row compared)
+    tf = torch.cat([prompt] + fed, dim=1)
+    S_tf = -(-tf.shape[1] // 512) * 512
+    tf = torch.nn.functional.pad(tf, (0, S_tf - tf.shape[1]))
+    idx = torch.arange(W_PROMPT - 1, W_PROMPT + W_STEPS, device="cuda")
+    V = cfg.vocab_size
+    with torch.no_grad():
+        mem = encdec.encode(params, frames, cfg)
+        plain = {}
+        for run, probe in (("ref", {}), ("ulp", {"perturb": True})):
+            with attention_calls(names=("flash_attention",), **probe):
+                lg, _ = encdec.decode_fwd(params, mem, tf, cfg,
+                                          want_cache=False, kernel="ref")
+            plain[run] = lg[0, idx, :V]
+            del lg
+            torch.cuda.empty_cache()
+    hold_logits("whisper", f"wq, wk x {QK_SCALE}: prefill + {W_STEPS} serve "
+                f"steps (flash kernel, S = 1 over {W_FRAMES} frames) vs "
+                f"teacher-forced decode_fwd through the plain flash version",
+                rows, plain["ref"], plain["ulp"])
+    del params, mem, frames, plain, rows
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_whisper_train():
+    """Phase 15(c): ``python -m repro_torch.launch.train --arch
+    whisper-large-v3 --batch 2 --seq 4096 --steps 4`` (the reference's
+    train_4k: 4096 frames, 512 decoder tokens; remat on), counts zeroed
+    before and read after: flash 32 x 2 a step (the encoder's, forward
+    and remat recompute; the decoder's 512 tokens and 512 x 4096 cross
+    attention are dense), no other kernel; losses and parameters finite
+    (the grad norm of the random-init model overflows to inf, see below).
+    Prints losses, step time, peak memory and the device busy share of one
+    more step. Returns the run's launches."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    L = get_config(WHISPER).num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = train_cli.main(W_TRAIN_ARGS + ["--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = out["history"]
+    if [r["step"] for r in hist] != list(range(W_TRAIN_STEPS)) or not all(
+            math.isfinite(r["loss"]) and not math.isnan(r["grad_norm"])
+            for r in hist):
+        fail(f"whisper[train]: history {hist}")
+    # random-init whisper's encoder gradient grows by orders of magnitude
+    # every few layers in both packages (scripts/encdec_grad_norm.py), so
+    # at 32 layers its square sum overflows fp32: the global norm is inf
+    # and the clip zeroes the step, as in the reference; the parameters
+    # must stay finite all the same
+    bad = [i for i, a in enumerate(tree_leaves(out["state"]["params"]))
+           if not bool(torch.isfinite(a).all())]
+    if bad:
+        fail(f"whisper[train]: non-finite parameters (leaves {bad})")
+    want = {"flash_attention_fwd": L * 2 * W_TRAIN_STEPS}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        fail(f"whisper[train]: launches {got}, want {want}")
+    dts = sorted(r["dt_s"] for r in hist[1:])
+    step_s = dts[len(dts) // 2]
+    model = build_model(get_config(WHISPER))
+    shape = ShapeConfig("train", W_TRAIN_S, W_TRAIN_B, "train")
+    busy, prof_wall, top = train_busy_share(model, out["state"], shape)
+    del out
+    torch.cuda.empty_cache()
+    tokens = W_TRAIN_B * (W_TRAIN_S + W_TRAIN_S // 8)
+    print(f"whisper[train B={W_TRAIN_B} frames={W_TRAIN_S} decoder="
+          f"{W_TRAIN_S // 8}]: {W_TRAIN_STEPS} steps in {wall:.1f} s (first "
+          f"{hist[0]['dt_s']:.3f} s, median of the rest {step_s:.3f} s, "
+          f"{tokens / step_s:.0f} frames+tokens/s); losses "
+          + ", ".join(f"{r['loss']:.4f}" for r in hist)
+          + f"; grad norms " + ", ".join(f"{r['grad_norm']:.3f}" for r in hist)
+          + f"; peak memory {peak / 1e9:.2f} GB above the {base / 1e9:.2f} "
+          f"GB allocated before; launches {json.dumps(got)}; one more step "
+          f"profiled: {prof_wall:.1f} ms wall, device busy {busy:.1f} ms "
+          f"({100 * busy / prof_wall:.1f}%); top device time: "
+          + "; ".join(f"{k[:70]} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in top), flush=True)
+    return launches
+
+
+def llava_steps(model, params, step, state, first, label, feed=None,
+                control=False, checked=0):
+    """L_STEPS greedy steps of ``step(state, token, position)`` from token
+    ``first`` at position L_PATCHES + L_TOKENS, counts zeroed before and
+    read after; ``feed``: the tokens to feed instead of its own greedy
+    ones (teacher forcing); ``control``: the dense attention perturbed
+    (perturbed_attend); ``checked``: the first this many steps run every
+    paged kernel call against its plain walk on its own inputs. Returns
+    (tokens fed, logits rows (L_STEPS, V), median step ms, launches)."""
+    import torch
+    S = L_PATCHES + L_TOKENS
+    V = model.cfg.vocab_size
+    tok, toks, rows, ms = first, [], [], []
+    reset_all_launches()
+    for i in range(L_STEPS):
+        if feed is not None:
+            tok = torch.tensor([[feed[i]]], dtype=torch.int32,
+                               device="cuda")
+        toks.append(int(tok))
+        probe = perturbed_attend() if control else \
+            attention_calls(check=True) if i < checked else \
+            contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with probe:
+            lg, state = step(state, tok, S + i)
+        tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        rows.append(lg[:, 0, :V])
+    return toks, torch.cat(rows), sorted(ms)[L_STEPS // 2], all_launches()
+
+
+def phase_llava():
+    """Phase 16(b): full-width llava-next-mistral-7b (random weights, seed
+    0): make_prefill_step on B 1, 2048 patch rows and 6144 tokens (32
+    causal flash launches over 8192 rows), then L_STEPS greedy steps from
+    it through the dense make_serve_step over the prefill's caches (grown)
+    and through decode_step_paged over the identity page pool of a prefill
+    in the full layout (the reference generate's pool; 32 paged decode
+    launches a step), counts zeroed before each run and read after. At the
+    reference's init a bf16 ulp on one attention output moves the logits
+    by more than their size (the plain dense and the plain paged walks
+    pick different tokens), so there the paged run is teacher-forced on
+    the dense run's tokens, its first step's kernel calls each held
+    against the plain walk on their own inputs and the logits under phase
+    3's rule (hold_logits; its control the dense run with a bf16 ulp on a
+    tenth of its attention outputs); then with wq, wk times QK_SCALE, both
+    runs free: their tokens equal and their logits held under the same
+    rule. Returns {run: launches}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.training import steps
+    cfg = get_config(LLAVA)
+    model = build_model(cfg)
+    L = cfg.num_layers
+    S = L_PATCHES + L_TOKENS
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    print(f"llava: {model.param_count()} params "
+          f"({model.param_bytes() / 1e9:.2f} GB) initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    batch = {"patches": torch.randn((1, L_PATCHES, cfg.d_model),
+                                    generator=g, device="cuda").bfloat16(),
+             "tokens": torch.randint(
+                 2, cfg.vocab_size, (1, L_TOKENS),
+                 generator=torch.Generator().manual_seed(20),
+                 dtype=torch.int32).cuda()}
+    serve_step = steps.make_serve_step(model)
+
+    def dense(c, t, p):
+        return serve_step(params, c, t, torch.tensor(p, device="cuda"))
+
+    def paged(pt):
+        return lambda pl, t, p: model.decode_step_paged(
+            params, pl, pt, t, torch.full((1,), p, dtype=torch.int32,
+                                          device="cuda"))
+
+    out = {}
+    for label in ("init", f"wq, wk x {QK_SCALE}"):
+        if label != "init":
+            scale_qk([params["blocks"]["sub0"]["attn"]], QK_SCALE)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        logits, cache = steps.make_prefill_step(model)(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        n = all_launches()
+        got = {k: v for k, v in n.items() if v}
+        if got != {"flash_attention_fwd": L}:
+            fail(f"llava[{label}]: prefill launches {got}, want {L} flash")
+        out.setdefault("prefill", n)
+        _, full = model.prefill(params, batch, cache_layout="full")
+        pool, pt = serve._identity_paged_pool(full, 1, S + L_STEPS, PAGE)
+        del full
+        cache = {s: {kv: torch.nn.functional.pad(
+            a, (0, 0, 0, 0, 0, L_STEPS)) for kv, a in c.items()}
+            for s, c in cache.items()}
+        ctrl = {s: {kv: a.clone() for kv, a in c.items()}
+                for s, c in cache.items()}
+        torch.cuda.empty_cache()
+        first = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        d_toks, d_rows, d_ms, d_n = llava_steps(model, params, dense, cache,
+                                                first, label)
+        _, ulp, _, _ = llava_steps(model, params, dense, ctrl, first, label,
+                                   feed=d_toks, control=True)
+        init = label == "init"
+        p_toks, p_rows, p_ms, p_n = llava_steps(
+            model, params, paged(pt), pool, first, label,
+            feed=d_toks if init else None, checked=1 if init else 0)
+        if any(d_n.values()):
+            fail(f"llava[{label}]: the dense serve step launched {d_n}")
+        got = {k: v for k, v in p_n.items() if v}
+        if got != {"paged_attention_fwd": L * L_STEPS}:
+            fail(f"llava[{label}]: paged decode launches {got}, want "
+                 f"{L * L_STEPS} paged_attention_fwd")
+        greedy = [int(t) for t in p_rows.argmax(-1)]
+        agree = sum(a == b for a, b in zip(greedy, d_toks[1:] + [int(
+            d_rows[-1].argmax())]))
+        if not init and p_toks != d_toks:
+            fail(f"llava[{label}]: paged tokens {p_toks} != dense {d_toks}")
+        hold_logits(f"llava[{label}]", f"{L_STEPS} decode steps (paged "
+                    f"kernel{', teacher-forced' if init else ''} vs dense "
+                    f"serve step)", p_rows, d_rows, ulp)
+        print(f"llava[{label}]: {L_PATCHES} patches + {L_TOKENS} tokens: "
+              f"prefill {prefill_ms:.1f} ms; {L_STEPS} greedy steps, dense "
+              f"tokens {d_toks}, paged greedy equal at {agree} of "
+              f"{L_STEPS}; dense serve step {d_ms:.2f} ms, paged step "
+              f"{p_ms:.2f} ms (medians)", flush=True)
+        out.setdefault("paged", p_n)
+        del cache, ctrl, pool
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3259,9 +3815,31 @@ def main() -> int:
           f"{t_nas - t_ssm:.1f} s, phase 14 in "
           f"{time.perf_counter() - t_nas:.1f} s", flush=True)
 
+    # phases 15-16: the encoder-decoder and the vision stub at full width
+    t_ed = time.perf_counter()
+    ed_rows = phase_new_flash_geometries()
+    w_serve = phase_whisper_serve()
+    t_wt = time.perf_counter()
+    w_train = phase_whisper_train()
+    t_ll = time.perf_counter()
+    ll = phase_llava()
+    ed_paths = {"whisper serve": w_serve["flash_attention_fwd"],
+                "whisper train": w_train["flash_attention_fwd"],
+                "llava prefill": ll["prefill"]["flash_attention_fwd"]}
+    flash_paths.update(ed_paths)
+    print(f"encdec+vlm: kernels at the new geometries {json.dumps(ed_rows)};"
+          f" flash launches by path {json.dumps(ed_paths)}; paged decode "
+          f"launches on llava's paged steps "
+          f"{ll['paged']['paged_attention_fwd']}; phase 15 in "
+          f"{t_ll - t_ed:.1f} s (training {t_ll - t_wt:.1f} s), phase 16 "
+          f"in {time.perf_counter() - t_ll:.1f} s", flush=True)
+
     # launches per kernel from the run of the path it serves (flash: the
-    # training path's, the SSM family's, the ring prefill's and the NAS
-    # search's, summed)
+    # training path's, the SSM family's, the ring prefill's, the NAS
+    # search's and phases 15-16's, summed; the paged decode: the engine's
+    # main trace and llava's paged steps)
+    launches = dict(launches, paged_attention_fwd=launches[
+        "paged_attention_fwd"] + ll["paged"]["paged_attention_fwd"])
     source_run = {**{k: launches for k in BF16_KERNELS},
                   **{k: q_launches for k in QUANT_KERNELS},
                   "flash_attention_fwd": {

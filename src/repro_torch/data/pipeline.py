@@ -69,16 +69,33 @@ def batches(dcfg: DataConfig, start_step: int = 0
 
 def batch_for_model(model, shape, dcfg: Optional[DataConfig], step: int,
                     device="cpu") -> Dict[str, torch.Tensor]:
-    """The model's batch for ``step`` as int32 tensors on ``device``. The
-    token families (dense, moe, ssm, hybrid) take tokens and labels; the
-    others (frames, patches) wait for their slices, as the model does."""
+    """The model's batch for ``step`` on ``device``: int32 tokens and
+    labels; for the encoder-decoder also ``frames`` (B, S, d_model) and a
+    decoder of max(S // dec_ratio, 2) tokens; for the vision stub
+    ``patches`` (B, int(S * patch_frac), d_model) and S minus that many
+    tokens. The stub frontends' embeddings are standard normal draws from
+    numpy's generator seeded ``seed * 7 + step``, rounded to bf16, as the
+    reference draws them."""
     cfg = model.cfg
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"batch_for_model: the port trains the token families so far; "
-            f"{cfg.name} (family={cfg.family!r}) waits for its slice "
-            f"(ROADMAP)")
     dcfg = dcfg or DataConfig(cfg.vocab_size, shape.seq_len,
                               shape.global_batch)
-    b = batch_at(dcfg, step)
-    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    rng = np.random.default_rng(dcfg.seed * 7 + step)
+
+    def tensors(b):
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+    def embeds(rows):
+        a = rng.standard_normal((shape.global_batch, rows, cfg.d_model))
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+
+    if cfg.is_encdec:
+        Sd = max(shape.seq_len // cfg.dec_ratio, 2)
+        dec = batch_at(dataclasses.replace(dcfg, seq_len=Sd), step)
+        return {"frames": embeds(shape.seq_len), **tensors(dec)}
+    if cfg.frontend == "vision_stub":
+        Sp = int(shape.seq_len * cfg.patch_frac)
+        txt = batch_at(dataclasses.replace(dcfg, seq_len=shape.seq_len - Sp),
+                       step)
+        return {"patches": embeds(Sp), **tensors(txt)}
+    return tensors(batch_at(dcfg, step))

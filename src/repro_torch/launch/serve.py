@@ -33,7 +33,10 @@ reference) maps HAQ sites to ``[w_bits, a_bits]`` and serves through
 ``make_quant_dot``'s fake-quant hook; the engine's weight quantization
 comes from the admission policy's ``quant_bits``. The ssm and hybrid
 families (mamba2-370m, zamba2-1.2b) serve in ``--sequential`` mode only,
-over dense caches; the engine refuses them, as the reference's does. The
+over dense caches; the engine refuses them, as the reference's does.
+whisper-large-v3 and llava-next-mistral-7b, whose prompts carry frames or
+patches, serve through training/steps.py's ``make_prefill_step`` and
+``make_serve_step``; the CLI and ``generate`` refuse them. The
 reference's ``--mesh`` waits for the sharded engine.
 """
 from __future__ import annotations
@@ -194,8 +197,19 @@ def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
     The ssm and hybrid families, which the engine does not serve, decode
     over dense caches (``Model.decode_step``) as in the reference; for
     them ``kv_bits`` and ``prefill_chunk``, the engine's knobs, raise
-    ValueError."""
-    if model.cfg.family in ("ssm", "hybrid"):
+    ValueError. The prompt is tokens only, as the reference's prefill
+    batch is, so the encoder-decoder (which needs ``frames``) and the
+    vision stub (``patches``) raise NotImplementedError: they serve
+    through training/steps.py's ``make_prefill_step`` and
+    ``make_serve_step``."""
+    cfg = model.cfg
+    if cfg.is_encdec or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"generate prefills tokens only, as the reference's does; "
+            f"{cfg.name} (family={cfg.family!r}, frontend={cfg.frontend!r})"
+            f" needs frames or patches: serve it with "
+            f"training.steps.make_prefill_step and make_serve_step")
+    if cfg.family in ("ssm", "hybrid"):
         if kv_bits is not None or prefill_chunk:
             raise ValueError(
                 f"kv_bits and prefill_chunk are paged-pool knobs; "

@@ -1,8 +1,8 @@
 """Model facade (port of ``repro.models.api``): ``build_model(cfg)``
 returns a ``Model`` with the entry points the serving engine,
 ``launch.serve.generate``, the trainer (training/steps.py) and the
-searches call, for the dense, moe, ssm and hybrid families (encdec and
-the vision frontend raise NotImplementedError, models/transformer.py).
+searches call, for every family: the encoder-decoder (``cfg.is_encdec``)
+through models/encdec.py, the others through models/transformer.py.
 Parameters are nested dicts of tensors with the
 reference's pytree keys (see models/convert.py). The ``dot``
 hook threads HAQ quantization through every matmul: it receives
@@ -15,8 +15,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.models import encdec, transformer
 from repro_torch.models import params as plib
-from repro_torch.models import transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +46,14 @@ class Model:
         ``remat`` recomputes each layer group in the backward;
         ``cache_layout`` "ring" gives the dense decode's caches, "full"
         the chronological ones the page pool takes
-        (transformer.forward)."""
+        (transformer.forward). The encoder-decoder takes {frames, tokens}
+        and ignores ``cache_layout``, as in the reference
+        (encdec.forward)."""
+        if self.cfg.is_encdec:
+            return encdec.forward(params, batch, self.cfg,
+                                  want_cache=want_cache, remat=remat,
+                                  dot=dot, unembed_mode=unembed_mode,
+                                  kernel=kernel)
         return transformer.forward(params, batch, self.cfg,
                                    want_cache=want_cache,
                                    unembed_mode=unembed_mode,
@@ -60,11 +67,16 @@ class Model:
         training objective (training/steps.py, whose gradients flow
         through it, flash's backward included) and HAQ's and AMC's quality
         feedback. Their parameters require no gradient, so scoring builds
-        no graph."""
-        hidden, _, aux, _ = self.forward(params, batch, unembed_mode="none",
-                                         dot=dot, kernel=kernel, remat=remat)
-        ce = transformer.chunked_ce(params, hidden, batch["labels"],
-                                    self.cfg, dot=dot)
+        no graph. The vlm family scores its text rows only: the hidden
+        states after the patch rows."""
+        hidden, _, aux, fmask = self.forward(params, batch,
+                                             unembed_mode="none", dot=dot,
+                                             kernel=kernel, remat=remat)
+        labels = batch["labels"]
+        if fmask is not None:
+            hidden = hidden[:, -labels.shape[1]:]
+        ce = transformer.chunked_ce(params, hidden, labels, self.cfg,
+                                    dot=dot)
         return ce + 0.01 * aux
 
     def prefill(self, params, batch, *, cache_layout="ring",
@@ -85,6 +97,9 @@ class Model:
         updated in place; returns (logits (B, 1, V), cache). The
         reference's ``generate`` path for ssm and hybrid and
         training/steps.py::make_serve_step."""
+        if self.cfg.is_encdec:
+            return encdec.decode_step(params, cache, token, pos, self.cfg,
+                                      dot=dot)
         return transformer.decode_step(params, cache, token, pos, self.cfg,
                                        dot=dot)
 
@@ -109,11 +124,12 @@ class Model:
     # -- caches -------------------------------------------------------------
     def cache_specs(self, batch: int, seq_len: int):
         """The dense decode caches as (shape, dtype) pairs."""
-        return transformer.cache_specs(self.cfg, batch, seq_len)
+        fn = encdec.cache_specs if self.cfg.is_encdec \
+            else transformer.cache_specs
+        return fn(self.cfg, batch, seq_len)
 
     def init_cache(self, batch: int, seq_len: int, *, device):
-        return transformer.init_cache(self.cfg, batch, seq_len,
-                                      device=device)
+        return transformer.zeros(self.cache_specs(batch, seq_len), device)
 
     def pool_specs(self, num_pages: int, page_size: int, kv_bits=None):
         return transformer.pool_specs(self.cfg, num_pages, page_size,
@@ -126,4 +142,6 @@ class Model:
 
 
 def build_model(cfg) -> Model:
-    return Model(cfg=cfg, defs=transformer.param_defs(cfg))
+    defs = encdec.param_defs(cfg) if cfg.is_encdec \
+        else transformer.param_defs(cfg)
+    return Model(cfg=cfg, defs=defs)

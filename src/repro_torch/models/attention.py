@@ -1,7 +1,8 @@
 """GQA attention (port of ``repro.models.attention``): whole-prompt
 forwards — dense for short sequences, flash attention (models/flash.py)
-from ``FLASH_MIN`` tokens on — the dense-cache decode over full-length or
-ring-buffer (local) caches, and the paged decode / chunked-prefill paths
+from ``FLASH_MIN`` tokens on — the encoder-decoder's cross attention, the
+dense-cache decode over full-length or ring-buffer (local) caches, and
+the paged decode / chunked-prefill paths
 over the serving engine's page pool — bf16, or quantized int8/int4 with
 per-token scales (serving/kvquant).
 
@@ -24,7 +25,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import flash as flash_lib
-from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.models.layers import apply_rope, promoted, softcap
 from repro_torch.models.params import PDef
 
 F32 = torch.float32
@@ -45,11 +46,11 @@ def attn_defs(d_model: int, n_heads: int, n_kv: int, head_dim: int):
 
 
 def _proj_in(x, w, name):
-    return torch.einsum("bsd,dnh->bsnh", x, w)
+    return torch.einsum("bsd,dnh->bsnh", *promoted(x, w))
 
 
 def _proj_out(o, w, name):
-    return torch.einsum("bsnh,nhd->bsd", o, w)
+    return torch.einsum("bsnh,nhd->bsd", *promoted(o, w))
 
 
 def qkv(p, x, theta: float, positions, *, dot=None):
@@ -102,11 +103,11 @@ def attention_fwd(p, x, kind: str, cfg, positions, *, dot=None,
     """Whole-sequence attention. Returns (out (B,S,D), cache_entry) with
     the roped k/v in chronological (full) layout, ready for the page pool.
 
-    kind: "global" | "local". Sequences of ``flash.FLASH_MIN`` tokens or
-    more go through flash attention (models/flash.py), whose ``kernel``
-    mode ("auto" | "cuda" | "ref", kernels/ops.py) picks the CUDA kernel
-    or its plain version; shorter ones through the dense ``_attend``, as
-    in the reference."""
+    kind: "global" | "local" | "bidir" (the encoder's: every key).
+    Sequences of ``flash.FLASH_MIN`` tokens or more go through flash
+    attention (models/flash.py), whose ``kernel`` mode ("auto" | "cuda" |
+    "ref", kernels/ops.py) picks the CUDA kernel or its plain version;
+    shorter ones through the dense ``_attend``, as in the reference."""
     B, S, D = x.shape
     q, k, v = qkv(p, x, cfg.rope_theta, positions, dot=dot)
     if S >= flash_lib.FLASH_MIN:
@@ -115,6 +116,9 @@ def attention_fwd(p, x, kind: str, cfg, positions, *, dot=None,
     else:
         if kind == "local":
             mask = local_mask(S, S, cfg.window_size, device=x.device)
+        elif kind == "bidir":
+            mask = torch.ones((1, 1, S, S), dtype=torch.bool,
+                              device=x.device)
         else:
             mask = causal_mask(S, S, device=x.device)
         o = _attend(q, k, v, mask, cfg.attn_softcap)
@@ -165,6 +169,32 @@ def attention_decode(p, x, cache_k, cache_v, pos, kind: str, cfg, *,
         mask = valid[None, None, None, :]
     o = _attend(q, cache_k, cache_v, mask, cfg.attn_softcap)
     return _out_proj(o, p, dot), cache_k, cache_v
+
+
+def cross_attention(p, x, mem_k, mem_v, cfg, *, dot=None,
+                    kernel: str = "auto"):
+    """Decoder cross attention against the encoder's precomputed k/v
+    (``cross_kv``), unmasked. x (B, S, D), mem_k/v (B, T, K, hd). Flash
+    (kind "bidir", ``kernel`` as in attention_fwd) when S >= FLASH_MIN or
+    T >= 4 * FLASH_MIN, which takes a decode step's single query row over
+    a long encoder memory; the dense ``_attend`` otherwise. As in the
+    reference, ``dot`` reaches the q projection only: the output
+    projection (site ``xattn_o``) is a plain product whatever the hook."""
+    S, T = x.shape[1], mem_k.shape[1]
+    q = (dot or _proj_in)(x, p["wq"], "xattn_q")
+    if S >= flash_lib.FLASH_MIN or T >= 4 * flash_lib.FLASH_MIN:
+        o = flash_lib.flash_attention(q, mem_k, mem_v, "bidir", 0,
+                                      cfg.attn_softcap, kernel=kernel)
+    else:
+        mask = torch.ones((1, 1, S, T), dtype=torch.bool, device=x.device)
+        o = _attend(q, mem_k, mem_v, mask, cfg.attn_softcap)
+    return _proj_out(o, p["wo"], "xattn_o")
+
+
+def cross_kv(p, mem, *, dot=None):
+    """The encoder output's k and v for cross attention (no RoPE)."""
+    dot = dot or _proj_in
+    return dot(mem, p["wk"], "xattn_k"), dot(mem, p["wv"], "xattn_v")
 
 
 def cache_len_for(kind: str, cfg, seq_len: int) -> int:

@@ -72,7 +72,16 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def promoted(x, w):
+    """x and w in their common dtype, as ``jnp.einsum`` promotes mixed
+    operands (the encoder's bf16 input against fp32 weights: the exact
+    fp32 product); torch's products take one dtype."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def _matmul(x, w, name):
+    x, w = promoted(x, w)
     return x @ w
 
 

@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly for the dense, moe, ssm and hybrid families
-(port of ``repro.models.transformer``).
+"""Decoder-only LM assembly for the dense, moe, vlm, ssm and hybrid
+families (port of ``repro.models.transformer``; the encdec family is
+models/encdec.py).
 
 Parameters keep the reference's stacking: layers are grouped by
 ``period`` sub-layer slots and each slot's parameters are stacked over
@@ -12,11 +13,13 @@ a Python loop on per-layer views.
 
 A moe sub-layer slot (``cfg.is_moe_layer``) holds a ``moe`` subtree in
 place of ``ffn`` and runs models/moe.py's routed experts; ``forward``
-sums their load-balance losses into its ``aux``. Decoding runs over the
-paged pool (``decode_step_paged``, the engine's) or over dense caches
-(``decode_step``, the reference's ``generate`` for ssm and hybrid and
-``make_serve_step``). The encdec family and the vision frontend wait for
-their slice and raise NotImplementedError.
+sums their load-balance losses into its ``aux``. The vlm family's vision
+stub (``frontend_proj``) projects precomputed patch embeddings and puts
+them before the token embeddings; ``forward`` then returns the 0/1 loss
+mask of the text rows. Decoding runs over the paged pool
+(``decode_step_paged``, the engine's; dense, moe and vlm, as in the
+reference) or over dense caches (``decode_step``, the reference's
+``generate`` for ssm and hybrid and ``make_serve_step``).
 """
 from __future__ import annotations
 
@@ -30,25 +33,17 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed_defs, ffn_apply, ffn_defs,
-                                       norm_def, rms_norm, softcap)
+                                       norm_def, promoted, rms_norm, softcap)
 from repro_torch.models.params import PDef, stacked, tree_map
 
 F32 = torch.float32
 
 
-def _require_ported(cfg, what: str) -> None:
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{what}: the port runs the dense, moe, ssm and hybrid families "
-            f"so far; {cfg.name} (family={cfg.family!r}, "
-            f"frontend={cfg.frontend!r}) waits for its slice (ROADMAP)")
-
-
 def _require_paged(cfg, what: str) -> None:
-    """The paged pool holds attention KV: the ssm and hybrid families
-    decode over dense caches (``decode_step``), as in the reference."""
-    _require_ported(cfg, what)
-    if cfg.family not in ("dense", "moe"):
+    """The paged pool holds attention KV: the ssm, hybrid and encdec
+    families decode over dense caches (``decode_step``), as in the
+    reference."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{what} supports attention-cache families only, got "
             f"{cfg.family!r}")
@@ -114,13 +109,14 @@ def _dense_sublayer_defs(cfg, kind) -> dict:
 
 
 def param_defs(cfg) -> dict:
-    _require_ported(cfg, "param_defs")
     d = cfg.d_model
     defs: Dict[str, Any] = {"embed": embed_defs(cfg.padded_vocab, d),
                             "final_norm": norm_def(d)}
     if not cfg.tie_embeddings:
         defs["lm_head"] = PDef((d, cfg.padded_vocab), ("embed", "vocab"),
                                "scaled")
+    if cfg.frontend == "vision_stub":
+        defs["frontend_proj"] = PDef((d, d), ("embed", "embed2"), "scaled")
     if cfg.family in ("ssm", "hybrid"):
         defs["mamba"] = stacked(ssm_lib.mamba_defs(cfg), cfg.num_layers)
         defs["mamba_ln"] = stacked(norm_def(d), cfg.num_layers)
@@ -243,6 +239,23 @@ def embed_tokens(params, tokens, cfg):
     return x
 
 
+def _assemble_input(params, batch, cfg):
+    """(x (B, S, D), loss mask (B, S) or None). The vision stub: patches
+    (B, S_p, D), rounded to bf16, through ``frontend_proj``, before the
+    token embeddings; the mask is 0 on the patch rows and 1 on the
+    text."""
+    te = embed_tokens(params, batch["tokens"], cfg)
+    if cfg.frontend != "vision_stub":
+        return te, None
+    w = params["frontend_proj"]
+    pe = torch.einsum("bsd,de->bse", *promoted(
+        batch["patches"].to(torch.bfloat16), w))
+    mask = torch.cat([torch.zeros(pe.shape[:2], dtype=F32, device=pe.device),
+                      torch.ones(te.shape[:2], dtype=F32, device=te.device)],
+                     dim=1)
+    return torch.cat([pe, te], dim=1), mask
+
+
 def unembed(params, x, cfg, *, dot=None):
     """Project hidden states (..., D) to fp32 logits.
 
@@ -337,17 +350,18 @@ def forward(params, batch, cfg, *, want_cache: bool,
     layer) under a checkpoint (the reference's ``jax.checkpoint``): the
     backward runs its forward again, flash kernel included, instead of
     keeping its activations.
-    Returns (logits_or_hidden, caches or None, aux, loss_mask None): aux
+    batch: {tokens (B, S)}, and for the vision stub also patches
+    (B, S_p, D), which come first: the sequence is S_p + S rows.
+    Returns (logits_or_hidden, caches or None, aux, loss_mask): aux
     is the fp32 scalar tensor sum of the moe layers' load-balance losses
-    (the float 0.0 for the other families).
+    (the float 0.0 for the other families); loss_mask (B, S_p + S) is 0
+    on the patch rows and 1 on the text for the vision stub, else None.
     """
-    _require_ported(cfg, "forward")
     if cache_layout not in ("ring", "full"):
         raise ValueError(f"cache_layout must be 'ring' or 'full', got "
                          f"{cache_layout!r}")
     ring = want_cache and cache_layout == "ring"
-    tokens = batch["tokens"]
-    x = embed_tokens(params, tokens, cfg)
+    x, loss_mask = _assemble_input(params, batch, cfg)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     if cfg.family in ("ssm", "hybrid"):
@@ -359,10 +373,11 @@ def forward(params, batch, cfg, *, want_cache: bool,
             params, x, cfg, positions, want_cache, ring, dot, kernel, remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if unembed_mode == "none":
-        return x, out_cache, aux_total, None
+        return x, out_cache, aux_total, loss_mask
     if unembed_mode == "last":
         x = x[:, -1:]
-    return unembed(params, x, cfg, dot=dot), out_cache, aux_total, None
+    logits = unembed(params, x, cfg, dot=dot)
+    return logits, out_cache, aux_total, loss_mask
 
 
 def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
@@ -442,7 +457,6 @@ def decode_step(params, cache, token, pos, cfg, *, dot=None):
     (a prefill's, grown to the decode length), which it updates in place:
     KV slots written, mamba conv windows and states replaced. Returns
     (logits (B,1,V), cache)."""
-    _require_ported(cfg, "decode_step")
     x = embed_tokens(params, token, cfg)
     pos = torch.as_tensor(pos, device=x.device)
     if cfg.family in ("ssm", "hybrid"):
@@ -590,7 +604,7 @@ def pool_specs(cfg, num_pages: int, page_size: int, kv_bits=None):
 
 
 def init_pool(cfg, num_pages: int, page_size: int, *, device, kv_bits=None):
-    return _zeros(pool_specs(cfg, num_pages, page_size, kv_bits), device)
+    return zeros(pool_specs(cfg, num_pages, page_size, kv_bits), device)
 
 
 # ------------------------------------------------------------ cache specs ----
@@ -600,7 +614,6 @@ def cache_specs(cfg, batch: int, seq_len: int):
     the window for a local slot (its ring); the ssm family's mamba
     conv/state stacked over layers; the hybrid's also the shared block's
     k/v stacked over its applications."""
-    _require_ported(cfg, "cache_specs")
     hd = cfg.resolved_head_dim
     K = cfg.num_kv_heads
 
@@ -623,12 +636,11 @@ def cache_specs(cfg, batch: int, seq_len: int):
             for j in range(P)}
 
 
-def _zeros(spec, device):
+def zeros(spec, device):
+    """Zero tensors on ``device`` in the nesting of a (shape, dtype)
+    spec tree."""
     if isinstance(spec, dict):
-        return {k: _zeros(v, device) for k, v in spec.items()}
+        return {k: zeros(v, device) for k, v in spec.items()}
     shape, dtype = spec
     return torch.zeros(shape, dtype=dtype, device=device)
 
-
-def init_cache(cfg, batch: int, seq_len: int, *, device):
-    return _zeros(cache_specs(cfg, batch, seq_len), device)

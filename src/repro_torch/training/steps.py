@@ -76,6 +76,10 @@ def init_train_state(model, tcfg, generator: torch.Generator, device):
 
 
 def make_prefill_step(model, *, dot=None) -> Callable:
+    """``prefill_step(params, batch) -> (last-row logits, caches)`` in the
+    dense decode's layout: the serving entry point of the families
+    ``generate`` does not take (frames for the encoder-decoder, patches
+    for the vision stub)."""
     def prefill_step(params, batch):
         return model.prefill(params, batch, dot=dot)
 

@@ -5,7 +5,9 @@ decode walk's and the tensor-core prefill walk's edges: B = 1/8/64, empty
 splits, window and diagonal edges, ragged and padded chunks, other head
 widths and groups), flash attention
 (whole-prompt prefill: every head width, query-head group, batch, ragged
-S and T, grids under and over the card's SMs), and the three
+S and T, grids under and over the card's SMs, the encoder-decoder's
+single query rows and S != T full attention, hd 128 at G = 4), and the
+three
 weight-quantized matmuls (W8A16, W4A16, W8A8). Imports no JAX
 (the card's machine has none); run there, from the repository root, with
 
@@ -462,6 +464,39 @@ def test_cuda_flash_grid(B, K, S):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     _check_flash(S, S, 2 * K, K, 256, cap=50.0, B=B, seed=B * K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,H,K,hd,causal", [
+    (1, 16384, 20, 20, 64, False),
+    (1, 8192, 32, 8, 128, False),
+    (2048, 16384, 20, 20, 64, False),
+    (512, 4096, 32, 8, 128, False),
+    (4096, 4096, 32, 8, 128, True)])
+def test_cuda_flash_encoder_decoder_geometries(S, T, H, K, hd, causal):
+    """On a card: the geometries whisper-large-v3 and llava-next-mistral-7b
+    give flash: one query row over a long memory (a decode step's cross
+    attention: one valid position in the q box, the rest TMA's zero
+    fill, never stored), full attention with S != T (cross attention over
+    the encoder), and hd 128 at G = 4 (llava's causal prefill)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    _check_flash(S, T, H, K, hd, causal=causal, seed=S + T + hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions", [[8192], [8195, 100, 6000]])
+def test_cuda_paged_decode_llava_heads(positions):
+    """On a card: the paged decode at llava-next-mistral-7b's 32 query
+    heads over 8 kv heads of 128 (G = 4), past 8192 positions, no window
+    or cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    qs, pools, pt, pos = _pool_case(positions, 1, 520, 16, H=32, K=8,
+                                    hd=128, num_pages=1100, seed=41)
+    dec, dplain, _, _ = _PAGED[16]
+    _check_paged(dec, dplain, qs[0.0][:, 0].contiguous(), pools, pt, pos,
+                 0, 0.0)
 
 
 @pytest.mark.cuda

@@ -50,6 +50,7 @@ from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import moe as t_moe  # noqa: E402
 from repro_torch.models.api import Model, build_model as t_build  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
+from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.serving.engine import AdmissionPolicy, Engine, \
     Request  # noqa: E402
 
@@ -480,15 +481,16 @@ def test_serve_cli_moe_on_cpu(capsys):
                                   "whisper-large-v3",
                                   "llava-next-mistral-7b"])
 def test_other_families_still_refused(arch):
-    """The engine serves the dense and moe families: ssm and hybrid build
-    (they decode over dense caches, tests/test_torch_ssm.py) but the
-    engine refuses them, as the reference's does; encdec and vlm wait for
-    their slice, so building the model raises too."""
+    """The engine serves the dense and moe families: ssm, hybrid, encdec
+    and vlm build (they decode over dense caches, or through
+    make_prefill_step/make_serve_step: tests/test_torch_ssm.py,
+    tests/test_torch_encdec.py, tests/test_torch_vlm.py), with the
+    reference's parameter shapes, but the engine refuses them, as the
+    reference's does."""
     cfg = t_configs.tiny_config(arch)
-    if cfg.family in ("ssm", "hybrid"):
-        t_build(cfg)
-    else:
-        with pytest.raises(NotImplementedError, match="waits for its slice"):
-            t_build(cfg)
+    tm = t_build(cfg)
+    jm = j_build(j_configs.tiny_config(arch))
+    assert [tuple(d.shape) for d in jax.tree.leaves(jm.defs)] == \
+        [tuple(d.shape) for d in tree_leaves(tm.defs)]
     with pytest.raises(NotImplementedError, match="waits for its slice"):
         Engine(Model(cfg=cfg, defs=None), {}, _policy())

@@ -25,7 +25,6 @@ Tolerances, and why:
     fp32 ones there). At the reference's init, fp32 gradients within 1e-3
     (measured 1.3e-4). Losses within 1e-5 (fp32) and 1e-2 (bf16).
 """
-import dataclasses
 import os
 
 import numpy as np
@@ -103,10 +102,23 @@ def test_batches_bit_identical(seed):
 
 
 def test_batch_for_model_refuses_other_families():
-    m = t_build(t_tiny("gemma2-2b"))
-    fake = dataclasses.replace(m, cfg=t_tiny("whisper-large-v3"))
-    with pytest.raises(NotImplementedError):
-        tdp.batch_for_model(fake, ShapeConfig("t", 16, 2, "train"), None, 0)
+    """The stub-frontend families, which the port refused before it ran
+    them, now take the reference's batches bit for bit: whisper's frames
+    and decoder tokens, llava's patches and text."""
+    for arch, stub in (("whisper-large-v3", "frames"),
+                       ("llava-next-mistral-7b", "patches")):
+        jm, tm = j_build(j_tiny(arch)), t_build(t_tiny(arch))
+        a = jdp.batch_for_model(jm, ShapeConfig("t", 16, 2, "train"), None,
+                                0)
+        b = tdp.batch_for_model(tm, ShapeConfig("t", 16, 2, "train"), None,
+                                0)
+        assert sorted(a) == sorted(b) == sorted(["labels", "tokens", stub])
+        assert b[stub].dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            b[stub].view(torch.int16).numpy().view(np.uint16),
+            np.asarray(a[stub]).view(np.uint16))
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(b[k].numpy(), np.asarray(a[k]))
 
 
 # ----------------------------------------------------------------- AdamW --
