@@ -184,10 +184,31 @@ Phases, each fatal on failure:
                 phase 3's rule both times; its training (AdamW at 16 bytes a
                 parameter) would not fit one 80 GB card and is left to the
                 CPU tests;
+ 17. mesh     — the sharded engine (serving/engine/sharded.py): the
+                column-slice products of every local site against the
+                slices of the whole products at the runs' rows (cuBLAS);
+                (a) an NCCL world of 1 rank (launch.mesh.spawn) over the
+                main trace through a model=1 mesh, tokens and every sampled
+                logits row bit-identical to the unsharded engine's; (b) a
+                gloo world of 2 ranks on this card (gathers staged through
+                host memory), model=2: full-width gemma2-2b on a cut of the
+                main trace (its first 8 requests, 2 new tokens each, so
+                a decode tick runs 7 live slots) on the bf16
+                and the int8 pool and one 2048-token prompt whole through
+                flash, each rank's pool K/2 heads, every rank's outputs
+                equal, its first 78 paged calls held per call, tokens and
+                logits bit-identical to the unsharded engine's (which runs
+                first in this process) where every local product equals
+                its slice, else logits under LOGIT_RTOL; (c) tiny
+                gemma2-2b at model=2 on the hd-32 kernels, bf16 and mixed
+                pools, token-identical; each world's backend, each rank's
+                parameter, pool, resident and peak memory against the
+                unsharded engine's, tick times (host-staged, not a speed);
  11. report   — one JSON line with every kernel's launches (flash's summed
-                over phase 12's training run and phases 13-16's paths, the
-                paged decode's over the main trace and llava's paged
-                steps), error, times.
+                over phase 12's training run and phases 13-17's paths, the
+                paged kernels' over the main trace, llava's paged steps
+                and phase 17's sharded runs, summed over ranks), error,
+                times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
@@ -1269,11 +1290,13 @@ PAGED_CALLS = ("paged_attention", "paged_attention_prefill",
 
 
 @contextlib.contextmanager
-def attention_calls(check=False, perturb=False, names=PAGED_CALLS):
+def attention_calls(check=False, perturb=False, names=PAGED_CALLS,
+                    limit=None):
     """The attention calls ``names`` of kernels/ops.py (by default the
     paged walks), wrapped for one run of calls. ``check``: each call that runs a kernel also runs its plain
     version on the same inputs and fails unless every element is within
-    the phase 2 tolerance (``mismatch``). ``perturb``: each output comes
+    the phase 2 tolerance (``mismatch``); with ``limit``, only the first
+    ``limit`` such calls. ``perturb``: each output comes
     back with a seeded tenth of its elements moved by 2**-7 of their value
     (a bf16 ulp or two: a rounding-sized change, for the model's own
     sensitivity). Yields
@@ -1287,7 +1310,8 @@ def attention_calls(check=False, perturb=False, names=PAGED_CALLS):
     def wrap(name, fn):
         def call(*args, mode="auto", **kw):
             out = fn(*args, mode=mode, **kw)
-            if check and out.is_cuda and mode != "ref":
+            if check and out.is_cuda and mode != "ref" and (
+                    limit is None or stats["n"] < limit):
                 want = fn(*args, mode="ref", **kw).float()
                 got = out.float()
                 if mismatch(got, want).any():
@@ -3668,6 +3692,329 @@ def phase_llava():
     return out
 
 
+# ----------------------------------------------- phase 17: the sharded engine --
+# The gloo world's cut of the main trace: its first MESH_CUT requests (one
+# max_batch, so the decode tick runs every slot live), MESH_GEN new tokens
+# each (a chunk per prompt, then one decode tick). gloo moves a gather
+# through the host at about 0.5 GB/s gathered (scripts/gloo_gather_rate.py),
+# and a full-width call gathers the 1.18 GB embedding (lookup, unembed)
+# and 26 layers' wo and w_out, so each takes seconds; the whole-prompt
+# run: one prompt of MESH_WHOLE_S tokens (its bucket of 2048 rows: flash
+# in every layer)
+MESH_CUT, MESH_GEN, MESH_WHOLE_S = 8, 2, 2048
+MESH_TP = 2                   # the gloo world's model axis
+# a world's deadline: past it every rank is killed and the phase fails
+MESH_WORLD_S = 600.0
+MESH_SITES = ("attn_q", "attn_k", "attn_v", "ffn_in", "ffn_gate")
+
+
+def mesh_runs(kv_policy_file):
+    """Phase 17's runs, each {label, arch, tiny, argv, policy, reqs}: the
+    policy is made here once (priced for the mesh) and given to the
+    unsharded and the sharded engine alike. Returns (world-of-1 runs,
+    gloo-world runs)."""
+    import numpy as np
+    from repro_torch.configs import get_config, tiny_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.engine import Request
+
+    def run(label, arch, tiny, argv, reqs, tp):
+        cfg = tiny_config(arch) if tiny else get_config(arch)
+        model = build_model(cfg)
+        argv = ["--arch", arch, "--max-batch", "8", "--page-size",
+                str(PAGE), *(["--tiny"] if tiny else []), *argv,
+                "--mesh", f"model={tp}"]
+        args = serve.build_parser().parse_args(argv)
+        max_len = max(len(r.prompt) + r.max_new for r in reqs)
+        return {"label": label, "arch": arch, "tiny": tiny, "argv": argv,
+                "reqs": reqs, "tp": tp,
+                "policy": serve.make_policy(cfg, model, args, max_len)}
+
+    gemma = get_config("gemma2-2b")
+    main = main_trace(gemma)
+    cut = [Request(rid=r.rid, prompt=r.prompt, max_new=MESH_GEN)
+           for r in main[:MESH_CUT]]
+    rng = np.random.default_rng(7)
+    whole = [Request(rid=0, prompt=rng.integers(
+        2, gemma.vocab_size, MESH_WHOLE_S).astype(np.int32),
+        max_new=MESH_GEN)]
+    tiny = tiny_trace(tiny_config("gemma2-2b"), whole=False)
+    one = [run("model=1 bf16", "gemma2-2b", False, [], main, 1)]
+    two = [run("bf16", "gemma2-2b", False, [], cut, MESH_TP),
+           run("int8", "gemma2-2b", False, ["--kv-bits", "8"], cut,
+               MESH_TP),
+           run("whole", "gemma2-2b", False, ["--no-chunked-prefill"],
+               whole, MESH_TP),
+           run("tiny bf16", "gemma2-2b", True,
+               ["--paged-kernel", "cuda", "--prefill-chunk", "32"], tiny,
+               MESH_TP),
+           run("tiny mixed", "gemma2-2b", True,
+               ["--paged-kernel", "cuda", "--prefill-chunk", "32",
+                "--kv-policy", str(kv_policy_file)], tiny, MESH_TP)]
+    return one, two
+
+
+def mesh_engine_run(run, mesh=None):
+    """One run of phase 17 on this process's card: parameters from seed 0,
+    the engine (sharded under ``mesh``) over ``run["reqs"]`` with the
+    run's policy, the full-width runs' first 3 x 26 paged calls each held
+    against the plain walk on their inputs; every logits row the engine
+    samples from recorded (decode ticks, the prompts' last rows). Returns
+    outputs, launches, logits, tick times and memory (allocated by this
+    run: resident once the engine is built, peak over the run)."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, tiny_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+
+    cfg = tiny_config(run["arch"]) if run["tiny"] else get_config(run["arch"])
+    model = build_model(cfg)
+    args = serve.build_parser().parse_args(run["argv"])
+    # what this process held before the run (earlier phases' leftovers in
+    # the parent; nothing in a rank) is not the run's
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    full_bytes = tensor_bytes(params)
+    engine = serve.make_engine(model, params, run["policy"], args, mesh=mesh)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() - held
+    logits = []
+
+    def record(fn, live=False):
+        """Keep the logits rows the engine samples from: a decode tick's
+        live slots (an idle slot's row reads the scratch page, which
+        several idle slots write in an undefined order on the card)."""
+        def call(*a):
+            out = fn(*a)
+            lg = out[0] if isinstance(out, tuple) else out
+            rows = lg[:, 0, :cfg.vocab_size]
+            if live:
+                rows = rows[a[2][:, 0] != 0]
+            logits.append(rows.float().cpu())
+            return out
+        return call
+
+    engine._decode = record(engine._decode, live=True)
+    engine._unembed_row = record(engine._unembed_row)
+    make = engine._make_prefill
+    engine._make_prefill = lambda: record(make())
+    torch.cuda.synchronize()
+    reset_all_launches()
+    limit = None if run["tiny"] else 3 * cfg.num_layers
+    t0 = time.perf_counter()
+    with attention_calls(check=not run["tiny"], limit=limit) as checked:
+        outs = engine.run(run["reqs"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    ticks = engine.telemetry.ticks
+    ms = {k: [1e3 * t.measured_s for t in ticks if t.kind == k]
+          for k in ("decode", "chunk", "prefill")}
+    digest = hashlib.sha256(b"".join(
+        x.numpy().tobytes() for x in logits)).hexdigest()
+    return {"outs": outs, "launches": launches, "logits": logits,
+            "digest": digest, "seconds": dt,
+            "ms": {k: float(np.mean(v)) for k, v in ms.items() if v},
+            "ticks": {k: len(v) for k, v in ms.items()},
+            "resident_gb": resident / 1e9,
+            "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+            "param_gb": tensor_bytes(engine.params) / 1e9,
+            "full_param_gb": full_bytes / 1e9,
+            "pool_gb": tensor_bytes(engine.kv.pool) / 1e9,
+            "pool_heads": sorted({x.shape[3] for x in
+                                  tree_leaves(engine.kv.pool)}),
+            "checked": dict(checked)}
+
+
+def mesh_rank(rank, world, device, runs):
+    """A rank of phase 17's worlds: the serving mesh over the world
+    (model = the runs' tp), then every run through the sharded engine."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = runs[0]["tp"]
+    mesh = make_serving_mesh(model=tp, data=world // tp, device_type="cuda",
+                             backend=torch.distributed.get_backend())
+    torch.distributed.barrier()
+    out = {}
+    for run in runs:
+        res = mesh_engine_run(run, mesh)
+        if rank:
+            res["logits"] = None         # rank 0's are compared; a digest
+        out[run["label"]] = res          # holds every rank to them
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def cublas_slices(cfg, runs):
+    """Each local site's product over a rank's slice of the weight's
+    columns against the same columns of the whole product, at the rows
+    the runs give it (decode: max_batch; a chunk or a whole prompt: its
+    padded rows), through the port's own functions (``_proj_in``,
+    ``_matmul``). Returns {(site, rows): max |diff|}."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+    g = torch.Generator(device="cuda").manual_seed(23)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    shapes = {"attn_q": (cfg.num_heads, hd), "attn_k": (cfg.num_kv_heads, hd),
+              "attn_v": (cfg.num_kv_heads, hd), "ffn_in": (cfg.d_ff,),
+              "ffn_gate": (cfg.d_ff,)}
+    rows = sorted({(r["policy"].max_batch, 1) for r in runs}
+                  | {(1, r["policy"].prefill_chunk) for r in runs})
+    out = {}
+    for site in MESH_SITES:
+        w = (torch.randn((d,) + shapes[site], generator=g, device="cuda")
+             * d ** -0.5).bfloat16()
+        n = shapes[site][0]
+        for B, S in rows:
+            x = torch.randn((B, S, d), generator=g, device="cuda").bfloat16()
+            worst = 0.0
+            for r in range(MESH_TP):
+                part = slice(r * n // MESH_TP, (r + 1) * n // MESH_TP)
+                if site.startswith("attn"):
+                    whole = attn._proj_in(x, w, site)[:, :, part]
+                    local = attn._proj_in(x, w[:, part].contiguous(), site)
+                else:
+                    whole = layers._matmul(x, w, site)[..., part]
+                    local = layers._matmul(x, w[:, part].contiguous(), site)
+                worst = max(worst, float((local.float() - whole.float())
+                                         .abs().max()))
+            out[(site, B * S)] = worst
+    return out
+
+
+def phase_mesh(kv_policy_file):
+    """Phase 17: the sharded engine (serving/engine/sharded.py) on the card.
+    (a) an NCCL world of 1 rank: full-width gemma2-2b over the main trace
+    through a model=1 mesh, tokens and every sampled logits row equal to
+    the unsharded engine's bit for bit; (b) a gloo world of 2 ranks on this
+    one card (NCCL refuses two ranks on one device; gloo's gathers go
+    through host memory), model=2, 2 of the 4 kv heads per rank:
+    full-width gemma2-2b on a cut of the main trace on the bf16 pool, on
+    the int8 pool, and one whole prompt of 2048 tokens through flash,
+    each rank's pool holding K/2 heads, every rank's outputs and logits
+    equal, the first 78 paged calls on a rank's slice held against the
+    plain walk, tokens against the unsharded engine's (which runs here
+    first): equal where every local product over a column slice equals
+    the slice of the whole product on this card (``cublas_slices``), else
+    the logits under LOGIT_RTOL; (c) tiny gemma2-2b at model=2 through the
+    hd-32 kernels, bf16 and mixed pools, token-identical. Prints each
+    world's backend, each rank's resident and peak memory against the
+    unsharded engine's, and tick times (host-staged, not a speed).
+    Returns the launches of the sharded runs, summed over ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import WorldFailed, spawn
+
+    one, two = mesh_runs(kv_policy_file)
+    card = card_line()
+    cut = two[0]["reqs"]
+    print(f"mesh: the gloo world serves a cut of the main trace: its first "
+          f"{len(cut)} request(s) ({', '.join(str(len(r.prompt)) for r in cut)}"
+          f" prompt tokens), {MESH_GEN} new tokens each, and one "
+          f"{MESH_WHOLE_S}-token prompt whole; the NCCL world of 1 the whole "
+          f"main trace", flush=True)
+    slices = cublas_slices(get_config("gemma2-2b"), two[:3])
+    exact = all(v == 0.0 for v in slices.values())
+    print(f"mesh: cuBLAS, a rank's column slice vs the slice of the whole "
+          f"product (max |diff|, {card}): "
+          + ", ".join(f"{s}@{m} rows {v:.4g}" for (s, m), v in
+                      slices.items()), flush=True)
+    base = {}
+    for run in one + two:
+        base[run["label"]] = mesh_engine_run(run)
+        gc.collect()
+        torch.cuda.empty_cache()
+    worlds = {}
+    for runs, n, backend in ((one, 1, "nccl"), (two, MESH_TP, "gloo")):
+        t0 = time.perf_counter()
+        try:
+            worlds[backend] = spawn(mesh_rank, n, backend=backend,
+                                    device="cuda:0", timeout_s=MESH_WORLD_S,
+                                    args=(runs,))
+        except WorldFailed as e:
+            fail(f"mesh: the {backend} world of {n} failed:\n{e}")
+        print(f"mesh[{backend}]: a world of {n} rank(s) on cuda:0, "
+              f"backend {backend}, {time.perf_counter() - t0:.1f} s "
+              f"(spawn, init and every run)", flush=True)
+    launches = {}
+    for runs, backend in ((one, "nccl"), (two, "gloo")):
+        ranks = worlds[backend]
+        for run in runs:
+            label = f"mesh[{backend} {run['label']}]"
+            want = base[run["label"]]
+            res = [r[run["label"]] for r in ranks]
+            tp = run["tp"]
+            kv = TINY_HEADS[1] if run["tiny"] else K
+            for i, r in enumerate(res):
+                if r["pool_heads"] != [kv // tp]:
+                    fail(f"{label}: rank {i}'s pool leaves hold "
+                         f"{r['pool_heads']} kv heads, want {kv // tp}")
+                if r["digest"] != res[0]["digest"] or any(
+                        not np.array_equal(r["outs"][k], res[0]["outs"][k])
+                        for k in r["outs"]):
+                    fail(f"{label}: rank {i}'s outputs or logits differ "
+                         f"from rank 0's")
+                for k, v in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            got = res[0]
+            same = all(np.array_equal(got["outs"][r.rid], want["outs"][r.rid])
+                       for r in run["reqs"])
+            bitwise = got["digest"] == want["digest"]
+            if (run["tiny"] or tp == 1 or exact) and not (same and bitwise):
+                fail(f"{label}: sharded engine not bit-identical to the "
+                     f"unsharded one (tokens equal: {same}, logits equal: "
+                     f"{bitwise})")
+            if not bitwise:
+                # full width, a local product off its slice: the logits
+                # of the ticks before the first token that differs
+                for i, (a, b) in enumerate(zip(got["logits"],
+                                               want["logits"])):
+                    if not torch.equal(a.argmax(-1), b.argmax(-1)):
+                        break
+                    compare_logits(label, f"sampled rows {i}", a, b)
+            c = got["checked"]
+            print(f"{label}: {len(run['reqs'])} requests "
+                  f"{'token-identical' if same else 'tokens differ'}"
+                  f"{', logits bit-identical' if bitwise else ''} to the "
+                  f"unsharded engine; {c['n']} paged calls held per call "
+                  f"(max |err| {c['err']:.4g}); pool K/{tp} = "
+                  f"{got['pool_heads']} heads a rank", flush=True)
+            for i, r in enumerate(res):
+                print(f"{label}: rank {i} params {r['param_gb']:.3f} GB at "
+                      f"rest (whole {r['full_param_gb']:.3f}), pool "
+                      f"{r['pool_gb']:.3f} GB, resident "
+                      f"{r['resident_gb']:.3f} GB, peak "
+                      f"{r['peak_gb']:.3f} GB; unsharded engine: params "
+                      f"{want['param_gb']:.3f}, pool {want['pool_gb']:.3f}, "
+                      f"resident {want['resident_gb']:.3f}, peak "
+                      f"{want['peak_gb']:.3f} GB ({card})", flush=True)
+            print(f"{label}: ticks {json.dumps(got['ticks'])}, mean ms "
+                  f"{json.dumps({k: round(v, 3) for k, v in got['ms'].items()})}"
+                  f" on the mesh ({'host-staged gloo gathers, not a speed' if backend == 'gloo' else 'nccl'}), "
+                  f"unsharded {json.dumps({k: round(v, 3) for k, v in want['ms'].items()})}; "
+                  f"run {got['seconds']:.2f} s vs {want['seconds']:.2f} s "
+                  f"({card}); launches a rank "
+                  f"{json.dumps({k: v for k, v in got['launches'].items() if v})}",
+                  flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3823,23 +4170,38 @@ def main() -> int:
     w_train = phase_whisper_train()
     t_ll = time.perf_counter()
     ll = phase_llava()
+    # phase 17: the sharded engine
+    t_mesh = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        policy_file = Path(tmp) / "kv_policy.json"
+        policy_file.write_text(json.dumps(KV_POLICY))
+        mesh_launches = phase_mesh(policy_file)
+    print(f"mesh: phase 17 in {time.perf_counter() - t_mesh:.1f} s; "
+          f"launches over its sharded runs, summed over ranks "
+          f"{json.dumps({k: v for k, v in mesh_launches.items() if v})}",
+          flush=True)
     ed_paths = {"whisper serve": w_serve["flash_attention_fwd"],
                 "whisper train": w_train["flash_attention_fwd"],
-                "llava prefill": ll["prefill"]["flash_attention_fwd"]}
+                "llava prefill": ll["prefill"]["flash_attention_fwd"],
+                "mesh": mesh_launches["flash_attention_fwd"]}
     flash_paths.update(ed_paths)
     print(f"encdec+vlm: kernels at the new geometries {json.dumps(ed_rows)};"
           f" flash launches by path {json.dumps(ed_paths)}; paged decode "
           f"launches on llava's paged steps "
           f"{ll['paged']['paged_attention_fwd']}; phase 15 in "
           f"{t_ll - t_ed:.1f} s (training {t_ll - t_wt:.1f} s), phase 16 "
-          f"in {time.perf_counter() - t_ll:.1f} s", flush=True)
+          f"in {t_mesh - t_ll:.1f} s", flush=True)
 
     # launches per kernel from the run of the path it serves (flash: the
     # training path's, the SSM family's, the ring prefill's, the NAS
     # search's and phases 15-16's, summed; the paged decode: the engine's
     # main trace and llava's paged steps)
     launches = dict(launches, paged_attention_fwd=launches[
-        "paged_attention_fwd"] + ll["paged"]["paged_attention_fwd"])
+        "paged_attention_fwd"] + ll["paged"]["paged_attention_fwd"]
+        + mesh_launches["paged_attention_fwd"],
+        paged_prefill_fwd=launches["paged_prefill_fwd"]
+        + mesh_launches["paged_prefill_fwd"])
+    q_launches = {k: q_launches[k] + mesh_launches[k] for k in QUANT_KERNELS}
     source_run = {**{k: launches for k in BF16_KERNELS},
                   **{k: q_launches for k in QUANT_KERNELS},
                   "flash_attention_fwd": {

@@ -5,9 +5,10 @@ Checkpoint/restart lives in the trainer loop (training/loop.py) and the
 data pipeline is a pure function of the step, so a resume is exact. A
 step whose time exceeds ``multiplier`` x the trailing median is a
 straggler; after ``strikes`` consecutive ones the callback asks the
-cluster runner to evict and replace the host. The reference's elastic
-re-mesh (``shrink_mesh``, ``reshard_state``) waits for the sharded port
-(ROADMAP items 10-11).
+cluster runner to evict and replace the host. ``shrink_mesh`` sizes the
+elastic re-mesh from the surviving devices; the reference's
+``reshard_state`` needs the train state's logical specs and waits for
+sharded training (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -63,6 +64,20 @@ class StragglerMonitor:
                 self.strikes = 0
         self.times.append(dt)
         return breached
+
+
+def shrink_mesh(n_devices: int, model_axis: int):
+    """Largest (data, model) mesh from ``n_devices`` surviving devices
+    (elastic re-mesh): the model axis stays whole (tensor-parallel groups
+    must), devices past the largest multiple of it are dropped. Returns
+    ((data, model), the ranks kept: the first data * model of a world
+    renumbered over the survivors), for ``launch.mesh.make_serving_mesh``
+    in a world of that size."""
+    data = n_devices // model_axis
+    if data < 1:
+        raise ValueError(f"{n_devices} devices cannot hold a model axis of "
+                         f"{model_axis}")
+    return (data, model_axis), list(range(data * model_axis))
 
 
 class Heartbeat:

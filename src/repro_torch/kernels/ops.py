@@ -77,13 +77,15 @@ def quant_matmul_prepared(x, qw, *, a_bits: int = 16, mode: str = "auto"):
 
 
 def paged_attention(q, pool_k, pool_v, page_table, positions, *,
-                    window=0, cap=0.0, mode: str = "auto"):
-    """Paged-attention decode: q (B, H, hd) against the page pool."""
+                    window=0, cap=0.0, mode: str = "auto", kv_heads=None):
+    """Paged-attention decode: q (B, H, hd) against the page pool.
+    ``kv_heads``: the model's kv-head count when the pool holds a shard's
+    slice of it (the split plan reads it; ``decode_splits``)."""
     if resolve_mode(mode, q, "paged-attention") == "ref":
         return ref.paged_attention_ref(q, pool_k, pool_v, page_table,
                                        positions, window=window, cap=cap)
     return pa.paged_attention_fwd(q, pool_k, pool_v, page_table, positions,
-                                  window=window, cap=cap)
+                                  window=window, cap=cap, kv_heads=kv_heads)
 
 
 def paged_attention_prefill(q, pool_k, pool_v, page_table, positions, *,
@@ -100,17 +102,17 @@ def paged_attention_prefill(q, pool_k, pool_v, page_table, positions, *,
 
 def paged_attention_quant(q, pool_k, k_scale, pool_v, v_scale, page_table,
                           positions, *, window=0, cap=0.0,
-                          mode: str = "auto"):
+                          mode: str = "auto", kv_heads=None):
     """Fused-dequant paged decode over a quantized pool: pool_k/v
     (P, page, K, hd_store) int8 (hd_store = hd for int8, hd//2 for int4),
-    k/v_scale (P, page, K) fp32."""
+    k/v_scale (P, page, K) fp32; ``kv_heads`` as paged_attention."""
     if resolve_mode(mode, q, "paged-attention") == "ref":
         return ref.paged_attention_quant_ref(
             q, pool_k, k_scale, pool_v, v_scale, page_table, positions,
             window=window, cap=cap)
     return pa.paged_attention_quant_fwd(
         q, pool_k, k_scale, pool_v, v_scale, page_table, positions,
-        window=window, cap=cap)
+        window=window, cap=cap, kv_heads=kv_heads)
 
 
 def paged_attention_prefill_quant(q, pool_k, k_scale, pool_v, v_scale,

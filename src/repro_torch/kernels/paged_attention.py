@@ -73,7 +73,9 @@ def decode_splits(B: int, K: int, n_blocks: int, page: int) -> int:
     alone: enough for SPLIT_TARGET_CTAS CTAs over B*K pairs, at most one
     per MIN_SPLIT_TILES 32-key tiles of the page table's width, at least
     one. Each sequence's CTAs share its own live tiles (``split_tiles``);
-    splits past them walk nothing."""
+    splits past them walk nothing. ``K`` is the model's kv-head count,
+    also for a sharded engine's pool slice of it: the plan, and so each
+    walk's summation grouping, is then the one-device engine's."""
     tiles = -(-n_blocks * page // DECODE_TILE)
     want = -(-SPLIT_TARGET_CTAS // max(B * K, 1))
     return max(1, min(want, tiles // MIN_SPLIT_TILES))
@@ -92,10 +94,12 @@ def head_group(G: int) -> int:
     return 4 if G % 4 == 0 else 2 if G % 2 == 0 else 1
 
 
-def decode_grid(B: int, H: int, K: int, n_blocks: int, page: int):
-    """The decode split kernel's grid (B, K*G/GC, n_split)."""
+def decode_grid(B: int, H: int, K: int, n_blocks: int, page: int,
+                kv_heads=None):
+    """The decode split kernel's grid (B, K*G/GC, n_split) over a pool of
+    K kv heads, of a model's ``kv_heads`` (default K)."""
     return (B, K * (H // K) // head_group(H // K),
-            decode_splits(B, K, n_blocks, page))
+            decode_splits(B, kv_heads or K, n_blocks, page))
 
 
 def prefill_grid(B: int, Sq: int, H: int, K: int):
@@ -226,10 +230,12 @@ def _raise_on(lib, rc: int, name: str) -> None:
 
 
 def paged_attention_fwd(q, pool_k, pool_v, page_table, positions, *,
-                        window=0, cap=0.0):
+                        window=0, cap=0.0, kv_heads=None):
     """q (B, H, hd) bf16; pool_k/v (P, page, K, hd) bf16; page_table
     (B, n_blocks) int32 (unused tails -> scratch page 0); positions (B,)
-    int32. Returns (B, H, hd) bf16."""
+    int32; ``kv_heads`` the model's kv-head count where the pool holds a
+    shard's K of it (the split plan's input, default K). Returns
+    (B, H, hd) bf16."""
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, pool_k, pool_v, page_table,
                                        positions, window=window, cap=cap)
@@ -237,7 +243,7 @@ def paged_attention_fwd(q, pool_k, pool_v, page_table, positions, *,
     _, page, K, _ = pool_k.shape
     lib, _ = _check(q, pool_k, pool_v, page_table, positions, False)
     n_blocks = page_table.shape[1]
-    n_split = decode_splits(B, K, n_blocks, page)
+    n_split = decode_splits(B, kv_heads or K, n_blocks, page)
     part = _partials(q, n_split)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -275,11 +281,12 @@ def paged_prefill_fwd(q, pool_k, pool_v, page_table, positions, *,
 
 
 def paged_attention_quant_fwd(q, pool_k, k_scale, pool_v, v_scale,
-                              page_table, positions, *, window=0, cap=0.0):
+                              page_table, positions, *, window=0, cap=0.0,
+                              kv_heads=None):
     """Fused-dequant paged decode. q (B, H, hd) bf16; pool_k/v
     (P, page, K, hd_store) int8 with hd_store = hd (int8) or hd//2 (int4
-    packed along hd); k/v_scale (P, page, K) fp32; page_table and positions
-    as paged_attention_fwd. Returns (B, H, hd) bf16."""
+    packed along hd); k/v_scale (P, page, K) fp32; page_table, positions
+    and ``kv_heads`` as paged_attention_fwd. Returns (B, H, hd) bf16."""
     if q.device.type == "cpu":
         return ref.paged_attention_quant_ref(
             q, pool_k, k_scale, pool_v, v_scale, page_table, positions,
@@ -289,7 +296,7 @@ def paged_attention_quant_fwd(q, pool_k, k_scale, pool_v, v_scale,
     lib, bits = _check(q, pool_k, pool_v, page_table, positions, False,
                        (k_scale, v_scale))
     n_blocks = page_table.shape[1]
-    n_split = decode_splits(B, K, n_blocks, page)
+    n_split = decode_splits(B, kv_heads or K, n_blocks, page)
     part = _partials(q, n_split)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -20,6 +20,10 @@ as the reference baseline.
   --quant-policy QUANT.json``  (e.g. ``{"ffn_in": [4, 16]}``)
 ``python -m repro_torch.launch.serve --arch mamba2-370m --sequential``
 ``python -m repro_torch.launch.serve --arch zamba2-1.2b --sequential``
+``torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch gemma2-2b \\
+  --max-batch 8 --mesh model=2``  (one card per rank, nccl)
+``torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
+  --arch gemma2-2b --tiny --device cpu --mesh model=2``  (gloo)
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no CPU request it stops with an error. ``--kv-bits`` and
@@ -36,15 +40,25 @@ families (mamba2-370m, zamba2-1.2b) serve in ``--sequential`` mode only,
 over dense caches; the engine refuses them, as the reference's does.
 whisper-large-v3 and llava-next-mistral-7b, whose prompts carry frames or
 patches, serve through training/steps.py's ``make_prefill_step`` and
-``make_serve_step``; the CLI and ``generate`` refuse them. The
-reference's ``--mesh`` waits for the sharded engine.
+``make_serve_step``; the CLI and ``generate`` refuse them.
+
+``--mesh model=N[,data=M]`` serves through the sharded engine
+(serving/engine/sharded.py) in a world of N*M processes, one per device,
+launched by ``torchrun --nproc-per-node N*M`` (``python -m
+torch.distributed.run``), over nccl on the card (one card per rank)
+and gloo on the CPU. Every rank serves the same trace; only rank 0
+prints. ``--serving-config`` takes a record whose ``mesh_model``
+exceeds 1 the same way; the autotuner's own search stays on one device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import time
+from typing import Dict
 
 import numpy as np
 import torch
@@ -53,6 +67,8 @@ import torch.nn.functional as F
 from repro_torch.configs import get_config, tiny_config
 from repro_torch.core.hardware_model import DEFAULT_HW, HARDWARES
 from repro_torch.core.quantization import make_quant_dot
+from repro_torch.launch.mesh import init_from_env, make_serving_mesh, \
+    rank_device
 from repro_torch.models import attention
 from repro_torch.models.api import build_model
 from repro_torch.models.params import tree_map
@@ -244,6 +260,19 @@ def generate(model, params, prompt_tokens, gen_len: int, *, temperature=0.0,
     return torch.cat(out, dim=1)
 
 
+def _parse_mesh(spec: str) -> Dict[str, int]:
+    """'model=2' / 'model=2,data=4' -> axis sizes (missing axes = 1)."""
+    sizes = {"model": 1, "data": 1}
+    for part in filter(None, spec.split(",")):
+        name, _, val = part.partition("=")
+        name = name.strip()
+        if name not in sizes or not val.strip().isdigit():
+            raise ValueError(
+                f"bad --mesh entry {part!r}; expected model=N[,data=M]")
+        sizes[name] = int(val)
+    return sizes
+
+
 def _make_requests(args, cfg):
     rng = np.random.default_rng(0)
     reqs = []
@@ -336,6 +365,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --autotune: write the searched serving "
                          "config JSON here for --serving-config to load "
                          "back ('' disables)")
+    ap.add_argument("--mesh", default="",
+                    help="engine mode: sharded serving over a mesh of "
+                         "ranks, e.g. 'model=2' or 'model=2,data=2' — the "
+                         "paged pool splits kv_heads over the model axis, "
+                         "parameters spread at rest over the whole mesh "
+                         "and are gathered per layer, outputs stay "
+                         "token-identical to the one-device engine; run "
+                         "under torchrun --nproc-per-node model*data")
     return ap
 
 
@@ -359,17 +396,20 @@ def kv_bits_arg(cfg, args, max_model_len: int):
 
 def make_policy(cfg, model, args, max_model_len: int):
     """The admission policy the engine runs under: derived on ``--hw`` for
-    ``max_model_len`` and the KV bits asked for, with the batch/chunk
-    overrides applied."""
+    ``max_model_len``, the KV bits and the mesh asked for (priced per
+    shard), with the batch/chunk overrides applied."""
     occupancy = args.expected_occupancy
     if occupancy is None:
         occupancy = 1.0 if args.reserve_upfront else 0.5
+    mesh = _parse_mesh(args.mesh)
     policy = derive_policy(cfg, HARDWARES[args.hw],
                            max_model_len=max_model_len,
                            page_size=args.page_size,
                            expected_occupancy=occupancy,
                            param_bytes=model.param_bytes(),
-                           kv_bits=kv_bits_arg(cfg, args, max_model_len))
+                           kv_bits=kv_bits_arg(cfg, args, max_model_len),
+                           mesh_model=mesh["model"],
+                           mesh_data=mesh["data"])
     over = {}
     if args.max_batch:
         over["max_batch"] = args.max_batch
@@ -382,15 +422,20 @@ def serving_config_policy(ap, cfg, model, params, args, reqs,
                           max_model_len: int):
     """The admission policy a searched serving config gives:
     ``--serving-config`` loads one, ``--autotune`` searches one on
-    ``reqs`` (and writes it to ``--autotune-out``). One device: the
-    space's mesh dimension is 1 until the sharded engine is ported."""
+    ``reqs`` (and writes it to ``--autotune-out``). The autotuner
+    searches one device (its mesh dimension is 1: timing a mesh candidate
+    needs a host with several cards); a loaded record may split the model
+    over up to the launched world's ranks."""
     from repro_torch.serving.autotune import (ConfigSpace,
                                               autotune_serving_config,
                                               load_serving_config,
                                               save_serving_config)
     hw = HARDWARES[args.hw]
+    devices = int(os.environ.get("WORLD_SIZE", "1")) \
+        if args.serving_config else 1
     space = ConfigSpace(cfg, hw, max_model_len=max_model_len,
-                        max_devices=1, max_batch_cap=args.max_batch or 8,
+                        max_devices=devices,
+                        max_batch_cap=args.max_batch or 8,
                         param_bytes=model.param_bytes())
     if args.serving_config:
         sc, record = load_serving_config(args.serving_config)
@@ -427,11 +472,24 @@ def serving_config_policy(ap, cfg, model, params, args, reqs,
     return space.to_policy(sc)
 
 
-def make_engine(model, params, policy, args) -> Engine:
+def make_engine(model, params, policy, args, mesh=None) -> Engine:
     return Engine(model, params, policy, temperature=args.temperature,
                   paged_kernel=args.paged_kernel,
                   reserve_upfront=args.reserve_upfront,
-                  chunked_prefill=not args.no_chunked_prefill)
+                  chunked_prefill=not args.no_chunked_prefill, mesh=mesh)
+
+
+def join_mesh(sizes: Dict[str, int], device: torch.device):
+    """This process's rank of the world ``torchrun`` launched, its device
+    and the serving mesh over the world: (mesh, device). The backend
+    follows the device: nccl on cuda, gloo on the CPU."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    device = rank_device(device.type)
+    if "WORLD_SIZE" in os.environ:          # else make_serving_mesh says how
+        init_from_env(backend, device)
+    return make_serving_mesh(sizes["model"], sizes["data"],
+                             device_type=device.type,
+                             backend=backend), device
 
 
 def main(argv=None):
@@ -457,9 +515,17 @@ def main(argv=None):
     if args.autotune_out and not args.autotune:
         ap.error("--autotune-out only makes sense with --autotune")
     if (args.autotune or args.serving_config) and (
-            args.kv_policy or args.kv_bits != 16):
-        ap.error("--kv-bits/--kv-policy are knobs the serving config "
-                 "owns; drop them when using --autotune/--serving-config")
+            args.kv_policy or args.kv_bits != 16 or args.mesh):
+        ap.error("--kv-bits/--kv-policy/--mesh are knobs the serving "
+                 "config owns; drop them when using "
+                 "--autotune/--serving-config")
+    if args.sequential and args.mesh:
+        ap.error("--mesh applies to engine mode only; the sequential "
+                 "baseline is the single-device exactness reference")
+    try:
+        mesh_sizes = _parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
     device = resolve_device(args.device)
     # fp32 products stay fp32 (the fp32 unembed, the logits)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -467,9 +533,34 @@ def main(argv=None):
 
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
     model = build_model(cfg)
+    mesh = None
+    if args.serving_config:
+        mesh_sizes = _record_mesh(args.serving_config)
+    if args.mesh or mesh_sizes["model"] * mesh_sizes["data"] > 1:
+        try:
+            mesh, device = join_mesh(mesh_sizes, device)
+        except ValueError as e:
+            ap.error(str(e))
+    with contextlib.ExitStack() as quiet:
+        if mesh is not None and torch.distributed.get_rank():
+            # every rank serves the same trace; rank 0 alone reports
+            sink = quiet.enter_context(open(os.devnull, "w"))
+            quiet.enter_context(contextlib.redirect_stdout(sink))
+        _serve(ap, args, cfg, model, device, mesh)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+
+
+def _record_mesh(path: str) -> Dict[str, int]:
+    """The mesh a searched serving-config record asks for."""
+    from repro_torch.serving.autotune import load_serving_config
+    sc, _ = load_serving_config(path)
+    return {"model": sc.mesh_model, "data": 1}
+
+
+def _serve(ap, args, cfg, model, device, mesh):
     params = model.init(torch.Generator(device=device).manual_seed(0),
                         device)
-
     if args.sequential:
         dot = None
         if args.quant_policy:
@@ -504,14 +595,24 @@ def main(argv=None):
                                        max_len)
     else:
         policy = make_policy(cfg, model, args, max_len)
+    if mesh is not None and policy.mesh_model * policy.mesh_data != \
+            mesh.size():
+        ap.error(f"the policy's mesh model={policy.mesh_model} x "
+                 f"data={policy.mesh_data} is not the launched world of "
+                 f"{mesh.size()}")
     print(f"admission[{args.hw}]: max_batch={policy.max_batch} "
           f"prefill_chunk={policy.prefill_chunk} "
           f"chunked={not args.no_chunked_prefill} "
           f"quant={policy.quant_bits}b "
           f"kv={policy.kv_bits or 'bf16'} pages={policy.num_pages} "
           f"page_size={policy.page_size} "
+          f"mesh=model:{policy.mesh_model},data:{policy.mesh_data} "
           f"(est decode {policy.est_decode_s * 1e3:.2f}ms/step)")
-    engine = make_engine(model, params, policy, args)
+    engine = make_engine(model, params, policy, args, mesh=mesh)
+    if mesh is not None:
+        print(f"mesh[{torch.distributed.get_backend()}]: "
+              f"{engine.spmd.describe()}; {mesh.size()} ranks, rank 0 "
+              f"on {device}")
     t0 = time.time()
     outs = engine.run(reqs)
     dt = time.time() - t0

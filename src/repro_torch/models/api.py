@@ -30,6 +30,15 @@ class Model:
         of that device)."""
         return plib.init_params(self.defs, generator, device)
 
+    def abstract_params(self) -> Any:
+        """The parameter tree as meta tensors: shapes and dtypes, no
+        storage (the reference's ShapeDtypeStructs)."""
+        return plib.abstract_params(self.defs)
+
+    def logical_specs(self) -> Any:
+        """Each parameter's logical axis names (distributed/sharding.py)."""
+        return plib.logical_specs(self.defs)
+
     def param_count(self) -> int:
         return plib.param_count(self.defs)
 
@@ -39,7 +48,7 @@ class Model:
     # -- compute ------------------------------------------------------------
     def forward(self, params, batch, *, want_cache=False,
                 unembed_mode="full", cache_layout="ring", dot=None,
-                kernel="auto", remat=False):
+                kernel="auto", remat=False, gather=None):
         """Whole-sequence forward; ``kernel`` picks the flash-attention
         path of sequences of FLASH_MIN tokens or more: "auto" (CUDA kernel
         on CUDA tensors, plain version on CPU ones), "cuda" or "ref".
@@ -48,7 +57,8 @@ class Model:
         the chronological ones the page pool takes
         (transformer.forward). The encoder-decoder takes {frames, tokens}
         and ignores ``cache_layout``, as in the reference
-        (encdec.forward)."""
+        (encdec.forward). ``gather`` is the sharded engine's hook
+        (serving/engine/sharded.py; the dense and moe families)."""
         if self.cfg.is_encdec:
             return encdec.forward(params, batch, self.cfg,
                                   want_cache=want_cache, remat=remat,
@@ -58,7 +68,8 @@ class Model:
                                    want_cache=want_cache,
                                    unembed_mode=unembed_mode,
                                    cache_layout=cache_layout, dot=dot,
-                                   kernel=kernel, remat=remat)
+                                   kernel=kernel, remat=remat,
+                                   gather=gather)
 
     def loss(self, params, batch, *, remat=False, dot=None, kernel="auto"):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
@@ -87,9 +98,10 @@ class Model:
                                            dot=dot, kernel=kernel)
         return logits, cache
 
-    def unembed(self, params, hidden, *, dot=None):
+    def unembed(self, params, hidden, *, dot=None, gather=None):
         """Project hidden states (B, S, D) to fp32 logits."""
-        return transformer.unembed(params, hidden, self.cfg, dot=dot)
+        return transformer.unembed(params, hidden, self.cfg, dot=dot,
+                                   gather=gather)
 
     def decode_step(self, params, cache, token, pos, *, dot=None):
         """One token (B, 1) at position ``pos`` over dense caches (a
@@ -104,22 +116,25 @@ class Model:
                                        dot=dot)
 
     def decode_step_paged(self, params, pool, page_table, token, positions,
-                          *, kernel="auto", dot=None):
+                          *, kernel="auto", dot=None, gather=None):
         """Continuous-batching decode over the paged pool (updated in
         place). ``kernel``: "auto" (CUDA kernel on CUDA tensors, plain walk
         on CPU ones), "cuda" or "ref"."""
         return transformer.decode_step_paged(params, pool, page_table, token,
                                              positions, self.cfg,
-                                             kernel=kernel, dot=dot)
+                                             kernel=kernel, dot=dot,
+                                             gather=gather)
 
     def prefill_chunk_paged(self, params, pool, page_table, tokens,
-                            positions, *, kernel="auto", dot=None):
+                            positions, *, kernel="auto", dot=None,
+                            gather=None):
         """Chunked prefill of tokens (B, Sq) starting at ``positions[b]``;
         returns (hidden (B, Sq, D), pool). See
         transformer.prefill_chunk_paged."""
         return transformer.prefill_chunk_paged(params, pool, page_table,
                                                tokens, positions, self.cfg,
-                                               kernel=kernel, dot=dot)
+                                               kernel=kernel, dot=dot,
+                                               gather=gather)
 
     # -- caches -------------------------------------------------------------
     def cache_specs(self, batch: int, seq_len: int):
@@ -134,6 +149,10 @@ class Model:
     def pool_specs(self, num_pages: int, page_size: int, kv_bits=None):
         return transformer.pool_specs(self.cfg, num_pages, page_size,
                                       kv_bits=kv_bits)
+
+    def pool_axes(self, kv_bits=None):
+        """The pool's logical axes (kv_heads is the one split)."""
+        return transformer.pool_axes(self.cfg, kv_bits)
 
     def init_pool(self, num_pages: int, page_size: int, kv_bits=None, *,
                   device):

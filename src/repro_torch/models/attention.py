@@ -222,18 +222,22 @@ def _page_size(pool) -> int:
 
 
 def _walk(q, pool_k, pool_v, page_table, positions, window, cap, kernel,
-          *, prefill: bool):
+          *, prefill: bool, kv_heads: int):
     """The paged walk over this layer's pools through kernels/ops.py: the
-    quantized pair for {"q", "scale"} pools, the bf16 pair otherwise."""
+    quantized pair for {"q", "scale"} pools, the bf16 pair otherwise.
+    ``kv_heads`` is the model's kv-head count: a sharded engine's pool
+    holds a slice of it, and the decode split plan reads the whole count,
+    so a shard splits each (sequence, head) walk as one device does."""
+    kw = {} if prefill else {"kv_heads": kv_heads}
     if isinstance(pool_k, dict):
         fn = kops.paged_attention_prefill_quant if prefill \
             else kops.paged_attention_quant
         return fn(q, pool_k["q"], pool_k["scale"], pool_v["q"],
                   pool_v["scale"], page_table, positions, window=window,
-                  cap=cap, mode=kernel)
+                  cap=cap, mode=kernel, **kw)
     fn = kops.paged_attention_prefill if prefill else kops.paged_attention
     return fn(q, pool_k, pool_v, page_table, positions, window=window,
-              cap=cap, mode=kernel)
+              cap=cap, mode=kernel, **kw)
 
 
 def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
@@ -269,7 +273,8 @@ def attention_decode_paged(p, x, pool_k, pool_v, page_table, positions,
     write_kv(pool_v, (pids, slots), v_new[:, 0])
     window = cfg.window_size if kind == "local" else 0
     o = _walk(q[:, 0], pool_k, pool_v, page_table, positions, window,
-              cfg.attn_softcap, kernel, prefill=False)[:, None]
+              cfg.attn_softcap, kernel, prefill=False,
+              kv_heads=cfg.num_kv_heads)[:, None]
     return _out_proj(o, p, dot), pool_k, pool_v
 
 
@@ -304,5 +309,6 @@ def attention_prefill_paged(p, x, pool_k, pool_v, page_table, positions,
     write_kv(pool_v, (pids, slots), v_new)
     window = cfg.window_size if kind == "local" else 0
     o = _walk(q, pool_k, pool_v, page_table, positions, window,
-              cfg.attn_softcap, kernel, prefill=True)
+              cfg.attn_softcap, kernel, prefill=True,
+              kv_heads=cfg.num_kv_heads)
     return _out_proj(o, p, dot), pool_k, pool_v

@@ -49,15 +49,18 @@ def tree_leaves(tree):
 
 def tree_unflatten(like, leaves):
     """``leaves`` (in ``tree_leaves`` order) in the nesting of ``like``."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, list):
-            return [walk(v) for v in t]
-        return next(it)
-    return walk(like)
+
+def _unflatten(t, it):
+    # a module-level walk: a nested one refers to itself through its
+    # closure, a cycle that keeps ``leaves`` alive until the cyclic
+    # collector runs (the sharded engine's gathered weights, every layer)
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    if isinstance(t, list):
+        return [_unflatten(v, it) for v in t]
+    return next(it)
 
 
 def stacked(defs, n: int):
@@ -89,6 +92,16 @@ def init_params(defs, generator: torch.Generator, device, dtype=None):
     leaves = [_init_leaf(d, generator, device, dtype)
               for d in tree_leaves(defs)]
     return tree_unflatten(defs, leaves)
+
+
+def abstract_params(defs):
+    """``defs`` as meta tensors of their shapes and dtypes."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
+
+
+def logical_specs(defs):
+    return tree_map(lambda d: d.axes, defs)
 
 
 def param_count(defs) -> int:

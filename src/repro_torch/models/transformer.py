@@ -89,6 +89,21 @@ def _group(tree, g: int):
     return tree_map(lambda a: a[g], tree)
 
 
+# The sharded engine (serving/engine/sharded.py) keeps parameters split
+# over a mesh at rest and passes a ``gather(tree, path)`` hook down: it
+# returns the subtree at key ``path`` of the parameter tree whole on this
+# rank (a layer's view for a "blocks" path), so a rank holds one layer's
+# gathered leaves at a time. Without the hook the parameters are whole.
+def _whole(params, key: str, gather):
+    return params[key] if gather is None else gather(params[key], (key,))
+
+
+def _layer(params, j: int, g: int, gather):
+    """Sub-layer slot ``j`` of group ``g``: its parameters' views."""
+    p = _group(params["blocks"][f"sub{j}"], g)
+    return p if gather is None else gather(p, ("blocks", f"sub{j}"))
+
+
 # ------------------------------------------------------------ param defs ----
 def _dense_sublayer_defs(cfg, kind) -> dict:
     d = cfg.d_model
@@ -231,20 +246,20 @@ def _dense_block_prefill_paged(p, x, pool_kv, page_table, positions, kind,
 
 
 # ---------------------------------------------------------------- embed ----
-def embed_tokens(params, tokens, cfg):
-    x = params["embed"][tokens.long()]
+def embed_tokens(params, tokens, cfg, gather=None):
+    x = _whole(params, "embed", gather)[tokens.long()]
     if cfg.scale_embeddings:
         # the reference rounds sqrt(d) to the activation dtype first
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
-def _assemble_input(params, batch, cfg):
+def _assemble_input(params, batch, cfg, gather=None):
     """(x (B, S, D), loss mask (B, S) or None). The vision stub: patches
     (B, S_p, D), rounded to bf16, through ``frontend_proj``, before the
     token embeddings; the mask is 0 on the patch rows and 1 on the
     text."""
-    te = embed_tokens(params, batch["tokens"], cfg)
+    te = embed_tokens(params, batch["tokens"], cfg, gather)
     if cfg.frontend != "vision_stub":
         return te, None
     w = params["frontend_proj"]
@@ -256,7 +271,7 @@ def _assemble_input(params, batch, cfg):
     return torch.cat([pe, te], dim=1), mask
 
 
-def unembed(params, x, cfg, *, dot=None):
+def unembed(params, x, cfg, *, dot=None, gather=None):
     """Project hidden states (..., D) to fp32 logits.
 
     With a ``dot`` hook the logits are ``dot(x, w, "lm_head")`` cast to
@@ -271,8 +286,10 @@ def unembed(params, x, cfg, *, dot=None):
     the price of a transient fp32 copy of the weight per call (2.36 GB for
     the tied gemma2-2b table) rather than a resident one. Callers that
     need fp32 parity on the card keep TF32 off
-    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    (``torch.backends.cuda.matmul.allow_tf32 = False``). ``gather``: the
+    sharded engine's hook (``_whole``)."""
+    w = _whole(params, "embed", gather).T if cfg.tie_embeddings \
+        else _whole(params, "lm_head", gather)
     if dot is None:
         logits = x.to(F32) @ w.to(F32)
     else:
@@ -329,7 +346,8 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
 # --------------------------------------------------------------- forward ----
 def forward(params, batch, cfg, *, want_cache: bool,
             unembed_mode: str = "full", cache_layout: str = "ring",
-            dot=None, kernel: str = "auto", remat: bool = False):
+            dot=None, kernel: str = "auto", remat: bool = False,
+            gather=None):
     """Full-sequence forward (training and prefill).
 
     unembed_mode: "full" -> logits (B,S,V); "last" -> logits (B,1,V);
@@ -350,6 +368,8 @@ def forward(params, batch, cfg, *, want_cache: bool,
     layer) under a checkpoint (the reference's ``jax.checkpoint``): the
     backward runs its forward again, flash kernel included, instead of
     keeping its activations.
+    gather: the sharded engine's hook (dense and moe families; see
+    ``_whole``).
     batch: {tokens (B, S)}, and for the vision stub also patches
     (B, S_p, D), which come first: the sequence is S_p + S rows.
     Returns (logits_or_hidden, caches or None, aux, loss_mask): aux
@@ -361,7 +381,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
         raise ValueError(f"cache_layout must be 'ring' or 'full', got "
                          f"{cache_layout!r}")
     ring = want_cache and cache_layout == "ring"
-    x, loss_mask = _assemble_input(params, batch, cfg)
+    x, loss_mask = _assemble_input(params, batch, cfg, gather)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     if cfg.family in ("ssm", "hybrid"):
@@ -370,18 +390,19 @@ def forward(params, batch, cfg, *, want_cache: bool,
         aux_total = 0.0
     else:
         x, out_cache, aux_total = _forward_blocks(
-            params, x, cfg, positions, want_cache, ring, dot, kernel, remat)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            params, x, cfg, positions, want_cache, ring, dot, kernel, remat,
+            gather)
+    x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
     if unembed_mode == "none":
         return x, out_cache, aux_total, loss_mask
     if unembed_mode == "last":
         x = x[:, -1:]
-    logits = unembed(params, x, cfg, dot=dot)
+    logits = unembed(params, x, cfg, dot=dot, gather=gather)
     return logits, out_cache, aux_total, loss_mask
 
 
 def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
-                    kernel, remat):
+                    kernel, remat, gather=None):
     """The dense and moe families' layer groups: (x, caches, aux)."""
     P = period_of(cfg)
     kinds = sublayer_kinds(cfg)
@@ -389,8 +410,11 @@ def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
     def group_body(h, aux, blocks):
         kv = []
         for j in range(P):
-            h, c, a = _dense_block_fwd(blocks[f"sub{j}"], h, kinds[j], cfg,
-                                       positions, dot, kernel, ring)
+            p = blocks[f"sub{j}"]
+            if gather is not None:
+                p = gather(p, ("blocks", f"sub{j}"))
+            h, c, a = _dense_block_fwd(p, h, kinds[j], cfg, positions, dot,
+                                       kernel, ring)
             aux = aux + a
             kv.append(c if want_cache else None)
         return h, aux, kv
@@ -491,45 +515,46 @@ def decode_step(params, cache, token, pos, cfg, *, dot=None):
 
 # ----------------------------------------------------------- paged decode ----
 def decode_step_paged(params, pool, page_table, token, positions, cfg, *,
-                      kernel="auto", dot=None):
+                      kernel="auto", dot=None, gather=None):
     """Batched slot-indexed decode against a paged KV pool.
 
     token (B,1) int32; positions (B,) int32 per-sequence absolute
     positions; pool is the dict from ``init_pool`` and page_table
     (B, n_pages) maps each sequence's logical blocks to physical pages
     (shared across layers). ``kernel`` selects the paged-attention path
-    (see attention_decode_paged); ``dot`` overrides every matmul site.
-    The pool is updated in place. Returns (logits (B,1,V), pool)."""
+    (see attention_decode_paged); ``dot`` overrides every matmul site;
+    ``gather`` is the sharded engine's hook (``_whole``). The pool is
+    updated in place. Returns (logits (B,1,V), pool)."""
     _require_paged(cfg, "paged decode")
-    x = embed_tokens(params, token, cfg)
+    x = embed_tokens(params, token, cfg, gather)
     for g, j, kind in _layers(cfg):
         x = _dense_block_decode_paged(
-            _group(params["blocks"][f"sub{j}"], g), x,
-            _group(pool[f"sub{j}"], g), page_table, positions, kind, cfg,
-            kernel, dot)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params, x, cfg, dot=dot), pool
+            _layer(params, j, g, gather), x, _group(pool[f"sub{j}"], g),
+            page_table, positions, kind, cfg, kernel, dot)
+    x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
+    return unembed(params, x, cfg, dot=dot, gather=gather), pool
 
 
 # --------------------------------------------------------- paged prefill ----
 def prefill_chunk_paged(params, pool, page_table, tokens, positions, cfg, *,
-                        kernel="auto", dot=None):
+                        kernel="auto", dot=None, gather=None):
     """One chunked-prefill step: run ``tokens`` (B, Sq) — a contiguous
     prompt chunk whose first token sits at ``positions[b]`` — through every
     layer, writing each layer's chunk K/V into the pool in place and
     attending over the pool itself (resident prefix + the chunk);
-    ``dot`` overrides every matmul site.
+    ``dot`` overrides every matmul site; ``gather`` is the sharded
+    engine's hook (``_whole``).
 
     Returns (hidden (B, Sq, D) final-norm hidden states, pool); the caller
     unembeds only the rows it needs."""
     _require_paged(cfg, "paged prefill")
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, gather)
     for g, j, kind in _layers(cfg):
         x = _dense_block_prefill_paged(
-            _group(params["blocks"][f"sub{j}"], g), x,
-            _group(pool[f"sub{j}"], g), page_table, positions, kind, cfg,
-            kernel, dot)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), pool
+            _layer(params, j, g, gather), x, _group(pool[f"sub{j}"], g),
+            page_table, positions, kind, cfg, kernel, dot)
+    return rms_norm(x, _whole(params, "final_norm", gather),
+                    cfg.norm_eps), pool
 
 
 def normalize_kv_bits(cfg, kv_bits) -> Optional[Tuple[int, ...]]:
@@ -605,6 +630,19 @@ def pool_specs(cfg, num_pages: int, page_size: int, kv_bits=None):
 
 def init_pool(cfg, num_pages: int, page_size: int, *, device, kv_bits=None):
     return zeros(pool_specs(cfg, num_pages, page_size, kv_bits), device)
+
+
+def pool_axes(cfg, kv_bits=None):
+    """Logical axes matching ``pool_specs`` (for the sharded engine).
+    ``kv_heads`` is the only mesh-mapped axis: the page and page-slot dims
+    stay whole because the paged walk's online softmax must keep its
+    one-device reduction order (bit-exact serving), and pages are the host
+    allocator's unit: one page id covers every shard's kv-head slice of
+    that page. Quantized codes and their scale tiles split alike."""
+    kv = ("layer", None, None, "kv_heads", "head_dim")
+    scale = ("layer", None, None, "kv_heads")
+    return tree_map(lambda spec: kv if len(spec[0]) == 5 else scale,
+                    pool_specs(cfg, 2, 2, kv_bits=kv_bits))
 
 
 # ------------------------------------------------------------ cache specs ----

@@ -25,9 +25,11 @@ until now. This package searches it the way HAQ searches bit policies:
 
 The searched winner ships as a per-hardware JSON config
 (``--serving-config`` loads it), byte for byte the reference's record.
-The mesh dimension waits for the sharded engine: callers build
+The autotuner searches one device: ``launch/serve.py --autotune`` builds
 ``ConfigSpace(max_devices=1)``, and a candidate with ``mesh_model > 1``
-is unmeasurable here.
+is unmeasurable here (timing one needs a host with several cards;
+ROADMAP). The sharded engine itself serves a loaded config's mesh
+(``--serving-config`` under ``torchrun``).
 """
 
 from repro_torch.serving.autotune.objective import Objective, ScoredCandidate

@@ -76,7 +76,8 @@ class ConfigSpace:
 
     ``max_devices`` bounds the mesh dimension (1 on a single-device
     host, so the dimension collapses to its only legal choice; the
-    port's callers pass 1 until the sharded engine is ported);
+    autotuner's search passes 1, ``--serving-config`` the launched
+    world's size);
     ``max_batch_cap`` bounds the batch-cap dimension (the bench/serve
     CLI cap, not the roofline's — `to_policy` takes the min of both).
     """

@@ -58,8 +58,9 @@ def measure_candidate(
 ) -> Optional[MeasuredCandidate]:
     """Serve ``reqs`` through an engine built from the candidate; warm
     on the exact trace, then re-time the same instance. Returns None for
-    candidates this port cannot run: a mesh split (``mesh_model > 1``)
-    waits for the sharded engine. Pass ``engine`` to reuse an
+    candidates the autotuner does not time: a mesh split
+    (``mesh_model > 1``) needs a host with several cards, one process
+    per card (ROADMAP). Pass ``engine`` to reuse an
     already-built engine (the default config's calibration engine)."""
     c = scored.config
     if engine is None:

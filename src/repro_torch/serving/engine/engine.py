@@ -36,9 +36,14 @@ attention runs the fused-dequant walks. ``policy.quant_bits < 16`` serves
 HAQ-quantized weights (serving/quant.py): the matmul weights are stored
 int8 or int4 and the ``dequant_dot`` hook reaches every matmul of the
 decode, chunk and whole-prompt prefill calls and the unembed — the W8A16
-and W4A16 kernels on the stored codes on the card. Not ported yet: the
-SPMD mesh, which raises NotImplementedError (with or without quantized
-weights).
+and W4A16 kernels on the stored codes on the card.
+
+``mesh`` (a ("data", "model") DeviceMesh from launch/mesh.py, one process
+per rank) serves through serving/engine/sharded.py: parameters and the
+pool split over the mesh, every tick's body the same one, given the
+sharded dot sites and a per-layer gather hook; every rank runs this
+loop on the same requests and returns the same outputs. As in the
+reference, a mesh refuses quantized weights.
 
 The dense and moe families are served; a moe layer routes every row of a
 tick, padding rows and idle slots included, through its fixed-capacity
@@ -56,6 +61,7 @@ from repro_torch.models.transformer import normalize_kv_bits, sublayer_kinds
 from repro_torch.serving import quant as squant
 from repro_torch.serving.engine.admission import AdmissionPolicy, \
     RooflinePredictor
+from repro_torch.serving.engine import sharded
 from repro_torch.serving.engine.pool import JitLRU, PagedKVPool
 from repro_torch.serving.engine.scheduler import ActiveSeq, Request, \
     Scheduler
@@ -94,11 +100,11 @@ class Engine:
                 f"the port's engine serves the dense and moe families so "
                 f"far; {cfg.name} (family={cfg.family!r}, "
                 f"frontend={cfg.frontend!r}) waits for its slice (ROADMAP)")
-        if mesh is not None:
+        if mesh is not None and policy.quant_bits < 16:
             raise NotImplementedError(
-                "the sharded engine comes with its slice (ROADMAP Queue 1, "
-                "item 10); like the reference's, it will refuse quantized "
-                "weights")
+                "sharded engine with HAQ weight quantization: quantized "
+                "weight dicts have no logical specs yet (ROADMAP); use "
+                "kv_bits for sharded memory savings")
         self.model = model
         self.policy = policy
         self.temperature = temperature
@@ -108,7 +114,15 @@ class Engine:
             params = squant.quantize_params(
                 params, default_bits=policy.quant_bits)
             dot = squant.dequant_dot
-        self._dot = dot
+        self.kv_bits = normalize_kv_bits(cfg, policy.kv_bits)
+        # sharded serving (sharded.py): parameters split at rest, the pool
+        # split on kv heads; the unsharded engine is the token-exact
+        # baseline the sharded one is held to
+        spmd = None
+        if mesh is not None:
+            spmd = sharded.SpmdEngine(model, mesh, kv_bits=self.kv_bits)
+            params = spmd.shard_params(params)
+        self.spmd = spmd
         self.params = params
         self.device = params["embed"].device
         self.telemetry = telemetry if telemetry is not None else Telemetry()
@@ -124,14 +138,14 @@ class Engine:
         needed = policy.max_batch * policy.pages_per_seq + 1
         num_pages = max(min(policy.num_pages, needed),
                         policy.pages_per_seq + 1)
-        self.kv_bits = normalize_kv_bits(cfg, policy.kv_bits)
         self.kv = PagedKVPool(model, num_pages, policy.page_size,
-                              device=self.device, kv_bits=self.kv_bits)
+                              device=self.device, kv_bits=self.kv_bits,
+                              spmd=spmd)
         self.scheduler = Scheduler(self.kv.allocator, policy.max_batch,
                                    policy.max_model_len,
                                    reserve_upfront=reserve_upfront,
                                    telemetry=self.telemetry)
-        self._tags: Dict[str, int] = {}
+        self._tags: Dict[str, int] = spmd.event_tags() if spmd else {}
         # Window-trim page freeing: pages are shared across layers, so
         # blocks behind the sliding window can only be released when EVERY
         # layer is local.
@@ -140,20 +154,34 @@ class Engine:
             not reserve_upfront and kinds
             and all(k["attn"] == "local" for k in kinds)) else None
 
-        def prefill_body(toks, last_idx):
+        # one body per step kind; under a mesh the same bodies take the
+        # sharded dot sites and the per-layer gather hook
+        gather = None
+        if spmd is not None:
+            dot, gather = spmd.dot, spmd.gather
+
+        def prefill_body(p, toks, last_idx):
             # unembed only the last real prompt position
             hidden, cache, _, _ = model.forward(
-                self.params, {"tokens": toks}, want_cache=True,
-                unembed_mode="none", cache_layout="full", dot=dot,
-                kernel=paged_kernel)
-            return model.unembed(self.params,
-                                 hidden[:, last_idx:last_idx + 1],
-                                 dot=dot), cache
+                p, {"tokens": toks}, want_cache=True, unembed_mode="none",
+                cache_layout="full", dot=dot, kernel=paged_kernel,
+                gather=gather)
+            return model.unembed(p, hidden[:, last_idx:last_idx + 1],
+                                 dot=dot, gather=gather), cache
 
-        self._prefill_jits = JitLRU(self.PREFILL_JIT_CAP)
+        self._decode = lambda p, pool, pt, tok, pos: \
+            model.decode_step_paged(p, pool, pt, tok, pos,
+                                    kernel=paged_kernel, dot=dot,
+                                    gather=gather)
+        self._chunk_prefill = lambda p, pool, pt, toks, pos: \
+            model.prefill_chunk_paged(p, pool, pt, toks, pos,
+                                      kernel=paged_kernel, dot=dot,
+                                      gather=gather)
+        self._unembed_row = lambda p, h: model.unembed(p, h, dot=dot,
+                                                       gather=gather)
         self._make_prefill = lambda: prefill_body
+        self._prefill_jits = JitLRU(self.PREFILL_JIT_CAP)
         self.chunked = chunked_prefill
-        self._kernel = paged_kernel
         self.stats = {"decode_ticks": 0, "decode_tokens": 0,
                       "prefills": 0, "prefill_chunks": 0, "admitted": 0,
                       "preemptions": 0, "grown_pages": 0,
@@ -314,7 +342,7 @@ class Engine:
         toks[0, :S] = prompt
         t_start = time.monotonic()
         prefill = self._prefill_jits.get(Sp, self._make_prefill)
-        logits, cache = prefill(self._tensor(toks), S - 1)
+        logits, cache = prefill(self.params, self._tensor(toks), S - 1)
         self.kv.write_prefill(cache, seq.pages)
         _sync(self.device)
         pred = self._predict("prefill", 1, Sp)
@@ -341,10 +369,9 @@ class Engine:
         pt = np.zeros((1, maxp), np.int32)
         pt[0, :len(seq.pages)] = seq.pages
         t_start = time.monotonic()
-        hidden, self.kv.pool = self.model.prefill_chunk_paged(
+        hidden, self.kv.pool = self._chunk_prefill(
             self.params, self.kv.pool, self._tensor(pt), self._tensor(toks),
-            self._tensor(np.asarray([start], np.int32)),
-            kernel=self._kernel, dot=self._dot)
+            self._tensor(np.asarray([start], np.int32)))
         # fence before the step's stall timer stops: launches are async
         _sync(self.device)
         pred = self._predict("chunk", 1, C)
@@ -357,8 +384,7 @@ class Engine:
         self.stats["prefill_chunks"] += 1
         if end == S:
             row = S - 1 - start
-            logits = self.model.unembed(self.params,
-                                        hidden[:, row:row + 1], dot=self._dot)
+            logits = self._unembed_row(self.params, hidden[:, row:row + 1])
             self._first_token(seq, logits[0, 0].cpu().numpy())
         return pred
 
@@ -406,10 +432,9 @@ class Engine:
             positions[seq.slot] = seq.pos
             pt[seq.slot, :len(seq.pages)] = seq.pages
         t_start = time.monotonic()
-        logits, self.kv.pool = self.model.decode_step_paged(
+        logits, self.kv.pool = self._decode(
             self.params, self.kv.pool, self._tensor(pt),
-            self._tensor(tokens), self._tensor(positions),
-            kernel=self._kernel, dot=self._dot)
+            self._tensor(tokens), self._tensor(positions))
         # fence before the host transfer so the tick's measured duration
         # is launch + compute, not whenever the stream drains
         _sync(self.device)
@@ -442,13 +467,15 @@ class Engine:
     def run(self, requests: List[Request], *,
             realtime: bool = False) -> Dict[int, np.ndarray]:
         """Serve a trace to completion. With ``realtime=True`` requests are
-        admitted no earlier than their ``arrival`` offset (wall clock);
-        otherwise arrivals are ignored (burst)."""
+        admitted no earlier than their ``arrival`` offset (wall clock; rank
+        0's under a mesh); otherwise arrivals are ignored (burst)."""
         for r in requests:
             self.submit(r)
         t0 = time.monotonic()
         while self.scheduler.has_work():
             now = (time.monotonic() - t0) if realtime else float("inf")
+            if realtime and self.spmd is not None:
+                now = self.spmd.rank0_clock(now)
             if not self.step(now) and not self.scheduler.active:
                 time.sleep(1e-4)             # waiting on future arrivals
         return {r.rid: self._outputs[r.rid] for r in requests}

@@ -106,17 +106,25 @@ class JitLRU:
 class PagedKVPool:
     """Device pool tensors + the allocator that tracks their occupancy.
     Each sub-layer slot's k/v pool is bf16, or quantized ({"q", "scale"},
-    see serving/kvquant) under ``kv_bits``."""
+    see serving/kvquant) under ``kv_bits``.
+
+    Under a mesh (``spmd``, serving/engine/sharded.py) each rank holds its
+    kv-head slice of every page, codes and scale tiles alike; page ids are
+    the same on every rank, so the span writer scatters a cache of the
+    rank's own kv heads locally, unchanged."""
 
     WRITE_JIT_CAP = 8   # LRU cap on per-(n_pages, cache_len) writers
 
     def __init__(self, model, num_pages: int, page_size: int, *, device,
-                 kv_bits=None):
+                 kv_bits=None, spmd=None):
         self.allocator = PageAllocator(num_pages, page_size)
         self.page_size = page_size
         self.kv_bits = kv_bits
-        self.pool = model.init_pool(num_pages, page_size, kv_bits=kv_bits,
-                                    device=device)
+        if spmd is None:
+            self.pool = model.init_pool(num_pages, page_size,
+                                        kv_bits=kv_bits, device=device)
+        else:
+            self.pool = spmd.init_pool(num_pages, page_size, device=device)
         self._write_jit = JitLRU(self.WRITE_JIT_CAP)
 
     @property

@@ -2,9 +2,10 @@
 engine's ``roofline_scales`` and the launcher's ``--autotune`` /
 ``--serving-config``) against the reference, on the same inputs.
 
-One device: the port builds ``ConfigSpace(max_devices=1)`` until the
-sharded engine exists, so the mesh dimension is ``(1,)`` in both
-packages here, and a candidate with ``mesh_model > 1`` is unmeasurable.
+One device: the autotuner's search builds ``ConfigSpace(max_devices=1)``
+(timing a mesh candidate needs a host with several cards), so the mesh
+dimension is ``(1,)`` in both packages here, and a candidate with
+``mesh_model > 1`` is unmeasurable.
 
 Tolerances. Scores are the admission roofline, float64 in the port and
 float32 per op in the reference: a relative 1e-6. Discrete choices —

@@ -175,15 +175,16 @@ def test_engine_matches_generate_on_its_pool(models, chunked, kv_bits,
 
 
 def test_engine_unported_options_raise(models):
-    """A mesh waits for its slice and says so instead of serving something
-    else, with bf16 weights and with quantized ones, as the reference
-    refuses a mesh with quant_bits < 16 (quantized KV pools and quantized
-    weights are served: tests/test_torch_kvquant.py,
+    """What the engine does not serve raises instead of serving something
+    else: a mesh with quantized weights (quant_bits < 16), as the
+    reference refuses it, and a mesh object without named axes. Meshes
+    are served (tests/test_torch_sharded.py), as are quantized KV pools
+    and quantized weights (tests/test_torch_kvquant.py,
     tests/test_torch_weight_quant.py)."""
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="named dims"):
         Engine(tm, tp, _policy(), mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="weight quant"):
         Engine(tm, tp, _policy(quant_bits=8), mesh=object())
 
 
