@@ -191,12 +191,13 @@ Phases, each fatal on failure:
                 main trace through a model=1 mesh, tokens and every sampled
                 logits row bit-identical to the unsharded engine's; (b) a
                 gloo world of 2 ranks on this card (gathers staged through
-                host memory), model=2: full-width gemma2-2b on a cut of the
-                main trace (its first 8 requests, 2 new tokens each, so
-                a decode tick runs 7 live slots) on the bf16
-                and the int8 pool and one 2048-token prompt whole through
-                flash, each rank's pool K/2 heads, every rank's outputs
-                equal, its first 78 paged calls held per call, tokens and
+                host memory), model=2: full-width gemma2-2b cut to 6 of
+                its 26 layers on a cut of the main trace (its first 4
+                requests, 2 new tokens each, so a decode tick runs at
+                most 4 live slots of 8) on the bf16 and the int8 pool and
+                one 2048-token prompt whole through flash, each rank's
+                pool K/2 heads, every rank's outputs equal, its first
+                3 x 6 paged calls held per call, tokens and
                 logits bit-identical to the unsharded engine's (which runs
                 first in this process) where every local product equals
                 its slice, else logits under LOGIT_RTOL; (c) tiny
@@ -204,8 +205,31 @@ Phases, each fatal on failure:
                 pools, token-identical; each world's backend, each rank's
                 parameter, pool, resident and peak memory against the
                 unsharded engine's, tick times (host-staged, not a speed);
+ 18. mesh-train — training split over a mesh (training/sharded.py): (a)
+                an NCCL world of 1 rank, full-width gemma2-2b, 3 steps of
+                ``train(mesh=)`` at B 2 x S 4096, losses, grad norms and
+                every leaf of the state bit-identical to the unsharded
+                ``train()``; (b) a gloo world of 2 ranks on this card at
+                data=2 (B 1 a rank), full-width gemma2-2b cut to 6 of its
+                26 layers, with wq, wk times QK_SCALE, 2 steps under tests/test_torch_train_sharded
+                .py's bf16 rules against the unsharded port in 2
+                microbatches (the rows cut as the mesh cuts them) and,
+                with that run as the control, against the plain unsharded
+                port, masters sampled per leaf, each rank's state at rest
+                half the
+                whole's, its peak and seconds a step, 6 x 2 flash
+                launches a step a rank; (c) tiny gemma2-2b at S = 2048
+                (flash at hd 32) at model=2 and data=2 x model=2 (a gloo
+                world of 4), 3 steps under the same rules, the first
+                through ``train(mesh=)``, which restores a whole
+                checkpoint of the initial state, slicing it on each
+                rank, and writes its own whole (checked bit for bit);
+                (d) (b)'s state
+                resharded onto one rank (``reshard_state``), its masters
+                equal to (b)'s, and one step there bit-identical to the
+                unsharded step from the same state;
  11. report   — one JSON line with every kernel's launches (flash's summed
-                over phase 12's training run and phases 13-17's paths, the
+                over phase 12's training run and phases 13-18's paths, the
                 paged kernels' over the main trace, llava's paged steps
                 and phase 17's sharded runs, summed over ranks), error,
                 times.
@@ -272,6 +296,17 @@ GEN = 32
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+T_START = time.perf_counter()
+
+
+def mark(what: str) -> None:
+    """One line on stderr with the seconds since the script started, after
+    each phase: where a cut run's time went shows at the end of its
+    errors."""
+    print(f"chip_smoke: {what} done at {time.perf_counter() - T_START:.1f} "
+          f"s", file=sys.stderr, flush=True)
 
 
 def card_line() -> str:
@@ -1541,6 +1576,23 @@ def phase_engine(model, params, extra_args=(), expect=BF16_KERNELS,
     return launches, policy, args, summary
 
 
+def device_time_by_name(prof):
+    """(kernel name -> device ms, device activities) of a finished
+    torch.profiler run: its device-side activities' durations summed by
+    name, as ``key_averages()`` sums them, read from the raw events (the
+    per-event Python objects ``key_averages()`` builds first cost tens of
+    seconds at 200k activities)."""
+    by_name, n = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA") or getattr(
+                e, "is_hidden_event", lambda: False)():
+            continue
+        key = e.name().replace("(anonymous namespace)::", "")
+        by_name[key] = by_name.get(key, 0.0) + e.duration_ns() / 1e6
+        n += 1
+    return by_name, n
+
+
 def phase_profile(model, params, policy, args, tag="", n_top=8,
                   n_requests=None):
     """Where the main path's device time goes: the same trace (or its
@@ -1564,16 +1616,7 @@ def phase_profile(model, params, policy, args, tag="", n_top=8,
         engine.run(reqs)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    launched = 0
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            key = e.key.replace("(anonymous namespace)::", "")
-            by_name[key] = by_name.get(key, 0.0) + us / 1e3
-            launched += e.count
+    by_name, launched = device_time_by_name(prof)
     busy = sum(by_name.values())
     if busy <= 0:
         print(f"{label}: the profiler saw no device time (not measured)",
@@ -2552,13 +2595,7 @@ def train_busy_share(model, state, shape):
         _, metrics = step(state, batch)
         float(metrics["loss"])
         wall = 1e3 * (time.perf_counter() - t0)
-    by_name = {}
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            us = us if us is not None else getattr(e, "self_cuda_time_total",
-                                                   0.0)
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    by_name, _ = device_time_by_name(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return sum(by_name.values()), wall, top
 
@@ -2570,7 +2607,8 @@ def phase_train_full():
     26 x 2 a step (the forward and the backward's recompute), no other
     kernel; every loss and grad norm finite, the last loss below the
     first. Prints step time, tokens/s, peak memory and the device busy
-    share of one more step. Returns (the run's state, its launches)."""
+    share of one more step. Returns (the run's state, its launches, the
+    median step time in seconds)."""
     import torch
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import train as train_cli
@@ -2625,7 +2663,7 @@ def phase_train_full():
           f"({100 * busy / prof_wall:.1f}%); top device time: "
           + "; ".join(f"{k[:70]} {v:.1f} ms ({100 * v / busy:.1f}%)"
                       for k, v in top), flush=True)
-    return out["state"], launches
+    return out["state"], launches, step_s
 
 
 def _flash_perturbed(q, k, v, *, causal, window, cap, mode, return_lse=False):
@@ -3693,16 +3731,22 @@ def phase_llava():
 
 
 # ----------------------------------------------- phase 17: the sharded engine --
-# The gloo world's cut of the main trace: its first MESH_CUT requests (one
-# max_batch, so the decode tick runs every slot live), MESH_GEN new tokens
-# each (a chunk per prompt, then one decode tick). gloo moves a gather
+# The gloo world's cut of the main trace: its first MESH_CUT requests (half
+# a max_batch; 8 until phase 18 came, cut so the whole script stays inside
+# 1200 s), MESH_GEN new tokens each (a chunk per prompt, then decode
+# ticks). gloo moves a gather
 # through the host at about 0.5 GB/s gathered (scripts/gloo_gather_rate.py),
 # and a full-width call gathers the 1.18 GB embedding (lookup, unembed)
-# and 26 layers' wo and w_out, so each takes seconds; the whole-prompt
+# and every layer's wo and w_out, so each takes seconds; the whole-prompt
 # run: one prompt of MESH_WHOLE_S tokens (its bucket of 2048 rows: flash
 # in every layer)
-MESH_CUT, MESH_GEN, MESH_WHOLE_S = 8, 2, 2048
+MESH_CUT, MESH_GEN, MESH_WHOLE_S = 4, 2, 2048
 MESH_TP = 2                   # the gloo world's model axis
+# the gloo world's full-width runs keep MESH_LAYERS of gemma2-2b's 26
+# layers (their widths whole): a tick's gathers shrink with the depth, so
+# that phases 17 and 18 stay well inside the script's 1200 s; the NCCL
+# world of 1 runs all 26
+MESH_LAYERS = 6
 # a world's deadline: past it every rank is killed and the phase fails
 MESH_WORLD_S = 600.0
 MESH_SITES = ("attn_q", "attn_k", "attn_v", "ffn_in", "ffn_gate")
@@ -3719,8 +3763,8 @@ def mesh_runs(kv_policy_file):
     from repro_torch.models.api import build_model
     from repro_torch.serving.engine import Request
 
-    def run(label, arch, tiny, argv, reqs, tp):
-        cfg = tiny_config(arch) if tiny else get_config(arch)
+    def run(label, arch, tiny, argv, reqs, tp, layers=None):
+        cfg = run_config({"arch": arch, "tiny": tiny, "layers": layers})
         model = build_model(cfg)
         argv = ["--arch", arch, "--max-batch", "8", "--page-size",
                 str(PAGE), *(["--tiny"] if tiny else []), *argv,
@@ -3728,7 +3772,7 @@ def mesh_runs(kv_policy_file):
         args = serve.build_parser().parse_args(argv)
         max_len = max(len(r.prompt) + r.max_new for r in reqs)
         return {"label": label, "arch": arch, "tiny": tiny, "argv": argv,
-                "reqs": reqs, "tp": tp,
+                "reqs": reqs, "tp": tp, "layers": layers,
                 "policy": serve.make_policy(cfg, model, args, max_len)}
 
     gemma = get_config("gemma2-2b")
@@ -3741,11 +3785,11 @@ def mesh_runs(kv_policy_file):
         max_new=MESH_GEN)]
     tiny = tiny_trace(tiny_config("gemma2-2b"), whole=False)
     one = [run("model=1 bf16", "gemma2-2b", False, [], main, 1)]
-    two = [run("bf16", "gemma2-2b", False, [], cut, MESH_TP),
+    two = [run("bf16", "gemma2-2b", False, [], cut, MESH_TP, MESH_LAYERS),
            run("int8", "gemma2-2b", False, ["--kv-bits", "8"], cut,
-               MESH_TP),
+               MESH_TP, MESH_LAYERS),
            run("whole", "gemma2-2b", False, ["--no-chunked-prefill"],
-               whole, MESH_TP),
+               whole, MESH_TP, MESH_LAYERS),
            run("tiny bf16", "gemma2-2b", True,
                ["--paged-kernel", "cuda", "--prefill-chunk", "32"], tiny,
                MESH_TP),
@@ -3755,10 +3799,18 @@ def mesh_runs(kv_policy_file):
     return one, two
 
 
+def run_config(run):
+    """A phase 17 run's model config: tiny or full width, cut to the run's
+    ``layers`` where it has them."""
+    from repro_torch.configs import get_config, tiny_config
+    cfg = tiny_config(run["arch"]) if run["tiny"] else get_config(run["arch"])
+    return cfg.replace(num_layers=run["layers"]) if run["layers"] else cfg
+
+
 def mesh_engine_run(run, mesh=None):
     """One run of phase 17 on this process's card: parameters from seed 0,
     the engine (sharded under ``mesh``) over ``run["reqs"]`` with the
-    run's policy, the full-width runs' first 3 x 26 paged calls each held
+    run's policy, the full-width runs' first 3 x L paged calls each held
     against the plain walk on their inputs; every logits row the engine
     samples from recorded (decode ticks, the prompts' last rows). Returns
     outputs, launches, logits, tick times and memory (allocated by this
@@ -3766,12 +3818,11 @@ def mesh_engine_run(run, mesh=None):
     import hashlib
     import numpy as np
     import torch
-    from repro_torch.configs import get_config, tiny_config
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
     from repro_torch.models.params import tree_leaves
 
-    cfg = tiny_config(run["arch"]) if run["tiny"] else get_config(run["arch"])
+    cfg = run_config(run)
     model = build_model(cfg)
     args = serve.build_parser().parse_args(run["argv"])
     # what this process held before the run (earlier phases' leftovers in
@@ -3904,10 +3955,11 @@ def phase_mesh(kv_policy_file):
     the unsharded engine's bit for bit; (b) a gloo world of 2 ranks on this
     one card (NCCL refuses two ranks on one device; gloo's gathers go
     through host memory), model=2, 2 of the 4 kv heads per rank:
-    full-width gemma2-2b on a cut of the main trace on the bf16 pool, on
-    the int8 pool, and one whole prompt of 2048 tokens through flash,
-    each rank's pool holding K/2 heads, every rank's outputs and logits
-    equal, the first 78 paged calls on a rank's slice held against the
+    full-width gemma2-2b cut to MESH_LAYERS layers on a cut of the main
+    trace on the bf16 pool, on the int8 pool, and one whole prompt of 2048
+    tokens through flash, each rank's pool holding K/2 heads, every rank's
+    outputs and logits equal, the first 3 x MESH_LAYERS paged calls on a
+    rank's slice held against the
     plain walk, tokens against the unsharded engine's (which runs here
     first): equal where every local product over a column slice equals
     the slice of the whole product on this card (``cublas_slices``), else
@@ -3952,6 +4004,7 @@ def phase_mesh(kv_policy_file):
         print(f"mesh[{backend}]: a world of {n} rank(s) on cuda:0, "
               f"backend {backend}, {time.perf_counter() - t0:.1f} s "
               f"(spawn, init and every run)", flush=True)
+        mark(f"phase 17's {backend} world")
     launches = {}
     for runs, backend in ((one, "nccl"), (two, "gloo")):
         ranks = worlds[backend]
@@ -4015,6 +4068,615 @@ def phase_mesh(kv_policy_file):
     return launches
 
 
+# --------------------------------------------- phase 18: sharded training --
+# steps of (a) the NCCL world of 1 and (b) the gloo world of 2 (data = 2)
+MT_STEPS_ONE, MT_STEPS_TWO = 3, 2
+# (b) and (d) keep MT_LAYERS of gemma2-2b's 26 layers, every width whole:
+# their host-staged gloo bytes (a step's gathers and reduce-scatters, the
+# reshard) shrink with the depth, so that the script stays well inside
+# its 1200 s; (a) runs all 26
+MT_LAYERS = 6
+# (c): tiny gemma2-2b at S = 2048 (flash at hd 32), B = 2
+MT_TINY_S, MT_TINY_B, MT_TINY_STEPS = 2048, 2, 3
+MT_LR = 3e-4
+# master elements sampled per leaf in (b) and (d) (every element of a
+# smaller leaf)
+MT_SAMPLES = 1 << 16
+MT_WORLD_S = 900.0
+# the bf16 rules of tests/test_torch_train_sharded.py: losses within 2**-10
+# relative, grad norms within 2**-7, every master within Adam's bound (2 lr
+# a step) and, after the first step (equal weights before it), within
+# 1e-3 lr on 95% of elements, against the one-device run with the batch's
+# rows cut as the mesh cuts them (microbatches = the data size: a rank's
+# rows run the same products, and the halves' bf16 gradients are summed in
+# fp32 on one device as over the ranks); against the plain one-device run,
+# within those rules or twice the distance of the microbatched run from it
+# (the control: what the split of a bf16 sum moves by itself). wq and wk
+# scaled (QK_SCALE at full width, as in phase 16; 1/8 for the tiny model,
+# as the CPU tests) so that a bf16 ulp of a weight does not flip the
+# saturated softmax
+MT_LOSS_RTOL, MT_NORM_RTOL, MT_FIRST_FRAC = 2.0 ** -10, 2.0 ** -7, 0.05
+MT_TINY_QK = 0.125
+
+
+def mt_tcfg(ckpt_dir, every=0):
+    """Phase 18's train config; ``every`` > 0 writes one whole checkpoint
+    at the run's end (none on the way: its runs are shorter) and keeps
+    only that one."""
+    from repro_torch.configs import OptimConfig, TrainConfig
+    return TrainConfig(optim=OptimConfig(lr=MT_LR, warmup_steps=1,
+                                         total_steps=10),
+                       checkpoint_dir=ckpt_dir, checkpoint_every=every,
+                       keep_checkpoints=1, log_every=1)
+
+
+def leaf_digest(t) -> tuple:
+    """An order-sensitive fingerprint of a tensor's bits, computed on its
+    device: the sum and the position-weighted sum of its elements' bit
+    patterns as integers (int64, wrapping). Equal tensors give equal
+    digests; a changed element changes both sums."""
+    import torch
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int32: torch.int32, torch.int8: torch.int8}
+    v = t.detach().contiguous().reshape(-1).view(ints[t.dtype])
+    s1 = s2 = 0
+    step = 1 << 24
+    for c in range(0, v.numel(), step):
+        part = v[c:c + step].long()
+        w = torch.arange(c, c + part.numel(), device=v.device) % 65521 + 1
+        s1 += int(part.sum())
+        s2 += int((part * w).sum())
+    return s1, s2
+
+
+def scale_qk_state(state, f):
+    """wq and wk times ``f`` (a power of two: exact) in the parameters and
+    in their fp32 masters, in place."""
+    for tree in (state["params"], state["opt"]["master"]):
+        scale_qk([sub["attn"] for sub in tree["blocks"].values()], f)
+
+
+def sample_index(shape):
+    import torch
+    n = math.prod(shape)
+    return torch.linspace(0, n - 1, min(n, MT_SAMPLES),
+                          dtype=torch.float64).round().long()
+
+
+def block_samples(x, shape, spec, sizes, coords):
+    """(the sampled flat indices of the whole leaf of ``shape`` that fall
+    in this rank's block ``x`` under ``spec``, their values in fp32 on the
+    host)."""
+    import torch
+    idx = sample_index(shape)
+    multi = torch.unravel_index(idx, tuple(shape))
+    keep = torch.ones(idx.shape, dtype=torch.bool)
+    local = []
+    for d, axes in enumerate(spec):
+        n, blk = 1, 0
+        for a in (() if axes is None else axes if isinstance(axes, tuple)
+                  else (axes,)):
+            n *= sizes[a]
+            blk = blk * sizes[a] + coords[a]
+        size = shape[d] // n
+        keep &= (multi[d] >= blk * size) & (multi[d] < (blk + 1) * size)
+        local.append(multi[d] - blk * size)
+    flat = torch.zeros(idx.shape, dtype=torch.long)
+    for d, m in enumerate(local):
+        flat = flat * x.shape[d] + m
+    flat = flat[keep]
+    vals = x.reshape(-1)[flat.to(x.device)].float().cpu()
+    return idx[keep], vals
+
+
+def master_samples(layout, opt):
+    """Each master leaf's samples on this rank (``block_samples``)."""
+    from repro_torch.distributed.sharding import leaves_like
+    from repro_torch.models.params import tree_leaves
+    pa = layout.abstract["params"]
+    return [block_samples(x, tuple(a.shape), s, layout.sizes,
+                          layout.coords)
+            for x, a, s in zip(tree_leaves(opt["master"]), tree_leaves(pa),
+                               leaves_like(pa, layout.specs["opt"]["master"]))]
+
+
+def whole_samples(opt):
+    """Every master leaf's samples of a whole state."""
+    from repro_torch.models.params import tree_leaves
+    return [(sample_index(tuple(x.shape)), x.reshape(-1)[
+        sample_index(tuple(x.shape)).to(x.device)].float().cpu())
+        for x in tree_leaves(opt["master"])]
+
+
+def merge_samples(ranks):
+    """The ranks' samples of each leaf put together in index order; every
+    sampled index must come from exactly one rank."""
+    import torch
+    out = []
+    for parts in zip(*ranks):
+        idx = torch.cat([p[0] for p in parts])
+        vals = torch.cat([p[1] for p in parts])
+        order = torch.argsort(idx)
+        out.append((idx[order], vals[order]))
+    return out
+
+
+def step_distances(got, want):
+    """Per step of two runs (metrics, master samples per leaf): (loss rel,
+    grad norm rel, masters' max |diff|, share of masters past 1e-3 lr)."""
+    import torch
+    out = []
+    for k, ((gm, gs), (wm, ws)) in enumerate(zip(got, want)):
+        if any(not torch.equal(a[0], b[0]) for a, b in zip(gs, ws)):
+            fail(f"step {k}'s samples cover other elements in two runs")
+        d = torch.cat([(a[1] - b[1]).abs() for a, b in zip(gs, ws)])
+        out.append((abs(gm["loss"] - wm["loss"]) / abs(wm["loss"]),
+                    abs(gm["grad_norm"] - wm["grad_norm"])
+                    / abs(wm["grad_norm"]), float(d.max()),
+                    float((d > 1e-3 * MT_LR).float().mean())))
+    return out
+
+
+def hold_steps(label, got, want, lrs, control=None):
+    """The bf16 rules (MT_*) on two runs' per-step metrics and master
+    samples (lists of (indices, values) per leaf). With ``control`` (a
+    third run of ``want``'s kind), each of the rules' distances may also
+    reach twice the control's distance from ``want``. Returns a summary
+    line."""
+    dist = step_distances(got, want)
+    ctrl = step_distances(control, want) if control else [(0.0,) * 4] * len(
+        dist)
+    lines, lr_sum = [], 0.0
+    for k, ((el, en, dmax, frac), (cl, cn, _, cf)) in enumerate(zip(dist,
+                                                                    ctrl)):
+        lr_sum += lrs[k]
+        gm, wm = got[k][0], want[k][0]
+        lines.append(f"step {k}: loss {gm['loss']:.6f} vs {wm['loss']:.6f} "
+                     f"(rel {el:.3g}), grad norm {gm['grad_norm']:.5f} vs "
+                     f"{wm['grad_norm']:.5f} (rel {en:.3g}), masters max "
+                     f"|diff| {dmax / MT_LR:.3g} lr, {100 * frac:.3g}% past "
+                     f"1e-3 lr"
+                     + (f" (control: {cl:.3g}, {cn:.3g}, {100 * cf:.3g}%)"
+                        if control else ""))
+        if not (el <= max(MT_LOSS_RTOL, 2 * cl)
+                and en <= max(MT_NORM_RTOL, 2 * cn)):
+            fail(f"{label}: step {k} loss or grad norm outside the rules: "
+                 f"{lines[-1]}")
+        if dmax > 2 * lr_sum * (1 + 1e-3):
+            fail(f"{label}: step {k} masters past Adam's bound: {lines[-1]}")
+        if k == 0 and frac > max(MT_FIRST_FRAC, 2 * cf):
+            fail(f"{label}: step 0 masters: {lines[-1]}")
+    return "; ".join(lines)
+
+
+def mt_unsharded(model, shape, steps, qk, ckpt_dir, sample,
+                 microbatches=1, first=0, save_to=()):
+    """The one-device port from seed 0 with wq, wk times ``qk`` (the batch
+    cut into ``microbatches``) on the batches of steps ``first`` on: each
+    step's metrics and its masters' samples (``sample``: whole_samples) or
+    whole masters on the host. ``save_to``: checkpoint directories where
+    the initial state is first written whole as the checkpoint of step
+    ``first`` - 1 (a run that restores it goes on at ``first``)."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint.ckpt import save
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training import steps as steps_lib
+    tcfg = dataclasses.replace(mt_tcfg(ckpt_dir), microbatches=microbatches)
+    state = steps_lib.init_train_state(
+        model, tcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    scale_qk_state(state, qk)
+    for d in save_to:
+        save(d, first - 1, state, keep=1)
+    step = steps_lib.make_train_step(model, tcfg)
+    out = []
+    for k in range(first, first + steps):
+        state, met = step(state, dp.batch_for_model(model, shape, None, k,
+                                                    "cuda", full=True))
+        met = {n: float(v) for n, v in met.items()}
+        out.append((met, whole_samples(state["opt"]) if sample else [
+            (torch.arange(x.numel()),
+             x.reshape(-1).to("cpu", torch.float32, copy=True))
+            for x in tree_leaves(state["opt"]["master"])]))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mt_sharded_steps(trainer, state, model, shape, steps, sample, first=0):
+    """``steps`` sharded steps on the batches of steps ``first`` on: each
+    step's metrics, its flash launches on this rank, its seconds (rank 0's
+    clock) and its masters' samples (``sample``) or whole masters (rank
+    0)."""
+    import torch
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models.params import tree_leaves
+    out = []
+    for k in range(first, first + steps):
+        batch = dp.batch_for_model(model, shape, None, k, "cuda", full=True)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        state, met = trainer.step(state, batch)
+        met = {n: float(v) for n, v in met.items()}
+        dt = trainer.first_rank_float(time.perf_counter() - t0)
+        n = all_launches()["flash_attention_fwd"]
+        if sample:
+            masters = master_samples(trainer, state["opt"])
+        else:
+            whole = trainer.host_state(state)
+            masters = None if whole is None else [
+                (torch.arange(x.numel()), x.reshape(-1).to(torch.float32))
+                for x in tree_leaves(whole["opt"]["master"])]
+        out.append({"met": met, "flash": n, "s": dt, "masters": masters})
+    return state, out
+
+
+def mt_cut_config():
+    """(b)'s and (d)'s model: gemma2-2b at full width, MT_LAYERS deep."""
+    from repro_torch.configs import get_config
+    return get_config("gemma2-2b").replace(num_layers=MT_LAYERS)
+
+
+def mt_rank_one(rank, world, device, ckpt_dir):
+    """Phase 18(a)'s rank: full-width gemma2-2b, MT_STEPS_ONE steps of
+    ``train(mesh=)`` over a model=1 x data=1 NCCL mesh."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.loop import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(model=1, data=1, device_type="cuda",
+                             backend="nccl")
+    model = build_model(get_config("gemma2-2b"))
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = train(model, shape, mt_tcfg(ckpt_dir), mesh=mesh,
+                num_steps=MT_STEPS_ONE, log=lambda r: None)
+    launches = all_launches()
+    return {"hist": [(r["loss"], r["grad_norm"]) for r in out["history"]],
+            "dt": [r["dt_s"] for r in out["history"]],
+            "digests": [leaf_digest(x) for x in tree_leaves(out["state"])],
+            "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def mt_rank_two(rank, world, device, ckpt_dir):
+    """Phase 18's gloo world of 2 on one card: (b) full-width gemma2-2b cut
+    to MT_LAYERS layers at data=2, MT_STEPS_TWO steps from seed 0 (wq, wk times QK_SCALE); (d)
+    its state resharded onto rank 0 alone, then one step there through
+    the sharded trainer on that one-rank mesh and, from a host copy of
+    the same state, through the unsharded step; (c) tiny gemma2-2b at
+    model=2 (S = 2048), MT_TINY_STEPS steps."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.distributed.fault_tolerance import reshard_state
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.launch.mesh import make_serving_mesh, make_sub_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training import steps as steps_lib
+    from repro_torch.training.sharded import ShardedTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    # (b)
+    t_b = time.perf_counter()
+    model = build_model(mt_cut_config())
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    tcfg = mt_tcfg(ckpt_dir)
+    mesh = make_serving_mesh(model=1, data=2, device_type="cuda",
+                             backend="gloo")
+    tr = ShardedTrainer(model, tcfg, make_ac(mesh))
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+    scale_qk_state(state, QK_SCALE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    rest = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    resident = torch.cuda.memory_allocated()
+    state, steps = mt_sharded_steps(tr, state, model, shape, MT_STEPS_TWO,
+                                    sample=True)
+    res["b"] = {"steps": steps, "rest_bytes": rest,
+                "s": tr.first_rank_float(time.perf_counter() - t_b),
+                "resident_gb": resident / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # (d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one = make_sub_mesh(1, 1, device_type="cuda")
+    whole = reshard_state(state, model, tcfg, one, old_mesh=mesh,
+                          donate=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    reshard_s = tr.first_rank_float(time.perf_counter() - t0)
+    res["d"] = None
+    if whole is not None:
+        samples = whole_samples(whole["opt"])
+        host = [x.to("cpu", copy=True) for x in tree_leaves(whole)]
+        batch = dp.batch_for_model(model, shape, None, MT_STEPS_TWO,
+                                   "cuda", full=True)
+        sharded = ShardedTrainer(model, tcfg, make_ac(one))
+        reset_all_launches()
+        whole, met_a = sharded.step(whole, batch)
+        flash_a = all_launches()["flash_attention_fwd"]
+        dig_a = [leaf_digest(x) for x in tree_leaves(whole)]
+        for x, h in zip(tree_leaves(whole), host):
+            x.copy_(h)
+        del host
+        whole, met_b = steps_lib.make_train_step(model, tcfg)(whole, batch)
+        res["d"] = {"samples": samples, "reshard_s": reshard_s,
+                    "met": [{n: float(v) for n, v in m.items()}
+                            for m in (met_a, met_b)],
+                    "same": dig_a == [leaf_digest(x)
+                                      for x in tree_leaves(whole)],
+                    "flash": flash_a, "s": time.perf_counter() - t0,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) at model=2
+    t_c = time.perf_counter()
+    res["c"] = mt_tiny(make_serving_mesh(model=2, data=1,
+                                         device_type="cuda"),
+                       f"{ckpt_dir}/c2")
+    res["c_s"] = time.perf_counter() - t_c
+    return res
+
+
+def mt_rank_four(rank, world, device, ckpt_dir):
+    """Phase 18(c) at data=2 x model=2 (a gloo world of 4 on one card)."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"c": mt_tiny(make_serving_mesh(model=2, data=2,
+                                           device_type="cuda",
+                                           backend="gloo"),
+                         f"{ckpt_dir}/c4")}
+
+
+def mt_tiny(mesh, ckpt_dir):
+    """Tiny gemma2-2b (wq, wk times MT_TINY_QK) on ``mesh``:
+    ``train(mesh=)`` restores the initial state that the parent wrote
+    whole under ``ckpt_dir`` as the checkpoint of step 0, each rank
+    slicing its blocks, runs step 1 (through ``_check_layout`` and rank
+    0's clock) and writes the state whole as the checkpoint of step 1
+    (rank 0 gathers it); then MT_TINY_STEPS - 1 more steps through the
+    sharded trainer. Each step's record (``mt_sharded_steps``: whole
+    masters on rank 0), and on rank 0 whether the checkpoint of step 1,
+    the only one kept, equals the whole state after that step bit for
+    bit."""
+    import torch
+    from repro_torch.checkpoint.ckpt import latest_step, restore
+    from repro_torch.configs import ShapeConfig, tiny_config
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.loop import train
+    from repro_torch.training.sharded import ShardedTrainer
+    model = build_model(tiny_config("gemma2-2b"))
+    shape = ShapeConfig("t", MT_TINY_S, MT_TINY_B, "train")
+    reset_all_launches()
+    out = train(model, shape, mt_tcfg(ckpt_dir, every=MT_TINY_STEPS + 1),
+                mesh=mesh, num_steps=2, log=lambda r: None)
+    flash = all_launches()["flash_attention_fwd"]
+    tr = ShardedTrainer(model, mt_tcfg(ckpt_dir), make_ac(mesh))
+    state = out["state"]
+    whole = tr.host_state(state)
+    rec, = out["history"]
+    first = {"met": {k: rec[k] for k in ("loss", "grad_norm")},
+             "flash": flash, "s": rec["dt_s"], "masters": None}
+    saved = None
+    if whole is not None:
+        first["masters"] = [(torch.arange(x.numel()),
+                             x.reshape(-1).to(torch.float32))
+                            for x in tree_leaves(whole["opt"]["master"])]
+        ckpt, step = restore(ckpt_dir, whole)
+        saved = latest_step(ckpt_dir) == step == 1 and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(tree_leaves(ckpt), tree_leaves(whole)))
+    _, more = mt_sharded_steps(tr, state, model, shape, MT_TINY_STEPS - 1,
+                               sample=False, first=2)
+    return {"steps": [first] + more, "saved": saved}
+
+
+def phase_train_mesh(phase12_step_s):
+    """Phase 18: training split over a mesh (training/sharded.py) on the
+    card. (a) an NCCL world of 1: full-width gemma2-2b, MT_STEPS_ONE steps
+    of ``train(mesh=)`` at B 2 x S 4096, losses, grad norms and every leaf
+    of the state bit-identical to the unsharded ``train()`` (run here
+    first), 26 x 2 flash launches a step; (b) a gloo world of 2 ranks on
+    this card at data=2: full-width gemma2-2b cut to MT_LAYERS layers (wq,
+    wk times QK_SCALE), MT_STEPS_TWO steps (B 1 a rank) against the
+    unsharded port's under the bf16 rules (MT_*), masters sampled per
+    leaf; each rank's at-rest bytes half the state's, its peak, seconds a
+    step, MT_LAYERS x 2 flash launches a step a rank; (c) tiny gemma2-2b at S = 2048 at model=2 and data=2 x
+    model=2 (a gloo world of 4), MT_TINY_STEPS steps against the unsharded
+    port (in 2 microbatches at data=2, and then plain) under the same
+    rules, the first step through ``train(mesh=)`` from a whole
+    checkpoint of the initial state written here, which writes its own
+    whole checkpoint (``mt_tiny``); (d) (b)'s state resharded onto one rank
+    (``reshard_state``): its masters equal (b)'s at every sample, and one
+    step there through the sharded trainer bit-identical to the unsharded
+    step from the same state. Returns the flash launches of the sharded
+    runs, summed over ranks."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config, tiny_config
+    from repro_torch.launch.mesh import WorldFailed, spawn
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.loop import train
+    from repro_torch.training.steps import abstract_train_state
+
+    card = card_line()
+    model = build_model(get_config("gemma2-2b"))
+    cut = build_model(mt_cut_config())
+    tiny = build_model(tiny_config("gemma2-2b"))
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    tiny_shape = ShapeConfig("t", MT_TINY_S, MT_TINY_B, "train")
+    state_bytes = sum(math.prod(a.shape) * a.element_size() for a in
+                      tree_leaves(abstract_train_state(cut, mt_tcfg(""))))
+    flash = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a): the unsharded run, then the world of 1
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = train(model, shape, mt_tcfg(tmp), device="cuda",
+                    num_steps=MT_STEPS_ONE, log=lambda r: None)
+        want = [(r["loss"], r["grad_norm"]) for r in out["history"]]
+        want_dt = [r["dt_s"] for r in out["history"]]
+        digests = [leaf_digest(x) for x in tree_leaves(out["state"])]
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_a = time.perf_counter()
+        try:
+            a, = spawn(mt_rank_one, 1, backend="nccl", device="cuda:0",
+                       timeout_s=MT_WORLD_S, args=(tmp,))
+        except WorldFailed as e:
+            fail(f"mesh-train[a]: the NCCL world of 1 failed:\n{e}")
+        if a["hist"] != want or a["digests"] != digests:
+            fail(f"mesh-train[a]: train(mesh=<world of 1>) not bit-identical "
+                 f"to train(): history {a['hist']} vs {want}; "
+                 f"{sum(x != y for x, y in zip(a['digests'], digests))} of "
+                 f"{len(digests)} leaves differ")
+        n = a["launches"]["flash_attention_fwd"]
+        if n != 26 * 2 * MT_STEPS_ONE:
+            fail(f"mesh-train[a]: {n} flash launches, expected "
+                 f"{26 * 2 * MT_STEPS_ONE}")
+        flash += n
+        print(f"mesh-train[a nccl world of 1, gemma2-2b B={TRAIN_B} "
+              f"S={TRAIN_S}]: {MT_STEPS_ONE} steps bit-identical to the "
+              f"unsharded train() (losses, grad norms and all "
+              f"{len(digests)} leaves); steps {', '.join(f'{x:.3f}' for x in a['dt'])} s"
+              f" on the mesh vs {', '.join(f'{x:.3f}' for x in want_dt)} s "
+              f"unsharded (phase 12's median {phase12_step_s:.3f} s); peak "
+              f"{a['peak_gb']:.2f} GB vs {peak:.2f} GB unsharded; {n} flash "
+              f"launches; world {time.perf_counter() - t_a:.1f} s ({card})",
+              flush=True)
+        mark("phase 18's NCCL world of 1")
+        # (b), (c): the unsharded baselines, then the gloo worlds
+        t_b = time.perf_counter()
+        want_b = {m: mt_unsharded(cut, shape, MT_STEPS_TWO, QK_SCALE, tmp,
+                                  sample=True, microbatches=m)
+                  for m in (1, 2)}
+        want_c = {m: mt_unsharded(tiny, tiny_shape, MT_TINY_STEPS,
+                                  MT_TINY_QK, tmp, sample=False,
+                                  microbatches=m, first=1,
+                                  save_to=(f"{tmp}/c2", f"{tmp}/c4")
+                                  if m == 1 else ()) for m in (1, 2)}
+        base_s = time.perf_counter() - t_b
+        worlds = {}
+        for fn, n_ranks in ((mt_rank_two, 2), (mt_rank_four, 4)):
+            t0 = time.perf_counter()
+            try:
+                worlds[n_ranks] = spawn(fn, n_ranks, backend="gloo",
+                                        device="cuda:0",
+                                        timeout_s=MT_WORLD_S, args=(tmp,))
+            except WorldFailed as e:
+                fail(f"mesh-train: the gloo world of {n_ranks} failed:\n{e}")
+            print(f"mesh-train: gloo world of {n_ranks} on cuda:0 in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            mark(f"phase 18's gloo world of {n_ranks}")
+    two, four = worlds[2], worlds[4]
+    lrs = [m["lr"] for m, _ in want_b[1]]
+    # (b)
+    b = [r["b"] for r in two]
+    got = [(s["met"], merge_samples([r["steps"][k]["masters"] for r in b])
+            ) for k, s in enumerate(b[0]["steps"])]
+    line = hold_steps("mesh-train[b] vs 2 microbatches", got, want_b[2], lrs)
+    line1 = hold_steps("mesh-train[b] vs unsharded", got, want_b[1], lrs,
+                       control=want_b[2])
+    for i, r in enumerate(b):
+        for k, s in enumerate(r["steps"]):
+            if s["flash"] != MT_LAYERS * 2:
+                fail(f"mesh-train[b]: rank {i} step {k}: {s['flash']} flash "
+                     f"launches, expected {MT_LAYERS * 2}")
+            flash += s["flash"]
+        if r["rest_bytes"] - 4 != (state_bytes - 4) // 2:
+            fail(f"mesh-train[b]: rank {i} holds {r['rest_bytes']} bytes at "
+                 f"rest, not half of {state_bytes}")
+    print(f"mesh-train[b gloo data=2, gemma2-2b {MT_LAYERS} of 26 layers "
+          f"B={TRAIN_B} S={TRAIN_S}, wq, wk x {QK_SCALE}]: against the one-device run in 2 microbatches:"
+          f" {line}; against the unsharded run (the control: the 2-"
+          f"microbatch run): {line1}; unsharded baselines {base_s:.1f} s",
+          flush=True)
+    for i, r in enumerate(b):
+        print(f"mesh-train[b]: rank {i} state at rest "
+              f"{r['rest_bytes'] / 1e9:.3f} GB of the unsharded "
+              f"{state_bytes / 1e9:.3f} GB, resident "
+              f"{r['resident_gb']:.3f} GB, peak {r['peak_gb']:.3f} GB; steps "
+              f"{', '.join(f'{s['s']:.2f}' for s in r['steps'])} s "
+              f"(host-staged gloo, not a speed); flash launches a step "
+              f"{[s['flash'] for s in r['steps']]} ({card})", flush=True)
+    print(f"mesh-train[b]: the two ranks' peaks sum to "
+          f"{sum(r['peak_gb'] for r in b):.2f} GB", flush=True)
+    # (d)
+    d = two[0]["d"]
+    if two[1]["d"] is not None:
+        fail("mesh-train[d]: rank 1 did not drop out of the one-rank mesh")
+    last = got[-1][1]
+    if any(not (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]))
+           for x, y in zip(d["samples"], last)):
+        fail("mesh-train[d]: the resharded masters differ from (b)'s")
+    if not d["same"] or d["met"][0] != d["met"][1]:
+        fail(f"mesh-train[d]: the step on the one-rank mesh differs from "
+             f"the unsharded step from the same state: {d['met']}")
+    flash += d["flash"]
+    print(f"mesh-train: world of 2: (b) {b[0]['s']:.1f} s, (d) "
+          f"{d['s']:.1f} s, (c) {two[0]['c_s']:.1f} s", flush=True)
+    print(f"mesh-train[d]: data=2 -> one rank in {d['reshard_s']:.1f} s "
+          f"(gloo, {state_bytes / 1e9:.3f} GB of state), masters equal to (b)'s at every sample; one step there "
+          f"(loss {d['met'][0]['loss']:.6f}, grad norm "
+          f"{d['met'][0]['grad_norm']:.5f}) bit-identical to the unsharded "
+          f"step from the same state; peak {d['peak_gb']:.2f} GB; "
+          f"{d['flash']} flash launches", flush=True)
+    # (c)
+    tiny_lrs = [m["lr"] for m, _ in want_c[1]]
+    for label, ranks, data in (("model=2", two, 1),
+                               ("data=2 x model=2", four, 2)):
+        if ranks[0]["c"]["saved"] is not True:
+            fail(f"mesh-train[c {label}]: the whole checkpoint of step 1 "
+                 f"that train(mesh=) wrote differs from the state")
+        steps = [r["c"]["steps"] for r in ranks]
+        got = [(s["met"], s["masters"]) for s in steps[0]]
+        line = hold_steps(f"mesh-train[c {label}]", got, want_c[data],
+                          tiny_lrs)
+        if data > 1:
+            line += "; against the unsharded run: " + hold_steps(
+                f"mesh-train[c {label}] vs unsharded", got, want_c[1],
+                tiny_lrs, control=want_c[data])
+        for i, r in enumerate(steps):
+            for s in r:
+                if s["flash"] != tiny.cfg.num_layers * 2:
+                    fail(f"mesh-train[c {label}]: rank {i}: {s['flash']} "
+                         f"flash launches a step")
+                flash += s["flash"]
+        print(f"mesh-train[c {label}, tiny gemma2-2b B={MT_TINY_B} "
+              f"S={MT_TINY_S}, wq, wk x {MT_TINY_QK}]: train(mesh=) restored "
+              f"step 0 from a whole checkpoint, ran step 1 and wrote it "
+              f"whole, equal to the state bit for bit; then "
+              f"{MT_TINY_STEPS - 1} steps through the trainer: {line}",
+              flush=True)
+    return flash
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4035,6 +4697,7 @@ def main() -> int:
     secs = build.build_all()
     print(f"build: {json.dumps(secs)} s of nvcc, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mark("phase 1")
 
     phase_tiny_kernels()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4042,6 +4705,7 @@ def main() -> int:
         policy_file.write_text(json.dumps(KV_POLICY))
         phase_tiny_engine(policy_file)
     phase_tiny_moe_engine()
+    mark("phases 1b-1d")
 
     model = build_model(get_config("gemma2-2b"))
     moe_model = build_model(get_config(MOE_ARCH))
@@ -4060,6 +4724,7 @@ def main() -> int:
     records.update(phase_qmm_kernels())
     moe_records = phase_moe_kernels(prefill_chunk=mp.prefill_chunk,
                                     n_blocks_main=mp.pages_per_seq)
+    mark("phases 2-2b")
 
     t1 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
@@ -4073,6 +4738,7 @@ def main() -> int:
     phase_model(model, params, kv_bits=KV_POLICY, ticks=3)
     for w_bits in (8, 4):
         phase_model(model, params, w_bits=w_bits)
+    mark("phase 3")
     launches, policy, args, bf16_summary = phase_engine(model, params)
     phase_profile(model, params, policy, args)
     wp_launches, wp_policy, wp_args, _ = phase_engine(
@@ -4091,10 +4757,12 @@ def main() -> int:
         model, params, expect=WQ_KERNELS, quant_bits=WQ_BITS,
         bf16_summary=bf16_summary)
     phase_profile(model, params, w_policy, w_args)
+    mark("phases 4-5")
     phase_generate(model, params)
     phase_generate_long(model, params)
     g_launches = phase_generate_quant(model, params)
     phase_drift(model, params)
+    mark("phases 6-7")
     t_haq = time.perf_counter()
     phase_haq_kv(model, params, policy.num_pages, bf16_summary)
     t_w = time.perf_counter()
@@ -4103,6 +4771,7 @@ def main() -> int:
     phase_autotune()
     print(f"haq: KV part {t_w - t_haq:.1f} s, weight part {t_a - t_w:.1f} "
           f"s, autotune part {time.perf_counter() - t_a:.1f} s", flush=True)
+    mark("phase 8")
     t_amc = time.perf_counter()
     amc_gemma = phase_amc(model, params)
 
@@ -4128,11 +4797,12 @@ def main() -> int:
           f"{MOE_ARCH} {amc_moe['s_per_episode']:.3f}; AMC part "
           f"{t_serve - t_amc:.1f} s, serving part "
           f"{time.perf_counter() - t_serve:.1f} s", flush=True)
+    mark("phases 9-10")
 
     # phase 12: the training path, every serving parameter freed
     t_train = time.perf_counter()
     bwd_row = phase_train_flash()
-    state, train_launches = phase_train_full()
+    state, train_launches, train_step_s = phase_train_full()
     params = state["params"]
     del state
     torch.cuda.empty_cache()
@@ -4143,6 +4813,7 @@ def main() -> int:
     print(f"train: flash backward {json.dumps(bwd_row)}; whole-prompt "
           f"serving path's flash launches {wp_launches['flash_attention_fwd']}"
           f"; phase 12 in {time.perf_counter() - t_train:.1f} s", flush=True)
+    mark("phase 12")
 
     # phase 13: the SSM family and the dense-cache decode
     t_ssm = time.perf_counter()
@@ -4161,6 +4832,7 @@ def main() -> int:
           f"flash launches by path {json.dumps(flash_paths)}; phase 13 in "
           f"{t_nas - t_ssm:.1f} s, phase 14 in "
           f"{time.perf_counter() - t_nas:.1f} s", flush=True)
+    mark("phases 13-14")
 
     # phases 15-16: the encoder-decoder and the vision stub at full width
     t_ed = time.perf_counter()
@@ -4170,6 +4842,7 @@ def main() -> int:
     w_train = phase_whisper_train()
     t_ll = time.perf_counter()
     ll = phase_llava()
+    mark("phases 15-16")
     # phase 17: the sharded engine
     t_mesh = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4180,10 +4853,19 @@ def main() -> int:
           f"launches over its sharded runs, summed over ranks "
           f"{json.dumps({k: v for k, v in mesh_launches.items() if v})}",
           flush=True)
+    mark("phase 17")
+    # phase 18: training split over a mesh
+    t_mt = time.perf_counter()
+    mt_flash = phase_train_mesh(train_step_s)
+    print(f"mesh-train: phase 18 in {time.perf_counter() - t_mt:.1f} s; "
+          f"flash launches over its sharded runs, summed over ranks "
+          f"{mt_flash}", flush=True)
+    mark("phase 18")
     ed_paths = {"whisper serve": w_serve["flash_attention_fwd"],
                 "whisper train": w_train["flash_attention_fwd"],
                 "llava prefill": ll["prefill"]["flash_attention_fwd"],
-                "mesh": mesh_launches["flash_attention_fwd"]}
+                "mesh": mesh_launches["flash_attention_fwd"],
+                "mesh train": mt_flash}
     flash_paths.update(ed_paths)
     print(f"encdec+vlm: kernels at the new geometries {json.dumps(ed_rows)};"
           f" flash launches by path {json.dumps(ed_paths)}; paged decode "

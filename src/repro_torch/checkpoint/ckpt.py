@@ -100,12 +100,14 @@ def _from_bytes(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
     return torch.from_numpy(raw.view(np.dtype(dtype)).copy()).reshape(shape)
 
 
-def restore(ckpt_dir: str, like: Any, step: Optional[int] = None
-            ) -> tuple[Any, int]:
+def restore(ckpt_dir: str, like: Any, step: Optional[int] = None, *,
+            place=None) -> tuple[Any, int]:
     """Restore into the structure of ``like``: each leaf in the dtype the
     checkpoint recorded, in the shape of ``like``'s leaf (the recorded one
     may be [1] for a scalar, see ``_flatten``; the element counts must
-    agree) and on its device. Returns (tree, step)."""
+    agree) and on its device, or, with ``place``, as ``place(leaf, i)``
+    makes it from the whole leaf ``i`` in host memory (a sharded
+    trainer's block of it). Returns (tree, step)."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -121,7 +123,8 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None
         if t.numel() != leaf.numel():
             raise ValueError(f"checkpoint leaf {i} has shape {m['shape']}, "
                              f"the model's {list(leaf.shape)}")
-        out.append(t.reshape(leaf.shape).to(leaf.device))
+        t = t.reshape(leaf.shape)
+        out.append(t.to(leaf.device) if place is None else place(t, i))
     return tree_unflatten(like, out), step
 
 

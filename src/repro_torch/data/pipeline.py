@@ -68,8 +68,10 @@ def batches(dcfg: DataConfig, start_step: int = 0
 
 
 def batch_for_model(model, shape, dcfg: Optional[DataConfig], step: int,
-                    device="cpu") -> Dict[str, torch.Tensor]:
-    """The model's batch for ``step`` on ``device``: int32 tokens and
+                    device="cpu", *, full: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """The model's batch for ``step`` on ``device`` (``full``: the whole
+    global batch, whatever the process group; ``batch_at``): int32 tokens and
     labels; for the encoder-decoder also ``frames`` (B, S, d_model) and a
     decoder of max(S // dec_ratio, 2) tokens; for the vision stub
     ``patches`` (B, int(S * patch_frac), d_model) and S minus that many
@@ -91,11 +93,12 @@ def batch_for_model(model, shape, dcfg: Optional[DataConfig], step: int,
 
     if cfg.is_encdec:
         Sd = max(shape.seq_len // cfg.dec_ratio, 2)
-        dec = batch_at(dataclasses.replace(dcfg, seq_len=Sd), step)
+        dec = batch_at(dataclasses.replace(dcfg, seq_len=Sd), step,
+                       full=full)
         return {"frames": embeds(shape.seq_len), **tensors(dec)}
     if cfg.frontend == "vision_stub":
         Sp = int(shape.seq_len * cfg.patch_frac)
         txt = batch_at(dataclasses.replace(dcfg, seq_len=shape.seq_len - Sp),
-                       step)
+                       step, full=full)
         return {"patches": embeds(Sp), **tensors(txt)}
-    return tensors(batch_at(dcfg, step))
+    return tensors(batch_at(dcfg, step, full=full))

@@ -6,13 +6,13 @@ data pipeline is a pure function of the step, so a resume is exact. A
 step whose time exceeds ``multiplier`` x the trailing median is a
 straggler; after ``strikes`` consecutive ones the callback asks the
 cluster runner to evict and replace the host. ``shrink_mesh`` sizes the
-elastic re-mesh from the surviving devices; the reference's
-``reshard_state`` needs the train state's logical specs and waits for
-sharded training (ROADMAP Queue 1, item 11).
+elastic re-mesh from the surviving devices (``launch.mesh.make_sub_mesh``
+builds it), and ``reshard_state`` moves a sharded train state onto it.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from collections import deque
 from typing import Callable, Deque, List, Optional
@@ -78,6 +78,45 @@ def shrink_mesh(n_devices: int, model_axis: int):
         raise ValueError(f"{n_devices} devices cannot hold a model axis of "
                          f"{model_axis}")
     return (data, model_axis), list(range(data * model_axis))
+
+
+def reshard_state(state, model, tcfg, new_mesh, *, old_mesh,
+                  donate: bool = False):
+    """The train state split at rest over ``old_mesh``
+    (training/sharded.py), split over ``new_mesh`` instead: the specs
+    re-derived on the new mesh by the divisibility-aware rules, each leaf
+    gathered whole over the old mesh (one at a time) and each new rank's
+    block kept. Every rank of the old mesh calls it; ``new_mesh`` is this
+    rank's mesh after the re-mesh (a ``DeviceMesh`` over ranks of the old
+    world, such as ``make_sub_mesh``'s; a mesh of one rank holds the whole
+    state), None on a rank outside it, which gets None back: it drops
+    out. All-gathers move bits, so every leaf is the same bits as the old
+    layout's. ``donate``: each leaf of ``state`` is set to None once it
+    has moved, so a rank never holds both whole states (a full-width
+    state resharded onto one card).
+
+    ``old_mesh`` is an argument beside the reference's signature
+    ``(state, model, tcfg, new_mesh)``: a rank's shards are plain tensors,
+    which keep no record of the mesh they were cut on, while the
+    reference's arrays carry their sharding."""
+    from repro_torch.distributed.sharding import leaf_paths
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.training.sharded import StateLayout
+    old = StateLayout(model, tcfg, old_mesh)
+    new = None if new_mesh is None else StateLayout(model, tcfg, new_mesh)
+    leaves = tree_leaves(state)
+    out = []
+    for path, a, b in zip(leaf_paths(state), old.leaf_specs(),
+                          new.leaf_specs() if new else itertools.repeat(None)):
+        whole = old.whole(leaves.pop(0), a)
+        if donate:
+            parent = state
+            for key in path[:-1]:
+                parent = parent[key]
+            parent[path[-1]] = None
+        out.append(None if new is None else new.local(whole, b))
+        del whole
+    return None if new is None else tree_unflatten(state, out)
 
 
 class Heartbeat:

@@ -16,8 +16,12 @@ The rules read only a mesh's axis sizes (``axis_sizes``): a
 ``torch.distributed.device_mesh.DeviceMesh`` with named dims, or a plain
 ``{"data": d, "model": m}`` mapping for pure callers.
 
-The reference's ``make_ac`` (GSPMD activation hints for training and the
-dry-run) waits for sharded training (ROADMAP Queue 1, item 11).
+``make_ac`` is the training's activation layout: which rows of the
+global batch a rank computes on. The collectives at the bottom are what
+the sharded engine and the sharded trainer (training/sharded.py) run:
+all-gathers are pure data movement, and every sum over ranks is taken in
+fp32 in group-rank order, so it is the same on every rank and from run
+to run.
 """
 from __future__ import annotations
 
@@ -27,7 +31,12 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.params import tree_leaves, tree_unflatten
+
+F32 = torch.float32
 
 # fsdp == param/batch sharding axes; model == tensor-parallel axis.
 FSDP = ("pod", "data")
@@ -143,6 +152,114 @@ def specs_for(abstract: Any, logical: Any, mesh) -> Any:
                         logical_leaves(abstract, logical))])
 
 
+def scalar_sharding(mesh) -> Spec:
+    """A scalar's spec on any mesh: replicated (the reference's
+    ``NamedSharding(mesh, P())``)."""
+    return ()
+
+
+def mesh_coords(mesh) -> Dict[str, int]:
+    """This rank's coordinate on each axis of a ``DeviceMesh``; 0 on every
+    axis of a mesh that is only sizes."""
+    sizes = axis_sizes(mesh)
+    if hasattr(mesh, "get_local_rank"):
+        return {a: mesh.get_local_rank(a) for a in sizes}
+    return {a: 0 for a in sizes}
+
+
+def _as_axes(entry) -> Tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def local_block(x: torch.Tensor, spec: Spec, sizes, coords) -> torch.Tensor:
+    """The block of ``x`` that the rank at ``coords`` holds under ``spec``
+    (a view): a dim split over several axes counts them major to minor."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n, idx = 1, 0
+        for a in _as_axes(axes):
+            n *= sizes[a]
+            idx = idx * sizes[a] + coords[a]
+        size = x.shape[dim] // n
+        x = x.narrow(dim, idx * size, size)
+    return x
+
+
+def whole_from_block(x: torch.Tensor, spec: Spec, groups) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec`` (the
+    inverse of ``local_block``): all-gathers over each split dim's axes,
+    the minor axis first. Every rank of the mesh must call it."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        for a in reversed(_as_axes(axes)):
+            x = all_gather_dim(x, dim, groups[a])
+    return x
+
+
+class ActivationLayout:
+    """The activation layout of the port's training (``make_ac``), called
+    as ``ac(x, kind)``. In the port every rank runs its own rows of the
+    global batch, so the layout is where those rows come from:
+
+    * ``"batch"``: this rank's rows of a global (B, ...) tensor. The rows
+      split over the ``batch`` candidates, ("pod", "data") and then
+      ("data",), the first that divides B, as the reference's
+      ``_batch_axes`` picks them; whole where none does.
+    * ``"resid"``: ``x`` as it is. The reference constrains the residual
+      stream to the batch split; the port's residual is computed from
+      the rank's rows, so it holds by construction, and activations stay
+      whole over ``model``.
+    * ``"decode_q"``, ``"decode_kv"``, ``"decode_scores"``: ``x`` as it
+      is. In the reference they only hint the dry-run's decode cells at
+      the partitioner; they wait for the dry-run (ROADMAP Queue 1, item
+      11b).
+    * any other kind (the reference's ``"moe_buf"`` no-op included):
+      ``x`` as it is.
+
+    ``mesh`` is a named ``DeviceMesh`` (or sizes only: every coordinate
+    0)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = axis_sizes(mesh)
+        self.coords = mesh_coords(mesh)
+
+    def batch_axes(self, b: int):
+        """The mesh axes ``b`` global rows split over: a name, a tuple of
+        names, or None."""
+        fsdp = _axes_in_mesh(self.sizes, FSDP)
+        if fsdp and b % math.prod(self.sizes[a] for a in fsdp) == 0:
+            return fsdp if len(fsdp) > 1 else fsdp[0]
+        if "data" in self.sizes and b % self.sizes["data"] == 0:
+            return "data"
+        return None
+
+    def __call__(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        if kind != "batch":
+            return x
+        return local_block(x, (self.batch_axes(x.shape[0]),), self.sizes,
+                           self.coords)
+
+
+def make_ac(mesh, mode: str = "dp") -> ActivationLayout:
+    """The activation-layout hook for ``mesh`` (``ActivationLayout``).
+    ``mode="dp"``: the batch split over the FSDP axes, activations
+    replicated over ``model``. The reference's ``mode="seq_tp"`` (the
+    residual's rows also split over ``model`` between blocks, the norms on
+    1/TP of the rows) is not ported."""
+    if mode == "seq_tp":
+        raise NotImplementedError(
+            "make_ac(mode='seq_tp'), the residual stream split over the "
+            "model axis between blocks, is not ported (ROADMAP Queue 1, "
+            "item 11f)")
+    if mode != "dp":
+        raise ValueError(f"make_ac mode must be 'dp' or 'seq_tp', got "
+                         f"{mode!r}")
+    return ActivationLayout(mesh)
+
+
 def full_rank(spec: Spec, ndim: int) -> Spec:
     """``spec`` with its implicit trailing Nones spelled out."""
     return tuple(spec) + (None,) * (ndim - len(spec))
@@ -184,6 +301,99 @@ def leaf_paths(tree, prefix: Tuple = ()) -> list:
     return [prefix]
 
 
+def partition_specs(abstract, logical, mesh):
+    """Tree of full-rank specs by the divisibility-aware ``choose_spec``
+    rules (trailing Nones spelled out)."""
+    specs = specs_for(abstract, logical, mesh)
+    return tree_unflatten(abstract, [
+        full_rank(s, len(a.shape))
+        for s, a in zip(leaves_like(abstract, specs),
+                        tree_leaves(abstract))])
+
+
+# Tensor parallelism, exactness first (the sharded engine's design,
+# serving/engine/sharded.py, which the sharded trainer shares): only output
+# dims are split, never a floating-point reduction. Leaves whose ``model``
+# split is an *output* dim of their product are used as local slices,
+# never gathered on that dim; everything else split on ``model``, and
+# every ``data`` (FSDP) split, is all-gathered at use.
+_LOCAL_KEYS = ("wq", "wk", "wv", "w_in", "w_gate")
+_LOCAL_AXES = ("heads", "kv_heads", "d_ff")
+
+
+def gather_plans(abstract, logical, specs):
+    """Per-leaf ``((dim, mesh_axis), ...)`` all-gathers to run at use:
+    every split dim EXCEPT the local-use output dims of the q/k/v and FFN
+    up/gate projections."""
+    plans = []
+    for path, l, s in zip(leaf_paths(abstract),
+                          logical_leaves(abstract, logical),
+                          leaves_like(abstract, specs)):
+        local = any(k in path for k in _LOCAL_KEYS)
+        plan = []
+        for dim, axes in enumerate(tuple(s)):
+            if axes is None:
+                continue
+            if local and l[dim] in _LOCAL_AXES:
+                continue
+            for ax in _as_axes(axes):
+                plan.append((dim, ax))
+        plans.append(tuple(plan))
+    return tree_unflatten(abstract, plans)
+
+
+def tp_dot(group, cfg):
+    """The ``dot`` hook of tensor parallelism over the ``model`` axis's
+    process group, for a model of config ``cfg``. Each site computes what
+    the unsharded port computes without a hook, through the same functions
+    (the lm_head's fp32 product of the upcast operands included); the two
+    contraction-split sites (``attn_o``, ``ffn_out``) gather their
+    activations first. The shape tests keep a weight that fell through to
+    replicated (an odd ``d_ff``) on the plain product.
+
+    Each site also carries its backward's conjugate, which only training
+    runs (serving records no graph). A column-split product's input passes
+    ``sum_grad``, an identity whose backward sums its gradient over the
+    group, as each rank's product holds only its heads' or columns' share
+    of it; the input q, k and v share passes once, and so does the one
+    the FFN's up and gate projections share, so a layer sums two input
+    gradients. The gathered activations give each rank back its block of
+    their gradient, unsummed, as every rank computes the same whole
+    downstream."""
+    held = [None, None]          # the last column-split input, its view
+
+    def enter(a, w, whole):
+        # the input of a column-split product, split when w's output dim
+        # is a slice of the model's
+        if w.shape[-1 if whole == "d_ff" else 1] == getattr(cfg, whole):
+            return a
+        if held[0] is not a:
+            held[:] = [a, sum_grad(a, group)]
+        return held[1]
+
+    def dot(a, w, name):
+        if name in ("attn_q", "attn_k", "attn_v"):
+            a = enter(a, w, "num_heads" if name == "attn_q"
+                      else "num_kv_heads")
+            return attn._proj_in(a, w, name)
+        if name == "attn_o":
+            if a.shape[2] != w.shape[0]:                  # local heads
+                a = gather_shard(a, 2, group, reduce=False)
+            return attn._proj_out(a, w, name)
+        if name in ("ffn_in", "ffn_gate"):
+            return layers._matmul(enter(a, w, "d_ff"), w, name)
+        if name == "ffn_out":
+            if a.shape[-1] != w.shape[0]:                 # local d_ff
+                a = gather_shard(a, a.dim() - 1, group, reduce=False)
+            return layers._matmul(a, w, name)
+        if name == "lm_head":
+            return a.to(F32) @ w.to(F32)
+        if name in ("moe_in", "moe_gate", "moe_out"):
+            return moe_lib._bmm(a, w, name)
+        raise ValueError(f"unknown dot site {name!r}")
+    return dot
+
+
 # ------------------------------------------------------------ collective --
 def _gather_single(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """``all_gather_single`` where torch has it (2.13 on), else its older
@@ -191,6 +401,14 @@ def _gather_single(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     fn = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     fn(out, inp, group=group)
+
+
+def _staged(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` contiguous where ``group``'s collectives take it: gloo moves
+    host memory, so a CUDA tensor is staged there explicitly."""
+    if dist.get_backend(group) == "gloo" and x.is_cuda:
+        return x.contiguous().cpu()
+    return x.contiguous()
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -203,19 +421,119 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     if n == 1:
         return x
-    src = x.movedim(dim, 0).contiguous()
-    gloo = dist.get_backend(group) == "gloo"
-    staged = gloo and src.is_cuda
-    if staged:
-        src = src.cpu()
-    wire = src.view(torch.uint8) if gloo and src.dim() else src
+    src = _staged(x.movedim(dim, 0), group)
+    wire = src.view(torch.uint8) if dist.get_backend(group) == "gloo" \
+        and src.dim() else src
     out = torch.empty((n * wire.shape[0],) + tuple(wire.shape[1:]),
                       dtype=wire.dtype, device=wire.device)
     _gather_single(out, wire, group)
-    out = out.view(src.dtype)
-    if staged:
-        out = out.to(x.device)
+    out = out.view(src.dtype).to(x.device)
     return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``x``,
+    in fp32: each rank sends block r to rank r (an all-to-all of the
+    tensor's bytes, so bf16 travels as bf16), and the blocks received are
+    added in fp32 in group-rank order."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.to(F32)
+    src = _staged(x.movedim(dim, 0), group)
+    wire = src.view(torch.uint8) if src.dim() else src
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=group)
+    parts = out.view(src.dtype).to(x.device).reshape(
+        (n, src.shape[0] // n) + tuple(src.shape[1:]))
+    total = parts[0].to(F32)
+    for r in range(1, n):
+        total = total + parts[r].to(F32)
+    return total.movedim(0, dim)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` in fp32, added in group-rank order
+    from an all-gather: the same bits on every rank."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.to(F32)
+    parts = all_gather_dim(x.unsqueeze(0), 0, group)
+    total = parts[0].to(F32)
+    for r in range(1, n):
+        total = total + parts[r].to(F32)
+    return total
+
+
+class _GatherShard(torch.autograd.Function):
+    """All-gather along ``dim`` forward. Backward: this rank's block of
+    the gradient, summed over the group's ranks (``reduce``: a
+    reduce-scatter in fp32) or as it is (every rank of the group computed
+    the same whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, reduce):
+        ctx.dim, ctx.group, ctx.reduce = dim, group, reduce
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None, \
+                None
+        n = g.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        own = g.narrow(ctx.dim, dist.get_rank(ctx.group) * n, n)
+        return own.contiguous(), None, None, None
+
+
+def gather_shard(x: torch.Tensor, dim: int, group, *,
+                 reduce: bool) -> torch.Tensor:
+    """``all_gather_dim`` with a backward (``_GatherShard``); ``x`` itself
+    in a group of one."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GatherShard.apply(x, dim, group, reduce)
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over the group's
+    ranks (fp32, cast back)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group).to(g.dtype), None
+
+
+def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """``_SumGrad``; ``x`` itself in a group of one."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _SumGrad.apply(x, group)
+
+
+class _SumValue(torch.autograd.Function):
+    """The sum over the group's ranks forward (``all_reduce_sum``);
+    backward, the gradient as it is: every rank holds the same sum, and
+    each rank's backward carries its own terms' share of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_value(x: torch.Tensor, group) -> torch.Tensor:
+    """``_SumValue``; ``x`` itself in a group of one."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _SumValue.apply(x, group)
 
 
 def broadcast_float(value: float, group=None) -> float:

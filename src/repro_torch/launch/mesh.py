@@ -113,9 +113,27 @@ def make_host_mesh(model: int = 1, *, device_type: str = "cpu",
     return _mesh(world // model, model, device_type, timeout_s)
 
 
+def make_sub_mesh(data: int, model: int, *, device_type: str = "cuda",
+                  timeout_s: float = DEFAULT_TIMEOUT_S):
+    """A ("data", "model") mesh over the first ``data * model`` ranks of
+    the initialized world (the ranks ``shrink_mesh`` keeps): the mesh a
+    state is resharded onto (``reshard_state``). Every rank of the world
+    calls it, as each group is made by all of them; a rank outside the
+    mesh gets None."""
+    if model < 1 or data < 1:
+        raise ValueError(f"mesh axes must be >= 1, got model={model} "
+                         f"data={data}")
+    if not dist.is_initialized() or data * model > dist.get_world_size():
+        raise ValueError(f"a sub-mesh of data={data} x model={model} needs "
+                         f"an initialized world of {data * model} ranks or "
+                         f"more")
+    return _mesh(data, model, device_type, timeout_s)
+
+
 def _mesh(data: int, model: int, device_type: str, timeout_s: float):
-    """Every rank makes every row and column group in the same order (a
-    collective), then keeps its own two."""
+    """Every rank of the world makes every row and column group in the
+    same order (a collective), then keeps its own two; a rank outside the
+    ``data * model`` first ones gets None."""
     from torch.distributed.device_mesh import DeviceMesh
     ranks = torch.arange(data * model).reshape(data, model)
     me = dist.get_rank()
@@ -126,6 +144,8 @@ def _mesh(data: int, model: int, device_type: str, timeout_s: float):
             g = dist.new_group(members, timeout=_timeout(timeout_s))
             if me in members:
                 mine[name] = g
+    if not mine:
+        return None
     return DeviceMesh.from_group([mine["data"], mine["model"]], device_type,
                                  mesh=ranks, mesh_dim_names=("data", "model"))
 

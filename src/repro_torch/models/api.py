@@ -11,12 +11,13 @@ serving/quant.py)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict
 
 import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.models import params as plib
+from repro_torch.models.params import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,8 @@ class Model:
                                    kernel=kernel, remat=remat,
                                    gather=gather)
 
-    def loss(self, params, batch, *, remat=False, dot=None, kernel="auto"):
+    def loss(self, params, batch, *, remat=False, dot=None, kernel="auto",
+             gather=None, data_sum=None):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (chunked, transformer.chunked_ce) plus 0.01 x
         the moe layers' load-balance loss, as the reference's: the
@@ -79,15 +81,20 @@ class Model:
         through it, flash's backward included) and HAQ's and AMC's quality
         feedback. Their parameters require no gradient, so scoring builds
         no graph. The vlm family scores its text rows only: the hidden
-        states after the patch rows."""
+        states after the patch rows. ``gather`` and ``data_sum`` are the
+        sharded trainer's hooks (training/sharded.py; the dense and moe
+        families): parameters whole per layer at use, and the loss's sum
+        and count summed over the ranks that split the batch."""
         hidden, _, aux, fmask = self.forward(params, batch,
                                              unembed_mode="none", dot=dot,
-                                             kernel=kernel, remat=remat)
+                                             kernel=kernel, remat=remat,
+                                             gather=gather)
         labels = batch["labels"]
         if fmask is not None:
             hidden = hidden[:, -labels.shape[1]:]
         ce = transformer.chunked_ce(params, hidden, labels, self.cfg,
-                                    dot=dot)
+                                    dot=dot, gather=gather,
+                                    data_sum=data_sum)
         return ce + 0.01 * aux
 
     def prefill(self, params, batch, *, cache_layout="ring",
@@ -158,6 +165,49 @@ class Model:
                   device):
         return transformer.init_pool(self.cfg, num_pages, page_size,
                                      device=device, kv_bits=kv_bits)
+
+    # -- inputs -------------------------------------------------------------
+    def input_specs(self, shape) -> Dict[str, Any]:
+        """Meta-tensor stand-ins for one step's inputs at ``shape`` (the
+        reference's ShapeDtypeStructs): a train or prefill batch, or a
+        decode step's caches, token and position."""
+        B, S = shape.global_batch, shape.seq_len
+        cfg = self.cfg
+        if shape.kind == "decode":
+            return {"cache": tree_map(lambda s: _meta(*s),
+                                      self.cache_specs(B, S)),
+                    "token": _meta((B, 1), torch.int32),
+                    "pos": _meta((), torch.int32)}
+        if cfg.is_encdec:
+            Sd = max(S // cfg.dec_ratio, 2)
+            batch = {"frames": _meta((B, S, cfg.d_model), torch.bfloat16),
+                     "tokens": _meta((B, Sd), torch.int32)}
+        elif cfg.frontend == "vision_stub":
+            Sp = int(S * cfg.patch_frac)
+            batch = {"patches": _meta((B, Sp, cfg.d_model), torch.bfloat16),
+                     "tokens": _meta((B, S - Sp), torch.int32)}
+        else:
+            batch = {"tokens": _meta((B, S), torch.int32)}
+        if shape.kind == "train":
+            batch["labels"] = _meta(tuple(batch["tokens"].shape),
+                                    torch.int32)
+        return batch
+
+    def batch_logical_specs(self, shape) -> Dict[str, Any]:
+        """Logical axes of ``input_specs(shape)``, key for key."""
+        if shape.kind == "decode":
+            fn = encdec.cache_axes if self.cfg.is_encdec \
+                else transformer.cache_axes
+            return {"cache": fn(self.cfg), "token": ("batch", "seq"),
+                    "pos": ()}
+        axes = {"frames": ("batch", "seq", "embed_act"),
+                "patches": ("batch", "seq", "embed_act"),
+                "tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        return {k: axes[k] for k in self.input_specs(shape)}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def build_model(cfg) -> Model:

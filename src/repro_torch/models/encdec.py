@@ -252,6 +252,12 @@ def cache_specs(cfg, batch: int, seq_len: int):
             "mv": sd(L, batch, seq_len, K, hd)}
 
 
+def cache_axes(cfg):
+    """Logical axes matching ``cache_specs`` (for sharding)."""
+    ax = ("layer", "batch", "cache_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "mk": ax, "mv": ax}
+
+
 def grow_cache(cache, max_len: int):
     """The self-attention k/v padded with zeros to ``max_len`` decoder
     positions; the encoder memory's mk/mv stay as they are, whatever

@@ -287,9 +287,18 @@ def unembed(params, x, cfg, *, dot=None, gather=None):
     the tied gemma2-2b table) rather than a resident one. Callers that
     need fp32 parity on the card keep TF32 off
     (``torch.backends.cuda.matmul.allow_tf32 = False``). ``gather``: the
-    sharded engine's hook (``_whole``)."""
-    w = _whole(params, "embed", gather).T if cfg.tie_embeddings \
+    sharded engine's and trainer's hook (``_whole``)."""
+    return _logits(x, _unembed_weight(params, cfg, gather), cfg, dot)
+
+
+def _unembed_weight(params, cfg, gather):
+    """The (D, V) unembedding: the tied table's transpose or lm_head,
+    whole on this rank."""
+    return _whole(params, "embed", gather).T if cfg.tie_embeddings \
         else _whole(params, "lm_head", gather)
+
+
+def _logits(x, w, cfg, dot):
     if dot is None:
         logits = x.to(F32) @ w.to(F32)
     else:
@@ -303,16 +312,16 @@ def unembed(params, x, cfg, *, dot=None, gather=None):
 
 
 # ------------------------------------------------------------ chunked CE ----
-def _chunk_ce(params, xc, lc, mc, cfg, dot):
+def _chunk_ce(w, xc, lc, mc, cfg, dot):
     """Masked sum of one chunk's next-token losses."""
-    logits = unembed(params, xc, cfg, dot=dot)
+    logits = _logits(xc, w, cfg, dot)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc[..., None])[..., 0]
     return torch.sum((logz - gold) * mc)
 
 
 def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
-               loss_mask=None):
+               loss_mask=None, gather=None, data_sum=None):
     """Next-token cross-entropy without materializing (B, S, V) logits:
     the unembed and log-sum-exp run per ``chunk`` rows, so peak live
     memory is (B, chunk, V). Where autograd records (training), each chunk
@@ -320,7 +329,15 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
     its fp32 logits and the unembed's fp32 copy of the table are made
     again in the backward, one chunk at a time, instead of kept for all
     chunks (16 fp32 copies of the tied gemma2-2b table would be 38 GB).
-    The mask and the padding of the last chunk are the reference's."""
+    The mask and the padding of the last chunk are the reference's.
+
+    ``gather``: the sharded trainer's hook (``_whole``); the unembedding
+    is gathered once per loss, before the chunks, which all read it.
+    ``data_sum``: the sum of a scalar over the ranks that split the batch
+    (training/sharded.py): the loss sum and the token count are summed
+    over them before the division, so the loss is the global batch's
+    mean."""
+    w = _unembed_weight(params, cfg, gather)
     xs = hidden[:, :-1]
     ls = labels[:, 1:].long()
     B, n, D = xs.shape
@@ -335,11 +352,13 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
     remat = torch.is_grad_enabled() and xs.requires_grad
     tot = torch.zeros((), dtype=F32, device=xs.device)
     for c in range(0, n + pad, chunk):
-        args = (params, xs[:, c:c + chunk], ls[:, c:c + chunk],
+        args = (w, xs[:, c:c + chunk], ls[:, c:c + chunk],
                 mask[:, c:c + chunk], cfg, dot)
         tot = tot + (checkpoint(_chunk_ce, *args, use_reentrant=False)
                      if remat else _chunk_ce(*args))
     cnt = torch.sum(mask)
+    if data_sum is not None:
+        tot, cnt = data_sum(tot), data_sum(cnt)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -672,6 +691,20 @@ def cache_specs(cfg, batch: int, seq_len: int):
     return {f"sub{j}": kv(attn.cache_len_for(kinds[j]["attn"], cfg, seq_len),
                           (n_groups,))
             for j in range(P)}
+
+
+def cache_axes(cfg):
+    """Logical axes matching ``cache_specs`` (for sharding)."""
+    kv_ax = {"k": ("layer", "batch", "cache_seq", "kv_heads", "head_dim"),
+             "v": ("layer", "batch", "cache_seq", "kv_heads", "head_dim")}
+    mamba_ax = {"conv": ("layer", "batch", "conv", "ssm_inner"),
+                "state": ("layer", "batch", "ssm_heads", "head_dim",
+                          "ssm_state")}
+    if cfg.family == "ssm":
+        return {"mamba": mamba_ax}
+    if cfg.family == "hybrid":
+        return {"mamba": mamba_ax, "shared": dict(kv_ax)}
+    return {f"sub{j}": dict(kv_ax) for j in range(period_of(cfg))}
 
 
 def zeros(spec, device):

@@ -77,6 +77,24 @@ def adamw_init(params, ocfg) -> Dict[str, Any]:
     }
 
 
+def opt_state_logical_specs(param_specs, ocfg):
+    """Logical axes of the optimizer state, mirroring the parameters'
+    (``param_specs``, tuples of axis names): master and fp32 moments take
+    the parameter's axes; a quantized moment's codes keep the parameter's
+    exact shape and so its axes, and its per-block scale drops the last
+    (blocked) axis to replicated."""
+    def moment_spec(spec):
+        if ocfg.quantized_moments:
+            return {"q": spec, "scale": spec[:-1] + (None,) if spec else ()}
+        return spec
+    return {
+        "master": param_specs,
+        "m": tree_map(moment_spec, param_specs),
+        "v": tree_map(moment_spec, param_specs),
+        "count": (),
+    }
+
+
 # ---------------------------------------------------------------- update ----
 def cosine_lr(step: torch.Tensor, ocfg) -> torch.Tensor:
     """Linear warmup then cosine decay to 0, in fp32, at ``step`` (an
@@ -123,16 +141,19 @@ def _leaves(tree, quantized: bool):
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, ocfg):
+def adamw_update(grads, opt_state, ocfg, *, norm=global_norm):
     """One AdamW step. Returns (new bf16 params, opt_state updated in
-    place, {"lr", "grad_norm"}) with fp32 0-dim tensor metrics."""
+    place, {"lr", "grad_norm"}) with fp32 0-dim tensor metrics. ``norm``
+    gives the global norm of ``grads``: a sharded trainer's spans every
+    rank's shards (training/sharded.py); the update itself is elementwise,
+    so it runs on shards as on whole tensors."""
     count = opt_state["count"] + 1
     lr = cosine_lr(count, ocfg)
     b1, b2 = ocfg.b1, ocfg.b2
     cf = count.to(F32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=F32, device=cf.device), cf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=F32, device=cf.device), cf)
-    gn = global_norm(grads)
+    gn = norm(grads)
     scale = _clip_scale(gn, ocfg.grad_clip)
     qm = ocfg.quantized_moments
 

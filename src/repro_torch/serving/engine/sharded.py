@@ -26,6 +26,10 @@ reduction:
   * everything else (embedding lookup, norms, residuals, the unembed,
     sampling) runs whole, replicated.
 
+The product sites (``tp_dot``) and the per-leaf gather plans
+(``gather_plans``) are distributed/sharding.py's, which the sharded
+trainer (training/sharded.py) shares.
+
 Weights stay split **at rest** per ``distributed/sharding.py``'s rules and
 are gathered at use. Where the reference gathers every leaf of the
 stacked tree at the top of each shard_map body, the port's layers are an
@@ -59,24 +63,12 @@ import math
 import torch
 
 from repro_torch.distributed import sharding as shlib
-from repro_torch.models import attention as attn
-from repro_torch.models import layers
-from repro_torch.models import moe as moe_lib
+from repro_torch.distributed.sharding import gather_plans, \
+    partition_specs, tp_dot
 from repro_torch.models.params import tree_leaves, tree_map, \
     tree_unflatten
 
-F32 = torch.float32
 MODEL_AXIS = "model"
-
-# Leaves whose ``model``-axis split is an *output* dim of their product:
-# used as local slices, never gathered on that dim. Everything else split
-# on ``model``, and every ``data`` (FSDP) split, is all-gathered at use.
-_LOCAL_KEYS = ("wq", "wk", "wv", "w_in", "w_gate")
-_LOCAL_AXES = ("heads", "kv_heads", "d_ff")
-
-
-def _axes_tuple(a):
-    return a if isinstance(a, tuple) else (a,)
 
 
 def validate_mesh(cfg, mesh) -> None:
@@ -99,37 +91,6 @@ def validate_mesh(cfg, mesh) -> None:
             f"(family={cfg.family!r}) is an open item (ROADMAP)")
 
 
-def partition_specs(abstract, logical, mesh):
-    """Tree of full-rank specs by the divisibility-aware ``choose_spec``
-    rules (trailing Nones spelled out)."""
-    specs = shlib.specs_for(abstract, logical, mesh)
-    return tree_unflatten(abstract, [
-        shlib.full_rank(s, len(a.shape))
-        for s, a in zip(shlib.leaves_like(abstract, specs),
-                        tree_leaves(abstract))])
-
-
-def gather_plans(abstract, logical, specs):
-    """Per-leaf ``((dim, mesh_axis), ...)`` all-gathers to run at use:
-    every split dim EXCEPT the local-use output dims of the q/k/v and FFN
-    up/gate projections (see the module docstring)."""
-    plans = []
-    for path, l, s in zip(shlib.leaf_paths(abstract),
-                          shlib.logical_leaves(abstract, logical),
-                          shlib.leaves_like(abstract, specs)):
-        local = any(k in path for k in _LOCAL_KEYS)
-        plan = []
-        for dim, axes in enumerate(tuple(s)):
-            if axes is None:
-                continue
-            if local and l[dim] in _LOCAL_AXES:
-                continue
-            for ax in _axes_tuple(axes):
-                plan.append((dim, ax))
-        plans.append(tuple(plan))
-    return tree_unflatten(abstract, plans)
-
-
 def gather_at_use(tree, plans, groups, shift: int = 0):
     """Run each leaf's gather plan; ``groups`` maps a mesh axis to its
     process group, ``shift`` drops leading dims the plans count (1 for a
@@ -142,35 +103,6 @@ def gather_at_use(tree, plans, groups, shift: int = 0):
     return tree_unflatten(tree, [
         run(x, p) for x, p in zip(tree_leaves(tree),
                                   shlib.leaves_like(tree, plans))])
-
-
-def tp_dot(group):
-    """The ``dot`` hook of sharded serving over the ``model`` axis's
-    process group. Each site computes what the unsharded port computes
-    without a hook, through the same functions (the lm_head's fp32
-    product of the upcast operands included); the two contraction-split
-    sites gather their activations first. The shape test keeps a weight
-    that fell through to replicated (an odd ``d_ff``) on the plain
-    product."""
-    def dot(a, w, name):
-        if name in ("attn_q", "attn_k", "attn_v"):
-            return attn._proj_in(a, w, name)
-        if name == "attn_o":
-            if a.shape[2] != w.shape[0]:                  # local heads
-                a = shlib.all_gather_dim(a, 2, group)
-            return attn._proj_out(a, w, name)
-        if name in ("ffn_in", "ffn_gate"):
-            return layers._matmul(a, w, name)
-        if name == "ffn_out":
-            if a.shape[-1] != w.shape[0]:                 # local d_ff
-                a = shlib.all_gather_dim(a, a.dim() - 1, group)
-            return layers._matmul(a, w, name)
-        if name == "lm_head":
-            return a.to(F32) @ w.to(F32)
-        if name in ("moe_in", "moe_gate", "moe_out"):
-            return moe_lib._bmm(a, w, name)
-        raise ValueError(f"unknown dot site {name!r}")
-    return dot
 
 
 class SpmdEngine:
@@ -199,26 +131,16 @@ class SpmdEngine:
             model.pool_axes(kv_bits), mesh)
         self.groups = {ax: mesh.get_group(ax) for ax in self.sizes}
         self.coords = {ax: mesh.get_local_rank(ax) for ax in self.sizes}
-        self.dot = tp_dot(self.groups[MODEL_AXIS])
+        self.dot = tp_dot(self.groups[MODEL_AXIS], model.cfg)
 
     # ----------------------------------------------------------- placement --
     def _shard(self, x, spec):
         """This rank's block of ``x`` under ``spec``, in storage of its
         own (the whole tensor can then be freed)."""
-        whole = x
-        for dim, axes in enumerate(spec):
-            if axes is None:
-                continue
-            axes = _axes_tuple(axes)
-            n = math.prod(self.sizes[a] for a in axes)
-            idx = 0
-            for a in axes:                      # major to minor
-                idx = idx * self.sizes[a] + self.coords[a]
-            size = x.shape[dim] // n
-            x = x.narrow(dim, idx * size, size)
-        if x.shape == whole.shape:              # split over axes of size 1
-            return whole
-        return x.clone(memory_format=torch.contiguous_format)
+        part = shlib.local_block(x, spec, self.sizes, self.coords)
+        if part.shape == x.shape:               # split over axes of size 1
+            return x
+        return part.clone(memory_format=torch.contiguous_format)
 
     def _map(self, fn, tree, specs):
         """``fn(leaf, spec)`` over a tree and its spec tree."""

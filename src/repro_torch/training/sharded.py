@@ -1,0 +1,360 @@
+"""Training split over a ("data", "model") mesh of ranks: the port of the
+reference's sharded train step (``make_train_step`` under ``jax.jit`` with
+``in_shardings`` from ``train_state_logical_specs``).
+
+One process per rank, as in the sharded engine (serving/engine/sharded.py):
+
+  * The state at rest: every leaf of ``{"params", "opt"}`` split per
+    distributed/sharding.py's rules on its logical axes: the FSDP
+    ``embed`` dims over ``data``; heads, kv heads, d_ff, experts and vocab
+    over ``model``. A quantized moment's codes split as their parameter;
+    its scales keep their last (block) dim whole on every rank, as the
+    reference's spec has it.
+  * The forward runs the engine's per-layer ``gather`` hook, with a
+    backward. A leaf's ``data`` dims are all-gathered at use, and the
+    backward reduce-scatters the whole-leaf gradient over ``data``: each
+    data rank computed it on its own rows, so that is the data-parallel
+    gradient sum. Its ``model`` dims are gathered too, except the output
+    dims of the column-split products (q/k/v, FFN up and gate), which stay
+    local. Every rank of a ``model`` group computes the same whole
+    downstream of a gathered leaf, so the backward keeps its block of that
+    gradient without a sum. ``data`` is gathered before ``model``, so the
+    backward slices before it reduce-scatters.
+  * Tensor parallelism: the sharded engine's exactness-first sites
+    (distributed/sharding.py::tp_dot) with their backward conjugates
+    (``tp_dot``'s docstring).
+  * The batch: each rank takes its rows of the global batch (``make_ac``).
+    The loss's sum and token count are summed over ``data`` before the
+    division, so the loss is the global batch's mean. A leaf not split
+    over ``data`` has its gradient summed over ``data`` after the
+    backward.
+  * AdamW on the shards. The global norm is one sum of per-rank sums of
+    squares; a leaf replicated over an axis is counted on one rank of it.
+    The update is elementwise. Quantized moments quantize the shard's
+    blocks, which are the whole tensor's blocks when the block divides
+    the shard's last dim (refused otherwise); the scales of blocks split
+    over ranks are gathered back after each update.
+
+Every sum over ranks is fp32 in group-rank order (distributed/sharding.py),
+so every rank computes the same loss, norm and clip scale. On a mesh of
+one rank every collective is an identity that records nothing, so the
+step is the one-device step, bit for bit.
+
+Checkpoints are whole: rank 0 writes the gathered leaves, and a restore
+slices them, so a checkpoint taken on one mesh restores on any other and
+on one device. ``reshard_state`` (distributed/fault_tolerance.py) moves a
+live state between meshes the same way.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.distributed import sharding as shlib
+from repro_torch.models.params import tree_leaves, tree_unflatten
+from repro_torch.optim.adamw import adamw_init, adamw_update, \
+    moment_block_for
+from repro_torch.training.steps import abstract_train_state, \
+    run_train_step, train_state_logical_specs
+
+F32 = torch.float32
+MODEL = "model"
+DATA = "data"
+
+
+def validate_train_mesh(cfg, mesh, *, dot=None) -> None:
+    """What the sharded trainer needs from (cfg, mesh): dense on any mesh,
+    moe at data = 1; the rest names its ROADMAP item."""
+    sizes = shlib.axis_sizes(mesh)
+    unknown = set(sizes) - {DATA, MODEL}
+    if unknown:
+        raise ValueError(f"train mesh axes must be data/model, got "
+                         f"{sorted(sizes)}")
+    tp, dp = sizes.get(MODEL, 1), sizes.get(DATA, 1)
+    if tp * dp > 1 and cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: sharded training takes the dense and moe "
+            f"families; the {cfg.family} bodies do not take the per-layer "
+            f"gather hook yet (ROADMAP Queue 1, item 11d)")
+    if cfg.family == "moe" and dp > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: moe training at data={dp}: the expert capacity "
+            f"and the load-balance loss are functions of the local token "
+            f"count, the reference's of the global batch's (ROADMAP Queue "
+            f"1, item 11e)")
+    if dot is not None and tp > 1:
+        raise NotImplementedError(
+            f"a dot hook (HAQ fake-quant) under model={tp}: its sites would "
+            f"see weight slices (ROADMAP Queue 1, item 11g)")
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"{cfg.name}: heads ({cfg.num_heads}) and kv heads "
+            f"({cfg.num_kv_heads}) must divide the model axis ({tp}): a "
+            f"rank's query heads must be the groups of its kv heads")
+
+
+def _axes(entry):
+    return () if entry is None else shlib._as_axes(entry)
+
+
+class StateLayout:
+    """A train state's at-rest layout on a mesh: the full-rank spec of
+    every leaf (``train_state_logical_specs`` through ``specs_for``),
+    this rank's coordinates and the axes' process groups. ``mesh`` is a
+    named ``DeviceMesh``."""
+
+    def __init__(self, model, tcfg, mesh):
+        self.model, self.tcfg, self.mesh = model, tcfg, mesh
+        self.sizes = shlib.axis_sizes(mesh)
+        self.coords = shlib.mesh_coords(mesh)
+        self.groups = {a: mesh.get_group(a) for a in self.sizes}
+        self.device = torch.device(
+            "cuda", torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device("cpu")
+        self.abstract = abstract_train_state(model, tcfg)
+        self.logical = train_state_logical_specs(model, tcfg)
+        self.specs = shlib.partition_specs(self.abstract, self.logical,
+                                           mesh)
+        self.first = all(c == 0 for c in self.coords.values())
+
+    def leaf_specs(self) -> list:
+        """Every leaf's spec, in the state's ``tree_leaves`` order."""
+        return shlib.leaves_like(self.abstract, self.specs)
+
+    def _map(self, fn, tree, specs):
+        return tree_unflatten(tree, [
+            fn(x, s) for x, s in zip(tree_leaves(tree),
+                                     shlib.leaves_like(tree, specs))])
+
+    def local(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of the whole ``x``, in storage of its own
+        (even where it is all of ``x``: the optimizer updates it in
+        place)."""
+        return shlib.local_block(x, spec, self.sizes, self.coords).clone(
+            memory_format=torch.contiguous_format)
+
+    def shard(self, tree, specs):
+        """Every leaf's block on this rank."""
+        return self._map(self.local, tree, specs)
+
+    def whole(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """The whole leaf from every rank's block (a collective)."""
+        return shlib.whole_from_block(x, spec, self.groups)
+
+    def host_state(self, state):
+        """The whole state in host memory on rank 0, for a checkpoint (None
+        on the other ranks). Every rank gathers one leaf at a time."""
+        leaves = []
+        for x, spec in zip(tree_leaves(state), self.leaf_specs()):
+            w = self.whole(x, spec)
+            leaves.append(w.to("cpu", copy=True) if self.first else None)
+            del w
+        return tree_unflatten(state, leaves) if self.first else None
+
+    def restore(self, ckpt_dir: str, step=None):
+        """(state, step) from a whole checkpoint: each leaf read whole on
+        the host and sliced to this rank's block, on its device."""
+        specs = self.leaf_specs()
+
+        def place(whole, i):
+            return self.local(whole, specs[i]).to(self.device)
+        return ckpt_lib.restore(ckpt_dir, self.abstract, step, place=place)
+
+    def first_rank_float(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank of the mesh."""
+        for ax in (MODEL, DATA):
+            if ax in self.groups:
+                value = shlib.broadcast_float(value, self.groups[ax])
+        return value
+
+    def barrier(self) -> None:
+        """Every rank of the mesh has reached this point."""
+        z = torch.zeros(1, device=self.device)
+        for g in self.groups.values():
+            shlib.all_reduce_sum(z, g)
+
+
+class ShardedTrainer(StateLayout):
+    """The train step over ``ac``'s mesh (``make_ac``): state at rest per
+    the layout, the global batch in, this rank's rows computed.
+    ``dot``: the HAQ hook, taken at ``model`` = 1 only (at ``model`` > 1
+    the tensor-parallel sites take the hook)."""
+
+    def __init__(self, model, tcfg, ac, *, dot=None):
+        validate_train_mesh(model.cfg, ac.mesh, dot=dot)
+        super().__init__(model, tcfg, ac.mesh)
+        self.ac = ac
+        pa = self.abstract["params"]
+        self.param_specs = shlib.leaves_like(pa, self.specs["params"])
+        plans = shlib.gather_plans(pa, self.logical["params"],
+                                   self.specs["params"])
+        self.plans = tree_unflatten(pa, [
+            tuple([e for e in reversed(p) if e[1] != MODEL]
+                  + [e for e in p if e[1] == MODEL])
+            for p in shlib.leaves_like(pa, plans)])
+        tp = self.sizes.get(MODEL, 1)
+        self.dot = shlib.tp_dot(self.groups[MODEL], model.cfg) \
+            if tp > 1 else dot
+        # a leaf replicated over an axis counts in the norm on coordinate 0
+        self._owned = [all(self.coords[a] == 0 for a in self.sizes
+                           if a not in sum((_axes(e) for e in spec), ()))
+                       for spec in self.param_specs]
+        self._scale_split = self._check_moment_blocks()
+        self._step = run_train_step(tcfg, self.grads, self.update)
+
+    # ---------------------------------------------------------- checks --
+    def _check_moment_blocks(self) -> list:
+        """For quantized moments: each leaf's block (``moment_block_for``
+        of the whole shape) must divide its shard's last dim, so that the
+        shard's codes are the whole tensor's. Returns each leaf's last-dim
+        split (None where whole or not quantized)."""
+        if not self.tcfg.optim.quantized_moments:
+            return [None] * len(self.param_specs)
+        out = []
+        pa = self.abstract["params"]
+        for path, a, spec in zip(shlib.leaf_paths(pa), tree_leaves(pa),
+                                 self.param_specs):
+            shape = tuple(a.shape)
+            b = moment_block_for(shape, self.tcfg.optim.moment_block)
+            local = shlib.local_shape(shape, spec, self.sizes)
+            if local and local[-1] % b:
+                raise ValueError(
+                    f"quantized moments: leaf {'/'.join(map(str, path))} "
+                    f"{shape} has blocks of {b} along its last dim, which "
+                    f"do not divide its shard's {local[-1]} on this mesh "
+                    f"({spec})")
+            out.append(spec[-1] if spec and local[-1] != shape[-1] else None)
+        return out
+
+    # --------------------------------------------------------- the state --
+    def init_state(self, generator: torch.Generator):
+        """``init_train_state``'s state, split: the whole parameters drawn
+        from ``generator`` (the same draws on every rank), each rank
+        keeping its blocks before the optimizer state is made from them,
+        so no rank holds the whole optimizer state."""
+        params = self.shard(self.model.init(generator, self.device),
+                            self.specs["params"])
+        opt = adamw_init(params, self.tcfg.optim)
+        for i, mom in self._quantized(opt):
+            mom["scale"] = self._scale_at_rest(mom["scale"], i)
+        return {"params": params, "opt": opt}
+
+    def _quantized(self, opt):
+        """(leaf index, moment dict) of every quantized moment whose last
+        dim is split over ranks."""
+        pa = self.abstract["params"]
+        return [(i, mom) for name in ("m", "v")
+                for i, mom in enumerate(shlib.leaves_like(pa, opt[name]))
+                if self._scale_split[i] is not None]
+
+    def _scale_at_rest(self, cols: torch.Tensor, i: int) -> torch.Tensor:
+        """A scale over this rank's blocks of the last dim -> over all of
+        them, as it rests."""
+        spec = (None,) * (cols.dim() - 1) + (self._scale_split[i],)
+        return shlib.whole_from_block(cols, spec, self.groups)
+
+    def _own_cols(self, scale: torch.Tensor, i: int) -> torch.Tensor:
+        """The view of this rank's blocks in a scale at rest."""
+        spec = (None,) * (scale.dim() - 1) + (self._scale_split[i],)
+        return shlib.local_block(scale, spec, self.sizes, self.coords)
+
+    # ----------------------------------------------------------- the step --
+    def step(self, state: Dict[str, Any], batch: Dict[str, Any]):
+        """``train_step(state, global batch)``: this rank's rows of the
+        batch, then the step on them."""
+        B = batch["tokens"].shape[0]
+        dp = self.sizes.get(DATA, 1)
+        if dp > 1 and DATA not in _axes(self.ac.batch_axes(B)):
+            raise ValueError(f"a global batch of {B} rows does not split "
+                             f"over data={dp}")
+        return self._step(state, {k: self.ac(v, "batch")
+                                  for k, v in batch.items()})
+
+    def gather(self, tree, path):
+        """The model's ``gather`` hook: the subtree at ``path`` whole on
+        this rank, with a backward (the module docstring). A "blocks"
+        path holds one layer's views, whose plans count the stacked layer
+        dim."""
+        plans = self.plans
+        for key in path:
+            plans = plans[key]
+        shift = 1 if path[0] == "blocks" else 0
+
+        def run(x, plan):
+            for dim, ax in plan:
+                x = shlib.gather_shard(x, dim - shift, self.groups[ax],
+                                       reduce=ax != MODEL)
+            return x
+        return tree_unflatten(tree, [
+            run(x, p) for x, p in zip(tree_leaves(tree),
+                                      shlib.leaves_like(tree, plans))])
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The loss's hook: ``x`` summed over the ranks of ``data``."""
+        return shlib.sum_value(x, self.groups[DATA]) \
+            if DATA in self.groups else x
+
+    def grads(self, params, batch):
+        """(global mean loss, this rank's gradient blocks summed over
+        ``data``, each in its leaf's dtype) on this rank's rows."""
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = self.model.loss(params, batch, remat=self.tcfg.remat,
+                               dot=self.dot, gather=self.gather,
+                               data_sum=self.data_sum)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        dp = self.sizes.get(DATA, 1)
+        grads = [g if dp == 1 or any(DATA in _axes(e) for e in spec)
+                 else self.sum_over_data(g)
+                 for g, spec in zip(grads, self.param_specs)]
+        return loss.detach(), tree_unflatten(params, grads)
+
+    def sum_over_data(self, g: torch.Tensor) -> torch.Tensor:
+        """The gradient of a leaf not split over ``data`` summed over its
+        ranks (each computed it on its own rows), in the leaf's dtype."""
+        return shlib.all_reduce_sum(g, self.groups[DATA]).to(g.dtype)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The fp32 L2 norm of the whole gradient: this rank's sum of
+        squares over the leaves it counts (in leaf order, as
+        ``adamw.global_norm`` adds them), summed over the mesh."""
+        total = None
+        for g, owned in zip(tree_leaves(grads), self._owned):
+            if owned:
+                sq = torch.sum(torch.square(g.to(F32)))
+                total = sq if total is None else total + sq
+        if total is None:
+            total = torch.zeros((), dtype=F32, device=self.device)
+        for ax in (MODEL, DATA):
+            if ax in self.groups:
+                total = shlib.all_reduce_sum(total, self.groups[ax])
+        return torch.sqrt(total)
+
+    def update(self, grads, opt):
+        """``adamw_update`` on the shards, under the global norm. A
+        quantized moment split along its last dim is updated through a
+        view of its own scale blocks, which are then gathered back."""
+        view = opt
+        quantized = self._quantized(opt)
+        if quantized:
+            pa = self.abstract["params"]
+            own = {id(mom): self._own_cols(mom["scale"], i)
+                   for i, mom in quantized}
+
+            def viewed(tree):
+                return tree_unflatten(pa, [
+                    {"q": mom["q"], "scale": own.get(id(mom), mom["scale"])}
+                    for mom in shlib.leaves_like(pa, tree)])
+            view = {"master": opt["master"], "m": viewed(opt["m"]),
+                    "v": viewed(opt["v"]), "count": opt["count"]}
+        params, view, metrics = adamw_update(grads, view, self.tcfg.optim,
+                                             norm=self.global_norm)
+        opt["count"] = view["count"]
+        for i, mom in quantized:
+            mom["scale"].copy_(self._scale_at_rest(own[id(mom)], i))
+        return params, opt, metrics

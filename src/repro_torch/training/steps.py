@@ -1,11 +1,15 @@
 """Step builders (port of ``repro.training.steps``): the train step the
 trainer loop (training/loop.py) runs, the prefill step and the
-dense-cache serve step.
+dense-cache serve step, and the train state's shapes
+(``abstract_train_state``, meta tensors) and logical axes
+(``train_state_logical_specs``), from which distributed/sharding.py's
+rules place the state on a mesh.
 
-``dot`` is the HAQ quantized-matmul hook. Sequences of FLASH_MIN tokens
-or more attend through the flash kernel on CUDA tensors and its plain
-version on CPU ones (models/flash.py). The reference's ``abstract_train_state`` and ``train_state_logical_specs``
-serve its dry-run and sharding, which wait for ROADMAP items 10-11.
+``ac`` is the activation-layout hook (distributed/sharding.py::make_ac):
+given one, the step is the sharded trainer's (training/sharded.py) over
+its mesh. ``dot`` is the HAQ quantized-matmul hook. Sequences of
+FLASH_MIN tokens or more attend through the flash kernel on CUDA tensors
+and its plain version on CPU ones (models/flash.py).
 """
 from __future__ import annotations
 
@@ -14,21 +18,27 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
-from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.optim.adamw import (adamw_init, adamw_update,
+                                     moment_block_for,
+                                     opt_state_logical_specs)
 
 F32 = torch.float32
 
 
-def make_train_step(model, tcfg, *, dot=None) -> Callable:
+def make_train_step(model, tcfg, *, ac=None, dot=None) -> Callable:
     """``train_step(state, batch) -> (state, {"loss", "lr", "grad_norm"})``
     with ``state = {"params", "opt"}``. The loss and its gradients come
     from ``torch.autograd`` on the parameter leaves (each made to require
     grad for the call); with ``tcfg.microbatches = M > 1`` the batch is cut
     into M along its rows, the losses and the gradients (in fp32) summed
     and divided by M, as the reference's scan does. Then ``adamw_update``,
-    which updates the optimizer state in place."""
-    ocfg = tcfg.optim
-    M = tcfg.microbatches
+    which updates the optimizer state in place. With ``ac`` (a layout
+    from ``make_ac(mesh)``) the state is this rank's shards and the batch
+    the global one, of which the step takes this rank's rows
+    (training/sharded.py)."""
+    if ac is not None:
+        from repro_torch.training.sharded import ShardedTrainer
+        return ShardedTrainer(model, tcfg, ac, dot=dot).step
 
     def grad_fn(params, batch):
         leaves = tree_leaves(params)
@@ -39,6 +49,16 @@ def make_train_step(model, tcfg, *, dot=None) -> Callable:
         for p in leaves:
             p.requires_grad_(False)
         return loss.detach(), tree_unflatten(params, grads)
+
+    return run_train_step(tcfg, grad_fn, lambda grads, opt: adamw_update(
+        grads, opt, tcfg.optim))
+
+
+def run_train_step(tcfg, grad_fn, update) -> Callable:
+    """The step around ``grad_fn(params, batch) -> (loss, grads)`` and
+    ``update(grads, opt) -> (params, opt, metrics)``, microbatches
+    included (``make_train_step``)."""
+    M = tcfg.microbatches
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
@@ -61,7 +81,7 @@ def make_train_step(model, tcfg, *, dot=None) -> Callable:
             grads = tree_map(lambda g: g / M, grads)
         else:
             loss, grads = grad_fn(params, batch)
-        new_params, new_opt, metrics = adamw_update(grads, state["opt"], ocfg)
+        new_params, new_opt, metrics = update(grads, state["opt"])
         return {"params": new_params, "opt": new_opt}, {"loss": loss,
                                                         **metrics}
 
@@ -73,6 +93,41 @@ def init_train_state(model, tcfg, generator: torch.Generator, device):
     state."""
     params = model.init(generator, device)
     return {"params": params, "opt": adamw_init(params, tcfg.optim)}
+
+
+def abstract_train_state(model, tcfg):
+    """``init_train_state``'s tree as meta tensors (shapes and dtypes, no
+    storage): a quantized moment's codes int8 in the parameter's shape,
+    its scales fp32 over ``moment_block_for``'s blocks of the last
+    dimension."""
+    params = model.abstract_params()
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def moment(p):
+        shape = tuple(p.shape)
+        if tcfg.optim.quantized_moments:
+            b = moment_block_for(shape, tcfg.optim.moment_block)
+            nb = shape[-1] // b if shape else 1
+            return {"q": meta(shape, torch.int8),
+                    "scale": meta(shape[:-1] + (nb,), F32)}
+        return meta(shape, F32)
+
+    return {"params": params,
+            "opt": {"master": tree_map(lambda p: meta(p.shape, F32),
+                                       params),
+                    "m": tree_map(moment, params),
+                    "v": tree_map(moment, params),
+                    "count": meta((), torch.int32)}}
+
+
+def train_state_logical_specs(model, tcfg):
+    """Logical axes of the train state, leaf for leaf with
+    ``abstract_train_state``."""
+    pspecs = model.logical_specs()
+    return {"params": pspecs,
+            "opt": opt_state_logical_specs(pspecs, tcfg.optim)}
 
 
 def make_prefill_step(model, *, dot=None) -> Callable:

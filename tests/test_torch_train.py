@@ -329,6 +329,28 @@ def test_tiny_gemma_bf16_grads_match_reference(S, B):
         assert _rel_l2(a, b) <= GRAD_TOL["bf16"], path
 
 
+def test_embedding_lookup_gradient_is_the_references_bf16_sum():
+    """The gradient a bf16 table gets from a lookup that repeats one row
+    1806 times (token 2's count in tiny gemma2-2b's first S 2048 x B 2
+    batch): the reference's transpose of the gather and the port's
+    autograd both add the rows in bf16, to the same bits, and both fall
+    short of the fp32 sum (scripts/microbatch_grad_gap.py shows this sum
+    carries the gap between a whole-batch and a microbatched bf16
+    gradient)."""
+    rng = np.random.default_rng(0)
+    rows = (rng.standard_normal((1806, 4)) * 0.01 + 0.003).astype(np.float32)
+    idx = np.zeros(1806, np.int32)
+    jg = jax.grad(lambda t: jnp.sum(t[idx].astype(jnp.float32) * rows))(
+        jnp.zeros((2, 4), jnp.bfloat16))
+    table = torch.zeros(2, 4, dtype=torch.bfloat16, requires_grad=True)
+    torch.sum(table[torch.from_numpy(idx).long()].float()
+              * torch.from_numpy(rows)).backward()
+    got = table.grad.float().numpy()
+    np.testing.assert_array_equal(got, np.asarray(jg, np.float32))
+    exact = rows.sum(0)
+    assert np.linalg.norm(got[0] - exact) > 0.05 * np.linalg.norm(exact)
+
+
 def test_tiny_gemma_grads_at_reference_init():
     """The reference's own initialisation (saturated attention): fp32
     gradients within 1e-3 per leaf."""

@@ -1,0 +1,856 @@
+"""The port's sharded training (training/sharded.py, the specs of
+training/steps.py, optim/adamw.py and models/api.py, ``make_ac``,
+``reshard_state``, ``train(mesh=)``) on the CPU.
+
+Held against the reference's pure functions, spec for spec, for every
+config of the registry at full and tiny shapes: ``abstract_train_state``
+(shapes and dtypes), ``train_state_logical_specs`` and
+``opt_state_logical_specs`` in both moment modes, ``input_specs`` and
+``batch_logical_specs`` at train, prefill and decode shapes, both
+``cache_axes``, and ``specs_for`` of the state and the inputs on six
+meshes. Held against the reference's jitted ``make_train_step`` and
+against the port's one-device step: tiny gemma2-2b trained in gloo worlds
+at data=2, model=2 and data=2 x model=2 (world 4), tiny granite-moe at
+model=2, and tiny gemma2-2b at data=3, where no leaf splits over data (d
+128), so that every gradient takes the post-backward sum over data and
+every leaf counts in the norm on one data rank; three steps each from the
+reference's state carried across (models/convert.py::from_jax_state).
+
+Tolerances, and why:
+  * fp32 (``fp32`` cases): every run's parameters are set to its fp32
+    master after each update, in the reference's run too, so all three
+    steps run in fp32 and the runs differ only in summation order. The
+    reference's initialisation saturates the tiny models' attention, so
+    wq and wk are scaled by 1/8 in every run (tests/test_torch_train.py).
+    Losses and grad norms within 1e-6 relative (measured: 3.1e-7 against
+    the reference, 8.6e-8 against the one-device port); the first step's
+    gradients, before the update, within 1e-5 of each leaf's max |g|
+    (measured 1.2e-6 and 7.5e-7); masters after every step within 2 lr
+    everywhere and within 1e-3 lr on 99.9% of elements (Adam's first step
+    is lr * g / (|g| + eps), so an element whose gradient sits at rounding
+    noise may move up to 2 lr the other way; measured 0.026 lr at most,
+    7e-5 of elements past 1e-3 lr).
+  * bf16 (``bf16`` cases, the trainer as ``train`` runs it): bf16
+    parameters from the port's initialisation, wq and wk scaled as above,
+    bf16 again after each update. Gradients are bf16 sums: split over
+    ranks, each rank's share is rounded to bf16 before the fp32 sum,
+    which is what the one-device step does with the batch cut into as
+    many microbatches. So each run is held to the one-device run with the
+    rows cut as its mesh cuts them (microbatches = the data size): losses
+    within 2**-10 relative, grad norms within 2**-7, masters within Adam's
+    bound, 2 lr a step (|m_hat / sqrt(v_hat)| <= 1 at these betas), and
+    after the first step, whose weights are equal, within 1e-3 lr on 95%
+    of elements (measured over the three steps and meshes: losses within
+    1.2e-4, grad norms within 5.5e-4, 1.1% of masters past after the first
+    step; 6e-6 at data=2 alone, where only the batch splits; model=2's
+    input all-reduce rounds partial sums of its own). A mesh that splits
+    the batch is held to the plain one-device run too, within those rules
+    or twice the distance of the microbatched run from it (the control:
+    what the split of a bf16 sum moves by itself). At the
+    initialisation's saturated attention the same rounding moves a later
+    step's grad norm by up to 74% (a bf16 ulp of a weight flips the
+    softmax), so the scaling is what lets the steps be compared.
+    chip_smoke.py's phase 18(b, c) holds full-width and tiny gemma2-2b
+    on the card to these rules.
+  * int8 moments (``quant``): one step under the fp32 rules, its moment
+    codes within one code on 99.9% of elements. Later steps would not
+    compare elementwise: where one run's v code rounds to 0 and the
+    other's to 1, the reference's quantizer moves that element by up to
+    lr |m_hat| / eps.
+  * Controls: the model=2 step without the input-side all-reduce of the
+    tensor-parallel pair, and the data=2 and data=3 steps with the other
+    data ranks' gradients dropped (from the reduce-scatter and from the
+    post-backward sum), must miss the gradient tolerance.
+  * Checkpoints, ``reshard_state`` and the world of one: bit for bit.
+
+Each gloo world is spawned once (a module fixture) and returns all of its
+cases. Workers run one intra-op thread, as does this process.
+"""
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import SHAPES as J_SHAPES  # noqa: E402
+from repro.configs import get_config as j_get  # noqa: E402
+from repro.configs import tiny_config as j_tiny  # noqa: E402
+from repro.configs.base import OptimConfig as JOptim  # noqa: E402
+from repro.configs.base import ShapeConfig as JShape  # noqa: E402
+from repro.configs.base import TrainConfig as JTrain  # noqa: E402
+from repro.data import pipeline as jdp  # noqa: E402
+from repro.distributed import sharding as j_sh  # noqa: E402
+from repro.models import encdec as j_ed  # noqa: E402
+from repro.models import transformer as j_tr  # noqa: E402
+from repro.models.api import build_model as j_build  # noqa: E402
+from repro.optim import adamw as jadam  # noqa: E402
+from repro.training import steps as jsteps  # noqa: E402
+from repro_torch.checkpoint.ckpt import restore  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs import (OptimConfig, ShapeConfig,  # noqa: E402
+                                 TrainConfig)
+from repro_torch.configs import get_config as t_get  # noqa: E402
+from repro_torch.configs import tiny_config as t_tiny  # noqa: E402
+from repro_torch.data import pipeline as tdp  # noqa: E402
+from repro_torch.distributed import sharding as shlib  # noqa: E402
+from repro_torch.launch.mesh import spawn  # noqa: E402
+from repro_torch.models import encdec as t_ed  # noqa: E402
+from repro_torch.models import transformer as t_tr  # noqa: E402
+from repro_torch.models.api import build_model as t_build  # noqa: E402
+from repro_torch.models.convert import DTYPES, from_jax_state  # noqa: E402
+from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import adamw as tadam  # noqa: E402
+from repro_torch.training import sharded as tsh  # noqa: E402
+from repro_torch.training import steps as tsteps  # noqa: E402
+from repro_torch.training.loop import train  # noqa: E402
+
+torch.set_num_threads(1)
+
+# (data, model) and the pod mesh, as the rules read them
+MESHES = [{"data": 1, "model": 1}, {"data": 2, "model": 1},
+          {"data": 1, "model": 2}, {"data": 2, "model": 2},
+          {"data": 16, "model": 16}, {"pod": 2, "data": 16, "model": 16}]
+WORLD_S = 120.0
+STEPS = 3
+SHAPE = ShapeConfig("t", 64, 4, "train")
+# data=3: tiny gemma2-2b's d 128 does not divide by 3, so no leaf splits
+# over data and every gradient takes the post-backward sum over data
+SHAPE3 = ShapeConfig("t", 64, 6, "train")
+QK_SCALE = 0.125
+LR = 1e-3
+LOSS_RTOL = 1e-6
+GRAD_TOL = 1e-5
+BF16_LOSS_RTOL = 2.0 ** -10
+BF16_NORM_RTOL = 2.0 ** -7
+
+
+class FakeMesh:
+    """A mesh as the rules read it: only its axis sizes."""
+
+    def __init__(self, **axes):
+        self.shape = axes
+
+
+# ------------------------------------------------------------ pure specs --
+def _ref_leaves(abstract, logical):
+    """(shape, dtype name, logical axes) of each reference leaf."""
+    flat, tdef = jax.tree.flatten(abstract)
+    logi = tdef.flatten_up_to(logical)
+    return [(tuple(a.shape), jnp.dtype(a.dtype).name,
+             None if l is None else tuple(l)) for a, l in zip(flat, logi)]
+
+
+def _port_leaves(abstract, logical):
+    names = {v: k for k, v in DTYPES.items()}
+    return [(tuple(a.shape), names[a.dtype], None if l is None else tuple(l))
+            for a, l in zip(tree_leaves(abstract),
+                            shlib.leaves_like(abstract, logical))]
+
+
+def _ref_choose(leaves, sizes):
+    return [tuple(j_sh.choose_spec(s, l or (None,) * len(s),
+                                   FakeMesh(**sizes))) for s, _, l in leaves]
+
+
+def _port_specs(abstract, logical, sizes):
+    return shlib.leaves_like(abstract,
+                             shlib.specs_for(abstract, logical, sizes))
+
+
+def _cfgs(arch, size):
+    return (j_get(arch), t_get(arch)) if size == "full" \
+        else (j_tiny(arch), t_tiny(arch))
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("size", ["full", "tiny"])
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_train_state_specs_match_reference(arch, size, quantized):
+    """abstract_train_state (shapes, dtypes), train_state_logical_specs,
+    opt_state_logical_specs and specs_for of the state on six meshes."""
+    jcfg, tcfg = _cfgs(arch, size)
+    jm, tm = j_build(jcfg), t_build(tcfg)
+    jt = JTrain(optim=JOptim(quantized_moments=quantized))
+    tt = TrainConfig(optim=OptimConfig(quantized_moments=quantized))
+    want = _ref_leaves(jsteps.abstract_train_state(jm, jt),
+                       jsteps.train_state_logical_specs(jm, jt))
+    abstract = tsteps.abstract_train_state(tm, tt)
+    logical = tsteps.train_state_logical_specs(tm, tt)
+    assert all(a.device.type == "meta" for a in tree_leaves(abstract))
+    assert _port_leaves(abstract, logical) == want
+    jo = jadam.opt_state_logical_specs(jm.logical_specs(), jt.optim)
+    to = tadam.opt_state_logical_specs(tm.logical_specs(), tt.optim)
+    assert _port_leaves(abstract["opt"], to) == _ref_leaves(
+        jsteps.abstract_train_state(jm, jt)["opt"], jo)
+    for sizes in MESHES:
+        assert _port_specs(abstract, logical, sizes) == \
+            _ref_choose(want, sizes), sizes
+    assert shlib.scalar_sharding(MESHES[3]) == \
+        tuple(j_sh.choose_spec((), (), FakeMesh(**MESHES[3])))
+
+
+def _shapes(size):
+    if size == "full":
+        return {k: (J_SHAPES[n], ShapeConfig(n, J_SHAPES[n].seq_len,
+                                              J_SHAPES[n].global_batch, k))
+                for k, n in (("train", "train_4k"),
+                             ("prefill", "prefill_32k"),
+                             ("decode", "decode_32k"))}
+    return {k: (JShape("t", 64, 4, k), ShapeConfig("t", 64, 4, k))
+            for k in ("train", "prefill", "decode")}
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("size", ["full", "tiny"])
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_input_specs_match_reference(arch, size, kind):
+    """input_specs (shapes, dtypes, keys), batch_logical_specs and
+    specs_for of the inputs on six meshes."""
+    jcfg, tcfg = _cfgs(arch, size)
+    jm, tm = j_build(jcfg), t_build(tcfg)
+    jshape, tshape = _shapes(size)[kind]
+    jin, tin = jm.input_specs(jshape), tm.input_specs(tshape)
+    jax_ = jm.batch_logical_specs(jshape)
+    assert tm.batch_logical_specs(tshape) == jax_
+    assert sorted(tin) == sorted(jin)
+    want = _ref_leaves(jin, jax_)
+    got = _port_leaves(tin, tm.batch_logical_specs(tshape))
+    assert got == want
+    for sizes in MESHES:
+        assert _port_specs(tin, tm.batch_logical_specs(tshape), sizes) == \
+            _ref_choose(want, sizes), sizes
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_cache_axes_match_reference(arch):
+    for jcfg, tcfg in (_cfgs(arch, "full"), _cfgs(arch, "tiny")):
+        if jcfg.is_encdec:
+            assert t_ed.cache_axes(tcfg) == j_ed.cache_axes(jcfg)
+        assert t_tr.cache_axes(tcfg) == j_tr.cache_axes(jcfg)
+
+
+# ---------------------------------------------------------------- make_ac --
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 8, 64])
+@pytest.mark.parametrize("sizes", MESHES, ids=lambda s: "x".join(
+    f"{k}{v}" for k, v in s.items()))
+def test_make_ac_rows_are_the_batch_spec(sizes, B):
+    """The rows make_ac gives a rank are the batch dim's split under the
+    reference's rule (choose_spec on ("batch",)), block by coordinate."""
+    ac = shlib.make_ac(sizes)
+    want = tuple(j_sh.choose_spec((B,), ("batch",), FakeMesh(**sizes)))
+    assert ((ac.batch_axes(B),) if ac.batch_axes(B) else ()) == want
+    x = torch.arange(B * 3).reshape(B, 3)
+    axes = shlib._as_axes(want[0]) if want else ()
+    n = math.prod(sizes[a] for a in axes)
+    for j in range(n):
+        ac.coords = {a: 0 for a in sizes}
+        rest = j                    # block j: the split axes major to minor
+        for a in reversed(axes):
+            ac.coords[a] = rest % sizes[a]
+            rest //= sizes[a]
+        assert torch.equal(ac(x, "batch"), x[j * (B // n):(j + 1) * (B // n)])
+
+
+def test_make_ac_modes_and_kinds():
+    ac = shlib.make_ac({"data": 2, "model": 2})
+    x = torch.zeros(4, 8, 16)
+    for kind in ("resid", "decode_q", "decode_kv", "decode_scores",
+                 "moe_buf"):
+        assert ac(x, kind) is x
+    with pytest.raises(NotImplementedError, match="item 11f"):
+        shlib.make_ac({"data": 2, "model": 2}, mode="seq_tp")
+    with pytest.raises(ValueError, match="mode"):
+        shlib.make_ac({"data": 2}, mode="tp")
+
+
+@pytest.mark.parametrize("B,ok", [(4, True), (2, True), (1, False)])
+def test_train_refuses_a_batch_it_cannot_split(B, ok):
+    """At data=2 the batch's rows split as make_ac splits them; a batch of
+    one row would split its sequence (the reference's batch spec gives
+    seq the data axis), which is make_ac's seq_tp. in_shardings may only
+    be the rules' own layout."""
+    from repro_torch.training.loop import _check_layout
+    model = t_build(t_tiny("gemma2-2b"))
+    tcfg = _tcfg()
+    shape = ShapeConfig("t", 64, B, "train")
+    ac = shlib.make_ac({"data": 2, "model": 1})
+    if not ok:
+        with pytest.raises(NotImplementedError, match="item 11f"):
+            _check_layout(model, tcfg, shape, ac, None)
+        return
+    _check_layout(model, tcfg, shape, ac, None)
+    rules = (shlib.specs_for(tsteps.abstract_train_state(model, tcfg),
+                             tsteps.train_state_logical_specs(model, tcfg),
+                             ac.mesh),
+             shlib.specs_for(model.input_specs(shape),
+                             model.batch_logical_specs(shape), ac.mesh))
+    _check_layout(model, tcfg, shape, ac, rules)
+    other = dict(rules[1], tokens=(None, "data"))
+    with pytest.raises(NotImplementedError, match="rules' own"):
+        _check_layout(model, tcfg, shape, ac, (rules[0], other))
+
+
+REFUSALS = [("mamba2-370m", dict(data=2, model=1), None, "item 11d"),
+            ("zamba2-1.2b", dict(data=1, model=2), None, "item 11d"),
+            ("whisper-large-v3", dict(data=2, model=1), None, "item 11d"),
+            ("llava-next-mistral-7b", dict(data=1, model=2), None,
+             "item 11d"),
+            ("granite-moe-3b-a800m", dict(data=2, model=1), None,
+             "item 11e"),
+            ("gemma2-2b", dict(data=1, model=2), "dot", "item 11g"),
+            ("gemma2-2b", dict(data=1, model=16), None, "must divide"),
+            ("gemma2-2b", dict(pod=2, data=1), None, "data/model")]
+ACCEPTED = [("gemma2-2b", dict(data=2, model=2), None),
+            ("gemma2-2b", dict(data=16, model=4), None),
+            ("gemma2-2b", dict(data=2, model=1), "dot"),
+            ("granite-moe-3b-a800m", dict(data=1, model=2), None),
+            ("mamba2-370m", dict(data=1, model=1), None),
+            ("whisper-large-v3", dict(data=1, model=1), "dot")]
+
+
+@pytest.mark.parametrize("arch,sizes,dot,match", REFUSALS,
+                         ids=[f"{a}-{'-'.join(f'{k}{v}' for k, v in s.items())}"
+                              f"{'-dot' if d else ''}"
+                              for a, s, d, _ in REFUSALS])
+def test_validate_train_mesh_refuses(arch, sizes, dot, match):
+    with pytest.raises((NotImplementedError, ValueError), match=match):
+        tsh.validate_train_mesh(t_get(arch), sizes,
+                                dot=(lambda a, w, n: a @ w) if dot else None)
+
+
+@pytest.mark.parametrize("arch,sizes,dot", ACCEPTED)
+def test_validate_train_mesh_accepts(arch, sizes, dot):
+    tsh.validate_train_mesh(t_get(arch), sizes,
+                            dot=(lambda a, w, n: a @ w) if dot else None)
+
+
+# ------------------------------------------------------ runs on one device --
+def _tcfg(**kw):
+    optim = OptimConfig(lr=LR, warmup_steps=1, total_steps=10,
+                        quantized_moments=kw.pop("quantized", False),
+                        moment_block=kw.pop("block", 128))
+    return TrainConfig(optim=optim, checkpoint_every=kw.pop("every", 0),
+                       log_every=1, **kw)
+
+
+def _scaled_qk(params):
+    out = jax.tree.map(lambda a: a, params)
+    for sub in out["blocks"].values():
+        for n in ("wq", "wk"):
+            a = sub["attn"][n]
+            sub["attn"][n] = (a.astype(jnp.float32) * QK_SCALE).astype(
+                a.dtype)
+    return out
+
+
+def _ref_state(arch, quantized=False):
+    """The reference's initial state (PRNGKey(0), wq and wk scaled, fp32)
+    as numpy, and its config."""
+    jm = j_build(j_tiny(arch))
+    p = jax.tree.map(lambda a: a.astype(jnp.float32),
+                     _scaled_qk(jm.init(jax.random.PRNGKey(0))))
+    jo = JOptim(lr=LR, warmup_steps=1, total_steps=10,
+                quantized_moments=quantized)
+    return jax.tree.map(np.asarray, {"params": p,
+                                     "opt": jadam.adamw_init(p, jo)}), jo
+
+
+def _reference_run(arch, shape=SHAPE):
+    """The reference's jitted make_train_step, STEPS steps in fp32 (the
+    parameters set to the master after each), and its first step's
+    gradients."""
+    jm = j_build(j_tiny(arch))
+    np_state, jo = _ref_state(arch)
+    state = jax.tree.map(jnp.asarray, np_state)
+    step = jax.jit(jsteps.make_train_step(jm, JTrain(optim=jo)))
+    b0 = jdp.batch_for_model(jm, shape, None, 0)
+    _, g = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss(p, b0, remat=True)))(state["params"])
+    out = {"grads": [np.asarray(x, np.float32) for x in jax.tree.leaves(g)],
+           "steps": []}
+    for k in range(STEPS):
+        state, met = step(state, jdp.batch_for_model(jm, shape, None, k))
+        state = {"params": state["opt"]["master"], "opt": state["opt"]}
+        out["steps"].append(({n: float(v) for n, v in met.items()}, [
+            np.asarray(x, np.float32)
+            for x in jax.tree.leaves(state["opt"]["master"])]))
+    return out
+
+
+def _port_grads(model, params, batch):
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = model.loss(params, batch, remat=True)
+    g = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return [x.float().numpy() for x in g]
+
+
+def _run_steps(step_fn, state, fp32, batch_of, whole_of=lambda s: s,
+               steps=STEPS):
+    """``steps`` steps; each: (metrics, the whole state's masters
+    (numpy)); and the whole state's moments after the first step."""
+    out, first = [], None
+    for k in range(steps):
+        state, met = step_fn(state, batch_of(k))
+        if fp32:
+            state["params"] = tree_map(lambda a: a.clone(),
+                                       state["opt"]["master"])
+        whole = whole_of(state)
+        out.append(({n: float(v) for n, v in met.items()},
+                    None if whole is None else [
+                        x.float().clone().numpy()
+                        for x in tree_leaves(whole["opt"]["master"])]))
+        if k == 0 and whole is not None:
+            first = [x.clone().numpy() for x in tree_leaves(
+                {"m": whole["opt"]["m"], "v": whole["opt"]["v"]})]
+    return out, first
+
+
+def _one_device(arch, case, microbatches=1, shape=SHAPE):
+    """The port's one-device run of a case (see ``_case``), the batch cut
+    into ``microbatches``."""
+    model = t_build(t_tiny(arch))
+    tcfg, state, fp32 = _case_setup(model, case)
+    tcfg = dataclasses.replace(tcfg, microbatches=microbatches)
+    b0 = tdp.batch_for_model(model, shape, None, 0, full=True)
+    grads = _port_grads(model, state["params"], b0)
+    steps, first = _run_steps(
+        tsteps.make_train_step(model, tcfg), state, fp32,
+        lambda k: tdp.batch_for_model(model, shape, None, k, full=True),
+        steps=1 if case == "quant" else STEPS)
+    return {"grads": grads, "steps": steps, "moments": first}
+
+
+def _case_setup(model, case):
+    """(train config, whole initial state, fp32 mode) of a case: "fp32"
+    and "quant" from the reference's state, "bf16" from the port's
+    initialisation."""
+    arch = model.cfg.name[:-len("-tiny")]
+    quantized = case == "quant"
+    tcfg = _tcfg(quantized=quantized)
+    if case == "bf16":
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        for sub in params["blocks"].values():
+            for n in ("wq", "wk"):
+                sub["attn"][n] = (sub["attn"][n].float() * QK_SCALE).to(
+                    sub["attn"][n].dtype)
+        return tcfg, {"params": params,
+                      "opt": tadam.adamw_init(params, tcfg.optim)}, False
+    np_state, _ = _ref_state(arch, quantized)
+    return tcfg, from_jax_state(np_state), True
+
+
+# ------------------------------------------------------------ the worlds --
+def _case(trainer_of, model, case, rank, shape=SHAPE):
+    """A case through the sharded trainer: the first step's gradients
+    (whole) and STEPS steps' metrics and masters (whole, rank 0)."""
+    tcfg, state, fp32 = _case_setup(model, case)
+    tr = trainer_of(tcfg)
+    st = tr.shard(state, tr.specs)
+    shapes_ok = all(tuple(x.shape) == shlib.local_shape(
+        tuple(a.shape), s, tr.sizes) for x, a, s in zip(
+        tree_leaves(st), tree_leaves(tr.abstract), tr.leaf_specs()))
+    b0 = tdp.batch_for_model(model, shape, None, 0, full=True)
+    _, g = tr.grads(st["params"], {k: tr.ac(v, "batch")
+                                   for k, v in b0.items()})
+    grads = [tr.whole(x, s).float().numpy()
+             for x, s in zip(tree_leaves(g), tr.param_specs)]
+    rest = sum(x.numel() * x.element_size() for x in tree_leaves(st))
+    steps, first = _run_steps(
+        tr.step, st, fp32,
+        lambda k: tdp.batch_for_model(model, shape, None, k, full=True),
+        tr.host_state, steps=1 if case == "quant" else STEPS)
+    return {"grads": grads, "steps": steps if rank == 0 else None,
+            "moments": first, "shapes_ok": shapes_ok, "bytes": rest,
+            "data_split": [any("data" in (e if isinstance(e, tuple) else (e,))
+                               for e in s if e is not None)
+                           for s in tr.param_specs]}
+
+
+def _control(trainer_of, model, name, rank, shape=SHAPE):
+    """The fp32 case's first gradients with one collective taken out:
+    "no_tp" (the input-side all-reduce of the tensor-parallel pair) or
+    "drop" (the other data ranks' gradients dropped: from the
+    reduce-scatter of a leaf split over data, and from the post-backward
+    sum of one that is not)."""
+    saved = shlib.sum_grad, shlib.reduce_scatter_dim
+    make = trainer_of
+    if name == "no_tp":
+        shlib.sum_grad = lambda x, group: x
+    else:
+        def own_only(x, dim, group):
+            n = x.shape[dim] // torch.distributed.get_world_size(group)
+            me = torch.distributed.get_rank(group)
+            return x.narrow(dim, me * n, n).float()
+        shlib.reduce_scatter_dim = own_only
+
+        def make(tcfg):
+            tr = trainer_of(tcfg)
+            tr.sum_over_data = lambda g: g
+            return tr
+    try:
+        return _case(make, model, "fp32", rank, shape)["grads"]
+    finally:
+        shlib.sum_grad, shlib.reduce_scatter_dim = saved
+
+
+def _ckpt_cases(mesh, model, ckpt_dir):
+    """6 steps in one run against 3, a checkpoint, a restore on the same
+    mesh and 3 more; the state after step 2 (whole, rank 0)."""
+    quiet = dict(mesh=mesh, log=lambda r: None)
+    whole = train(model, SHAPE, _tcfg(checkpoint_dir=f"{ckpt_dir}/a"),
+                  num_steps=6, **quiet)
+    first = train(model, SHAPE, _tcfg(checkpoint_dir=f"{ckpt_dir}/b",
+                                      every=3), num_steps=3, **quiet)
+    layout = tsh.StateLayout(model, _tcfg(), mesh)
+    at2 = layout.host_state(first["state"])
+    rest = train(model, SHAPE, _tcfg(checkpoint_dir=f"{ckpt_dir}/b",
+                                     every=3), num_steps=6, **quiet)
+    same = [torch.equal(a, b) for a, b in zip(
+        tree_leaves(layout.host_state(whole["state"]) or {}),
+        tree_leaves(layout.host_state(rest["state"]) or {}))]
+    return {"losses": [r["loss"] for r in whole["history"]][3:],
+            "resumed": [r["loss"] for r in rest["history"]],
+            "steps": [r["step"] for r in rest["history"]],
+            "same": same, "at2": at2}
+
+
+def _world1(model, ckpt_dir):
+    """train(mesh=<a world of one>) against train(), both on rank 0."""
+    from repro_torch.launch.mesh import make_sub_mesh
+    sub = make_sub_mesh(1, 1, device_type="cpu")
+    if sub is None:
+        return None
+    quiet = dict(log=lambda r: None, num_steps=STEPS)
+    tcfg = _tcfg(checkpoint_dir=f"{ckpt_dir}/none")
+    a = train(model, SHAPE, tcfg, mesh=sub, **quiet)
+    b = train(model, SHAPE, tcfg, device="cpu", **quiet)
+    return {"hist": [(r["loss"], r["grad_norm"]) for r in a["history"]],
+            "want": [(r["loss"], r["grad_norm"]) for r in b["history"]],
+            "same": [torch.equal(x, y) for x, y in zip(
+                tree_leaves(a["state"]), tree_leaves(b["state"]))]}
+
+
+def _reshard(mesh, model, ckpt_dir):
+    """model=2 -> data=2 -> one device: every leaf, at each stage, the
+    block of the whole state that the new mesh gives this rank."""
+    from repro_torch.distributed.fault_tolerance import reshard_state
+    from repro_torch.launch.mesh import make_serving_mesh, make_sub_mesh
+    tcfg = _tcfg(checkpoint_dir=f"{ckpt_dir}/none")
+    out = train(model, SHAPE, tcfg, mesh=mesh, num_steps=2,
+                log=lambda r: None)
+    old = tsh.StateLayout(model, tcfg, mesh)
+    whole = [old.whole(x, s) for x, s in zip(tree_leaves(out["state"]),
+                                             old.leaf_specs())]
+    data2 = make_serving_mesh(model=1, data=2, device_type="cpu")
+    new = tsh.StateLayout(model, tcfg, data2)
+    st = reshard_state(out["state"], model, tcfg, data2, old_mesh=mesh)
+    at_data2 = [torch.equal(x, shlib.local_block(w, s, new.sizes,
+                                                 new.coords))
+                for x, w, s in zip(tree_leaves(st), whole,
+                                   new.leaf_specs())]
+    one = make_sub_mesh(1, 1, device_type="cpu")
+    st1 = reshard_state(st, model, tcfg, one, old_mesh=data2, donate=True)
+    at_one = None if st1 is None else [
+        torch.equal(x, w) for x, w in zip(tree_leaves(st1), whole)]
+    return {"data2": at_data2, "one": at_one,
+            "donated": all(x is None for x in tree_leaves(st))}
+
+
+def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE):
+    """A rank of a test world: the ("data", "model") mesh and every case
+    in ``cases`` (the training cases at ``shape``)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh(model=tp, data=data, device_type="cpu",
+                             backend="gloo")
+    ac = shlib.make_ac(mesh)
+    out = {}
+    for case in cases:
+        arch = "granite-moe-3b-a800m" if case == "moe" else "gemma2-2b"
+        model = t_build(t_tiny(arch))
+
+        def trainer_of(tcfg, model=model):
+            return tsh.ShardedTrainer(model, tcfg, ac)
+        if case in ("fp32", "bf16", "quant"):
+            out[case] = _case(trainer_of, model, case, rank, shape)
+        elif case == "moe":
+            out[case] = _case(trainer_of, model, "fp32", rank)
+        elif case in ("no_tp", "drop"):
+            out[case] = _control(trainer_of, model, case, rank, shape)
+        elif case == "quant_refused":
+            try:
+                trainer_of(_tcfg(quantized=True, block=256))
+                out[case] = None
+            except ValueError as e:
+                out[case] = str(e)
+        elif case == "ckpt":
+            out[case] = _ckpt_cases(mesh, model, ckpt_dir)
+        elif case == "world1":
+            out[case] = _world1(model, ckpt_dir)
+        elif case == "restore":
+            layout = tsh.StateLayout(model, _tcfg(), mesh)
+            st, step = layout.restore(f"{ckpt_dir}/b", 2)
+            out[case] = layout.host_state(st)
+        elif case == "reshard":
+            out[case] = _reshard(mesh, model, ckpt_dir)
+    return out
+
+
+@pytest.fixture(scope="module")
+def ckpt_root(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("ckpt"))
+
+
+@pytest.fixture(scope="module")
+def world_data2(ckpt_root):
+    return spawn(_world, 2, backend="gloo", timeout_s=WORLD_S,
+                 args=(2, 1, ("fp32", "bf16", "drop", "ckpt", "world1"),
+                       ckpt_root))
+
+
+@pytest.fixture(scope="module")
+def world_model2(ckpt_root, world_data2):
+    return spawn(_world, 2, backend="gloo", timeout_s=WORLD_S,
+                 args=(1, 2, ("fp32", "bf16", "moe", "quant", "no_tp",
+                              "quant_refused", "restore", "reshard"),
+                       ckpt_root))
+
+
+@pytest.fixture(scope="module")
+def world4():
+    return spawn(_world, 4, backend="gloo", timeout_s=WORLD_S,
+                 args=(2, 2, ("fp32", "bf16"), ""))
+
+
+@pytest.fixture(scope="module")
+def world_data3():
+    return spawn(_world, 3, backend="gloo", timeout_s=WORLD_S,
+                 args=(3, 1, ("fp32", "drop"), "", SHAPE3))
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return {arch: _reference_run(arch)
+            for arch in ("gemma2-2b", "granite-moe-3b-a800m")}
+
+
+@pytest.fixture(scope="module")
+def one_device():
+    return {("gemma2-2b", c): _one_device("gemma2-2b", c)
+            for c in ("fp32", "bf16", "quant")} | {
+        ("granite-moe-3b-a800m", "fp32"): _one_device(
+            "granite-moe-3b-a800m", "fp32"),
+        ("gemma2-2b", "bf16", 2): _one_device("gemma2-2b", "bf16", 2)}
+
+
+@pytest.fixture(scope="module")
+def at_shape3():
+    """The reference's and the one-device port's fp32 runs at SHAPE3."""
+    return {"reference": _reference_run("gemma2-2b", SHAPE3),
+            "one_device": _one_device("gemma2-2b", "fp32", shape=SHAPE3)}
+
+
+def _grad_err(want, got):
+    return max(float(np.abs(w - g).max() / max(np.abs(w).max(), 1e-30))
+               for w, g in zip(want, got))
+
+
+def _check_fp32(got, want, steps=STEPS):
+    """The fp32 rules of the module docstring, step by step."""
+    assert _grad_err(want["grads"], got["grads"]) <= GRAD_TOL
+    for (gm, gmast), (wm, wmast) in zip(got["steps"][:steps],
+                                        want["steps"][:steps]):
+        for k in ("loss", "grad_norm"):
+            assert abs(gm[k] - wm[k]) <= LOSS_RTOL * abs(wm[k]), k
+        d = np.concatenate([np.abs(a - b).ravel()
+                            for a, b in zip(gmast, wmast)])
+        assert d.max() <= 2 * LR * (1 + 1e-3)
+        assert np.mean(d > 1e-3 * LR) <= 1e-3
+
+
+def _distances(got, want):
+    """Per step: (loss rel, grad norm rel, masters' max |diff|, share of
+    masters past 1e-3 lr)."""
+    out = []
+    for (gm, gmast), (wm, wmast) in zip(got["steps"], want["steps"]):
+        d = np.concatenate([np.abs(a - b).ravel()
+                            for a, b in zip(gmast, wmast)])
+        out.append((abs(gm["loss"] - wm["loss"]) / wm["loss"],
+                    abs(gm["grad_norm"] - wm["grad_norm"]) / wm["grad_norm"],
+                    d.max(), np.mean(d > 1e-3 * LR)))
+    return out
+
+
+def _check_bf16(got, want, control=None):
+    """The bf16 rules; with ``control``, each distance may also reach twice
+    the control's distance from ``want``."""
+    ctrl = _distances(control, want) if control else [(0.0,) * 4] * STEPS
+    lr_sum = 0.0
+    for k, ((el, en, dmax, frac), (cl, cn, _, cf)) in enumerate(zip(
+            _distances(got, want), ctrl)):
+        assert el <= max(BF16_LOSS_RTOL, 2 * cl)
+        assert en <= max(BF16_NORM_RTOL, 2 * cn)
+        lr_sum += want["steps"][k][0]["lr"]
+        assert dmax <= 2 * lr_sum * (1 + 1e-3)
+        if k == 0:
+            assert frac <= max(0.05, 2 * cf)
+
+
+WORLDS = {"data2": "world_data2", "model2": "world_model2",
+          "world4": "world4"}
+
+
+@pytest.mark.parametrize("name", list(WORLDS))
+def test_fp32_steps_match_reference_and_one_device(name, request,
+                                                   reference, one_device):
+    """Three fp32 steps of tiny gemma2-2b on the mesh against the
+    reference's jitted step and the one-device port; every rank's first
+    gradients alike and its leaves of their at-rest shapes."""
+    ranks = request.getfixturevalue(WORLDS[name])
+    got = ranks[0]["fp32"]
+    _check_fp32(got, reference["gemma2-2b"])
+    _check_fp32(got, one_device["gemma2-2b", "fp32"])
+    for r in ranks:
+        assert r["fp32"]["shapes_ok"]
+        assert all(np.array_equal(a, b) for a, b in zip(r["fp32"]["grads"],
+                                                        got["grads"]))
+
+
+@pytest.mark.parametrize("name", list(WORLDS))
+def test_bf16_steps_match_one_device(name, request, one_device):
+    """The trainer as train() runs it (bf16 weights after each update)
+    against the one-device port with the rows cut as the mesh cuts them
+    (microbatches = the data size), under the bf16 rules; where the mesh
+    splits the batch, against the plain one-device run too, within the
+    rules or twice the microbatched run's distance from it."""
+    ranks = request.getfixturevalue(WORLDS[name])
+    got = ranks[0]["bf16"]
+    plain = one_device["gemma2-2b", "bf16"]
+    if name == "model2":
+        _check_bf16(got, plain)
+    else:
+        split = one_device["gemma2-2b", "bf16", 2]
+        _check_bf16(got, split)
+        _check_bf16(got, plain, control=split)
+
+
+def test_moe_at_model2_matches_reference(world_model2, reference,
+                                         one_device):
+    got = world_model2[0]["moe"]
+    _check_fp32(got, reference["granite-moe-3b-a800m"])
+    _check_fp32(got, one_device["granite-moe-3b-a800m", "fp32"])
+
+
+def test_quantized_moments_at_model2(world_model2, one_device):
+    """int8 moments at model=2 (d_ff's blocks of 128 divide its shard of
+    128): the first step under the fp32 rules and its codes within one of
+    the one-device port's, the scales within 1e-5; blocks of 256 would not
+    divide the shard and are refused, naming the leaf."""
+    got, want = world_model2[0]["quant"], one_device["gemma2-2b", "quant"]
+    _check_fp32(got, want, steps=1)
+    n = len(got["moments"])
+    assert n == len(want["moments"]) == 4 * len(tree_leaves(
+        t_build(t_tiny("gemma2-2b")).abstract_params()))
+    codes = np.concatenate([
+        np.abs(a.astype(np.int32) - b.astype(np.int32)).ravel()
+        for a, b in zip(got["moments"], want["moments"])
+        if a.dtype == np.int8])
+    assert codes.max() <= 1 and np.mean(codes > 0) <= 1e-3
+    for a, b in zip(got["moments"], want["moments"]):
+        if a.dtype != np.int8:
+            np.testing.assert_allclose(a, b, rtol=1e-5)
+    for r in world_model2:
+        msg = r["quant_refused"]
+        assert msg is not None and "ffn/w_gate" in msg and "256" in msg
+
+
+def test_data3_unsplit_leaves_match_reference(world_data3, at_shape3):
+    """At data=3 no leaf of tiny gemma2-2b splits over data (d 128), so
+    every gradient is summed over data after the backward and every leaf
+    counts in the global norm on one rank of the three: three fp32 steps
+    against the reference's jitted step and the one-device port."""
+    got = world_data3[0]["fp32"]
+    assert not any(got["data_split"])
+    _check_fp32(got, at_shape3["reference"])
+    _check_fp32(got, at_shape3["one_device"])
+    for r in world_data3:
+        assert r["fp32"]["shapes_ok"]
+        assert all(np.array_equal(a, b) for a, b in zip(r["fp32"]["grads"],
+                                                        got["grads"]))
+
+
+@pytest.mark.parametrize("name,world", [("no_tp", "world_model2"),
+                                        ("drop", "world_data2"),
+                                        ("drop", "world_data3")])
+def test_controls_miss(name, world, request, one_device):
+    """Without the tensor-parallel input all-reduce, or with the other
+    data ranks' gradients dropped (from the reduce-scatter at data=2,
+    where every leaf splits over data, and from the post-backward sum at
+    data=3, where none does), the first gradients miss the tolerance."""
+    ranks = request.getfixturevalue(world)
+    want = request.getfixturevalue("at_shape3")["one_device"]["grads"] \
+        if world == "world_data3" else one_device["gemma2-2b", "fp32"]["grads"]
+    assert _grad_err(want, ranks[0]["fp32"]["grads"]) <= GRAD_TOL
+    assert _grad_err(want, ranks[0][name]) > 100 * GRAD_TOL
+
+
+def test_data2_rank_holds_half_the_state(world_data2):
+    """At data=2 every leaf of tiny gemma2-2b splits (d 128), so a rank
+    holds half the state's bytes at rest, the step count aside."""
+    model = t_build(t_tiny("gemma2-2b"))
+    whole = sum(math.prod(a.shape) * a.element_size() for a in tree_leaves(
+        tsteps.abstract_train_state(model, _tcfg())))
+    for r in world_data2:
+        assert r["bf16"]["bytes"] - 4 == (whole - 4) // 2
+
+
+def test_world_of_one_is_the_unsharded_trainer(world_data2):
+    got = world_data2[0]["world1"]
+    assert got["hist"] == got["want"]
+    assert got["same"] and all(got["same"])
+    assert world_data2[1]["world1"] is None
+
+
+def test_checkpoint_resume_on_the_mesh(world_data2):
+    """3 steps, a checkpoint, a restore on the same mesh and 3 more equal
+    6 steps, bit for bit (losses and every leaf)."""
+    for r in world_data2:
+        c = r["ckpt"]
+        assert c["steps"] == [3, 4, 5]
+        assert c["resumed"] == c["losses"]
+    assert all(world_data2[0]["ckpt"]["same"])
+
+
+def test_checkpoint_restores_on_other_meshes(world_data2, world_model2,
+                                             ckpt_root):
+    """The data=2 checkpoint of step 2 restores on one device and on
+    model=2, every leaf bit-equal to the data=2 state."""
+    want = world_data2[0]["ckpt"]["at2"]
+    model = t_build(t_tiny("gemma2-2b"))
+    like = tsteps.init_train_state(model, _tcfg(),
+                                   torch.Generator().manual_seed(1), "cpu")
+    one, step = restore(f"{ckpt_root}/b", like, 2)
+    assert step == 2
+    for got in (one, world_model2[0]["restore"]):
+        for a, b in zip(tree_leaves(want), tree_leaves(got)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_reshard_state_model2_data2_one_device(world_model2):
+    """Every leaf bit-equal to the whole state's block at each stage; the
+    donated state is emptied on every rank."""
+    for rank, r in enumerate(world_model2):
+        assert r["reshard"]["data2"] and all(r["reshard"]["data2"])
+        assert r["reshard"]["donated"]
+        if rank == 0:
+            assert r["reshard"]["one"] and all(r["reshard"]["one"])
+        else:
+            assert r["reshard"]["one"] is None
