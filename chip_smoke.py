@@ -228,6 +228,21 @@ Phases, each fatal on failure:
                 resharded onto one rank (``reshard_state``), its masters
                 equal to (b)'s, and one step there bit-identical to the
                 unsharded step from the same state;
+ 19. dryrun   — the dry-run (launch/dryrun.py, roofline/) on meta tensors:
+                (a) the record of phase 12's step (full-width gemma2-2b,
+                B 2 x S 4096, remat on, a mesh of one) beside phase 12's
+                measured median step and peak: t_compute, t_memory, the
+                bottleneck, model_flops, MFU (model_flops over the
+                measured seconds x 989 TFLOP/s) and the predicted live
+                peak over torch.cuda.max_memory_allocated (printed, not
+                gated); (b) phase 18(b)'s measured per-rank state at rest
+                against sharded_bytes_per_device for the same cut and
+                mesh, equal to the byte; (c) ``python -m
+                repro_torch.launch.dryrun --all --mesh single`` in a
+                subprocess started before phase 17 (2 cells at once; its
+                cells trace on the host while phases 17-18's gloo worlds
+                run), each cell's line and the refusals by ROADMAP item
+                printed, a failure that is not a named refusal fatal;
  11. report   — one JSON line with every kernel's launches (flash's summed
                 over phase 12's training run and phases 13-18's paths, the
                 paged kernels' over the main trace, llava's paged steps
@@ -2608,7 +2623,8 @@ def phase_train_full():
     kernel; every loss and grad norm finite, the last loss below the
     first. Prints step time, tokens/s, peak memory and the device busy
     share of one more step. Returns (the run's state, its launches, the
-    median step time in seconds)."""
+    median step time in seconds, the peak bytes allocated above what was
+    allocated before)."""
     import torch
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import train as train_cli
@@ -2663,7 +2679,7 @@ def phase_train_full():
           f"({100 * busy / prof_wall:.1f}%); top device time: "
           + "; ".join(f"{k[:70]} {v:.1f} ms ({100 * v / busy:.1f}%)"
                       for k, v in top), flush=True)
-    return out["state"], launches, step_s
+    return out["state"], launches, step_s, peak
 
 
 def _flash_perturbed(q, k, v, *, causal, window, cap, mode, return_lse=False):
@@ -4511,7 +4527,7 @@ def phase_train_mesh(phase12_step_s):
     (``reshard_state``): its masters equal (b)'s at every sample, and one
     step there through the sharded trainer bit-identical to the unsharded
     step from the same state. Returns the flash launches of the sharded
-    runs, summed over ranks."""
+    runs, summed over ranks, and (b)'s bytes at rest on each rank."""
     import torch
     from repro_torch.configs import ShapeConfig, get_config, tiny_config
     from repro_torch.launch.mesh import WorldFailed, spawn
@@ -4674,7 +4690,117 @@ def phase_train_mesh(phase12_step_s):
               f"whole, equal to the state bit for bit; then "
               f"{MT_TINY_STEPS - 1} steps through the trainer: {line}",
               flush=True)
-    return flash
+    return flash, [r["rest_bytes"] for r in b]
+
+
+# ------------------------------------------------------------- dry-run ----
+DRY_JOBS = 2            # phase 19(c)'s cells at once, a process each
+DRY_TIMEOUT_S = 600.0
+H100_BF16_FLOPS = 989e12
+
+
+class DrySweep:
+    """Phase 19(c)'s ``python -m repro_torch.launch.dryrun --all --mesh
+    single`` in a subprocess, started before phase 17: its cells trace
+    on the host while phases 17-18's gloo worlds run (host-staged, timed
+    as no speed), and phase 19 collects it. Stopped at exit whatever
+    happens in between."""
+
+    def __init__(self):
+        import atexit
+        import os
+        self.dir = tempfile.TemporaryDirectory()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "single", "--force", "--jobs", str(DRY_JOBS),
+             "--out-dir", self.dir.name], cwd=str(ROOT),
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        self.t0 = time.perf_counter()
+        atexit.register(self.stop)
+
+    def result(self):
+        """(exit code, output, seconds since the start)."""
+        out, _ = self.proc.communicate(timeout=DRY_TIMEOUT_S)
+        return self.proc.returncode, out, time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        """Kill the sweep's process group (its cell workers too)."""
+        import os
+        import signal
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+        self.dir.cleanup()
+
+
+def phase_dryrun(step_s: float, peak_bytes: int, rest_bytes: list,
+                 sweep: DrySweep) -> None:
+    """Phase 19: the dry-run's counted step beside phase 12's and phase
+    18(b)'s measurements, and ``sweep``'s cells (the module
+    docstring)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed.sharding import specs_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import _mesh, dry_world
+    from repro_torch.models.api import build_model
+    from repro_torch.training.steps import (abstract_train_state,
+                                            train_state_logical_specs)
+
+    card = card_line()
+    # (a)
+    model = build_model(get_config("gemma2-2b"))
+    shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
+    with dry_world(1):
+        rec = dryrun.cell_record(model, shape, _mesh(1, 1, "cpu", 60.0),
+                                 dryrun.train_cfg_for("gemma2-2b"), chips=1)
+    r = rec["roofline"]
+    mfu = r["model_flops"] / (step_s * H100_BF16_FLOPS)
+    live = rec["live_bytes_per_device"]
+    print(f"dryrun[a gemma2-2b B={TRAIN_B} S={TRAIN_S}, one card]: "
+          f"t_compute {r['t_compute_s']:.4f} s, t_memory "
+          f"{r['t_memory_s']:.4f} s, {r['bottleneck']}-bound, dot FLOPs "
+          f"{rec['dot_flops_per_device']:.4e}, model_flops "
+          f"{r['model_flops']:.4e} (useful share "
+          f"{r['useful_flops_ratio']:.3f}); phase 12's median step "
+          f"{step_s:.3f} s: MFU {mfu:.4f}, {r['t_compute_s'] / step_s:.3f} of "
+          f"the step at the compute bound; predicted live peak "
+          f"{live / 1e9:.2f} GB vs phase 12's max_memory_allocated "
+          f"{peak_bytes / 1e9:.2f} GB (ratio {live / peak_bytes:.3f}); traced "
+          f"in {rec['trace_s']:.1f} s ({card})", flush=True)
+    # (b)
+    cut = build_model(mt_cut_config())
+    tcfg = mt_tcfg("")
+    sizes = {"data": 2, "model": 1}
+    abstract = abstract_train_state(cut, tcfg)
+    want = dryrun.sharded_bytes_per_device(
+        abstract, specs_for(abstract, train_state_logical_specs(cut, tcfg),
+                            sizes), sizes)
+    if not rest_bytes or any(b != want for b in rest_bytes):
+        fail(f"dryrun[b]: phase 18(b)'s state at rest per rank "
+             f"{rest_bytes} bytes, the dry-run's {want}")
+    print(f"dryrun[b gemma2-2b {MT_LAYERS} layers, data=2]: "
+          f"sharded_bytes_per_device {want} bytes, equal to each rank's "
+          f"measured state at rest {rest_bytes}", flush=True)
+    # (c)
+    rc, out, secs = sweep.result()
+    sweep.stop()
+    refused = {}
+    for line in out.splitlines():
+        if line.startswith("[refused]"):
+            item = line[line.rfind("item "):].rstrip(")")
+            refused.setdefault(item, []).append(line.split()[1].rstrip(":"))
+        elif line.startswith(("[ok", "[FAIL]")) or "cells ran" in line:
+            print(f"dryrun[c] {line}", flush=True)
+    for item, cells in sorted(refused.items()):
+        print(f"dryrun[c] refused, {item}: {len(cells)} cells "
+              f"({', '.join(cells)})", flush=True)
+    print(f"dryrun[c] --all --mesh single, {DRY_JOBS} cells at once, "
+          f"started before phase 17 and collected {secs:.1f} s later",
+          flush=True)
+    if rc != 0:
+        fail(f"dryrun[c]: --all --mesh single exited {rc}:\n{out[-4000:]}")
 
 
 def main() -> int:
@@ -4802,7 +4928,7 @@ def main() -> int:
     # phase 12: the training path, every serving parameter freed
     t_train = time.perf_counter()
     bwd_row = phase_train_flash()
-    state, train_launches, train_step_s = phase_train_full()
+    state, train_launches, train_step_s, train_peak = phase_train_full()
     params = state["params"]
     del state
     torch.cuda.empty_cache()
@@ -4843,6 +4969,8 @@ def main() -> int:
     t_ll = time.perf_counter()
     ll = phase_llava()
     mark("phases 15-16")
+    # phase 19(c)'s sweep traces on the host while phases 17-18 run
+    sweep = DrySweep()
     # phase 17: the sharded engine
     t_mesh = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4856,11 +4984,17 @@ def main() -> int:
     mark("phase 17")
     # phase 18: training split over a mesh
     t_mt = time.perf_counter()
-    mt_flash = phase_train_mesh(train_step_s)
+    mt_flash, mt_rest = phase_train_mesh(train_step_s)
     print(f"mesh-train: phase 18 in {time.perf_counter() - t_mt:.1f} s; "
           f"flash launches over its sharded runs, summed over ranks "
           f"{mt_flash}", flush=True)
     mark("phase 18")
+    # phase 19: the dry-run and the roofline
+    t_dry = time.perf_counter()
+    phase_dryrun(train_step_s, train_peak, mt_rest, sweep)
+    print(f"dryrun: phase 19 in {time.perf_counter() - t_dry:.1f} s",
+          flush=True)
+    mark("phase 19")
     ed_paths = {"whisper serve": w_serve["flash_attention_fwd"],
                 "whisper train": w_train["flash_attention_fwd"],
                 "llava prefill": ll["prefill"]["flash_attention_fwd"],

@@ -21,10 +21,15 @@ global batch a rank computes on. The collectives at the bottom are what
 the sharded engine and the sharded trainer (training/sharded.py) run:
 all-gathers are pure data movement, and every sum over ranks is taken in
 fp32 in group-rank order, so it is the same on every rank and from run
-to run.
+to run. Each collective reports what it puts on the wire to the
+``collective_log`` listeners (roofline/step_costs.py counts a step's
+collectives there); over the ``fake`` backend (a dry-run's world,
+launch/mesh.py::dry_world) the collectives run on meta tensors and move
+nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -213,8 +218,8 @@ class ActivationLayout:
       whole over ``model``.
     * ``"decode_q"``, ``"decode_kv"``, ``"decode_scores"``: ``x`` as it
       is. In the reference they only hint the dry-run's decode cells at
-      the partitioner; they wait for the dry-run (ROADMAP Queue 1, item
-      11b).
+      the partitioner; they wait for the sharded decode step (ROADMAP
+      Queue 1, item 11h).
     * any other kind (the reference's ``"moe_buf"`` no-op included):
       ``x`` as it is.
 
@@ -351,16 +356,26 @@ def tp_dot(group, cfg):
     activations first. The shape tests keep a weight that fell through to
     replicated (an odd ``d_ff``) on the plain product.
 
+    Heads that do not divide the group stay whole (``choose_spec``
+    replicates them), and every rank computes the whole attention. Query
+    heads that divide it over kv heads that do not: a rank's query heads
+    are one group's share (``kv_span``), and it projects that group's kv
+    head alone, a slice of the whole ``wk``/``wv`` (``kv_slice``), so
+    that the attention's ``h = k * G + g`` holds on the rank.
+
     Each site also carries its backward's conjugate, which only training
     runs (serving records no graph). A column-split product's input passes
     ``sum_grad``, an identity whose backward sums its gradient over the
     group, as each rank's product holds only its heads' or columns' share
     of it; the input q, k and v share passes once, and so does the one
     the FFN's up and gate projections share, so a layer sums two input
-    gradients. The gathered activations give each rank back its block of
+    gradients. A sliced ``wk``/``wv`` gets back the gradient of its
+    slice only, so ``kv_slice`` sums the whole weight's gradient over the
+    group. The gathered activations give each rank back its block of
     their gradient, unsummed, as every rank computes the same whole
     downstream."""
     held = [None, None]          # the last column-split input, its view
+    span = kv_span(cfg, dist.get_world_size(group), dist.get_rank(group))
 
     def enter(a, w, whole):
         # the input of a column-split product, split when w's output dim
@@ -372,6 +387,9 @@ def tp_dot(group, cfg):
         return held[1]
 
     def dot(a, w, name):
+        if name in ("attn_k", "attn_v") and span is not None \
+                and w.shape[1] == cfg.num_kv_heads:
+            w = kv_slice(w, group, *span)
         if name in ("attn_q", "attn_k", "attn_v"):
             a = enter(a, w, "num_heads" if name == "attn_q"
                       else "num_kv_heads")
@@ -394,7 +412,55 @@ def tp_dot(group, cfg):
     return dot
 
 
+def kv_span(cfg, tp: int, rank: int) -> Optional[Tuple[int, int]]:
+    """The kv heads [lo, hi) that rank ``rank`` of a ``tp``-way model
+    group projects when the query heads split over it and the kv heads do
+    not; None when both split or neither does. A rank's query heads
+    ``[rank * H / tp, (rank + 1) * H / tp)`` must then lie in one kv
+    head's group (``H / tp`` divides G), so the span is one head."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    if tp == 1 or not H or H % tp or K % tp == 0:
+        return None
+    local, G = H // tp, H // K
+    if G % local:
+        raise ValueError(
+            f"{cfg.name}: {local} query heads a rank (heads {H} over "
+            f"model={tp}) straddle the groups of {G} that share a kv head")
+    lo = rank * local // G
+    return lo, lo + 1
+
+
+def kv_slice(w: torch.Tensor, group, lo: int, hi: int) -> torch.Tensor:
+    """Heads [lo, hi) of a whole (D, K, hd) ``wk``/``wv``; its gradient
+    (the slice's, zero elsewhere) summed over ``group`` in the backward,
+    so every rank holds the whole weight's gradient."""
+    return sum_grad(w, group)[:, lo:hi]
+
+
 # ------------------------------------------------------------ collective --
+# Listeners ``fn(kind, nbytes)`` told of every collective this process
+# issues: ``kind`` the reference's HLO name of the op on the wire, and
+# ``nbytes`` its result's bytes on this rank (roofline/step_costs.py).
+_LISTENERS: list = []
+
+
+@contextlib.contextmanager
+def collective_log(fn):
+    """Tell ``fn(kind, nbytes)`` of every collective issued inside the
+    block."""
+    _LISTENERS.append(fn)
+    try:
+        yield fn
+    finally:
+        _LISTENERS.remove(fn)
+
+
+def _wire(kind: str, t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
+    for fn in _LISTENERS:
+        fn(kind, n)
+
+
 def _gather_single(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     """``all_gather_single`` where torch has it (2.13 on), else its older
     name ``all_gather_into_tensor``."""
@@ -427,6 +493,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = torch.empty((n * wire.shape[0],) + tuple(wire.shape[1:]),
                       dtype=wire.dtype, device=wire.device)
     _gather_single(out, wire, group)
+    _wire("all-gather", out)
     out = out.view(src.dtype).to(x.device)
     return out.movedim(0, dim).contiguous()
 
@@ -443,6 +510,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     wire = src.view(torch.uint8) if src.dim() else src
     out = torch.empty_like(wire)
     dist.all_to_all_single(out, wire, group=group)
+    _wire("all-to-all", out)
     parts = out.view(src.dtype).to(x.device).reshape(
         (n, src.shape[0] // n) + tuple(src.shape[1:]))
     total = parts[0].to(F32)
@@ -543,4 +611,5 @@ def broadcast_float(value: float, group=None) -> float:
     t = torch.tensor([value], dtype=torch.float64, device=device)
     dist.broadcast(t, src=dist.get_global_rank(group, 0)
                    if group is not None else 0, group=group)
+    _wire("collective-broadcast", t)
     return float(t.item())

@@ -1,0 +1,280 @@
+"""Dry-run on the production meshes (port of ``repro.launch.dryrun``):
+trace one step of every (arch x shape) cell as rank 0 of the mesh, on
+meta tensors, count its costs (roofline/step_costs.py) and derive the
+three-term roofline on the H100 (roofline/analysis.py). Runs on the CPU
+with no card and no process group of its own: each cell makes a world of
+256 (``single``: data 16 x model 16) or 512 ranks (``multi``: pod 2 x
+data 16 x model 16) under torch's ``fake`` backend
+(launch/mesh.py::dry_world).
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
+  python -m repro_torch.launch.dryrun --all --mesh both
+Records go to artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json (or
+--out-dir); pass --force to recompute a cell, --jobs N to run N cells at
+once, each in a process of its own.
+
+A record has the reference's keys, with these changes: ``fits_hbm`` and
+``state_fits_hbm`` stand against the H100's 80 GiB where the reference
+has ``fits_16GiB``; ``trace_s`` (the counted run) stands in place of
+``lower_s`` and ``compile_s``; ``memory`` holds the counted run's
+argument, output, alias and temporary bytes and ``peak_bytes``.
+``hlo_chars``, ``roofline_raw_xla``, ``memory.code_bytes`` and
+``--save-hlo`` are left out: no HLO exists, and ``roofline_raw_xla`` is
+the reference's reading of XLA's ``cost_analysis``, which has no torch
+counterpart.
+
+Train cells run ``ShardedTrainer``'s step (training/sharded.py) on the
+rank's shards of ``abstract_train_state`` and its rows of
+``Model.input_specs``. Cells the port cannot run yet are refused with
+the ROADMAP item that would lift the refusal: prefill and decode cells
+and ``--quant`` (item 11h: the port's ``make_prefill_step`` and
+``make_serve_step`` take no ``ac``, and the reference's decode cache
+splits ``cache_seq`` over ``model`` where kv heads do not divide, which
+needs a softmax combined across ranks), the ssm, hybrid, encdec and vlm
+families on a mesh (item 11d), and moe at data > 1 (item 11e).
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from repro_torch.configs import (OptimConfig, TrainConfig, assigned_cells,
+                                 get_config, get_shape)
+from repro_torch.distributed import sharding as shlib
+from repro_torch.launch.mesh import dry_world, make_production_mesh
+from repro_torch.models.api import build_model
+from repro_torch.models.params import tree_leaves, tree_unflatten
+from repro_torch.roofline import analysis as ra
+from repro_torch.roofline import step_costs
+from repro_torch.training import steps as steps_lib
+from repro_torch.training.sharded import ShardedTrainer
+
+ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
+
+# archs whose optimizer state only fits 16GiB/chip with int8 Adam moments
+QUANT_MOMENT_ARCHS = {"llama4-maverick-400b-a17b", "mistral-large-123b"}
+
+
+class Refused(Exception):
+    """A cell the port cannot run yet; the message names its ROADMAP
+    item."""
+
+
+def train_cfg_for(arch: str, microbatches: int = 1) -> TrainConfig:
+    return TrainConfig(optim=OptimConfig(
+        quantized_moments=arch in QUANT_MOMENT_ARCHS),
+        microbatches=microbatches)
+
+
+def local_tree(abstract, specs, mesh):
+    """This rank's shard of every leaf of ``abstract`` under ``specs``,
+    as meta tensors of their own."""
+    return tree_unflatten(abstract, [
+        torch.empty(shlib.local_shape(tuple(a.shape), s, mesh),
+                    dtype=a.dtype, device="meta")
+        for a, s in zip(tree_leaves(abstract),
+                        shlib.leaves_like(abstract, specs))])
+
+
+def build_step(model, shape, mesh, tcfg, quant: str = "",
+               ac_mode: str = "dp"):
+    """(fn, args, state specs, weight_bits): the step this rank runs and
+    its meta arguments, its shards of the state and its rows of the
+    batch. Raises ``Refused`` for a cell the port cannot run yet."""
+    if quant or shape.kind != "train":
+        what = "--quant, which serves prefill and decode cells" if quant \
+            else f"{shape.kind} cells"
+        raise Refused(
+            f"{what}: the sharded prefill and serve steps, whose caches "
+            f"split per cache_axes (cache_seq over model where kv heads do "
+            f"not divide), are not ported (ROADMAP Queue 1, item 11h)")
+    try:
+        ac = shlib.make_ac(mesh, mode=ac_mode)
+        trainer = ShardedTrainer(model, tcfg, ac, kernel="ref")
+    except (NotImplementedError, ValueError) as e:
+        raise Refused(str(e)) from None
+    state = local_tree(trainer.abstract, trainer.specs, mesh)
+    batch = {k: v.clone() for k, v in trainer.rows(
+        model.input_specs(shape)).items()}
+    return trainer.local_step, (state, batch), trainer.specs, 16.0
+
+
+def sharded_bytes_per_device(abstract, specs, mesh) -> int:
+    """Exact persistent per-device bytes for a (state/cache) tree under
+    its specs: each leaf's ``local_shape`` times its element size."""
+    total = 0
+    for a, s in zip(tree_leaves(abstract), shlib.leaves_like(abstract,
+                                                              specs)):
+        n = 1
+        for d in shlib.local_shape(tuple(a.shape), s, mesh):
+            n *= d
+        total += n * a.element_size()
+    return total
+
+
+def cell_record(model, shape, mesh, tcfg, *, chips: int, quant: str = "",
+                ac_mode: str = "dp") -> dict:
+    """The dry-run's record of one step of ``model`` at ``shape`` on
+    ``mesh`` (this process its rank 0), without the cell's names."""
+    cfg = model.cfg
+    t0 = time.time()
+    fn, args, specs, weight_bits = build_step(model, shape, mesh, tcfg,
+                                              quant=quant, ac_mode=ac_mode)
+    state_bytes = sharded_bytes_per_device(
+        steps_lib.abstract_train_state(model, tcfg), specs, mesh)
+    costs = step_costs.count_step(fn, *args)
+    t_trace = time.time() - t0
+    roof = ra.analyze_counted(
+        costs, chips, cfg, shape, weight_bits=weight_bits,
+        quantized_moments=tcfg.optim.quantized_moments)
+    mem = {"argument_bytes": costs["arg_bytes"],
+           "output_bytes": costs["out_bytes"],
+           "alias_bytes": costs["alias_bytes"],
+           "temp_bytes": costs["peak_bytes"] - costs["arg_bytes"],
+           "peak_bytes": costs["peak_bytes"]}
+    live = costs["peak_bytes"]
+    return {
+        "chips": chips,
+        "params": model.param_count(),
+        "active_params": ra.active_params(cfg),
+        "trace_s": round(t_trace, 2),
+        "memory": mem,
+        "live_bytes_per_device": live,
+        "state_bytes_per_device": state_bytes,
+        "fits_hbm": bool(live <= ra.HBM_BYTES),
+        "state_fits_hbm": bool(state_bytes <= ra.HBM_BYTES),
+        "collectives_per_device": {
+            k: costs[k] for k in ra.COLLECTIVES + ("coll_count",)
+            if costs[k]},
+        "dot_flops_per_device": costs["dot_flops"],
+        "roofline": roof.to_dict(),
+    }
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
+             out_dir: Path = ART, tag: str = "", quant: str = "",
+             microbatches: int = 1, ac_mode: str = "dp") -> dict:
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    multi = mesh_kind == "multi"
+    chips = 512 if multi else 256
+    model = build_model(cfg)
+    tcfg = train_cfg_for(arch, microbatches)
+    with dry_world(chips):
+        mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+        rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+               **cell_record(model, shape, mesh, tcfg, chips=chips,
+                             quant=quant, ac_mode=ac_mode)}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    name = f"{arch}__{shape_name}__{mesh_kind}{tag}"
+    (out_dir / f"{name}.json").write_text(json.dumps(rec, indent=1))
+    gc.collect()
+    return rec
+
+
+def _run(job):
+    """One cell for ``main``: ("ok", record), ("refused", message) or
+    ("fail", (repr, traceback))."""
+    (arch, shape, mesh_kind), kw = job
+    try:
+        return "ok", run_cell(arch, shape, mesh_kind, **kw)
+    except Refused as e:
+        return "refused", str(e)
+    except Exception as e:  # noqa: BLE001 — report and continue
+        return "fail", (repr(e), traceback.format_exc())
+
+
+def _results(jobs, n: int):
+    """``_run`` over ``jobs`` in order: here, or in ``n`` spawned
+    processes."""
+    if n <= 1:
+        yield from map(_run, jobs)
+        return
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(n, mp_context=mp.get_context("spawn")) as ex:
+        yield from ex.map(_run, jobs)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out-dir", type=Path, default=ART)
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run at once, each in its own process")
+    ap.add_argument("--quant", default="", choices=["", "w8", "w4", "haq"],
+                    help="quantized-weight serving (prefill/decode cells; "
+                         "refused: ROADMAP item 11h)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient accumulation for train cells")
+    ap.add_argument("--ac-mode", default="dp", choices=["dp", "seq_tp"],
+                    help="activation sharding: dp | seq_tp (sequence-"
+                         "parallel TP; refused: ROADMAP item 11f)")
+    args = ap.parse_args(argv)
+    if not args.all and not (args.arch and args.shape):
+        ap.error("give --arch and --shape, or --all")
+
+    t0 = time.time()
+    cells = assigned_cells() if args.all else [(args.arch, args.shape)]
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    kw = dict(out_dir=args.out_dir, tag=args.tag, quant=args.quant,
+              microbatches=args.microbatches, ac_mode=args.ac_mode)
+    failures, refused, ran, todo = [], [], 0, []
+    for arch, shape in cells:
+        for mesh_kind in meshes:
+            name = f"{arch}__{shape}__{mesh_kind}{args.tag}"
+            path = args.out_dir / f"{name}.json"
+            if path.exists() and not args.force:
+                rec = json.loads(path.read_text())
+                print(f"[cached] {name}: {rec['roofline']['bottleneck']}-bound"
+                      f" live={rec['live_bytes_per_device']/2**30:.2f}GiB")
+                ran += 1
+            else:
+                todo.append(((arch, shape, mesh_kind), kw))
+    for ((arch, shape, mesh_kind), _), (status, out) in zip(
+            todo, _results(todo, args.jobs)):
+        name = f"{arch}__{shape}__{mesh_kind}{args.tag}"
+        if status == "ok":
+            r = out["roofline"]
+            ran += 1
+            print(f"[ok {out['trace_s']:6.1f}s] {name}: "
+                  f"comp={r['t_compute_s']:.4f}s "
+                  f"mem={r['t_memory_s']:.4f}s "
+                  f"coll={r['t_collective_s']:.4f}s "
+                  f"{r['bottleneck']}-bound "
+                  f"useful={r['useful_flops_ratio']:.3f} "
+                  f"mfu_bound={r['mfu_bound']:.3f} "
+                  f"live={out['live_bytes_per_device']/2**30:.2f}GiB "
+                  f"state={out['state_bytes_per_device']/2**30:.2f}GiB "
+                  f"fits={out['fits_hbm']}", flush=True)
+        elif status == "refused":
+            refused.append(name)
+            print(f"[refused] {name}: {out}", flush=True)
+        else:
+            failures.append((name, out[0]))
+            print(f"[FAIL] {name}: {out[0]}\n{out[1]}", flush=True)
+    print(f"\n{ran} cells ran, {len(refused)} refused, {len(failures)} "
+          f"failed in {time.time() - t0:.1f} s")
+    if failures:
+        print(f"\n{len(failures)} FAILURES:")
+        for n, e in failures:
+            print(" ", n, e)
+        raise SystemExit(1)
+    print("all requested dry-run cells ran or were refused")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,15 @@
-"""Serving meshes over ``torch.distributed`` (port of
-``repro.launch.mesh``).
+"""Serving, training and production meshes over ``torch.distributed``
+(port of ``repro.launch.mesh``).
 
 The reference drives every device from one host through ``shard_map``;
 the port runs one process per device (a rank), every rank running the
 same host loop. A mesh is a ``torch.distributed.device_mesh.DeviceMesh``
 with dims ``("data", "model")``: rank ``d * model + m`` sits at (d, m),
 and each dim's process group (``mesh.get_group("model")``) carries the
-engine's all-gathers. Every group is made here with a timeout, so a rank
-that raised leaves its peers to time out rather than hang.
+engine's all-gathers. A mesh of several pods adds a leading ``"pod"``
+dim: rank ``(p * data + d) * model + m`` sits at (p, d, m). Every group
+is made here with a timeout, so a rank that raised leaves its peers to
+time out rather than hang.
 
 Backends are the caller's and are never switched on failure: ``nccl``
 when each rank has its own card, ``gloo`` on the CPU, and gloo for two
@@ -15,8 +17,11 @@ ranks sharing one card (NCCL refuses two ranks on one device); the
 sharded engine's collective stages a CUDA tensor through host memory
 for a gloo group (distributed/sharding.py::all_gather_dim).
 
-``make_production_mesh`` (the dry-run's 16 x 16) waits for the dry-run
-(ROADMAP Queue 1, item 11).
+``make_production_mesh`` is the reference's (data 16, model 16) and
+(pod 2, data 16, model 16): over a torchrun world of 256 or 512 ranks,
+or, for the dry-run (launch/dryrun.py), over ``dry_world``: a world of
+that size under torch's ``fake`` backend, of which this process is rank
+0 and whose collectives move nothing.
 
 Under ``torchrun --nproc-per-node N`` (``python -m
 torch.distributed.run``) a process joins with ``init_from_env``;
@@ -25,6 +30,7 @@ with a ``file://`` rendezvous, so no port is taken.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import tempfile
@@ -130,24 +136,66 @@ def make_sub_mesh(data: int, model: int, *, device_type: str = "cuda",
     return _mesh(data, model, device_type, timeout_s)
 
 
-def _mesh(data: int, model: int, device_type: str, timeout_s: float):
-    """Every rank of the world makes every row and column group in the
-    same order (a collective), then keeps its own two; a rank outside the
-    ``data * model`` first ones gets None."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda",
+                         timeout_s: float = DEFAULT_TIMEOUT_S):
+    """The reference's production mesh: ("data", "model") of 16 x 16, or
+    ("pod", "data", "model") of 2 x 16 x 16, over the initialized world,
+    which must have that many ranks (torchrun, or ``dry_world``)."""
+    pod, data, model = (2, 16, 16) if multi_pod else (1, 16, 16)
+    n = pod * data * model
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise ValueError(
+            f"the production mesh {'2 x ' if multi_pod else ''}16 x 16 needs "
+            f"an initialized world of {n} ranks (torchrun --nproc-per-node, "
+            f"or launch.mesh.dry_world({n}) for a dry-run)")
+    return _mesh(data, model, device_type, timeout_s, pod=pod)
+
+
+@contextlib.contextmanager
+def dry_world(n: int):
+    """A world of ``n`` ranks under torch's ``fake`` backend, this process
+    its rank 0, for the block: collectives return at once and move
+    nothing, so a step traced on meta tensors (roofline/step_costs.py)
+    issues every collective of rank 0 with its real shapes. Refused when
+    a process group is already initialized; destroyed on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("dry_world needs a process without a process "
+                           "group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(data: int, model: int, device_type: str, timeout_s: float,
+          pod: int = 1):
+    """Every rank of the world makes every model, data (and pod) group in
+    the same order (a collective), then keeps its own; a rank outside the
+    ``pod * data * model`` first ones gets None. ``pod`` > 1 adds a
+    leading "pod" dim."""
     from torch.distributed.device_mesh import DeviceMesh
-    ranks = torch.arange(data * model).reshape(data, model)
+    ranks = torch.arange(pod * data * model).reshape(pod, data, model)
     me = dist.get_rank()
+    lines = {"model": ranks.reshape(-1, model),
+             "data": ranks.permute(0, 2, 1).reshape(-1, data),
+             "pod": ranks.permute(1, 2, 0).reshape(-1, pod)}
+    names = ("pod", "data", "model") if pod > 1 else ("data", "model")
     mine = {}
-    for name, groups in (("model", ranks.tolist()),
-                         ("data", ranks.T.tolist())):
-        for members in groups:
+    for name in ("model", "data", "pod"):
+        if name not in names:
+            continue
+        for members in lines[name].tolist():
             g = dist.new_group(members, timeout=_timeout(timeout_s))
             if me in members:
                 mine[name] = g
     if not mine:
         return None
-    return DeviceMesh.from_group([mine["data"], mine["model"]], device_type,
-                                 mesh=ranks, mesh_dim_names=("data", "model"))
+    return DeviceMesh.from_group([mine[a] for a in names], device_type,
+                                 mesh=ranks if pod > 1 else ranks[0],
+                                 mesh_dim_names=names)
 
 
 # ---------------------------------------------------------------- spawn --

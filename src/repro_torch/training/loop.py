@@ -29,7 +29,8 @@ def train(model, shape, tcfg, *, mesh=None, ac=None, dot=None,
     time on the host's clock, device work included. Each step trains on
     the whole global batch of ``shape``.
 
-    ``mesh`` (a named ("data", "model") ``DeviceMesh``, every rank of it
+    ``mesh`` (a named ("data", "model") or ("pod", "data", "model")
+    ``DeviceMesh``, every rank of it
     calling ``train``): the state split at rest over the mesh
     (training/sharded.py), each rank computing its rows of the batch
     (``ac``, by default ``make_ac(mesh)``). ``in_shardings`` (state

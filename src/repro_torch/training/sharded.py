@@ -1,20 +1,24 @@
-"""Training split over a ("data", "model") mesh of ranks: the port of the
-reference's sharded train step (``make_train_step`` under ``jax.jit`` with
-``in_shardings`` from ``train_state_logical_specs``).
+"""Training split over a ("data", "model") or ("pod", "data", "model")
+mesh of ranks: the port of the reference's sharded train step
+(``make_train_step`` under ``jax.jit`` with ``in_shardings`` from
+``train_state_logical_specs``).
 
 One process per rank, as in the sharded engine (serving/engine/sharded.py):
 
   * The state at rest: every leaf of ``{"params", "opt"}`` split per
     distributed/sharding.py's rules on its logical axes: the FSDP
-    ``embed`` dims over ``data``; heads, kv heads, d_ff, experts and vocab
-    over ``model``. A quantized moment's codes split as their parameter;
-    its scales keep their last (block) dim whole on every rank, as the
-    reference's spec has it.
+    ``embed`` dims over ("pod", "data") or ``data``; heads, kv heads,
+    d_ff, experts and vocab over ``model`` where they divide it, whole
+    where they do not. A quantized moment's codes split as their
+    parameter; its scales keep their last (block) dim whole on every
+    rank, as the reference's spec has it.
   * The forward runs the engine's per-layer ``gather`` hook, with a
     backward. A leaf's ``data`` dims are all-gathered at use, and the
     backward reduce-scatters the whole-leaf gradient over ``data``: each
     data rank computed it on its own rows, so that is the data-parallel
-    gradient sum. Its ``model`` dims are gathered too, except the output
+    gradient sum. A dim split over ("pod", "data") is gathered over
+    ``data`` and then ``pod`` (minor axis first), and reduce-scattered
+    over both. Its ``model`` dims are gathered too, except the output
     dims of the column-split products (q/k/v, FFN up and gate), which stay
     local. Every rank of a ``model`` group computes the same whole
     downstream of a gathered leaf, so the backward keeps its block of that
@@ -22,11 +26,14 @@ One process per rank, as in the sharded engine (serving/engine/sharded.py):
     backward slices before it reduce-scatters.
   * Tensor parallelism: the sharded engine's exactness-first sites
     (distributed/sharding.py::tp_dot) with their backward conjugates
-    (``tp_dot``'s docstring).
-  * The batch: each rank takes its rows of the global batch (``make_ac``).
-    The loss's sum and token count are summed over ``data`` before the
+    (``tp_dot``'s docstring): heads the model axis does not divide are
+    computed whole on every rank; query heads it divides over kv heads it
+    does not take a slice of the whole ``wk``/``wv`` per rank.
+  * The batch: each rank takes its rows of the global batch (``make_ac``),
+    which must split over every FSDP axis of the mesh. The loss's sum
+    and token count are summed over ``data`` (and ``pod``) before the
     division, so the loss is the global batch's mean. A leaf not split
-    over ``data`` has its gradient summed over ``data`` after the
+    over an FSDP axis has its gradient summed over that axis after the
     backward.
   * AdamW on the shards. The global norm is one sum of per-rank sums of
     squares; a leaf replicated over an axis is counted on one rank of it.
@@ -62,17 +69,20 @@ from repro_torch.training.steps import abstract_train_state, \
 F32 = torch.float32
 MODEL = "model"
 DATA = "data"
+POD = "pod"
+FSDP_AXES = (POD, DATA)          # the batch's and the FSDP dims' axes
 
 
 def validate_train_mesh(cfg, mesh, *, dot=None) -> None:
     """What the sharded trainer needs from (cfg, mesh): dense on any mesh,
-    moe at data = 1; the rest names its ROADMAP item."""
+    moe at data = pod = 1; the rest names its ROADMAP item."""
     sizes = shlib.axis_sizes(mesh)
-    unknown = set(sizes) - {DATA, MODEL}
+    unknown = set(sizes) - {POD, DATA, MODEL}
     if unknown:
-        raise ValueError(f"train mesh axes must be data/model, got "
+        raise ValueError(f"train mesh axes must be pod/data/model, got "
                          f"{sorted(sizes)}")
-    tp, dp = sizes.get(MODEL, 1), sizes.get(DATA, 1)
+    tp = sizes.get(MODEL, 1)
+    dp = sizes.get(DATA, 1) * sizes.get(POD, 1)
     if tp * dp > 1 and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: sharded training takes the dense and moe "
@@ -80,19 +90,15 @@ def validate_train_mesh(cfg, mesh, *, dot=None) -> None:
             f"gather hook yet (ROADMAP Queue 1, item 11d)")
     if cfg.family == "moe" and dp > 1:
         raise NotImplementedError(
-            f"{cfg.name}: moe training at data={dp}: the expert capacity "
-            f"and the load-balance loss are functions of the local token "
-            f"count, the reference's of the global batch's (ROADMAP Queue "
-            f"1, item 11e)")
+            f"{cfg.name}: moe training at data x pod={dp}: the expert "
+            f"capacity and the load-balance loss are functions of the local "
+            f"token count, the reference's of the global batch's (ROADMAP "
+            f"Queue 1, item 11e)")
     if dot is not None and tp > 1:
         raise NotImplementedError(
             f"a dot hook (HAQ fake-quant) under model={tp}: its sites would "
             f"see weight slices (ROADMAP Queue 1, item 11g)")
-    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
-        raise ValueError(
-            f"{cfg.name}: heads ({cfg.num_heads}) and kv heads "
-            f"({cfg.num_kv_heads}) must divide the model axis ({tp}): a "
-            f"rank's query heads must be the groups of its kv heads")
+    shlib.kv_span(cfg, tp, 0)       # a rank's query heads in one group
 
 
 def _axes(entry):
@@ -164,7 +170,7 @@ class StateLayout:
 
     def first_rank_float(self, value: float) -> float:
         """Rank 0's ``value`` on every rank of the mesh."""
-        for ax in (MODEL, DATA):
+        for ax in (MODEL, DATA, POD):
             if ax in self.groups:
                 value = shlib.broadcast_float(value, self.groups[ax])
         return value
@@ -180,12 +186,15 @@ class ShardedTrainer(StateLayout):
     """The train step over ``ac``'s mesh (``make_ac``): state at rest per
     the layout, the global batch in, this rank's rows computed.
     ``dot``: the HAQ hook, taken at ``model`` = 1 only (at ``model`` > 1
-    the tensor-parallel sites take the hook)."""
+    the tensor-parallel sites take the hook). ``kernel``: the flash
+    attention mode (kernels/ops.py; "ref" for meta tensors, which no
+    kernel takes)."""
 
-    def __init__(self, model, tcfg, ac, *, dot=None):
+    def __init__(self, model, tcfg, ac, *, dot=None, kernel="auto"):
         validate_train_mesh(model.cfg, ac.mesh, dot=dot)
         super().__init__(model, tcfg, ac.mesh)
-        self.ac = ac
+        self.ac, self.kernel = ac, kernel
+        self.fsdp = [a for a in FSDP_AXES if self.sizes.get(a, 1) > 1]
         pa = self.abstract["params"]
         self.param_specs = shlib.leaves_like(pa, self.specs["params"])
         plans = shlib.gather_plans(pa, self.logical["params"],
@@ -202,7 +211,7 @@ class ShardedTrainer(StateLayout):
                            if a not in sum((_axes(e) for e in spec), ()))
                        for spec in self.param_specs]
         self._scale_split = self._check_moment_blocks()
-        self._step = run_train_step(tcfg, self.grads, self.update)
+        self.local_step = run_train_step(tcfg, self.grads, self.update)
 
     # ---------------------------------------------------------- checks --
     def _check_moment_blocks(self) -> list:
@@ -263,14 +272,19 @@ class ShardedTrainer(StateLayout):
     # ----------------------------------------------------------- the step --
     def step(self, state: Dict[str, Any], batch: Dict[str, Any]):
         """``train_step(state, global batch)``: this rank's rows of the
-        batch, then the step on them."""
+        batch (``rows``), then the step on them (``local_step``)."""
+        return self.local_step(state, self.rows(batch))
+
+    def rows(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of the global batch, which must split over
+        every FSDP axis of the mesh."""
         B = batch["tokens"].shape[0]
-        dp = self.sizes.get(DATA, 1)
-        if dp > 1 and DATA not in _axes(self.ac.batch_axes(B)):
-            raise ValueError(f"a global batch of {B} rows does not split "
-                             f"over data={dp}")
-        return self._step(state, {k: self.ac(v, "batch")
-                                  for k, v in batch.items()})
+        split = _axes(self.ac.batch_axes(B))
+        if any(a not in split for a in self.fsdp):
+            raise ValueError(
+                f"a global batch of {B} rows does not split over "
+                f"{' x '.join(f'{a}={self.sizes[a]}' for a in self.fsdp)}")
+        return {k: self.ac(v, "batch") for k, v in batch.items()}
 
     def gather(self, tree, path):
         """The model's ``gather`` hook: the subtree at ``path`` whole on
@@ -292,9 +306,12 @@ class ShardedTrainer(StateLayout):
                                       shlib.leaves_like(tree, plans))])
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The loss's hook: ``x`` summed over the ranks of ``data``."""
-        return shlib.sum_value(x, self.groups[DATA]) \
-            if DATA in self.groups else x
+        """The loss's hook: ``x`` summed over the ranks of ``data``, then
+        of ``pod``."""
+        for ax in (DATA, POD):
+            if ax in self.groups:
+                x = shlib.sum_value(x, self.groups[ax])
+        return x
 
     def grads(self, params, batch):
         """(global mean loss, this rank's gradient blocks summed over
@@ -303,20 +320,29 @@ class ShardedTrainer(StateLayout):
         for p in leaves:
             p.requires_grad_(True)
         loss = self.model.loss(params, batch, remat=self.tcfg.remat,
-                               dot=self.dot, gather=self.gather,
+                               dot=self.dot, kernel=self.kernel,
+                               gather=self.gather,
                                data_sum=self.data_sum)
         grads = torch.autograd.grad(loss, leaves)
         for p in leaves:
             p.requires_grad_(False)
-        dp = self.sizes.get(DATA, 1)
-        grads = [g if dp == 1 or any(DATA in _axes(e) for e in spec)
-                 else self.sum_over_data(g)
+        grads = [self.sum_unsplit(g, spec)
                  for g, spec in zip(grads, self.param_specs)]
         return loss.detach(), tree_unflatten(params, grads)
 
+    def sum_unsplit(self, g: torch.Tensor, spec) -> torch.Tensor:
+        """A leaf's gradient summed over each FSDP axis its spec does not
+        split (each of whose ranks computed it on its own rows)."""
+        split = sum((_axes(e) for e in spec), ())
+        if DATA in self.fsdp and DATA not in split:
+            g = self.sum_over_data(g)
+        if POD in self.fsdp and POD not in split:
+            g = shlib.all_reduce_sum(g, self.groups[POD]).to(g.dtype)
+        return g
+
     def sum_over_data(self, g: torch.Tensor) -> torch.Tensor:
-        """The gradient of a leaf not split over ``data`` summed over its
-        ranks (each computed it on its own rows), in the leaf's dtype."""
+        """``g`` summed over the ranks of ``data`` (each computed it on
+        its own rows), in its dtype."""
         return shlib.all_reduce_sum(g, self.groups[DATA]).to(g.dtype)
 
     def global_norm(self, grads) -> torch.Tensor:
@@ -330,7 +356,7 @@ class ShardedTrainer(StateLayout):
                 total = sq if total is None else total + sq
         if total is None:
             total = torch.zeros((), dtype=F32, device=self.device)
-        for ax in (MODEL, DATA):
+        for ax in (MODEL, DATA, POD):
             if ax in self.groups:
                 total = shlib.all_reduce_sum(total, self.groups[ax])
         return torch.sqrt(total)

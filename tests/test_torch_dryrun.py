@@ -1,0 +1,311 @@
+"""The port's dry-run (launch/dryrun.py, launch/mesh.py's production mesh
+and ``dry_world``) on the CPU, with no card and no process group of its
+own.
+
+Held against the reference on forced host devices (a subprocess: the
+device-count flag must come before JAX's first import): per-device dot
+FLOPs of tiny gemma2-2b and tiny granite-3-8b train steps at data-only
+meshes (4, 1) and (8, 1), the reference's ``analyze_hlo`` of its
+compiled step against the port's count on a fake world of the mesh's
+size, within 2% (measured: equal); ``sharded_bytes_per_device`` of the
+tiny train states at (2, 4), (4, 2), (8, 1) and (4, 1), fp32 and int8
+moments, equal to the byte. Held against the reference's ``choose_spec``
+arithmetic on a shape-only mesh: the per-device state bytes of the 8
+full-width (cell, mesh) pairs the dry-run runs. The CLI in a
+subprocess: a full-width gemma2-2b record with every key, its state
+bytes the reference's arithmetic; a prefill cell refused naming ROADMAP
+item 11h, mamba2-370m naming item 11d; ``--all`` counting refusals apart
+from failures.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as j_get  # noqa: E402
+from repro.configs.base import OptimConfig as JOptim  # noqa: E402
+from repro.configs.base import TrainConfig as JTrain  # noqa: E402
+from repro.distributed import sharding as j_sh  # noqa: E402
+from repro.models.api import build_model as j_build  # noqa: E402
+from repro.training import steps as jsteps  # noqa: E402
+from repro_torch.configs import (OptimConfig, ShapeConfig,  # noqa: E402
+                                 TrainConfig, get_config, tiny_config)
+from repro_torch.distributed import sharding as shlib  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (_mesh, dry_world,  # noqa: E402
+                                     make_production_mesh)
+from repro_torch.models.api import build_model as t_build  # noqa: E402
+from repro_torch.roofline import step_costs  # noqa: E402
+from repro_torch.training import steps as tsteps  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+SHAPE = ShapeConfig("t", 64, 8, "train")
+RUNS = ["gemma2-2b", "granite-3-8b", "nemotron-4-15b", "mistral-large-123b"]
+MESHES = {"single": {"data": 16, "model": 16},
+          "multi": {"pod": 2, "data": 16, "model": 16}}
+STATE_MESHES = [(2, 4), (4, 2), (8, 1), (4, 1)]
+
+REF_SCRIPT = """
+import json, sys
+import jax
+import numpy as np
+jax.devices()                     # 8 forced host devices, before the
+from jax.sharding import Mesh     # dry-run module's own device flag
+import repro.launch.dryrun as rd
+from repro.configs import tiny_config
+from repro.configs.base import OptimConfig, ShapeConfig, TrainConfig
+from repro.models.api import build_model
+from repro.roofline.hlo_costs import analyze_hlo
+out = {"flops": {}, "state": {}, "quant_archs": sorted(rd.QUANT_MOMENT_ARCHS)}
+shape = ShapeConfig("t", 64, 8, "train")
+for arch in ("gemma2-2b", "granite-3-8b"):
+    model = build_model(tiny_config(arch))
+    for data, tp in ((2, 4), (4, 2), (8, 1), (4, 1)):
+        mesh = Mesh(np.asarray(jax.devices()[:data * tp]).reshape(data, tp),
+                    ("data", "model"))
+        for q in (0, 1):
+            tcfg = TrainConfig(optim=OptimConfig(quantized_moments=bool(q)))
+            step, args, in_sh, out_sh, donate, wb = rd.build_step(
+                model, shape, mesh, tcfg)
+            out["state"][f"{arch}|{data}|{tp}|{q}"] = \\
+                rd.sharded_bytes_per_device(args[0], in_sh[0])
+            if tp == 1 and not q:
+                with mesh:
+                    hlo = jax.jit(step, in_shardings=in_sh,
+                                  out_shardings=out_sh,
+                                  donate_argnums=donate).lower(
+                                      *args).compile().as_text()
+                out["flops"][f"{arch}|{data}"] = analyze_hlo(hlo)["dot_flops"]
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref") / "ref.json"
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count"
+               "=8", JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(out)], env=env,
+                       capture_output=True, text=True, timeout=300,
+                       cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(out.read_text())
+
+
+def _tcfg(quantized):
+    return TrainConfig(optim=OptimConfig(quantized_moments=quantized))
+
+
+# ----------------------------------------------------- per-device FLOPs --
+@pytest.mark.parametrize("data", [4, 8])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-3-8b"])
+def test_per_device_flops_at_data_only_meshes(arch, data, reference):
+    """The port's count on a fake world of ``data`` ranks against the
+    reference's compiled step on ``data`` forced devices."""
+    model = t_build(tiny_config(arch))
+    with dry_world(data):
+        mesh = _mesh(data, 1, "cpu", 60.0)
+        fn, args, _, _ = dryrun.build_step(model, SHAPE, mesh, _tcfg(False))
+        got = step_costs.count_step(fn, *args)["dot_flops"]
+    want = reference["flops"][f"{arch}|{data}"]
+    assert abs(got - want) <= 0.02 * want
+
+
+# ------------------------------------------------------------ state bytes --
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("data,tp", STATE_MESHES)
+@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-3-8b"])
+def test_state_bytes_match_reference_on_forced_devices(arch, data, tp,
+                                                       quantized, reference):
+    model = t_build(tiny_config(arch))
+    tcfg = _tcfg(quantized)
+    sizes = {"data": data, "model": tp}
+    abstract = tsteps.abstract_train_state(model, tcfg)
+    specs = shlib.specs_for(abstract,
+                            tsteps.train_state_logical_specs(model, tcfg),
+                            sizes)
+    got = dryrun.sharded_bytes_per_device(abstract, specs, sizes)
+    assert got == reference["state"][f"{arch}|{data}|{tp}|{int(quantized)}"]
+
+
+class FakeMesh:
+    """A mesh as the reference's rules read it: only its axis sizes."""
+
+    def __init__(self, **axes):
+        self.shape = axes
+
+
+def _reference_state_bytes(arch, sizes, quantized):
+    """The reference's choose_spec arithmetic over its abstract train
+    state: each leaf's shard shape times its element size."""
+    jm = j_build(j_get(arch))
+    jt = JTrain(optim=JOptim(quantized_moments=quantized))
+    abstract = jsteps.abstract_train_state(jm, jt)
+    flat, tdef = jax.tree.flatten(abstract)
+    logical = tdef.flatten_up_to(jsteps.train_state_logical_specs(jm, jt))
+    total = 0
+    for a, l in zip(flat, logical):
+        shape = tuple(a.shape)
+        spec = tuple(j_sh.choose_spec(shape, l or (None,) * len(shape),
+                                      FakeMesh(**sizes)))
+        spec = spec + (None,) * (len(shape) - len(spec))
+        n = 1
+        for d, ax in zip(shape, spec):
+            axes = () if ax is None else (ax if isinstance(ax, tuple)
+                                          else (ax,))
+            n *= d // math.prod(sizes[x] for x in axes)
+        total += n * jnp.dtype(a.dtype).itemsize
+    return total
+
+
+@pytest.mark.parametrize("mesh_kind", list(MESHES))
+@pytest.mark.parametrize("arch", RUNS)
+def test_full_width_state_bytes_are_the_reference_arithmetic(arch,
+                                                             mesh_kind,
+                                                             reference):
+    """The 8 (cell, mesh) pairs the dry-run runs, to the byte, under the
+    moments each arch trains with (int8 for the reference's
+    QUANT_MOMENT_ARCHS, which the port's list equals)."""
+    assert sorted(dryrun.QUANT_MOMENT_ARCHS) == reference["quant_archs"]
+    sizes = MESHES[mesh_kind]
+    tcfg = dryrun.train_cfg_for(arch)
+    model = t_build(get_config(arch))
+    abstract = tsteps.abstract_train_state(model, tcfg)
+    specs = shlib.specs_for(abstract,
+                            tsteps.train_state_logical_specs(model, tcfg),
+                            sizes)
+    got = dryrun.sharded_bytes_per_device(abstract, specs, sizes)
+    assert got == _reference_state_bytes(
+        arch, sizes, tcfg.optim.quantized_moments)
+
+
+# -------------------------------------------------------------- the meshes --
+def test_production_mesh_over_a_fake_world():
+    """(data 16, model 16) and (pod 2, data 16, model 16): rank 0 at
+    coordinate 0 of every axis, each axis's group of its size; refused
+    over a world of another size."""
+    for multi, n, names in ((False, 256, ("data", "model")),
+                            (True, 512, ("pod", "data", "model"))):
+        with dry_world(n):
+            mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+            assert mesh.mesh_dim_names == names
+            assert shlib.axis_sizes(mesh) == {**({"pod": 2} if multi else {}),
+                                              "data": 16, "model": 16}
+            assert shlib.mesh_coords(mesh) == dict.fromkeys(names, 0)
+            for a in names:
+                g = mesh.get_group(a)
+                assert torch.distributed.get_world_size(g) == \
+                    shlib.axis_sizes(mesh)[a]
+        assert not torch.distributed.is_initialized()
+    with dry_world(8):
+        with pytest.raises(ValueError, match="256 ranks"):
+            make_production_mesh()
+    with dry_world(2):
+        with pytest.raises(RuntimeError, match="without a process group"):
+            with dry_world(2):
+                pass
+
+
+# ------------------------------------------------------------------ CLI --
+KEYS = {"arch", "shape", "mesh", "chips", "params", "active_params",
+        "trace_s", "memory", "live_bytes_per_device",
+        "state_bytes_per_device", "fits_hbm", "state_fits_hbm",
+        "collectives_per_device", "dot_flops_per_device", "roofline"}
+ROOF_KEYS = {"flops_global", "bytes_global", "coll_bytes_global", "chips",
+             "model_flops", "t_compute_s", "t_memory_s", "t_collective_s",
+             "bottleneck", "useful_flops_ratio", "mfu_bound"}
+
+
+def _cli(*args, out_dir):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+         "--out-dir", str(out_dir), "--force"], env=env, cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300)
+
+
+def test_cli_writes_a_full_width_record(tmp_path):
+    """gemma2-2b train_4k on the single-pod mesh: every key, the state
+    bytes the reference's arithmetic, the roofline's terms consistent."""
+    r = _cli("--arch", "gemma2-2b", "--shape", "train_4k", "--mesh",
+             "single", out_dir=tmp_path)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert "[ok" in r.stdout and "1 cells ran, 0 refused, 0 failed" \
+        in r.stdout
+    rec = json.loads((tmp_path / "gemma2-2b__train_4k__single.json")
+                     .read_text())
+    assert set(rec) == KEYS and set(rec["roofline"]) == ROOF_KEYS
+    assert (rec["arch"], rec["shape"], rec["mesh"], rec["chips"]) == \
+        ("gemma2-2b", "train_4k", "single", 256)
+    assert rec["state_bytes_per_device"] == _reference_state_bytes(
+        "gemma2-2b", MESHES["single"], False)
+    roof = rec["roofline"]
+    assert roof["flops_global"] == rec["dot_flops_per_device"] * 256
+    assert roof["bottleneck"] in ("compute", "memory", "collective")
+    assert 0 < roof["useful_flops_ratio"] < 1
+    mem = rec["memory"]
+    assert rec["live_bytes_per_device"] == mem["peak_bytes"] == \
+        mem["argument_bytes"] + mem["temp_bytes"]
+    assert mem["argument_bytes"] >= rec["state_bytes_per_device"]
+    assert rec["fits_hbm"] == (rec["live_bytes_per_device"] <= 80 * 2**30)
+    assert set(rec["collectives_per_device"]) <= {
+        "all-gather", "all-to-all", "coll_count"}
+
+
+@pytest.mark.parametrize("args,item", [
+    (("--arch", "gemma2-2b", "--shape", "prefill_32k"), "item 11h"),
+    (("--arch", "mamba2-370m", "--shape", "train_4k"), "item 11d")],
+    ids=["prefill", "mamba2"])
+def test_cli_refusals_name_their_item(args, item, tmp_path):
+    r = _cli(*args, out_dir=tmp_path)
+    assert r.returncode == 0, r.stderr[-4000:]
+    line = [x for x in r.stdout.splitlines() if x.startswith("[refused]")]
+    assert len(line) == 1 and item in line[0], r.stdout
+    assert "0 cells ran, 1 refused, 0 failed" in r.stdout
+    assert not list(tmp_path.iterdir())
+
+
+def test_all_counts_refusals_apart_from_failures(monkeypatch, capsys,
+                                                 tmp_path):
+    """--all prints each refused cell and exits 0; a cell that fails
+    otherwise makes it exit 1. --quant and --ac-mode seq_tp are refusals
+    naming items 11h and 11f."""
+    monkeypatch.setattr(dryrun, "assigned_cells", lambda: [
+        ("gemma2-2b", "decode_32k"), ("granite-moe-3b-a800m", "train_4k"),
+        ("whisper-large-v3", "train_4k")])
+    dryrun.main(["--all", "--mesh", "both", "--out-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    refused = [x for x in out.splitlines() if x.startswith("[refused]")]
+    assert len(refused) == 6
+    assert sum("item 11h" in x for x in refused) == 2
+    assert sum("item 11e" in x for x in refused) == 2
+    assert sum("item 11d" in x for x in refused) == 2
+    assert "0 cells ran, 6 refused, 0 failed" in out
+    for flags, item in ((["--quant", "w8"], "item 11h"),
+                        (["--ac-mode", "seq_tp"], "item 11f")):
+        dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k",
+                     "--out-dir", str(tmp_path), *flags])
+        out = capsys.readouterr().out
+        assert out.startswith("[refused]") and item in out
+    assert not list(tmp_path.iterdir())
+
+    def broken(*a, **k):
+        raise RuntimeError("boom")
+    monkeypatch.setattr(dryrun, "run_cell", broken)
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--all", "--out-dir", str(tmp_path)])
+    assert e.value.code == 1
+    out = capsys.readouterr().out
+    assert out.count("[FAIL]") == 3 and "3 FAILURES" in out

@@ -13,8 +13,12 @@ against the port's one-device step: tiny gemma2-2b trained in gloo worlds
 at data=2, model=2 and data=2 x model=2 (world 4), tiny granite-moe at
 model=2, and tiny gemma2-2b at data=3, where no leaf splits over data (d
 128), so that every gradient takes the post-backward sum over data and
-every leaf counts in the norm on one data rank; three steps each from the
-reference's state carried across (models/convert.py::from_jax_state).
+every leaf counts in the norm on one data rank; tiny gemma2-2b (4 query
+heads, 2 kv heads) at model=4, where each rank slices its query head's kv
+head from the whole wk/wv, and at model=8, where every rank computes the
+whole attention; and at pod=2 x data=2, the FSDP dims split over both;
+three steps each from the reference's state carried across
+(models/convert.py::from_jax_state).
 
 Tolerances, and why:
   * fp32 (``fp32`` cases): every run's parameters are set to its fp32
@@ -58,9 +62,11 @@ Tolerances, and why:
     other's to 1, the reference's quantizer moves that element by up to
     lr |m_hat| / eps.
   * Controls: the model=2 step without the input-side all-reduce of the
-    tensor-parallel pair, and the data=2 and data=3 steps with the other
+    tensor-parallel pair, the data=2 and data=3 steps with the other
     data ranks' gradients dropped (from the reduce-scatter and from the
-    post-backward sum), must miss the gradient tolerance.
+    post-backward sum), and the model=4 step without the sum over model
+    of the sliced wk/wv's gradient or without sum_grad on the k/v
+    projections' input, must miss the gradient tolerance.
   * Checkpoints, ``reshard_state`` and the world of one: bit for bit.
 
 Each gloo world is spawned once (a module fixture) and returns all of its
@@ -99,6 +105,7 @@ from repro_torch.configs import tiny_config as t_tiny  # noqa: E402
 from repro_torch.data import pipeline as tdp  # noqa: E402
 from repro_torch.distributed import sharding as shlib  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
+from repro_torch.models import attention as t_attn  # noqa: E402
 from repro_torch.models import encdec as t_ed  # noqa: E402
 from repro_torch.models import transformer as t_tr  # noqa: E402
 from repro_torch.models.api import build_model as t_build  # noqa: E402
@@ -303,10 +310,18 @@ REFUSALS = [("mamba2-370m", dict(data=2, model=1), None, "item 11d"),
             ("granite-moe-3b-a800m", dict(data=2, model=1), None,
              "item 11e"),
             ("gemma2-2b", dict(data=1, model=2), "dot", "item 11g"),
-            ("gemma2-2b", dict(data=1, model=16), None, "must divide"),
-            ("gemma2-2b", dict(pod=2, data=1), None, "data/model")]
+            ("gemma2-2b", dict(expert=2, data=1), None, "pod/data/model"),
+            ("nemotron-4-15b", dict(data=1, model=3), None, "straddle"),
+            ("granite-moe-3b-a800m", dict(pod=2, model=2), None,
+             "item 11e")]
 ACCEPTED = [("gemma2-2b", dict(data=2, model=2), None),
             ("gemma2-2b", dict(data=16, model=4), None),
+            # heads (8) and kv heads (4) replicated over model
+            ("gemma2-2b", dict(data=1, model=16), None),
+            ("gemma2-2b", dict(pod=2, data=1), None),
+            # 2 query heads a rank, a kv head sliced for each pair of ranks
+            ("granite-3-8b", dict(data=16, model=16), None),
+            ("mistral-large-123b", dict(pod=2, data=16, model=16), None),
             ("gemma2-2b", dict(data=2, model=1), "dot"),
             ("granite-moe-3b-a800m", dict(data=1, model=2), None),
             ("mamba2-370m", dict(data=1, model=1), None),
@@ -477,14 +492,32 @@ def _case(trainer_of, model, case, rank, shape=SHAPE):
 
 def _control(trainer_of, model, name, rank, shape=SHAPE):
     """The fp32 case's first gradients with one collective taken out:
-    "no_tp" (the input-side all-reduce of the tensor-parallel pair) or
+    "no_tp" (the input-side all-reduce of the tensor-parallel pair),
     "drop" (the other data ranks' gradients dropped: from the
     reduce-scatter of a leaf split over data, and from the post-backward
-    sum of one that is not)."""
-    saved = shlib.sum_grad, shlib.reduce_scatter_dim
+    sum of one that is not), "no_kv_sum" (a sliced wk/wv's gradient not
+    summed over model) or "no_kv_input" (the k/v projections' input not
+    passing sum_grad, the q projection's still)."""
+    saved = shlib.sum_grad, shlib.reduce_scatter_dim, shlib.kv_slice
     make = trainer_of
     if name == "no_tp":
         shlib.sum_grad = lambda x, group: x
+    elif name == "no_kv_sum":
+        shlib.kv_slice = lambda w, group, lo, hi: w[:, lo:hi]
+    elif name == "no_kv_input":
+        def make(tcfg):
+            tr = trainer_of(tcfg)
+            inner, group = tr.dot, tr.groups["model"]
+            span = shlib.kv_span(model.cfg, tr.sizes["model"],
+                                 tr.coords["model"])
+
+            def dot(a, w, site):
+                if site in ("attn_k", "attn_v"):
+                    return t_attn._proj_in(
+                        a, shlib.kv_slice(w, group, *span), site)
+                return inner(a, w, site)
+            tr.dot = dot
+            return tr
     else:
         def own_only(x, dim, group):
             n = x.shape[dim] // torch.distributed.get_world_size(group)
@@ -499,7 +532,7 @@ def _control(trainer_of, model, name, rank, shape=SHAPE):
     try:
         return _case(make, model, "fp32", rank, shape)["grads"]
     finally:
-        shlib.sum_grad, shlib.reduce_scatter_dim = saved
+        shlib.sum_grad, shlib.reduce_scatter_dim, shlib.kv_slice = saved
 
 
 def _ckpt_cases(mesh, model, ckpt_dir):
@@ -565,12 +598,15 @@ def _reshard(mesh, model, ckpt_dir):
             "donated": all(x is None for x in tree_leaves(st))}
 
 
-def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE):
-    """A rank of a test world: the ("data", "model") mesh and every case
-    in ``cases`` (the training cases at ``shape``)."""
-    from repro_torch.launch.mesh import make_serving_mesh
+def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE,
+           pod=1):
+    """A rank of a test world: the ("data", "model") mesh (with a leading
+    "pod" dim when ``pod`` > 1) and every case in ``cases`` (the training
+    cases at ``shape``)."""
+    from repro_torch.launch.mesh import _mesh, make_serving_mesh
     mesh = make_serving_mesh(model=tp, data=data, device_type="cpu",
-                             backend="gloo")
+                             backend="gloo") if pod == 1 else \
+        _mesh(data, tp, "cpu", WORLD_S, pod=pod)
     ac = shlib.make_ac(mesh)
     out = {}
     for case in cases:
@@ -583,7 +619,7 @@ def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE):
             out[case] = _case(trainer_of, model, case, rank, shape)
         elif case == "moe":
             out[case] = _case(trainer_of, model, "fp32", rank)
-        elif case in ("no_tp", "drop"):
+        elif case in ("no_tp", "drop", "no_kv_sum", "no_kv_input"):
             out[case] = _control(trainer_of, model, case, rank, shape)
         elif case == "quant_refused":
             try:
@@ -628,6 +664,31 @@ def world_model2(ckpt_root, world_data2):
 def world4():
     return spawn(_world, 4, backend="gloo", timeout_s=WORLD_S,
                  args=(2, 2, ("fp32", "bf16"), ""))
+
+
+@pytest.fixture(scope="module")
+def world_model4():
+    """Tiny gemma2-2b's 4 query heads split over model=4, its 2 kv heads
+    not: each rank projects the one kv head of its query head."""
+    return spawn(_world, 4, backend="gloo", timeout_s=WORLD_S,
+                 args=(1, 4, ("fp32", "bf16", "no_kv_sum", "no_kv_input"),
+                       ""))
+
+
+@pytest.fixture(scope="module")
+def world_model8():
+    """model=8: neither the 4 query heads nor the 2 kv heads divide it,
+    so every rank computes the whole attention."""
+    return spawn(_world, 8, backend="gloo", timeout_s=WORLD_S,
+                 args=(1, 8, ("fp32", "bf16"), ""))
+
+
+@pytest.fixture(scope="module")
+def world_pod():
+    """pod=2 x data=2 (world 4): the FSDP dims split over ("pod", "data"),
+    the batch's 4 rows one a rank."""
+    return spawn(_world, 4, backend="gloo", timeout_s=WORLD_S,
+                 args=(2, 1, ("fp32",), "", SHAPE, 2))
 
 
 @pytest.fixture(scope="module")
@@ -705,7 +766,8 @@ def _check_bf16(got, want, control=None):
 
 
 WORLDS = {"data2": "world_data2", "model2": "world_model2",
-          "world4": "world4"}
+          "world4": "world4", "model4": "world_model4",
+          "model8": "world_model8"}
 
 
 @pytest.mark.parametrize("name", list(WORLDS))
@@ -734,7 +796,7 @@ def test_bf16_steps_match_one_device(name, request, one_device):
     ranks = request.getfixturevalue(WORLDS[name])
     got = ranks[0]["bf16"]
     plain = one_device["gemma2-2b", "bf16"]
-    if name == "model2":
+    if name in ("model2", "model4", "model8"):
         _check_bf16(got, plain)
     else:
         split = one_device["gemma2-2b", "bf16", 2]
@@ -789,17 +851,36 @@ def test_data3_unsplit_leaves_match_reference(world_data3, at_shape3):
 
 @pytest.mark.parametrize("name,world", [("no_tp", "world_model2"),
                                         ("drop", "world_data2"),
-                                        ("drop", "world_data3")])
+                                        ("drop", "world_data3"),
+                                        ("no_kv_sum", "world_model4"),
+                                        ("no_kv_input", "world_model4")])
 def test_controls_miss(name, world, request, one_device):
     """Without the tensor-parallel input all-reduce, or with the other
     data ranks' gradients dropped (from the reduce-scatter at data=2,
     where every leaf splits over data, and from the post-backward sum at
-    data=3, where none does), the first gradients miss the tolerance."""
+    data=3, where none does), or at model=4 without the sum over model of
+    the sliced wk/wv's gradient or of the k/v projections' input
+    gradient, the first gradients miss the tolerance."""
     ranks = request.getfixturevalue(world)
     want = request.getfixturevalue("at_shape3")["one_device"]["grads"] \
         if world == "world_data3" else one_device["gemma2-2b", "fp32"]["grads"]
     assert _grad_err(want, ranks[0]["fp32"]["grads"]) <= GRAD_TOL
     assert _grad_err(want, ranks[0][name]) > 100 * GRAD_TOL
+
+
+def test_pod_axis_matches_reference_and_one_device(world_pod, reference,
+                                                  one_device):
+    """pod=2 x data=2: the embed dims split over both axes (gathered over
+    data, then pod), the batch over both; three fp32 steps against the
+    reference's jitted step and the one-device port."""
+    got = world_pod[0]["fp32"]
+    assert all(got["data_split"])
+    _check_fp32(got, reference["gemma2-2b"])
+    _check_fp32(got, one_device["gemma2-2b", "fp32"])
+    for r in world_pod:
+        assert r["fp32"]["shapes_ok"]
+        assert all(np.array_equal(a, b) for a, b in zip(r["fp32"]["grads"],
+                                                        got["grads"]))
 
 
 def test_data2_rank_holds_half_the_state(world_data2):
