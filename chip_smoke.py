@@ -239,12 +239,36 @@ Phases, each fatal on failure:
                 against sharded_bytes_per_device for the same cut and
                 mesh, equal to the byte; (c) ``python -m
                 repro_torch.launch.dryrun --all --mesh single`` in a
-                subprocess started before phase 17 (2 cells at once; its
-                cells trace on the host while phases 17-18's gloo worlds
-                run), each cell's line and the refusals by ROADMAP item
-                printed, a failure that is not a named refusal fatal;
+                subprocess started after phase 12 (one cell at a time;
+                its cells trace on the host while phases 13-18 run),
+                each cell's line and the refusals by ROADMAP item
+                printed, a failure that is not a named refusal fatal: 13
+                cells run (4 train, 9 prefill and decode), 20 refused
+                (item 11d 14, item 11e 6);
+ 20. mesh-serve — the sharded prefill and serve steps
+                (training/sharded_serve.py): (a) an NCCL world of 1,
+                full-width gemma2-2b, ``make_prefill_step(ac=)`` over B 2
+                x 4096 (26 flash launches) and 16 ``make_serve_step(ac=)``
+                steps, logits and every cache leaf bit-identical to the
+                unsharded steps run first in the same process; (b) a gloo
+                world of 2 on this card at model=2, full width cut to 6
+                layers (wq, wk times QK_SCALE), the caches split on their
+                sequence: prefill logits and each rank's blocks
+                bit-identical to the unsharded run's where the column
+                slices are (``cublas_slices``), 16 teacher-forced steps
+                across the rings' wrap over caches grown to 4112 slots
+                under LOGIT_RTOL, greedy tokens equal where the margin
+                allows, each rank's cache bytes (half the whole's), peak
+                and seconds a step (host-staged, not a speed); (c) tiny
+                gemma2-2b at S 2048 in a gloo world of 4 at data=2 x
+                model=2 and model=4 (``kv_span``), same rules, prefill
+                bit for bit; (d) ``serve.main --tiny --autotune 8`` over
+                the world of 2: a mesh_model=2 candidate measured on both
+                ranks, the same winner on both, its record served by
+                ``--serving-config``; (a) and (c) run beside (b)'s
+                world;
  11. report   — one JSON line with every kernel's launches (flash's summed
-                over phase 12's training run and phases 13-18's paths, the
+                over phase 12's training run and phases 13-20's paths, the
                 paged kernels' over the main trace, llava's paged steps
                 and phase 17's sharded runs, summed over ranks), error,
                 times.
@@ -254,6 +278,7 @@ result, without a CUDA device or without the repository beside it.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import itertools
@@ -4694,16 +4719,20 @@ def phase_train_mesh(phase12_step_s):
 
 
 # ------------------------------------------------------------- dry-run ----
-DRY_JOBS = 2            # phase 19(c)'s cells at once, a process each
+DRY_JOBS = 1            # phase 19(c)'s cells at once, a process each
 DRY_TIMEOUT_S = 600.0
+# phase 19(c)'s refusals on the single-pod mesh, by ROADMAP item: the
+# ssm, hybrid, encdec and vlm families, and moe at data > 1
+DRY_REFUSED = {"item 11d": 14, "item 11e": 6}
 H100_BF16_FLOPS = 989e12
 
 
 class DrySweep:
     """Phase 19(c)'s ``python -m repro_torch.launch.dryrun --all --mesh
-    single`` in a subprocess, started before phase 17: its cells trace
-    on the host while phases 17-18's gloo worlds run (host-staged, timed
-    as no speed), and phase 19 collects it. Stopped at exit whatever
+    single`` in a subprocess, started after phase 12: its 13 cells trace
+    on the host, one at a time, while phases 13-18 run (one core of the
+    host's; two at once slowed phases 17-18's host-staged gloo worlds),
+    and phase 19 collects it. Stopped at exit whatever
     happens in between."""
 
     def __init__(self):
@@ -4797,10 +4826,439 @@ def phase_dryrun(step_s: float, peak_bytes: int, rest_bytes: list,
         print(f"dryrun[c] refused, {item}: {len(cells)} cells "
               f"({', '.join(cells)})", flush=True)
     print(f"dryrun[c] --all --mesh single, {DRY_JOBS} cells at once, "
-          f"started before phase 17 and collected {secs:.1f} s later",
+          f"started after phase 12 and collected {secs:.1f} s later",
           flush=True)
     if rc != 0:
         fail(f"dryrun[c]: --all --mesh single exited {rc}:\n{out[-4000:]}")
+    counts = {item: len(cells) for item, cells in refused.items()}
+    if "13 cells ran, 20 refused, 0 failed" not in out or \
+            counts != DRY_REFUSED:
+        fail(f"dryrun[c]: want 13 cells run (4 train, 9 serving) and "
+             f"refusals {DRY_REFUSED}, got {counts}:\n{out[-4000:]}")
+
+
+# ------------------------------------- phase 20: serving over a mesh ----
+# (a) and (b): B 2 x a 4096-token prompt (flash), then 16 decode steps from
+# position 4096, where gemma2-2b's 4096-slot rings wrap, over caches grown
+# to 4112 slots (a length model=2 divides); (b) keeps MS_LAYERS of the 26
+# layers, every width whole, as phases 17-18's gloo runs do
+MS_B, MS_S, MS_STEPS = 2, 4096, 16
+MS_LAYERS = 6
+# (c): tiny gemma2-2b (window 32) over 2048 tokens (flash at hd 32), 8
+# steps from position 2048, where its 32-slot rings wrap, caches grown to
+# 2056 slots (model=2 and model=4 divide them)
+MS_TINY_S, MS_TINY_STEPS = 2048, 8
+MS_WORLD_S = 600.0
+MS_AUTOTUNE = ["--arch", "gemma2-2b", "--tiny", "--requests", "4",
+               "--prompt-len", "24", "--gen", "8", "--max-batch", "4",
+               "--autotune", "8", "--autotune-top-k", "8"]
+
+
+def ms_inputs(cfg, B, S, steps, seed):
+    """A prompt (B, S) and the token fed at each decode step (B, steps),
+    int32 on the host, from ``seed``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randint(2, cfg.vocab_size, (B, S), generator=g,
+                          dtype=torch.int32),
+            torch.randint(2, cfg.vocab_size, (B, steps), generator=g,
+                          dtype=torch.int32))
+
+
+def ms_params(model, qk):
+    """Parameters from seed 0 on the card, wq and wk times ``qk``."""
+    import torch
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    if qk != 1:
+        scale_qk([sub["attn"] for sub in params["blocks"].values()], qk)
+    return params
+
+
+def ms_unsharded(model, params, prompt, feed):
+    """The unsharded prefill over ``prompt``, its caches grown by the
+    step count, then one decode step per column of ``feed``: {prefill
+    logits, every step's logits (host), the prefill's caches (host)}."""
+    import torch
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.training import steps as st
+    S, n = prompt.shape[1], feed.shape[1]
+    logits, cache = st.make_prefill_step(model)(params,
+                                                {"tokens": prompt.cuda()})
+    out = {"prefill": logits.float().cpu(),
+           "cache": {j: {k: x.to("cpu", copy=True) for k, x in c.items()}
+                     for j, c in cache.items()}, "steps": []}
+    cache = _grow_cache(cache, S, S + n)
+    serve = st.make_serve_step(model)
+    for i in range(n):
+        lg, cache = serve(params, cache, feed[:, i:i + 1].cuda(),
+                          torch.tensor(S + i, device="cuda"))
+        out["steps"].append(lg.float().cpu())
+    torch.cuda.synchronize()
+    return out
+
+
+def ms_sharded(mesh, model, params, prompt, feed):
+    """The sharded prefill and ``feed``'s decode steps over ``mesh`` on
+    this rank (``make_prefill_step``/``make_serve_step`` with ``ac``):
+    the launches of the prefill, its logits rows and each cache block's
+    digest, each step's logits rows and seconds, this rank's cache bytes
+    and peak memory, and where its rows and blocks sit."""
+    import torch
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.training import steps as st
+    from repro_torch.training.sharded_serve import serve_steps
+    S, n = prompt.shape[1], feed.shape[1]
+    ac = make_ac(mesh)
+    steps = serve_steps(model, ac)
+    local = steps.shard_params(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits, blocks = st.make_prefill_step(model, ac=ac)(
+        local, {"tokens": prompt.cuda()})
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    flash = all_launches()["flash_attention_fwd"]
+    place = steps.layout(blocks)
+    out = {"flash": flash, "prefill": logits.float().cpu(), "pre_s": pre_s,
+           "digests": {j: {k: leaf_digest(x) for k, x in c.items()}
+                       for j, c in blocks.items()},
+           "specs": {j: p.spec for j, p in place.items()},
+           "coords": dict(steps.coords), "sizes": dict(steps.sizes)}
+    whole = _grow_cache(steps.whole_cache(blocks), S, S + n)
+    del blocks
+    blocks = steps.place_cache(whole)
+    out["cache_bytes"] = tensor_bytes(blocks)
+    out["whole_cache_bytes"] = tensor_bytes(whole)
+    del whole
+    serve = st.make_serve_step(model, ac=ac)
+    out["steps"], out["step_s"] = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, blocks = serve(local, blocks, feed[:, i:i + 1].cuda(),
+                           torch.tensor(S + i, device="cuda"))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["steps"].append(lg.float().cpu())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del local, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ms_rank_one(rank, world, device):
+    """Phase 20(a): an NCCL world of 1, full-width gemma2-2b: the
+    unsharded steps, then the sharded ones over a model=1 mesh, in this
+    process. Returns whether every logit and block is the same bits, and
+    the sharded run's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(model=1, data=1, device_type="cuda",
+                             backend="nccl")
+    model = build_model(get_config("gemma2-2b"))
+    prompt, feed = ms_inputs(model.cfg, MS_B, MS_S, MS_STEPS, 20)
+    params = ms_params(model, 1)
+    want = ms_unsharded(model, params, prompt, feed)
+    got = ms_sharded(mesh, model, params, prompt, feed)
+    del params
+    same_cache = all(got["digests"][j][k] == leaf_digest(x)
+                     for j, c in want["cache"].items()
+                     for k, x in c.items())
+    same = torch.equal(got["prefill"], want["prefill"]) and all(
+        torch.equal(a, b) for a, b in zip(got["steps"], want["steps"]))
+    return {"same_logits": same, "same_cache": same_cache,
+            "flash": got["flash"], "pre_s": got["pre_s"],
+            "step_s": got["step_s"], "peak_gb": got["peak_gb"],
+            "tokens": [int(x) for x in want["steps"][-1][:, 0].argmax(-1)]}
+
+
+def ms_rank_two(rank, world, device, prompt, feed, config_path):
+    """Phase 20's gloo world of 2 on one card: (b) full-width gemma2-2b
+    cut to MS_LAYERS layers at model=2 (wq, wk times QK_SCALE); (d)
+    ``serve.main --tiny --autotune 8`` over the world, then its record
+    served with ``--serving-config``, each rank's output captured."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(get_config("gemma2-2b").replace(
+        num_layers=MS_LAYERS))
+    mesh = make_serving_mesh(model=2, data=1, device_type="cuda",
+                             backend="gloo")
+    t0 = time.perf_counter()
+    res = {"b": ms_sharded(mesh, model, ms_params(model, QK_SCALE), prompt,
+                           feed)}
+    res["b_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for key, argv in (("tune", MS_AUTOTUNE + ["--autotune-out",
+                                              config_path]),
+                      ("load", ["--arch", "gemma2-2b", "--tiny",
+                                "--requests", "4", "--prompt-len", "24",
+                                "--gen", "8", "--max-batch", "4",
+                                "--serving-config", config_path])):
+        so, se = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            serve.main(argv)
+        res[key] = (so.getvalue(), se.getvalue())
+        torch.distributed.barrier()
+    res["d_s"] = time.perf_counter() - t0
+    return res
+
+
+def ms_rank_four(rank, world, device, prompt, feed):
+    """Phase 20(c): tiny gemma2-2b (wq, wk times 1/8, as the CPU tests)
+    in a gloo world of 4 on one card, at data=2 x model=2 and at model=4
+    (query heads a rank over a kv head sliced per rank, ``kv_span``)."""
+    import torch
+    from repro_torch.configs import tiny_config
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(tiny_config("gemma2-2b"))
+    out = {}
+    for data, tp in ((2, 2), (1, 4)):
+        mesh = make_serving_mesh(model=tp, data=data, device_type="cuda",
+                                 backend="gloo")
+        out[(data, tp)] = ms_sharded(mesh, model, ms_params(model, 0.125),
+                                     prompt, feed)
+    return out
+
+
+def ms_hold(label, got, want, rows=None):
+    """A sharded run's logits against the unsharded run's (``rows``: the
+    rank's rows of them): the prefill bit for bit where ``exact``, each
+    decode step within LOGIT_RTOL of max |logit| and the same greedy
+    token wherever the unsharded top-2 margin exceeds that. Returns the
+    worst |diff| over the steps, relative to max |logit|."""
+    import torch
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got["steps"], want["steps"])):
+        b = b if rows is None else b[rows]
+        a, b = a[:, 0], b[:, 0]
+        if not torch.isfinite(a).all():
+            fail(f"{label}: step {i}: non-finite logits")
+        scale = float(b.abs().max())
+        d = float((a - b).abs().max())
+        top2 = torch.topk(b, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_RTOL * scale
+        if d > LOGIT_RTOL * scale or not bool(
+                ((a.argmax(-1) == b.argmax(-1)) | ~clear).all()):
+            fail(f"{label}: decode step {i}: logits differ by {d:.4g} "
+                 f"(tolerance {LOGIT_RTOL * scale:.4g}), greedy "
+                 f"{a.argmax(-1).tolist()} vs {b.argmax(-1).tolist()}")
+        worst = max(worst, d / scale)
+    return worst
+
+
+def ms_blocks_equal(got, cache, rows=None):
+    """Whether every block of a sharded prefill is the same bits as its
+    slice of the unsharded prefill's caches (host tensors)."""
+    from repro_torch.distributed.sharding import local_block
+    for j, c in cache.items():
+        spec = list(got["specs"][j])
+        if rows is not None:
+            spec[1] = None               # the unsharded run was the rows'
+        for k, x in c.items():
+            block = local_block(x, tuple(spec), got["sizes"], got["coords"])
+            if leaf_digest(block) != got["digests"][j][k]:
+                return False
+    return True
+
+
+def phase_mesh_serve():
+    """Phase 20: the sharded prefill and serve steps on the card
+    (training/sharded_serve.py). (a) an NCCL world of 1: full-width
+    gemma2-2b, the sharded prefill over B 2 x 4096 (26 flash launches) and
+    16 decode steps, bit-identical to the unsharded steps run first in the
+    same process. (b) a gloo world of 2 on this card, model=2: full width
+    cut to MS_LAYERS layers, the caches split on their sequence (each
+    ring a block of 2048 slots a rank): the prefill's logits and each
+    rank's blocks bit-identical to the unsharded run's where a product
+    over a column slice equals the slice of the whole product
+    (``cublas_slices``), else the logits under LOGIT_RTOL; 16 decode
+    steps across the ring's wrap over caches grown to 4112 slots,
+    teacher-forced, under LOGIT_RTOL with greedy tokens equal wherever the
+    margin allows. (c) tiny gemma2-2b in a gloo world of 4 at data=2 x
+    model=2 and model=4, under the same rules (data=2: against the
+    unsharded run on each rank's rows). (d) ``serve.main --tiny
+    --autotune 8`` over the world of 2: a mesh_model=2 candidate
+    measured, both ranks' winner the same, the record served by
+    ``--serving-config``. The unsharded runs come first, here; then (a)
+    and (c) run beside (b, d)'s world, whose host-staged gloo copies leave
+    the card mostly idle. Returns the flash launches of the sharded
+    prefills, summed over ranks."""
+    import tempfile
+    import types
+    import torch
+    from repro_torch.configs import get_config, tiny_config
+    from repro_torch.launch.mesh import WorldFailed, spawn
+    from repro_torch.models.api import build_model
+
+    card = card_line()
+    flash = 0
+    # the unsharded runs (b) and (c) are held to, here, first
+    cut = build_model(get_config("gemma2-2b").replace(num_layers=MS_LAYERS))
+    prompt, feed = ms_inputs(cut.cfg, MS_B, MS_S, MS_STEPS, 21)
+    params = ms_params(cut, QK_SCALE)
+    want_b = ms_unsharded(cut, params, prompt, feed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    slices = cublas_slices(get_config("gemma2-2b"), [{"policy":
+        types.SimpleNamespace(max_batch=MS_B, prefill_chunk=MS_B * MS_S)}])
+    exact = all(v == 0.0 for v in slices.values())
+    tiny = build_model(tiny_config("gemma2-2b"))
+    t_prompt, t_feed = ms_inputs(tiny.cfg, 2, MS_TINY_S, MS_TINY_STEPS, 22)
+    t_params = ms_params(tiny, 0.125)
+    want_c = {None: ms_unsharded(tiny, t_params, t_prompt, t_feed)}
+    for r in range(2):                    # data=2: a rank's row alone
+        want_c[r] = ms_unsharded(tiny, t_params, t_prompt[r:r + 1],
+                                 t_feed[r:r + 1])
+    del t_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 20's unsharded runs")
+
+    def world(label, fn, n, backend, args=()):
+        t0 = time.perf_counter()
+        try:
+            out = spawn(fn, n, backend=backend, device="cuda:0",
+                        timeout_s=MS_WORLD_S, args=args)
+        except WorldFailed as e:
+            fail(f"mesh-serve[{label}]: the {backend} world of {n} "
+                 f"failed:\n{e}")
+        return out, time.perf_counter() - t0
+
+    # (a) and then (c) run beside (b, d)'s world, whose host-staged gloo
+    # copies leave the card idle: every world holds its own checks
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(1) as pool:
+        side = pool.submit(lambda: (
+            world("a", ms_rank_one, 1, "nccl"),
+            world("c", ms_rank_four, 4, "gloo", (t_prompt, t_feed))))
+        two, two_s = world("b, d", ms_rank_two, 2, "gloo",
+                           (prompt, feed, str(Path(tmp) / "serving.json")))
+        ((one,), one_s), (four, four_s) = side.result()
+    mark("phase 20's worlds")
+    # (a)
+    if not (one["same_logits"] and one["same_cache"]):
+        fail(f"mesh-serve[a]: the sharded steps on a world of 1 are not the "
+             f"unsharded steps bit for bit (logits {one['same_logits']}, "
+             f"caches {one['same_cache']})")
+    if one["flash"] != 26:
+        fail(f"mesh-serve[a]: {one['flash']} flash launches in the prefill")
+    flash += one["flash"]
+    print(f"mesh-serve[a nccl world of 1, gemma2-2b B={MS_B} S={MS_S}]: "
+          f"prefill ({one['flash']} flash launches) and {MS_STEPS} decode "
+          f"steps bit-identical to the unsharded steps, every cache leaf "
+          f"too; prefill {one['pre_s']:.3f} s, a step "
+          f"{sorted(one['step_s'])[MS_STEPS // 2] * 1e3:.1f} ms (median; "
+          f"its host shared with (b)'s and (c)'s worlds), peak "
+          f"{one['peak_gb']:.2f} GB; {one_s:.1f} s with spawn ({card})",
+          flush=True)
+    # (b)
+    label = "mesh-serve[b gloo model=2]"
+    worst = 0.0
+    for i, r in enumerate(two):
+        b = r["b"]
+        same = torch.equal(b["prefill"], want_b["prefill"]) and \
+            ms_blocks_equal(b, want_b["cache"])
+        if exact and not same:
+            fail(f"{label}: rank {i}'s prefill logits or cache blocks differ "
+                 f"from the unsharded run's, though every column slice's "
+                 f"product equals the slice of the whole")
+        if not same:
+            d = float((b["prefill"] - want_b["prefill"]).abs().max())
+            if d > LOGIT_RTOL * float(want_b["prefill"].abs().max()):
+                fail(f"{label}: rank {i}'s prefill logits differ by {d:.4g}")
+        worst = max(worst, ms_hold(f"{label} rank {i}", b, want_b))
+        if b["flash"] != MS_LAYERS:
+            fail(f"{label}: rank {i}: {b['flash']} flash launches")
+        if 2 * b["cache_bytes"] != b["whole_cache_bytes"]:
+            fail(f"{label}: rank {i} holds {b['cache_bytes']} cache bytes of "
+                 f"{b['whole_cache_bytes']}")
+        flash += b["flash"]
+        print(f"{label}: rank {i}: prefill logits and blocks "
+              f"{'bit-identical' if same else 'not bit-identical'} to the "
+              f"unsharded run's (column slices exact: {exact}); cache "
+              f"{b['cache_bytes'] / 1e9:.4f} GB of the whole's "
+              f"{b['whole_cache_bytes'] / 1e9:.4f} (blocks {b['specs']}); "
+              f"peak {b['peak_gb']:.2f} GB; prefill {b['pre_s']:.2f} s, a "
+              f"decode step {sorted(b['step_s'])[MS_STEPS // 2]:.2f} s "
+              f"(median; host-staged gloo gathers on one card, not a "
+              f"speed) ({card})", flush=True)
+    print(f"{label}: gemma2-2b {MS_LAYERS} of 26 layers, B={MS_B} "
+          f"S={MS_S}, wq, wk x {QK_SCALE}: {MS_STEPS} decode steps over "
+          f"{MS_S + MS_STEPS} slots, teacher-forced, max |diff| "
+          f"{worst:.3g} of max |logit| (tolerance {LOGIT_RTOL}); greedy "
+          f"tokens equal where the margin allows; the world {two_s:.1f} s "
+          f"with (d) ({two[0]['b_s']:.1f} s for (b))", flush=True)
+    # (c)
+    for (data, tp) in ((2, 2), (1, 4)):
+        label = f"mesh-serve[c gloo data={data} x model={tp}]"
+        worst = 0.0
+        for i, r in enumerate(four):
+            c = r[(data, tp)]
+            row = c["coords"]["data"] if c["sizes"]["data"] > 1 else None
+            want = want_c[row]
+            same = torch.equal(c["prefill"], want["prefill"]) and \
+                ms_blocks_equal(c, want["cache"], rows=row)
+            if not same:
+                fail(f"{label}: rank {i}'s prefill logits or blocks differ "
+                     f"from the unsharded run's")
+            worst = max(worst, ms_hold(f"{label} rank {i}", c, want))
+            flash += c["flash"]
+        print(f"{label}: tiny gemma2-2b B=2 S={MS_TINY_S} (flash at hd 32, "
+              f"{four[0][(data, tp)]['flash']} launches a rank), prefill "
+              f"logits and blocks bit-identical on every rank (data=2: the "
+              f"unsharded run on the rank's row); {MS_TINY_STEPS} steps "
+              f"across the ring's wrap within {worst:.3g} of max |logit|; "
+              f"blocks {four[0][(data, tp)]['specs']}", flush=True)
+    print(f"mesh-serve[c]: the world of 4 in {four_s:.1f} s", flush=True)
+    # (d)
+    out0, err0 = two[0]["tune"]
+    _, err1 = two[1]["tune"]
+    winners = [x.split("winner ", 1)[1] for x in
+               (out0 + err1).splitlines() if "]: winner " in x]
+    measured = [x for x in out0.splitlines() if "]: measured " in x]
+    if len(winners) != 2 or winners[0] != winners[1]:
+        fail(f"mesh-serve[d]: the ranks' winners differ: {winners}\n"
+             f"{out0[-2000:]}\n{err0[-2000:]}\n{err1[-2000:]}")
+    if not measured or "mesh_model=2" not in measured[0]:
+        fail(f"mesh-serve[d]: no mesh_model=2 candidate measured: "
+             f"{measured}")
+    loaded = two[0]["load"][0]
+    if "serving-config[h100-sxm]" not in loaded or "served 4 requests" \
+            not in loaded:
+        fail(f"mesh-serve[d]: the record did not serve:\n{loaded[-2000:]}")
+    print(f"mesh-serve[d]: serve.main {' '.join(MS_AUTOTUNE)} over a gloo "
+          f"world of 2: {measured[0].split(': ', 1)[1]}; both ranks' winner "
+          f"{winners[0]}; --serving-config served it: "
+          f"{[x for x in loaded.splitlines() if 'served' in x][0]}. gloo on "
+          f"one card times host copies, so these tok/s cannot rank the "
+          f"mesh candidates by speed ({card}); (d) in "
+          f"{two[0]['d_s']:.1f} s", flush=True)
+    return flash
 
 
 def main() -> int:
@@ -4940,6 +5398,8 @@ def main() -> int:
           f"serving path's flash launches {wp_launches['flash_attention_fwd']}"
           f"; phase 12 in {time.perf_counter() - t_train:.1f} s", flush=True)
     mark("phase 12")
+    # phase 19(c)'s sweep traces on the host while phases 13-18 run
+    sweep = DrySweep()
 
     # phase 13: the SSM family and the dense-cache decode
     t_ssm = time.perf_counter()
@@ -4969,8 +5429,6 @@ def main() -> int:
     t_ll = time.perf_counter()
     ll = phase_llava()
     mark("phases 15-16")
-    # phase 19(c)'s sweep traces on the host while phases 17-18 run
-    sweep = DrySweep()
     # phase 17: the sharded engine
     t_mesh = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4995,11 +5453,18 @@ def main() -> int:
     print(f"dryrun: phase 19 in {time.perf_counter() - t_dry:.1f} s",
           flush=True)
     mark("phase 19")
+    # phase 20: the sharded prefill and serve steps
+    t_ms = time.perf_counter()
+    ms_flash = phase_mesh_serve()
+    print(f"mesh-serve: phase 20 in {time.perf_counter() - t_ms:.1f} s; "
+          f"flash launches of its sharded prefills, summed over ranks "
+          f"{ms_flash}", flush=True)
+    mark("phase 20")
     ed_paths = {"whisper serve": w_serve["flash_attention_fwd"],
                 "whisper train": w_train["flash_attention_fwd"],
                 "llava prefill": ll["prefill"]["flash_attention_fwd"],
                 "mesh": mesh_launches["flash_attention_fwd"],
-                "mesh train": mt_flash}
+                "mesh train": mt_flash, "mesh serve": ms_flash}
     flash_paths.update(ed_paths)
     print(f"encdec+vlm: kernels at the new geometries {json.dumps(ed_rows)};"
           f" flash launches by path {json.dumps(ed_paths)}; paged decode "

@@ -217,19 +217,24 @@ class ActivationLayout:
       the rank's rows, so it holds by construction, and activations stay
       whole over ``model``.
     * ``"decode_q"``, ``"decode_kv"``, ``"decode_scores"``: ``x`` as it
-      is. In the reference they only hint the dry-run's decode cells at
-      the partitioner; they wait for the sharded decode step (ROADMAP
-      Queue 1, item 11h).
+      is. In the reference they hint the decode cells at the partitioner
+      (q replicated over ``model``, k, v and the scores split on the
+      cache's sequence); the port's sharded decode step does that work
+      itself (``CacheBlock``: q made whole over heads, each rank's
+      softmax over its keys, ``softmax_combine``).
     * any other kind (the reference's ``"moe_buf"`` no-op included):
       ``x`` as it is.
 
     ``mesh`` is a named ``DeviceMesh`` (or sizes only: every coordinate
-    0)."""
+    0). ``serving`` holds the sharded serving steps made over the layout
+    (training/sharded_serve.py::serve_steps), so that a prefill step and
+    a serve step made from one layout share their cache's placement."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.sizes = axis_sizes(mesh)
         self.coords = mesh_coords(mesh)
+        self.serving: Dict[Any, Any] = {}
 
     def batch_axes(self, b: int):
         """The mesh axes ``b`` global rows split over: a name, a tuple of
@@ -471,10 +476,15 @@ def _gather_single(out: torch.Tensor, inp: torch.Tensor, group) -> None:
 
 def _staged(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` contiguous where ``group``'s collectives take it: gloo moves
-    host memory, so a CUDA tensor is staged there explicitly."""
+    host memory, so a CUDA tensor is staged there explicitly. Strides
+    are the dense row-major ones even along dims of size 1 (which
+    ``contiguous`` keeps as they are), so that the bytes view works."""
     if dist.get_backend(group) == "gloo" and x.is_cuda:
-        return x.contiguous().cpu()
-    return x.contiguous()
+        x = x.contiguous().cpu()
+    x = x.contiguous()
+    if x.dim() and x.stride(-1) != 1:
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -607,9 +617,121 @@ def sum_value(x: torch.Tensor, group) -> torch.Tensor:
 def broadcast_float(value: float, group=None) -> float:
     """Rank 0's ``value`` on every rank of ``group`` (fp64; on the card
     for nccl, which takes CUDA tensors only)."""
+    return broadcast_floats([value], group)[0]
+
+
+def broadcast_floats(values: Sequence[float], group=None) -> list:
+    """Rank 0's ``values`` on every rank of ``group``, in one broadcast;
+    every rank passes as many."""
     device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
-    t = torch.tensor([value], dtype=torch.float64, device=device)
+    t = torch.tensor(list(values), dtype=torch.float64, device=device)
     dist.broadcast(t, src=dist.get_global_rank(group, 0)
                    if group is not None else 0, group=group)
     _wire("collective-broadcast", t)
-    return float(t.item())
+    return [float(v) for v in t.tolist()]
+
+
+# ------------------------------------------------- the dense decode cache --
+def softmax_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                    group, *, rescale: bool = True) -> torch.Tensor:
+    """Attention over keys split across ``group``'s ranks, from each
+    rank's softmax over its own keys: ``m`` (B, H, 1, 1) the row max,
+    ``l`` (B, H, 1, 1) the sum of exp(s - m) and ``o`` (B, 1, H, hd) the
+    unnormalised sum of exp(s - m) v, all fp32. One all-gather of (B, 1,
+    H, hd + 2) fp32; then with M the largest m, o = sum_r o_r e^(m_r - M)
+    / max(sum_r l_r e^(m_r - M), 1e-30), summed in group-rank order, so
+    every rank holds the same bits. A rank whose keys are all masked has
+    m at the mask value, and its terms vanish under e^(m_r - M).
+    ``rescale=False`` drops the e^(m_r - M) factors (a test's control).
+    Returns (B, 1, H, hd) fp32."""
+    hd = o.shape[-1]
+    stats = torch.cat([m, l], dim=-1).permute(0, 2, 1, 3)
+    parts = all_gather_dim(torch.cat([o, stats], dim=-1).unsqueeze(0), 0,
+                           group)
+    o_r, m_r, l_r = parts[..., :hd], parts[..., hd:hd + 1], \
+        parts[..., hd + 1:]
+    scale = torch.exp(m_r - m_r.amax(dim=0)) if rescale \
+        else torch.ones_like(m_r)
+    num, den = o_r[0] * scale[0], l_r[0] * scale[0]
+    for r in range(1, parts.shape[0]):
+        num = num + o_r[r] * scale[r]
+        den = den + l_r[r] * scale[r]
+    return num / torch.clamp(den, min=1e-30)
+
+
+class CacheBlock:
+    """This rank's block of one sub-layer slot's dense decode cache, (L,
+    B, T, K, hd) under ``spec`` (``choose_spec`` on ``cache_axes``), and
+    what attending over it takes (models/attention.py's ``place``):
+
+    * ``T`` split over an axis (``model``, where it divides T): the rank
+      holds slots [offset, offset + T / n) of every row. Attention takes
+      every head, q and the new k/v made whole over heads (``heads``),
+      over the rank's keys; the ranks' partial softmaxes are then combined
+      (``softmax_combine``). A ring's slots are split alike.
+    * ``K`` split over ``model`` (where T does not divide it): the rank
+      holds its kv heads over every slot, and attends with its query
+      heads; the out-projection gathers the heads.
+    * neither: the whole cache, every head.
+
+    ``length`` is the whole T. ``group`` is T's axis's process group (or
+    None), ``model`` the model axis's; ``cfg`` the model's config (a rank's
+    kv head under ``kv_span``)."""
+
+    def __init__(self, spec: Spec, length: int, sizes, coords, groups,
+                 cfg):
+        spec = full_rank(spec, 5)
+        seq, kv = _as_axes(spec[2]) if spec[2] else (), \
+            _as_axes(spec[3]) if spec[3] else ()
+        n, idx = 1, 0
+        for a in seq:
+            n, idx = n * sizes[a], idx * sizes[a] + coords[a]
+        self.spec, self.length, self.cfg = spec, length, cfg
+        self.local_len = length // n
+        self.offset = idx * self.local_len
+        self.group = groups[seq[0]] if n > 1 else None
+        self.heads_split = bool(kv) and sizes[kv[0]] > 1
+        self.model = groups.get("model")
+        self.tp = sizes.get("model", 1)
+
+    @property
+    def split(self) -> bool:
+        """Whether the sequence is split (attention needs the combine)."""
+        return self.group is not None
+
+    def _whole(self, x: torch.Tensor, heads: int) -> torch.Tensor:
+        """(B, S, h, hd) from ``tp_dot`` -> every one of ``heads`` heads:
+        a rank's heads gathered over ``model``; under ``kv_span`` (each
+        rank holds its query group's one kv head) the first rank's copy of
+        each. Pure copies."""
+        if x.shape[2] == heads:
+            return x
+        x = all_gather_dim(x, 2, self.model)
+        if x.shape[2] == heads:
+            return x
+        first = {}
+        for r in range(self.tp):
+            first.setdefault(kv_span(self.cfg, self.tp, r)[0], r)
+        return x[:, :, [first[j] for j in range(heads)]]
+
+    def heads(self, q, k, v):
+        """q, k, v (B, S, h, hd) as ``tp_dot`` gives them -> the heads the
+        block attends with: every head unless the block's kv heads split,
+        where ``tp_dot``'s local heads are the block's."""
+        if self.heads_split:
+            return q, k, v
+        H, K = self.cfg.num_heads, self.cfg.num_kv_heads
+        return self._whole(q, H), self._whole(k, K), self._whole(v, K)
+
+    def block(self, kv: torch.Tensor) -> torch.Tensor:
+        """A whole-sequence k or v cache of this rank's rows, (B, T, h, hd)
+        as the forward's ``tp_dot`` leaves it, -> this rank's block: its
+        slots, over every kv head made whole, or over ``tp_dot``'s local
+        kv heads where the block's split (kv heads that divide ``model``
+        are split at rest in ``wk``/``wv`` too)."""
+        if not self.heads_split:
+            kv = self._whole(kv, self.cfg.num_kv_heads)
+        return kv.narrow(1, self.offset, self.local_len)
+
+    def combine(self, m, l, o) -> torch.Tensor:
+        return softmax_combine(m, l, o, self.group)

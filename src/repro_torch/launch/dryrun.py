@@ -26,13 +26,20 @@ counterpart.
 
 Train cells run ``ShardedTrainer``'s step (training/sharded.py) on the
 rank's shards of ``abstract_train_state`` and its rows of
-``Model.input_specs``. Cells the port cannot run yet are refused with
-the ROADMAP item that would lift the refusal: prefill and decode cells
-and ``--quant`` (item 11h: the port's ``make_prefill_step`` and
-``make_serve_step`` take no ``ac``, and the reference's decode cache
-splits ``cache_seq`` over ``model`` where kv heads do not divide, which
-needs a softmax combined across ranks), the ssm, hybrid, encdec and vlm
-families on a mesh (item 11d), and moe at data > 1 (item 11e).
+``Model.input_specs``; prefill and decode cells the sharded serving
+steps (training/sharded_serve.py) on the rank's shards of the parameters,
+the global batch or token (of which a step takes the rank's rows) and,
+for decode, the rank's blocks of the dense cache, as the reference's
+``build_step`` places them. State bytes are the parameters' (and the
+optimizer's for train, the cache's for decode), as the reference counts
+them. Flash attention runs its blockwise plain forward
+(models/flash.py::blockwise_forward): the dense plain version's products,
+one 512-row q block's scores alive at a time. Cells the port cannot run
+yet are refused with the ROADMAP item that would lift the refusal:
+``--quant`` (item 11g: stored int8/int4 weights put ``dequant_dot``
+beside ``tp_dot``, a ``dot`` hook under model > 1), the ssm, hybrid,
+encdec and vlm families on a mesh (item 11d), and moe at data > 1 (item
+11e).
 """
 from __future__ import annotations
 
@@ -50,11 +57,12 @@ from repro_torch.configs import (OptimConfig, TrainConfig, assigned_cells,
 from repro_torch.distributed import sharding as shlib
 from repro_torch.launch.mesh import dry_world, make_production_mesh
 from repro_torch.models.api import build_model
+from repro_torch.models.flash import BLOCKWISE
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.roofline import analysis as ra
 from repro_torch.roofline import step_costs
-from repro_torch.training import steps as steps_lib
 from repro_torch.training.sharded import ShardedTrainer
+from repro_torch.training.sharded_serve import ShardedServeSteps
 
 ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 
@@ -85,25 +93,41 @@ def local_tree(abstract, specs, mesh):
 
 def build_step(model, shape, mesh, tcfg, quant: str = "",
                ac_mode: str = "dp"):
-    """(fn, args, state specs, weight_bits): the step this rank runs and
-    its meta arguments, its shards of the state and its rows of the
-    batch. Raises ``Refused`` for a cell the port cannot run yet."""
-    if quant or shape.kind != "train":
-        what = "--quant, which serves prefill and decode cells" if quant \
-            else f"{shape.kind} cells"
+    """(fn, args, state, weight_bits): the step this rank runs and its
+    meta arguments, its shards of the state and its rows of the batch;
+    ``state`` lists the (abstract tree, specs) pairs whose bytes a device
+    holds at rest. Raises ``Refused`` for a cell the port cannot run
+    yet."""
+    if quant:
         raise Refused(
-            f"{what}: the sharded prefill and serve steps, whose caches "
-            f"split per cache_axes (cache_seq over model where kv heads do "
-            f"not divide), are not ported (ROADMAP Queue 1, item 11h)")
+            "--quant, which serves prefill and decode cells on stored "
+            "int8/int4 weights: dequant_dot beside tp_dot, a dot hook under "
+            "model > 1, is not ported (ROADMAP Queue 1, item 11g)")
     try:
         ac = shlib.make_ac(mesh, mode=ac_mode)
-        trainer = ShardedTrainer(model, tcfg, ac, kernel="ref")
+        if shape.kind == "train":
+            trainer = ShardedTrainer(model, tcfg, ac, kernel=BLOCKWISE)
+        else:
+            steps = ShardedServeSteps(model, ac, kernel=BLOCKWISE)
     except (NotImplementedError, ValueError) as e:
         raise Refused(str(e)) from None
-    state = local_tree(trainer.abstract, trainer.specs, mesh)
-    batch = {k: v.clone() for k, v in trainer.rows(
-        model.input_specs(shape)).items()}
-    return trainer.local_step, (state, batch), trainer.specs, 16.0
+    if shape.kind == "train":
+        state = local_tree(trainer.abstract, trainer.specs, mesh)
+        batch = {k: v.clone() for k, v in trainer.rows(
+            model.input_specs(shape)).items()}
+        return trainer.local_step, (state, batch), \
+            [(trainer.abstract, trainer.specs)], 16.0
+    abstract = model.abstract_params()
+    params = local_tree(abstract, steps.param_specs, mesh)
+    held = [(abstract, steps.param_specs)]
+    ins = model.input_specs(shape)
+    if shape.kind == "prefill":
+        return steps.prefill, (params, ins), held, 16.0
+    cache = steps.place_cache(ins["cache"])
+    held.append((ins["cache"], shlib.specs_for(
+        ins["cache"], model.batch_logical_specs(shape)["cache"], mesh)))
+    return steps.decode, (params, cache, ins["token"], ins["pos"]), held, \
+        16.0
 
 
 def sharded_bytes_per_device(abstract, specs, mesh) -> int:
@@ -125,10 +149,10 @@ def cell_record(model, shape, mesh, tcfg, *, chips: int, quant: str = "",
     ``mesh`` (this process its rank 0), without the cell's names."""
     cfg = model.cfg
     t0 = time.time()
-    fn, args, specs, weight_bits = build_step(model, shape, mesh, tcfg,
-                                              quant=quant, ac_mode=ac_mode)
-    state_bytes = sharded_bytes_per_device(
-        steps_lib.abstract_train_state(model, tcfg), specs, mesh)
+    fn, args, held, weight_bits = build_step(model, shape, mesh, tcfg,
+                                             quant=quant, ac_mode=ac_mode)
+    state_bytes = sum(sharded_bytes_per_device(a, s, mesh)
+                      for a, s in held)
     costs = step_costs.count_step(fn, *args)
     t_trace = time.time() - t0
     roof = ra.analyze_counted(
@@ -217,7 +241,7 @@ def main(argv=None):
                     help="cells run at once, each in its own process")
     ap.add_argument("--quant", default="", choices=["", "w8", "w4", "haq"],
                     help="quantized-weight serving (prefill/decode cells; "
-                         "refused: ROADMAP item 11h)")
+                         "refused: ROADMAP item 11g)")
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient accumulation for train cells")
     ap.add_argument("--ac-mode", default="dp", choices=["dp", "seq_tp"],

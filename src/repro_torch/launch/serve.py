@@ -57,6 +57,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Dict
 
@@ -68,7 +69,7 @@ from repro_torch.configs import get_config, tiny_config
 from repro_torch.core.hardware_model import DEFAULT_HW, HARDWARES
 from repro_torch.core.quantization import make_quant_dot
 from repro_torch.launch.mesh import init_from_env, make_serving_mesh, \
-    rank_device
+    make_sub_mesh, rank_device
 from repro_torch.models import attention
 from repro_torch.models.api import build_model
 from repro_torch.models.params import tree_map
@@ -361,6 +362,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "validate the top candidates on the engine, and "
                          "serve the trace with the measured winner "
                          "(0 = off)")
+    ap.add_argument("--autotune-top-k", type=int, default=3,
+                    help="with --autotune: searched candidates measured on "
+                         "the engine beside the default")
     ap.add_argument("--autotune-out", default="",
                     help="with --autotune: write the searched serving "
                          "config JSON here for --serving-config to load "
@@ -422,17 +426,20 @@ def serving_config_policy(ap, cfg, model, params, args, reqs,
                           max_model_len: int):
     """The admission policy a searched serving config gives:
     ``--serving-config`` loads one, ``--autotune`` searches one on
-    ``reqs`` (and writes it to ``--autotune-out``). The autotuner
-    searches one device (its mesh dimension is 1: timing a mesh candidate
-    needs a host with several cards); a loaded record may split the model
-    over up to the launched world's ranks."""
+    ``reqs`` (and writes it to ``--autotune-out``). The mesh dimension
+    reaches the launched world's ranks, as the reference's reaches
+    ``jax.device_count()``: under torchrun every rank runs the same
+    search, a mesh candidate is measured on a sub-mesh of the first ranks
+    and rank 0's numbers are every rank's (serving/autotune/validate.py),
+    so every rank picks the same winner."""
     from repro_torch.serving.autotune import (ConfigSpace,
                                               autotune_serving_config,
                                               load_serving_config,
                                               save_serving_config)
     hw = HARDWARES[args.hw]
-    devices = int(os.environ.get("WORLD_SIZE", "1")) \
-        if args.serving_config else 1
+    devices = torch.distributed.get_world_size() \
+        if torch.distributed.is_initialized() \
+        else int(os.environ.get("WORLD_SIZE", "1"))
     space = ConfigSpace(cfg, hw, max_model_len=max_model_len,
                         max_devices=devices,
                         max_batch_cap=args.max_batch or 8,
@@ -450,7 +457,8 @@ def serving_config_policy(ap, cfg, model, params, args, reqs,
     else:
         t0 = time.time()
         tune = autotune_serving_config(model, params, space, reqs,
-                                       budget=args.autotune, seed=0)
+                                       budget=args.autotune, seed=0,
+                                       top_k=args.autotune_top_k)
         sc = tune.winner.scored.config
         corr = tune.rank_correlation
         print(f"autotune[{hw.name}]: {tune.search.evaluated} "
@@ -460,7 +468,16 @@ def serving_config_policy(ap, cfg, model, params, args, reqs,
               f"default {tune.default.decode_tok_s:.1f} "
               f"({tune.searched_vs_default:.2f}x), rank corr "
               + ("n/a" if corr is None else f"{corr:.2f}"))
+        print(f"autotune[{hw.name}]: measured "
+              + "; ".join(f"mesh_model={m.scored.config.mesh_model} "
+                          f"page={m.scored.config.page_size} "
+                          f"{m.decode_tok_s:.1f} tok/s"
+                          for m in tune.validated))
         print(f"autotune[{hw.name}]: winner {sc.as_dict()}")
+        if devices > 1 and torch.distributed.get_rank():
+            # rank 0 alone prints to stdout; each rank shows its pick
+            print(f"rank {torch.distributed.get_rank()}: autotune"
+                  f"[{hw.name}]: winner {sc.as_dict()}", file=sys.stderr)
         if args.autotune_out:
             save_serving_config(args.autotune_out, tune.record(space))
             print(f"autotune: wrote {args.autotune_out} "
@@ -479,14 +496,28 @@ def make_engine(model, params, policy, args, mesh=None) -> Engine:
                   chunked_prefill=not args.no_chunked_prefill, mesh=mesh)
 
 
-def join_mesh(sizes: Dict[str, int], device: torch.device):
-    """This process's rank of the world ``torchrun`` launched, its device
-    and the serving mesh over the world: (mesh, device). The backend
-    follows the device: nccl on cuda, gloo on the CPU."""
+def join_world(device: torch.device) -> torch.device:
+    """This process's rank of the world ``torchrun`` launched (joined
+    once; a world already joined, as ``launch.mesh.spawn``'s, is kept),
+    and its device. The backend follows the device: nccl on cuda, gloo
+    on the CPU."""
     backend = "nccl" if device.type == "cuda" else "gloo"
+    if torch.distributed.is_initialized():
+        return device
     device = rank_device(device.type)
     if "WORLD_SIZE" in os.environ:          # else make_serving_mesh says how
         init_from_env(backend, device)
+    return device
+
+
+def join_mesh(sizes: Dict[str, int], device: torch.device):
+    """``join_world``, then the serving mesh over the world: (mesh,
+    device). A world joined already keeps its backend (gloo for ranks
+    that share a card)."""
+    joined = torch.distributed.is_initialized()
+    device = join_world(device)
+    backend = None if joined else \
+        "nccl" if device.type == "cuda" else "gloo"
     return make_serving_mesh(sizes["model"], sizes["data"],
                              device_type=device.type,
                              backend=backend), device
@@ -512,8 +543,10 @@ def main(argv=None):
     if args.autotune and args.serving_config:
         ap.error("--serving-config loads a finished search; drop it or "
                  "drop --autotune")
-    if args.autotune_out and not args.autotune:
-        ap.error("--autotune-out only makes sense with --autotune")
+    if (args.autotune_out or args.autotune_top_k != 3) and \
+            not args.autotune:
+        ap.error("--autotune-out/--autotune-top-k only make sense with "
+                 "--autotune")
     if (args.autotune or args.serving_config) and (
             args.kv_policy or args.kv_bits != 16 or args.mesh):
         ap.error("--kv-bits/--kv-policy/--mesh are knobs the serving "
@@ -534,6 +567,7 @@ def main(argv=None):
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
     model = build_model(cfg)
     mesh = None
+    owned = not torch.distributed.is_initialized()
     if args.serving_config:
         mesh_sizes = _record_mesh(args.serving_config)
     if args.mesh or mesh_sizes["model"] * mesh_sizes["data"] > 1:
@@ -541,13 +575,17 @@ def main(argv=None):
             mesh, device = join_mesh(mesh_sizes, device)
         except ValueError as e:
             ap.error(str(e))
+    elif args.autotune and (not owned
+                            or int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        device = join_world(device)         # the search spans the world
     with contextlib.ExitStack() as quiet:
-        if mesh is not None and torch.distributed.get_rank():
+        if torch.distributed.is_initialized() and \
+                torch.distributed.get_rank():
             # every rank serves the same trace; rank 0 alone reports
             sink = quiet.enter_context(open(os.devnull, "w"))
             quiet.enter_context(contextlib.redirect_stdout(sink))
         _serve(ap, args, cfg, model, device, mesh)
-    if mesh is not None:
+    if owned and torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
 
@@ -595,6 +633,14 @@ def _serve(ap, args, cfg, model, device, mesh):
                                        max_len)
     else:
         policy = make_policy(cfg, model, args, max_len)
+    if args.autotune and torch.distributed.is_initialized():
+        # the winner is served as a loaded record is: on the first
+        # mesh_model ranks of the world (every rank makes the groups)
+        m = policy.mesh_model
+        mesh = make_sub_mesh(1, m, device_type=device.type) if m > 1 \
+            else None
+        if torch.distributed.get_rank() >= m:
+            return
     if mesh is not None and policy.mesh_model * policy.mesh_data != \
             mesh.size():
         ap.error(f"the policy's mesh model={policy.mesh_model} x "

@@ -49,7 +49,7 @@ class Model:
     # -- compute ------------------------------------------------------------
     def forward(self, params, batch, *, want_cache=False,
                 unembed_mode="full", cache_layout="ring", dot=None,
-                kernel="auto", remat=False, gather=None):
+                kernel="auto", remat=False, gather=None, place=None):
         """Whole-sequence forward; ``kernel`` picks the flash-attention
         path of sequences of FLASH_MIN tokens or more: "auto" (CUDA kernel
         on CUDA tensors, plain version on CPU ones), "cuda" or "ref".
@@ -59,7 +59,8 @@ class Model:
         (transformer.forward). The encoder-decoder takes {frames, tokens}
         and ignores ``cache_layout``, as in the reference
         (encdec.forward). ``gather`` is the sharded engine's hook
-        (serving/engine/sharded.py; the dense and moe families)."""
+        (serving/engine/sharded.py; the dense and moe families), ``place``
+        the sharded serving steps' cache layout (transformer.forward)."""
         if self.cfg.is_encdec:
             return encdec.forward(params, batch, self.cfg,
                                   want_cache=want_cache, remat=remat,
@@ -70,7 +71,7 @@ class Model:
                                    unembed_mode=unembed_mode,
                                    cache_layout=cache_layout, dot=dot,
                                    kernel=kernel, remat=remat,
-                                   gather=gather)
+                                   gather=gather, place=place)
 
     def loss(self, params, batch, *, remat=False, dot=None, kernel="auto",
              gather=None, data_sum=None):
@@ -98,11 +99,18 @@ class Model:
         return ce + 0.01 * aux
 
     def prefill(self, params, batch, *, cache_layout="ring",
-                unembed_mode="last", dot=None, kernel="auto"):
+                unembed_mode="last", dot=None, kernel="auto", gather=None,
+                place=None):
+        """(logits, caches) of ``forward(want_cache=True)``. ``gather``
+        and ``place`` are the sharded serving steps' hooks
+        (training/sharded_serve.py; the dense and moe families): the
+        parameters whole per layer at use, and each layer's caches cut to
+        this rank's block (transformer.forward)."""
         logits, cache, _, _ = self.forward(params, batch, want_cache=True,
                                            unembed_mode=unembed_mode,
                                            cache_layout=cache_layout,
-                                           dot=dot, kernel=kernel)
+                                           dot=dot, kernel=kernel,
+                                           gather=gather, place=place)
         return logits, cache
 
     def unembed(self, params, hidden, *, dot=None, gather=None):
@@ -110,17 +118,19 @@ class Model:
         return transformer.unembed(params, hidden, self.cfg, dot=dot,
                                    gather=gather)
 
-    def decode_step(self, params, cache, token, pos, *, dot=None):
+    def decode_step(self, params, cache, token, pos, *, dot=None,
+                    gather=None, place=None):
         """One token (B, 1) at position ``pos`` over dense caches (a
         ``prefill``'s, grown to the decode length, or ``init_cache``'s),
         updated in place; returns (logits (B, 1, V), cache). The
         reference's ``generate`` path for ssm and hybrid and
-        training/steps.py::make_serve_step."""
+        training/steps.py::make_serve_step. ``gather`` and ``place``: the
+        sharded serving steps' hooks (transformer.decode_step)."""
         if self.cfg.is_encdec:
             return encdec.decode_step(params, cache, token, pos, self.cfg,
                                       dot=dot)
         return transformer.decode_step(params, cache, token, pos, self.cfg,
-                                       dot=dot)
+                                       dot=dot, gather=gather, place=place)
 
     def decode_step_paged(self, params, pool, page_table, token, positions,
                           *, kernel="auto", dot=None, gather=None):

@@ -134,12 +134,42 @@ def _last_window_ring(k: torch.Tensor, W: int) -> torch.Tensor:
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor, idx) -> None:
     """Write ``new`` (B,1,K,hd) in place at sequence slot ``idx`` (a scalar
-    tensor: no host read)."""
-    cache[:, idx] = new[:, 0].to(cache.dtype)
+    tensor: no host read, and no read of a meta tensor's value)."""
+    cache.index_copy_(1, torch.as_tensor(idx, device=cache.device)
+                      .reshape(1).long(), new.to(cache.dtype))
+
+
+def _block_write(cache: torch.Tensor, new: torch.Tensor, idx) -> None:
+    """``_cache_write`` into a block of a cache's slots: ``idx`` (a scalar
+    tensor) is the slot's index in the block, and a slot outside the block
+    leaves it as it is (no host read)."""
+    inside = (idx >= 0) & (idx < cache.shape[1])
+    at = idx.clamp(0, cache.shape[1] - 1).reshape(1).long()
+    cache.index_copy_(1, at, torch.where(inside, new.to(cache.dtype),
+                                         cache.index_select(1, at)))
+
+
+def _attend_partial(q, k, v, mask, cap: float):
+    """``_attend``'s softmax left unnormalised, over one block of the
+    keys: (m (B,H,1,1) the rows' max, l (B,H,1,1) the sum of exp(s - m),
+    o (B,1,H,hd) the sum of exp(s - m) v), fp32, for a combine across
+    blocks (distributed/sharding.py::softmax_combine)."""
+    hd = q.shape[-1]
+    G = q.shape[2] // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), k.to(F32))
+    s = softcap(s * (hd ** -0.5), cap)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return m, e.sum(dim=-1, keepdim=True), \
+        torch.einsum("bhqk,bkhd->bqhd", e, v.to(F32))
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, kind: str, cfg, *,
-                     dot=None):
+                     dot=None, place=None):
     """One-token decode over a dense cache. x (B,1,D); pos a scalar int
     tensor (the current position). A local layer whose cache holds
     exactly ``window_size`` slots is a ring (slot ``pos % W``); every
@@ -147,27 +177,44 @@ def attention_decode(p, x, cache_k, cache_v, pos, kind: str, cfg, *,
     in place; attention runs through the plain ``_attend``, as in the
     reference, masked by each slot's absolute position.
 
+    ``place`` (distributed/sharding.py::CacheBlock): the caches are this
+    rank's block of a cache split over a mesh. q, k and v take the
+    block's heads (``place.heads``), and the slots their global indices,
+    ``place.offset`` on: only the rank whose block holds the written slot
+    writes it, and the mask reads each slot's absolute position from its
+    global index. Over a block of the sequence, each rank's softmax over
+    its keys is combined across the ranks (``place.combine``).
+
     Returns (out (B,1,D), cache_k, cache_v)."""
     B = x.shape[0]
     positions = pos.reshape(1, 1).expand(B, 1)
     q, k_new, v_new = qkv(p, x, cfg.rope_theta, positions, dot=dot)
     T = cache_k.shape[1]
-    s = torch.arange(T, device=x.device)
-    if kind == "local" and T == cfg.window_size:
-        slot = pos % T
-        _cache_write(cache_k, k_new, slot)
-        _cache_write(cache_v, v_new, slot)
+    off, whole = 0, T
+    if place is not None:
+        q, k_new, v_new = place.heads(q, k_new, v_new)
+        off, whole = place.offset, place.length
+    s = off + torch.arange(T, device=x.device)
+    if kind == "local" and whole == cfg.window_size:
+        slot = pos % whole
         # absolute position held by each slot (after this write)
-        abs_pos = pos - (pos - s) % T
+        abs_pos = pos - (pos - s) % whole
         mask = (abs_pos >= 0)[None, None, None, :]
     else:
-        _cache_write(cache_k, k_new, pos)
-        _cache_write(cache_v, v_new, pos)
+        slot = pos
         valid = s <= pos
         if kind == "local":
             valid &= s > pos - cfg.window_size
         mask = valid[None, None, None, :]
-    o = _attend(q, cache_k, cache_v, mask, cfg.attn_softcap)
+    if whole == T:
+        _cache_write(cache_k, k_new, slot)
+        _cache_write(cache_v, v_new, slot)
+        o = _attend(q, cache_k, cache_v, mask, cfg.attn_softcap)
+    else:
+        _block_write(cache_k, k_new, slot - off)
+        _block_write(cache_v, v_new, slot - off)
+        o = place.combine(*_attend_partial(q, cache_k, cache_v, mask,
+                                           cfg.attn_softcap)).to(q.dtype)
     return _out_proj(o, p, dot), cache_k, cache_v
 
 

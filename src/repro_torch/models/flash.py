@@ -16,6 +16,13 @@ forward's log-sum-exp, fp32 inside. When q, k or v needs a gradient the
 forward asks the kernel (or the plain version) for that lse and saves q,
 k, v, out and lse; the serving and search paths, whose tensors need none,
 launch the kernel without it.
+
+The dry-run (launch/dryrun.py) counts a step on meta tensors, which no
+kernel takes, and the plain version builds the (B, H, S, T) fp32 scores
+the kernel avoids. Its ``kernel="blockwise"`` runs the forward as the
+reference's XLA twin walks it instead (``blockwise_forward``): the same
+products, every block pair computed, one 512-row q block's scores alive
+at a time.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ FLASH_MIN = 2048          # use flash from this q-length on
 BLOCK = 512               # the reference's q and kv blocks: they fix its
                           # shape contract and the backward's blocking
 KINDS = ("global", "local", "bidir")
+BLOCKWISE = "blockwise"   # the dry-run's forward (the module docstring)
 
 
 def _pair_mask(i: int, j: int, Qc: int, Kc: int, causal: bool, window: int,
@@ -122,10 +130,57 @@ def flash_backward(q, k, v, out, lse, dout, *, causal: bool, window: int,
     return back(dq, q, H), back(dk, k, K), back(dv, v, K)
 
 
+def blockwise_forward(q, k, v, *, causal: bool, window: int, cap: float):
+    """(out, lse) of ``flash_attention_ref`` one ``BLOCK``-row q block at
+    a time, each block's scores over every key: the products of the dense
+    plain version (every pair, masked ones included, as the reference's
+    ``_fwd_impl`` computes them) with one block's (B, H, BLOCK, T) fp32
+    scores alive instead of (B, H, S, T). The rows' softmax is whole per
+    block, so out and lse are the plain version's up to the order of its
+    sums."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    Qc = min(BLOCK, S)
+    kf = (k.repeat_interleave(G, dim=2) if G > 1 else k).to(F32) \
+        .transpose(1, 2)                                   # (B, H, T, hd)
+    vf = (v.repeat_interleave(G, dim=2) if G > 1 else v).to(F32) \
+        .transpose(1, 2)
+    kpos = torch.arange(T, device=q.device)[None, :]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=F32, device=q.device)
+    for i in range(S // Qc):
+        rows = slice(i * Qc, (i + 1) * Qc)
+        # in place: one block's scores alive, then its weights
+        s = (q[:, rows].to(F32).transpose(1, 2) @ kf.transpose(-1, -2)) \
+            .mul_(hd ** -0.5)
+        if cap:
+            s.div_(cap).tanh_().mul_(cap)
+        qpos = torch.arange(i * Qc, (i + 1) * Qc, device=q.device)[:, None]
+        mask = torch.ones((Qc, T), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        s.masked_fill_(~mask, NEG)
+        m = s.amax(dim=-1, keepdim=True)
+        p = s.sub_(m).exp_()
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        out[:, rows] = ((p @ vf) / l).transpose(1, 2).to(q.dtype)
+        lse[:, :, rows] = (m + torch.log(l))[..., 0]
+    return out, lse
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cap, kernel, with_grad):
         ctx.cfg = (causal, window, cap)
+        if kernel == BLOCKWISE:
+            out, lse = blockwise_forward(q, k, v, causal=causal,
+                                         window=window, cap=cap)
+            if with_grad:
+                ctx.save_for_backward(q, k, v, out, lse)
+            return out
         if not with_grad:
             return kops.flash_attention(q, k, v, causal=causal,
                                         window=window, cap=cap, mode=kernel)
@@ -151,8 +206,9 @@ def flash_attention(q, k, v, kind: str = "global", window: int = 0,
     kind: "global" (causal), "local" (causal, keys within ``window`` of the
     query), "bidir" (full). ``kernel`` is the kernels/ops.py mode: "auto"
     (the CUDA kernel on CUDA tensors, the plain version on CPU ones),
-    "cuda" or "ref"; it picks the forward, and the backward is
-    ``flash_backward`` either way. Raises ValueError on lengths the
+    "cuda", "ref", or the dry-run's "blockwise" (``blockwise_forward``);
+    it picks the forward, and the backward is ``flash_backward`` either
+    way. Raises ValueError on lengths the
     reference rejects."""
     if kind not in KINDS:
         raise ValueError(f"unknown attention kind {kind!r}, not in {KINDS}")

@@ -196,12 +196,13 @@ def _to_ring(k: torch.Tensor, W: int) -> torch.Tensor:
     return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, W - S))
 
 
-def _dense_block_decode(p, x, cache, pos, kind, cfg, dot):
+def _dense_block_decode(p, x, cache, pos, kind, cfg, dot, place=None):
     """One token through a block over its dense caches (written in
-    place)."""
+    place); ``place``: a rank's block of them (``decode_step``)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, _, _ = attn.attention_decode(p["attn"], h, cache["k"], cache["v"],
-                                    pos, kind["attn"], cfg, dot=dot)
+                                    pos, kind["attn"], cfg, dot=dot,
+                                    place=place)
     return _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot)[0]
 
 
@@ -366,7 +367,7 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
 def forward(params, batch, cfg, *, want_cache: bool,
             unembed_mode: str = "full", cache_layout: str = "ring",
             dot=None, kernel: str = "auto", remat: bool = False,
-            gather=None):
+            gather=None, place=None):
     """Full-sequence forward (training and prefill).
 
     unembed_mode: "full" -> logits (B,S,V); "last" -> logits (B,1,V);
@@ -389,6 +390,9 @@ def forward(params, batch, cfg, *, want_cache: bool,
     keeping its activations.
     gather: the sharded engine's hook (dense and moe families; see
     ``_whole``).
+    place: {slot: ``CacheBlock``} (distributed/sharding.py), the sharded
+    serving steps' cache layout: each layer's caches are cut to this
+    rank's block as they are made (training/sharded_serve.py).
     batch: {tokens (B, S)}, and for the vision stub also patches
     (B, S_p, D), which come first: the sequence is S_p + S rows.
     Returns (logits_or_hidden, caches or None, aux, loss_mask): aux
@@ -410,7 +414,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
     else:
         x, out_cache, aux_total = _forward_blocks(
             params, x, cfg, positions, want_cache, ring, dot, kernel, remat,
-            gather)
+            gather, place)
     x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
     if unembed_mode == "none":
         return x, out_cache, aux_total, loss_mask
@@ -421,8 +425,9 @@ def forward(params, batch, cfg, *, want_cache: bool,
 
 
 def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
-                    kernel, remat, gather=None):
-    """The dense and moe families' layer groups: (x, caches, aux)."""
+                    kernel, remat, gather=None, place=None):
+    """The dense and moe families' layer groups: (x, caches, aux);
+    ``place`` cuts each layer's caches to a rank's block (``forward``)."""
     P = period_of(cfg)
     kinds = sublayer_kinds(cfg)
 
@@ -451,8 +456,10 @@ def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
             x, aux_total, kv = group_body(x, aux_total, blocks)
         if want_cache:
             for j, c in enumerate(kv):
-                caches[f"sub{j}"]["k"].append(c["k"])
-                caches[f"sub{j}"]["v"].append(c["v"])
+                for n in ("k", "v"):
+                    caches[f"sub{j}"][n].append(
+                        c[n] if place is None
+                        else place[f"sub{j}"].block(c[n]))
     out_cache = None
     if want_cache:
         out_cache = {s: {kv: torch.stack(lst) for kv, lst in c.items()}
@@ -494,13 +501,23 @@ def _forward_mamba(params, x, cfg, positions, want_cache, dot, kernel,
 
 
 # ----------------------------------------------------------------- decode ----
-def decode_step(params, cache, token, pos, cfg, *, dot=None):
+def decode_step(params, cache, token, pos, cfg, *, dot=None, gather=None,
+                place=None):
     """token (B,1) int32, pos a scalar int tensor (or int): the position of
     the token. One step over the dense caches of ``cache_specs``' layout
     (a prefill's, grown to the decode length), which it updates in place:
     KV slots written, mamba conv windows and states replaced. Returns
-    (logits (B,1,V), cache)."""
-    x = embed_tokens(params, token, cfg)
+    (logits (B,1,V), cache).
+
+    The sharded serving steps' hooks (dense and moe families;
+    training/sharded_serve.py): ``gather`` as in ``forward``, and
+    ``place``, {slot: ``CacheBlock``}: ``cache`` is a rank's block of
+    each slot's caches."""
+    if cfg.family in ("ssm", "hybrid") and (gather or place):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} decode takes no gather hook or "
+            f"cache placement (ROADMAP Queue 1, item 11d)")
+    x = embed_tokens(params, token, cfg, gather)
     pos = torch.as_tensor(pos, device=x.device)
     if cfg.family in ("ssm", "hybrid"):
         emb0 = x
@@ -526,10 +543,11 @@ def decode_step(params, cache, token, pos, cfg, *, dot=None):
     else:
         for g, j, kind in _layers(cfg):
             x = _dense_block_decode(
-                _group(params["blocks"][f"sub{j}"], g), x,
-                _group(cache[f"sub{j}"], g), pos, kind, cfg, dot)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params, x, cfg, dot=dot), cache
+                _layer(params, j, g, gather), x,
+                _group(cache[f"sub{j}"], g), pos, kind, cfg, dot,
+                None if place is None else place[f"sub{j}"])
+    x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
+    return unembed(params, x, cfg, dot=dot, gather=gather), cache
 
 
 # ----------------------------------------------------------- paged decode ----

@@ -25,11 +25,13 @@ until now. This package searches it the way HAQ searches bit policies:
 
 The searched winner ships as a per-hardware JSON config
 (``--serving-config`` loads it), byte for byte the reference's record.
-The autotuner searches one device: ``launch/serve.py --autotune`` builds
-``ConfigSpace(max_devices=1)``, and a candidate with ``mesh_model > 1``
-is unmeasurable here (timing one needs a host with several cards;
-ROADMAP). The sharded engine itself serves a loaded config's mesh
-(``--serving-config`` under ``torchrun``).
+The mesh dimension spans the launched world, as the reference's spans
+its devices: under ``torchrun`` ``launch/serve.py --autotune`` builds
+``ConfigSpace(max_devices=WORLD_SIZE)``, every rank runs the same
+search, a ``mesh_model = m`` candidate is measured on the sharded
+engine over the first m ranks, and rank 0's numbers are every rank's
+(`validate`), so all pick one winner, served as a loaded record is. In
+one process a mesh candidate is wider than the world and skipped.
 """
 
 from repro_torch.serving.autotune.objective import Objective, ScoredCandidate

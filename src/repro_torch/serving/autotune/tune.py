@@ -19,6 +19,12 @@ stack, shared by ``launch/serve.py --autotune`` and the bench's
      a config that measured worse).
   4. **emit** — `result.record(space)` is the per-hardware JSON artifact
      (`save_serving_config`) that ``--serving-config`` loads back.
+
+In a world of ranks every rank runs the loop from the same seed: each
+serves the default, whose ticks then take rank 0's measured times before
+the fit, so every rank calibrates the same scales; the candidates are
+measured as `validate.measure_candidate` says, rank 0's numbers
+broadcast. So every rank scores, ranks and picks the same winner.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from repro_torch.serving.autotune.search import SearchResult, \
 from repro_torch.serving.autotune.space import ConfigSpace, config_record
 from repro_torch.serving.autotune.validate import (
     MeasuredCandidate,
+    first_rank,
     measure_candidate,
     spearman,
     validate_candidates,
@@ -108,7 +115,12 @@ def autotune_serving_config(
         warmup_reqs,
         engine=engine,
     )
-    scales = calibrate(engine.telemetry.ticks).scale_lookup()
+    ticks = engine.telemetry.ticks
+    if first_rank([len(ticks)])[0] != len(ticks):
+        raise RuntimeError("the ranks' default runs made different ticks")
+    for t, m in zip(ticks, first_rank([t.measured_s for t in ticks])):
+        t.measured_s = m
+    scales = calibrate(ticks).scale_lookup()
 
     prompt_len = max(
         int(sum(len(r.prompt) for r in warmup_reqs) / len(warmup_reqs)), 1

@@ -10,6 +10,14 @@ the best MEASURED candidate, and `spearman` reports how well the
 calibrated objective predicted the measured ranking — the paper's
 predicted-vs-measured fidelity number, recorded in the bench's
 ``autotune`` section.
+
+In a world of ranks (torchrun, or ``launch.mesh.spawn``) every rank runs
+the same search; a ``mesh_model = m`` candidate is served on a sub-mesh
+of the first m ranks (``launch.mesh.make_sub_mesh``), the sharded engine
+over it, while the other ranks wait, and rank 0's numbers reach every
+rank (``distributed/sharding.py::broadcast_floats``), so that all rank
+and pick alike. A candidate wider than the world is skipped, as the
+reference skips one wider than its devices.
 """
 
 from __future__ import annotations
@@ -20,7 +28,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.serving.autotune.objective import ScoredCandidate
 from repro_torch.serving.autotune.space import ConfigSpace
 from repro_torch.serving.engine import Engine
@@ -46,6 +56,21 @@ class MeasuredCandidate:
         return d
 
 
+def world() -> tuple:
+    """(this rank, ranks) of the initialized process group; (0, 1)
+    without one."""
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def first_rank(values):
+    """Rank 0's ``values`` (floats; every rank passes as many) on every
+    rank; the values themselves in a world of one."""
+    return shlib.broadcast_floats(values) if world()[1] > 1 \
+        else [float(v) for v in values]
+
+
 def measure_candidate(
     model,
     params,
@@ -58,16 +83,41 @@ def measure_candidate(
 ) -> Optional[MeasuredCandidate]:
     """Serve ``reqs`` through an engine built from the candidate; warm
     on the exact trace, then re-time the same instance. Returns None for
-    candidates the autotuner does not time: a mesh split
-    (``mesh_model > 1``) needs a host with several cards, one process
-    per card (ROADMAP). Pass ``engine`` to reuse an
-    already-built engine (the default config's calibration engine)."""
+    candidates this world cannot run (a mesh split wider than its ranks).
+    A ``mesh_model > 1`` candidate runs on the first ``mesh_model`` ranks
+    (every rank of the world calls this); rank 0's numbers are every
+    rank's. Pass ``engine`` to reuse an already-built engine (the default
+    config's calibration engine, which every rank runs)."""
     c = scored.config
+    rank, ranks = world()
     if engine is None:
-        if c.mesh_model > 1:
+        if c.mesh_model > ranks:
             return None
-        engine = Engine(model, params, space.to_policy(c),
-                        roofline_scales=roofline_scales)
+        mesh = None
+        if c.mesh_model > 1:
+            from repro_torch.launch.mesh import make_sub_mesh
+            mesh = make_sub_mesh(1, c.mesh_model,
+                                 device_type=params["embed"].device.type)
+        if rank < c.mesh_model:
+            engine = Engine(model, params, space.to_policy(c), mesh=mesh,
+                            roofline_scales=roofline_scales)
+    numbers = [0.0] * 5
+    if engine is not None:
+        numbers = _timed(engine, reqs)
+    tok_s, ttft, wall, ticks, preempted = first_rank(numbers)
+    return MeasuredCandidate(
+        scored=scored,
+        decode_tok_s=tok_s,
+        ttft_p50_s=ttft,
+        wall_s=wall,
+        decode_ticks=int(ticks),
+        preemptions=int(preempted),
+    )
+
+
+def _timed(engine: Engine, reqs) -> list:
+    """[decode tok/s, TTFT p50 s, wall s, decode ticks, preemptions] of
+    ``engine`` serving ``reqs`` once warm."""
     engine.run(reqs, realtime=False)  # warm: first calls off the clock
     engine.reset_stats()
     _sync(engine.device)
@@ -77,14 +127,9 @@ def measure_candidate(
     dt = time.monotonic() - t0
     stats = engine.stats
     ttft = sorted(engine.first_token_s.values())
-    return MeasuredCandidate(
-        scored=scored,
-        decode_tok_s=stats["decode_tokens"] / dt if dt > 0 else 0.0,
-        ttft_p50_s=float(np.median(ttft)) if ttft else 0.0,
-        wall_s=dt,
-        decode_ticks=stats["decode_ticks"],
-        preemptions=stats["preemptions"],
-    )
+    return [stats["decode_tokens"] / dt if dt > 0 else 0.0,
+            float(np.median(ttft)) if ttft else 0.0, dt,
+            stats["decode_ticks"], stats["preemptions"]]
 
 
 def validate_candidates(

@@ -73,24 +73,26 @@ POD = "pod"
 FSDP_AXES = (POD, DATA)          # the batch's and the FSDP dims' axes
 
 
-def validate_train_mesh(cfg, mesh, *, dot=None) -> None:
-    """What the sharded trainer needs from (cfg, mesh): dense on any mesh,
-    moe at data = pod = 1; the rest names its ROADMAP item."""
+def validate_train_mesh(cfg, mesh, *, dot=None, what="training") -> None:
+    """What the sharded trainer (and the sharded serving steps,
+    ``what="serving"``: training/sharded_serve.py) needs from (cfg,
+    mesh): dense on any mesh, moe at data = pod = 1; the rest names its
+    ROADMAP item."""
     sizes = shlib.axis_sizes(mesh)
     unknown = set(sizes) - {POD, DATA, MODEL}
     if unknown:
-        raise ValueError(f"train mesh axes must be pod/data/model, got "
+        raise ValueError(f"{what} mesh axes must be pod/data/model, got "
                          f"{sorted(sizes)}")
     tp = sizes.get(MODEL, 1)
     dp = sizes.get(DATA, 1) * sizes.get(POD, 1)
     if tp * dp > 1 and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: sharded training takes the dense and moe "
+            f"{cfg.name}: sharded {what} takes the dense and moe "
             f"families; the {cfg.family} bodies do not take the per-layer "
             f"gather hook yet (ROADMAP Queue 1, item 11d)")
     if cfg.family == "moe" and dp > 1:
         raise NotImplementedError(
-            f"{cfg.name}: moe training at data x pod={dp}: the expert "
+            f"{cfg.name}: moe {what} at data x pod={dp}: the expert "
             f"capacity and the load-balance loss are functions of the local "
             f"token count, the reference's of the global batch's (ROADMAP "
             f"Queue 1, item 11e)")

@@ -6,7 +6,8 @@ dense-cache serve step, and the train state's shapes
 rules place the state on a mesh.
 
 ``ac`` is the activation-layout hook (distributed/sharding.py::make_ac):
-given one, the step is the sharded trainer's (training/sharded.py) over
+given one, the step is the sharded trainer's (training/sharded.py), or
+the sharded prefill and serve steps' (training/sharded_serve.py), over
 its mesh. ``dot`` is the HAQ quantized-matmul hook. Sequences of
 FLASH_MIN tokens or more attend through the flash kernel on CUDA tensors
 and its plain version on CPU ones (models/flash.py).
@@ -130,22 +131,36 @@ def train_state_logical_specs(model, tcfg):
             "opt": opt_state_logical_specs(pspecs, tcfg.optim)}
 
 
-def make_prefill_step(model, *, dot=None) -> Callable:
+def make_prefill_step(model, *, ac=None, dot=None) -> Callable:
     """``prefill_step(params, batch) -> (last-row logits, caches)`` in the
     dense decode's layout: the serving entry point of the families
     ``generate`` does not take (frames for the encoder-decoder, patches
-    for the vision stub)."""
+    for the vision stub). With ``ac`` (``make_ac(mesh)``) the step is the
+    sharded one over its mesh (training/sharded_serve.py): parameters
+    this rank's shards, the global batch in, its rows' logits and its
+    cache blocks out."""
+    if ac is not None:
+        from repro_torch.training.sharded_serve import serve_steps
+        return serve_steps(model, ac, dot=dot).prefill
+
     def prefill_step(params, batch):
         return model.prefill(params, batch, dot=dot)
 
     return prefill_step
 
 
-def make_serve_step(model, *, dot=None) -> Callable:
+def make_serve_step(model, *, ac=None, dot=None) -> Callable:
     """The reference's dense-cache decode step: ``serve_step(params,
     cache, token, pos) -> (logits, cache)`` over the caches of
     ``make_prefill_step`` (ring layout for local layers), updated in
-    place."""
+    place. With ``ac`` the sharded step over its mesh, over this rank's
+    cache blocks as the same ``ac``'s prefill step (or
+    ``ShardedServeSteps.place_cache``) placed them, the global token in,
+    its rows' logits out (training/sharded_serve.py)."""
+    if ac is not None:
+        from repro_torch.training.sharded_serve import serve_steps
+        return serve_steps(model, ac, dot=dot).decode
+
     def serve_step(params, cache, token, pos):
         return model.decode_step(params, cache, token, pos, dot=dot)
 

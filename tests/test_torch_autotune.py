@@ -2,10 +2,15 @@
 engine's ``roofline_scales`` and the launcher's ``--autotune`` /
 ``--serving-config``) against the reference, on the same inputs.
 
-One device: the autotuner's search builds ``ConfigSpace(max_devices=1)``
-(timing a mesh candidate needs a host with several cards), so the mesh
-dimension is ``(1,)`` in both packages here, and a candidate with
-``mesh_model > 1`` is unmeasurable.
+The mesh dimension: ``ConfigSpace(max_devices=N)`` for N = 2, 4 and 8
+lists the reference's candidates, and the search ranks them as the
+reference's does under injected calibration scales. In one process a
+candidate with ``mesh_model > 1`` is wider than the world and
+unmeasurable; in a gloo world of 2 ranks (``launch.mesh.spawn``) a
+``mesh_model = 2`` candidate is measured on the sharded engine over both
+ranks, a ``mesh_model = 1`` one on rank 0 alone, and every rank returns
+rank 0's numbers, so ``autotune_serving_config`` and ``serve.main
+--autotune`` pick the same winner on both.
 
 Tolerances. Scores are the admission roofline, float64 in the port and
 float32 per op in the reference: a relative 1e-6. Discrete choices —
@@ -187,6 +192,98 @@ def test_ddpg_search_matches_reference(monkeypatch):
     assert [s.config.as_dict() for s in r_t.ranked] \
         == [s.config.as_dict() for s in r_j.ranked]
     assert (r_t.evaluated, r_t.admissible) == (r_j.evaluated, r_j.admissible)
+
+
+@pytest.mark.parametrize("devices", [2, 4, 8])
+def test_mesh_dimension_and_ranking_match_reference(devices, monkeypatch):
+    """max_devices = the world: the mesh choices, the candidates' encodings
+    and violations, and the searched ranking under injected scales."""
+    monkeypatch.setattr(t_search, "DDPG", carried_ddpg)
+    jhw = j_hwm.HARDWARES["v5e-1chip"]
+    for arch in (ARCH, "granite-3-8b"):
+        kw = dict(max_model_len=MAX_LEN, max_devices=devices)
+        js = j_at.ConfigSpace(j_configs.tiny_config(arch), jhw, **kw)
+        ts = t_at.ConfigSpace(t_configs.tiny_config(arch),
+                              t_hwm.HARDWARES["v5e-1chip"], **kw)
+        assert ts.dims == js.dims and ts.size() == js.size()
+        assert dict(ts.dims)["mesh_model"] == \
+            tuple(m for m in (1, 2, 4, 8) if m <= devices and m <= 2)
+        for c in _samples(ts, 12, seed=devices):
+            jc = j_at.ServingConfig(**c.as_dict())
+            assert np.array_equal(ts.encode(c), js.encode(jc))
+            assert ts.violations(c) == js.violations(jc)
+        jo = j_at.Objective(js, scales=JScales(**SCALES), prompt_len=24)
+        to = t_at.Objective(ts, scales=ScaleLookup(**SCALES), prompt_len=24)
+        want = j_at.search_serving_config(js, jo, budget=16, seed=1)
+        got = t_at.search_serving_config(ts, to, budget=16, seed=1)
+        assert [s.config.as_dict() for s in got.ranked] \
+            == [s.config.as_dict() for s in want.ranked]
+        assert any(s.config.mesh_model > 1 for s in got.ranked)
+
+
+def _world_tune(rank, world, device, out_file):
+    """A rank of a gloo world of 2: a mesh_model=2 candidate and a
+    mesh_model=1 one measured, then the whole loop; each rank's view."""
+    cfg, model, params = _tiny_model()
+    space = t_at.ConfigSpace(cfg, t_hwm.V5E_EDGE, max_model_len=48,
+                             max_devices=world, max_batch_cap=4,
+                             param_bytes=model.param_bytes())
+    out = {}
+    for m in (2, 1):
+        c = dataclasses.replace(space.default(), mesh_model=m)
+        got = t_at.measure_candidate(
+            model, params, space,
+            t_at.ScoredCandidate(config=c, score=1.0, admissible=True),
+            _reqs(cfg))
+        out[m] = dataclasses.asdict(got)
+    wide = dataclasses.replace(space.default(), mesh_model=4)
+    out["wide"] = t_at.measure_candidate(
+        model, params, space,
+        t_at.ScoredCandidate(config=wide, score=1.0, admissible=True),
+        _reqs(cfg))
+    tune = t_at.autotune_serving_config(model, params, space, _reqs(cfg),
+                                        budget=10, top_k=10, seed=0)
+    out["tune"] = {"winner": tune.winner.scored.config.as_dict(),
+                   "measured": [(m.scored.config.as_dict(), m.decode_tok_s)
+                                for m in tune.validated],
+                   "scales": tune.scales.as_dict()}
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    so, se = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+        serve.main(["--arch", ARCH, "--tiny", "--device", "cpu",
+                    "--requests", "3", "--prompt-len", "24", "--gen", "8",
+                    "--max-batch", "4", "--autotune", "8",
+                    "--autotune-top-k", "8", "--autotune-out", out_file])
+    out["cli"] = [x.split("winner ", 1)[1]
+                  for x in (so.getvalue() + se.getvalue()).splitlines()
+                  if "]: winner " in x]
+    out["measured_line"] = [x for x in so.getvalue().splitlines()
+                            if "]: measured " in x]
+    return out
+
+
+def test_mesh_candidates_measured_alike_in_a_gloo_world(tmp_path):
+    """measure_candidate, autotune_serving_config and serve.main
+    --autotune in a gloo world of 2: the same numbers and winner on both
+    ranks, a mesh_model=2 candidate measured, the record loadable."""
+    from repro_torch.launch.mesh import spawn
+    out_file = str(tmp_path / "serving.json")
+    a, b = spawn(_world_tune, 2, backend="gloo", timeout_s=240.0,
+                 args=(out_file,))
+    assert {k: v for k, v in a.items() if k != "measured_line"} == \
+        {k: v for k, v in b.items() if k != "measured_line"}
+    assert a[2]["decode_tok_s"] > 0 and a[2]["decode_ticks"] > 0
+    assert a[1]["decode_tok_s"] > 0 and a["wide"] is None
+    measured = a["tune"]["measured"]
+    assert a["tune"]["winner"] in [c for c, _ in measured]
+    assert {c["mesh_model"] for c, _ in measured} == {1, 2}
+    assert len(a["cli"]) == 1 and a["cli"] == b["cli"]
+    assert "mesh_model=2" in a["measured_line"][0]
+    sc, record = t_at.load_serving_config(out_file)
+    assert str(sc.as_dict()) == a["cli"][0]
+    assert record["provenance"]["candidates"] >= 1
 
 
 # ------------------------------------------------------------- the engine --
