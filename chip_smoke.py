@@ -239,8 +239,9 @@ Phases, each fatal on failure:
                 against sharded_bytes_per_device for the same cut and
                 mesh, equal to the byte; (c) ``python -m
                 repro_torch.launch.dryrun --all --mesh single`` in a
-                subprocess started after phase 12 (one cell at a time;
-                its cells trace on the host while phases 13-18 run),
+                subprocess started after phase 16 (one cell at a time;
+                its cells trace on the host while phases 17-20 run,
+                and it is collected after phase 20),
                 each cell's line and the refusals by ROADMAP item
                 printed, a failure that is not a named refusal fatal: 13
                 cells run (4 train, 9 prefill and decode), 20 refused
@@ -263,10 +264,10 @@ Phases, each fatal on failure:
                 gemma2-2b at S 2048 in a gloo world of 4 at data=2 x
                 model=2 and model=4 (``kv_span``), same rules, prefill
                 bit for bit; (d) ``serve.main --tiny --autotune 8`` over
-                the world of 2: a mesh_model=2 candidate measured on both
-                ranks, the same winner on both, its record served by
-                ``--serving-config``; (a) and (c) run beside (b)'s
-                world;
+                the world of 2: the same winner on both ranks, its record
+                served by ``--serving-config``, and a mesh_model=2
+                candidate measured alike on both (``measure_candidate``);
+                (a) and (c) run beside (b)'s world;
  11. report   — one JSON line with every kernel's launches (flash's summed
                 over phase 12's training run and phases 13-20's paths, the
                 paged kernels' over the main trace, llava's paged steps
@@ -4729,10 +4730,11 @@ H100_BF16_FLOPS = 989e12
 
 class DrySweep:
     """Phase 19(c)'s ``python -m repro_torch.launch.dryrun --all --mesh
-    single`` in a subprocess, started after phase 12: its 13 cells trace
-    on the host, one at a time, while phases 13-18 run (one core of the
+    single`` in a subprocess, started after phase 16: its 13 cells trace
+    on the host, one at a time, while phases 17-20 run (one core of the
     host's; two at once slowed phases 17-18's host-staged gloo worlds),
-    and phase 19 collects it. Stopped at exit whatever
+    so it shares the host with no phase that times an eager loop on one
+    process alone; collected after phase 20. Stopped at exit whatever
     happens in between."""
 
     def __init__(self):
@@ -4764,11 +4766,9 @@ class DrySweep:
         self.dir.cleanup()
 
 
-def phase_dryrun(step_s: float, peak_bytes: int, rest_bytes: list,
-                 sweep: DrySweep) -> None:
-    """Phase 19: the dry-run's counted step beside phase 12's and phase
-    18(b)'s measurements, and ``sweep``'s cells (the module
-    docstring)."""
+def phase_dryrun(step_s: float, peak_bytes: int, rest_bytes: list) -> None:
+    """Phase 19 (a) and (b): the dry-run's counted step beside phase 12's
+    and phase 18(b)'s measurements (the module docstring)."""
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.distributed.sharding import specs_for
     from repro_torch.launch import dryrun
@@ -4812,7 +4812,11 @@ def phase_dryrun(step_s: float, peak_bytes: int, rest_bytes: list,
     print(f"dryrun[b gemma2-2b {MT_LAYERS} layers, data=2]: "
           f"sharded_bytes_per_device {want} bytes, equal to each rank's "
           f"measured state at rest {rest_bytes}", flush=True)
-    # (c)
+
+
+def phase_dryrun_sweep(sweep: DrySweep) -> None:
+    """Phase 19(c): ``sweep``'s cells, their counts and refusals by
+    item (the module docstring)."""
     rc, out, secs = sweep.result()
     sweep.stop()
     refused = {}
@@ -4826,7 +4830,7 @@ def phase_dryrun(step_s: float, peak_bytes: int, rest_bytes: list,
         print(f"dryrun[c] refused, {item}: {len(cells)} cells "
               f"({', '.join(cells)})", flush=True)
     print(f"dryrun[c] --all --mesh single, {DRY_JOBS} cells at once, "
-          f"started after phase 12 and collected {secs:.1f} s later",
+          f"started after phase 16 and collected {secs:.1f} s later",
           flush=True)
     if rc != 0:
         fail(f"dryrun[c]: --all --mesh single exited {rc}:\n{out[-4000:]}")
@@ -4851,7 +4855,7 @@ MS_TINY_S, MS_TINY_STEPS = 2048, 8
 MS_WORLD_S = 600.0
 MS_AUTOTUNE = ["--arch", "gemma2-2b", "--tiny", "--requests", "4",
                "--prompt-len", "24", "--gen", "8", "--max-batch", "4",
-               "--autotune", "8", "--autotune-top-k", "8"]
+               "--autotune", "8"]
 
 
 def ms_inputs(cfg, B, S, steps, seed):
@@ -4988,7 +4992,8 @@ def ms_rank_two(rank, world, device, prompt, feed, config_path):
     """Phase 20's gloo world of 2 on one card: (b) full-width gemma2-2b
     cut to MS_LAYERS layers at model=2 (wq, wk times QK_SCALE); (d)
     ``serve.main --tiny --autotune 8`` over the world, then its record
-    served with ``--serving-config``, each rank's output captured."""
+    served with ``--serving-config``, each rank's output captured, and a
+    mesh_model=2 candidate measured (``ms_mesh_candidate``)."""
     import contextlib
     import io
     import torch
@@ -5020,8 +5025,40 @@ def ms_rank_two(rank, world, device, prompt, feed, config_path):
             serve.main(argv)
         res[key] = (so.getvalue(), se.getvalue())
         torch.distributed.barrier()
+    res["mesh2"] = ms_mesh_candidate()
     res["d_s"] = time.perf_counter() - t0
     return res
+
+
+def ms_mesh_candidate():
+    """Phase 20(d)'s mesh_model=2 candidate, measured as the search
+    measures its top candidates (``measure_candidate``: the engine on a
+    sub-mesh of the first 2 ranks, rank 0's numbers every rank's), on
+    MS_AUTOTUNE's tiny model and trace; the search's own top 3 need not
+    hold one."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import tiny_config
+    from repro_torch.core.hardware_model import HARDWARES
+    from repro_torch.models.api import build_model
+    from repro_torch.serving.autotune import (ConfigSpace, ScoredCandidate,
+                                              measure_candidate)
+    from repro_torch.serving.engine import Request
+    cfg = tiny_config("gemma2-2b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    space = ConfigSpace(cfg, HARDWARES["h100-sxm"], max_model_len=32,
+                        max_devices=2, max_batch_cap=4,
+                        param_bytes=model.param_bytes())
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, 24)
+                    .astype(np.int32), max_new=8) for i in range(4)]
+    config = dataclasses.replace(space.default(), mesh_model=2)
+    got = measure_candidate(model, params, space, ScoredCandidate(
+        config=config, score=1.0, admissible=True), reqs)
+    return dataclasses.asdict(got)
 
 
 def ms_rank_four(rank, world, device, prompt, feed):
@@ -5101,9 +5138,9 @@ def phase_mesh_serve():
     margin allows. (c) tiny gemma2-2b in a gloo world of 4 at data=2 x
     model=2 and model=4, under the same rules (data=2: against the
     unsharded run on each rank's rows). (d) ``serve.main --tiny
-    --autotune 8`` over the world of 2: a mesh_model=2 candidate
-    measured, both ranks' winner the same, the record served by
-    ``--serving-config``. The unsharded runs come first, here; then (a)
+    --autotune 8`` over the world of 2: both ranks' winner the same, the
+    record served by ``--serving-config``, a mesh_model=2 candidate
+    measured with the same numbers on both ranks. The unsharded runs come first, here; then (a)
     and (c) run beside (b, d)'s world, whose host-staged gloo copies leave
     the card mostly idle. Returns the flash launches of the sharded
     prefills, summed over ranks."""
@@ -5241,19 +5278,24 @@ def phase_mesh_serve():
     winners = [x.split("winner ", 1)[1] for x in
                (out0 + err1).splitlines() if "]: winner " in x]
     measured = [x for x in out0.splitlines() if "]: measured " in x]
-    if len(winners) != 2 or winners[0] != winners[1]:
+    if len(winners) != 2 or winners[0] != winners[1] or not measured:
         fail(f"mesh-serve[d]: the ranks' winners differ: {winners}\n"
              f"{out0[-2000:]}\n{err0[-2000:]}\n{err1[-2000:]}")
-    if not measured or "mesh_model=2" not in measured[0]:
-        fail(f"mesh-serve[d]: no mesh_model=2 candidate measured: "
-             f"{measured}")
+    mesh2 = [r["mesh2"] for r in two]
+    if mesh2[0] != mesh2[1] or mesh2[0]["scored"]["config"][
+            "mesh_model"] != 2 or not mesh2[0]["decode_tok_s"] > 0:
+        fail(f"mesh-serve[d]: the mesh_model=2 candidate's measurement: "
+             f"{mesh2}")
     loaded = two[0]["load"][0]
     if "serving-config[h100-sxm]" not in loaded or "served 4 requests" \
             not in loaded:
         fail(f"mesh-serve[d]: the record did not serve:\n{loaded[-2000:]}")
     print(f"mesh-serve[d]: serve.main {' '.join(MS_AUTOTUNE)} over a gloo "
           f"world of 2: {measured[0].split(': ', 1)[1]}; both ranks' winner "
-          f"{winners[0]}; --serving-config served it: "
+          f"{winners[0]}; a mesh_model=2 candidate measured alike on both "
+          f"ranks: {mesh2[0]['decode_tok_s']:.1f} tok/s, "
+          f"{mesh2[0]['decode_ticks']} decode ticks; --serving-config "
+          f"served the winner: "
           f"{[x for x in loaded.splitlines() if 'served' in x][0]}. gloo on "
           f"one card times host copies, so these tok/s cannot rank the "
           f"mesh candidates by speed ({card}); (d) in "
@@ -5398,8 +5440,6 @@ def main() -> int:
           f"serving path's flash launches {wp_launches['flash_attention_fwd']}"
           f"; phase 12 in {time.perf_counter() - t_train:.1f} s", flush=True)
     mark("phase 12")
-    # phase 19(c)'s sweep traces on the host while phases 13-18 run
-    sweep = DrySweep()
 
     # phase 13: the SSM family and the dense-cache decode
     t_ssm = time.perf_counter()
@@ -5429,6 +5469,8 @@ def main() -> int:
     t_ll = time.perf_counter()
     ll = phase_llava()
     mark("phases 15-16")
+    # phase 19(c)'s sweep traces on the host while phases 17-20 run
+    sweep = DrySweep()
     # phase 17: the sharded engine
     t_mesh = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5447,12 +5489,12 @@ def main() -> int:
           f"flash launches over its sharded runs, summed over ranks "
           f"{mt_flash}", flush=True)
     mark("phase 18")
-    # phase 19: the dry-run and the roofline
+    # phase 19: the dry-run and the roofline; (c) after phase 20
     t_dry = time.perf_counter()
-    phase_dryrun(train_step_s, train_peak, mt_rest, sweep)
-    print(f"dryrun: phase 19 in {time.perf_counter() - t_dry:.1f} s",
+    phase_dryrun(train_step_s, train_peak, mt_rest)
+    print(f"dryrun: phase 19 (a, b) in {time.perf_counter() - t_dry:.1f} s",
           flush=True)
-    mark("phase 19")
+    mark("phase 19 (a, b)")
     # phase 20: the sharded prefill and serve steps
     t_ms = time.perf_counter()
     ms_flash = phase_mesh_serve()
@@ -5460,6 +5502,11 @@ def main() -> int:
           f"flash launches of its sharded prefills, summed over ranks "
           f"{ms_flash}", flush=True)
     mark("phase 20")
+    t_dry = time.perf_counter()
+    phase_dryrun_sweep(sweep)
+    print(f"dryrun: phase 19(c) waited {time.perf_counter() - t_dry:.1f} s "
+          f"for its sweep", flush=True)
+    mark("phase 19(c)")
     ed_paths = {"whisper serve": w_serve["flash_attention_fwd"],
                 "whisper train": w_train["flash_attention_fwd"],
                 "llava prefill": ll["prefill"]["flash_attention_fwd"],

@@ -226,15 +226,12 @@ class ActivationLayout:
       ``x`` as it is.
 
     ``mesh`` is a named ``DeviceMesh`` (or sizes only: every coordinate
-    0). ``serving`` holds the sharded serving steps made over the layout
-    (training/sharded_serve.py::serve_steps), so that a prefill step and
-    a serve step made from one layout share their cache's placement."""
+    0)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.sizes = axis_sizes(mesh)
         self.coords = mesh_coords(mesh)
-        self.serving: Dict[Any, Any] = {}
 
     def batch_axes(self, b: int):
         """The mesh axes ``b`` global rows split over: a name, a tuple of

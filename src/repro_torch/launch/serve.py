@@ -362,9 +362,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "validate the top candidates on the engine, and "
                          "serve the trace with the measured winner "
                          "(0 = off)")
-    ap.add_argument("--autotune-top-k", type=int, default=3,
-                    help="with --autotune: searched candidates measured on "
-                         "the engine beside the default")
     ap.add_argument("--autotune-out", default="",
                     help="with --autotune: write the searched serving "
                          "config JSON here for --serving-config to load "
@@ -457,8 +454,7 @@ def serving_config_policy(ap, cfg, model, params, args, reqs,
     else:
         t0 = time.time()
         tune = autotune_serving_config(model, params, space, reqs,
-                                       budget=args.autotune, seed=0,
-                                       top_k=args.autotune_top_k)
+                                       budget=args.autotune, seed=0)
         sc = tune.winner.scored.config
         corr = tune.rank_correlation
         print(f"autotune[{hw.name}]: {tune.search.evaluated} "
@@ -543,10 +539,8 @@ def main(argv=None):
     if args.autotune and args.serving_config:
         ap.error("--serving-config loads a finished search; drop it or "
                  "drop --autotune")
-    if (args.autotune_out or args.autotune_top_k != 3) and \
-            not args.autotune:
-        ap.error("--autotune-out/--autotune-top-k only make sense with "
-                 "--autotune")
+    if args.autotune_out and not args.autotune:
+        ap.error("--autotune-out only makes sense with --autotune")
     if (args.autotune or args.serving_config) and (
             args.kv_policy or args.kv_bits != 16 or args.mesh):
         ap.error("--kv-bits/--kv-policy/--mesh are knobs the serving "

@@ -134,9 +134,13 @@ def _last_window_ring(k: torch.Tensor, W: int) -> torch.Tensor:
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor, idx) -> None:
     """Write ``new`` (B,1,K,hd) in place at sequence slot ``idx`` (a scalar
-    tensor: no host read, and no read of a meta tensor's value)."""
-    cache.index_copy_(1, torch.as_tensor(idx, device=cache.device)
-                      .reshape(1).long(), new.to(cache.dtype))
+    tensor: no host read). A meta cache (the dry-run's) has no value to
+    index by, so it takes the write as an ``index_copy_``."""
+    if cache.is_meta:
+        cache.index_copy_(1, torch.as_tensor(idx, device=cache.device)
+                          .reshape(1).long(), new.to(cache.dtype))
+        return
+    cache[:, idx] = new[:, 0].to(cache.dtype)
 
 
 def _block_write(cache: torch.Tensor, new: torch.Tensor, idx) -> None:

@@ -41,6 +41,7 @@ from repro_torch.serving.autotune.validate import (
     MeasuredCandidate,
     first_rank,
     measure_candidate,
+    same_on_every_rank,
     spearman,
     validate_candidates,
 )
@@ -116,7 +117,7 @@ def autotune_serving_config(
         engine=engine,
     )
     ticks = engine.telemetry.ticks
-    if first_rank([len(ticks)])[0] != len(ticks):
+    if not same_on_every_rank(len(ticks)):
         raise RuntimeError("the ranks' default runs made different ticks")
     for t, m in zip(ticks, first_rank([t.measured_s for t in ticks])):
         t.measured_s = m

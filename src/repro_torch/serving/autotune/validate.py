@@ -71,6 +71,18 @@ def first_rank(values):
         else [float(v) for v in values]
 
 
+def same_on_every_rank(value: float) -> bool:
+    """Whether every rank passed the same ``value``. One all-gather, so
+    every rank sees every rank's value and reaches the same verdict;
+    True in a world of one."""
+    if world()[1] == 1:
+        return True
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    got = shlib.all_gather_dim(torch.tensor(
+        [float(value)], dtype=torch.float64, device=device), 0, None)
+    return bool((got == got[0]).all())
+
+
 def measure_candidate(
     model,
     params,

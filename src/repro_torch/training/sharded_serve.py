@@ -41,6 +41,7 @@ a whole cache one ``model``-th as long.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict
 
 import torch
@@ -91,6 +92,7 @@ class ShardedServeSteps:
         self.param_specs = shlib.partition_specs(abstract, logical, mesh)
         self.plans = shlib.gather_plans(abstract, logical, self.param_specs)
         tp = self.sizes.get(MODEL, 1)
+        self.hook = dot          # held: serve_steps keys on its id
         self.dot = shlib.tp_dot(self.groups[MODEL], cfg) if tp > 1 else dot
         self.hooks = cfg.family in HOOK_FAMILIES
         self.placed = None       # (B, {slot: T}) of the last placed cache
@@ -213,13 +215,19 @@ class ShardedServeSteps:
             self._held = {}
 
 
+# the steps made over each layout, by (id(model), id(dot), kernel); a
+# layout's entries go with it
+_STEPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 def serve_steps(model, ac, *, dot=None, kernel: str = "auto"):
     """The one ``ShardedServeSteps`` of (model, ac, dot, kernel), made on
-    first use and kept on ``ac`` (``ActivationLayout.serving``):
-    ``make_prefill_step`` and ``make_serve_step`` share it. The steps
-    hold the model and the hook, so their ids stay theirs."""
+    first use and kept while ``ac`` lives: ``make_prefill_step`` and
+    ``make_serve_step`` share it, and so their cache's placement. The
+    steps hold the model and the hook they were given, so the ids in the
+    key stay theirs."""
+    made = _STEPS.setdefault(ac, {})
     key = (id(model), id(dot), kernel)
-    if key not in ac.serving:
-        ac.serving[key] = ShardedServeSteps(model, ac, dot=dot,
-                                            kernel=kernel)
-    return ac.serving[key]
+    if key not in made:
+        made[key] = ShardedServeSteps(model, ac, dot=dot, kernel=kernel)
+    return made[key]

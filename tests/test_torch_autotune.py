@@ -255,7 +255,7 @@ def _world_tune(rank, world, device, out_file):
         serve.main(["--arch", ARCH, "--tiny", "--device", "cpu",
                     "--requests", "3", "--prompt-len", "24", "--gen", "8",
                     "--max-batch", "4", "--autotune", "8",
-                    "--autotune-top-k", "8", "--autotune-out", out_file])
+                    "--autotune-out", out_file])
     out["cli"] = [x.split("winner ", 1)[1]
                   for x in (so.getvalue() + se.getvalue()).splitlines()
                   if "]: winner " in x]
@@ -280,7 +280,7 @@ def test_mesh_candidates_measured_alike_in_a_gloo_world(tmp_path):
     assert a["tune"]["winner"] in [c for c, _ in measured]
     assert {c["mesh_model"] for c, _ in measured} == {1, 2}
     assert len(a["cli"]) == 1 and a["cli"] == b["cli"]
-    assert "mesh_model=2" in a["measured_line"][0]
+    assert len(a["measured_line"]) == 1
     sc, record = t_at.load_serving_config(out_file)
     assert str(sc.as_dict()) == a["cli"][0]
     assert record["provenance"]["candidates"] >= 1
