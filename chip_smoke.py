@@ -191,13 +191,13 @@ Phases, each fatal on failure:
                 main trace through a model=1 mesh, tokens and every sampled
                 logits row bit-identical to the unsharded engine's; (b) a
                 gloo world of 2 ranks on this card (gathers staged through
-                host memory), model=2: full-width gemma2-2b cut to 6 of
-                its 26 layers on a cut of the main trace (its first 4
+                host memory), model=2: full-width gemma2-2b cut to 2 of
+                its 26 layers on a cut of the main trace (its first 2
                 requests, 2 new tokens each, so a decode tick runs at
-                most 4 live slots of 8) on the bf16 and the int8 pool and
+                most 2 live slots of 8) on the bf16 and the int8 pool and
                 one 2048-token prompt whole through flash, each rank's
                 pool K/2 heads, every rank's outputs equal, its first
-                3 x 6 paged calls held per call, tokens and
+                3 x 2 paged calls held per call, tokens and
                 logits bit-identical to the unsharded engine's (which runs
                 first in this process) where every local product equals
                 its slice, else logits under LOGIT_RTOL; (c) tiny
@@ -210,14 +210,14 @@ Phases, each fatal on failure:
                 ``train(mesh=)`` at B 2 x S 4096, losses, grad norms and
                 every leaf of the state bit-identical to the unsharded
                 ``train()``; (b) a gloo world of 2 ranks on this card at
-                data=2 (B 1 a rank), full-width gemma2-2b cut to 6 of its
+                data=2 (B 1 a rank), full-width gemma2-2b cut to 2 of its
                 26 layers, with wq, wk times QK_SCALE, 2 steps under tests/test_torch_train_sharded
                 .py's bf16 rules against the unsharded port in 2
                 microbatches (the rows cut as the mesh cuts them) and,
                 with that run as the control, against the plain unsharded
                 port, masters sampled per leaf, each rank's state at rest
                 half the
-                whole's, its peak and seconds a step, 6 x 2 flash
+                whole's, its peak and seconds a step, 2 x 2 flash
                 launches a step a rank; (c) tiny gemma2-2b at S = 2048
                 (flash at hd 32) at model=2 and data=2 x model=2 (a gloo
                 world of 4), 3 steps under the same rules, the first
@@ -238,26 +238,28 @@ Phases, each fatal on failure:
                 gated); (b) phase 18(b)'s measured per-rank state at rest
                 against sharded_bytes_per_device for the same cut and
                 mesh, equal to the byte; (c) ``python -m
-                repro_torch.launch.dryrun --all --mesh single`` in a
+                repro_torch.launch.dryrun --cells ... --mesh single`` in a
                 subprocess started after phase 16 (one cell at a time;
-                its cells trace on the host while phases 17-20 run,
-                and it is collected after phase 20),
-                each cell's line and the refusals by ROADMAP item
-                printed, a failure that is not a named refusal fatal: 13
-                cells run (4 train, 9 prefill and decode), 20 refused
-                (item 11d 14, item 11e 6);
+                its cells trace on the host while phases 17-21 run,
+                and it is collected after phase 21): the dense and moe
+                families' cells and mamba2-370m decode_32k, zamba2-1.2b
+                long_500k, whisper-large-v3 decode_32k and
+                llava-next-mistral-7b train_4k; each cell's line and the
+                refusals by ROADMAP item printed, a failure that is not a
+                named refusal fatal: 17 cells run (5 train, 12 prefill
+                and decode), 6 refused (item 11e);
  20. mesh-serve — the sharded prefill and serve steps
                 (training/sharded_serve.py): (a) an NCCL world of 1,
                 full-width gemma2-2b, ``make_prefill_step(ac=)`` over B 2
-                x 4096 (26 flash launches) and 16 ``make_serve_step(ac=)``
+                x 4096 (26 flash launches) and 4 ``make_serve_step(ac=)``
                 steps, logits and every cache leaf bit-identical to the
                 unsharded steps run first in the same process; (b) a gloo
-                world of 2 on this card at model=2, full width cut to 6
+                world of 2 on this card at model=2, full width cut to 2
                 layers (wq, wk times QK_SCALE), the caches split on their
                 sequence: prefill logits and each rank's blocks
                 bit-identical to the unsharded run's where the column
-                slices are (``cublas_slices``), 16 teacher-forced steps
-                across the rings' wrap over caches grown to 4112 slots
+                slices are (``cublas_slices``), 4 teacher-forced steps
+                across the rings' wrap over caches grown to 4100 slots
                 under LOGIT_RTOL, greedy tokens equal where the margin
                 allows, each rank's cache bytes (half the whole's), peak
                 and seconds a step (host-staged, not a speed); (c) tiny
@@ -268,8 +270,34 @@ Phases, each fatal on failure:
                 served by ``--serving-config``, and a mesh_model=2
                 candidate measured alike on both (``measure_candidate``);
                 (a) and (c) run beside (b)'s world;
+ 21. mesh-families — the ssm, hybrid, encoder-decoder and vision-stub
+                families split over a mesh (training/sharded.py,
+                training/sharded_serve.py): (a) an NCCL world of 1, every
+                family at full width and depth: the sharded prefill on
+                phases 13, 15 and 16's shapes at B 2 (mamba2 and zamba2
+                4096 tokens; whisper 16384 frames and 2048 tokens; llava
+                2048 patch rows and 6144 tokens) and 2 decode steps, and
+                2 steps of ``train(mesh=)`` of mamba2, zamba2 and whisper
+                at B 2 x S 4096, logits, caches, losses, grad norms and
+                every leaf bit-identical to the unsharded runs in the
+                same process; (b) a gloo world of 2 on this card at
+                data=2 and at model=2, every width whole, mamba2 cut to 6
+                of 48 layers, zamba2 to one hybrid group, whisper to 4 + 4
+                of 32 + 32, llava to 4 of 32 (served only; wq, wk times
+                QK_SCALE): prefill logits and each rank's blocks
+                bit-identical to the unsharded run's (data=2: its rows';
+                model=2: where the column slices are, ``cublas_slices``,
+                else under LOGIT_RTOL), 2 teacher-forced steps under
+                LOGIT_RTOL (whisper's cross attention over 8192 frames a
+                rank through flash's lse and the combine), each rank's
+                cache half the whole's; 2 train steps under phase 18's
+                loss and grad-norm rules against the one-device run in as
+                many microbatches as the mesh has data ranks; each rank's
+                peak and seconds a step (host-staged, not a speed); (a)
+                starts before phase 17 and runs beside its worlds, (b)
+                starts after phase 18 and runs beside phases 19 and 20;
  11. report   — one JSON line with every kernel's launches (flash's summed
-                over phase 12's training run and phases 13-20's paths, the
+                over phase 12's training run and phases 13-21's paths, the
                 paged kernels' over the main trace, llava's paged steps
                 and phase 17's sharded runs, summed over ranks), error,
                 times.
@@ -3440,6 +3468,19 @@ def scale_qk(attn_trees, f):
             t[n].mul_(f)
 
 
+def attention_trees(tree):
+    """Every attention subtree of a parameter tree of any family (stacked
+    over layers): the blocks', the hybrid's shared block's, the
+    encoder's and the decoder's, its cross attention's included."""
+    out = []
+    for key in ("blocks", "shared", "enc", "dec"):
+        sub = tree.get(key)
+        for s in ((sub or {}).values() if key == "blocks"
+                  else [sub] if sub else []):
+            out += [s[n] for n in ("attn", "xattn") if n in s]
+    return out
+
+
 def whisper_decode(model, params, frames, prompt, label):
     """make_prefill_step on (frames, prompt), the self-attention caches
     grown (encdec.grow_cache: mk and mv stay), then W_STEPS greedy
@@ -3773,22 +3814,22 @@ def phase_llava():
 
 
 # ----------------------------------------------- phase 17: the sharded engine --
-# The gloo world's cut of the main trace: its first MESH_CUT requests (half
-# a max_batch; 8 until phase 18 came, cut so the whole script stays inside
-# 1200 s), MESH_GEN new tokens each (a chunk per prompt, then decode
+# The gloo world's cut of the main trace: its first MESH_CUT requests (8
+# until phase 18 came, 4 until phase 21 came, cut so the whole script stays
+# inside 1200 s), MESH_GEN new tokens each (a chunk per prompt, then decode
 # ticks). gloo moves a gather
 # through the host at about 0.5 GB/s gathered (scripts/gloo_gather_rate.py),
 # and a full-width call gathers the 1.18 GB embedding (lookup, unembed)
 # and every layer's wo and w_out, so each takes seconds; the whole-prompt
 # run: one prompt of MESH_WHOLE_S tokens (its bucket of 2048 rows: flash
 # in every layer)
-MESH_CUT, MESH_GEN, MESH_WHOLE_S = 4, 2, 2048
+MESH_CUT, MESH_GEN, MESH_WHOLE_S = 2, 2, 2048
 MESH_TP = 2                   # the gloo world's model axis
 # the gloo world's full-width runs keep MESH_LAYERS of gemma2-2b's 26
 # layers (their widths whole): a tick's gathers shrink with the depth, so
-# that phases 17 and 18 stay well inside the script's 1200 s; the NCCL
-# world of 1 runs all 26
-MESH_LAYERS = 6
+# that phases 17 and 18 stay well inside the script's 1200 s (6 until
+# phase 21 came); the NCCL world of 1 runs all 26
+MESH_LAYERS = 2
 # a world's deadline: past it every rank is killed and the phase fails
 MESH_WORLD_S = 600.0
 MESH_SITES = ("attn_q", "attn_k", "attn_v", "ffn_in", "ffn_gate")
@@ -4116,8 +4157,8 @@ MT_STEPS_ONE, MT_STEPS_TWO = 3, 2
 # (b) and (d) keep MT_LAYERS of gemma2-2b's 26 layers, every width whole:
 # their host-staged gloo bytes (a step's gathers and reduce-scatters, the
 # reshard) shrink with the depth, so that the script stays well inside
-# its 1200 s; (a) runs all 26
-MT_LAYERS = 6
+# its 1200 s (6 until phase 21 came); (a) runs all 26
+MT_LAYERS = 2
 # (c): tiny gemma2-2b at S = 2048 (flash at hd 32), B = 2
 MT_TINY_S, MT_TINY_B, MT_TINY_STEPS = 2048, 2, 3
 MT_LR = 3e-4
@@ -4172,10 +4213,10 @@ def leaf_digest(t) -> tuple:
 
 
 def scale_qk_state(state, f):
-    """wq and wk times ``f`` (a power of two: exact) in the parameters and
-    in their fp32 masters, in place."""
+    """wq and wk times ``f`` (a power of two: exact, and a rank's block of
+    them alike) in the parameters and in their fp32 masters, in place."""
     for tree in (state["params"], state["opt"]["master"]):
-        scale_qk([sub["attn"] for sub in tree["blocks"].values()], f)
+        scale_qk(attention_trees(tree), f)
 
 
 def sample_index(shape):
@@ -4722,28 +4763,45 @@ def phase_train_mesh(phase12_step_s):
 # ------------------------------------------------------------- dry-run ----
 DRY_JOBS = 1            # phase 19(c)'s cells at once, a process each
 DRY_TIMEOUT_S = 600.0
-# phase 19(c)'s refusals on the single-pod mesh, by ROADMAP item: the
-# ssm, hybrid, encdec and vlm families, and moe at data > 1
-DRY_REFUSED = {"item 11d": 14, "item 11e": 6}
+# phase 19(c)'s cells: every assigned cell of the dense and moe families
+# (13 run, the moe cells at data > 1 refused) and one of each of the ssm,
+# hybrid, encdec and vlm families (the other 10 run in the CLI's own
+# --all, as tests/test_torch_dryrun.py holds their state bytes)
+DRY_FAMILY_CELLS = (("mamba2-370m", "decode_32k"), ("zamba2-1.2b",
+                                                    "long_500k"),
+                    ("whisper-large-v3", "decode_32k"),
+                    ("llava-next-mistral-7b", "train_4k"))
+DRY_RAN = 17
+# its refusals on the single-pod mesh, by ROADMAP item: moe at data > 1
+DRY_REFUSED = {"item 11e": 6}
 H100_BF16_FLOPS = 989e12
 
 
+def dry_cells():
+    """Phase 19(c)'s cells, as ``--cells`` takes them."""
+    from repro_torch.configs import assigned_cells, get_config
+    return [(a, s) for a, s in assigned_cells()
+            if get_config(a).family in ("dense", "moe")
+            or (a, s) in DRY_FAMILY_CELLS]
+
+
 class DrySweep:
-    """Phase 19(c)'s ``python -m repro_torch.launch.dryrun --all --mesh
-    single`` in a subprocess, started after phase 16: its 13 cells trace
-    on the host, one at a time, while phases 17-20 run (one core of the
-    host's; two at once slowed phases 17-18's host-staged gloo worlds),
-    so it shares the host with no phase that times an eager loop on one
-    process alone; collected after phase 20. Stopped at exit whatever
-    happens in between."""
+    """Phase 19(c)'s ``python -m repro_torch.launch.dryrun --cells ...
+    --mesh single`` (``dry_cells``) in a subprocess, started after phase
+    16: its DRY_RAN cells trace on the host, one at a time, while phases
+    17-21 run (one core of the host's; two at once slowed phases 17-18's
+    host-staged gloo worlds), so it shares the host with no phase that
+    times an eager loop on one process alone; collected after phase 21.
+    Stopped at exit whatever happens in between."""
 
     def __init__(self):
         import atexit
         import os
         self.dir = tempfile.TemporaryDirectory()
+        cells = ",".join(f"{a}:{s}" for a, s in dry_cells())
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--mesh", "single", "--force", "--jobs", str(DRY_JOBS),
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+             cells, "--mesh", "single", "--force", "--jobs", str(DRY_JOBS),
              "--out-dir", self.dir.name], cwd=str(ROOT),
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -4829,25 +4887,28 @@ def phase_dryrun_sweep(sweep: DrySweep) -> None:
     for item, cells in sorted(refused.items()):
         print(f"dryrun[c] refused, {item}: {len(cells)} cells "
               f"({', '.join(cells)})", flush=True)
-    print(f"dryrun[c] --all --mesh single, {DRY_JOBS} cells at once, "
-          f"started after phase 16 and collected {secs:.1f} s later",
-          flush=True)
+    print(f"dryrun[c] --cells (the dense and moe families' and "
+          f"{', '.join(f'{a} {s}' for a, s in DRY_FAMILY_CELLS)}) --mesh "
+          f"single, {DRY_JOBS} cells at once, started after phase 16 and "
+          f"collected {secs:.1f} s later", flush=True)
     if rc != 0:
-        fail(f"dryrun[c]: --all --mesh single exited {rc}:\n{out[-4000:]}")
+        fail(f"dryrun[c]: the sweep exited {rc}:\n{out[-4000:]}")
     counts = {item: len(cells) for item, cells in refused.items()}
-    if "13 cells ran, 20 refused, 0 failed" not in out or \
+    n_refused = sum(DRY_REFUSED.values())
+    if f"{DRY_RAN} cells ran, {n_refused} refused, 0 failed" not in out or \
             counts != DRY_REFUSED:
-        fail(f"dryrun[c]: want 13 cells run (4 train, 9 serving) and "
-             f"refusals {DRY_REFUSED}, got {counts}:\n{out[-4000:]}")
+        fail(f"dryrun[c]: want {DRY_RAN} cells run (5 train, 12 serving) "
+             f"and refusals {DRY_REFUSED}, got {counts}:\n{out[-4000:]}")
 
 
 # ------------------------------------- phase 20: serving over a mesh ----
-# (a) and (b): B 2 x a 4096-token prompt (flash), then 16 decode steps from
+# (a) and (b): B 2 x a 4096-token prompt (flash), then 4 decode steps from
 # position 4096, where gemma2-2b's 4096-slot rings wrap, over caches grown
-# to 4112 slots (a length model=2 divides); (b) keeps MS_LAYERS of the 26
-# layers, every width whole, as phases 17-18's gloo runs do
-MS_B, MS_S, MS_STEPS = 2, 4096, 16
-MS_LAYERS = 6
+# to 4100 slots (a length model=2 divides); (b) keeps MS_LAYERS of the 26
+# layers, every width whole, as phases 17-18's gloo runs do (16 steps at 6
+# layers until phase 21 came: (b)'s host-staged steps took 3 s each)
+MS_B, MS_S, MS_STEPS = 2, 4096, 4
+MS_LAYERS = 2
 # (c): tiny gemma2-2b (window 32) over 2048 tokens (flash at hd 32), 8
 # steps from position 2048, where its 32-slot rings wrap, caches grown to
 # 2056 slots (model=2 and model=4 divide them)
@@ -4875,45 +4936,59 @@ def ms_params(model, qk):
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
     if qk != 1:
-        scale_qk([sub["attn"] for sub in params["blocks"].values()], qk)
+        scale_qk(attention_trees(params), qk)
     return params
 
 
-def ms_unsharded(model, params, prompt, feed):
-    """The unsharded prefill over ``prompt``, its caches grown by the
-    step count, then one decode step per column of ``feed``: {prefill
-    logits, every step's logits (host), the prefill's caches (host)}."""
-    import torch
+def ms_grow(model, cache, first, n):
+    """A prefill's caches grown by ``n`` decode slots from position
+    ``first`` (the encoder-decoder's memory stays as it is)."""
     from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import encdec
+    if model.cfg.is_encdec:
+        return encdec.grow_cache(cache, first + n)
+    return _grow_cache(cache, first, first + n)
+
+
+def ms_unsharded(model, params, batch, feed, first, host=True):
+    """The unsharded prefill over ``batch`` (on the card), its caches
+    grown by the step count, then one decode step per column of ``feed``
+    from position ``first``: {prefill logits, every step's logits (host),
+    the prefill's caches by group (``cache_groups``): host copies, or
+    their digests where ``host`` is False}."""
+    import torch
     from repro_torch.training import steps as st
-    S, n = prompt.shape[1], feed.shape[1]
-    logits, cache = st.make_prefill_step(model)(params,
-                                                {"tokens": prompt.cuda()})
-    out = {"prefill": logits.float().cpu(),
-           "cache": {j: {k: x.to("cpu", copy=True) for k, x in c.items()}
-                     for j, c in cache.items()}, "steps": []}
-    cache = _grow_cache(cache, S, S + n)
+    from repro_torch.training.sharded_serve import cache_groups
+    n = feed.shape[1]
+    logits, cache = st.make_prefill_step(model)(params, batch)
+    out = {"prefill": logits.float().cpu(), "cache": {
+        j: {k: x.to("cpu", copy=True) if host else leaf_digest(x)
+            for k, x in c.items()}
+        for j, c in cache_groups(model.cfg, cache).items()}, "steps": []}
+    cache = ms_grow(model, cache, first, n)
     serve = st.make_serve_step(model)
     for i in range(n):
         lg, cache = serve(params, cache, feed[:, i:i + 1].cuda(),
-                          torch.tensor(S + i, device="cuda"))
+                          torch.tensor(first + i, device="cuda"))
         out["steps"].append(lg.float().cpu())
+    del cache
     torch.cuda.synchronize()
     return out
 
 
-def ms_sharded(mesh, model, params, prompt, feed):
-    """The sharded prefill and ``feed``'s decode steps over ``mesh`` on
-    this rank (``make_prefill_step``/``make_serve_step`` with ``ac``):
-    the launches of the prefill, its logits rows and each cache block's
-    digest, each step's logits rows and seconds, this rank's cache bytes
-    and peak memory, and where its rows and blocks sit."""
+def ms_sharded(mesh, model, params, batch, feed, first):
+    """The sharded prefill over ``batch`` (host tensors) and ``feed``'s
+    decode steps from position ``first`` over ``mesh`` on this rank
+    (``make_prefill_step``/``make_serve_step`` with ``ac``): the flash
+    launches of the prefill and of the whole run, its logits rows, each
+    cache block's digest and spec by group and leaf (``cache_groups``),
+    each step's logits rows and seconds, this rank's cache bytes and peak
+    memory, and where its rows and blocks sit."""
     import torch
     from repro_torch.distributed.sharding import make_ac
-    from repro_torch.launch.serve import _grow_cache
     from repro_torch.training import steps as st
-    from repro_torch.training.sharded_serve import serve_steps
-    S, n = prompt.shape[1], feed.shape[1]
+    from repro_torch.training.sharded_serve import cache_groups, serve_steps
+    n = feed.shape[1]
     ac = make_ac(mesh)
     steps = serve_steps(model, ac)
     local = steps.shard_params(params)
@@ -4925,17 +5000,19 @@ def ms_sharded(mesh, model, params, prompt, feed):
     reset_all_launches()
     t0 = time.perf_counter()
     logits, blocks = st.make_prefill_step(model, ac=ac)(
-        local, {"tokens": prompt.cuda()})
+        local, {k: v.cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
-    flash = all_launches()["flash_attention_fwd"]
     place = steps.layout(blocks)
-    out = {"flash": flash, "prefill": logits.float().cpu(), "pre_s": pre_s,
+    groups = cache_groups(model.cfg, blocks)
+    out = {"flash_prefill": all_launches()["flash_attention_fwd"],
+           "prefill": logits.float().cpu(), "pre_s": pre_s,
            "digests": {j: {k: leaf_digest(x) for k, x in c.items()}
-                       for j, c in blocks.items()},
-           "specs": {j: p.spec for j, p in place.items()},
+                       for j, c in groups.items()},
+           "specs": {j: {k: place[j].leaf_spec(k) for k in c}
+                     for j, c in groups.items()},
            "coords": dict(steps.coords), "sizes": dict(steps.sizes)}
-    whole = _grow_cache(steps.whole_cache(blocks), S, S + n)
+    whole = ms_grow(model, steps.whole_cache(blocks), first, n)
     del blocks
     blocks = steps.place_cache(whole)
     out["cache_bytes"] = tensor_bytes(blocks)
@@ -4947,10 +5024,11 @@ def ms_sharded(mesh, model, params, prompt, feed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg, blocks = serve(local, blocks, feed[:, i:i + 1].cuda(),
-                           torch.tensor(S + i, device="cuda"))
+                           torch.tensor(first + i, device="cuda"))
         torch.cuda.synchronize()
         out["step_s"].append(time.perf_counter() - t0)
         out["steps"].append(lg.float().cpu())
+    out["flash"] = all_launches()["flash_attention_fwd"]
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del local, blocks
     gc.collect()
@@ -4974,16 +5052,14 @@ def ms_rank_one(rank, world, device):
     model = build_model(get_config("gemma2-2b"))
     prompt, feed = ms_inputs(model.cfg, MS_B, MS_S, MS_STEPS, 20)
     params = ms_params(model, 1)
-    want = ms_unsharded(model, params, prompt, feed)
-    got = ms_sharded(mesh, model, params, prompt, feed)
+    want = ms_unsharded(model, params, {"tokens": prompt.cuda()}, feed,
+                        MS_S, host=False)
+    got = ms_sharded(mesh, model, params, {"tokens": prompt}, feed, MS_S)
     del params
-    same_cache = all(got["digests"][j][k] == leaf_digest(x)
-                     for j, c in want["cache"].items()
-                     for k, x in c.items())
     same = torch.equal(got["prefill"], want["prefill"]) and all(
         torch.equal(a, b) for a, b in zip(got["steps"], want["steps"]))
-    return {"same_logits": same, "same_cache": same_cache,
-            "flash": got["flash"], "pre_s": got["pre_s"],
+    return {"same_logits": same, "same_cache": got["digests"] == want["cache"],
+            "flash": got["flash_prefill"], "pre_s": got["pre_s"],
             "step_s": got["step_s"], "peak_gb": got["peak_gb"],
             "tokens": [int(x) for x in want["steps"][-1][:, 0].argmax(-1)]}
 
@@ -5008,8 +5084,8 @@ def ms_rank_two(rank, world, device, prompt, feed, config_path):
     mesh = make_serving_mesh(model=2, data=1, device_type="cuda",
                              backend="gloo")
     t0 = time.perf_counter()
-    res = {"b": ms_sharded(mesh, model, ms_params(model, QK_SCALE), prompt,
-                           feed)}
+    res = {"b": ms_sharded(mesh, model, ms_params(model, QK_SCALE),
+                           {"tokens": prompt}, feed, MS_S)}
     res["b_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -5077,7 +5153,7 @@ def ms_rank_four(rank, world, device, prompt, feed):
         mesh = make_serving_mesh(model=tp, data=data, device_type="cuda",
                                  backend="gloo")
         out[(data, tp)] = ms_sharded(mesh, model, ms_params(model, 0.125),
-                                     prompt, feed)
+                                     {"tokens": prompt}, feed, MS_TINY_S)
     return out
 
 
@@ -5109,15 +5185,15 @@ def ms_hold(label, got, want, rows=None):
 
 def ms_blocks_equal(got, cache, rows=None):
     """Whether every block of a sharded prefill is the same bits as its
-    slice of the unsharded prefill's caches (host tensors)."""
+    slice of the unsharded prefill's caches (host tensors by group)."""
     from repro_torch.distributed.sharding import local_block
     for j, c in cache.items():
-        spec = list(got["specs"][j])
-        if rows is not None:
-            spec[1] = None               # the unsharded run was the rows'
-        for k, x in c.items():
+        for n, x in c.items():
+            spec = list(got["specs"][j][n])
+            if rows is not None:
+                spec[1] = None           # the unsharded run was the row's
             block = local_block(x, tuple(spec), got["sizes"], got["coords"])
-            if leaf_digest(block) != got["digests"][j][k]:
+            if leaf_digest(block.cuda()) != got["digests"][j][n]:
                 return False
     return True
 
@@ -5126,14 +5202,14 @@ def phase_mesh_serve():
     """Phase 20: the sharded prefill and serve steps on the card
     (training/sharded_serve.py). (a) an NCCL world of 1: full-width
     gemma2-2b, the sharded prefill over B 2 x 4096 (26 flash launches) and
-    16 decode steps, bit-identical to the unsharded steps run first in the
-    same process. (b) a gloo world of 2 on this card, model=2: full width
-    cut to MS_LAYERS layers, the caches split on their sequence (each
+    MS_STEPS decode steps, bit-identical to the unsharded steps run first
+    in the same process. (b) a gloo world of 2 on this card, model=2: full
+    width cut to MS_LAYERS layers, the caches split on their sequence (each
     ring a block of 2048 slots a rank): the prefill's logits and each
     rank's blocks bit-identical to the unsharded run's where a product
     over a column slice equals the slice of the whole product
-    (``cublas_slices``), else the logits under LOGIT_RTOL; 16 decode
-    steps across the ring's wrap over caches grown to 4112 slots,
+    (``cublas_slices``), else the logits under LOGIT_RTOL; MS_STEPS
+    decode steps across the ring's wrap over caches grown to 4100 slots,
     teacher-forced, under LOGIT_RTOL with greedy tokens equal wherever the
     margin allows. (c) tiny gemma2-2b in a gloo world of 4 at data=2 x
     model=2 and model=4, under the same rules (data=2: against the
@@ -5157,7 +5233,8 @@ def phase_mesh_serve():
     cut = build_model(get_config("gemma2-2b").replace(num_layers=MS_LAYERS))
     prompt, feed = ms_inputs(cut.cfg, MS_B, MS_S, MS_STEPS, 21)
     params = ms_params(cut, QK_SCALE)
-    want_b = ms_unsharded(cut, params, prompt, feed)
+    want_b = ms_unsharded(cut, params, {"tokens": prompt.cuda()}, feed,
+                          MS_S)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5167,10 +5244,13 @@ def phase_mesh_serve():
     tiny = build_model(tiny_config("gemma2-2b"))
     t_prompt, t_feed = ms_inputs(tiny.cfg, 2, MS_TINY_S, MS_TINY_STEPS, 22)
     t_params = ms_params(tiny, 0.125)
-    want_c = {None: ms_unsharded(tiny, t_params, t_prompt, t_feed)}
+    want_c = {None: ms_unsharded(tiny, t_params,
+                                 {"tokens": t_prompt.cuda()}, t_feed,
+                                 MS_TINY_S)}
     for r in range(2):                    # data=2: a rank's row alone
-        want_c[r] = ms_unsharded(tiny, t_params, t_prompt[r:r + 1],
-                                 t_feed[r:r + 1])
+        want_c[r] = ms_unsharded(tiny, t_params,
+                                 {"tokens": t_prompt[r:r + 1].cuda()},
+                                 t_feed[r:r + 1], MS_TINY_S)
     del t_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5229,8 +5309,9 @@ def phase_mesh_serve():
             if d > LOGIT_RTOL * float(want_b["prefill"].abs().max()):
                 fail(f"{label}: rank {i}'s prefill logits differ by {d:.4g}")
         worst = max(worst, ms_hold(f"{label} rank {i}", b, want_b))
-        if b["flash"] != MS_LAYERS:
-            fail(f"{label}: rank {i}: {b['flash']} flash launches")
+        if b["flash_prefill"] != MS_LAYERS:
+            fail(f"{label}: rank {i}: {b['flash_prefill']} flash launches "
+                 f"in the prefill")
         if 2 * b["cache_bytes"] != b["whole_cache_bytes"]:
             fail(f"{label}: rank {i} holds {b['cache_bytes']} cache bytes of "
                  f"{b['whole_cache_bytes']}")
@@ -5300,6 +5381,424 @@ def phase_mesh_serve():
           f"one card times host copies, so these tok/s cannot rank the "
           f"mesh candidates by speed ({card}); (d) in "
           f"{two[0]['d_s']:.1f} s", flush=True)
+    return flash
+
+
+# --------------- phase 21: the ssm, hybrid, encdec and vlm families split --
+# (a) an NCCL world of 1 at full width and depth; (b) a gloo world of 2 on
+# this card at data=2 and at model=2, every width whole and the depth cut
+# to MF_LAYERS (zamba2's 6: one hybrid group), as phases 17, 18 and 20 cut
+# theirs. Serving on phases 13, 15 and 16's shapes at B = MF_B (mamba2 and
+# zamba2: 4096 tokens; whisper: 16384 frames and 2048 decoder tokens;
+# llava: 2048 patch rows and 6144 tokens), MF_DECODE teacher-forced steps
+# over caches grown by as many slots (lengths model=2 divides: whisper's
+# 16384 frames split 8192 a rank, where the cross attention still reaches
+# flash); training B 2 x S 4096 (whisper: 4096 frames, 512 decoder tokens)
+# for MF_STEPS steps. llava is served only: 7.26B parameters x 14 bytes of
+# train state do not fit one card
+MF_ARCHS = ("mamba2-370m", "zamba2-1.2b", WHISPER, LLAVA)
+MF_TRAIN = MF_ARCHS[:3]
+MF_B, MF_DECODE, MF_STEPS = 2, 2, 2
+MF_LAYERS = {"mamba2-370m": 6, "zamba2-1.2b": 6, WHISPER: 4, LLAVA: 4}
+MF_MESHES = ((2, 1), (1, 2))         # (b)'s (data, model)
+MF_WORLD_S = 600.0
+
+
+def mf_config(arch, cut):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=MF_LAYERS[arch]) if cut else cfg
+
+
+def mf_inputs(cfg, seed):
+    """A family's serving batch (host tensors at MF_B rows), the tokens
+    fed at each decode step, and the first decode position."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+
+    def toks(S):
+        return torch.randint(2, cfg.vocab_size, (MF_B, S), generator=g,
+                             dtype=torch.int32)
+
+    def embeds(S):
+        return torch.randn((MF_B, S, cfg.d_model), generator=g).bfloat16()
+    if cfg.is_encdec:
+        batch = {"frames": embeds(W_FRAMES), "tokens": toks(W_PROMPT)}
+    elif cfg.frontend == "vision_stub":
+        batch = {"patches": embeds(L_PATCHES), "tokens": toks(L_TOKENS)}
+    else:
+        batch = {"tokens": toks(SSM_S)}
+    first = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                        if "patches" in batch else 0)
+    return batch, toks(MF_DECODE), first
+
+
+def mf_rows(batch, rows):
+    return {k: v[rows].cuda() for k, v in batch.items()}
+
+
+def mf_train_shape():
+    from repro_torch.configs import ShapeConfig
+    return ShapeConfig("train", W_TRAIN_S, W_TRAIN_B, "train")
+
+
+def mf_train_unsharded(model, microbatches):
+    """The one-device port from seed 0 (wq, wk times QK_SCALE), the batch
+    cut into ``microbatches``: each step's (loss, grad norm)."""
+    import dataclasses
+    import torch
+    from repro_torch.data import pipeline as dp
+    from repro_torch.training import steps as steps_lib
+    tcfg = dataclasses.replace(mt_tcfg(""), microbatches=microbatches)
+    state = steps_lib.init_train_state(
+        model, tcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    scale_qk_state(state, QK_SCALE)
+    step = steps_lib.make_train_step(model, tcfg)
+    shape = mf_train_shape()
+    out = []
+    for k in range(MF_STEPS):
+        state, met = step(state, dp.batch_for_model(model, shape, None, k,
+                                                    "cuda", full=True))
+        out.append((float(met["loss"]), float(met["grad_norm"])))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mf_train_sharded(mesh, model):
+    """MF_STEPS sharded steps over ``mesh`` from seed 0 (wq, wk times
+    QK_SCALE): each step's (loss, grad norm), seconds (rank 0's clock),
+    flash launches on this rank; the state's bytes at rest and the peak."""
+    import torch
+    from repro_torch.data import pipeline as dp
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.training.sharded import ShardedTrainer
+    torch.cuda.reset_peak_memory_stats()
+    tr = ShardedTrainer(model, mt_tcfg(""), make_ac(mesh))
+    state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+    scale_qk_state(state, QK_SCALE)
+    shape = mf_train_shape()
+    out = {"steps": [], "s": [], "flash": 0,
+           "rest_gb": tensor_bytes(state) / 1e9}
+    for k in range(MF_STEPS):
+        batch = dp.batch_for_model(model, shape, None, k, "cuda", full=True)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        state, met = tr.step(state, batch)
+        out["steps"].append((float(met["loss"]), float(met["grad_norm"])))
+        out["s"].append(tr.first_rank_float(time.perf_counter() - t0))
+        out["flash"] += all_launches()["flash_attention_fwd"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mf_rank_one(rank, world, device):
+    """Phase 21(a): an NCCL world of 1, every family at full width and
+    depth: the sharded prefill and steps against the unsharded ones, then
+    ``train(mesh=)`` against ``train()``, in this process. Returns per
+    arch whether logits, caches, losses, grad norms and every leaf are the
+    same bits, and the sharded runs' numbers."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.loop import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(model=1, data=1, device_type="cuda",
+                             backend="nccl")
+    out = {}
+    for i, arch in enumerate(MF_ARCHS):
+        model = build_model(mf_config(arch, False))
+        batch, feed, first = mf_inputs(model.cfg, 210 + i)
+        params = ms_params(model, 1)
+        want = ms_unsharded(model, params, {k: v.cuda() for k, v in
+                                            batch.items()}, feed, first,
+                            host=False)
+        got = ms_sharded(mesh, model, params, batch, feed, first)
+        del params
+        same = torch.equal(got["prefill"], want["prefill"]) and all(
+            torch.equal(a, b) for a, b in zip(got["steps"], want["steps"]))
+        out[arch] = {"same_logits": same,
+                     "same_cache": got["digests"] == want["cache"],
+                     **{k: got[k] for k in ("flash", "flash_prefill",
+                                            "pre_s", "step_s", "peak_gb")}}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in MF_TRAIN:
+        model = build_model(mf_config(arch, False))
+        shape = mf_train_shape()
+        runs = []
+        for on_mesh in (True, False):
+            with tempfile.TemporaryDirectory() as tmp:
+                torch.cuda.reset_peak_memory_stats()
+                reset_all_launches()
+                r = train(model, shape, mt_tcfg(tmp), num_steps=MF_STEPS,
+                          log=lambda r: None, **(
+                              {"mesh": mesh} if on_mesh else
+                              {"device": "cuda"}))
+            runs.append({"hist": [(x["loss"], x["grad_norm"])
+                                  for x in r["history"]],
+                         "dt": [x["dt_s"] for x in r["history"]],
+                         "digests": [leaf_digest(x)
+                                     for x in tree_leaves(r["state"])],
+                         "flash": all_launches()["flash_attention_fwd"],
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = runs
+        out[(arch, "train")] = {"same": a["hist"] == b["hist"]
+                                and a["digests"] == b["digests"],
+                                **{k: a[k] for k in ("hist", "dt", "flash",
+                                                     "peak_gb")},
+                                "dt_unsharded": b["dt"]}
+    return out
+
+
+def mf_rank_two(rank, world, device, inputs):
+    """Phase 21(b)'s rank: at each of MF_MESHES, every family (cut to
+    MF_LAYERS, wq, wk times QK_SCALE) served from ``inputs[arch]``, and
+    the three trained."""
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for data, tp in MF_MESHES:
+        mesh = make_serving_mesh(model=tp, data=data, device_type="cuda",
+                                 backend="gloo")
+        for arch in MF_ARCHS:
+            model = build_model(mf_config(arch, True))
+            batch, feed, first = inputs[arch]
+            t0 = time.perf_counter()
+            out[(data, tp, arch)] = ms_sharded(
+                mesh, model, ms_params(model, QK_SCALE), batch, feed, first)
+            out[(data, tp, arch)]["s"] = time.perf_counter() - t0
+        for arch in MF_TRAIN:
+            t0 = time.perf_counter()
+            out[(data, tp, arch, "train")] = mf_train_sharded(
+                mesh, build_model(mf_config(arch, True)))
+            out[(data, tp, arch, "train")]["wall"] = time.perf_counter() - t0
+    return out
+
+
+def mf_references(inputs):
+    """Phase 21(b)'s unsharded runs on this process's card: each family's
+    prefill and steps on the whole batch (model=2) and on each row alone
+    (data=2), whether its column-slice products are exact
+    (``cublas_slices``), and the trained families' steps in 1 and 2
+    microbatches. Returns (serving runs, training runs, exact)."""
+    import types
+    import torch
+    from repro_torch.models.api import build_model
+    want_s, want_t, exact = {}, {}, {}
+    for arch in MF_ARCHS:
+        model = build_model(mf_config(arch, True))
+        batch, feed, first = inputs[arch]
+        params = ms_params(model, QK_SCALE)
+        want_s[arch] = {None: ms_unsharded(model, params, mf_rows(
+            batch, slice(None)), feed, first)}
+        for r in range(MF_B):            # data=2: a rank's row alone
+            want_s[arch][r] = ms_unsharded(
+                model, params, mf_rows(batch, slice(r, r + 1)),
+                feed[r:r + 1], first)
+        del params
+        cfg = model.cfg
+        rows = [W_FRAMES, W_PROMPT] if cfg.is_encdec else [first]
+        exact[arch] = not cfg.num_heads or all(v == 0.0 for v in
+                                               cublas_slices(cfg, [
+            {"policy": types.SimpleNamespace(max_batch=MF_B,
+                                             prefill_chunk=MF_B * n)}
+            for n in rows]).values())
+        if arch in MF_TRAIN:
+            want_t[arch] = {m: mf_train_unsharded(model, m) for m in (1, 2)}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return want_s, want_t, exact
+
+
+def mf_world(label, fn, n, backend, args=()):
+    """``spawn`` a world of phase 21 on this card: (its ranks' results,
+    seconds); fatal if a rank fails or the deadline passes."""
+    from repro_torch.launch.mesh import WorldFailed, spawn
+    t0 = time.perf_counter()
+    try:
+        out = spawn(fn, n, backend=backend, device="cuda:0",
+                    timeout_s=MF_WORLD_S, args=args)
+    except WorldFailed as e:
+        fail(f"mesh-families[{label}]: the {backend} world of {n} "
+             f"failed:\n{e}")
+    return out, time.perf_counter() - t0
+
+
+class MeshFamilies:
+    """Phase 21's worlds, each started ahead of the phase in a thread of
+    its own and collected by ``phase_mesh_families``: (a), on the card's
+    compute, beside phase 17's worlds, whose host-staged gloo leaves the
+    card mostly idle (``start_one``); (b), host-staged itself, beside
+    phases 19(a, b) and 20 (``start_two``)."""
+
+    def __init__(self):
+        self.inputs = {arch: mf_inputs(mf_config(arch, True), 220 + i)
+                       for i, arch in enumerate(MF_ARCHS)}
+        self.pool = concurrent.futures.ThreadPoolExecutor(2)
+        self.one = self.two = None
+
+    def start_one(self):
+        self.one = self.pool.submit(mf_world, "a", mf_rank_one, 1, "nccl")
+
+    def start_two(self):
+        self.t0 = time.perf_counter()
+        self.two = self.pool.submit(mf_world, "b", mf_rank_two, 2, "gloo",
+                                    (self.inputs,))
+
+
+def phase_mesh_families(started=None):
+    """Phase 21: the ssm, hybrid, encoder-decoder and vision-stub families
+    split over a mesh (training/sharded.py, training/sharded_serve.py).
+    (a) an NCCL world of 1 at full width and depth: the sharded prefill
+    and MF_DECODE steps of all four families, and MF_STEPS steps of
+    ``train(mesh=)`` of mamba2, zamba2 and whisper, bit-identical to the
+    unsharded runs (whisper's full-depth grad norm is inf in both: its
+    losses and leaves are compared). (b) a gloo world of 2 on this card
+    at data=2 and at model=2, depth cut to MF_LAYERS: the prefill's logits
+    and each rank's blocks bit-identical to the unsharded run's (data=2:
+    its rows'; at model=2 where the column slices of the attention and
+    FFN products are exact, ``cublas_slices``, else the logits under
+    LOGIT_RTOL; mamba2 has none: exact), decode under LOGIT_RTOL
+    (``ms_hold``), a rank's cache bytes half the whole's; training: losses
+    within 2**-10 and grad norms within 2**-7 of the one-device run in as
+    many microbatches as the mesh has data ranks (MT_*'s rules).
+    ``started``: the worlds, started earlier (``MeshFamilies``; here, side
+    by side, if None); the unsharded runs (b) is held to run here while
+    they end. Returns the flash launches of the sharded runs, summed over
+    ranks."""
+    import torch
+
+    card = card_line()
+    if started is None:
+        started = MeshFamilies()
+        started.start_two()
+        started.start_one()
+    with started.pool:
+        want_s, want_t, exact = mf_references(started.inputs)
+        mark("phase 21's unsharded runs")
+        two, two_s = started.two.result()
+        (one,), one_s = started.one.result()
+    mark("phase 21's worlds")
+    flash = 0
+    # (a)
+    for arch in MF_ARCHS:
+        r = one[arch]
+        if not (r["same_logits"] and r["same_cache"]):
+            fail(f"mesh-families[a {arch}]: the sharded steps on a world of "
+                 f"1 are not the unsharded steps bit for bit (logits "
+                 f"{r['same_logits']}, caches {r['same_cache']})")
+        flash += r["flash"]
+        print(f"mesh-families[a nccl world of 1, {arch} full width]: "
+              f"prefill and {MF_DECODE} decode steps bit-identical to the "
+              f"unsharded steps, every cache leaf too; {r['flash']} flash "
+              f"launches ({r['flash_prefill']} in the prefill); prefill "
+              f"{r['pre_s']:.3f} s, a step "
+              f"{sorted(r['step_s'])[MF_DECODE // 2] * 1e3:.1f} ms (its "
+              f"host shared with (b)'s world), peak {r['peak_gb']:.2f} GB "
+              f"({card})", flush=True)
+    for arch in MF_TRAIN:
+        r = one[(arch, "train")]
+        if not r["same"]:
+            fail(f"mesh-families[a {arch} train]: train(mesh=) on a world "
+                 f"of 1 is not train() bit for bit: {r['hist']}")
+        flash += r["flash"]
+        print(f"mesh-families[a {arch} train B={W_TRAIN_B} S={W_TRAIN_S}]: "
+              f"{MF_STEPS} steps of train(mesh=) bit-identical to train() "
+              f"(losses, grad norms and every leaf): "
+              + ", ".join(f"loss {lo:.6f} grad norm {gn:.5g}"
+                          for lo, gn in r["hist"])
+              + f"; steps {', '.join(f'{x:.3f}' for x in r['dt'])} s on the "
+              f"mesh vs {', '.join(f'{x:.3f}' for x in r['dt_unsharded'])} "
+              f"s unsharded; peak {r['peak_gb']:.2f} GB; {r['flash']} flash "
+              f"launches ({card})", flush=True)
+    print(f"mesh-families[a]: the world of 1 in {one_s:.1f} s", flush=True)
+    # (b) serving
+    for data, tp in MF_MESHES:
+        for arch in MF_ARCHS:
+            label = f"mesh-families[b gloo data={data} x model={tp} {arch}]"
+            worst, lines = 0.0, []
+            for i, r in enumerate(two):
+                b = r[(data, tp, arch)]
+                row = b["coords"]["data"] if data > 1 else None
+                want = want_s[arch][row]
+                same = torch.equal(b["prefill"], want["prefill"]) and \
+                    ms_blocks_equal(b, want["cache"], rows=row)
+                if not same and (data > 1 or exact[arch]):
+                    fail(f"{label}: rank {i}'s prefill logits or cache "
+                         f"blocks differ from the unsharded run's")
+                if not same:
+                    d = float((b["prefill"] - want["prefill"]).abs().max())
+                    if d > LOGIT_RTOL * float(want["prefill"].abs().max()):
+                        fail(f"{label}: rank {i}'s prefill logits differ by "
+                             f"{d:.4g}")
+                worst = max(worst, ms_hold(f"{label} rank {i}", b, want))
+                if 2 * b["cache_bytes"] != b["whole_cache_bytes"]:
+                    fail(f"{label}: rank {i} holds {b['cache_bytes']} cache "
+                         f"bytes of {b['whole_cache_bytes']}")
+                flash += b["flash"]
+                lines.append(
+                    f"rank {i}: prefill "
+                    f"{'bit-identical' if same else 'not bit-identical'}, "
+                    f"cache {b['cache_bytes'] / 1e9:.4f} of "
+                    f"{b['whole_cache_bytes'] / 1e9:.4f} GB, peak "
+                    f"{b['peak_gb']:.2f} GB, prefill {b['pre_s']:.2f} s, a "
+                    f"step {sorted(b['step_s'])[MF_DECODE // 2]:.2f} s, "
+                    f"{b['flash']} flash launches ({b['flash_prefill']} in "
+                    f"the prefill), {b['s']:.1f} s in all")
+            print(f"{label}: {MF_LAYERS[arch]} layers, decode within "
+                  f"{worst:.3g} of max |logit| (tolerance {LOGIT_RTOL}); "
+                  f"blocks {two[0][(data, tp, arch)]['specs']}; "
+                  + "; ".join(lines) + f" (host-staged gloo, not a speed; "
+                  f"{card})", flush=True)
+    # (b) training
+    for data, tp in MF_MESHES:
+        for arch in MF_TRAIN:
+            label = f"mesh-families[b gloo data={data} x model={tp} " \
+                f"{arch} train]"
+            want = want_t[arch][data]
+            for i, r in enumerate(two):
+                t = r[(data, tp, arch, "train")]
+                for k, ((lo, gn), (wl, wg)) in enumerate(zip(t["steps"],
+                                                             want)):
+                    if not (abs(lo - wl) <= MT_LOSS_RTOL * abs(wl) and
+                            abs(gn - wg) <= MT_NORM_RTOL * abs(wg)):
+                        fail(f"{label}: rank {i} step {k}: loss {lo} vs "
+                             f"{wl}, grad norm {gn} vs {wg}")
+                flash += t["flash"]
+            t = two[0][(data, tp, arch, "train")]
+            print(f"{label}: {MF_LAYERS[arch]} layers, B={W_TRAIN_B} "
+                  f"S={W_TRAIN_S}, wq, wk x {QK_SCALE}, against the "
+                  f"one-device run in {data} microbatch(es): "
+                  + "; ".join(f"step {k}: loss {lo:.6f} vs {wl:.6f}, grad "
+                              f"norm {gn:.5g} vs {wg:.5g}"
+                              for k, ((lo, gn), (wl, wg)) in enumerate(
+                                  zip(t["steps"], want)))
+                  + "; ranks' state at rest "
+                  + ", ".join(f"{r[(data, tp, arch, 'train')]['rest_gb']:.3f}"
+                              for r in two)
+                  + " GB, peaks "
+                  + ", ".join(f"{r[(data, tp, arch, 'train')]['peak_gb']:.2f}"
+                              for r in two)
+                  + f" GB; steps {', '.join(f'{x:.2f}' for x in t['s'])} s "
+                  f"(host-staged gloo, not a speed); {t['flash']} flash "
+                  f"launches a rank; {t['wall']:.1f} s in all ({card})",
+                  flush=True)
+    print(f"mesh-families[b]: the world of 2 in {two_s:.1f} s", flush=True)
     return flash
 
 
@@ -5469,8 +5968,11 @@ def main() -> int:
     t_ll = time.perf_counter()
     ll = phase_llava()
     mark("phases 15-16")
-    # phase 19(c)'s sweep traces on the host while phases 17-20 run
+    # phase 19(c)'s sweep traces on the host while phases 17-21 run
     sweep = DrySweep()
+    # phase 21's world of 1 starts here and runs beside phase 17's worlds
+    families = MeshFamilies()
+    families.start_one()
     # phase 17: the sharded engine
     t_mesh = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5489,7 +5991,9 @@ def main() -> int:
           f"flash launches over its sharded runs, summed over ranks "
           f"{mt_flash}", flush=True)
     mark("phase 18")
-    # phase 19: the dry-run and the roofline; (c) after phase 20
+    # phase 21's gloo world starts here and runs beside phases 19-20
+    families.start_two()
+    # phase 19: the dry-run and the roofline; (c) after phase 21
     t_dry = time.perf_counter()
     phase_dryrun(train_step_s, train_peak, mt_rest)
     print(f"dryrun: phase 19 (a, b) in {time.perf_counter() - t_dry:.1f} s",
@@ -5502,6 +6006,14 @@ def main() -> int:
           f"flash launches of its sharded prefills, summed over ranks "
           f"{ms_flash}", flush=True)
     mark("phase 20")
+    # phase 21: the ssm, hybrid, encdec and vlm families over a mesh
+    t_mf = time.perf_counter()
+    mf_flash = phase_mesh_families(families)
+    print(f"mesh-families: phase 21 in {time.perf_counter() - t_mf:.1f} s "
+          f"after phase 20 ({time.perf_counter() - families.t0:.1f} s since "
+          f"its gloo world started, before phase 19); flash launches of its "
+          f"sharded runs, summed over ranks {mf_flash}", flush=True)
+    mark("phase 21")
     t_dry = time.perf_counter()
     phase_dryrun_sweep(sweep)
     print(f"dryrun: phase 19(c) waited {time.perf_counter() - t_dry:.1f} s "
@@ -5511,7 +6023,8 @@ def main() -> int:
                 "whisper train": w_train["flash_attention_fwd"],
                 "llava prefill": ll["prefill"]["flash_attention_fwd"],
                 "mesh": mesh_launches["flash_attention_fwd"],
-                "mesh train": mt_flash, "mesh serve": ms_flash}
+                "mesh train": mt_flash, "mesh serve": ms_flash,
+                "mesh families": mf_flash}
     flash_paths.update(ed_paths)
     print(f"encdec+vlm: kernels at the new geometries {json.dumps(ed_rows)};"
           f" flash launches by path {json.dumps(ed_paths)}; paged decode "

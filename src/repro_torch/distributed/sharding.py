@@ -39,6 +39,7 @@ import torch.distributed as dist
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.params import tree_leaves, tree_unflatten
 
 F32 = torch.float32
@@ -326,6 +327,15 @@ def partition_specs(abstract, logical, mesh):
 # every ``data`` (FSDP) split, is all-gathered at use.
 _LOCAL_KEYS = ("wq", "wk", "wv", "w_in", "w_gate")
 _LOCAL_AXES = ("heads", "kv_heads", "d_ff")
+# the parameter subtrees stacked over layers: a gather hook's path into one
+# of them holds a layer's views, whose plans count the stacked dim
+STACKED = ("blocks", "mamba", "mamba_ln", "enc", "dec")
+
+
+def plan_shift(path) -> int:
+    """The leading dims a gather plan counts that a ``gather(tree,
+    path)`` call's views lack: 1 for a layer of a stacked subtree."""
+    return 1 if path[0] in STACKED else 0
 
 
 def gather_plans(abstract, logical, specs):
@@ -353,10 +363,15 @@ def tp_dot(group, cfg):
     """The ``dot`` hook of tensor parallelism over the ``model`` axis's
     process group, for a model of config ``cfg``. Each site computes what
     the unsharded port computes without a hook, through the same functions
-    (the lm_head's fp32 product of the upcast operands included); the two
-    contraction-split sites (``attn_o``, ``ffn_out``) gather their
-    activations first. The shape tests keep a weight that fell through to
-    replicated (an odd ``d_ff``) on the plain product.
+    (the lm_head's fp32 product of the upcast operands included); the
+    contraction-split sites (``attn_o``, ``xattn_o``, ``ffn_out``) gather
+    their activations first. The shape tests keep a weight that fell
+    through to replicated (an odd ``d_ff``) on the plain product. The
+    cross attention's q, k and v (``xattn_*``) split as the self
+    attention's do; the mamba projections (``ssm_in``, ``ssm_out``) are
+    plain products on whole weights: ``in_proj``'s [z | xs | B | C | dt]
+    columns do not split along heads, so every rank of the group computes
+    the whole mamba layer.
 
     Heads that do not divide the group stay whole (``choose_spec``
     replicates them), and every rank computes the whole attention. Query
@@ -389,14 +404,14 @@ def tp_dot(group, cfg):
         return held[1]
 
     def dot(a, w, name):
-        if name in ("attn_k", "attn_v") and span is not None \
+        if name in _KV_SITES and span is not None \
                 and w.shape[1] == cfg.num_kv_heads:
             w = kv_slice(w, group, *span)
-        if name in ("attn_q", "attn_k", "attn_v"):
-            a = enter(a, w, "num_heads" if name == "attn_q"
-                      else "num_kv_heads")
+        if name in _QKV_SITES:
+            a = enter(a, w, "num_kv_heads" if name in _KV_SITES
+                      else "num_heads")
             return attn._proj_in(a, w, name)
-        if name == "attn_o":
+        if name in ("attn_o", "xattn_o"):
             if a.shape[2] != w.shape[0]:                  # local heads
                 a = gather_shard(a, 2, group, reduce=False)
             return attn._proj_out(a, w, name)
@@ -410,8 +425,14 @@ def tp_dot(group, cfg):
             return a.to(F32) @ w.to(F32)
         if name in ("moe_in", "moe_gate", "moe_out"):
             return moe_lib._bmm(a, w, name)
+        if name in ("ssm_in", "ssm_out"):
+            return ssm_lib._matmul(a, w, name)
         raise ValueError(f"unknown dot site {name!r}")
     return dot
+
+
+_KV_SITES = ("attn_k", "attn_v", "xattn_k", "xattn_v")
+_QKV_SITES = ("attn_q", "xattn_q") + _KV_SITES
 
 
 def kv_span(cfg, tp: int, rank: int) -> Optional[Tuple[int, int]]:
@@ -717,8 +738,17 @@ class CacheBlock:
         where ``tp_dot``'s local heads are the block's."""
         if self.heads_split:
             return q, k, v
-        H, K = self.cfg.num_heads, self.cfg.num_kv_heads
-        return self._whole(q, H), self._whole(k, K), self._whole(v, K)
+        K = self.cfg.num_kv_heads
+        return self.query(q), self._whole(k, K), self._whole(v, K)
+
+    def query(self, q):
+        """q alone, as ``heads`` gives it: the cross attention's, over
+        a block of the encoder memory's k and v."""
+        return q if self.heads_split else self._whole(q, self.cfg.num_heads)
+
+    def leaf_spec(self, name: str) -> Spec:
+        """The full-rank spec of the block's k or v leaf."""
+        return self.spec
 
     def block(self, kv: torch.Tensor) -> torch.Tensor:
         """A whole-sequence k or v cache of this rank's rows, (B, T, h, hd)
@@ -732,3 +762,49 @@ class CacheBlock:
 
     def combine(self, m, l, o) -> torch.Tensor:
         return softmax_combine(m, l, o, self.group)
+
+
+class MambaBlock:
+    """This rank's block of the ssm and hybrid families' mamba decode
+    cache, under ``specs`` ({"conv": spec of (L, B, W-1, C), "state":
+    spec of (L, B, H, P, N)}, ``choose_spec`` on ``cache_axes``): the conv
+    window split on its channels (``ssm_inner``) and the state on its
+    heads (``ssm_heads``), each over ``model`` where it divides, and the
+    rows over the batch's axes.
+
+    The layer's projections are whole on every rank (``tp_dot``'s
+    ``ssm_in``), so a decode step gathers the window's channels
+    (``whole_conv``: B x (W-1) x C a layer), runs the recurrence on the
+    rank's heads (``head_range``) against its block of the state (the
+    heads' recurrences are independent: exact), gathers y over the heads
+    (``whole_heads``) before the gated norm, whose sum runs over all of
+    d_inner, and keeps its block of the new window (``block``). The state
+    itself never moves."""
+
+    def __init__(self, specs, sizes, coords, groups, cfg):
+        self.specs = {n: full_rank(s, 5 if n == "state" else 4)
+                      for n, s in specs.items()}
+        self.sizes, self.coords, self.groups = sizes, coords, groups
+        heads = local_block(torch.arange(cfg.ssm_heads),
+                            self.specs["state"][2:3], sizes, coords)
+        self.head_range = (int(heads[0]), int(heads[-1]) + 1)
+
+    def leaf_spec(self, name: str) -> Spec:
+        return self.specs[name]
+
+    def _inner(self, name: str) -> Spec:
+        # a layer's leaf of this rank's rows: the dims after the batch's
+        return (None,) + self.specs[name][2:]
+
+    def block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A whole layer's ``name`` leaf (B, ...) of this rank's rows ->
+        this rank's block of it."""
+        return local_block(x, self._inner(name), self.sizes, self.coords)
+
+    def whole_conv(self, conv: torch.Tensor) -> torch.Tensor:
+        """A layer's conv window block (B, W-1, C / n) -> every channel."""
+        return whole_from_block(conv, self._inner("conv"), self.groups)
+
+    def whole_heads(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, h, P) on the rank's heads -> (B, H, P)."""
+        return whole_from_block(y, self._inner("state")[:2], self.groups)

@@ -10,6 +10,7 @@ data 16 x model 16) under torch's ``fake`` backend
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --all --mesh both
+  python -m repro_torch.launch.dryrun --cells mamba2-370m:decode_32k,...
 Records go to artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json (or
 --out-dir); pass --force to recompute a cell, --jobs N to run N cells at
 once, each in a process of its own.
@@ -30,16 +31,16 @@ rank's shards of ``abstract_train_state`` and its rows of
 steps (training/sharded_serve.py) on the rank's shards of the parameters,
 the global batch or token (of which a step takes the rank's rows) and,
 for decode, the rank's blocks of the dense cache, as the reference's
-``build_step`` places them. State bytes are the parameters' (and the
-optimizer's for train, the cache's for decode), as the reference counts
-them. Flash attention runs its blockwise plain forward
+``build_step`` places them: every family, the ssm and hybrid families'
+mamba state and the encoder-decoder's memory included. State bytes are
+the parameters' (and the optimizer's for train, the cache's for decode),
+as the reference counts them. Flash attention runs its blockwise plain forward
 (models/flash.py::blockwise_forward): the dense plain version's products,
 one 512-row q block's scores alive at a time. Cells the port cannot run
 yet are refused with the ROADMAP item that would lift the refusal:
 ``--quant`` (item 11g: stored int8/int4 weights put ``dequant_dot``
-beside ``tp_dot``, a ``dot`` hook under model > 1), the ssm, hybrid,
-encdec and vlm families on a mesh (item 11d), and moe at data > 1 (item
-11e).
+beside ``tp_dot``, a ``dot`` hook under model > 1) and moe at data > 1
+(item 11e).
 """
 from __future__ import annotations
 
@@ -234,6 +235,9 @@ def main(argv=None):
     ap.add_argument("--mesh", default="single",
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--cells", default="",
+                    help="comma-separated arch:shape cells, in place of "
+                         "--arch/--shape or --all")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out-dir", type=Path, default=ART)
@@ -248,11 +252,13 @@ def main(argv=None):
                     help="activation sharding: dp | seq_tp (sequence-"
                          "parallel TP; refused: ROADMAP item 11f)")
     args = ap.parse_args(argv)
-    if not args.all and not (args.arch and args.shape):
-        ap.error("give --arch and --shape, or --all")
+    if not args.all and not args.cells and not (args.arch and args.shape):
+        ap.error("give --arch and --shape, --cells, or --all")
 
     t0 = time.time()
-    cells = assigned_cells() if args.all else [(args.arch, args.shape)]
+    cells = assigned_cells() if args.all else \
+        [tuple(c.split(":")) for c in args.cells.split(",")] if args.cells \
+        else [(args.arch, args.shape)]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     kw = dict(out_dir=args.out_dir, tag=args.tag, quant=args.quant,
               microbatches=args.microbatches, ac_mode=args.ac_mode)

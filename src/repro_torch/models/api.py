@@ -58,14 +58,15 @@ class Model:
         the chronological ones the page pool takes
         (transformer.forward). The encoder-decoder takes {frames, tokens}
         and ignores ``cache_layout``, as in the reference
-        (encdec.forward). ``gather`` is the sharded engine's hook
-        (serving/engine/sharded.py; the dense and moe families), ``place``
-        the sharded serving steps' cache layout (transformer.forward)."""
+        (encdec.forward). ``gather`` is the sharded engine's, trainer's
+        and serving steps' hook (every family's layers whole at use),
+        ``place`` the sharded serving steps' cache layout
+        (transformer.forward, encdec.forward)."""
         if self.cfg.is_encdec:
             return encdec.forward(params, batch, self.cfg,
                                   want_cache=want_cache, remat=remat,
                                   dot=dot, unembed_mode=unembed_mode,
-                                  kernel=kernel)
+                                  kernel=kernel, gather=gather, place=place)
         return transformer.forward(params, batch, self.cfg,
                                    want_cache=want_cache,
                                    unembed_mode=unembed_mode,
@@ -83,9 +84,10 @@ class Model:
         feedback. Their parameters require no gradient, so scoring builds
         no graph. The vlm family scores its text rows only: the hidden
         states after the patch rows. ``gather`` and ``data_sum`` are the
-        sharded trainer's hooks (training/sharded.py; the dense and moe
-        families): parameters whole per layer at use, and the loss's sum
-        and count summed over the ranks that split the batch."""
+        sharded trainer's hooks (training/sharded.py): parameters whole
+        per layer at use, and the loss's sum and count summed over the
+        ranks that split the batch (the vlm's text rows included: its
+        token count is the global batch's)."""
         hidden, _, aux, fmask = self.forward(params, batch,
                                              unembed_mode="none", dot=dot,
                                              kernel=kernel, remat=remat,
@@ -103,9 +105,9 @@ class Model:
                 place=None):
         """(logits, caches) of ``forward(want_cache=True)``. ``gather``
         and ``place`` are the sharded serving steps' hooks
-        (training/sharded_serve.py; the dense and moe families): the
-        parameters whole per layer at use, and each layer's caches cut to
-        this rank's block (transformer.forward)."""
+        (training/sharded_serve.py): the parameters whole per layer at
+        use, and each layer's caches cut to this rank's block
+        (transformer.forward, encdec.forward)."""
         logits, cache, _, _ = self.forward(params, batch, want_cache=True,
                                            unembed_mode=unembed_mode,
                                            cache_layout=cache_layout,
@@ -128,7 +130,7 @@ class Model:
         sharded serving steps' hooks (transformer.decode_step)."""
         if self.cfg.is_encdec:
             return encdec.decode_step(params, cache, token, pos, self.cfg,
-                                      dot=dot)
+                                      dot=dot, gather=gather, place=place)
         return transformer.decode_step(params, cache, token, pos, self.cfg,
                                        dot=dot, gather=gather, place=place)
 

@@ -223,22 +223,44 @@ def attention_decode(p, x, cache_k, cache_v, pos, kind: str, cfg, *,
 
 
 def cross_attention(p, x, mem_k, mem_v, cfg, *, dot=None,
-                    kernel: str = "auto"):
+                    kernel: str = "auto", place=None):
     """Decoder cross attention against the encoder's precomputed k/v
     (``cross_kv``), unmasked. x (B, S, D), mem_k/v (B, T, K, hd). Flash
     (kind "bidir", ``kernel`` as in attention_fwd) when S >= FLASH_MIN or
     T >= 4 * FLASH_MIN, which takes a decode step's single query row over
     a long encoder memory; the dense ``_attend`` otherwise. As in the
     reference, ``dot`` reaches the q projection only: the output
-    projection (site ``xattn_o``) is a plain product whatever the hook."""
+    projection (site ``xattn_o``) is a plain product whatever the hook,
+    unless tensor parallelism left o with a rank's heads, which the
+    ``tp_dot`` site gathers before the product.
+
+    ``place`` (distributed/sharding.py::CacheBlock): mem_k/v are this
+    rank's block of a memory split over a mesh; q takes the block's heads
+    (``place.query``). Over a block of the frames each rank attends over
+    its own (flash's lse where the block still reaches flash) and the
+    ranks' softmaxes are combined (``place.combine``)."""
     S, T = x.shape[1], mem_k.shape[1]
     q = (dot or _proj_in)(x, p["wq"], "xattn_q")
-    if S >= flash_lib.FLASH_MIN or T >= 4 * flash_lib.FLASH_MIN:
+    flash = S >= flash_lib.FLASH_MIN or T >= 4 * flash_lib.FLASH_MIN
+    if place is not None:
+        q = place.query(q)
+    if place is not None and place.split:
+        if flash:
+            part = flash_lib.flash_partial(q, mem_k, mem_v, cfg.attn_softcap,
+                                           kernel=kernel)
+        else:
+            mask = torch.ones((1, 1, S, T), dtype=torch.bool,
+                              device=x.device)
+            part = _attend_partial(q, mem_k, mem_v, mask, cfg.attn_softcap)
+        o = place.combine(*part).to(q.dtype)
+    elif flash:
         o = flash_lib.flash_attention(q, mem_k, mem_v, "bidir", 0,
                                       cfg.attn_softcap, kernel=kernel)
     else:
         mask = torch.ones((1, 1, S, T), dtype=torch.bool, device=x.device)
         o = _attend(q, mem_k, mem_v, mask, cfg.attn_softcap)
+    if o.shape[2] != p["wo"].shape[0]:           # a rank's heads (tp_dot)
+        return dot(o, p["wo"], "xattn_o")
     return _proj_out(o, p["wo"], "xattn_o")
 
 

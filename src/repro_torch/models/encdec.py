@@ -13,6 +13,15 @@ grown to the decode length by the caller) and the cross-attention k/v of
 the encoder memory ("mk", "mv"), computed once at prefill and never
 grown. Where the reference scans its stacked layers, this port loops over
 per-layer views.
+
+Split over a mesh (training/sharded.py, training/sharded_serve.py), the
+entry points take transformer.py's hooks: ``gather`` makes each layer
+(``enc``, ``dec``) and the embedding, norms and lm_head whole at use, and
+``place`` ({"self": ``CacheBlock``, "cross": ``CacheBlock``},
+distributed/sharding.py) cuts the prefill's k/v and mk/mv to this rank's
+blocks, per ``cache_axes``; a decode step attends over its blocks and
+combines the ranks' softmaxes where a block holds part of the sequence
+(of decoder slots or of encoder frames).
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import ffn_apply, ffn_defs, norm_def, rms_norm
 from repro_torch.models.params import PDef, stacked, tree_map
-from repro_torch.models.transformer import embed_tokens, unembed
+from repro_torch.models.transformer import _whole, embed_tokens, unembed
 
 F32 = torch.float32
 F64 = torch.float64
@@ -132,8 +141,14 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _gathered(p, key: str, gather):
+    """Layer views of the stacked ``key`` ("enc" or "dec"), whole."""
+    return p if gather is None else gather(p, (key,))
+
+
 # ---------------------------------------------------------------- encoder ----
-def _enc_layer(p, h, cfg, dot, kernel):
+def _enc_layer(p, h, cfg, dot, kernel, gather=None):
+    p = _gathered(p, "enc", gather)
     a, _ = attn.attention_fwd(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                               "bidir", cfg, None, dot=dot, kernel=kernel)
     h = h + a
@@ -142,7 +157,8 @@ def _enc_layer(p, h, cfg, dot, kernel):
     return h + f
 
 
-def encode(params, frames, cfg, *, remat=False, dot=None, kernel="auto"):
+def encode(params, frames, cfg, *, remat=False, dot=None, kernel="auto",
+           gather=None):
     """frames (B, S, D) -> the encoder memory (B, S, D). The frames and
     the sinusoid are each rounded to bf16 before the add, as in the
     reference; ``remat`` runs each layer under a checkpoint."""
@@ -150,14 +166,15 @@ def encode(params, frames, cfg, *, remat=False, dot=None, kernel="auto"):
     x = frames.to(torch.bfloat16) + \
         sinusoidal(S, D, frames.device).to(torch.bfloat16)
     for i in range(cfg.num_layers):
-        args = (_layer(params["enc"], i), x, cfg, dot, kernel)
+        args = (_layer(params["enc"], i), x, cfg, dot, kernel, gather)
         x = checkpoint(_enc_layer, *args, use_reentrant=False) if remat \
             else _enc_layer(*args)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(x, _whole(params, "enc_norm", gather), cfg.norm_eps)
 
 
 # ---------------------------------------------------------------- decoder ----
-def _dec_layer(p, h, mem, cfg, dot, kernel, want_cache):
+def _dec_layer(p, h, mem, cfg, dot, kernel, want_cache, gather=None):
+    p = _gathered(p, "dec", gather)
     a, sc = attn.attention_fwd(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                                "global", cfg, None, dot=dot, kernel=kernel)
     h = h + a
@@ -174,65 +191,76 @@ def _dec_layer(p, h, mem, cfg, dot, kernel, want_cache):
 
 
 def decode_fwd(params, mem, tokens, cfg, *, want_cache: bool, remat=False,
-               dot=None, unembed_mode: str = "full", kernel="auto"):
+               dot=None, unembed_mode: str = "full", kernel="auto",
+               gather=None, place=None):
     """Teacher-forced decoder pass over tokens (B, S) against the encoder
     memory. Returns (logits, or hidden states for unembed_mode "none";
     caches stacked over layers, or None)."""
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, gather)
     x = x + sinusoidal(tokens.shape[1], cfg.d_model, x.device).to(x.dtype)
     caches = []
     for i in range(cfg.num_layers):
         args = (_layer(params["dec"], i), x, mem, cfg, dot, kernel,
-                want_cache)
+                want_cache, gather)
         x, c = checkpoint(_dec_layer, *args, use_reentrant=False) if remat \
             else _dec_layer(*args)
+        if want_cache and place is not None:
+            c = {k: place[_SLOT[k]].block(t) for k, t in c.items()}
         caches.append(c)
     out = {k: torch.stack([c[k] for c in caches]) for k in caches[0]} \
         if want_cache else None
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
     if unembed_mode == "none":
         return x, out
     if unembed_mode == "last":
         x = x[:, -1:]
-    return unembed(params, x, cfg, dot=dot), out
+    return unembed(params, x, cfg, dot=dot, gather=gather), out
 
 
 def forward(params, batch, cfg, *, want_cache: bool, remat=False, dot=None,
-            unembed_mode: str = "full", kernel="auto"):
+            unembed_mode: str = "full", kernel="auto", gather=None,
+            place=None):
     """batch: {frames (B, S, D), tokens (B, S_dec)}. Returns (logits,
     caches, aux 0, None), transformer.forward's signature: no moe loss,
     no loss mask."""
     mem = encode(params, batch["frames"], cfg, remat=remat, dot=dot,
-                 kernel=kernel)
+                 kernel=kernel, gather=gather)
     logits, caches = decode_fwd(params, mem, batch["tokens"], cfg,
                                 want_cache=want_cache, remat=remat, dot=dot,
-                                unembed_mode=unembed_mode, kernel=kernel)
+                                unembed_mode=unembed_mode, kernel=kernel,
+                                gather=gather, place=place)
     return logits, caches, torch.zeros((), dtype=F32, device=mem.device), \
         None
 
 
-def decode_step(params, cache, token, pos, cfg, *, dot=None):
+def decode_step(params, cache, token, pos, cfg, *, dot=None, gather=None,
+                place=None):
     """One decoder token (B, 1) at position ``pos`` (a scalar int tensor or
     int). cache: {k, v (L, B, S_dec, K, hd), mk, mv (L, B, S_enc, K, hd)};
     the self-attention slot ``pos`` is written in place. The cross
     attention runs through flash (the kernel on CUDA tensors) when S_enc
-    >= 4 * FLASH_MIN. Returns (logits (B, 1, V), cache)."""
-    x = embed_tokens(params, token, cfg)
+    >= 4 * FLASH_MIN. ``gather`` and ``place``: the sharded serving
+    steps' hooks (the module docstring); ``cache`` is then this rank's
+    blocks. Returns (logits (B, 1, V), cache)."""
+    x = embed_tokens(params, token, cfg, gather)
     pos = torch.as_tensor(pos, device=x.device)
     x = x + sinusoidal_at(pos, cfg.d_model).to(x.dtype)[None, None, :]
+    own, cross = (None, None) if place is None \
+        else (place["self"], place["cross"])
     for i in range(cfg.num_layers):
-        p, c = _layer(params["dec"], i), _layer(cache, i)
+        p = _gathered(_layer(params["dec"], i), "dec", gather)
+        c = _layer(cache, i)
         a, _, _ = attn.attention_decode(
             p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), c["k"], c["v"],
-            pos, "global", cfg, dot=dot)
+            pos, "global", cfg, dot=dot, place=own)
         x = x + a
         x = x + attn.cross_attention(
             p["xattn"], rms_norm(x, p["ln_x"], cfg.norm_eps), c["mk"],
-            c["mv"], cfg, dot=dot)
+            c["mv"], cfg, dot=dot, place=cross)
         x = x + ffn_apply(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps),
                           cfg.activation, dot=dot)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params, x, cfg, dot=dot), cache
+    x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
+    return unembed(params, x, cfg, dot=dot, gather=gather), cache
 
 
 def cache_specs(cfg, batch: int, seq_len: int):
@@ -256,6 +284,11 @@ def cache_axes(cfg):
     """Logical axes matching ``cache_specs`` (for sharding)."""
     ax = ("layer", "batch", "cache_seq", "kv_heads", "head_dim")
     return {"k": ax, "v": ax, "mk": ax, "mv": ax}
+
+
+# each cache leaf's placement in a sharded serving step's ``place``: the
+# self attention's slots and the encoder memory's frames
+_SLOT = {"k": "self", "v": "self", "mk": "cross", "mv": "cross"}
 
 
 def grow_cache(cache, max_len: int):

@@ -171,6 +171,22 @@ def blockwise_forward(q, k, v, *, causal: bool, window: int, cap: float):
     return out, lse
 
 
+def flash_partial(q, k, v, cap: float = 0.0, *, kernel: str = "auto"):
+    """A full ("bidir") flash attention over one block of the keys, for a
+    combine across blocks (distributed/sharding.py::softmax_combine):
+    (m (B, H, S, 1) the rows' log-sum-exp, l ones, o (B, S, H, hd) the
+    normalised output in fp32). Serving only: no backward."""
+    if kernel == BLOCKWISE:
+        out, lse = blockwise_forward(q, k, v, causal=False, window=0,
+                                     cap=cap)
+    else:
+        out, lse = kops.flash_attention(q, k, v, causal=False, window=0,
+                                        cap=cap, mode=kernel,
+                                        return_lse=True)
+    m = lse[..., None]
+    return m, torch.ones_like(m), out.to(F32)
+
+
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cap, kernel, with_grad):

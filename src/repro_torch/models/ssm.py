@@ -175,10 +175,13 @@ def mamba_block_fwd(p, x, cfg, *, dot=None) -> Tuple[torch.Tensor, dict]:
     return out, {"conv": tail, "state": final}
 
 
-def mamba_block_decode(p, x, cache, cfg, *, dot=None):
+def mamba_block_decode(p, x, cache, cfg, *, dot=None, place=None):
     """One-token decode. x (B,1,D); cache {conv (B,W-1,C), state
     (B,H,P,N)}. Returns (out (B,1,D), new cache); the inputs are not
-    changed."""
+    changed. ``place`` (distributed/sharding.py::MambaBlock): the cache
+    is this rank's block of one split over a mesh; the window is made
+    whole, the recurrence runs on the block's heads, y is made whole over
+    the heads, and the new cache is the rank's block."""
     B = x.shape[0]
     s = cfg.ssm
     di, H, P = cfg.d_inner, cfg.ssm_heads, s.head_dim
@@ -187,25 +190,31 @@ def mamba_block_decode(p, x, cache, cfg, *, dot=None):
     zxbcdt = dot(x, p["in_proj"], "ssm_in")
     z, xs, Bm, Cm, dt = _split_proj(cfg, zxbcdt)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)             # (B,1,C)
-    window = torch.cat([cache["conv"], conv_in], dim=1)   # (B,W,C)
+    prev = cache["conv"] if place is None else place.whole_conv(cache["conv"])
+    window = torch.cat([prev, conv_in], dim=1)            # (B,W,C)
     conv_out = torch.einsum("bwc,wc->bc", window.to(F32),
                             p["conv_w"].to(F32)) + p["conv_b"].to(F32)
     conv_out = F.silu(conv_out)[:, None, :].to(x.dtype)
     xs, Bm, Cm = torch.split(conv_out, [di, G * N, G * N], dim=-1)
-    dtf = softplus(dt.to(F32) + p["dt_bias"])             # (B,1,H)
-    A = -torch.exp(p["a_log"].to(F32))
-    dA = torch.exp(dtf[:, 0, :] * A)                      # (B,H)
-    xh = xs.reshape(B, H, P).to(F32)
-    Bh = Bm.reshape(B, G, N).repeat_interleave(H // G, dim=1)   # (B,H,N)
-    Ch = Cm.reshape(B, G, N).repeat_interleave(H // G, dim=1)
+    h = slice(None) if place is None else slice(*place.head_range)
+    dtf = softplus(dt.to(F32) + p["dt_bias"])[:, :, h]    # (B,1,h)
+    A = -torch.exp(p["a_log"][h].to(F32))
+    dA = torch.exp(dtf[:, 0, :] * A)                      # (B,h)
+    xh = xs.reshape(B, H, P)[:, h].to(F32)
+    Bh = Bm.reshape(B, G, N).repeat_interleave(H // G, dim=1)[:, h]
+    Ch = Cm.reshape(B, G, N).repeat_interleave(H // G, dim=1)[:, h]
     state = cache["state"] * dA[:, :, None, None] + \
         (dtf[:, 0, :, None] * xh)[..., None] * Bh.to(F32)[:, :, None, :]
     y = torch.einsum("bhn,bhpn->bhp", Ch.to(F32), state)
-    y = y + xh * p["d_skip"][None, :, None]
+    y = y + xh * p["d_skip"][None, h, None]
+    if place is not None:
+        y = place.whole_heads(y)
     y = y.reshape(B, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = dot(y, p["out_proj"], "ssm_out")
-    return out, {"conv": window[:, 1:], "state": state}
+    conv = window[:, 1:] if place is None else place.block("conv",
+                                                           window[:, 1:])
+    return out, {"conv": conv, "state": state}
 
 
 def mamba_cache_spec(cfg, batch: int):

@@ -89,11 +89,14 @@ def _group(tree, g: int):
     return tree_map(lambda a: a[g], tree)
 
 
-# The sharded engine (serving/engine/sharded.py) keeps parameters split
-# over a mesh at rest and passes a ``gather(tree, path)`` hook down: it
+# The sharded engine, trainer and serving steps (serving/engine/sharded.py,
+# training/sharded.py, training/sharded_serve.py) keep parameters split
+# over a mesh at rest and pass a ``gather(tree, path)`` hook down: it
 # returns the subtree at key ``path`` of the parameter tree whole on this
-# rank (a layer's view for a "blocks" path), so a rank holds one layer's
-# gathered leaves at a time. Without the hook the parameters are whole.
+# rank (a layer's view for a path into a stacked subtree, "blocks",
+# "mamba", "mamba_ln", and encdec.py's "enc" and "dec"), so a rank holds
+# one layer's gathered leaves at a time. Without the hook the parameters
+# are whole.
 def _whole(params, key: str, gather):
     return params[key] if gather is None else gather(params[key], (key,))
 
@@ -208,21 +211,30 @@ def _dense_block_decode(p, x, cache, pos, kind, cfg, dot, place=None):
 
 def _shared_block_fwd(p, x, emb, cfg, positions, dot, kernel):
     """The hybrid's shared block: x concatenated with the original
-    embedding, fused to d_model, one global dense block, projected back
-    and added to x."""
+    embedding, fused to d_model, one global dense block (through the
+    dense sites of ``dot``), projected back and added to x."""
     u = torch.cat([x, emb], dim=-1) @ p["fuse_in"]
     u, cache, _ = _dense_block_fwd(p, u, SHARED_KIND, cfg, positions, dot,
                                    kernel)
     return x + u @ p["fuse_out"], cache
 
 
-def _shared_block_decode(p, x, emb, cache, pos, cfg, dot):
+def _shared_block_decode(p, x, emb, cache, pos, cfg, dot, place=None):
     u = torch.cat([x, emb], dim=-1) @ p["fuse_in"]
-    u = _dense_block_decode(p, u, cache, pos, SHARED_KIND, cfg, dot)
+    u = _dense_block_decode(p, u, cache, pos, SHARED_KIND, cfg, dot, place)
     return x + u @ p["fuse_out"]
 
 
-def _mamba_fwd(p, ln, x, cfg, dot):
+def _mamba_layer(p, ln, gather):
+    """A mamba layer's parameters and its pre-norm (views of layer l of
+    the stacked ``mamba`` and ``mamba_ln``), whole on this rank."""
+    if gather is None:
+        return p, ln
+    return gather(p, ("mamba",)), gather(ln, ("mamba_ln",))
+
+
+def _mamba_fwd(p, ln, x, cfg, dot, gather=None):
+    p, ln = _mamba_layer(p, ln, gather)
     y, cache = ssm_lib.mamba_block_fwd(p, rms_norm(x, ln, cfg.norm_eps), cfg,
                                        dot=dot)
     return x + y, cache
@@ -263,7 +275,7 @@ def _assemble_input(params, batch, cfg, gather=None):
     te = embed_tokens(params, batch["tokens"], cfg, gather)
     if cfg.frontend != "vision_stub":
         return te, None
-    w = params["frontend_proj"]
+    w = _whole(params, "frontend_proj", gather)
     pe = torch.einsum("bsd,de->bse", *promoted(
         batch["patches"].to(torch.bfloat16), w))
     mask = torch.cat([torch.zeros(pe.shape[:2], dtype=F32, device=pe.device),
@@ -388,11 +400,13 @@ def forward(params, batch, cfg, *, want_cache: bool,
     layer) under a checkpoint (the reference's ``jax.checkpoint``): the
     backward runs its forward again, flash kernel included, instead of
     keeping its activations.
-    gather: the sharded engine's hook (dense and moe families; see
-    ``_whole``).
-    place: {slot: ``CacheBlock``} (distributed/sharding.py), the sharded
-    serving steps' cache layout: each layer's caches are cut to this
-    rank's block as they are made (training/sharded_serve.py).
+    gather: the sharded trainer's and serving steps' hook (see
+    ``_whole``): every family's layers gathered one at a time.
+    place: the sharded serving steps' cache layout
+    (training/sharded_serve.py): {slot: ``CacheBlock``}, and for the ssm
+    and hybrid families {"mamba": ``MambaBlock``, "shared": ``CacheBlock``}
+    (distributed/sharding.py); each layer's caches are cut to this rank's
+    block as they are made.
     batch: {tokens (B, S)}, and for the vision stub also patches
     (B, S_p, D), which come first: the sequence is S_p + S rows.
     Returns (logits_or_hidden, caches or None, aux, loss_mask): aux
@@ -409,7 +423,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
     positions = torch.arange(S, device=x.device).expand(B, S)
     if cfg.family in ("ssm", "hybrid"):
         x, out_cache = _forward_mamba(params, x, cfg, positions, want_cache,
-                                      dot, kernel, remat)
+                                      dot, kernel, remat, gather, place)
         aux_total = 0.0
     else:
         x, out_cache, aux_total = _forward_blocks(
@@ -426,7 +440,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
 
 def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
                     kernel, remat, gather=None, place=None):
-    """The dense and moe families' layer groups: (x, caches, aux);
+    """The dense, moe and vlm families' layer groups: (x, caches, aux);
     ``place`` cuts each layer's caches to a rank's block (``forward``)."""
     P = period_of(cfg)
     kinds = sublayer_kinds(cfg)
@@ -468,10 +482,11 @@ def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
 
 
 def _forward_mamba(params, x, cfg, positions, want_cache, dot, kernel,
-                   remat):
+                   remat, gather=None, place=None):
     """The ssm and hybrid families: every mamba layer in order, the
     hybrid's shared block (on x and the original embedding) before each
-    of its ``hybrid_groups``. Returns (x, caches or None)."""
+    of its ``hybrid_groups``. ``gather`` and ``place`` as in ``forward``.
+    Returns (x, caches or None)."""
     emb0 = x
     groups = hybrid_groups(cfg) if cfg.family == "hybrid" \
         else [cfg.num_layers]
@@ -479,15 +494,19 @@ def _forward_mamba(params, x, cfg, positions, want_cache, dot, kernel,
     layer = 0
     for size in groups:
         if cfg.family == "hybrid":
-            x, sc = _shared_block_fwd(params["shared"], x, emb0, cfg,
-                                      positions, dot, kernel)
+            x, sc = _shared_block_fwd(_whole(params, "shared", gather), x,
+                                      emb0, cfg, positions, dot, kernel)
+            if place is not None:
+                sc = {n: place["shared"].block(t) for n, t in sc.items()}
             ks.append(sc["k"])
             vs.append(sc["v"])
         for l in range(layer, layer + size):
             args = (_group(params["mamba"], l), params["mamba_ln"][l], x,
-                    cfg, dot)
+                    cfg, dot, gather)
             x, mc = checkpoint(_mamba_fwd, *args, use_reentrant=False) \
                 if remat else _mamba_fwd(*args)
+            if place is not None:
+                mc = {n: place["mamba"].block(n, t) for n, t in mc.items()}
             convs.append(mc["conv"])
             states.append(mc["state"])
         layer += size
@@ -509,14 +528,9 @@ def decode_step(params, cache, token, pos, cfg, *, dot=None, gather=None,
     KV slots written, mamba conv windows and states replaced. Returns
     (logits (B,1,V), cache).
 
-    The sharded serving steps' hooks (dense and moe families;
-    training/sharded_serve.py): ``gather`` as in ``forward``, and
-    ``place``, {slot: ``CacheBlock``}: ``cache`` is a rank's block of
-    each slot's caches."""
-    if cfg.family in ("ssm", "hybrid") and (gather or place):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} decode takes no gather hook or "
-            f"cache placement (ROADMAP Queue 1, item 11d)")
+    The sharded serving steps' hooks (training/sharded_serve.py):
+    ``gather`` as in ``forward``, and ``place`` (``forward``'s layout):
+    ``cache`` is a rank's block of each slot's caches."""
     x = embed_tokens(params, token, cfg, gather)
     pos = torch.as_tensor(pos, device=x.device)
     if cfg.family in ("ssm", "hybrid"):
@@ -527,15 +541,17 @@ def decode_step(params, cache, token, pos, cfg, *, dot=None, gather=None,
         layer = 0
         for g, size in enumerate(groups):
             if cfg.family == "hybrid":
-                x = _shared_block_decode(params["shared"], x, emb0,
-                                         _group(cache["shared"], g), pos,
-                                         cfg, dot)
+                x = _shared_block_decode(
+                    _whole(params, "shared", gather), x, emb0,
+                    _group(cache["shared"], g), pos, cfg, dot,
+                    None if place is None else place["shared"])
             for l in range(layer, layer + size):
-                ln = params["mamba_ln"][l]
+                p, ln = _mamba_layer(_group(params["mamba"], l),
+                                     params["mamba_ln"][l], gather)
                 y, new = ssm_lib.mamba_block_decode(
-                    _group(params["mamba"], l),
-                    rms_norm(x, ln, cfg.norm_eps), _group(mc, l), cfg,
-                    dot=dot)
+                    p, rms_norm(x, ln, cfg.norm_eps), _group(mc, l), cfg,
+                    dot=dot, place=None if place is None
+                    else place["mamba"])
                 mc["conv"][l] = new["conv"]
                 mc["state"][l] = new["state"]
                 x = x + y

@@ -169,7 +169,7 @@ class SpmdEngine:
         for key in path:
             plans = plans[key]
         return gather_at_use(tree, plans, self.groups,
-                             shift=1 if path[0] == "blocks" else 0)
+                             shift=shlib.plan_shift(path))
 
     # ---------------------------------------------------------------- clock --
     def rank0_clock(self, now: float) -> float:

@@ -8,8 +8,9 @@ One process per rank, as in the sharded engine (serving/engine/sharded.py):
   * The state at rest: every leaf of ``{"params", "opt"}`` split per
     distributed/sharding.py's rules on its logical axes: the FSDP
     ``embed`` dims over ("pod", "data") or ``data``; heads, kv heads,
-    d_ff, experts and vocab over ``model`` where they divide it, whole
-    where they do not. A quantized moment's codes split as their
+    d_ff, experts, vocab and the mamba layers' ``ssm_inner`` and
+    ``ssm_heads`` over ``model`` where they divide it, whole where they
+    do not. A quantized moment's codes split as their
     parameter; its scales keep their last (block) dim whole on every
     rank, as the reference's spec has it.
   * The forward runs the engine's per-layer ``gather`` hook, with a
@@ -21,9 +22,10 @@ One process per rank, as in the sharded engine (serving/engine/sharded.py):
     over both. Its ``model`` dims are gathered too, except the output
     dims of the column-split products (q/k/v, FFN up and gate), which stay
     local. Every rank of a ``model`` group computes the same whole
-    downstream of a gathered leaf, so the backward keeps its block of that
-    gradient without a sum. ``data`` is gathered before ``model``, so the
-    backward slices before it reduce-scatters.
+    downstream of a gathered leaf (a mamba layer, whose ``in_proj`` is
+    gathered whole, is computed whole on every rank), so the backward
+    keeps its block of that gradient without a sum. ``data`` is gathered
+    before ``model``, so the backward slices before it reduce-scatters.
   * Tensor parallelism: the sharded engine's exactness-first sites
     (distributed/sharding.py::tp_dot) with their backward conjugates
     (``tp_dot``'s docstring): heads the model axis does not divide are
@@ -76,8 +78,8 @@ FSDP_AXES = (POD, DATA)          # the batch's and the FSDP dims' axes
 def validate_train_mesh(cfg, mesh, *, dot=None, what="training") -> None:
     """What the sharded trainer (and the sharded serving steps,
     ``what="serving"``: training/sharded_serve.py) needs from (cfg,
-    mesh): dense on any mesh, moe at data = pod = 1; the rest names its
-    ROADMAP item."""
+    mesh): every family on any mesh but moe, which takes data = pod = 1;
+    the rest names its ROADMAP item."""
     sizes = shlib.axis_sizes(mesh)
     unknown = set(sizes) - {POD, DATA, MODEL}
     if unknown:
@@ -85,11 +87,6 @@ def validate_train_mesh(cfg, mesh, *, dot=None, what="training") -> None:
                          f"{sorted(sizes)}")
     tp = sizes.get(MODEL, 1)
     dp = sizes.get(DATA, 1) * sizes.get(POD, 1)
-    if tp * dp > 1 and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: sharded {what} takes the dense and moe "
-            f"families; the {cfg.family} bodies do not take the per-layer "
-            f"gather hook yet (ROADMAP Queue 1, item 11d)")
     if cfg.family == "moe" and dp > 1:
         raise NotImplementedError(
             f"{cfg.name}: moe {what} at data x pod={dp}: the expert "
@@ -290,13 +287,13 @@ class ShardedTrainer(StateLayout):
 
     def gather(self, tree, path):
         """The model's ``gather`` hook: the subtree at ``path`` whole on
-        this rank, with a backward (the module docstring). A "blocks"
-        path holds one layer's views, whose plans count the stacked layer
-        dim."""
+        this rank, with a backward (the module docstring). A path into a
+        stacked subtree holds one layer's views, whose plans count the
+        stacked layer dim (``plan_shift``)."""
         plans = self.plans
         for key in path:
             plans = plans[key]
-        shift = 1 if path[0] == "blocks" else 0
+        shift = shlib.plan_shift(path)
 
         def run(x, plan):
             for dim, ax in plan:

@@ -16,7 +16,13 @@ per rank, as the sharded engine and trainer run.
     where it divides T, and the kv heads ``model`` only where it does not
     (distributed/sharding.py::CacheBlock). A spec that splits the
     sequence over ``data`` (B not split over it) is refused, naming it.
-    ``pos`` is a scalar, as in the reference's decode cells.
+    ``pos`` is a scalar, as in the reference's decode cells. The four
+    families' caches (``placements``): the dense, moe and vlm families'
+    per sub-layer slot; the ssm family's mamba conv windows and states
+    (``MambaBlock``: the window on its channels, the state on its heads),
+    and the hybrid's also its shared block's k/v; the encoder-decoder's
+    self-attention k/v over decoder slots and its memory's mk/mv over
+    encoder frames.
   * Prefill: the rank's rows through ``forward(want_cache=True)`` (ring
     layout for local layers); each layer's caches are cut to the rank's
     block as they are made: kv heads made whole over ``model`` (copies),
@@ -47,12 +53,15 @@ from typing import Dict
 import torch
 
 from repro_torch.distributed import sharding as shlib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import transformer
 from repro_torch.models.params import tree_leaves, tree_unflatten
-from repro_torch.models.transformer import cache_axes, sublayer_kinds
+from repro_torch.models.transformer import sublayer_kinds
 from repro_torch.serving.engine.sharded import gather_at_use
 from repro_torch.training.sharded import MODEL, validate_train_mesh
 
-HOOK_FAMILIES = ("dense", "moe")     # the bodies that take gather/place
+KV_AXES = ("layer", "batch", "cache_seq", "kv_heads", "head_dim")
+MAMBA = "mamba"                      # the ssm and hybrid state's group
 
 
 def cache_spec(cfg, B: int, T: int, mesh):
@@ -61,8 +70,8 @@ def cache_spec(cfg, B: int, T: int, mesh):
     sequence splits over ``data``."""
     sizes = shlib.axis_sizes(mesh)
     spec = shlib.full_rank(shlib.choose_spec(
-        (1, B, T, cfg.num_kv_heads, cfg.resolved_head_dim),
-        cache_axes(cfg)["sub0"]["k"], sizes), 5)
+        (1, B, T, cfg.num_kv_heads, cfg.resolved_head_dim), KV_AXES, sizes),
+        5)
     if spec[2] not in (None, MODEL) and any(sizes[a] > 1 for a in
                                             shlib._as_axes(spec[2])):
         raise NotImplementedError(
@@ -71,6 +80,22 @@ def cache_spec(cfg, B: int, T: int, mesh):
             f"spec {spec}, its sequence split over {spec[2]!r}: the sharded "
             f"decode combines a sequence split over 'model' only")
     return spec
+
+
+def cache_groups(cfg, cache):
+    """A dense cache tree as {group: {leaf: tensor}}, keyed as a step's
+    ``place`` is: a sub-layer slot ("sub{j}"), the hybrid's "shared",
+    the ssm state's "mamba", or the encoder-decoder's "self" (k, v) and
+    "cross" (mk, mv)."""
+    if cfg.is_encdec:
+        return {"self": {n: cache[n] for n in ("k", "v")},
+                "cross": {n: cache[n] for n in ("mk", "mv")}}
+    return cache
+
+
+def _ungroup(cfg, groups):
+    return {**groups["self"], **groups["cross"]} if cfg.is_encdec \
+        else groups
 
 
 class ShardedServeSteps:
@@ -94,8 +119,7 @@ class ShardedServeSteps:
         tp = self.sizes.get(MODEL, 1)
         self.hook = dot          # held: serve_steps keys on its id
         self.dot = shlib.tp_dot(self.groups[MODEL], cfg) if tp > 1 else dot
-        self.hooks = cfg.family in HOOK_FAMILIES
-        self.placed = None       # (B, {slot: T}) of the last placed cache
+        self.placed = None       # (B, {group: T}) of the last placed cache
         self._held: Dict = {}    # a tied embedding a step gathered
 
     # ------------------------------------------------------------ layout --
@@ -119,65 +143,98 @@ class ShardedServeSteps:
         for key in path:
             plans = plans[key]
         out = gather_at_use(tree, plans, self.groups,
-                            shift=1 if path[0] == "blocks" else 0)
+                            shift=shlib.plan_shift(path))
         if path == ("embed",) and self.model.cfg.tie_embeddings:
             self._held[path] = out
         return out
 
+    def _mamba_specs(self, B: int):
+        cfg = self.model.cfg
+        axes = transformer.cache_axes(cfg)[MAMBA]
+        return {n: shlib.choose_spec((1,) + shape, axes[n], self.sizes)
+                for n, (shape, _) in ssm_lib.mamba_cache_spec(cfg, B).items()}
+
     def _blocks(self, B: int, lengths: Dict[str, int]):
-        return {j: shlib.CacheBlock(cache_spec(self.model.cfg, B, T,
-                                               self.sizes),
-                                    T, self.sizes, self.coords, self.groups,
-                                    self.model.cfg)
+        cfg = self.model.cfg
+        return {j: shlib.MambaBlock(self._mamba_specs(B), self.sizes,
+                                    self.coords, self.groups, cfg)
+                if j == MAMBA else
+                shlib.CacheBlock(cache_spec(cfg, B, T, self.sizes), T,
+                                 self.sizes, self.coords, self.groups, cfg)
                 for j, T in lengths.items()}
 
     def placements(self, B: int, lengths: Dict[str, int]):
-        """{slot: ``CacheBlock``} of caches of B rows and ``lengths[slot]``
-        slots, recorded as the layout the next decode reads."""
+        """{group: ``CacheBlock`` or ``MambaBlock``} of caches of B rows
+        and ``lengths[group]`` slots (None for the mamba state), recorded
+        as the layout the next decode reads."""
         place = self._blocks(B, lengths)
         self.placed = (B, dict(lengths))
         return place
 
+    def _prefill_lengths(self, batch) -> Dict[str, int]:
+        """The prefill's cache groups and their slots."""
+        cfg = self.model.cfg
+        if cfg.is_encdec:
+            return {"self": batch["tokens"].shape[1],
+                    "cross": batch["frames"].shape[1]}
+        S = batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                        if "patches" in batch else 0)
+        if cfg.family in ("ssm", "hybrid"):
+            return {MAMBA: None, **({"shared": S} if cfg.family == "hybrid"
+                                    else {})}
+        return {f"sub{j}": cfg.window_size if k["attn"] == "local" else S
+                for j, k in enumerate(sublayer_kinds(cfg))}
+
     def place_cache(self, cache):
-        """A whole dense cache ({slot: {k, v}} of (L, B, T, K, hd)) ->
-        this rank's blocks, each in storage of its own."""
-        if not self.hooks:
-            return cache
-        B = cache["sub0"]["k"].shape[1]
-        place = self.placements(B, {j: c["k"].shape[2]
-                                    for j, c in cache.items()})
-        return {j: {n: shlib.local_block(x, place[j].spec, self.sizes,
-                                         self.coords).clone(
-                        memory_format=torch.contiguous_format)
-                    for n, x in c.items()} for j, c in cache.items()}
+        """A whole dense cache (``cache_specs``' tree) -> this rank's
+        blocks, each in storage of its own."""
+        groups = cache_groups(self.model.cfg, cache)
+        first = next(iter(groups.values()))
+        place = self.placements(
+            next(iter(first.values())).shape[1],
+            {j: None if j == MAMBA else next(iter(c.values())).shape[2]
+             for j, c in groups.items()})
+        return _ungroup(self.model.cfg, {
+            j: {n: shlib.local_block(x, place[j].leaf_spec(n), self.sizes,
+                                     self.coords).clone(
+                    memory_format=torch.contiguous_format)
+                for n, x in c.items()} for j, c in groups.items()})
 
     def whole_cache(self, blocks):
         """The whole cache from every rank's blocks (a collective)."""
-        if not self.hooks:
-            return blocks
         place = self.layout(blocks)
-        return {j: {n: shlib.whole_from_block(x, place[j].spec, self.groups)
-                    for n, x in c.items()} for j, c in blocks.items()}
+        return _ungroup(self.model.cfg, {
+            j: {n: shlib.whole_from_block(x, place[j].leaf_spec(n),
+                                          self.groups)
+                for n, x in c.items()}
+            for j, c in cache_groups(self.model.cfg, blocks).items()})
 
     def layout(self, cache, B=None):
-        """{slot: ``CacheBlock``} of the last placed cache (of B rows),
-        held to ``cache``'s blocks."""
+        """{group: block} of the last placed cache (of B rows), held to
+        ``cache``'s blocks."""
         if self.placed is None:
             raise ValueError("the sharded serve step decodes a cache placed "
                              "by prefill() or place_cache() of the same "
                              "steps (make_prefill_step/make_serve_step with "
                              "one ac share them)")
+        cfg = self.model.cfg
         b, lengths = self.placed
         place = self._blocks(b, lengths)
-        for j, c in cache.items():
-            want = shlib.local_shape(
-                (c["k"].shape[0], b, lengths[j]) + tuple(c["k"].shape[3:]),
-                place[j].spec, self.sizes)
-            got = tuple(c["k"].shape)
-            if (B is not None and B != b) or got[:3] != want[:3]:
-                raise ValueError(
-                    f"cache block {j} {got} is not this rank's block of the "
-                    f"placed cache (B={b}, T={lengths[j]}: {want})")
+        for j, c in cache_groups(cfg, cache).items():
+            for n, x in c.items():
+                got = tuple(x.shape)
+                if j == MAMBA:      # the whole state's every dim
+                    whole, k = (got[0],) + tuple(
+                        ssm_lib.mamba_cache_spec(cfg, b)[n][0]), len(got)
+                else:               # rows and slots (kv heads may split)
+                    whole, k = (got[0], b, lengths[j]) + got[3:], 3
+                want = shlib.local_shape(whole, place[j].leaf_spec(n),
+                                         self.sizes)
+                if (B is not None and B != b) or got[:k] != want[:k]:
+                    raise ValueError(
+                        f"cache block {j}/{n} {got} is not this rank's "
+                        f"block of the placed cache (B={b}, "
+                        f"T={lengths[j]}: {want})")
         return place
 
     # ------------------------------------------------------------- steps --
@@ -185,14 +242,8 @@ class ShardedServeSteps:
         """``prefill_step(params, global batch) -> (last-row logits of this
         rank's rows, this rank's cache blocks)``."""
         rows = {k: self.ac(v, "batch") for k, v in batch.items()}
-        if not self.hooks:
-            return self.model.prefill(params, rows, dot=self.dot,
-                                      kernel=self.kernel)
-        cfg = self.model.cfg
-        B, S = batch["tokens"].shape
-        place = self.placements(B, {
-            f"sub{j}": cfg.window_size if k["attn"] == "local" else S
-            for j, k in enumerate(sublayer_kinds(cfg))})
+        place = self.placements(batch["tokens"].shape[0],
+                                self._prefill_lengths(batch))
         try:
             return self.model.prefill(params, rows, dot=self.dot,
                                       kernel=self.kernel, gather=self.gather,
@@ -204,9 +255,6 @@ class ShardedServeSteps:
         """``serve_step(params, cache blocks, global token (B, 1), pos) ->
         (logits of this rank's rows, the blocks)``, written in place."""
         rows = self.ac(token, "batch")
-        if not self.hooks:
-            return self.model.decode_step(params, cache, rows, pos,
-                                          dot=self.dot)
         try:
             return self.model.decode_step(
                 params, cache, rows, pos, dot=self.dot, gather=self.gather,

@@ -11,16 +11,19 @@ its compiled step against the port's count on a fake world of the mesh's
 size, within 2% (measured: equal); ``sharded_bytes_per_device`` of the
 tiny train states at (2, 4), (4, 2), (8, 1) and (4, 1), fp32 and int8
 moments, equal to the byte. Held against the reference's ``choose_spec``
-arithmetic on a shape-only mesh: the per-device state bytes of the 26
-full-width (cell, mesh) pairs the dry-run runs (the 8 train pairs; the
-18 serving pairs' parameters, and their caches for decode, from the
-dry-run's own ``build_step``, also against the GiB the issue computed).
-The blockwise flash forward the dry-run counts: FLOPs equal to the dense
-plain version's, and a peak of about one 512-row block's scores, no (B,
-H, S, T) tensor. The CLI in a subprocess: a full-width gemma2-2b record
-with every key, its state bytes the reference's arithmetic; whisper's
-prefill cell and mamba2-370m refused naming ROADMAP item 11d, ``--quant``
-naming item 11g; ``--all`` counting refusals apart from failures.
+arithmetic on a shape-only mesh: the per-device state bytes of the 54
+full-width (cell, mesh) pairs the dry-run runs (the dense families' 8
+train pairs; their 18 serving pairs' parameters, and their caches for
+decode, from the dry-run's own ``build_step``; the 28 pairs of the ssm,
+hybrid, encoder-decoder and vision-stub families, train state or
+parameters and cache, from ``build_step``; each also against a table of
+GiB computed beforehand from the rules). The blockwise flash forward the dry-run counts: FLOPs
+equal to the dense plain version's, and a peak of about one 512-row
+block's scores, no (B, H, S, T) tensor. The CLI in a subprocess: a
+full-width gemma2-2b record with every key, its state bytes the
+reference's arithmetic; whisper's prefill cell and mamba2-370m's train
+cell recorded likewise; ``--quant`` refused naming item 11g; ``--all``
+counting refusals (moe at data > 1, item 11e) apart from failures.
 """
 import json
 import math
@@ -325,6 +328,53 @@ def test_serving_state_bytes_are_the_reference_arithmetic(arch, shape_name,
         assert round(got[0] / 2**30, 3) == gib[1]
 
 
+# the sharding rules' arithmetic, done beforehand, for the ssm, hybrid,
+# encdec and vlm families: GiB a device (data 16 x model 16, pod 2 x data
+# 16 x model 16)
+FAMILY_GIB = {
+    ("mamba2-370m", "train_4k"): (0.0220, 0.0113),
+    ("mamba2-370m", "prefill_32k"): (0.0032, 0.0016),
+    ("mamba2-370m", "decode_32k"): (0.0269, 0.0135),
+    ("mamba2-370m", "long_500k"): (0.0061, 0.0046),
+    ("zamba2-1.2b", "train_4k"): (0.0699, 0.0354),
+    ("zamba2-1.2b", "prefill_32k"): (0.0100, 0.0051),
+    ("zamba2-1.2b", "decode_32k"): (0.9040, 0.4521),
+    ("zamba2-1.2b", "long_500k"): (1.7624, 1.7575),
+    ("whisper-large-v3", "train_4k"): (0.5624, 0.2812),
+    ("whisper-large-v3", "prefill_32k"): (0.0804, 0.0402),
+    ("whisper-large-v3", "decode_32k"): (2.8929, 1.4464),
+    ("llava-next-mistral-7b", "train_4k"): (0.5878, 0.2939),
+    ("llava-next-mistral-7b", "prefill_32k"): (0.0840, 0.0420),
+    ("llava-next-mistral-7b", "decode_32k"): (2.0840, 1.0420)}
+
+
+@pytest.mark.parametrize("mesh_kind", list(MESHES))
+@pytest.mark.parametrize("arch,shape_name", list(FAMILY_GIB),
+                         ids=[f"{a}-{s}" for a, s in FAMILY_GIB])
+def test_family_state_bytes_are_the_reference_arithmetic(arch, shape_name,
+                                                         mesh_kind):
+    """The 28 (cell, mesh) pairs of the ssm, hybrid, encdec and vlm
+    families: the state the dry-run's ``build_step`` holds a device (the
+    parameters, and the optimizer for train, the cache for decode) equal
+    to the reference's arithmetic to the byte, and FAMILY_GIB to its four
+    decimals."""
+    from repro_torch.configs import get_shape
+    multi = mesh_kind == "multi"
+    model = t_build(get_config(arch))
+    shape = get_shape(shape_name)
+    tcfg = dryrun.train_cfg_for(arch)
+    with dry_world(512 if multi else 256):
+        mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+        _, _, held, _ = dryrun.build_step(model, shape, mesh, tcfg)
+        got = sum(dryrun.sharded_bytes_per_device(a, s, mesh)
+                  for a, s in held)
+    want = _reference_state_bytes(arch, MESHES[mesh_kind], False) \
+        if shape.kind == "train" else \
+        _reference_serving_bytes(arch, shape_name, MESHES[mesh_kind])
+    assert got == want
+    assert round(got / 2**30, 4) == FAMILY_GIB[(arch, shape_name)][multi]
+
+
 # -------------------------------------------------------------- the meshes --
 def test_production_mesh_over_a_fake_world():
     """(data 16, model 16) and (pod 2, data 16, model 16): rank 0 at
@@ -398,12 +448,32 @@ def test_cli_writes_a_full_width_record(tmp_path):
         "all-gather", "all-to-all", "coll_count"}
 
 
+@pytest.mark.parametrize("arch,shape_name", [
+    ("whisper-large-v3", "prefill_32k"), ("mamba2-370m", "train_4k")],
+    ids=["prefill", "mamba2"])
+def test_cli_runs_the_families(arch, shape_name, tmp_path):
+    """Cells item 11d refused: each writes its record, the state bytes the
+    reference's arithmetic."""
+    r = _cli("--arch", arch, "--shape", shape_name, "--mesh", "single",
+             out_dir=tmp_path)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert "1 cells ran, 0 refused, 0 failed" in r.stdout
+    rec = json.loads((tmp_path / f"{arch}__{shape_name}__single.json")
+                     .read_text())
+    assert set(rec) == KEYS and rec["chips"] == 256
+    want = _reference_state_bytes(arch, MESHES["single"], False) \
+        if shape_name == "train_4k" else \
+        _reference_serving_bytes(arch, shape_name, MESHES["single"])
+    assert rec["state_bytes_per_device"] == want
+    assert rec["dot_flops_per_device"] > 0
+    assert rec["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")
+
+
 @pytest.mark.parametrize("args,item", [
-    (("--arch", "whisper-large-v3", "--shape", "prefill_32k"), "item 11d"),
-    (("--arch", "mamba2-370m", "--shape", "train_4k"), "item 11d"),
     (("--arch", "gemma2-2b", "--shape", "decode_32k", "--quant", "w8"),
      "item 11g")],
-    ids=["prefill", "mamba2", "quant"])
+    ids=["quant"])
 def test_cli_refusals_name_their_item(args, item, tmp_path):
     r = _cli(*args, out_dir=tmp_path)
     assert r.returncode == 0, r.stderr[-4000:]
@@ -413,21 +483,30 @@ def test_cli_refusals_name_their_item(args, item, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+def test_cells_runs_the_listed_cells(capsys, tmp_path):
+    """--cells takes arch:shape pairs in place of --all."""
+    dryrun.main(["--cells", "granite-moe-3b-a800m:train_4k,"
+                 "mamba2-370m:long_500k", "--out-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "1 cells ran, 1 refused, 0 failed" in out
+    assert [p.name for p in tmp_path.iterdir()] == [
+        "mamba2-370m__long_500k__single.json"]
+
+
 def test_all_counts_refusals_apart_from_failures(monkeypatch, capsys,
                                                  tmp_path):
     """--all prints each refused cell and exits 0; a cell that fails
     otherwise makes it exit 1. --quant and --ac-mode seq_tp are refusals
     naming items 11g and 11f."""
     monkeypatch.setattr(dryrun, "assigned_cells", lambda: [
-        ("llava-next-mistral-7b", "decode_32k"),
+        ("llama4-maverick-400b-a17b", "decode_32k"),
         ("granite-moe-3b-a800m", "train_4k"),
-        ("whisper-large-v3", "train_4k")])
+        ("granite-moe-3b-a800m", "prefill_32k")])
     dryrun.main(["--all", "--mesh", "both", "--out-dir", str(tmp_path)])
     out = capsys.readouterr().out
     refused = [x for x in out.splitlines() if x.startswith("[refused]")]
     assert len(refused) == 6
-    assert sum("item 11e" in x for x in refused) == 2
-    assert sum("item 11d" in x for x in refused) == 4
+    assert sum("item 11e" in x for x in refused) == 6
     assert "0 cells ran, 6 refused, 0 failed" in out
     for flags, item in ((["--quant", "w8"], "item 11g"),
                         (["--ac-mode", "seq_tp"], "item 11f")):

@@ -122,19 +122,31 @@ def test_cache_split_over_data_is_refused_by_name():
 
 
 @pytest.mark.parametrize("arch,sizes,dot,match", [
-    ("mamba2-370m", dict(data=1, model=2), None, "item 11d"),
-    ("zamba2-1.2b", dict(data=2, model=1), None, "item 11d"),
-    ("whisper-large-v3", dict(data=1, model=2), None, "item 11d"),
-    ("llava-next-mistral-7b", dict(data=2, model=1), None, "item 11d"),
     ("granite-moe-3b-a800m", dict(data=2, model=1), None, "item 11e"),
     ("gemma2-2b", dict(data=1, model=2), "dot", "item 11g")],
-    ids=["mamba2", "zamba2", "whisper", "llava", "moe-data2", "dot"])
+    ids=["moe-data2", "dot"])
 def test_serving_steps_refuse_by_item(arch, sizes, dot, match):
     model = build_model(get_config(arch))
     with pytest.raises((NotImplementedError, ValueError),
                        match=f"sharded serving.*{match}|{match}"):
         ssv.ShardedServeSteps(model, shlib.make_ac(sizes),
                               dot=(lambda a, w, n: a @ w) if dot else None)
+
+
+@pytest.mark.parametrize("arch,data,tp", [
+    ("mamba2-370m", 1, 2), ("zamba2-1.2b", 2, 1),
+    ("whisper-large-v3", 1, 2), ("llava-next-mistral-7b", 2, 1)],
+    ids=["mamba2", "zamba2", "whisper", "llava"])
+def test_serving_steps_take_the_families(arch, data, tp):
+    """The families item 11d refused: the steps are made over a mesh of
+    ``fake``-backend ranks, their parameters placed per ``specs_for``
+    (tests/test_torch_serve_sharded_families.py runs them)."""
+    from repro_torch.launch.mesh import _mesh, dry_world
+    model = build_model(get_config(arch))
+    with dry_world(data * tp):
+        steps = ssv.ShardedServeSteps(model, shlib.make_ac(
+            _mesh(data, tp, "cpu", 60.0)))
+        assert steps.sizes == {"data": data, "model": tp}
 
 
 def test_decode_without_a_placed_cache_is_refused():

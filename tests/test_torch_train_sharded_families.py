@@ -1,0 +1,445 @@
+"""Sharded training (training/sharded.py) of the ssm, hybrid,
+encoder-decoder and vision-stub families on the CPU, in gloo worlds:
+tiny mamba2-370m, zamba2-1.2b, whisper-large-v3 and llava-next-mistral-7b
+at data=2, model=2 (worlds of 2) and data=2 x model=2 (a world of 4), on
+a global batch of B 4 x S 64 (whisper: 64 frames, 8 decoder tokens;
+llava: 16 patch rows, 48 tokens).
+
+Every rank of a ``model`` group computes each mamba layer whole on its
+rows (``in_proj``'s 552 columns rest split, 276 a rank at model=2
+against z's 256, and are gathered at use), and keeps its block of the
+gathered leaves' gradients without a sum; zamba2's shared block and
+whisper's attentions split their heads as the dense families do, and
+whisper's cross attention gathers its heads before the out-projection.
+
+Tolerances, and why (tests/test_torch_train_sharded.py's rules):
+  * fp32 (the port's init cast to fp32, wq and wk x 1/8 in every
+    attention: the init saturates the tiny models' softmax): the first
+    step's loss and grad norm within LOSS_RTOL and its gradients within
+    GRAD_TOL of each leaf's max |g|, against the plain one-device step;
+    the runs differ only in summation order. Whisper's cross attention
+    over random memory is near uniform, so the gradients of its wq, wk and
+    ln_x, and of the encoder's ln1 that feeds its memory, are small
+    differences of large terms (tests/test_torch_encdec.py, where each
+    package sits 1.3e-4 to 2.2e-4 from a float64 run): those four leaves
+    are held to XATTN_GRAD_TOL, as there (measured 4.5e-5 at most when the
+    batch's rows split over data).
+  * bf16 (the trainer as ``train`` runs it, at the port's init with wq
+    and wk scaled): two steps' losses within 2**-10 and grad norms within
+    2**-7 of the one-device run with the rows cut as the mesh cuts them
+    (microbatches = the data size): a data split rounds each rank's bf16
+    gradient before the fp32 sum, which is what microbatches do.
+  * llava at data=2 with the patch embeddings of the second data rank's
+    rows zeroed (every row carries its patch rows: the input has no
+    ragged patches), so the ranks' text losses differ: the loss is the
+    global batch's mean, its token count summed over data, under the fp32
+    rule.
+  * A world of one rank: ``train(mesh=)`` equals ``train()`` bit for bit,
+    losses, grad norms and every leaf.
+  * Against the reference: its ``make_train_step`` jitted with
+    ``repro.launch.dryrun.build_step``'s shardings on 8 forced host
+    devices at data=2 x model=2, in a subprocess, from its own initial
+    state (wq, wk x 1/8) carried in by ``from_jax_state``: one step's loss
+    and grad norm within REF_RTOL for the fp32 families (XLA's and
+    torch's fp32 sums in their own orders: tests/test_torch_train_sharded
+    .py measured 3.1e-7 for the dense family). Whisper runs in bf16 there
+    (the reference's encoder scans with a bf16 carry, which fp32 weights
+    break): its loss and grad norm under the bf16 rules above, 2**-10 and
+    2**-7, which bound the two packages' bf16 rounding at their own
+    points (measured 1.1e-4 and 1.4e-4; the fp32 families 4.6e-7 at
+    most).
+
+Each gloo world is spawned once (a module fixture) and returns all of its
+cases. Workers run one intra-op thread, as does this process.
+"""
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import (OptimConfig, ShapeConfig,  # noqa: E402
+                                 TrainConfig, get_config, tiny_config)
+from repro_torch.data import pipeline as tdp  # noqa: E402
+from repro_torch.distributed import sharding as shlib  # noqa: E402
+from repro_torch.launch.mesh import spawn  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import adamw as tadam  # noqa: E402
+from repro_torch.training import sharded as tsh  # noqa: E402
+from repro_torch.training import steps as tsteps  # noqa: E402
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ("mamba2-370m", "zamba2-1.2b", "whisper-large-v3",
+         "llava-next-mistral-7b")
+SHAPE = ShapeConfig("t", 64, 4, "train")
+QK_SCALE = 0.125
+LR = 1e-3
+STEPS = 2
+WORLD_S = 300.0
+LOSS_RTOL = 1e-6
+GRAD_TOL = 1e-5
+BF16_LOSS_RTOL = 2.0 ** -10
+BF16_NORM_RTOL = 2.0 ** -7
+REF_RTOL = 1e-5
+BF16_REF = ("whisper-large-v3",)     # the reference's encoder takes bf16
+# whisper's leaves whose fp32 gradients are small differences of large
+# terms (tests/test_torch_encdec.py): held there to 1e-3
+XATTN_LEAVES = {("dec", "xattn", "wq"), ("dec", "xattn", "wk"),
+                ("dec", "ln_x"), ("enc", "ln1")}
+XATTN_GRAD_TOL = 1e-3
+# (label, data, model)
+MESHES = {"data2": (2, 1), "model2": (1, 2), "2x2": (2, 2)}
+
+
+def _tcfg(microbatches=1, ckpt_dir=""):
+    return TrainConfig(optim=OptimConfig(lr=LR, warmup_steps=1,
+                                         total_steps=10),
+                       microbatches=microbatches, log_every=1,
+                       checkpoint_every=0, checkpoint_dir=ckpt_dir)
+
+
+def attn_trees(params):
+    """Every attention's parameter dict of a tree (stacked or not)."""
+    out = []
+    for key in ("blocks", "shared", "enc", "dec"):
+        sub = params.get(key)
+        if sub is None:
+            continue
+        for s in (sub.values() if key == "blocks" else [sub]):
+            out += [s[n] for n in ("attn", "xattn") if n in s]
+    return out
+
+
+def _state(model, fp32):
+    """The case's whole initial state: the port's init (fp32 or as it
+    is), wq and wk scaled."""
+    p = model.init(torch.Generator().manual_seed(0), "cpu")
+    if fp32:
+        p = tree_map(lambda a: a.float(), p)
+    for a in attn_trees(p):
+        for n in ("wq", "wk"):
+            a[n] = (a[n].float() * QK_SCALE).to(a[n].dtype)
+    tcfg = _tcfg()
+    return {"params": p, "opt": tadam.adamw_init(p, tcfg.optim)}
+
+
+def _batch(model, k, zero_rows=None):
+    b = tdp.batch_for_model(model, SHAPE, None, k, full=True)
+    if zero_rows is not None:
+        b["patches"] = b["patches"].clone()
+        b["patches"][zero_rows] = 0
+    return b
+
+
+# --------------------------------------------------------------- one device --
+def _one_device(arch, fp32, microbatches=1, zero_rows=None):
+    """The port's one-device run: (first step's loss, grad norm and
+    gradients (fp32 case), each step's metrics)."""
+    model = build_model(tiny_config(arch))
+    state = _state(model, fp32)
+    tcfg = _tcfg(microbatches)
+    out = {}
+    if fp32:
+        leaves = tree_leaves(state["params"])
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = model.loss(state["params"], _batch(model, 0, zero_rows))
+        out["grads"] = [g.float().numpy()
+                        for g in torch.autograd.grad(loss, leaves)]
+        for p in leaves:
+            p.requires_grad_(False)
+    step = tsteps.make_train_step(model, tcfg)
+    out["steps"] = []
+    for k in range(1 if fp32 else STEPS):
+        state, met = step(state, _batch(model, k, zero_rows))
+        out["steps"].append({n: float(v) for n, v in met.items()})
+    return out
+
+
+# ---------------------------------------------------------------- the worlds --
+def _case(mesh, arch, fp32, zero_rows=None):
+    """A case through the sharded trainer: the first step's gradients
+    (whole, fp32 case) and each step's metrics."""
+    model = build_model(tiny_config(arch))
+    tr = tsh.ShardedTrainer(model, _tcfg(), shlib.make_ac(mesh))
+    st = tr.shard(_state(model, fp32), tr.specs)
+    shapes_ok = all(tuple(x.shape) == shlib.local_shape(
+        tuple(a.shape), s, tr.sizes) for x, a, s in zip(
+        tree_leaves(st), tree_leaves(tr.abstract), tr.leaf_specs()))
+    out = {"shapes_ok": shapes_ok, "steps": []}
+    if fp32:
+        b0 = _batch(model, 0, zero_rows)
+        _, g = tr.grads(st["params"], tr.rows(b0))
+        out["grads"] = [tr.whole(x, s).float().numpy()
+                        for x, s in zip(tree_leaves(g), tr.param_specs)]
+    for k in range(1 if fp32 else STEPS):
+        st, met = tr.step(st, _batch(model, k, zero_rows))
+        out["steps"].append({n: float(v) for n, v in met.items()})
+    return out
+
+
+def _world1(arch, ckpt_dir):
+    """train(mesh=<a world of one>) against train(), both on rank 0, from
+    an empty checkpoint directory."""
+    from repro_torch.launch.mesh import make_sub_mesh
+    from repro_torch.training.loop import train
+    sub = make_sub_mesh(1, 1, device_type="cpu")
+    if sub is None:
+        return None
+    model = build_model(tiny_config(arch))
+    quiet = dict(log=lambda r: None, num_steps=STEPS)
+    tcfg = _tcfg(ckpt_dir=f"{ckpt_dir}/{arch}")
+    a = train(model, SHAPE, tcfg, mesh=sub, **quiet)
+    b = train(model, SHAPE, tcfg, device="cpu", **quiet)
+    return {"hist": [(r["loss"], r["grad_norm"]) for r in a["history"]],
+            "want": [(r["loss"], r["grad_norm"]) for r in b["history"]],
+            "same": all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a["state"]), tree_leaves(b["state"])))}
+
+
+def _reference_case(mesh, arch, ref):
+    """The reference's initial state through one sharded step: (loss,
+    grad norm)."""
+    from repro_torch.models.convert import from_jax_state
+    model = build_model(tiny_config(arch))
+    tr = tsh.ShardedTrainer(model, _tcfg(), shlib.make_ac(mesh))
+    st = tr.shard(from_jax_state(ref["state"]), tr.specs)
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    if "frames" in batch or "patches" in batch:
+        for k in ("frames", "patches"):
+            if k in batch:
+                batch[k] = batch[k].to(torch.bfloat16)
+    _, met = tr.step(st, batch)
+    return float(met["loss"]), float(met["grad_norm"])
+
+
+def _world(rank, world, device, data, tp, ckpt_dir, ref_file=None):
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh(model=tp, data=data, device_type="cpu",
+                             backend="gloo")
+    out = {}
+    for arch in ARCHS:
+        out[(arch, "fp32")] = _case(mesh, arch, True)
+        out[(arch, "bf16")] = _case(mesh, arch, False)
+    if data == 2 and tp == 1:
+        out["llava_zero"] = _case(mesh, "llava-next-mistral-7b", True,
+                                  zero_rows=slice(2, 4))
+        for arch in ARCHS:
+            out[(arch, "world1")] = _world1(arch, ckpt_dir)
+    if ref_file:
+        with open(ref_file, "rb") as f:
+            ref = pickle.load(f)
+        for arch in ARCHS:
+            out[(arch, "ref")] = _reference_case(mesh, arch, ref[arch])
+    return out
+
+
+REF_SCRIPT = """
+import pickle, sys
+import jax
+import jax.numpy as jnp
+import numpy as np
+jax.devices()                     # 8 forced host devices, before the
+from jax.sharding import Mesh     # dry-run module's own device flag
+import repro.launch.dryrun as rd
+from repro.configs import tiny_config
+from repro.configs.base import OptimConfig, ShapeConfig, TrainConfig
+from repro.data import pipeline as jdp
+from repro.models.api import build_model
+from repro.optim import adamw
+
+ARCHS, QK, LR, BF16 = {ARCHS!r}, {QK}, {LR}, {BF16!r}
+shape = ShapeConfig("t", {S}, {B}, "train")
+
+
+def attn_trees(p):
+    out = []
+    for key in ("blocks", "shared", "enc", "dec"):
+        sub = p.get(key)
+        if sub is None:
+            continue
+        for s in (sub.values() if key == "blocks" else [sub]):
+            out += [s[n] for n in ("attn", "xattn") if n in s]
+    return out
+
+
+mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+tcfg = TrainConfig(optim=OptimConfig(lr=LR, warmup_steps=1, total_steps=10))
+out = {{}}
+for arch in ARCHS:
+    model = build_model(tiny_config(arch))
+    dtype = jnp.bfloat16 if arch in BF16 else jnp.float32
+    p = jax.tree.map(lambda a: a.astype(dtype),
+                     model.init(jax.random.PRNGKey(0)))
+    for a in attn_trees(p):
+        for n in ("wq", "wk"):
+            a[n] = (a[n].astype(jnp.float32) * QK).astype(dtype)
+    state = {{"params": p, "opt": adamw.adamw_init(p, tcfg.optim)}}
+    batch = jdp.batch_for_model(model, shape, None, 0)
+    step, args, ins, outs, don, _ = rd.build_step(model, shape, mesh, tcfg)
+    with mesh:
+        new, met = jax.jit(step, in_shardings=ins, out_shardings=outs)(
+            state, batch)
+    out[arch] = {{"state": jax.tree.map(np.asarray, state),
+                 "batch": {{k: np.asarray(v, np.float32)
+                           if v.dtype == jnp.bfloat16 else np.asarray(v)
+                           for k, v in batch.items()}},
+                 "loss": float(met["loss"]),
+                 "grad_norm": float(met["grad_norm"])}}
+with open(sys.argv[1], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    path = tmp_path_factory.mktemp("ref") / "ref.pkl"
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count"
+               "=8", JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    script = REF_SCRIPT.format(ARCHS=ARCHS, QK=QK_SCALE, LR=LR,
+                               BF16=BF16_REF, S=SHAPE.seq_len,
+                               B=SHAPE.global_batch)
+    r = subprocess.run([sys.executable, "-c", script, str(path)], env=env,
+                       capture_output=True, text=True, timeout=400,
+                       cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr[-4000:]
+    with open(path, "rb") as f:
+        return str(path), pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def world_data2(tmp_path_factory):
+    return spawn(_world, 2, backend="gloo", timeout_s=WORLD_S,
+                 args=(2, 1, str(tmp_path_factory.mktemp("ckpt"))))
+
+
+@pytest.fixture(scope="module")
+def world_model2():
+    return spawn(_world, 2, backend="gloo", timeout_s=WORLD_S,
+                 args=(1, 2, ""))
+
+
+@pytest.fixture(scope="module")
+def world4(reference):
+    return spawn(_world, 4, backend="gloo", timeout_s=WORLD_S,
+                 args=(2, 2, "", reference[0]))
+
+
+@pytest.fixture(scope="module")
+def one_device():
+    out = {}
+    for arch in ARCHS:
+        out[(arch, "fp32")] = _one_device(arch, True)
+        out[(arch, "bf16")] = _one_device(arch, False)
+        out[(arch, "bf16", 2)] = _one_device(arch, False, 2)
+    out["llava_zero"] = _one_device("llava-next-mistral-7b", True,
+                                    zero_rows=slice(2, 4))
+    return out
+
+
+WORLDS = {"data2": "world_data2", "model2": "world_model2", "2x2": "world4"}
+
+
+def _check_fp32(got, want, arch):
+    paths = shlib.leaf_paths(build_model(tiny_config(arch))
+                             .abstract_params())
+    for path, w, g in zip(paths, want["grads"], got["grads"]):
+        err = float(np.abs(w - g).max() / max(np.abs(w).max(), 1e-30))
+        tol = XATTN_GRAD_TOL if arch == "whisper-large-v3" and \
+            path in XATTN_LEAVES else GRAD_TOL
+        assert err <= tol, (path, err)
+    for k in ("loss", "grad_norm"):
+        g, w = got["steps"][0][k], want["steps"][0][k]
+        assert abs(g - w) <= LOSS_RTOL * abs(w), (k, g, w)
+
+
+# ------------------------------------------------------------------ tests --
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("sizes", [dict(data=2, model=1),
+                                   dict(data=1, model=2),
+                                   dict(data=2, model=2)],
+                         ids=["data2", "model2", "2x2"])
+def test_validate_train_mesh_accepts_the_families(arch, sizes):
+    tsh.validate_train_mesh(get_config(arch), sizes)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("name", list(WORLDS))
+def test_fp32_step_matches_one_device(name, arch, request, one_device):
+    """The first step's gradients, loss and grad norm against the plain
+    one-device step; every rank's gradients alike and its leaves of their
+    at-rest shapes."""
+    ranks = request.getfixturevalue(WORLDS[name])
+    got = ranks[0][(arch, "fp32")]
+    _check_fp32(got, one_device[(arch, "fp32")], arch)
+    for r in ranks:
+        assert r[(arch, "fp32")]["shapes_ok"]
+        assert all(np.array_equal(a, b) for a, b in zip(
+            r[(arch, "fp32")]["grads"], got["grads"]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("name", list(WORLDS))
+def test_bf16_steps_match_one_device(name, arch, request, one_device):
+    """Two bf16 steps against the one-device run in as many microbatches
+    as the mesh has data ranks."""
+    ranks = request.getfixturevalue(WORLDS[name])
+    data = MESHES[name][0]
+    want = one_device[(arch, "bf16", 2) if data == 2 else (arch, "bf16")]
+    for r in ranks:
+        for g, w in zip(r[(arch, "bf16")]["steps"], want["steps"]):
+            assert abs(g["loss"] - w["loss"]) <= BF16_LOSS_RTOL * w["loss"]
+            assert abs(g["grad_norm"] - w["grad_norm"]) <= \
+                BF16_NORM_RTOL * w["grad_norm"]
+
+
+def test_llava_patch_rows_differ_by_rank(world_data2, one_device):
+    """Zeroed patch embeddings on the second data rank's rows: the loss,
+    grad norm and gradients are the one-device run's."""
+    got, want = world_data2[0]["llava_zero"], one_device["llava_zero"]
+    _check_fp32(got, want, "llava-next-mistral-7b")
+    assert got["steps"][0]["loss"] != \
+        one_device[("llava-next-mistral-7b", "fp32")]["steps"][0]["loss"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_world_of_one_is_the_unsharded_trainer(arch, world_data2):
+    got = world_data2[0][(arch, "world1")]
+    assert got["hist"] == got["want"] and got["same"]
+    assert world_data2[1][(arch, "world1")] is None
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_matches_the_reference_jitted_sharded_step(arch, world4,
+                                                   reference):
+    want = reference[1][arch]
+    for r in world4:
+        loss, norm = r[(arch, "ref")]
+        if arch in BF16_REF:
+            assert abs(loss - want["loss"]) <= BF16_LOSS_RTOL * want["loss"]
+            assert abs(norm - want["grad_norm"]) <= \
+                BF16_NORM_RTOL * want["grad_norm"]
+        else:
+            assert abs(loss - want["loss"]) <= REF_RTOL * want["loss"]
+            assert abs(norm - want["grad_norm"]) <= \
+                REF_RTOL * want["grad_norm"]
+
+
+def test_measured_gaps_are_recorded(world4, reference):
+    """The reference gaps, for the record (printed with -s)."""
+    import json
+    out = {}
+    for arch in ARCHS:
+        loss, norm = world4[0][(arch, "ref")]
+        w = reference[1][arch]
+        out[arch] = (abs(loss - w["loss"]) / w["loss"],
+                     abs(norm - w["grad_norm"]) / w["grad_norm"])
+    print(json.dumps(out))
