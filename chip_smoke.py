@@ -240,14 +240,15 @@ Phases, each fatal on failure:
                 mesh, equal to the byte; (c) ``python -m
                 repro_torch.launch.dryrun --cells ... --mesh single`` in a
                 subprocess started after phase 16 (one cell at a time;
-                its cells trace on the host while phases 17-21 run,
-                and it is collected after phase 21): the dense and moe
+                its cells trace on the host while phases 17-22 run,
+                and it is collected after phase 22): the dense and moe
                 families' cells and mamba2-370m decode_32k, zamba2-1.2b
                 long_500k, whisper-large-v3 decode_32k and
-                llava-next-mistral-7b train_4k; each cell's line and the
-                refusals by ROADMAP item printed, a failure that is not a
-                named refusal fatal: 17 cells run (5 train, 12 prefill
-                and decode), 6 refused (item 11e);
+                llava-next-mistral-7b train_4k, then gemma2-2b's and
+                llama4-maverick-400b-a17b's decode_32k with --quant w4
+                and with --quant haq; each cell's line printed, any
+                refusal or failure fatal: 23 cells run (7 train, 16
+                prefill and decode), then 2 and 2;
  20. mesh-serve — the sharded prefill and serve steps
                 (training/sharded_serve.py): (a) an NCCL world of 1,
                 full-width gemma2-2b, ``make_prefill_step(ac=)`` over B 2
@@ -296,11 +297,44 @@ Phases, each fatal on failure:
                 peak and seconds a step (host-staged, not a speed); (a)
                 starts before phase 17 and runs beside its worlds, (b)
                 starts after phase 18 and runs beside phases 19 and 20;
+ 22. moe-quant — the moe family over data ranks (models/moe.py's
+                ``ranks``: the reference's global capacity, slots and
+                aux loss) and stored and fake-quantized weights under a
+                model split (``tp_dot``'s ``inner``): (a) an NCCL world
+                of 1: granite-moe at full width cut to 8 of 32 layers, 2
+                steps of ``train(mesh=)`` at B 2 x S 2048 bit-identical
+                to ``train()``; full-width gemma2-2b on stored int8 and
+                int4 weights, a B 2 x 1024 prefill and 2 decode steps
+                through ``ShardedServeSteps`` bit-identical to the
+                unsharded steps; and the one-device runs (b) is held to;
+                (b) a gloo world of 2 on this card, depth cut to 2
+                layers (wq, wk times QK_SCALE): granite-moe at data=2 at
+                full width, ``moe_apply`` on B 2 x 4096 rows (global C
+                2048, pairs dropped): the ranks' routes, keep and
+                global slots equal to the one-device call's on the
+                global rows (integers, exact), y within the kernel
+                bound, aux the global scalar; the prefill's logits within
+                LOGIT_RTOL of the one-device prefill of the global batch;
+                2 train steps on uniform random tokens under phase 18's
+                loss and grad-norm rules against the one-device run on
+                the global batch; gemma2-2b at model=2 on int8 and int4
+                codes: W8A16/W4A16 launched on the ranks' column slices,
+                each slice's call within the kernel bound of the whole
+                call's columns and of its plain version on the slice
+                (with both K-split plans printed), logits
+                of the prefill and 2 steps under LOGIT_RTOL and greedy
+                tokens equal where the margin allows; one HAQ fake-quant
+                training step (the per-channel scales over the whole
+                weight, ``group_amax``) under phase 18's rules against
+                one device; (a) starts once phase 21's world of 1 has
+                ended and ends before phase 18, (b) runs after phase
+                21, the card to itself;
  11. report   — one JSON line with every kernel's launches (flash's summed
-                over phase 12's training run and phases 13-21's paths, the
+                over phase 12's training run and phases 13-22's paths, the
                 paged kernels' over the main trace, llava's paged steps
-                and phase 17's sharded runs, summed over ranks), error,
-                times.
+                and phase 17's sharded runs, the quant matmuls' over the
+                engine's weight-quantized trace and phase 22's sharded
+                runs, summed over ranks), error, times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
@@ -2452,8 +2486,8 @@ def phase_moe_serve(model, params, gemma_summary):
     calls = []
     dispatch = moe.dispatch
 
-    def counting(idx, C, E):
-        order, keep, dest = dispatch(idx, C, E)
+    def counting(idx, C, E, **kw):
+        order, keep, dest = dispatch(idx, C, E, **kw)
         calls.append((idx.shape[0], keep.numel(), (~keep).sum()))
         return order, keep, dest
 
@@ -4764,16 +4798,18 @@ def phase_train_mesh(phase12_step_s):
 DRY_JOBS = 1            # phase 19(c)'s cells at once, a process each
 DRY_TIMEOUT_S = 600.0
 # phase 19(c)'s cells: every assigned cell of the dense and moe families
-# (13 run, the moe cells at data > 1 refused) and one of each of the ssm,
+# (19, the moe cells at data > 1 among them) and one of each of the ssm,
 # hybrid, encdec and vlm families (the other 10 run in the CLI's own
-# --all, as tests/test_torch_dryrun.py holds their state bytes)
+# --all, as tests/test_torch_dryrun.py holds their state bytes), then
+# decode cells on stored weights, one sweep a --quant mode
 DRY_FAMILY_CELLS = (("mamba2-370m", "decode_32k"), ("zamba2-1.2b",
                                                     "long_500k"),
                     ("whisper-large-v3", "decode_32k"),
                     ("llava-next-mistral-7b", "train_4k"))
-DRY_RAN = 17
-# its refusals on the single-pod mesh, by ROADMAP item: moe at data > 1
-DRY_REFUSED = {"item 11e": 6}
+DRY_RAN = 23
+DRY_QUANT = ("w4", "haq")
+DRY_QUANT_CELLS = (("gemma2-2b", "decode_32k"),
+                   ("llama4-maverick-400b-a17b", "decode_32k"))
 H100_BF16_FLOPS = 989e12
 
 
@@ -4787,23 +4823,28 @@ def dry_cells():
 
 class DrySweep:
     """Phase 19(c)'s ``python -m repro_torch.launch.dryrun --cells ...
-    --mesh single`` (``dry_cells``) in a subprocess, started after phase
-    16: its DRY_RAN cells trace on the host, one at a time, while phases
-    17-21 run (one core of the host's; two at once slowed phases 17-18's
+    --mesh single`` (``dry_cells``), then one ``--quant`` sweep of
+    DRY_QUANT_CELLS a mode of DRY_QUANT, in a subprocess started after
+    phase 16: its cells trace on the host, one at a time, while phases
+    17-22 run (one core of the host's; two at once slowed phases 17-18's
     host-staged gloo worlds), so it shares the host with no phase that
-    times an eager loop on one process alone; collected after phase 21.
+    times an eager loop on one process alone; collected after phase 22.
     Stopped at exit whatever happens in between."""
 
     def __init__(self):
         import atexit
         import os
+        import shlex
         self.dir = tempfile.TemporaryDirectory()
-        cells = ",".join(f"{a}:{s}" for a, s in dry_cells())
+        run = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+               "single", "--force", "--jobs", str(DRY_JOBS), "--out-dir",
+               self.dir.name, "--cells"]
+        cmds = [run + [",".join(f"{a}:{s}" for a, s in dry_cells())]] + [
+            run + [",".join(f"{a}:{s}" for a, s in DRY_QUANT_CELLS),
+                   "--quant", q, "--tag", f"_{q}"] for q in DRY_QUANT]
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
-             cells, "--mesh", "single", "--force", "--jobs", str(DRY_JOBS),
-             "--out-dir", self.dir.name], cwd=str(ROOT),
-            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in cmds)],
+            cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             start_new_session=True)
         self.t0 = time.perf_counter()
@@ -4873,32 +4914,30 @@ def phase_dryrun(step_s: float, peak_bytes: int, rest_bytes: list) -> None:
 
 
 def phase_dryrun_sweep(sweep: DrySweep) -> None:
-    """Phase 19(c): ``sweep``'s cells, their counts and refusals by
-    item (the module docstring)."""
+    """Phase 19(c): ``sweep``'s cells, each run, none refused (the module
+    docstring)."""
     rc, out, secs = sweep.result()
     sweep.stop()
-    refused = {}
     for line in out.splitlines():
-        if line.startswith("[refused]"):
-            item = line[line.rfind("item "):].rstrip(")")
-            refused.setdefault(item, []).append(line.split()[1].rstrip(":"))
-        elif line.startswith(("[ok", "[FAIL]")) or "cells ran" in line:
+        if line.startswith(("[ok", "[FAIL]", "[refused]")) \
+                or "cells ran" in line:
             print(f"dryrun[c] {line}", flush=True)
-    for item, cells in sorted(refused.items()):
-        print(f"dryrun[c] refused, {item}: {len(cells)} cells "
-              f"({', '.join(cells)})", flush=True)
     print(f"dryrun[c] --cells (the dense and moe families' and "
           f"{', '.join(f'{a} {s}' for a, s in DRY_FAMILY_CELLS)}) --mesh "
-          f"single, {DRY_JOBS} cells at once, started after phase 16 and "
-          f"collected {secs:.1f} s later", flush=True)
+          f"single, then --quant {' and '.join(DRY_QUANT)} on "
+          f"{', '.join(f'{a} {s}' for a, s in DRY_QUANT_CELLS)}, "
+          f"{DRY_JOBS} cells at once, started after phase 16 and collected "
+          f"{secs:.1f} s later", flush=True)
     if rc != 0:
         fail(f"dryrun[c]: the sweep exited {rc}:\n{out[-4000:]}")
-    counts = {item: len(cells) for item, cells in refused.items()}
-    n_refused = sum(DRY_REFUSED.values())
-    if f"{DRY_RAN} cells ran, {n_refused} refused, 0 failed" not in out or \
-            counts != DRY_REFUSED:
-        fail(f"dryrun[c]: want {DRY_RAN} cells run (5 train, 12 serving) "
-             f"and refusals {DRY_REFUSED}, got {counts}:\n{out[-4000:]}")
+    want = [f"{DRY_RAN} cells ran, 0 refused, 0 failed"] + [
+        f"{len(DRY_QUANT_CELLS)} cells ran, 0 refused, 0 failed"] \
+        * len(DRY_QUANT)
+    got = [line.split(" in ")[0] for line in out.splitlines()
+           if line[:1].isdigit() and " cells ran, " in line]
+    if got != want:
+        fail(f"dryrun[c]: want {want} (7 train, 16 serving; then the "
+             f"--quant cells), got {got}:\n{out[-4000:]}")
 
 
 # ------------------------------------- phase 20: serving over a mesh ----
@@ -5802,6 +5841,602 @@ def phase_mesh_families(started=None):
     return flash
 
 
+# ------ phase 22: moe over data ranks, stored weights under a model split --
+# (a) an NCCL world of 1: granite-moe (full width, MQ_ONE_LAYERS of its 32
+# layers: the whole model's 14 bytes of train state a parameter would not
+# leave room beside phases 17-18's worlds on the card) through
+# ``train(mesh=)`` against ``train()``; full-width gemma2-2b served on
+# stored int8 and int4 weights through the sharded steps against the
+# unsharded ones; and, on the card's compute while phase 17's worlds are
+# host-staged, the one-device runs (b) is held to. (b) a gloo world of 2
+# on this card, depth cut to MQ_LAYERS as phases 17-21 cut theirs:
+# granite-moe at data=2 (moe_apply on one batch, the prefill, MQ_STEPS
+# train steps on uniform random tokens, whose embedding rows are rarely
+# repeated: a repeated row's bf16 gradient sum moves with the batch split,
+# PERF.md section 6), gemma2-2b at model=2 on int8 and int4 codes and one
+# HAQ fake-quant training step
+MQ_LAYERS, MQ_ONE_LAYERS = 2, 8
+MQ_B, MQ_S = 2, 4096            # granite-moe's batch: global C 2048 a layer
+# moe_apply's rows share this offset, so that the random router favours
+# some experts (2.7-8.8% of the routed pairs dropped at C over three
+# router seeds on the CPU), as a trained model's chunks drop 0.46-5.36%
+MQ_X_SHIFT = 0.25
+MQ_TRAIN_B, MQ_TRAIN_S, MQ_STEPS = 2, 2048, 2
+MQ_QS, MQ_DECODE = 1024, 2      # gemma2-2b's prompt and steps on codes
+# the fake-quant policy of (b)'s HAQ step: (w_bits, a_bits) a site
+MQ_HAQ = {"attn_q": (4, 16), "attn_k": (6, 16), "attn_v": (5, 16),
+          "attn_o": (4, 16), "ffn_in": (3, 16), "ffn_gate": (6, 16),
+          "ffn_out": (5, 8)}
+MQ_WORLD_S = 600.0
+QMM_NAMES = ("quant_matmul_w8a16", "quant_matmul_w4a16")
+
+
+def mq_config(arch, layers):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def mq_moe_x(cfg):
+    """granite-moe's moe_apply input (MQ_B, MQ_S, D), bf16 on the host."""
+    import torch
+    g = torch.Generator().manual_seed(221)
+    return (torch.randn((MQ_B, MQ_S, cfg.d_model), generator=g)
+            + MQ_X_SHIFT).bfloat16()
+
+
+def mq_train_batch(cfg, k):
+    """Train step ``k``'s global batch: uniform random tokens."""
+    import torch
+    g = torch.Generator().manual_seed(230 + k)
+    t = torch.randint(2, cfg.vocab_size, (MQ_TRAIN_B, MQ_TRAIN_S),
+                      generator=g, dtype=torch.int32)
+    return {"tokens": t.cuda(), "labels": t.clone().cuda()}
+
+
+def mq_moe_layer(params):
+    """Layer 0's moe parameters (a view of the stacked tree)."""
+    return {k: v[0] for k, v in params["blocks"]["sub0"]["moe"].items()}
+
+
+def mq_plan(p, x, moe, ranks):
+    """moe_apply on this rank's rows x and its plan: (y, aux, idx (T, k),
+    whether each flat pair kept a slot, its global slot or -1) on the
+    host."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    y, aux = moe_lib.moe_apply(p, x, moe, ranks=ranks)
+    T = x.shape[0] * x.shape[1]
+    _, _, idx = moe_lib.route(p, x.reshape(T, -1), moe)
+    C = moe_lib.capacity(T if ranks is None else ranks.total(T), moe)
+    R = C if ranks is None else min(C, T)
+    order, keep, dest = moe_lib.dispatch(idx, C, moe.num_experts,
+                                         ranks=ranks, rows=R)
+    e = idx.reshape(-1)
+    counts = torch.bincount(e, minlength=moe.num_experts)
+    below = torch.zeros_like(counts) if ranks is None \
+        else ranks.prefix(counts)
+    e_sorted = e[order]
+    slot = torch.where(keep, below[e_sorted] + dest - e_sorted * R, -1)
+    flat_keep, flat_slot = torch.empty_like(keep), torch.empty_like(slot)
+    flat_keep[order], flat_slot[order] = keep, slot
+    return {"y": y.float().cpu(), "aux": float(aux), "idx": idx.cpu(),
+            "keep": flat_keep.cpu(), "slot": flat_slot.cpu()}
+
+
+def mq_train(model, mesh=None, dot=None, steps=MQ_STEPS):
+    """``steps`` steps from seed 0 (wq, wk times QK_SCALE) on
+    ``mq_train_batch``: one device, or the sharded trainer over ``mesh``.
+    Each step's (loss, grad norm), flash launches, seconds (rank 0's
+    clock), peak."""
+    import torch
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.training import steps as steps_lib
+    from repro_torch.training.sharded import ShardedTrainer
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if mesh is None:
+        tcfg = mt_tcfg("")
+        state = steps_lib.init_train_state(model, tcfg, gen, "cuda")
+        step, clock = steps_lib.make_train_step(model, tcfg, dot=dot), None
+    else:
+        tr = ShardedTrainer(model, mt_tcfg(""), make_ac(mesh), dot=dot)
+        state = tr.init_state(gen)
+        step, clock = tr.step, tr.first_rank_float
+    scale_qk_state(state, QK_SCALE)
+    out = {"steps": [], "s": [], "flash": 0}
+    for k in range(steps):
+        batch = mq_train_batch(model.cfg, k)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        out["steps"].append((float(met["loss"]), float(met["grad_norm"])))
+        dt = time.perf_counter() - t0
+        out["s"].append(clock(dt) if clock else dt)
+        out["flash"] += all_launches()["flash_attention_fwd"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mq_stored(model, bits):
+    """gemma2-2b's parameters from seed 0 (wq, wk times QK_SCALE) stored
+    at ``bits`` on the card (serving/quant.py::quantize_params)."""
+    import torch
+    from repro_torch.serving.quant import quantize_params
+    params = ms_params(model, QK_SCALE)
+    q = quantize_params(params, default_bits=bits)
+    del params
+    torch.cuda.empty_cache()
+    return q
+
+
+def mq_serve(model, params, prompt, feed, mesh=None):
+    """The prefill over ``prompt`` and ``feed``'s decode steps with
+    ``dequant_dot``: unsharded, or the sharded steps over ``mesh`` on this
+    rank's shards. Each step's logits (host), the W8A16/W4A16 and flash
+    launches, the caches' digests and the seconds."""
+    import torch
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.serving.quant import dequant_dot
+    from repro_torch.training import steps as st
+    from repro_torch.training.sharded_serve import cache_groups, serve_steps
+    S, n = prompt.shape[1], feed.shape[1]
+    ac = None if mesh is None else make_ac(mesh)
+    sv = None if ac is None else serve_steps(model, ac, dot=dequant_dot)
+    local = params if sv is None else sv.shard_params(params)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits, cache = st.make_prefill_step(model, ac=ac, dot=dequant_dot)(
+        local, {"tokens": prompt.cuda()})
+    out = {"prefill": logits.float().cpu(), "steps": [], "digests": {
+        j: {k: leaf_digest(x) for k, x in c.items()}
+        for j, c in cache_groups(model.cfg, cache).items()}}
+    whole = cache if sv is None else sv.whole_cache(cache)
+    cache = ms_grow(model, whole, S, n)
+    if sv is not None:
+        cache = sv.place_cache(cache)
+    del whole
+    serve = st.make_serve_step(model, ac=ac, dot=dequant_dot)
+    for i in range(n):
+        lg, cache = serve(local, cache, feed[:, i:i + 1].cuda(),
+                          torch.tensor(S + i, device="cuda"))
+        out["steps"].append(lg.float().cpu())
+    torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    out["launches"] = {k: all_launches()[k] for k in QMM_NAMES
+                       + ("flash_attention_fwd",)}
+    del local, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mq_slice_checks(params, bits):
+    """Every column-split site of layer 0 at model=2 (q, k, v, FFN in and
+    gate): the kernel on each rank's slice of the stored codes against
+    its plain version on the same slice, and against the whole call's
+    columns, at the rows (b)'s prefill and decode give it, both within
+    the kernel bound (``mismatch``); the K splits of both plans; the
+    device ms of a slice's call and of the whole call (codes cycled past
+    L2, ``cold_weight_sets``) beside the slice's bound. Returns per
+    (site, M) the worst |err| over the ranks' slices against the plain
+    version and against the whole call, the plans and the times."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qm
+    specs = qmm_specs()
+    sub = params["blocks"]["sub0"]
+    sites = {"attn_q": sub["attn"]["wq"], "attn_k": sub["attn"]["wk"],
+             "attn_v": sub["attn"]["wv"], "ffn_in": sub["ffn"]["w_in"],
+             "ffn_gate": sub["ffn"]["w_gate"]}
+    g = torch.Generator(device="cuda").manual_seed(240)
+    out = {}
+    for site, w in sites.items():
+        name = QMM_NAMES["q4" in w]
+        fn, plain, _ = specs[name]
+        codes = w["q4" if "q4" in w else "q"][0]
+        codes = codes.reshape(codes.shape[0], -1)      # (K[/2], N) 2-D
+        K = codes.shape[0] * (2 if "q4" in w else 1)
+        N = codes.shape[1]
+        scale = w["scale"][0]
+        for M in (MQ_B * MQ_QS, MQ_B):
+            x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+            whole = fn(x, codes, scale).float()
+            worst = worst_plain = 0.0
+            for r in range(2):
+                cols = slice(r * N // 2, (r + 1) * N // 2)
+                part = codes[:, cols].contiguous()
+                got = fn(x, part, scale).float()
+                errs = []
+                for what, want in (("its plain version",
+                                    plain(x, part, scale).float()),
+                                   ("the whole call's columns",
+                                    whole[:, cols])):
+                    errs.append(float((got - want).abs().max()))
+                    if mismatch(got, want).any():
+                        fail(f"moe-quant[slices {site} {name} M={M}]: rank "
+                             f"{r}'s slice is off {what} by {errs[-1]:.4g}")
+                worst_plain = max(worst_plain, errs[0])
+                worst = max(worst, errs[1])
+            half = codes[:, :N // 2].contiguous()
+            out[(site, M)] = {
+                "err": worst, "plain_err": worst_plain, "N": N, "K": K,
+                "name": name,
+                "splits": (qm.qmm_splits(M, N // 2, K),
+                           qm.qmm_splits(M, N, K)),
+                "ms": device_ms(fn, cold_weight_sets((x, half, scale))),
+                "whole_ms": device_ms(fn, cold_weight_sets((x, codes,
+                                                            scale))),
+                "bound_ms": qmm_bound_ms(name, M, K, N // 2)[0]}
+    return out
+
+
+def mq_rank_one(rank, world, device):
+    """Phase 22(a): an NCCL world of 1, then the one-device runs (b) is
+    held to, in this process."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.quantization import make_quant_dot
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.loop import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(model=1, data=1, device_type="cuda",
+                             backend="nccl")
+    out = {}
+    # (a) granite-moe through train(mesh=) and train()
+    moe = build_model(mq_config(MOE_ARCH, MQ_ONE_LAYERS))
+    shape = ShapeConfig("train", MQ_TRAIN_S, MQ_TRAIN_B, "train")
+    runs = []
+    for on_mesh in (True, False):
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_launches()
+            r = train(moe, shape, mt_tcfg(tmp), num_steps=MQ_STEPS,
+                      log=lambda r: None, **({"mesh": mesh} if on_mesh
+                                             else {"device": "cuda"}))
+        runs.append({"hist": [(x["loss"], x["grad_norm"])
+                              for x in r["history"]],
+                     "dt": [x["dt_s"] for x in r["history"]],
+                     "digests": [leaf_digest(x)
+                                 for x in tree_leaves(r["state"])],
+                     "flash": all_launches()["flash_attention_fwd"],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs
+    out["moe_train"] = {"same": a["hist"] == b["hist"]
+                        and a["digests"] == b["digests"],
+                        **{k: a[k] for k in ("hist", "dt", "flash",
+                                             "peak_gb")},
+                        "dt_unsharded": b["dt"]}
+    del moe
+    # (a) full-width gemma2-2b on stored weights, sharded and unsharded
+    gemma = build_model(mq_config("gemma2-2b", 0))
+    prompt, feed = ms_inputs(gemma.cfg, MQ_B, MQ_QS, MQ_DECODE, 250)
+    for bits in (8, 4):
+        params = mq_stored(gemma, bits)
+        want = mq_serve(gemma, params, prompt, feed)
+        got = mq_serve(gemma, params, prompt, feed, mesh)
+        del params
+        out[("serve", bits)] = {
+            "same": torch.equal(got["prefill"], want["prefill"]) and all(
+                torch.equal(x, y) for x, y in zip(got["steps"],
+                                                  want["steps"]))
+            and got["digests"] == want["digests"],
+            "launches": got["launches"], "s": got["s"]}
+    del gemma
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)'s one-device runs
+    moe = build_model(mq_config(MOE_ARCH, MQ_LAYERS))
+    params = ms_params(moe, QK_SCALE)
+    out["moe_apply"] = mq_plan(mq_moe_layer(params), mq_moe_x(
+        moe.cfg).cuda(), moe.cfg.moe, None)
+    prompt, _ = ms_inputs(moe.cfg, MQ_B, MQ_S, 0, 251)
+    logits, _ = moe.prefill(params, {"tokens": prompt.cuda()})
+    out["moe_prefill"] = logits.float().cpu()
+    del params
+    out["moe_train_ref"] = mq_train(moe)
+    gemma = build_model(mq_config("gemma2-2b", MQ_LAYERS))
+    prompt, feed = ms_inputs(gemma.cfg, MQ_B, MQ_QS, MQ_DECODE, 252)
+    for bits in (8, 4):
+        params = mq_stored(gemma, bits)
+        out[("ref", bits)] = mq_serve(gemma, params, prompt, feed)
+        del params
+    out["haq_ref"] = mq_train(gemma, dot=make_quant_dot(MQ_HAQ), steps=1)
+    return out
+
+
+def mq_rank_two(rank, world, device):
+    """Phase 22(b)'s rank: granite-moe at data=2, then gemma2-2b at
+    model=2 on stored codes and one HAQ step."""
+    import torch
+    from repro_torch.core.quantization import make_quant_dot
+    from repro_torch.distributed.sharding import batch_ranks, make_ac
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.training import steps as st
+    from repro_torch.training.sharded_serve import serve_steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    mesh = make_serving_mesh(model=1, data=2, device_type="cuda",
+                             backend="gloo")
+    ac = make_ac(mesh)
+    groups = {a: mesh.get_group(a) for a in ("data", "model")}
+    moe = build_model(mq_config(MOE_ARCH, MQ_LAYERS))
+    params = ms_params(moe, QK_SCALE)
+    x = ac(mq_moe_x(moe.cfg), "batch").cuda()
+    out["moe_apply"] = mq_plan(mq_moe_layer(params), x, moe.cfg.moe,
+                               batch_ranks(ac, MQ_B, groups))
+    prompt, _ = ms_inputs(moe.cfg, MQ_B, MQ_S, 0, 251)
+    local = serve_steps(moe, ac).shard_params(params)
+    del params
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logits, _ = st.make_prefill_step(moe, ac=ac)(local,
+                                                 {"tokens": prompt.cuda()})
+    out["moe_prefill"] = {"logits": logits.float().cpu(),
+                          "s": time.perf_counter() - t0,
+                          "flash": all_launches()["flash_attention_fwd"]}
+    del local, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["moe_train"] = mq_train(moe, mesh)
+    out["moe_train"]["wall"] = time.perf_counter() - t0
+    mesh = make_serving_mesh(model=2, data=1, device_type="cuda",
+                             backend="gloo")
+    gemma = build_model(mq_config("gemma2-2b", MQ_LAYERS))
+    prompt, feed = ms_inputs(gemma.cfg, MQ_B, MQ_QS, MQ_DECODE, 252)
+    for bits in (8, 4):
+        params = mq_stored(gemma, bits)
+        out[("serve", bits)] = mq_serve(gemma, params, prompt, feed, mesh)
+        del params
+    t0 = time.perf_counter()
+    out["haq"] = mq_train(gemma, mesh, dot=make_quant_dot(MQ_HAQ), steps=1)
+    out["haq"]["wall"] = time.perf_counter() - t0
+    return out
+
+
+class MoeQuant:
+    """Phase 22(a)'s world in a thread of its own, started ahead of the
+    phase once phase 21's world of 1 has ended, beside phase 17's
+    host-staged worlds, and waited for before phase 18's full-depth world
+    of 1 (``wait``): the card's memory holds one such world at a time.
+    (b) runs in ``phase_moe_quant``, after phase 21, when no other world
+    holds the card."""
+
+    def __init__(self):
+        self.pool = concurrent.futures.ThreadPoolExecutor(1)
+        self.one = None
+
+    def start(self, after=None):
+        """Start (a) once the future ``after`` (if any) is done."""
+        def run():
+            if after is not None:
+                after.result()
+            (one,), one_s = mf_world("moe-quant a", mq_rank_one, 1, "nccl")
+            return one, one_s
+        self.one = self.pool.submit(run)
+
+    def wait(self):
+        """(a)'s results, once it has ended (fatal if it failed)."""
+        return self.one.result()
+
+
+def mq_hold_train(label, got, want):
+    """Each step's loss within MT_LOSS_RTOL and grad norm within
+    MT_NORM_RTOL of ``want``'s."""
+    for k, ((lo, gn), (wl, wg)) in enumerate(zip(got, want)):
+        if not (abs(lo - wl) <= MT_LOSS_RTOL * abs(wl)
+                and abs(gn - wg) <= MT_NORM_RTOL * abs(wg)):
+            fail(f"{label}: step {k}: loss {lo} vs {wl}, grad norm {gn} "
+                 f"vs {wg}")
+    return "; ".join(f"step {k}: loss {lo:.6f} vs {wl:.6f}, grad norm "
+                     f"{gn:.5g} vs {wg:.5g}"
+                     for k, ((lo, gn), (wl, wg)) in enumerate(zip(got, want)))
+
+
+def phase_moe_quant(started=None):
+    """Phase 22: the moe family over data ranks (item 11e) and stored and
+    fake-quantized weights under a model split (item 11g). ``started``:
+    the worlds, started earlier (``MoeQuant``; here if None). Returns the
+    launches of its sharded runs, summed over ranks: {flash, W8A16,
+    W4A16}."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    card = card_line()
+    if started is None:
+        started = MoeQuant()
+        started.start()
+    with started.pool:
+        one, one_s = started.wait()
+    two, two_s = mf_world("moe-quant b", mq_rank_two, 2, "gloo")
+    mark("phase 22's worlds")
+    launches = dict.fromkeys(QMM_NAMES + ("flash_attention_fwd",), 0)
+    # (a)
+    r = one["moe_train"]
+    if not r["same"]:
+        fail(f"moe-quant[a {MOE_ARCH} train]: train(mesh=) on a world of 1 "
+             f"is not train() bit for bit: {r['hist']}")
+    launches["flash_attention_fwd"] += r["flash"]
+    print(f"moe-quant[a nccl world of 1, {MOE_ARCH} {MQ_ONE_LAYERS} layers "
+          f"full width, B={MQ_TRAIN_B} S={MQ_TRAIN_S}]: {MQ_STEPS} steps of "
+          f"train(mesh=) bit-identical to train() (losses, grad norms, "
+          f"every leaf): "
+          + ", ".join(f"loss {lo:.6f} grad norm {gn:.5g}"
+                      for lo, gn in r["hist"])
+          + f"; steps {', '.join(f'{x:.3f}' for x in r['dt'])} s vs "
+          f"{', '.join(f'{x:.3f}' for x in r['dt_unsharded'])} s "
+          f"unsharded; peak {r['peak_gb']:.2f} GB; {r['flash']} flash "
+          f"launches ({card})", flush=True)
+    for bits in (8, 4):
+        r = one[("serve", bits)]
+        if not r["same"]:
+            fail(f"moe-quant[a gemma2-2b int{bits}]: the sharded steps on "
+                 f"stored weights are not the unsharded ones bit for bit")
+        for k in launches:
+            launches[k] += r["launches"][k]
+        print(f"moe-quant[a nccl world of 1, gemma2-2b full width on int"
+              f"{bits} codes]: prefill of {MQ_B} x {MQ_QS} and {MQ_DECODE} "
+              f"decode steps through ShardedServeSteps bit-identical to the "
+              f"unsharded steps (logits and cache digests); launches "
+              f"{json.dumps(r['launches'])}; {r['s']:.2f} s ({card})",
+              flush=True)
+    print(f"moe-quant[a]: the world of 1 in {one_s:.1f} s", flush=True)
+    # (b) moe_apply: the ranks' routes and plan are the one-device call's
+    # on the global rows, exactly, and also the one-device dispatch of the
+    # ranks' own routes
+    want = one["moe_apply"]
+    ranks = [t["moe_apply"] for t in two]
+    idx = torch.cat([g["idx"] for g in ranks])
+    moe = mq_config(MOE_ARCH, MQ_LAYERS).moe
+    T, E = idx.shape[0], moe.num_experts
+    C = moe_lib.capacity(T, moe)
+    order, keep, dest = moe_lib.dispatch(idx, C, E)
+    flat_keep, flat_slot = torch.empty_like(keep), torch.empty_like(dest)
+    flat_keep[order] = keep
+    flat_slot[order] = torch.where(keep, dest, -1)
+    e_flat = idx.reshape(-1)
+    got_keep = torch.cat([g["keep"] for g in ranks])
+    got_slot = torch.cat([torch.where(g["keep"], g["slot"], -1)
+                          for g in ranks])
+    glob = torch.where(flat_keep, flat_slot - e_flat * C, -1)
+    if not (torch.equal(got_keep, flat_keep) and torch.equal(got_slot,
+                                                              glob)):
+        fail(f"moe-quant[b moe_apply]: the ranks' plan is not the "
+             f"one-device plan of their routes: keep differs at "
+             f"{int((got_keep != flat_keep).sum())} pairs")
+    flips = (idx != want["idx"]).any(-1)
+    if flips.any():
+        fail(f"moe-quant[b moe_apply]: {int(flips.sum())} of {T} rows route "
+             f"otherwise than the one-device call on the global rows")
+    want_slot = torch.where(want["keep"], want["slot"], -1)
+    if not (torch.equal(got_keep, want["keep"])
+            and torch.equal(got_slot, want_slot)):
+        fail(f"moe-quant[b moe_apply]: the ranks' plan differs from the "
+             f"one-device call's: keep at "
+             f"{int((got_keep != want['keep']).sum())} pairs, slots at "
+             f"{int((got_slot != want_slot).sum())}")
+    y = torch.cat([g["y"] for g in ranks]).reshape(T, -1)
+    wy = want["y"].reshape(T, -1)
+    bad = mismatch(y, wy)
+    if bad.any():
+        fail(f"moe-quant[b moe_apply]: {int(bad.sum())} output elements "
+             f"off the kernel bound, max |err| "
+             f"{float((y - wy).abs().max()):.4g}")
+    aux = [g["aux"] for g in ranks]
+    if any(abs(a - want["aux"]) > 1e-5 * abs(want["aux"]) for a in aux):
+        fail(f"moe-quant[b moe_apply]: aux {aux} vs {want['aux']}")
+    dropped = int((~got_keep).sum())
+    if not dropped:
+        fail("moe-quant[b moe_apply]: the case drops no pair, so it cannot "
+             "tell the global capacity from a rank's")
+    local_c = moe_lib.capacity(T // 2, moe)
+    print(f"moe-quant[b gloo data=2 {MOE_ARCH} full width, moe_apply on "
+          f"{MQ_B} x {MQ_S} rows]: routes, keep and global slots equal to "
+          f"the one-device call's on the global rows at C={C} "
+          f"(min(C, T_local) = {min(C, T // 2)} rows an expert; a rank's "
+          f"own capacity would be {local_c}), {dropped} of {idx.numel()} "
+          f"pairs dropped; y within the kernel bound, max |err| "
+          f"{float((y - wy).abs().max()):.4g}; aux {aux[0]:.6f} vs "
+          f"{want['aux']:.6f} ({card})", flush=True)
+    # (b) the prefill and training at data=2
+    wl = one["moe_prefill"]
+    for i, t in enumerate(two):
+        got = t["moe_prefill"]["logits"]
+        w = wl[i:i + 1]
+        d = float((got - w).abs().max())
+        if d > LOGIT_RTOL * float(w.abs().max()):
+            fail(f"moe-quant[b {MOE_ARCH} prefill]: rank {i}'s logits "
+                 f"differ by {d:.4g} of max |logit| {float(w.abs().max()):.4g}")
+        launches["flash_attention_fwd"] += t["moe_prefill"]["flash"]
+    print(f"moe-quant[b gloo data=2 {MOE_ARCH} {MQ_LAYERS} layers, prefill "
+          f"B={MQ_B} S={MQ_S}]: each rank's logits within "
+          + ", ".join(f"{float((t['moe_prefill']['logits'] - wl[i:i + 1]).abs().max() / wl[i:i + 1].abs().max()):.3g}"
+                      for i, t in enumerate(two))
+          + f" of max |logit| of the one-device prefill of the global batch "
+          f"(tolerance {LOGIT_RTOL}); {two[0]['moe_prefill']['s']:.2f} s "
+          f"({card})", flush=True)
+    want = one["moe_train_ref"]["steps"]
+    for i, t in enumerate(two):
+        mq_hold_train(f"moe-quant[b {MOE_ARCH} train rank {i}]",
+                      t["moe_train"]["steps"], want)
+        launches["flash_attention_fwd"] += t["moe_train"]["flash"]
+    t = two[0]["moe_train"]
+    print(f"moe-quant[b gloo data=2 {MOE_ARCH} {MQ_LAYERS} layers train "
+          f"B={MQ_TRAIN_B} S={MQ_TRAIN_S}]: against the one-device run on "
+          f"the global batch: "
+          + mq_hold_train("", t["steps"], want)
+          + f"; steps {', '.join(f'{x:.2f}' for x in t['s'])} s "
+          f"(host-staged gloo, not a speed), peaks "
+          + ", ".join(f"{u['moe_train']['peak_gb']:.2f}" for u in two)
+          + f" GB; {t['flash']} flash launches a rank ({card})", flush=True)
+    # (b) stored codes at model=2; the sliced calls checked and timed here,
+    # the card to themselves
+    from repro_torch.models.api import build_model
+    gemma = build_model(mq_config("gemma2-2b", MQ_LAYERS))
+    for bits in (8, 4):
+        want = one[("ref", bits)]
+        worst = 0.0
+        for i, t in enumerate(two):
+            r = t[("serve", bits)]
+            d = float((r["prefill"] - want["prefill"]).abs().max())
+            if d > LOGIT_RTOL * float(want["prefill"].abs().max()):
+                fail(f"moe-quant[b gemma2-2b int{bits}]: rank {i}'s "
+                     f"prefill logits differ by {d:.4g}")
+            worst = max(worst, ms_hold(
+                f"moe-quant[b gemma2-2b int{bits} rank {i}]", r, want),
+                d / float(want["prefill"].abs().max()))
+            for k in launches:
+                launches[k] += r["launches"][k]
+        names = QMM_NAMES[:1] if bits == 8 else QMM_NAMES
+        n = {k: sum(t[("serve", bits)]["launches"][k] for t in two)
+             for k in names}
+        if not all(n.values()):
+            fail(f"moe-quant[b gemma2-2b int{bits}]: launches on the ranks' "
+                 f"slices {n}")
+        params = mq_stored(gemma, bits)
+        checks = mq_slice_checks(params, bits)
+        del params
+        torch.cuda.empty_cache()
+        print(f"moe-quant[b gloo model=2 gemma2-2b {MQ_LAYERS} layers on "
+              f"int{bits} codes, B={MQ_B} prompt {MQ_QS}, {MQ_DECODE} "
+              f"steps]: logits within {worst:.3g} of max |logit| of the "
+              f"one-device steps (tolerance {LOGIT_RTOL}), greedy tokens "
+              f"equal where the margin allows; launches on the ranks' "
+              f"column slices {json.dumps(n)}; each slice's call against "
+              f"its plain version and the whole call's columns (kernel "
+              f"bound): "
+              + ", ".join(f"{s} {c['name'][13:18]} M={M} N={c['N'] // 2}/"
+                          f"{c['N']} K={c['K']} |err| {c['plain_err']:.3g}"
+                          f"/{c['err']:.3g} splits "
+                          f"{c['splits'][0]}/{c['splits'][1]}, "
+                          f"{c['ms']:.4f} ms (whole {c['whole_ms']:.4f}, "
+                          f"bound {c['bound_ms']:.4f})"
+                          for (s, M), c in checks.items())
+              + f" ({card})", flush=True)
+    want = one["haq_ref"]["steps"]
+    for i, t in enumerate(two):
+        mq_hold_train(f"moe-quant[b gemma2-2b HAQ rank {i}]",
+                      t["haq"]["steps"], want)
+    print(f"moe-quant[b gloo model=2 gemma2-2b {MQ_LAYERS} layers, HAQ "
+          f"fake-quant step {json.dumps(MQ_HAQ)}]: against one device: "
+          + mq_hold_train("", two[0]["haq"]["steps"], want)
+          + f"; {two[0]['haq']['wall']:.1f} s ({card})", flush=True)
+    print(f"moe-quant[b]: the world of 2 in {two_s:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5973,6 +6608,9 @@ def main() -> int:
     # phase 21's world of 1 starts here and runs beside phase 17's worlds
     families = MeshFamilies()
     families.start_one()
+    # phase 22(a)'s world follows phase 21's world of 1 on the card
+    moe_quant = MoeQuant()
+    moe_quant.start(after=families.one)
     # phase 17: the sharded engine
     t_mesh = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5984,6 +6622,7 @@ def main() -> int:
           f"{json.dumps({k: v for k, v in mesh_launches.items() if v})}",
           flush=True)
     mark("phase 17")
+    moe_quant.wait()
     # phase 18: training split over a mesh
     t_mt = time.perf_counter()
     mt_flash, mt_rest = phase_train_mesh(train_step_s)
@@ -6014,6 +6653,14 @@ def main() -> int:
           f"its gloo world started, before phase 19); flash launches of its "
           f"sharded runs, summed over ranks {mf_flash}", flush=True)
     mark("phase 21")
+    # phase 22: moe over data ranks, stored and fake-quantized weights
+    # under a model split
+    t_mq = time.perf_counter()
+    mq_launches = phase_moe_quant(moe_quant)
+    print(f"moe-quant: phase 22 in {time.perf_counter() - t_mq:.1f} s after "
+          f"phase 21; launches of its sharded runs, summed over ranks "
+          f"{json.dumps(mq_launches)}", flush=True)
+    mark("phase 22")
     t_dry = time.perf_counter()
     phase_dryrun_sweep(sweep)
     print(f"dryrun: phase 19(c) waited {time.perf_counter() - t_dry:.1f} s "
@@ -6024,7 +6671,8 @@ def main() -> int:
                 "llava prefill": ll["prefill"]["flash_attention_fwd"],
                 "mesh": mesh_launches["flash_attention_fwd"],
                 "mesh train": mt_flash, "mesh serve": ms_flash,
-                "mesh families": mf_flash}
+                "mesh families": mf_flash,
+                "moe quant": mq_launches["flash_attention_fwd"]}
     flash_paths.update(ed_paths)
     print(f"encdec+vlm: kernels at the new geometries {json.dumps(ed_rows)};"
           f" flash launches by path {json.dumps(ed_paths)}; paged decode "
@@ -6043,6 +6691,7 @@ def main() -> int:
         paged_prefill_fwd=launches["paged_prefill_fwd"]
         + mesh_launches["paged_prefill_fwd"])
     q_launches = {k: q_launches[k] + mesh_launches[k] for k in QUANT_KERNELS}
+    w_launches = {k: w_launches[k] + mq_launches[k] for k in QMM_NAMES}
     source_run = {**{k: launches for k in BF16_KERNELS},
                   **{k: q_launches for k in QUANT_KERNELS},
                   "flash_attention_fwd": {

@@ -3,8 +3,9 @@ kernel, then call the phase's function by name.
 
     python3 scripts/chip_phase.py phase_mesh_families
 
-For phases that take no arguments and return what they print (phase 21's
-``phase_mesh_families``, phase 20's ``phase_mesh_serve``), so that a
+For phases that take no arguments and return what they print (phase 22's
+``phase_moe_quant``, phase 21's ``phase_mesh_families``, phase 20's
+``phase_mesh_serve``), so that a
 phase is rehearsed without the whole script's 15 minutes. Prints the
 build's seconds, the phase's own lines, its seconds and what it returned.
 """

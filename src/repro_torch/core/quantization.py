@@ -42,20 +42,25 @@ def qmax(bits) -> torch.Tensor:
     return 2.0 ** (torch.as_tensor(bits, dtype=F32) - 1.0) - 1.0
 
 
-def quantize_weight(w, bits, *, axis: int = -1):
+def quantize_weight(w, bits, *, axis: int = -1, amax=None):
     """Symmetric per-channel (along ``axis``'s complement) int
-    quantization. Returns (q int-valued fp32, scale) with w ~= q * scale."""
+    quantization. Returns (q int-valued fp32, scale) with w ~= q * scale.
+    ``amax``: a function of the fp32 ``w`` giving the per-channel max
+    |w| (kept dims) in place of ``w``'s own, where ``w`` is a rank's
+    slice of a weight split off its channels
+    (distributed/sharding.py::tp_dot)."""
     wf = w.to(F32)
     red = tuple(i for i in range(w.dim()) if i != (axis % w.dim()))
-    amax = wf.abs().amax(dim=red, keepdim=True)
+    amax = wf.abs().amax(dim=red, keepdim=True) if amax is None \
+        else amax(wf)
     qm = qmax(bits).to(w.device)
     scale = amax / torch.clamp(qm, min=1.0) + 1e-12
     q = torch.clamp(torch.round(wf / scale), -qm, qm)
     return q, scale
 
 
-def fake_quant_weight(w, bits, *, axis: int = -1):
-    q, scale = quantize_weight(w, bits, axis=axis)
+def fake_quant_weight(w, bits, *, axis: int = -1, amax=None):
+    q, scale = quantize_weight(w, bits, axis=axis, amax=amax)
     return (q * scale).to(w.dtype)
 
 
@@ -109,9 +114,11 @@ def make_quant_dot(policy: Dict[str, Tuple[int, int]], *, use_kernel=False):
     (w_bits, a_bits) fake-quant, or the weight-quantized matmul kernels
     when ``use_kernel`` and the site's weight is 2-D with w_bits <= 8
     (W4A16 if w_bits <= 4, W8A8 if a_bits <= 8, else W8A16). Sites not in
-    the policy run in the operands' precision."""
+    the policy run in the operands' precision. ``amax``: the per-channel
+    scale's max |w| over the whole weight, where the site holds a slice
+    of it split off its channels (``quantize_weight``)."""
 
-    def dot(x, w, name):
+    def dot(x, w, name, amax=None):
         eq = _einsum_for(x, w)
         if name not in policy:
             return torch.einsum(eq, x, w)
@@ -121,7 +128,7 @@ def make_quant_dot(policy: Dict[str, Tuple[int, int]], *, use_kernel=False):
         if use_kernel and w.dim() == 2 and w_bits <= 8:
             return kops.quant_matmul(x, w, w_bits=int(w_bits),
                                      a_bits=int(a_bits))
-        wq = fake_quant_weight(w, w_bits)
+        wq = fake_quant_weight(w, w_bits, amax=amax)
         xq = fake_quant_act(x, a_bits) if a_bits and a_bits < 16 else x
         return torch.einsum(eq, xq, wq)
 

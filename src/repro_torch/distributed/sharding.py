@@ -359,19 +359,33 @@ def gather_plans(abstract, logical, specs):
     return tree_unflatten(abstract, plans)
 
 
-def tp_dot(group, cfg):
+def tp_dot(group, cfg, inner=None):
     """The ``dot`` hook of tensor parallelism over the ``model`` axis's
     process group, for a model of config ``cfg``. Each site computes what
-    the unsharded port computes without a hook, through the same functions
-    (the lm_head's fp32 product of the upcast operands included); the
-    contraction-split sites (``attn_o``, ``xattn_o``, ``ffn_out``) gather
-    their activations first. The shape tests keep a weight that fell
+    the unsharded port computes with ``inner`` as its hook (or without
+    one, through the same functions: the lm_head's fp32 product of the
+    upcast operands included); the contraction-split sites (``attn_o``,
+    ``xattn_o``, ``ffn_out``) gather their activations first.
+
+    ``inner`` (HAQ's fake quantization, core/quantization.py::
+    make_quant_dot, or ``dequant_dot`` over stored weights,
+    serving/quant.py) sees the operands the site holds: a rank's slice of
+    a column-split weight (of its codes, with the whole scale: a stored
+    weight's scale is per tensor or per layer), whole weights elsewhere.
+    A fake quantizer's per-channel scale reduces over every dim but the
+    last, which a head split cuts (the ``d_ff`` split of ``ffn_in`` and
+    ``ffn_gate`` does not): at a q, k or v site whose weight (not stored)
+    is split on heads, or sliced by ``kv_slice``, the hook is called with
+    ``amax=``, a function of the fp32 slice giving the whole weight's
+    per-channel amax (``group_amax`` over the slices; from the whole
+    ``wk``/``wv`` under ``kv_slice``). The shape tests keep a weight that fell
     through to replicated (an odd ``d_ff``) on the plain product. The
     cross attention's q, k and v (``xattn_*``) split as the self
     attention's do; the mamba projections (``ssm_in``, ``ssm_out``) are
     plain products on whole weights: ``in_proj``'s [z | xs | B | C | dt]
     columns do not split along heads, so every rank of the group computes
-    the whole mamba layer.
+    the whole mamba layer. So is the hybrid's ``fuse`` site, which a
+    stored fuse weight reaches (models/transformer.py::_fuse).
 
     Heads that do not divide the group stay whole (``choose_spec``
     replicates them), and every rank computes the whole attention. Query
@@ -397,38 +411,66 @@ def tp_dot(group, cfg):
     def enter(a, w, whole):
         # the input of a column-split product, split when w's output dim
         # is a slice of the model's
-        if w.shape[-1 if whole == "d_ff" else 1] == getattr(cfg, whole):
+        if _shape(w)[-1 if whole == "d_ff" else 1] == getattr(cfg, whole):
             return a
         if held[0] is not a:
             held[:] = [a, sum_grad(a, group)]
         return held[1]
 
+    def run(a, w, name, plain, amax=None):
+        if inner is None:
+            return plain(a, w, name)
+        if amax is None or isinstance(w, dict):   # a stored scale is whole
+            return inner(a, w, name)
+        return inner(a, w, name, amax=amax)
+
     def dot(a, w, name):
-        if name in _KV_SITES and span is not None \
-                and w.shape[1] == cfg.num_kv_heads:
-            w = kv_slice(w, group, *span)
+        amax = None
         if name in _QKV_SITES:
-            a = enter(a, w, "num_kv_heads" if name in _KV_SITES
-                      else "num_heads")
-            return attn._proj_in(a, w, name)
+            heads = "num_kv_heads" if name in _KV_SITES else "num_heads"
+            if name in _KV_SITES and span is not None \
+                    and _shape(w)[1] == cfg.num_kv_heads:
+                whole, w = w, kv_slice(w, group, *span)
+
+                def amax(wf):   # the whole weight's (its gradient summed)
+                    return sum_grad(whole, group).to(F32).abs().amax(
+                        dim=(0, 1), keepdim=True)
+            elif _shape(w)[1] != getattr(cfg, heads):
+                def amax(wf):
+                    return group_amax(wf.abs(), (0, 1), group)
+            return run(enter(a, w, heads), w, name, attn._proj_in, amax)
         if name in ("attn_o", "xattn_o"):
-            if a.shape[2] != w.shape[0]:                  # local heads
+            if a.shape[2] != _shape(w)[0]:                # local heads
                 a = gather_shard(a, 2, group, reduce=False)
-            return attn._proj_out(a, w, name)
+            return run(a, w, name, attn._proj_out)
         if name in ("ffn_in", "ffn_gate"):
-            return layers._matmul(enter(a, w, "d_ff"), w, name)
+            return run(enter(a, w, "d_ff"), w, name, layers._matmul)
         if name == "ffn_out":
-            if a.shape[-1] != w.shape[0]:                 # local d_ff
+            if a.shape[-1] != _rows(w):                   # local d_ff
                 a = gather_shard(a, a.dim() - 1, group, reduce=False)
-            return layers._matmul(a, w, name)
+            return run(a, w, name, layers._matmul)
         if name == "lm_head":
-            return a.to(F32) @ w.to(F32)
+            return run(a, w, name, lambda a, w, _: a.to(F32) @ w.to(F32))
         if name in ("moe_in", "moe_gate", "moe_out"):
-            return moe_lib._bmm(a, w, name)
-        if name in ("ssm_in", "ssm_out"):
-            return ssm_lib._matmul(a, w, name)
+            return run(a, w, name, moe_lib._bmm)
+        if name in ("ssm_in", "ssm_out", "fuse"):
+            return run(a, w, name, ssm_lib._matmul)
         raise ValueError(f"unknown dot site {name!r}")
     return dot
+
+
+def _shape(w) -> Tuple[int, ...]:
+    """A weight's shape, or a stored weight's codes' (serving/quant.py:
+    int4 codes pack two rows of the contracting dim to a byte, so their
+    output dims are the weight's)."""
+    if isinstance(w, dict):
+        return tuple(w["q4" if "q4" in w else "q"].shape)
+    return tuple(w.shape)
+
+
+def _rows(w) -> int:
+    """A 2-D weight's contracting dim, stored or not."""
+    return _shape(w)[0] * (2 if isinstance(w, dict) and "q4" in w else 1)
 
 
 _KV_SITES = ("attn_k", "attn_v", "xattn_k", "xattn_v")
@@ -453,11 +495,49 @@ def kv_span(cfg, tp: int, rank: int) -> Optional[Tuple[int, int]]:
     return lo, lo + 1
 
 
-def kv_slice(w: torch.Tensor, group, lo: int, hi: int) -> torch.Tensor:
+def kv_slice(w, group, lo: int, hi: int):
     """Heads [lo, hi) of a whole (D, K, hd) ``wk``/``wv``; its gradient
     (the slice's, zero elsewhere) summed over ``group`` in the backward,
-    so every rank holds the whole weight's gradient."""
+    so every rank holds the whole weight's gradient. A stored weight
+    (int8 codes, serving only) gives its codes' slice, in storage of its
+    own, and its whole scale."""
+    if isinstance(w, dict):
+        return {"q": w["q"][:, lo:hi].contiguous(), "scale": w["scale"]}
     return sum_grad(w, group)[:, lo:hi]
+
+
+class _GroupAmax(torch.autograd.Function):
+    """Forward: the max of ``a`` over ``dims`` (kept) and over the group's
+    ranks, each holding a block of the tensor along ``dims``. Backward:
+    the reference's rule for a max (``jnp.max``'s, and ``torch.amax``'s):
+    the gradient, summed over the group (each rank's carries its own
+    terms), split evenly among every element equal to the max, the ties
+    on every rank counted."""
+
+    @staticmethod
+    def forward(ctx, a, dims, group):
+        whole = all_gather_dim(a.amax(dim=dims, keepdim=True).unsqueeze(0),
+                               0, group).amax(dim=0)
+        hit = a == whole
+        ties = all_reduce_sum(hit.sum(dim=dims, keepdim=True), group)
+        ctx.save_for_backward(hit, ties)
+        ctx.group = group
+        return whole
+
+    @staticmethod
+    def backward(ctx, g):
+        hit, ties = ctx.saved_tensors
+        total = all_reduce_sum(g, ctx.group)
+        return hit.to(g.dtype) * (total / ties).to(g.dtype), None, None
+
+
+def group_amax(a: torch.Tensor, dims, group) -> torch.Tensor:
+    """``a.amax(dims, keepdim=True)`` of the whole tensor whose blocks
+    along ``dims`` the ranks of ``group`` hold (``_GroupAmax``); exact and
+    independent of order."""
+    if dist.get_world_size(group) == 1:
+        return a.amax(dim=dims, keepdim=True)
+    return _GroupAmax.apply(a, tuple(dims), group)
 
 
 # ------------------------------------------------------------ collective --
@@ -630,6 +710,49 @@ def sum_value(x: torch.Tensor, group) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _SumValue.apply(x, group)
+
+
+class BatchRanks:
+    """The ranks a batch's rows are split over, as models/moe.py's
+    ``ranks`` hook and the loss's sum read them: ``groups`` the process
+    groups of the batch's split axes, major first (``pod``, then
+    ``data``), so that rank order is the global batch's row order. Every
+    rank holds as many rows."""
+
+    def __init__(self, groups):
+        self.groups = list(groups)
+
+    def total(self, n: int) -> int:
+        """The global count of a count ``n`` each rank holds."""
+        return n * math.prod(dist.get_world_size(g) for g in self.groups)
+
+    def prefix(self, counts: torch.Tensor) -> torch.Tensor:
+        """The sum of ``counts`` (integers) over the ranks before this
+        one in row order: one all-gather over each axis, the minor
+        first. Exact."""
+        below = torch.zeros_like(counts)
+        for g in reversed(self.groups):
+            parts = all_gather_dim(counts.unsqueeze(0), 0, g)
+            below = below + parts[:dist.get_rank(g)].sum(0)
+            counts = parts.sum(0)
+        return below
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks (``sum_value``: fp32 in group-rank
+        order, the minor axis first; the backward carries this rank's
+        terms)."""
+        for g in reversed(self.groups):
+            x = sum_value(x, g)
+        return x
+
+
+def batch_ranks(ac, B: int, groups) -> Optional[BatchRanks]:
+    """The ``BatchRanks`` of a global batch of ``B`` rows under ``ac``
+    (``make_ac``), over the mesh's ``groups``; None where the rows split
+    over no rank (every rank holds them all)."""
+    axes = [a for a in _as_axes(ac.batch_axes(B) or ())
+            if ac.sizes[a] > 1]
+    return BatchRanks([groups[a] for a in axes]) if axes else None
 
 
 def broadcast_float(value: float, group=None) -> float:

@@ -20,6 +20,8 @@ A record has the reference's keys, with these changes: ``fits_hbm`` and
 has ``fits_16GiB``; ``trace_s`` (the counted run) stands in place of
 ``lower_s`` and ``compile_s``; ``memory`` holds the counted run's
 argument, output, alias and temporary bytes and ``peak_bytes``.
+``weight_bits`` holds the stored weights' average bits (16 without
+``--quant``), which the roofline's memory term reads.
 ``hlo_chars``, ``roofline_raw_xla``, ``memory.code_bytes`` and
 ``--save-hlo`` are left out: no HLO exists, and ``roofline_raw_xla`` is
 the reference's reading of XLA's ``cost_analysis``, which has no torch
@@ -36,11 +38,13 @@ mamba state and the encoder-decoder's memory included. State bytes are
 the parameters' (and the optimizer's for train, the cache's for decode),
 as the reference counts them. Flash attention runs its blockwise plain forward
 (models/flash.py::blockwise_forward): the dense plain version's products,
-one 512-row q block's scores alive at a time. Cells the port cannot run
-yet are refused with the ROADMAP item that would lift the refusal:
-``--quant`` (item 11g: stored int8/int4 weights put ``dequant_dot``
-beside ``tp_dot``, a ``dot`` hook under model > 1) and moe at data > 1
-(item 11e).
+one 512-row q block's scores alive at a time. ``--quant w8|w4|haq`` serves
+prefill and decode cells on stored int8/int4 weights (``quantize_defs``'
+tree at rest, ``dequant_dot`` inside ``tp_dot``'s sites), the policy
+``quant_policy_for``'s on the H100; train cells ignore it, as the
+reference's do. Cells the port cannot run yet are refused with the
+ROADMAP item that would lift the refusal: ``--ac-mode seq_tp`` (item
+11f).
 """
 from __future__ import annotations
 
@@ -55,13 +59,17 @@ import torch
 
 from repro_torch.configs import (OptimConfig, TrainConfig, assigned_cells,
                                  get_config, get_shape)
+from repro_torch.core import haq
+from repro_torch.core.hardware_model import H100_SXM
 from repro_torch.distributed import sharding as shlib
 from repro_torch.launch.mesh import dry_world, make_production_mesh
 from repro_torch.models.api import build_model
 from repro_torch.models.flash import BLOCKWISE
-from repro_torch.models.params import tree_leaves, tree_unflatten
+from repro_torch.models.params import (abstract_params, tree_leaves,
+                                       tree_unflatten)
 from repro_torch.roofline import analysis as ra
 from repro_torch.roofline import step_costs
+from repro_torch.serving import quant as sq
 from repro_torch.training.sharded import ShardedTrainer
 from repro_torch.training.sharded_serve import ShardedServeSteps
 
@@ -82,6 +90,23 @@ def train_cfg_for(arch: str, microbatches: int = 1) -> TrainConfig:
         microbatches=microbatches)
 
 
+def quant_policy_for(cfg, mode: str, hw=H100_SXM):
+    """(policy, default bits) of ``--quant mode``: w8 and w4 every weight
+    at 8 or 4 bits; haq the paper's budget back-off (section 4) from W8A16
+    down to 0.55 of its decode latency on ``hw``'s roofline, a
+    deterministic stand-in for the trained agent (the reference prices it
+    on its TPU pod)."""
+    if mode == "w8":
+        return None, 8
+    if mode == "w4":
+        return None, 4
+    sites = haq.enumerate_sites(cfg, batch=128, seq=1, decode=True)
+    wa = [(8, 16)] * len(sites)
+    budget = 0.55 * haq.resource(sites, wa, hw, "latency")
+    wa = haq.enforce_budget(sites, wa, hw, budget, "latency")
+    return {s.name: w for s, (w, a) in zip(sites, wa)}, 8
+
+
 def local_tree(abstract, specs, mesh):
     """This rank's shard of every leaf of ``abstract`` under ``specs``,
     as meta tensors of their own."""
@@ -97,19 +122,17 @@ def build_step(model, shape, mesh, tcfg, quant: str = "",
     """(fn, args, state, weight_bits): the step this rank runs and its
     meta arguments, its shards of the state and its rows of the batch;
     ``state`` lists the (abstract tree, specs) pairs whose bytes a device
-    holds at rest. Raises ``Refused`` for a cell the port cannot run
-    yet."""
-    if quant:
-        raise Refused(
-            "--quant, which serves prefill and decode cells on stored "
-            "int8/int4 weights: dequant_dot beside tp_dot, a dot hook under "
-            "model > 1, is not ported (ROADMAP Queue 1, item 11g)")
+    holds at rest. ``quant`` (prefill and decode cells): the weights
+    stored per ``quant_policy_for``. Raises ``Refused`` for a cell the
+    port cannot run yet."""
+    quant = quant if shape.kind != "train" else ""
     try:
         ac = shlib.make_ac(mesh, mode=ac_mode)
         if shape.kind == "train":
             trainer = ShardedTrainer(model, tcfg, ac, kernel=BLOCKWISE)
         else:
-            steps = ShardedServeSteps(model, ac, kernel=BLOCKWISE)
+            steps = ShardedServeSteps(model, ac, kernel=BLOCKWISE,
+                                      dot=sq.dequant_dot if quant else None)
     except (NotImplementedError, ValueError) as e:
         raise Refused(str(e)) from None
     if shape.kind == "train":
@@ -118,17 +141,23 @@ def build_step(model, shape, mesh, tcfg, quant: str = "",
             model.input_specs(shape)).items()}
         return trainer.local_step, (state, batch), \
             [(trainer.abstract, trainer.specs)], 16.0
-    abstract = model.abstract_params()
-    params = local_tree(abstract, steps.param_specs, mesh)
-    held = [(abstract, steps.param_specs)]
+    defs, weight_bits = model.defs, 16.0
+    if quant:
+        policy, bits = quant_policy_for(model.cfg, quant)
+        defs = sq.quantize_defs(defs, policy=policy, default_bits=bits)
+        weight_bits = sq.avg_weight_bits(defs)
+    abstract = abstract_params(defs)
+    specs = steps.param_layout(abstract)[0]
+    params = local_tree(abstract, specs, mesh)
+    held = [(abstract, specs)]
     ins = model.input_specs(shape)
     if shape.kind == "prefill":
-        return steps.prefill, (params, ins), held, 16.0
+        return steps.prefill, (params, ins), held, weight_bits
     cache = steps.place_cache(ins["cache"])
     held.append((ins["cache"], shlib.specs_for(
         ins["cache"], model.batch_logical_specs(shape)["cache"], mesh)))
     return steps.decode, (params, cache, ins["token"], ins["pos"]), held, \
-        16.0
+        weight_bits
 
 
 def sharded_bytes_per_device(abstract, specs, mesh) -> int:
@@ -173,6 +202,7 @@ def cell_record(model, shape, mesh, tcfg, *, chips: int, quant: str = "",
         "memory": mem,
         "live_bytes_per_device": live,
         "state_bytes_per_device": state_bytes,
+        "weight_bits": weight_bits,
         "fits_hbm": bool(live <= ra.HBM_BYTES),
         "state_fits_hbm": bool(state_bytes <= ra.HBM_BYTES),
         "collectives_per_device": {
@@ -245,7 +275,7 @@ def main(argv=None):
                     help="cells run at once, each in its own process")
     ap.add_argument("--quant", default="", choices=["", "w8", "w4", "haq"],
                     help="quantized-weight serving (prefill/decode cells; "
-                         "refused: ROADMAP item 11g)")
+                         "train cells ignore it)")
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient accumulation for train cells")
     ap.add_argument("--ac-mode", default="dp", choices=["dp", "seq_tp"],
@@ -289,6 +319,7 @@ def main(argv=None):
                   f"mfu_bound={r['mfu_bound']:.3f} "
                   f"live={out['live_bytes_per_device']/2**30:.2f}GiB "
                   f"state={out['state_bytes_per_device']/2**30:.2f}GiB "
+                  f"wbits={out['weight_bits']:.3f} "
                   f"fits={out['fits_hbm']}", flush=True)
         elif status == "refused":
             refused.append(name)

@@ -49,7 +49,8 @@ class Model:
     # -- compute ------------------------------------------------------------
     def forward(self, params, batch, *, want_cache=False,
                 unembed_mode="full", cache_layout="ring", dot=None,
-                kernel="auto", remat=False, gather=None, place=None):
+                kernel="auto", remat=False, gather=None, place=None,
+                ranks=None):
         """Whole-sequence forward; ``kernel`` picks the flash-attention
         path of sequences of FLASH_MIN tokens or more: "auto" (CUDA kernel
         on CUDA tensors, plain version on CPU ones), "cuda" or "ref".
@@ -60,7 +61,8 @@ class Model:
         and ignores ``cache_layout``, as in the reference
         (encdec.forward). ``gather`` is the sharded engine's, trainer's
         and serving steps' hook (every family's layers whole at use),
-        ``place`` the sharded serving steps' cache layout
+        ``place`` the sharded serving steps' cache layout, ``ranks`` the
+        ranks the batch is split over, which the moe layers read
         (transformer.forward, encdec.forward)."""
         if self.cfg.is_encdec:
             return encdec.forward(params, batch, self.cfg,
@@ -72,10 +74,10 @@ class Model:
                                    unembed_mode=unembed_mode,
                                    cache_layout=cache_layout, dot=dot,
                                    kernel=kernel, remat=remat,
-                                   gather=gather, place=place)
+                                   gather=gather, place=place, ranks=ranks)
 
     def loss(self, params, batch, *, remat=False, dot=None, kernel="auto",
-             gather=None, data_sum=None):
+             gather=None, ranks=None):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (chunked, transformer.chunked_ce) plus 0.01 x
         the moe layers' load-balance loss, as the reference's: the
@@ -83,36 +85,39 @@ class Model:
         through it, flash's backward included) and HAQ's and AMC's quality
         feedback. Their parameters require no gradient, so scoring builds
         no graph. The vlm family scores its text rows only: the hidden
-        states after the patch rows. ``gather`` and ``data_sum`` are the
+        states after the patch rows. ``gather`` and ``ranks`` are the
         sharded trainer's hooks (training/sharded.py): parameters whole
-        per layer at use, and the loss's sum and count summed over the
-        ranks that split the batch (the vlm's text rows included: its
-        token count is the global batch's)."""
+        per layer at use, and the ranks that split the batch
+        (distributed/sharding.py::BatchRanks), over which the loss's sum
+        and count are summed (the vlm's text rows included: its token
+        count is the global batch's) and the moe layers route."""
         hidden, _, aux, fmask = self.forward(params, batch,
                                              unembed_mode="none", dot=dot,
                                              kernel=kernel, remat=remat,
-                                             gather=gather)
+                                             gather=gather, ranks=ranks)
         labels = batch["labels"]
         if fmask is not None:
             hidden = hidden[:, -labels.shape[1]:]
         ce = transformer.chunked_ce(params, hidden, labels, self.cfg,
                                     dot=dot, gather=gather,
-                                    data_sum=data_sum)
+                                    data_sum=None if ranks is None
+                                    else ranks.sum)
         return ce + 0.01 * aux
 
     def prefill(self, params, batch, *, cache_layout="ring",
                 unembed_mode="last", dot=None, kernel="auto", gather=None,
-                place=None):
-        """(logits, caches) of ``forward(want_cache=True)``. ``gather``
-        and ``place`` are the sharded serving steps' hooks
+                place=None, ranks=None):
+        """(logits, caches) of ``forward(want_cache=True)``. ``gather``,
+        ``place`` and ``ranks`` are the sharded serving steps' hooks
         (training/sharded_serve.py): the parameters whole per layer at
-        use, and each layer's caches cut to this rank's block
-        (transformer.forward, encdec.forward)."""
+        use, each layer's caches cut to this rank's block, and the ranks
+        the batch is split over (transformer.forward, encdec.forward)."""
         logits, cache, _, _ = self.forward(params, batch, want_cache=True,
                                            unembed_mode=unembed_mode,
                                            cache_layout=cache_layout,
                                            dot=dot, kernel=kernel,
-                                           gather=gather, place=place)
+                                           gather=gather, place=place,
+                                           ranks=ranks)
         return logits, cache
 
     def unembed(self, params, hidden, *, dot=None, gather=None):
@@ -121,18 +126,20 @@ class Model:
                                    gather=gather)
 
     def decode_step(self, params, cache, token, pos, *, dot=None,
-                    gather=None, place=None):
+                    gather=None, place=None, ranks=None):
         """One token (B, 1) at position ``pos`` over dense caches (a
         ``prefill``'s, grown to the decode length, or ``init_cache``'s),
         updated in place; returns (logits (B, 1, V), cache). The
         reference's ``generate`` path for ssm and hybrid and
-        training/steps.py::make_serve_step. ``gather`` and ``place``: the
-        sharded serving steps' hooks (transformer.decode_step)."""
+        training/steps.py::make_serve_step. ``gather``, ``place`` and
+        ``ranks``: the sharded serving steps' hooks
+        (transformer.decode_step)."""
         if self.cfg.is_encdec:
             return encdec.decode_step(params, cache, token, pos, self.cfg,
                                       dot=dot, gather=gather, place=place)
         return transformer.decode_step(params, cache, token, pos, self.cfg,
-                                       dot=dot, gather=gather, place=place)
+                                       dot=dot, gather=gather, place=place,
+                                       ranks=ranks)
 
     def decode_step_paged(self, params, pool, page_table, token, positions,
                           *, kernel="auto", dot=None, gather=None):

@@ -232,7 +232,9 @@ def cross_attention(p, x, mem_k, mem_v, cfg, *, dot=None,
     reference, ``dot`` reaches the q projection only: the output
     projection (site ``xattn_o``) is a plain product whatever the hook,
     unless tensor parallelism left o with a rank's heads, which the
-    ``tp_dot`` site gathers before the product.
+    ``tp_dot`` site gathers before the product, or the weight is stored
+    (serving/quant.py), which has no plain product (the reference's
+    einsum fails on it) and goes through the hook.
 
     ``place`` (distributed/sharding.py::CacheBlock): mem_k/v are this
     rank's block of a memory split over a mesh; q takes the block's heads
@@ -259,8 +261,8 @@ def cross_attention(p, x, mem_k, mem_v, cfg, *, dot=None,
     else:
         mask = torch.ones((1, 1, S, T), dtype=torch.bool, device=x.device)
         o = _attend(q, mem_k, mem_v, mask, cfg.attn_softcap)
-    if o.shape[2] != p["wo"].shape[0]:           # a rank's heads (tp_dot)
-        return dot(o, p["wo"], "xattn_o")
+    if isinstance(p["wo"], dict) or o.shape[2] != p["wo"].shape[0]:
+        return dot(o, p["wo"], "xattn_o")        # stored, or a rank's heads
     return _proj_out(o, p["wo"], "xattn_o")
 
 

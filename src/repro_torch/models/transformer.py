@@ -157,13 +157,13 @@ def param_defs(cfg) -> dict:
 SHARED_KIND = {"attn": "global", "moe": False}   # the hybrid's shared block
 
 
-def _ffn_half(p, x, kind, cfg, dot):
+def _ffn_half(p, x, kind, cfg, dot, ranks=None):
     """The feed-forward half of a block: (x + f, the moe aux loss or
-    0.0)."""
+    0.0). ``ranks``: the ranks the batch is split over (``forward``)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind["moe"]:
         f, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe, cfg.activation,
-                                   dot=dot)
+                                   dot=dot, ranks=ranks)
     else:
         f, aux = ffn_apply(p["ffn"], h, cfg.activation, dot=dot), 0.0
     if cfg.sandwich_norm:
@@ -177,13 +177,15 @@ def _attn_residual(p, x, a, cfg):
     return x + a
 
 
-def _dense_block_fwd(p, x, kind, cfg, positions, dot, kernel, ring=False):
+def _dense_block_fwd(p, x, kind, cfg, positions, dot, kernel, ring=False,
+                     ranks=None):
     """``ring``: a local layer's cache in ring layout (dense decode)
     instead of chronological (the page pool's)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, cache = attn.attention_fwd(p["attn"], h, kind["attn"], cfg, positions,
                                   dot=dot, kernel=kernel)
-    x, aux = _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot)
+    x, aux = _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot,
+                       ranks)
     if ring and kind["attn"] == "local":
         W = cfg.window_size
         cache = {"k": _to_ring(cache["k"], W), "v": _to_ring(cache["v"], W)}
@@ -199,30 +201,41 @@ def _to_ring(k: torch.Tensor, W: int) -> torch.Tensor:
     return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, W - S))
 
 
-def _dense_block_decode(p, x, cache, pos, kind, cfg, dot, place=None):
+def _dense_block_decode(p, x, cache, pos, kind, cfg, dot, place=None,
+                        ranks=None):
     """One token through a block over its dense caches (written in
-    place); ``place``: a rank's block of them (``decode_step``)."""
+    place); ``place``: a rank's block of them, ``ranks`` the ranks the
+    batch is split over (``decode_step``)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a, _, _ = attn.attention_decode(p["attn"], h, cache["k"], cache["v"],
                                     pos, kind["attn"], cfg, dot=dot,
                                     place=place)
-    return _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot)[0]
+    return _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot,
+                     ranks)[0]
+
+
+def _fuse(u, w, dot):
+    """The hybrid's fuse projections: a plain product, as the reference's,
+    whatever the hook; a stored weight (serving/quant.py), which has no
+    plain product (the reference's einsum fails on it), through the hook
+    (site "fuse", HAQ's name for both)."""
+    return dot(u, w, "fuse") if isinstance(w, dict) else u @ w
 
 
 def _shared_block_fwd(p, x, emb, cfg, positions, dot, kernel):
     """The hybrid's shared block: x concatenated with the original
     embedding, fused to d_model, one global dense block (through the
     dense sites of ``dot``), projected back and added to x."""
-    u = torch.cat([x, emb], dim=-1) @ p["fuse_in"]
+    u = _fuse(torch.cat([x, emb], dim=-1), p["fuse_in"], dot)
     u, cache, _ = _dense_block_fwd(p, u, SHARED_KIND, cfg, positions, dot,
                                    kernel)
-    return x + u @ p["fuse_out"], cache
+    return x + _fuse(u, p["fuse_out"], dot), cache
 
 
 def _shared_block_decode(p, x, emb, cache, pos, cfg, dot, place=None):
-    u = torch.cat([x, emb], dim=-1) @ p["fuse_in"]
+    u = _fuse(torch.cat([x, emb], dim=-1), p["fuse_in"], dot)
     u = _dense_block_decode(p, u, cache, pos, SHARED_KIND, cfg, dot, place)
-    return x + u @ p["fuse_out"]
+    return x + _fuse(u, p["fuse_out"], dot)
 
 
 def _mamba_layer(p, ln, gather):
@@ -379,7 +392,7 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
 def forward(params, batch, cfg, *, want_cache: bool,
             unembed_mode: str = "full", cache_layout: str = "ring",
             dot=None, kernel: str = "auto", remat: bool = False,
-            gather=None, place=None):
+            gather=None, place=None, ranks=None):
     """Full-sequence forward (training and prefill).
 
     unembed_mode: "full" -> logits (B,S,V); "last" -> logits (B,1,V);
@@ -407,6 +420,10 @@ def forward(params, batch, cfg, *, want_cache: bool,
     and hybrid families {"mamba": ``MambaBlock``, "shared": ``CacheBlock``}
     (distributed/sharding.py); each layer's caches are cut to this rank's
     block as they are made.
+    ranks: the ranks the batch's rows are split over
+    (distributed/sharding.py::BatchRanks), for the moe layers' global
+    capacity, slots and aux loss (models/moe.py); batch is this rank's
+    rows.
     batch: {tokens (B, S)}, and for the vision stub also patches
     (B, S_p, D), which come first: the sequence is S_p + S rows.
     Returns (logits_or_hidden, caches or None, aux, loss_mask): aux
@@ -428,7 +445,7 @@ def forward(params, batch, cfg, *, want_cache: bool,
     else:
         x, out_cache, aux_total = _forward_blocks(
             params, x, cfg, positions, want_cache, ring, dot, kernel, remat,
-            gather, place)
+            gather, place, ranks)
     x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
     if unembed_mode == "none":
         return x, out_cache, aux_total, loss_mask
@@ -439,9 +456,10 @@ def forward(params, batch, cfg, *, want_cache: bool,
 
 
 def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
-                    kernel, remat, gather=None, place=None):
+                    kernel, remat, gather=None, place=None, ranks=None):
     """The dense, moe and vlm families' layer groups: (x, caches, aux);
-    ``place`` cuts each layer's caches to a rank's block (``forward``)."""
+    ``place`` cuts each layer's caches to a rank's block, ``ranks`` as in
+    ``forward``."""
     P = period_of(cfg)
     kinds = sublayer_kinds(cfg)
 
@@ -452,7 +470,7 @@ def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
             if gather is not None:
                 p = gather(p, ("blocks", f"sub{j}"))
             h, c, a = _dense_block_fwd(p, h, kinds[j], cfg, positions, dot,
-                                       kernel, ring)
+                                       kernel, ring, ranks)
             aux = aux + a
             kv.append(c if want_cache else None)
         return h, aux, kv
@@ -521,7 +539,7 @@ def _forward_mamba(params, x, cfg, positions, want_cache, dot, kernel,
 
 # ----------------------------------------------------------------- decode ----
 def decode_step(params, cache, token, pos, cfg, *, dot=None, gather=None,
-                place=None):
+                place=None, ranks=None):
     """token (B,1) int32, pos a scalar int tensor (or int): the position of
     the token. One step over the dense caches of ``cache_specs``' layout
     (a prefill's, grown to the decode length), which it updates in place:
@@ -529,8 +547,9 @@ def decode_step(params, cache, token, pos, cfg, *, dot=None, gather=None,
     (logits (B,1,V), cache).
 
     The sharded serving steps' hooks (training/sharded_serve.py):
-    ``gather`` as in ``forward``, and ``place`` (``forward``'s layout):
-    ``cache`` is a rank's block of each slot's caches."""
+    ``gather`` and ``ranks`` as in ``forward``, and ``place``
+    (``forward``'s layout): ``cache`` is a rank's block of each slot's
+    caches."""
     x = embed_tokens(params, token, cfg, gather)
     pos = torch.as_tensor(pos, device=x.device)
     if cfg.family in ("ssm", "hybrid"):
@@ -561,7 +580,7 @@ def decode_step(params, cache, token, pos, cfg, *, dot=None, gather=None,
             x = _dense_block_decode(
                 _layer(params, j, g, gather), x,
                 _group(cache[f"sub{j}"], g), pos, kind, cfg, dot,
-                None if place is None else place[f"sub{j}"])
+                None if place is None else place[f"sub{j}"], ranks)
     x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
     return unembed(params, x, cfg, dot=dot, gather=gather), cache
 

@@ -38,12 +38,24 @@ def moment_block_for(shape, block: int) -> int:
     return block if last % block == 0 else last
 
 
-def quantize_moment(x: torch.Tensor, block: int) -> Dict[str, torch.Tensor]:
+def moment_scale(amax: torch.Tensor) -> torch.Tensor:
+    """A block's fp32 scale from its max |x|."""
+    return amax / 127.0 + 1e-12
+
+
+def quantize_moment(x: torch.Tensor, block: int, *,
+                    amax=None) -> Dict[str, torch.Tensor]:
+    """{"q": int8 codes of x's shape, "scale": one per block of the last
+    dim}. ``amax`` (..., blocks): each block's max |x| where it is known
+    to be larger than x's own (a sharded trainer's column slice of a
+    block that straddles ranks)."""
     xf = x.to(F32)
     shape = tuple(x.shape)
     b = moment_block_for(shape, block)
     g = xf.reshape(shape[:-1] + (shape[-1] // b, b))
-    scale = torch.amax(torch.abs(g), dim=-1, keepdim=True) / 127.0 + 1e-12
+    if amax is None:
+        amax = torch.amax(torch.abs(g), dim=-1)
+    scale = moment_scale(amax)[..., None]
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return {"q": q.reshape(shape), "scale": scale[..., 0]}
 
@@ -141,12 +153,16 @@ def _leaves(tree, quantized: bool):
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, ocfg, *, norm=global_norm):
+def adamw_update(grads, opt_state, ocfg, *, norm=global_norm,
+                 requantize=None):
     """One AdamW step. Returns (new bf16 params, opt_state updated in
     place, {"lr", "grad_norm"}) with fp32 0-dim tensor metrics. ``norm``
     gives the global norm of ``grads``: a sharded trainer's spans every
     rank's shards (training/sharded.py); the update itself is elementwise,
-    so it runs on shards as on whole tensors."""
+    so it runs on shards as on whole tensors. ``requantize(moment, x)``:
+    a quantized moment's new codes and scales from its fp32 value (a
+    sharded trainer's, whose blocks may straddle ranks), in place of
+    ``quantize_moment`` of x's own blocks."""
     count = opt_state["count"] + 1
     lr = cosine_lr(count, ocfg)
     b1, b2 = ocfg.b1, ocfg.b2
@@ -173,7 +189,8 @@ def adamw_update(grads, opt_state, ocfg, *, norm=global_norm):
         master.sub_(lr * (step + ocfg.weight_decay * master))
         if qm:
             for dst, src in ((m, mf), (v, vf)):
-                codes = quantize_moment(src, ocfg.moment_block)
+                codes = quantize_moment(src, ocfg.moment_block) \
+                    if requantize is None else requantize(dst, src)
                 dst["q"].copy_(codes["q"])
                 dst["scale"].copy_(codes["scale"])
         del g, mf, vf, step

@@ -72,18 +72,35 @@ def quantize_defs(defs, *, policy: Optional[Dict[str, int]] = None,
         bits = _bits_for(keystr(path), policy, default_bits)
         if bits is None or len(d.shape) < 2:
             return d
-        if d.axes and d.axes[0] == "layer":
-            scale = PDef((d.shape[0], 1), ("layer", "null"), "ones",
-                         dtype=F32)
-        else:
-            scale = PDef((1,), ("null",), "ones", dtype=F32)
-        if bits <= 4:
-            shape = d.shape[:-2] + (d.shape[-2] // 2, d.shape[-1])
-            return {"q4": PDef(shape, d.axes, "zeros", dtype=torch.int8),
-                    "scale": scale}
-        return {"q": PDef(d.shape, d.axes, "zeros", dtype=torch.int8),
-                "scale": scale}
+        return _stored_def(d, bits)
     return map_with_path(leaf, defs)
+
+
+def _stored_def(d: PDef, bits: int) -> dict:
+    """A weight's def stored at ``bits`` (``quantize_defs``' leaf)."""
+    if d.axes and d.axes[0] == "layer":
+        scale = PDef((d.shape[0], 1), ("layer", "null"), "ones", dtype=F32)
+    else:
+        scale = PDef((1,), ("null",), "ones", dtype=F32)
+    if bits <= 4:
+        shape = d.shape[:-2] + (d.shape[-2] // 2, d.shape[-1])
+        return {"q4": PDef(shape, d.axes, "zeros", dtype=torch.int8),
+                "scale": scale}
+    return {"q": PDef(d.shape, d.axes, "zeros", dtype=torch.int8),
+            "scale": scale}
+
+
+def stored_defs(defs, params):
+    """The defs of ``params``, a tree of the model's ``defs`` in which
+    ``quantize_params`` stored some weights: each such leaf
+    (``{"q" | "q4", "scale"}``) as ``quantize_defs`` makes it, at 8 or 4
+    bits; ``defs`` itself where nothing is stored."""
+    def walk(d, p):
+        if isinstance(d, PDef):
+            return _stored_def(d, 4 if "q4" in p else 8) \
+                if isinstance(p, dict) else d
+        return {k: walk(v, p[k]) for k, v in d.items()}
+    return walk(defs, params)
 
 
 def quantize_params(params, *, policy: Optional[Dict[str, int]] = None,

@@ -30,19 +30,25 @@ One process per rank, as in the sharded engine (serving/engine/sharded.py):
     (distributed/sharding.py::tp_dot) with their backward conjugates
     (``tp_dot``'s docstring): heads the model axis does not divide are
     computed whole on every rank; query heads it divides over kv heads it
-    does not take a slice of the whole ``wk``/``wv`` per rank.
+    does not take a slice of the whole ``wk``/``wv`` per rank. A ``dot``
+    hook (HAQ's fake quantization) runs inside ``tp_dot``'s sites, its
+    per-channel scale taken over the whole weight.
   * The batch: each rank takes its rows of the global batch (``make_ac``),
-    which must split over every FSDP axis of the mesh. The loss's sum
-    and token count are summed over ``data`` (and ``pod``) before the
-    division, so the loss is the global batch's mean. A leaf not split
-    over an FSDP axis has its gradient summed over that axis after the
-    backward.
+    which must split over every FSDP axis of the mesh; in microbatches,
+    its rows of each of the reference's global microbatches (``rows``).
+    The loss's sum and token count are summed over ``data`` (and
+    ``pod``) before the division, so the loss is the global batch's
+    mean. The moe layers route over the same ranks (models/moe.py's
+    ``ranks``): the capacity, the pairs' slots and the aux loss are the
+    global microbatch's. A leaf not split over an FSDP axis has its
+    gradient summed over that axis after the backward.
   * AdamW on the shards. The global norm is one sum of per-rank sums of
     squares; a leaf replicated over an axis is counted on one rank of it.
-    The update is elementwise. Quantized moments quantize the shard's
-    blocks, which are the whole tensor's blocks when the block divides
-    the shard's last dim (refused otherwise); the scales of blocks split
-    over ranks are gathered back after each update.
+    The update is elementwise. A quantized moment's scales rest whole
+    (the reference's spec replicates their block dim); where its last dim
+    splits over ranks, each block's max is taken over every rank's
+    columns of it, so the codes are the whole moment's even where a block
+    straddles ranks.
 
 Every sum over ranks is fp32 in group-rank order (distributed/sharding.py),
 so every rank computes the same loss, norm and clip scale. On a mesh of
@@ -56,6 +62,7 @@ live state between meshes the same way.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -64,7 +71,7 @@ from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.distributed import sharding as shlib
 from repro_torch.models.params import tree_leaves, tree_unflatten
 from repro_torch.optim.adamw import adamw_init, adamw_update, \
-    moment_block_for
+    moment_block_for, moment_scale, quantize_moment
 from repro_torch.training.steps import abstract_train_state, \
     run_train_step, train_state_logical_specs
 
@@ -75,29 +82,17 @@ POD = "pod"
 FSDP_AXES = (POD, DATA)          # the batch's and the FSDP dims' axes
 
 
-def validate_train_mesh(cfg, mesh, *, dot=None, what="training") -> None:
+def validate_train_mesh(cfg, mesh, *, what="training") -> None:
     """What the sharded trainer (and the sharded serving steps,
     ``what="serving"``: training/sharded_serve.py) needs from (cfg,
-    mesh): every family on any mesh but moe, which takes data = pod = 1;
-    the rest names its ROADMAP item."""
+    mesh): axes among pod, data and model, and a rank's query heads in
+    one kv head's group (``kv_span``). Every family on any such mesh."""
     sizes = shlib.axis_sizes(mesh)
     unknown = set(sizes) - {POD, DATA, MODEL}
     if unknown:
         raise ValueError(f"{what} mesh axes must be pod/data/model, got "
                          f"{sorted(sizes)}")
-    tp = sizes.get(MODEL, 1)
-    dp = sizes.get(DATA, 1) * sizes.get(POD, 1)
-    if cfg.family == "moe" and dp > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: moe {what} at data x pod={dp}: the expert "
-            f"capacity and the load-balance loss are functions of the local "
-            f"token count, the reference's of the global batch's (ROADMAP "
-            f"Queue 1, item 11e)")
-    if dot is not None and tp > 1:
-        raise NotImplementedError(
-            f"a dot hook (HAQ fake-quant) under model={tp}: its sites would "
-            f"see weight slices (ROADMAP Queue 1, item 11g)")
-    shlib.kv_span(cfg, tp, 0)       # a rank's query heads in one group
+    shlib.kv_span(cfg, sizes.get(MODEL, 1), 0)
 
 
 def _axes(entry):
@@ -184,13 +179,12 @@ class StateLayout:
 class ShardedTrainer(StateLayout):
     """The train step over ``ac``'s mesh (``make_ac``): state at rest per
     the layout, the global batch in, this rank's rows computed.
-    ``dot``: the HAQ hook, taken at ``model`` = 1 only (at ``model`` > 1
-    the tensor-parallel sites take the hook). ``kernel``: the flash
-    attention mode (kernels/ops.py; "ref" for meta tensors, which no
-    kernel takes)."""
+    ``dot``: the HAQ hook; at ``model`` > 1 the tensor-parallel sites
+    call it (``tp_dot``'s ``inner``). ``kernel``: the flash attention mode
+    (kernels/ops.py; "ref" for meta tensors, which no kernel takes)."""
 
     def __init__(self, model, tcfg, ac, *, dot=None, kernel="auto"):
-        validate_train_mesh(model.cfg, ac.mesh, dot=dot)
+        validate_train_mesh(model.cfg, ac.mesh)
         super().__init__(model, tcfg, ac.mesh)
         self.ac, self.kernel = ac, kernel
         self.fsdp = [a for a in FSDP_AXES if self.sizes.get(a, 1) > 1]
@@ -203,50 +197,72 @@ class ShardedTrainer(StateLayout):
                   + [e for e in p if e[1] == MODEL])
             for p in shlib.leaves_like(pa, plans)])
         tp = self.sizes.get(MODEL, 1)
-        self.dot = shlib.tp_dot(self.groups[MODEL], model.cfg) \
+        self.dot = shlib.tp_dot(self.groups[MODEL], model.cfg, inner=dot) \
             if tp > 1 else dot
+        self.ranks = shlib.BatchRanks([self.groups[a] for a in self.fsdp]) \
+            if self.fsdp else None
         # a leaf replicated over an axis counts in the norm on coordinate 0
         self._owned = [all(self.coords[a] == 0 for a in self.sizes
                            if a not in sum((_axes(e) for e in spec), ()))
                        for spec in self.param_specs]
-        self._scale_split = self._check_moment_blocks()
+        self._split = self._last_split()
         self.local_step = run_train_step(tcfg, self.grads, self.update)
 
-    # ---------------------------------------------------------- checks --
-    def _check_moment_blocks(self) -> list:
-        """For quantized moments: each leaf's block (``moment_block_for``
-        of the whole shape) must divide its shard's last dim, so that the
-        shard's codes are the whole tensor's. Returns each leaf's last-dim
-        split (None where whole or not quantized)."""
+    # ------------------------------------------------- quantized moments --
+    def _last_split(self) -> list:
+        """Each leaf's last-dim spec entry where its quantized moments
+        split it over ranks (None where whole or not quantized)."""
         if not self.tcfg.optim.quantized_moments:
             return [None] * len(self.param_specs)
-        out = []
-        pa = self.abstract["params"]
-        for path, a, spec in zip(shlib.leaf_paths(pa), tree_leaves(pa),
-                                 self.param_specs):
-            shape = tuple(a.shape)
-            b = moment_block_for(shape, self.tcfg.optim.moment_block)
-            local = shlib.local_shape(shape, spec, self.sizes)
-            if local and local[-1] % b:
-                raise ValueError(
-                    f"quantized moments: leaf {'/'.join(map(str, path))} "
-                    f"{shape} has blocks of {b} along its last dim, which "
-                    f"do not divide its shard's {local[-1]} on this mesh "
-                    f"({spec})")
-            out.append(spec[-1] if spec and local[-1] != shape[-1] else None)
-        return out
+        return [spec[-1] if spec and any(
+            self.sizes[a] > 1 for a in _axes(spec[-1])) else None
+            for spec in self.param_specs]
 
-    # --------------------------------------------------------- the state --
+    def _runs(self, i: int):
+        """(b, r, start, local): leaf ``i``'s moment block ``b``
+        (``moment_block_for`` of the whole shape) and this rank's ``local``
+        columns of its last dim from ``start``, in runs of ``r`` = gcd(b,
+        local) columns, each inside one block."""
+        shape = tuple(tree_leaves(self.abstract["params"])[i].shape)
+        b = moment_block_for(shape, self.tcfg.optim.moment_block)
+        local = shlib.local_shape(shape, self.param_specs[i],
+                                  self.sizes)[-1]
+        idx = 0
+        for a in _axes(self._split[i]):
+            idx = idx * self.sizes[a] + self.coords[a]
+        return b, math.gcd(b, local), idx * local, local
+
+    def _run_blocks(self, i: int) -> torch.Tensor:
+        """The block of each of this rank's runs of leaf ``i`` (``_runs``)."""
+        b, r, start, local = self._runs(i)
+        return (start + torch.arange(0, local, r, device=self.device)) // b
+
+    def _scale_view(self, i: int, scale: torch.Tensor) -> torch.Tensor:
+        """A scale at rest (every block) -> one a run of this rank's
+        columns: a view of its blocks where the runs are whole blocks, a
+        copy of one scale a run where blocks straddle ranks."""
+        b, r, start, local = self._runs(i)
+        if r == b:
+            return scale.narrow(-1, start // b, local // b)
+        return scale[..., self._run_blocks(i)]
+
     def init_state(self, generator: torch.Generator):
         """``init_train_state``'s state, split: the whole parameters drawn
         from ``generator`` (the same draws on every rank), each rank
         keeping its blocks before the optimizer state is made from them,
-        so no rank holds the whole optimizer state."""
+        so no rank holds the whole optimizer state. A quantized moment's
+        scales over blocks of a split last dim rest whole on every rank,
+        the zero moment's."""
         params = self.shard(self.model.init(generator, self.device),
                             self.specs["params"])
         opt = adamw_init(params, self.tcfg.optim)
         for i, mom in self._quantized(opt):
-            mom["scale"] = self._scale_at_rest(mom["scale"], i)
+            shape = tuple(tree_leaves(self.abstract["params"])[i].shape)
+            nb = shape[-1] // moment_block_for(shape,
+                                               self.tcfg.optim.moment_block)
+            mom["scale"] = moment_scale(torch.zeros(
+                tuple(mom["scale"].shape[:-1]) + (nb,), dtype=F32,
+                device=self.device))
         return {"params": params, "opt": opt}
 
     def _quantized(self, opt):
@@ -255,18 +271,27 @@ class ShardedTrainer(StateLayout):
         pa = self.abstract["params"]
         return [(i, mom) for name in ("m", "v")
                 for i, mom in enumerate(shlib.leaves_like(pa, opt[name]))
-                if self._scale_split[i] is not None]
+                if self._split[i] is not None]
 
-    def _scale_at_rest(self, cols: torch.Tensor, i: int) -> torch.Tensor:
-        """A scale over this rank's blocks of the last dim -> over all of
-        them, as it rests."""
-        spec = (None,) * (cols.dim() - 1) + (self._scale_split[i],)
-        return shlib.whole_from_block(cols, spec, self.groups)
-
-    def _own_cols(self, scale: torch.Tensor, i: int) -> torch.Tensor:
-        """The view of this rank's blocks in a scale at rest."""
-        spec = (None,) * (scale.dim() - 1) + (self._scale_split[i],)
-        return shlib.local_block(scale, spec, self.sizes, self.coords)
+    def _requantize(self, i: int, mom, src: torch.Tensor):
+        """``quantize_moment`` of the whole moment, on this rank's columns
+        ``src`` of leaf ``i``: each block's max |x| over its columns on
+        every rank of the last dim's axes (a block may straddle ranks),
+        written to the scales at rest; returns this rank's codes and its
+        runs' scales (``_runs``). Exact: a max, then the quantizer's own
+        arithmetic per element."""
+        _, r, _, local = self._runs(i)
+        blk = self._run_blocks(i)
+        lead = tuple(src.shape[:-1])
+        run_max = src.abs().reshape(lead + (local // r, r)).amax(-1)
+        amax = torch.zeros(lead + (mom["scale"].shape[-1],), dtype=F32,
+                           device=src.device).index_reduce_(
+            -1, blk, run_max, "amax")
+        for a in _axes(self._split[i]):
+            amax = shlib.all_gather_dim(amax.unsqueeze(0), 0,
+                                        self.groups[a]).amax(dim=0)
+        mom["scale"].copy_(moment_scale(amax))
+        return quantize_moment(src, r, amax=amax[..., blk])
 
     # ----------------------------------------------------------- the step --
     def step(self, state: Dict[str, Any], batch: Dict[str, Any]):
@@ -276,14 +301,21 @@ class ShardedTrainer(StateLayout):
 
     def rows(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """This rank's rows of the global batch, which must split over
-        every FSDP axis of the mesh."""
-        B = batch["tokens"].shape[0]
+        every FSDP axis of the mesh. In M microbatches, its rows of each
+        of the reference's microbatches (global rows [m B/M, (m+1) B/M)),
+        one after the other, so that ``run_train_step``'s microbatch m on
+        this rank is its block of the reference's."""
+        M = self.tcfg.microbatches
+        B = batch["tokens"].shape[0] // M
         split = _axes(self.ac.batch_axes(B))
         if any(a not in split for a in self.fsdp):
             raise ValueError(
-                f"a global batch of {B} rows does not split over "
+                f"a global {'microbatch' if M > 1 else 'batch'} of {B} rows "
+                f"does not split over "
                 f"{' x '.join(f'{a}={self.sizes[a]}' for a in self.fsdp)}")
-        return {k: self.ac(v, "batch") for k, v in batch.items()}
+        return {k: torch.cat([self.ac(part, "batch")
+                              for part in v.chunk(M)])
+                for k, v in batch.items()}
 
     def gather(self, tree, path):
         """The model's ``gather`` hook: the subtree at ``path`` whole on
@@ -304,14 +336,6 @@ class ShardedTrainer(StateLayout):
             run(x, p) for x, p in zip(tree_leaves(tree),
                                       shlib.leaves_like(tree, plans))])
 
-    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The loss's hook: ``x`` summed over the ranks of ``data``, then
-        of ``pod``."""
-        for ax in (DATA, POD):
-            if ax in self.groups:
-                x = shlib.sum_value(x, self.groups[ax])
-        return x
-
     def grads(self, params, batch):
         """(global mean loss, this rank's gradient blocks summed over
         ``data``, each in its leaf's dtype) on this rank's rows."""
@@ -320,8 +344,7 @@ class ShardedTrainer(StateLayout):
             p.requires_grad_(True)
         loss = self.model.loss(params, batch, remat=self.tcfg.remat,
                                dot=self.dot, kernel=self.kernel,
-                               gather=self.gather,
-                               data_sum=self.data_sum)
+                               gather=self.gather, ranks=self.ranks)
         grads = torch.autograd.grad(loss, leaves)
         for p in leaves:
             p.requires_grad_(False)
@@ -362,24 +385,36 @@ class ShardedTrainer(StateLayout):
 
     def update(self, grads, opt):
         """``adamw_update`` on the shards, under the global norm. A
-        quantized moment split along its last dim is updated through a
-        view of its own scale blocks, which are then gathered back."""
-        view = opt
+        quantized moment split along its last dim is read through its
+        runs' scales (``_scale_view``) and quantized over the whole
+        moment's blocks (``_requantize``)."""
+        view, requantize = opt, None
         quantized = self._quantized(opt)
         if quantized:
             pa = self.abstract["params"]
-            own = {id(mom): self._own_cols(mom["scale"], i)
-                   for i, mom in quantized}
+            split = {id(mom): i for i, mom in quantized}
+            views = {}
 
             def viewed(tree):
-                return tree_unflatten(pa, [
-                    {"q": mom["q"], "scale": own.get(id(mom), mom["scale"])}
-                    for mom in shlib.leaves_like(pa, tree)])
+                out = []
+                for mom in shlib.leaves_like(pa, tree):
+                    if id(mom) in split:
+                        i = split[id(mom)]
+                        v = {"q": mom["q"],
+                             "scale": self._scale_view(i, mom["scale"])}
+                        views[id(v)] = (i, mom)
+                        mom = v
+                    out.append(mom)
+                return tree_unflatten(pa, out)
             view = {"master": opt["master"], "m": viewed(opt["m"]),
                     "v": viewed(opt["v"]), "count": opt["count"]}
+
+            def requantize(dst, src):
+                if id(dst) in views:
+                    return self._requantize(*views[id(dst)], src)
+                return quantize_moment(src, self.tcfg.optim.moment_block)
         params, view, metrics = adamw_update(grads, view, self.tcfg.optim,
-                                             norm=self.global_norm)
+                                             norm=self.global_norm,
+                                             requantize=requantize)
         opt["count"] = view["count"]
-        for i, mom in quantized:
-            mom["scale"].copy_(self._scale_at_rest(own[id(mom)], i))
         return params, opt, metrics

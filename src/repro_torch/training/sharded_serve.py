@@ -7,10 +7,18 @@ per rank, as the sharded engine and trainer run.
   * Parameters at rest per ``specs_for(abstract_params, logical_specs)``,
     gathered one layer at a time by the sharded engine's ``gather`` hook
     (serving/engine/sharded.py::gather_at_use), the products through
-    ``tp_dot``, kv heads sliced per rank by ``kv_span`` included.
+    ``tp_dot``, kv heads sliced per rank by ``kv_span`` included. Stored
+    int8/int4 weights (serving/quant.py::quantize_params) rest per the
+    specs of ``quantize_defs``' tree, as the reference's dry-run places
+    them: the codes split as their weight, the per-tensor or per-layer
+    scales whole on every rank; ``dequant_dot`` runs inside ``tp_dot``'s
+    sites on a rank's slice of the codes. The layout is read from the
+    tree the steps are given (``param_layout``).
   * The batch: each rank takes its rows (``make_ac``'s ``batch`` kind);
     where no FSDP axis divides B (``long_500k``'s one row), every rank
-    takes all of it.
+    takes all of it. The moe layers route over the ranks the rows split
+    over (models/moe.py's ``ranks``), as the reference's one program
+    routes the global batch.
   * The dense cache at rest per ``specs_for(cache_specs(B, T),
     cache_axes)``: ``choose_spec`` gives the sequence the ``model`` axis
     where it divides T, and the kv heads ``model`` only where it does not
@@ -55,9 +63,11 @@ import torch
 from repro_torch.distributed import sharding as shlib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer
-from repro_torch.models.params import tree_leaves, tree_unflatten
+from repro_torch.models.params import (abstract_params, logical_specs,
+                                       tree_leaves, tree_unflatten)
 from repro_torch.models.transformer import sublayer_kinds
 from repro_torch.serving.engine.sharded import gather_at_use
+from repro_torch.serving.quant import stored_defs
 from repro_torch.training.sharded import MODEL, validate_train_mesh
 
 KV_AXES = ("layer", "batch", "cache_seq", "kv_heads", "head_dim")
@@ -101,52 +111,72 @@ def _ungroup(cfg, groups):
 class ShardedServeSteps:
     """The prefill and serve steps over ``ac``'s mesh (``make_ac``):
     parameters this rank's shards (``shard_params``), the global batch or
-    token in, this rank's rows computed. ``dot``: the HAQ hook, taken at
-    ``model`` = 1 only. ``kernel``: the flash attention mode
-    (kernels/ops.py; "blockwise" for the dry-run's meta tensors)."""
+    token in, this rank's rows computed. ``dot``: the HAQ hook
+    (``dequant_dot`` over stored weights, or a fake quantizer); at
+    ``model`` > 1 the tensor-parallel sites call it (``tp_dot``'s
+    ``inner``). ``kernel``: the flash attention mode (kernels/ops.py;
+    "blockwise" for the dry-run's meta tensors)."""
 
     def __init__(self, model, ac, *, dot=None, kernel: str = "auto"):
         cfg = model.cfg
         mesh = ac.mesh
-        validate_train_mesh(cfg, mesh, dot=dot, what="serving")
+        validate_train_mesh(cfg, mesh, what="serving")
         self.model, self.ac, self.kernel, self.mesh = model, ac, kernel, mesh
         self.sizes = shlib.axis_sizes(mesh)
         self.coords = shlib.mesh_coords(mesh)
         self.groups = {a: mesh.get_group(a) for a in self.sizes}
-        abstract, logical = model.abstract_params(), model.logical_specs()
-        self.param_specs = shlib.partition_specs(abstract, logical, mesh)
-        self.plans = shlib.gather_plans(abstract, logical, self.param_specs)
+        self._layouts: Dict = {}  # (specs, plans) by a tree's leaf paths
         tp = self.sizes.get(MODEL, 1)
         self.hook = dot          # held: serve_steps keys on its id
-        self.dot = shlib.tp_dot(self.groups[MODEL], cfg) if tp > 1 else dot
+        self.dot = shlib.tp_dot(self.groups[MODEL], cfg, inner=dot) \
+            if tp > 1 else dot
         self.placed = None       # (B, {group: T}) of the last placed cache
-        self._held: Dict = {}    # a tied embedding a step gathered
 
     # ------------------------------------------------------------ layout --
+    def param_layout(self, params):
+        """(full-rank specs, gather plans) of a parameter tree, whole or a
+        rank's shards, of the model's parameters with any weights stored
+        (serving/quant.py::stored_defs)."""
+        key = tuple(shlib.leaf_paths(params))
+        if key not in self._layouts:
+            defs = stored_defs(self.model.defs, params)
+            abstract, logical = abstract_params(defs), logical_specs(defs)
+            specs = shlib.partition_specs(abstract, logical, self.mesh)
+            self._layouts[key] = (specs, shlib.gather_plans(
+                abstract, logical, specs))
+        return self._layouts[key]
+
     def shard_params(self, params):
         """This rank's block of every whole parameter, in storage of its
         own."""
+        specs = self.param_layout(params)[0]
         return tree_unflatten(params, [
             shlib.local_block(x, s, self.sizes, self.coords).clone(
                 memory_format=torch.contiguous_format)
             for x, s in zip(tree_leaves(params),
-                            shlib.leaves_like(params, self.param_specs))])
+                            shlib.leaves_like(params, specs))])
 
-    def gather(self, tree, path):
-        """The model's ``gather`` hook: the subtree at ``path`` whole on
-        this rank (the sharded engine's, a layer at a time). A tied
-        embedding, read by the lookup and again by the unembedding, is
-        gathered once a step and held between."""
-        if path in self._held:
-            return self._held[path]
-        plans = self.plans
-        for key in path:
-            plans = plans[key]
-        out = gather_at_use(tree, plans, self.groups,
-                            shift=shlib.plan_shift(path))
-        if path == ("embed",) and self.model.cfg.tie_embeddings:
-            self._held[path] = out
-        return out
+    def gatherer(self, params):
+        """The model's ``gather`` hook for one step on ``params``: the
+        subtree at ``path`` whole on this rank (the sharded engine's, a
+        layer at a time), by ``params``' gather plans. A tied embedding,
+        read by the lookup and again by the unembedding, is gathered once
+        a step and held for the step."""
+        plans, held = self.param_layout(params)[1], {}
+        tied = self.model.cfg.tie_embeddings
+
+        def gather(tree, path):
+            if path in held:
+                return held[path]
+            sub = plans
+            for key in path:
+                sub = sub[key]
+            out = gather_at_use(tree, sub, self.groups,
+                                shift=shlib.plan_shift(path))
+            if path == ("embed",) and tied:
+                held[path] = out
+            return out
+        return gather
 
     def _mamba_specs(self, B: int):
         cfg = self.model.cfg
@@ -241,26 +271,24 @@ class ShardedServeSteps:
     def prefill(self, params, batch):
         """``prefill_step(params, global batch) -> (last-row logits of this
         rank's rows, this rank's cache blocks)``."""
+        B = batch["tokens"].shape[0]
         rows = {k: self.ac(v, "batch") for k, v in batch.items()}
-        place = self.placements(batch["tokens"].shape[0],
-                                self._prefill_lengths(batch))
-        try:
-            return self.model.prefill(params, rows, dot=self.dot,
-                                      kernel=self.kernel, gather=self.gather,
-                                      place=place)
-        finally:
-            self._held = {}
+        place = self.placements(B, self._prefill_lengths(batch))
+        return self.model.prefill(
+            params, rows, dot=self.dot, kernel=self.kernel,
+            gather=self.gatherer(params), place=place,
+            ranks=shlib.batch_ranks(self.ac, B, self.groups))
 
     def decode(self, params, cache, token, pos):
         """``serve_step(params, cache blocks, global token (B, 1), pos) ->
         (logits of this rank's rows, the blocks)``, written in place."""
+        B = token.shape[0]
         rows = self.ac(token, "batch")
-        try:
-            return self.model.decode_step(
-                params, cache, rows, pos, dot=self.dot, gather=self.gather,
-                place=self.layout(cache, token.shape[0]))
-        finally:
-            self._held = {}
+        place = self.layout(cache, B)
+        return self.model.decode_step(
+            params, cache, rows, pos, dot=self.dot,
+            gather=self.gatherer(params), place=place,
+            ranks=shlib.batch_ranks(self.ac, B, self.groups))
 
 
 # the steps made over each layout, by (id(model), id(dot), kernel); a

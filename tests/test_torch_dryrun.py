@@ -17,13 +17,20 @@ train pairs; their 18 serving pairs' parameters, and their caches for
 decode, from the dry-run's own ``build_step``; the 28 pairs of the ssm,
 hybrid, encoder-decoder and vision-stub families, train state or
 parameters and cache, from ``build_step``; each also against a table of
-GiB computed beforehand from the rules). The blockwise flash forward the dry-run counts: FLOPs
+GiB computed beforehand from the rules; the 12 pairs of the moe family,
+granite-moe-3b-a800m and llama4-maverick-400b-a17b, likewise). ``--quant``:
+``quant_policy_for`` equal to the reference's at its ``V5E_POD``; the
+average stored bits and the state of --quant cells (gemma2-2b's and
+llama4's decode_32k at haq, granite-moe's prefill_32k at w4) the
+reference's ``quantize_defs`` arithmetic, to the byte. The blockwise
+flash forward the dry-run counts: FLOPs
 equal to the dense plain version's, and a peak of about one 512-row
 block's scores, no (B, H, S, T) tensor. The CLI in a subprocess: a
 full-width gemma2-2b record with every key, its state bytes the
 reference's arithmetic; whisper's prefill cell and mamba2-370m's train
-cell recorded likewise; ``--quant`` refused naming item 11g; ``--all``
-counting refusals (moe at data > 1, item 11e) apart from failures.
+cell recorded likewise, and a --quant decode cell; ``--ac-mode seq_tp``
+refused naming item 11f; ``--all`` counting refusals apart from
+failures.
 """
 import json
 import math
@@ -267,14 +274,22 @@ def test_full_width_state_bytes_are_the_reference_arithmetic(arch,
         arch, sizes, tcfg.optim.quantized_moments)
 
 
-def _reference_serving_bytes(arch, shape_name, sizes):
+def _reference_serving_bytes(arch, shape_name, sizes, quant=None):
     """The reference's arithmetic for a serving cell (its dry-run's
     ``state_bytes``): the parameters, and for decode the cache, each
-    leaf's shard shape under choose_spec times its element size."""
+    leaf's shard shape under choose_spec times its element size.
+    ``quant``: (policy, default bits) of stored weights, the parameters
+    then ``quantize_defs``' tree."""
     from repro.configs import SHAPES
+    from repro.models import params as jparams
+    from repro.serving import quant as jsq
     jm = j_build(j_get(arch))
     shape = SHAPES[shape_name]
     trees = [(jm.abstract_params(), jm.logical_specs())]
+    if quant is not None:
+        defs = jsq.quantize_defs(jm.defs, policy=quant[0],
+                                 default_bits=quant[1])
+        trees = [(jparams.abstract_params(defs), jparams.logical_specs(defs))]
     if shape.kind == "decode":
         trees.append((jm.input_specs(shape)["cache"],
                       jm.batch_logical_specs(shape)["cache"]))
@@ -375,6 +390,111 @@ def test_family_state_bytes_are_the_reference_arithmetic(arch, shape_name,
     assert round(got / 2**30, 4) == FAMILY_GIB[(arch, shape_name)][multi]
 
 
+# the rules' arithmetic for the moe family (item 11e), GiB a device, as
+# FAMILY_GIB
+MOE_GIB = {
+    ("granite-moe-3b-a800m", "train_4k"): (0.3275, 0.1638),
+    ("granite-moe-3b-a800m", "prefill_32k"): (0.0470, 0.0235),
+    ("granite-moe-3b-a800m", "decode_32k"): (1.0470, 0.5235),
+    ("llama4-maverick-400b-a17b", "train_4k"): (13.4309, 6.9902),
+    ("llama4-maverick-400b-a17b", "prefill_32k"): (3.2014, 1.6007),
+    ("llama4-maverick-400b-a17b", "decode_32k"): (6.2014, 3.1007)}
+
+
+@pytest.mark.parametrize("mesh_kind", list(MESHES))
+@pytest.mark.parametrize("arch,shape_name", list(MOE_GIB),
+                         ids=[f"{a}-{s}" for a, s in MOE_GIB])
+def test_moe_state_bytes_are_the_reference_arithmetic(arch, shape_name,
+                                                      mesh_kind):
+    """The 12 (cell, mesh) pairs of the moe family (item 11e): the state
+    ``build_step`` holds a device equal to the reference's arithmetic to
+    the byte (the int8 moments of llama4's train state included), and
+    MOE_GIB to its four decimals."""
+    from repro_torch.configs import get_shape
+    multi = mesh_kind == "multi"
+    model = t_build(get_config(arch))
+    shape = get_shape(shape_name)
+    tcfg = dryrun.train_cfg_for(arch)
+    with dry_world(512 if multi else 256):
+        mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+        _, _, held, _ = dryrun.build_step(model, shape, mesh, tcfg)
+        got = sum(dryrun.sharded_bytes_per_device(a, s, mesh)
+                  for a, s in held)
+    want = _reference_state_bytes(arch, MESHES[mesh_kind],
+                                  tcfg.optim.quantized_moments) \
+        if shape.kind == "train" else \
+        _reference_serving_bytes(arch, shape_name, MESHES[mesh_kind])
+    assert got == want
+    assert round(got / 2**30, 4) == MOE_GIB[(arch, shape_name)][multi]
+
+
+# ---------------------------------------------------------------- --quant --
+def _reference_dryrun():
+    """The reference's dry-run module; its import sets XLA_FLAGS for the
+    device count of its own runs, which is put back."""
+    saved = os.environ.get("XLA_FLAGS")
+    import repro.launch.dryrun as rd
+    if saved is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = saved
+    return rd
+
+
+@pytest.mark.parametrize("mode", ["w8", "w4", "haq"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-moe-3b-a800m",
+                                  "llama4-maverick-400b-a17b",
+                                  "zamba2-1.2b", "whisper-large-v3"])
+def test_quant_policy_is_the_references_at_v5e_pod(arch, mode):
+    """``quant_policy_for`` with the hardware a parameter: at the
+    reference's V5E_POD, the reference's policy and default bits."""
+    from repro_torch.core.hardware_model import V5E_POD
+    rd = _reference_dryrun()
+    want = rd.quant_policy_for(j_get(arch), mode)
+    got = dryrun.quant_policy_for(get_config(arch), mode, hw=V5E_POD)
+    assert got == want
+    if mode == "haq":
+        assert min(got[0].values()) < 8      # the back-off bit somewhere
+
+
+QUANT_CELLS = [("gemma2-2b", "decode_32k", "haq"),
+               ("llama4-maverick-400b-a17b", "decode_32k", "haq"),
+               ("granite-moe-3b-a800m", "prefill_32k", "w4")]
+
+
+@pytest.mark.parametrize("mesh_kind", list(MESHES))
+@pytest.mark.parametrize("arch,shape_name,mode", QUANT_CELLS,
+                         ids=[f"{a}-{s}-{m}" for a, s, m in QUANT_CELLS])
+def test_quant_cells_are_the_reference_arithmetic(arch, shape_name, mode,
+                                                  mesh_kind, monkeypatch):
+    """A --quant cell's average stored bits and its state a device (the
+    stored tree's shards, and the cache for decode): ``build_step`` under
+    the policy at the reference's V5E_POD against the reference's
+    ``quantize_defs`` arithmetic under its own policy, to the byte."""
+    import functools
+    from repro.serving import quant as jsq
+    from repro_torch.configs import get_shape
+    from repro_torch.core.hardware_model import V5E_POD
+    multi = mesh_kind == "multi"
+    model = t_build(get_config(arch))
+    policy, bits = _reference_dryrun().quant_policy_for(j_get(arch), mode)
+    want_bits = jsq.avg_weight_bits(jsq.quantize_defs(
+        j_build(j_get(arch)).defs, policy=policy, default_bits=bits))
+    monkeypatch.setattr(dryrun, "quant_policy_for", functools.partial(
+        dryrun.quant_policy_for, hw=V5E_POD))
+    with dry_world(512 if multi else 256):
+        mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+        _, _, held, wb = dryrun.build_step(
+            model, get_shape(shape_name), mesh, dryrun.train_cfg_for(arch),
+            quant=mode)
+        got = sum(dryrun.sharded_bytes_per_device(a, s, mesh)
+                  for a, s in held)
+    assert wb == want_bits and 4 <= wb < 16
+    assert got == _reference_serving_bytes(arch, shape_name,
+                                           MESHES[mesh_kind],
+                                           quant=(policy, bits))
+
+
 # -------------------------------------------------------------- the meshes --
 def test_production_mesh_over_a_fake_world():
     """(data 16, model 16) and (pod 2, data 16, model 16): rank 0 at
@@ -405,7 +525,8 @@ def test_production_mesh_over_a_fake_world():
 # ------------------------------------------------------------------ CLI --
 KEYS = {"arch", "shape", "mesh", "chips", "params", "active_params",
         "trace_s", "memory", "live_bytes_per_device",
-        "state_bytes_per_device", "fits_hbm", "state_fits_hbm",
+        "state_bytes_per_device", "weight_bits", "fits_hbm",
+        "state_fits_hbm",
         "collectives_per_device", "dot_flops_per_device", "roofline"}
 ROOF_KEYS = {"flops_global", "bytes_global", "coll_bytes_global", "chips",
              "model_flops", "t_compute_s", "t_memory_s", "t_collective_s",
@@ -471,9 +592,9 @@ def test_cli_runs_the_families(arch, shape_name, tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (("--arch", "gemma2-2b", "--shape", "decode_32k", "--quant", "w8"),
-     "item 11g")],
-    ids=["quant"])
+    (("--arch", "gemma2-2b", "--shape", "decode_32k", "--ac-mode", "seq_tp"),
+     "item 11f")],
+    ids=["seq_tp"])
 def test_cli_refusals_name_their_item(args, item, tmp_path):
     r = _cli(*args, out_dir=tmp_path)
     assert r.returncode == 0, r.stderr[-4000:]
@@ -484,36 +605,60 @@ def test_cli_refusals_name_their_item(args, item, tmp_path):
 
 
 def test_cells_runs_the_listed_cells(capsys, tmp_path):
-    """--cells takes arch:shape pairs in place of --all."""
-    dryrun.main(["--cells", "granite-moe-3b-a800m:train_4k,"
+    """--cells takes arch:shape pairs in place of --all; the moe family at
+    data > 1 runs (item 11e)."""
+    dryrun.main(["--cells", "granite-moe-3b-a800m:decode_32k,"
                  "mamba2-370m:long_500k", "--out-dir", str(tmp_path)])
     out = capsys.readouterr().out
-    assert "1 cells ran, 1 refused, 0 failed" in out
-    assert [p.name for p in tmp_path.iterdir()] == [
+    assert "2 cells ran, 0 refused, 0 failed" in out
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "granite-moe-3b-a800m__decode_32k__single.json",
         "mamba2-370m__long_500k__single.json"]
+
+
+def test_cli_quant_serves_stored_weights(tmp_path):
+    """--quant haq on a decode cell and a train cell: the decode cell's
+    record carries the stored tree's state, below the bf16 cell's, and a
+    train cell ignores --quant, as the reference's does (item 11g)."""
+    r = _cli("--cells", "gemma2-2b:decode_32k,gemma2-2b:train_4k",
+             "--quant", "haq", "--tag", "_haq", out_dir=tmp_path)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert "2 cells ran, 0 refused, 0 failed" in r.stdout
+    rec = json.loads((tmp_path / "gemma2-2b__decode_32k__single_haq.json")
+                     .read_text())
+    assert set(rec) == KEYS and 4 <= rec["weight_bits"] < 16
+    bf16 = _reference_serving_bytes("gemma2-2b", "decode_32k",
+                                    MESHES["single"])
+    assert rec["state_bytes_per_device"] < bf16
+    train = json.loads((tmp_path / "gemma2-2b__train_4k__single_haq.json")
+                       .read_text())
+    assert train["weight_bits"] == 16.0
+    assert train["state_bytes_per_device"] == _reference_state_bytes(
+        "gemma2-2b", MESHES["single"], False)
 
 
 def test_all_counts_refusals_apart_from_failures(monkeypatch, capsys,
                                                  tmp_path):
     """--all prints each refused cell and exits 0; a cell that fails
-    otherwise makes it exit 1. --quant and --ac-mode seq_tp are refusals
-    naming items 11g and 11f."""
+    otherwise makes it exit 1. --ac-mode seq_tp is a refusal naming item
+    11f, of train and serving cells alike."""
     monkeypatch.setattr(dryrun, "assigned_cells", lambda: [
         ("llama4-maverick-400b-a17b", "decode_32k"),
         ("granite-moe-3b-a800m", "train_4k"),
         ("granite-moe-3b-a800m", "prefill_32k")])
-    dryrun.main(["--all", "--mesh", "both", "--out-dir", str(tmp_path)])
+    dryrun.main(["--all", "--mesh", "both", "--ac-mode", "seq_tp",
+                 "--out-dir", str(tmp_path)])
     out = capsys.readouterr().out
     refused = [x for x in out.splitlines() if x.startswith("[refused]")]
     assert len(refused) == 6
-    assert sum("item 11e" in x for x in refused) == 6
+    assert sum("item 11f" in x for x in refused) == 6
     assert "0 cells ran, 6 refused, 0 failed" in out
-    for flags, item in ((["--quant", "w8"], "item 11g"),
-                        (["--ac-mode", "seq_tp"], "item 11f")):
-        dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k",
-                     "--out-dir", str(tmp_path), *flags])
+    for shape in ("train_4k", "decode_32k"):
+        dryrun.main(["--arch", "gemma2-2b", "--shape", shape, "--quant",
+                     "w8", "--ac-mode", "seq_tp", "--out-dir",
+                     str(tmp_path)])
         out = capsys.readouterr().out
-        assert out.startswith("[refused]") and item in out
+        assert out.startswith("[refused]") and "item 11f" in out
     assert not list(tmp_path.iterdir())
 
     def broken(*a, **k):

@@ -121,16 +121,23 @@ def test_cache_split_over_data_is_refused_by_name():
         ssv.cache_spec(cfg, 1, 34, {"data": 2, "model": 4})
 
 
-@pytest.mark.parametrize("arch,sizes,dot,match", [
-    ("granite-moe-3b-a800m", dict(data=2, model=1), None, "item 11e"),
-    ("gemma2-2b", dict(data=1, model=2), "dot", "item 11g")],
+@pytest.mark.parametrize("arch,sizes,dot", [
+    ("granite-moe-3b-a800m", dict(data=2, model=1), None),
+    ("gemma2-2b", dict(data=1, model=2), "dot")],
     ids=["moe-data2", "dot"])
-def test_serving_steps_refuse_by_item(arch, sizes, dot, match):
+def test_serving_steps_take_moe_and_a_dot_hook(arch, sizes, dot):
+    """Items 11e and 11g: moe over data ranks, a dot hook under a model
+    split (tests/test_torch_moe_sharded.py and
+    tests/test_torch_quant_sharded.py run them); the hook runs inside
+    ``tp_dot``'s sites."""
+    from repro_torch.launch.mesh import _mesh, dry_world
     model = build_model(get_config(arch))
-    with pytest.raises((NotImplementedError, ValueError),
-                       match=f"sharded serving.*{match}|{match}"):
-        ssv.ShardedServeSteps(model, shlib.make_ac(sizes),
-                              dot=(lambda a, w, n: a @ w) if dot else None)
+    hook = (lambda a, w, n: a @ w) if dot else None
+    with dry_world(sizes["data"] * sizes["model"]):
+        steps = ssv.ShardedServeSteps(model, shlib.make_ac(
+            _mesh(sizes["data"], sizes["model"], "cpu", 60.0)), dot=hook)
+        assert steps.hook is hook
+        assert (steps.dot is hook) == (sizes["model"] == 1)
 
 
 @pytest.mark.parametrize("arch,data,tp", [

@@ -56,7 +56,8 @@ Tolerances, and why:
     softmax), so the scaling is what lets the steps be compared.
     chip_smoke.py's phase 18(b, c) holds full-width and tiny gemma2-2b
     on the card to these rules.
-  * int8 moments (``quant``): one step under the fp32 rules, its moment
+  * int8 moments (``quant``; ``quant256``, blocks of 256 that straddle
+    model=2's shards of d_ff): one step under the fp32 rules, its moment
     codes within one code on 99.9% of elements. Later steps would not
     compare elementwise: where one run's v code rounds to 0 and the
     other's to 1, the reference's quantizer moves that element by up to
@@ -302,13 +303,8 @@ def test_train_refuses_a_batch_it_cannot_split(B, ok):
         _check_layout(model, tcfg, shape, ac, (rules[0], other))
 
 
-REFUSALS = [("granite-moe-3b-a800m", dict(data=2, model=1), None,
-             "item 11e"),
-            ("gemma2-2b", dict(data=1, model=2), "dot", "item 11g"),
-            ("gemma2-2b", dict(expert=2, data=1), None, "pod/data/model"),
-            ("nemotron-4-15b", dict(data=1, model=3), None, "straddle"),
-            ("granite-moe-3b-a800m", dict(pod=2, model=2), None,
-             "item 11e")]
+REFUSALS = [("gemma2-2b", dict(expert=2, data=1), None, "pod/data/model"),
+            ("nemotron-4-15b", dict(data=1, model=3), None, "straddle")]
 ACCEPTED = [("gemma2-2b", dict(data=2, model=2), None),
             ("gemma2-2b", dict(data=16, model=4), None),
             # heads (8) and kv heads (4) replicated over model
@@ -326,7 +322,15 @@ ACCEPTED = [("gemma2-2b", dict(data=2, model=2), None),
             ("mamba2-370m", dict(data=2, model=1), None),
             ("zamba2-1.2b", dict(data=1, model=2), None),
             ("whisper-large-v3", dict(data=2, model=1), None),
-            ("llava-next-mistral-7b", dict(data=1, model=2), None)]
+            ("llava-next-mistral-7b", dict(data=1, model=2), None),
+            # item 11e: moe over data ranks (tests/test_torch_moe_sharded.py
+            # trains it); item 11g: a dot hook under a model split
+            # (tests/test_torch_quant_sharded.py)
+            ("granite-moe-3b-a800m", dict(data=2, model=1), None),
+            ("gemma2-2b", dict(data=1, model=2), "dot"),
+            ("granite-moe-3b-a800m", dict(pod=2, model=2), None),
+            ("llama4-maverick-400b-a17b", dict(pod=2, data=16, model=16),
+             "dot")]
 
 
 @pytest.mark.parametrize("arch,sizes,dot,match", REFUSALS,
@@ -335,14 +339,25 @@ ACCEPTED = [("gemma2-2b", dict(data=2, model=2), None),
                               for a, s, d, _ in REFUSALS])
 def test_validate_train_mesh_refuses(arch, sizes, dot, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):
-        tsh.validate_train_mesh(t_get(arch), sizes,
-                                dot=(lambda a, w, n: a @ w) if dot else None)
+        tsh.validate_train_mesh(t_get(arch), sizes)
 
 
 @pytest.mark.parametrize("arch,sizes,dot", ACCEPTED)
 def test_validate_train_mesh_accepts(arch, sizes, dot):
-    tsh.validate_train_mesh(t_get(arch), sizes,
-                            dot=(lambda a, w, n: a @ w) if dot else None)
+    """Every family and a ``dot`` hook on any mesh of pod, data and model
+    whose query heads a rank takes lie in one kv group; the trainer takes
+    the hook (``tp_dot``'s ``inner`` at model > 1)."""
+    tsh.validate_train_mesh(t_get(arch), sizes)
+    if dot and sizes.get("model", 1) > 1:
+        from repro_torch.launch.mesh import _mesh, dry_world
+        n = math.prod(sizes.values())
+        model = t_build(t_tiny(arch))
+        with dry_world(n):
+            mesh = _mesh(sizes.get("data", 1), sizes["model"], "cpu", 60.0,
+                         pod=sizes.get("pod", 1))
+            tr = tsh.ShardedTrainer(model, _tcfg(), shlib.make_ac(mesh),
+                                    dot=lambda a, w, n: a @ w)
+            assert tr.dot is not None
 
 
 # ------------------------------------------------------ runs on one device --
@@ -364,14 +379,14 @@ def _scaled_qk(params):
     return out
 
 
-def _ref_state(arch, quantized=False):
+def _ref_state(arch, quantized=False, block=128):
     """The reference's initial state (PRNGKey(0), wq and wk scaled, fp32)
-    as numpy, and its config."""
+    as numpy, and its config (int8 moments in blocks of ``block``)."""
     jm = j_build(j_tiny(arch))
     p = jax.tree.map(lambda a: a.astype(jnp.float32),
                      _scaled_qk(jm.init(jax.random.PRNGKey(0))))
     jo = JOptim(lr=LR, warmup_steps=1, total_steps=10,
-                quantized_moments=quantized)
+                quantized_moments=quantized, moment_block=block)
     return jax.tree.map(np.asarray, {"params": p,
                                      "opt": jadam.adamw_init(p, jo)}), jo
 
@@ -441,7 +456,7 @@ def _one_device(arch, case, microbatches=1, shape=SHAPE):
     steps, first = _run_steps(
         tsteps.make_train_step(model, tcfg), state, fp32,
         lambda k: tdp.batch_for_model(model, shape, None, k, full=True),
-        steps=1 if case == "quant" else STEPS)
+        steps=1 if case.startswith("quant") else STEPS)
     return {"grads": grads, "steps": steps, "moments": first}
 
 
@@ -450,8 +465,9 @@ def _case_setup(model, case):
     and "quant" from the reference's state, "bf16" from the port's
     initialisation."""
     arch = model.cfg.name[:-len("-tiny")]
-    quantized = case == "quant"
-    tcfg = _tcfg(quantized=quantized)
+    quantized = case.startswith("quant")
+    block = 256 if case == "quant256" else 128
+    tcfg = _tcfg(quantized=quantized, block=block)
     if case == "bf16":
         params = model.init(torch.Generator().manual_seed(0), "cpu")
         for sub in params["blocks"].values():
@@ -460,7 +476,7 @@ def _case_setup(model, case):
                     sub["attn"][n].dtype)
         return tcfg, {"params": params,
                       "opt": tadam.adamw_init(params, tcfg.optim)}, False
-    np_state, _ = _ref_state(arch, quantized)
+    np_state, _ = _ref_state(arch, quantized, block)
     return tcfg, from_jax_state(np_state), True
 
 
@@ -483,7 +499,7 @@ def _case(trainer_of, model, case, rank, shape=SHAPE):
     steps, first = _run_steps(
         tr.step, st, fp32,
         lambda k: tdp.batch_for_model(model, shape, None, k, full=True),
-        tr.host_state, steps=1 if case == "quant" else STEPS)
+        tr.host_state, steps=1 if case.startswith("quant") else STEPS)
     return {"grads": grads, "steps": steps if rank == 0 else None,
             "moments": first, "shapes_ok": shapes_ok, "bytes": rest,
             "data_split": [any("data" in (e if isinstance(e, tuple) else (e,))
@@ -616,18 +632,12 @@ def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE,
 
         def trainer_of(tcfg, model=model):
             return tsh.ShardedTrainer(model, tcfg, ac)
-        if case in ("fp32", "bf16", "quant"):
+        if case in ("fp32", "bf16", "quant", "quant256"):
             out[case] = _case(trainer_of, model, case, rank, shape)
         elif case == "moe":
             out[case] = _case(trainer_of, model, "fp32", rank)
         elif case in ("no_tp", "drop", "no_kv_sum", "no_kv_input"):
             out[case] = _control(trainer_of, model, case, rank, shape)
-        elif case == "quant_refused":
-            try:
-                trainer_of(_tcfg(quantized=True, block=256))
-                out[case] = None
-            except ValueError as e:
-                out[case] = str(e)
         elif case == "ckpt":
             out[case] = _ckpt_cases(mesh, model, ckpt_dir)
         elif case == "world1":
@@ -657,7 +667,7 @@ def world_data2(ckpt_root):
 def world_model2(ckpt_root, world_data2):
     return spawn(_world, 2, backend="gloo", timeout_s=WORLD_S,
                  args=(1, 2, ("fp32", "bf16", "moe", "quant", "no_tp",
-                              "quant_refused", "restore", "reshard"),
+                              "quant256", "restore", "reshard"),
                        ckpt_root))
 
 
@@ -707,7 +717,7 @@ def reference():
 @pytest.fixture(scope="module")
 def one_device():
     return {("gemma2-2b", c): _one_device("gemma2-2b", c)
-            for c in ("fp32", "bf16", "quant")} | {
+            for c in ("fp32", "bf16", "quant", "quant256")} | {
         ("granite-moe-3b-a800m", "fp32"): _one_device(
             "granite-moe-3b-a800m", "fp32"),
         ("gemma2-2b", "bf16", 2): _one_device("gemma2-2b", "bf16", 2)}
@@ -813,26 +823,66 @@ def test_moe_at_model2_matches_reference(world_model2, reference,
 
 
 def test_quantized_moments_at_model2(world_model2, one_device):
-    """int8 moments at model=2 (d_ff's blocks of 128 divide its shard of
-    128): the first step under the fp32 rules and its codes within one of
-    the one-device port's, the scales within 1e-5; blocks of 256 would not
-    divide the shard and are refused, naming the leaf."""
-    got, want = world_model2[0]["quant"], one_device["gemma2-2b", "quant"]
-    _check_fp32(got, want, steps=1)
-    n = len(got["moments"])
-    assert n == len(want["moments"]) == 4 * len(tree_leaves(
-        t_build(t_tiny("gemma2-2b")).abstract_params()))
-    codes = np.concatenate([
-        np.abs(a.astype(np.int32) - b.astype(np.int32)).ravel()
-        for a, b in zip(got["moments"], want["moments"])
-        if a.dtype == np.int8])
-    assert codes.max() <= 1 and np.mean(codes > 0) <= 1e-3
-    for a, b in zip(got["moments"], want["moments"]):
-        if a.dtype != np.int8:
-            np.testing.assert_allclose(a, b, rtol=1e-5)
-    for r in world_model2:
-        msg = r["quant_refused"]
-        assert msg is not None and "ffn/w_gate" in msg and "256" in msg
+    """int8 moments at model=2: the first step under the fp32 rules and
+    its codes within one of the one-device port's, the scales within
+    1e-5. d_ff's blocks of 128 divide its shard of 128; blocks of 256
+    straddle the two ranks' shards, each block's max taken over both."""
+    for case in ("quant", "quant256"):
+        got, want = world_model2[0][case], one_device["gemma2-2b", case]
+        _check_fp32(got, want, steps=1)
+        n = len(got["moments"])
+        assert n == len(want["moments"]) == 4 * len(tree_leaves(
+            t_build(t_tiny("gemma2-2b")).abstract_params()))
+        codes = np.concatenate([
+            np.abs(a.astype(np.int32) - b.astype(np.int32)).ravel()
+            for a, b in zip(got["moments"], want["moments"])
+            if a.dtype == np.int8])
+        assert codes.max() <= 1 and np.mean(codes > 0) <= 1e-3, case
+        for a, b in zip(got["moments"], want["moments"]):
+            if a.dtype != np.int8:
+                np.testing.assert_allclose(a, b, rtol=1e-5)
+
+
+@pytest.mark.parametrize("block", [128, 256])
+def test_moment_scale_views_at_model2(block):
+    """The update reads a split int8 moment through one scale a run of
+    gcd(block, columns) columns: a view of the scales at rest where the
+    runs are whole blocks (no bytes of its own), one scale a run where
+    blocks straddle the ranks; dequantized, the moment is the one a scale
+    a column gives. ``quantize_moment`` given its own blocks' max is
+    itself, bit for bit."""
+    from repro_torch.launch.mesh import _mesh, dry_world
+    model = t_build(t_tiny("gemma2-2b"))
+    g = np.random.default_rng(7)
+    with dry_world(2):
+        tr = tsh.ShardedTrainer(
+            model, _tcfg(quantized=True, block=block),
+            shlib.make_ac(_mesh(1, 2, "cpu", 60.0)))
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        split = tr._quantized(state["opt"])
+        assert split
+        runs = set()
+        for i, mom in split:
+            b, r, start, local = tr._runs(i)
+            runs.add(r == b)
+            mom["scale"].copy_(torch.from_numpy(
+                g.random(tuple(mom["scale"].shape), dtype=np.float32)))
+            view = tr._scale_view(i, mom["scale"])
+            assert view.shape[-1] == local // r
+            if r == b:
+                assert view.data_ptr() == mom["scale"].data_ptr() \
+                    + start // b * view.element_size()
+            cols = (start + torch.arange(local)) // b
+            q = torch.from_numpy(g.integers(
+                -127, 128, tuple(mom["q"].shape), dtype=np.int8))
+            assert torch.equal(
+                tadam.dequantize_moment({"q": q, "scale": view}, q.shape),
+                q.float() * mom["scale"][..., cols])
+        assert runs == {block == 128}     # 128 columns a rank
+    x = torch.from_numpy(g.standard_normal((3, 512), dtype=np.float32))
+    own = x.abs().reshape(3, 512 // block, block).amax(-1)
+    for k, v in tadam.quantize_moment(x, block, amax=own).items():
+        assert torch.equal(v, tadam.quantize_moment(x, block)[k])
 
 
 def test_data3_unsplit_leaves_match_reference(world_data3, at_shape3):
