@@ -224,6 +224,11 @@ Phases, each fatal on failure:
                 through ``train(mesh=)``, which restores a whole
                 checkpoint of the initial state, slicing it on each
                 rank, and writes its own whole (checked bit for bit);
+                then, in the same worlds, ``make_ac(mesh, "seq_tp")``
+                beside dp from one state: whether the first loss and
+                every gradient leaf but the norm scales are the same
+                bits (printed), the norm scales' largest relative
+                difference, 2 steps of each under the same rules;
                 (d) (b)'s state
                 resharded onto one rank (``reshard_state``), its masters
                 equal to (b)'s, and one step there bit-identical to the
@@ -248,7 +253,10 @@ Phases, each fatal on failure:
                 llama4-maverick-400b-a17b's decode_32k with --quant w4
                 and with --quant haq; each cell's line printed, any
                 refusal or failure fatal: 23 cells run (7 train, 16
-                prefill and decode), then 2 and 2;
+                prefill and decode), then 2 and 2, then gemma2-2b's
+                train_4k and prefill_32k with --ac-mode seq_tp, each
+                printed beside its dp record (live peak, collective
+                bytes, the three terms);
  20. mesh-serve — the sharded prefill and serve steps
                 (training/sharded_serve.py): (a) an NCCL world of 1,
                 full-width gemma2-2b, ``make_prefill_step(ac=)`` over B 2
@@ -270,6 +278,10 @@ Phases, each fatal on failure:
                 the world of 2: the same winner on both ranks, its record
                 served by ``--serving-config``, and a mesh_model=2
                 candidate measured alike on both (``measure_candidate``);
+                in (b)'s world, ``make_ac(mesh, "seq_tp")`` beside dp:
+                the prefill over B 2 x 4096 bit-identical to dp's (logits
+                and each rank's blocks), one train step of the same cut
+                against dp's under phase 18's rules, each rank's peaks;
                 (a) and (c) run beside (b)'s world;
  21. mesh-families — the ssm, hybrid, encoder-decoder and vision-stub
                 families split over a mesh (training/sharded.py,
@@ -294,9 +306,17 @@ Phases, each fatal on failure:
                 cache half the whole's; 2 train steps under phase 18's
                 loss and grad-norm rules against the one-device run in as
                 many microbatches as the mesh has data ranks; each rank's
-                peak and seconds a step (host-staged, not a speed); (a)
-                starts before phase 17 and runs beside its worlds, (b)
-                starts after phase 18 and runs beside phases 19 and 20;
+                peak and seconds a step (host-staged, not a speed);
+                zamba2's decode at model=2 printed beside the control of
+                a bf16 ulp on a tenth of the one-device attention
+                outputs; (c) tiny gemma2-2b in a gloo world of 6 at
+                data=3 x model=2, B 1: the global layer's 9-slot cache
+                split on its slots over data and its kv heads over model,
+                the prefill's logits and blocks bit-identical to one
+                device's, 4 decode steps over 15 slots under LOGIT_RTOL;
+                (a) starts before phase 17 and runs beside its worlds, (b)
+                starts after phase 18 and runs beside phases 19 and 20,
+                (c) beside (b) after phase 20;
  22. moe-quant — the moe family over data ranks (models/moe.py's
                 ``ranks``: the reference's global capacity, slots and
                 aux loss) and stored and fake-quantized weights under a
@@ -323,7 +343,9 @@ Phases, each fatal on failure:
                 call's columns and of its plain version on the slice
                 (with both K-split plans printed), logits
                 of the prefill and 2 steps under LOGIT_RTOL and greedy
-                tokens equal where the margin allows; one HAQ fake-quant
+                tokens equal where the margin allows, printed beside the
+                one-device control of a bf16 ulp on a tenth of the
+                attention outputs; one HAQ fake-quant
                 training step (the per-channel scales over the whole
                 weight, ``group_amax``) under phase 18's rules against
                 one device; (a) starts once phase 21's world of 1 has
@@ -4214,6 +4236,12 @@ MT_WORLD_S = 900.0
 # saturated softmax
 MT_LOSS_RTOL, MT_NORM_RTOL, MT_FIRST_FRAC = 2.0 ** -10, 2.0 ** -7, 0.05
 MT_TINY_QK = 0.125
+# (c)'s make_ac(mesh, "seq_tp") run beside a dp run from the same state,
+# and phase 20(b)'s; the norm scales are the one gradient seq_tp sums in
+# another order (each rank's rows' share, summed over model in fp32)
+MT_SEQ_STEPS = 2
+NORM_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "ln_x", "mamba_ln",
+             "final_norm", "enc_norm")
 
 
 def mt_tcfg(ckpt_dir, every=0):
@@ -4543,12 +4571,14 @@ def mt_rank_two(rank, world, device, ckpt_dir):
         del whole
     gc.collect()
     torch.cuda.empty_cache()
-    # (c) at model=2
+    # (c) at model=2, dp and then seq_tp beside dp
     t_c = time.perf_counter()
-    res["c"] = mt_tiny(make_serving_mesh(model=2, data=1,
-                                         device_type="cuda"),
-                       f"{ckpt_dir}/c2")
+    mesh_c = make_serving_mesh(model=2, data=1, device_type="cuda")
+    res["c"] = mt_tiny(mesh_c, f"{ckpt_dir}/c2")
     res["c_s"] = time.perf_counter() - t_c
+    t_c = time.perf_counter()
+    res["c_seq"] = mt_seq_tp(mesh_c)
+    res["c_seq_s"] = time.perf_counter() - t_c
     return res
 
 
@@ -4558,10 +4588,50 @@ def mt_rank_four(rank, world, device, ckpt_dir):
     from repro_torch.launch.mesh import make_serving_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"c": mt_tiny(make_serving_mesh(model=2, data=2,
-                                           device_type="cuda",
-                                           backend="gloo"),
-                         f"{ckpt_dir}/c4")}
+    mesh = make_serving_mesh(model=2, data=2, device_type="cuda",
+                             backend="gloo")
+    return {"c": mt_tiny(mesh, f"{ckpt_dir}/c4"), "c_seq": mt_seq_tp(mesh)}
+
+
+def mt_seq_tp(mesh):
+    """Phase 18(c)'s seq_tp run beside dp on ``mesh``: tiny gemma2-2b
+    (wq, wk times MT_TINY_QK, S = MT_TINY_S) from seed 0 through
+    ``make_ac(mesh, "seq_tp")`` and through dp: the first loss, how many
+    gradient leaves other than the norm scales are the same bits on this
+    rank, the norm scales' largest difference over their whole leaf's max
+    |g|; then MT_SEQ_STEPS steps of each (``mt_sharded_steps``: whole
+    masters on rank 0)."""
+    import torch
+    from repro_torch.configs import ShapeConfig, tiny_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.distributed.sharding import leaf_paths, make_ac
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.sharded import ShardedTrainer
+    model = build_model(tiny_config("gemma2-2b"))
+    shape = ShapeConfig("t", MT_TINY_S, MT_TINY_B, "train")
+    b0 = dp.batch_for_model(model, shape, None, 0, "cuda", full=True)
+    runs = {}
+    for mode in ("dp", "seq_tp"):
+        tr = ShardedTrainer(model, mt_tcfg(""), make_ac(mesh, mode))
+        state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+        scale_qk_state(state, MT_TINY_QK)
+        loss, g = tr.grads(state["params"], tr.rows(b0))
+        _, steps = mt_sharded_steps(tr, state, model, shape, MT_SEQ_STEPS,
+                                    sample=False)
+        runs[mode] = (float(loss), tree_leaves(g), steps)
+    norms = [p[-1] in NORM_KEYS for p in leaf_paths(model.abstract_params())]
+    (l_dp, g_dp, s_dp), (l_seq, g_seq, s_seq) = runs["dp"], runs["seq_tp"]
+    same = [torch.equal(a, b) for a, b, n in zip(g_dp, g_seq, norms)
+            if not n]
+    rel = 0.0
+    for a, b, n, spec in zip(g_dp, g_seq, norms, tr.param_specs):
+        if n:
+            a, b = tr.whole(a, spec).float(), tr.whole(b, spec).float()
+            rel = max(rel, float((a - b).abs().max() / a.abs().max()))
+    return {"loss_same": l_dp == l_seq, "same": sum(same),
+            "leaves": len(same), "norms": sum(norms), "norm_rel": rel,
+            "dp": s_dp, "seq_tp": s_seq}
 
 
 def mt_tiny(mesh, ckpt_dir):
@@ -4791,6 +4861,30 @@ def phase_train_mesh(phase12_step_s):
               f"whole, equal to the state bit for bit; then "
               f"{MT_TINY_STEPS - 1} steps through the trainer: {line}",
               flush=True)
+        # seq_tp beside dp, from the same state in the same world
+        q = [r["c_seq"] for r in ranks]
+        for i, r in enumerate(q):
+            for s in r["dp"] + r["seq_tp"]:
+                if s["flash"] != tiny.cfg.num_layers * 2:
+                    fail(f"mesh-train[c {label} seq_tp]: rank {i}: "
+                         f"{s['flash']} flash launches a step")
+                flash += s["flash"]
+        got, want = ([(s["met"], s["masters"]) for s in q[0][m]]
+                     for m in ("seq_tp", "dp"))
+        line = hold_steps(f"mesh-train[c {label} seq_tp]", got, want,
+                          [m["lr"] for m, _ in want])
+        print(f"mesh-train[c {label} seq_tp, tiny gemma2-2b B={MT_TINY_B} "
+              f"S={MT_TINY_S}]: make_ac(mesh, 'seq_tp') against dp from the "
+              f"same state: first loss bit-identical "
+              f"{[r['loss_same'] for r in q]} (rank by rank); gradient "
+              f"leaves other than the {q[0]['norms']} norm scales "
+              f"bit-identical {[r['same'] for r in q]} of {q[0]['leaves']}; "
+              f"the norm scales' largest difference "
+              f"{max(r['norm_rel'] for r in q):.3g} of a leaf's max |g|; "
+              f"{MT_SEQ_STEPS} steps against dp's under the bf16 rules: "
+              f"{line}", flush=True)
+    print(f"mesh-train: (c)'s seq_tp runs {two[0]['c_seq_s']:.1f} s in the "
+          f"world of 2", flush=True)
     return flash, [r["rest_bytes"] for r in b]
 
 
@@ -4810,6 +4904,8 @@ DRY_RAN = 23
 DRY_QUANT = ("w4", "haq")
 DRY_QUANT_CELLS = (("gemma2-2b", "decode_32k"),
                    ("llama4-maverick-400b-a17b", "decode_32k"))
+# and these two under --ac-mode seq_tp, each printed beside its dp record
+DRY_SEQ_TP_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"))
 H100_BF16_FLOPS = 989e12
 
 
@@ -4841,7 +4937,9 @@ class DrySweep:
                self.dir.name, "--cells"]
         cmds = [run + [",".join(f"{a}:{s}" for a, s in dry_cells())]] + [
             run + [",".join(f"{a}:{s}" for a, s in DRY_QUANT_CELLS),
-                   "--quant", q, "--tag", f"_{q}"] for q in DRY_QUANT]
+                   "--quant", q, "--tag", f"_{q}"] for q in DRY_QUANT] + [
+            run + [",".join(f"{a}:{s}" for a, s in DRY_SEQ_TP_CELLS),
+                   "--ac-mode", "seq_tp"]]
         self.proc = subprocess.Popen(
             ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in cmds)],
             cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
@@ -4917,6 +5015,12 @@ def phase_dryrun_sweep(sweep: DrySweep) -> None:
     """Phase 19(c): ``sweep``'s cells, each run, none refused (the module
     docstring)."""
     rc, out, secs = sweep.result()
+    pairs = {}
+    for a, sh in DRY_SEQ_TP_CELLS:
+        paths = [Path(sweep.dir.name) / f"{a}__{sh}__single{t}.json"
+                 for t in ("", "_seq_tp")]
+        if all(p.exists() for p in paths):
+            pairs[(a, sh)] = [json.loads(p.read_text()) for p in paths]
     sweep.stop()
     for line in out.splitlines():
         if line.startswith(("[ok", "[FAIL]", "[refused]")) \
@@ -4932,12 +5036,32 @@ def phase_dryrun_sweep(sweep: DrySweep) -> None:
         fail(f"dryrun[c]: the sweep exited {rc}:\n{out[-4000:]}")
     want = [f"{DRY_RAN} cells ran, 0 refused, 0 failed"] + [
         f"{len(DRY_QUANT_CELLS)} cells ran, 0 refused, 0 failed"] \
-        * len(DRY_QUANT)
+        * len(DRY_QUANT) + [
+        f"{len(DRY_SEQ_TP_CELLS)} cells ran, 0 refused, 0 failed"]
     got = [line.split(" in ")[0] for line in out.splitlines()
            if line[:1].isdigit() and " cells ran, " in line]
     if got != want:
         fail(f"dryrun[c]: want {want} (7 train, 16 serving; then the "
-             f"--quant cells), got {got}:\n{out[-4000:]}")
+             f"--quant and the seq_tp cells), got {got}:\n{out[-4000:]}")
+
+    def coll(rec):
+        return sum(v for k, v in rec["collectives_per_device"].items()
+                   if k != "coll_count") / 1e9
+    for (a, sh), (dp, seq) in pairs.items():
+        r0, r1 = dp["roofline"], seq["roofline"]
+        print(f"dryrun[c {a} {sh} 16 x 16] dp / seq_tp: live "
+              f"{dp['live_bytes_per_device'] / 2**30:.2f} / "
+              f"{seq['live_bytes_per_device'] / 2**30:.2f} GiB, collective "
+              f"{coll(dp):.2f} / {coll(seq):.2f} GB (all-gather "
+              f"{dp['collectives_per_device'].get('all-gather', 0) / 1e9:.2f}"
+              f" / {seq['collectives_per_device'].get('all-gather', 0) / 1e9:.2f}"
+              f"), t_collective {r0['t_collective_s']:.4f} / "
+              f"{r1['t_collective_s']:.4f} s, t_compute "
+              f"{r0['t_compute_s']:.4f} / {r1['t_compute_s']:.4f} s, "
+              f"{r0['bottleneck']} / {r1['bottleneck']}-bound", flush=True)
+    if len(pairs) != len(DRY_SEQ_TP_CELLS):
+        fail(f"dryrun[c]: the seq_tp cells' records beside dp's: "
+             f"{sorted(pairs)}")
 
 
 # ------------------------------------- phase 20: serving over a mesh ----
@@ -5129,6 +5253,9 @@ def ms_rank_two(rank, world, device, prompt, feed, config_path):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    res["seq_tp"] = ms_seq_tp(mesh, model, prompt)
+    res["seq_tp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     for key, argv in (("tune", MS_AUTOTUNE + ["--autotune-out",
                                               config_path]),
                       ("load", ["--arch", "gemma2-2b", "--tiny",
@@ -5143,6 +5270,61 @@ def ms_rank_two(rank, world, device, prompt, feed, config_path):
     res["mesh2"] = ms_mesh_candidate()
     res["d_s"] = time.perf_counter() - t0
     return res
+
+
+def ms_seq_tp(mesh, model, prompt):
+    """Phase 20(b)'s seq_tp runs on ``model`` (gemma2-2b cut to MS_LAYERS
+    layers) over ``mesh`` (model=2): the prefill over ``prompt`` through
+    ``make_ac(mesh, "seq_tp")`` and through dp from the same shards (its
+    logits, each cache block's digest, flash launches, peak), then one
+    train step of each from seed 0 (wq, wk times QK_SCALE) at B MS_B x S
+    MS_S (``mt_sharded_steps``: metrics, master samples, flash launches)
+    and this rank's peak over it."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.training import steps as st
+    from repro_torch.training.sharded import ShardedTrainer
+    from repro_torch.training.sharded_serve import cache_groups, serve_steps
+    out = {}
+    params = ms_params(model, QK_SCALE)
+    for mode in ("dp", "seq_tp"):
+        ac = make_ac(mesh, mode)
+        local = serve_steps(model, ac).shard_params(params)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        logits, blocks = st.make_prefill_step(model, ac=ac)(
+            local, {"tokens": prompt.cuda()})
+        torch.cuda.synchronize()
+        out[("prefill", mode)] = {
+            "logits": logits.float().cpu(),
+            "digests": {j: {k: leaf_digest(x) for k, x in c.items()}
+                        for j, c in cache_groups(model.cfg, blocks).items()},
+            "flash": all_launches()["flash_attention_fwd"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del local, blocks, logits
+    del params
+    shape = ShapeConfig("train", MS_S, MS_B, "train")
+    for mode in ("dp", "seq_tp"):
+        tr = ShardedTrainer(model, mt_tcfg(""), make_ac(mesh, mode))
+        state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+        scale_qk_state(state, QK_SCALE)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, steps = mt_sharded_steps(tr, state, model, shape, 1,
+                                        sample=True)
+        out[("train", mode)] = {
+            "steps": steps, "peak_gb": torch.cuda.max_memory_allocated()
+            / 1e9}
+        del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def ms_mesh_candidate():
@@ -5370,6 +5552,44 @@ def phase_mesh_serve():
           f"{worst:.3g} of max |logit| (tolerance {LOGIT_RTOL}); greedy "
           f"tokens equal where the margin allows; the world {two_s:.1f} s "
           f"with (d) ({two[0]['b_s']:.1f} s for (b))", flush=True)
+    # (b) under make_ac(mesh, "seq_tp"), beside dp in the same world
+    label = "mesh-serve[b gloo model=2 seq_tp]"
+    for i, r in enumerate(two):
+        pd, ps = (r["seq_tp"][("prefill", m)] for m in ("dp", "seq_tp"))
+        if not (torch.equal(pd["logits"], ps["logits"])
+                and pd["digests"] == ps["digests"]):
+            fail(f"{label}: rank {i}'s seq_tp prefill logits or cache "
+                 f"blocks differ from the dp prefill's")
+        for run in (pd, ps):
+            if run["flash"] != MS_LAYERS:
+                fail(f"{label}: rank {i}: {run['flash']} flash launches in "
+                     f"a prefill")
+            flash += run["flash"]
+        for m in ("dp", "seq_tp"):
+            for s in r["seq_tp"][("train", m)]["steps"]:
+                if s["flash"] != 2 * MS_LAYERS:
+                    fail(f"{label}: rank {i}: {s['flash']} flash launches "
+                         f"in a {m} train step")
+                flash += s["flash"]
+    got, want = ([(s["met"], merge_samples(
+        [r["seq_tp"][("train", m)]["steps"][k]["masters"] for r in two]))
+        for k, s in enumerate(two[0]["seq_tp"][("train", m)]["steps"])]
+        for m in ("seq_tp", "dp"))
+    line = hold_steps(f"{label} train", got, want,
+                      [m["lr"] for m, _ in want])
+    peaks = "; ".join(
+        f"rank {i}: prefill {r['seq_tp'][('prefill', 'seq_tp')]['peak_gb']:.3f}"
+        f" GB (dp {r['seq_tp'][('prefill', 'dp')]['peak_gb']:.3f}), train "
+        f"step {r['seq_tp'][('train', 'seq_tp')]['peak_gb']:.3f} GB (dp "
+        f"{r['seq_tp'][('train', 'dp')]['peak_gb']:.3f})"
+        for i, r in enumerate(two))
+    print(f"{label}: the prefill over B={MS_B} x {MS_S} bit-identical to "
+          f"the dp prefill on both ranks (logits and every cache block); "
+          f"one train step against dp's from the same state under phase "
+          f"18's rules: {line}; peaks {peaks} (the remat checkpoint of the "
+          f"one group saves {MS_B * MS_S * 2304 * 2 / 2 / 1e6:.1f} MB less "
+          f"a rank); {two[0]['seq_tp_s']:.1f} s in all ({card})",
+          flush=True)
     # (c)
     for (data, tp) in ((2, 2), (1, 4)):
         label = f"mesh-serve[c gloo data={data} x model={tp}]"
@@ -5649,6 +5869,11 @@ def mf_references(inputs):
             want_s[arch][r] = ms_unsharded(
                 model, params, mf_rows(batch, slice(r, r + 1)),
                 feed[r:r + 1], first)
+        if arch == "zamba2-1.2b":        # the model's own sensitivity
+            with perturbed_attend():
+                want_s[arch]["ulp"] = logit_gap(ms_unsharded(
+                    model, params, mf_rows(batch, slice(None)), feed,
+                    first), want_s[arch][None])
         del params
         cfg = model.cfg
         rows = [W_FRAMES, W_PROMPT] if cfg.is_encdec else [first]
@@ -5662,6 +5887,66 @@ def mf_references(inputs):
         gc.collect()
         torch.cuda.empty_cache()
     return want_s, want_t, exact
+
+
+# (c), ROADMAP item 11i: tiny gemma2-2b (wq, wk times 1/8) at data=3 x
+# model=2 (a gloo world of 6 on this card) with B = 1, so that the batch
+# takes no axis: its global layer's cache of CI_S slots (a length 2 does
+# not divide and 3 does) splits on its slots over data and its kv heads
+# over model, (None, None, 'data', 'model'); CI_STEPS decode steps over
+# the caches grown to CI_T slots (split alike), beside (b)'s world
+CI_S, CI_T, CI_STEPS = 9, 15, 4
+
+
+def ci_rank_six(rank, world, device, prompt, feed):
+    """Phase 21(c)'s rank: the sharded prefill over ``prompt`` (1, CI_S)
+    and ``feed``'s decode steps over the caches grown to CI_T slots: the
+    logits (host), each cache block's digest and spec, where the rank
+    sits."""
+    import torch
+    from repro_torch.configs import tiny_config
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models.api import build_model
+    from repro_torch.training import steps as st
+    from repro_torch.training.sharded_serve import cache_groups, serve_steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(model=2, data=3, device_type="cuda",
+                             backend="gloo")
+    model = build_model(tiny_config("gemma2-2b"))
+    ac = make_ac(mesh)
+    steps = serve_steps(model, ac)
+    local = steps.shard_params(ms_params(model, 0.125))
+    logits, blocks = st.make_prefill_step(model, ac=ac)(
+        local, {"tokens": prompt.cuda()})
+    place = steps.layout(blocks)
+    groups = cache_groups(model.cfg, blocks)
+    out = {"prefill": logits.float().cpu(),
+           "digests": {j: {k: leaf_digest(x) for k, x in c.items()}
+                       for j, c in groups.items()},
+           "specs": {j: {k: place[j].leaf_spec(k) for k in c}
+                     for j, c in groups.items()},
+           "coords": dict(steps.coords), "sizes": dict(steps.sizes),
+           "steps": []}
+    blocks = steps.place_cache(_grow_cache(steps.whole_cache(blocks), CI_S,
+                                           CI_T))
+    out["grown"] = {j: place.spec for j, place in steps.layout(
+        blocks).items()}
+    serve = st.make_serve_step(model, ac=ac)
+    for i in range(feed.shape[1]):
+        lg, blocks = serve(local, blocks, feed[:, i:i + 1].cuda(),
+                           torch.tensor(CI_S + i, device="cuda"))
+        out["steps"].append(lg.float().cpu())
+    return out
+
+
+def logit_gap(got, want) -> float:
+    """The largest |diff| of two runs' decode logits (``steps``), relative
+    to the step's max |logit|."""
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got["steps"], want["steps"]))
 
 
 def mf_world(label, fn, n, backend, args=()):
@@ -5686,10 +5971,13 @@ class MeshFamilies:
     phases 19(a, b) and 20 (``start_two``)."""
 
     def __init__(self):
+        from repro_torch.configs import tiny_config
         self.inputs = {arch: mf_inputs(mf_config(arch, True), 220 + i)
                        for i, arch in enumerate(MF_ARCHS)}
-        self.pool = concurrent.futures.ThreadPoolExecutor(2)
-        self.one = self.two = None
+        self.ci_inputs = ms_inputs(tiny_config("gemma2-2b"), 1, CI_S,
+                                   CI_STEPS, 231)
+        self.pool = concurrent.futures.ThreadPoolExecutor(3)
+        self.one = self.two = self.six = None
 
     def start_one(self):
         self.one = self.pool.submit(mf_world, "a", mf_rank_one, 1, "nccl")
@@ -5698,6 +5986,10 @@ class MeshFamilies:
         self.t0 = time.perf_counter()
         self.two = self.pool.submit(mf_world, "b", mf_rank_two, 2, "gloo",
                                     (self.inputs,))
+
+    def start_six(self):
+        self.six = self.pool.submit(mf_world, "c", ci_rank_six, 6, "gloo",
+                                    self.ci_inputs)
 
 
 def phase_mesh_families(started=None):
@@ -5722,16 +6014,27 @@ def phase_mesh_families(started=None):
     ranks."""
     import torch
 
+    from repro_torch.configs import tiny_config
+    from repro_torch.models.api import build_model
+
     card = card_line()
     if started is None:
         started = MeshFamilies()
         started.start_two()
         started.start_one()
+    started.start_six()
     with started.pool:
         want_s, want_t, exact = mf_references(started.inputs)
+        tiny = build_model(tiny_config("gemma2-2b"))
+        t_params = ms_params(tiny, 0.125)
+        prompt, feed = started.ci_inputs
+        want_ci = ms_unsharded(tiny, t_params, {"tokens": prompt.cuda()},
+                               feed, CI_S)
+        del t_params
         mark("phase 21's unsharded runs")
         two, two_s = started.two.result()
         (one,), one_s = started.one.result()
+        six, six_s = started.six.result()
     mark("phase 21's worlds")
     flash = 0
     # (a)
@@ -5767,6 +6070,7 @@ def phase_mesh_families(started=None):
               f"launches ({card})", flush=True)
     print(f"mesh-families[a]: the world of 1 in {one_s:.1f} s", flush=True)
     # (b) serving
+    worsts = {}
     for data, tp in MF_MESHES:
         for arch in MF_ARCHS:
             label = f"mesh-families[b gloo data={data} x model={tp} {arch}]"
@@ -5799,11 +6103,18 @@ def phase_mesh_families(started=None):
                     f"step {sorted(b['step_s'])[MF_DECODE // 2]:.2f} s, "
                     f"{b['flash']} flash launches ({b['flash_prefill']} in "
                     f"the prefill), {b['s']:.1f} s in all")
+            worsts[(data, tp, arch)] = worst
             print(f"{label}: {MF_LAYERS[arch]} layers, decode within "
                   f"{worst:.3g} of max |logit| (tolerance {LOGIT_RTOL}); "
                   f"blocks {two[0][(data, tp, arch)]['specs']}; "
                   + "; ".join(lines) + f" (host-staged gloo, not a speed; "
                   f"{card})", flush=True)
+    z = "zamba2-1.2b"
+    print(f"mesh-families[b {z} control]: the one-device decode with a "
+          f"bf16 ulp (2**-7) on a seeded tenth of its attention outputs "
+          f"(perturbed_attend) moves its logits by {want_s[z]['ulp']:.3g} "
+          f"of max |logit|; the model=2 decode (the combine of the ranks' "
+          f"softmaxes) moved them by {worsts[(1, 2, z)]:.3g}", flush=True)
     # (b) training
     for data, tp in MF_MESHES:
         for arch in MF_TRAIN:
@@ -5838,6 +6149,29 @@ def phase_mesh_families(started=None):
                   f"launches a rank; {t['wall']:.1f} s in all ({card})",
                   flush=True)
     print(f"mesh-families[b]: the world of 2 in {two_s:.1f} s", flush=True)
+    # (c) a cache split over data (item 11i)
+    label = "mesh-families[c gloo data=3 x model=2, tiny gemma2-2b B=1]"
+    worst = 0.0
+    for i, r in enumerate(six):
+        if r["specs"]["sub1"]["k"] != (None, None, "data", "model", None) \
+                or r["grown"]["sub1"] != r["specs"]["sub1"]["k"]:
+            fail(f"{label}: rank {i}'s global cache is placed "
+                 f"{r['specs']['sub1']} (grown: {r['grown']['sub1']}), not "
+                 f"its slots over data and its kv heads over model")
+        if not (torch.equal(r["prefill"], want_ci["prefill"])
+                and ms_blocks_equal(r, want_ci["cache"])):
+            fail(f"{label}: rank {i}'s prefill logits or cache blocks differ "
+                 f"from the one-device prefill's")
+        worst = max(worst, ms_hold(f"{label} rank {i}", r, want_ci))
+    print(f"{label}: a prompt of {CI_S} tokens, the global layer's cache "
+          f"{six[0]['specs']['sub1']['k']} (the ring "
+          f"{six[0]['specs']['sub0']['k']}): the prefill's logits and every "
+          f"rank's blocks bit-identical to the one-device cache's; "
+          f"{CI_STEPS} decode steps over {CI_T} slots (only the rank whose "
+          f"slots hold pos writes it; the softmaxes combined over data) "
+          f"within {worst:.3g} of max |logit| of the one-device steps "
+          f"(tolerance {LOGIT_RTOL}); the world of 6 in {six_s:.1f} s "
+          f"({card})", flush=True)
     return flash
 
 
@@ -6150,6 +6484,9 @@ def mq_rank_one(rank, world, device):
     for bits in (8, 4):
         params = mq_stored(gemma, bits)
         out[("ref", bits)] = mq_serve(gemma, params, prompt, feed)
+        with perturbed_attend():         # the model's own sensitivity
+            out[("ulp", bits)] = logit_gap(mq_serve(gemma, params, prompt,
+                                                    feed), out[("ref", bits)])
         del params
     out["haq_ref"] = mq_train(gemma, dot=make_quant_dot(MQ_HAQ), steps=1)
     return out
@@ -6412,7 +6749,9 @@ def phase_moe_quant(started=None):
         print(f"moe-quant[b gloo model=2 gemma2-2b {MQ_LAYERS} layers on "
               f"int{bits} codes, B={MQ_B} prompt {MQ_QS}, {MQ_DECODE} "
               f"steps]: logits within {worst:.3g} of max |logit| of the "
-              f"one-device steps (tolerance {LOGIT_RTOL}), greedy tokens "
+              f"one-device steps (tolerance {LOGIT_RTOL}; the control, the "
+              f"one-device decode with a bf16 ulp on a tenth of its "
+              f"attention outputs: {one[('ulp', bits)]:.3g}), greedy tokens "
               f"equal where the margin allows; launches on the ranks' "
               f"column slices {json.dumps(n)}; each slice's call against "
               f"its plain version and the whole call's columns (kernel "

@@ -8,6 +8,13 @@ capacity, T_local a rank's rows: models/moe.py).
 
     PYTHONPATH=src python scripts/dryrun_table.py DIR [--tag _haq] \\
         [--arch granite-moe-3b-a800m,...]
+
+``--beside DIR2 --beside-tag _seq_tp`` sets each cell's records in DIR
+(at ``--tag``) beside DIR2's (``--ac-mode seq_tp``'s, say), as "a -> b"
+on each mesh: live peak, collective bytes, t_collective, t_compute and
+the bottleneck, flagging any cell whose dot FLOPs, state, t_memory or
+collective bytes of another kind than all-gather differ; then the cells
+whose records agree to the byte.
 """
 from __future__ import annotations
 
@@ -65,6 +72,39 @@ def row(recs, arch, shape_name):
     return "| " + " | ".join(cells) + " |"
 
 
+def _coll(rec) -> float:
+    return sum(v for k, v in rec["collectives_per_device"].items()
+               if k != "coll_count") / 1e9
+
+
+def beside(pairs, arch, shape_name) -> str:
+    """One markdown row of a cell's (a, b) record pairs by mesh."""
+    def arrow(fn, fmt):
+        return " / ".join(f"{fn(a):{fmt}} -> {fn(b):{fmt}}"
+                          for a, b in pairs.values())
+    same = all(
+        a[k] == b[k] for a, b in pairs.values()
+        for k in ("dot_flops_per_device", "state_bytes_per_device")) and \
+        all(a["roofline"]["t_memory_s"] == b["roofline"]["t_memory_s"]
+            and {k: v for k, v in a["collectives_per_device"].items()
+                 if k not in ("all-gather", "coll_count")}
+            == {k: v for k, v in b["collectives_per_device"].items()
+                if k not in ("all-gather", "coll_count")}
+            for a, b in pairs.values())
+    cells = [f"{arch} {shape_name}",
+             arrow(lambda x: x["live_bytes_per_device"] / 2**30, ".2f"),
+             arrow(_coll, ".1f"),
+             arrow(lambda x: x["roofline"]["t_collective_s"], ".3g"),
+             " / ".join(f"{a['roofline']['t_compute_s']:.3g}"
+                        for a, _ in pairs.values()),
+             " / ".join(f"{a['roofline']['bottleneck']} -> "
+                        f"{b['roofline']['bottleneck']}"
+                        for a, b in pairs.values())
+             + ("" if same else " (FLOPs, state, t_mem or other "
+                "collectives differ)")]
+    return "| " + " | ".join(cells) + " |"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("dir", type=Path)
@@ -72,8 +112,36 @@ def main(argv=None):
     ap.add_argument("--arch", default="",
                     help="comma-separated archs (every assigned cell's "
                          "where empty)")
+    ap.add_argument("--beside", type=Path,
+                    help="a second records directory, set beside DIR's")
+    ap.add_argument("--beside-tag", default="")
     args = ap.parse_args(argv)
     archs = set(filter(None, args.arch.split(",")))
+    if args.beside:
+        print("| Cell | Live GiB | Coll. GB | t_coll s | t_comp s | Bound |")
+        print("| --- " * 6 + "|")
+        equal = []
+        for arch, shape_name in assigned_cells():
+            if archs and arch not in archs:
+                continue
+            pairs = {}
+            for m in MESHES:
+                a = args.dir / f"{arch}__{shape_name}__{m}{args.tag}.json"
+                b = args.beside / \
+                    f"{arch}__{shape_name}__{m}{args.beside_tag}.json"
+                if a.exists() and b.exists():
+                    pairs[m] = (json.loads(a.read_text()),
+                                json.loads(b.read_text()))
+            if not pairs:
+                continue
+            if all({k: v for k, v in a.items() if k != "trace_s"}
+                   == {k: v for k, v in b.items() if k != "trace_s"}
+                   for a, b in pairs.values()):
+                equal.append(f"{arch} {shape_name}")
+            else:
+                print(beside(pairs, arch, shape_name))
+        print(f"\nEqual to the byte: {', '.join(equal) or 'none'}")
+        return
     print("| Cell | State GiB | Live GiB | Dot FLOPs | Coll. GB | t_comp s "
           "| t_mem s | t_coll s | Bound | Useful | Weight bits | Padded "
           "rows |")

@@ -16,8 +16,10 @@ The rules read only a mesh's axis sizes (``axis_sizes``): a
 ``torch.distributed.device_mesh.DeviceMesh`` with named dims, or a plain
 ``{"data": d, "model": m}`` mapping for pure callers.
 
-``make_ac`` is the training's activation layout: which rows of the
-global batch a rank computes on. The collectives at the bottom are what
+``make_ac`` is the training's and the prefill's activation layout:
+which rows of the global batch a rank computes on, and under ``seq_tp``
+which rows of the sequence it holds between sub-layers (``SplitRows``).
+The collectives at the bottom are what
 the sharded engine and the sharded trainer (training/sharded.py) run:
 all-gathers are pure data movement, and every sum over ranks is taken in
 fp32 in group-rank order, so it is the same on every rank and from run
@@ -205,18 +207,24 @@ def whole_from_block(x: torch.Tensor, spec: Spec, groups) -> torch.Tensor:
 
 
 class ActivationLayout:
-    """The activation layout of the port's training (``make_ac``), called
-    as ``ac(x, kind)``. In the port every rank runs its own rows of the
-    global batch, so the layout is where those rows come from:
+    """The activation layout of the port's training and prefill
+    (``make_ac``), called as ``ac(x, kind)``. In the port every rank runs
+    its own rows of the global batch, so the layout is where those rows
+    come from:
 
     * ``"batch"``: this rank's rows of a global (B, ...) tensor. The rows
       split over the ``batch`` candidates, ("pod", "data") and then
       ("data",), the first that divides B, as the reference's
       ``_batch_axes`` picks them; whole where none does.
-    * ``"resid"``: ``x`` as it is. The reference constrains the residual
-      stream to the batch split; the port's residual is computed from
-      the rank's rows, so it holds by construction, and activations stay
-      whole over ``model``.
+    * ``"resid"``: a whole (B, S, D) residual stream of the rank's batch
+      rows -> the rows the blocks hold between sub-layers (``rows``). In
+      ``dp`` mode ``x`` as it is: the reference constrains the residual
+      to the batch split, which the port's rows hold by construction. In
+      ``seq_tp`` mode the rank's block of the S sequence rows over
+      ``model`` (block ``coords["model"]``, as ``local_block`` counts
+      it), where the reference's condition holds: rank 3, ``model`` > 1,
+      S divisible by it and S > 1; ``x`` as it is otherwise (a decode
+      step's one row, a vision-stub sequence ``model`` does not divide).
     * ``"decode_q"``, ``"decode_kv"``, ``"decode_scores"``: ``x`` as it
       is. In the reference they hint the decode cells at the partitioner
       (q replicated over ``model``, k, v and the scores split on the
@@ -227,10 +235,10 @@ class ActivationLayout:
       ``x`` as it is.
 
     ``mesh`` is a named ``DeviceMesh`` (or sizes only: every coordinate
-    0)."""
+    0, and no seq_tp split, which needs the model axis's group)."""
 
-    def __init__(self, mesh):
-        self.mesh = mesh
+    def __init__(self, mesh, mode: str = "dp"):
+        self.mesh, self.mode = mesh, mode
         self.sizes = axis_sizes(mesh)
         self.coords = mesh_coords(mesh)
 
@@ -244,28 +252,87 @@ class ActivationLayout:
             return "data"
         return None
 
+    def for_batch(self, b: int) -> "ActivationLayout":
+        """The layout of a step over a global batch of ``b`` rows: this
+        one, or where no batch axis divides ``b`` (every rank takes every
+        row) the ``dp`` one, as the reference's seq_tp constrains only a
+        residual whose batch it splits."""
+        if self.mode == "dp" or self.batch_axes(b) is not None:
+            return self
+        return ActivationLayout(self.mesh)
+
+    def rows(self, x: torch.Tensor) -> layers.WholeRows:
+        """The row layout of a forward whose residual stream is ``x``
+        (whole): ``SplitRows`` over ``model`` where seq_tp splits it (the
+        ``"resid"`` kind), ``layers.WHOLE_ROWS`` otherwise."""
+        tp = self.sizes.get("model", 1)
+        if self.mode != "seq_tp" or x.dim() != 3 or tp == 1 \
+                or x.shape[1] % tp or x.shape[1] == 1:
+            return layers.WHOLE_ROWS
+        return SplitRows(self.mesh.get_group("model"), self.coords["model"],
+                         x.shape[1])
+
     def __call__(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        if kind == "resid":
+            return self.rows(x).local(x)
         if kind != "batch":
             return x
         return local_block(x, (self.batch_axes(x.shape[0]),), self.sizes,
                            self.coords)
 
 
+class SplitRows(layers.WholeRows):
+    """seq_tp's rows of one forward: a (B, S, D) residual stream held as
+    this rank's S / n rows (block ``rank``, its coordinate in ``group``,
+    the model axis's n ranks) between sub-layers, the models' blocks
+    calling
+
+    * ``norm(x, scale, eps)`` on the rank's rows. A norm is per row, so
+      its output rows are the whole norm's; its scale's gradient is a sum
+      over every row, of which the rank holds its rows' share: the scale
+      passes ``sum_grad`` over ``group`` upcast to fp32, so the shares are
+      added in fp32, in group-rank order, before the cast to the leaf's
+      dtype. That is the one sum seq_tp reorders;
+    * ``whole(h)`` (``rows_whole``) on a norm's output before a sub-layer
+      (attention, FFN, moe, mamba), which then runs on whole rows as it
+      does in ``dp`` mode;
+    * ``local(a)`` (``rows_local``) on the sub-layer's whole output
+      before the sandwich norm and the residual add.
+
+    The tensor-parallel sub-layers compute their output whole on every
+    rank of ``group`` (``tp_dot``), so every rank holds the same whole
+    output and the same whole input gradient (``sum_grad`` on the input
+    of the column-split products). Neither collective sums: both are pure
+    data movement, and every other value and gradient is ``dp``'s, bit for
+    bit, wherever a per-row op gives the same bits on a subset of its
+    rows."""
+
+    def __init__(self, group, rank: int, length: int):
+        self.group, self.rank, self.length = group, rank, length
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x if x.shape[1] != self.length \
+            else rows_local(x, self.group, self.rank)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return x if x.shape[1] == self.length else rows_whole(x, self.group)
+
+    def norm(self, x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+        return layers.rms_norm(x, sum_grad(scale.to(F32), self.group), eps)
+
+
 def make_ac(mesh, mode: str = "dp") -> ActivationLayout:
     """The activation-layout hook for ``mesh`` (``ActivationLayout``).
     ``mode="dp"``: the batch split over the FSDP axes, activations
-    replicated over ``model``. The reference's ``mode="seq_tp"`` (the
-    residual's rows also split over ``model`` between blocks, the norms on
-    1/TP of the rows) is not ported."""
-    if mode == "seq_tp":
-        raise NotImplementedError(
-            "make_ac(mode='seq_tp'), the residual stream split over the "
-            "model axis between blocks, is not ported (ROADMAP Queue 1, "
-            "item 11f)")
-    if mode != "dp":
+    replicated over ``model``. ``mode="seq_tp"`` (the reference's
+    sequence-parallel TP): also the residual stream's sequence rows split
+    over ``model`` between sub-layers (``SplitRows``), the norms run on
+    1/TP of the rows and a remat checkpoint saves 1/TP of the residual."""
+    if mode not in ("dp", "seq_tp"):
         raise ValueError(f"make_ac mode must be 'dp' or 'seq_tp', got "
                          f"{mode!r}")
-    return ActivationLayout(mesh)
+    return ActivationLayout(mesh, mode)
 
 
 def full_rank(spec: Spec, ndim: int) -> Spec:
@@ -668,6 +735,41 @@ def gather_shard(x: torch.Tensor, dim: int, group, *,
     if dist.get_world_size(group) == 1:
         return x
     return _GatherShard.apply(x, dim, group, reduce)
+
+
+class _RowsLocal(torch.autograd.Function):
+    """Forward: this rank's block of ``x``'s rows (dim 1), which every
+    rank of the group holds whole and alike, in storage of its own.
+    Backward: the gradient's blocks all-gathered over the group, with no
+    sum: downstream of the cut each rank computes its own rows alone, so
+    the whole gradient is its ranks' blocks side by side."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        ctx.group = group
+        n = x.shape[1] // dist.get_world_size(group)
+        return x.narrow(1, rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, 1, ctx.group), None, None
+
+
+def rows_local(x: torch.Tensor, group, rank: int) -> torch.Tensor:
+    """seq_tp's cut of a whole (B, S, ...) activation to block ``rank``
+    (this rank's in ``group``) of its S / n rows (``_RowsLocal``)."""
+    return _RowsLocal.apply(x, group, rank)
+
+
+def rows_whole(x: torch.Tensor, group) -> torch.Tensor:
+    """seq_tp's gather of every rank's rows of a (B, S / n, ...)
+    activation, in its dtype (bf16 as the activations are). Backward: the
+    rank's block of the gradient, with no sum (``_GatherShard``,
+    ``reduce=False``): every rank runs the same whole sub-layer after the
+    gather, so every rank holds the same whole gradient, the
+    tensor-parallel products' input gradients summed by ``sum_grad``."""
+    return gather_shard(x, 1, group, reduce=False)
 
 
 class _SumGrad(torch.autograd.Function):

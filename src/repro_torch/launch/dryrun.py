@@ -42,9 +42,12 @@ one 512-row q block's scores alive at a time. ``--quant w8|w4|haq`` serves
 prefill and decode cells on stored int8/int4 weights (``quantize_defs``'
 tree at rest, ``dequant_dot`` inside ``tp_dot``'s sites), the policy
 ``quant_policy_for``'s on the H100; train cells ignore it, as the
-reference's do. Cells the port cannot run yet are refused with the
-ROADMAP item that would lift the refusal: ``--ac-mode seq_tp`` (item
-11f).
+reference's do. ``--ac-mode seq_tp`` runs every cell under
+``make_ac(mesh, "seq_tp")`` (the residual's rows split over ``model``
+between sub-layers in train and prefill cells; a decode step's one row
+is not split); its records are named with ``_seq_tp`` before the tag. A
+cell the port cannot run is refused with the ROADMAP item that would lift
+the refusal.
 """
 from __future__ import annotations
 
@@ -280,7 +283,7 @@ def main(argv=None):
                     help="gradient accumulation for train cells")
     ap.add_argument("--ac-mode", default="dp", choices=["dp", "seq_tp"],
                     help="activation sharding: dp | seq_tp (sequence-"
-                         "parallel TP; refused: ROADMAP item 11f)")
+                         "parallel TP; records named _seq_tp)")
     args = ap.parse_args(argv)
     if not args.all and not args.cells and not (args.arch and args.shape):
         ap.error("give --arch and --shape, --cells, or --all")
@@ -290,12 +293,13 @@ def main(argv=None):
         [tuple(c.split(":")) for c in args.cells.split(",")] if args.cells \
         else [(args.arch, args.shape)]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    kw = dict(out_dir=args.out_dir, tag=args.tag, quant=args.quant,
+    tag = ("_seq_tp" if args.ac_mode == "seq_tp" else "") + args.tag
+    kw = dict(out_dir=args.out_dir, tag=tag, quant=args.quant,
               microbatches=args.microbatches, ac_mode=args.ac_mode)
     failures, refused, ran, todo = [], [], 0, []
     for arch, shape in cells:
         for mesh_kind in meshes:
-            name = f"{arch}__{shape}__{mesh_kind}{args.tag}"
+            name = f"{arch}__{shape}__{mesh_kind}{tag}"
             path = args.out_dir / f"{name}.json"
             if path.exists() and not args.force:
                 rec = json.loads(path.read_text())
@@ -306,7 +310,7 @@ def main(argv=None):
                 todo.append(((arch, shape, mesh_kind), kw))
     for ((arch, shape, mesh_kind), _), (status, out) in zip(
             todo, _results(todo, args.jobs)):
-        name = f"{arch}__{shape}__{mesh_kind}{args.tag}"
+        name = f"{arch}__{shape}__{mesh_kind}{tag}"
         if status == "ok":
             r = out["roofline"]
             ran += 1

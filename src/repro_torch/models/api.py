@@ -50,7 +50,7 @@ class Model:
     def forward(self, params, batch, *, want_cache=False,
                 unembed_mode="full", cache_layout="ring", dot=None,
                 kernel="auto", remat=False, gather=None, place=None,
-                ranks=None):
+                ranks=None, ac=None):
         """Whole-sequence forward; ``kernel`` picks the flash-attention
         path of sequences of FLASH_MIN tokens or more: "auto" (CUDA kernel
         on CUDA tensors, plain version on CPU ones), "cuda" or "ref".
@@ -62,22 +62,25 @@ class Model:
         (encdec.forward). ``gather`` is the sharded engine's, trainer's
         and serving steps' hook (every family's layers whole at use),
         ``place`` the sharded serving steps' cache layout, ``ranks`` the
-        ranks the batch is split over, which the moe layers read
-        (transformer.forward, encdec.forward)."""
+        ranks the batch is split over, which the moe layers read, ``ac``
+        the activation layout (make_ac's seq_tp splits the residual's
+        rows over the model axis) (transformer.forward, encdec.forward)."""
         if self.cfg.is_encdec:
             return encdec.forward(params, batch, self.cfg,
                                   want_cache=want_cache, remat=remat,
                                   dot=dot, unembed_mode=unembed_mode,
-                                  kernel=kernel, gather=gather, place=place)
+                                  kernel=kernel, gather=gather, place=place,
+                                  ac=ac)
         return transformer.forward(params, batch, self.cfg,
                                    want_cache=want_cache,
                                    unembed_mode=unembed_mode,
                                    cache_layout=cache_layout, dot=dot,
                                    kernel=kernel, remat=remat,
-                                   gather=gather, place=place, ranks=ranks)
+                                   gather=gather, place=place, ranks=ranks,
+                                   ac=ac)
 
     def loss(self, params, batch, *, remat=False, dot=None, kernel="auto",
-             gather=None, ranks=None):
+             gather=None, ranks=None, ac=None):
         """Mean next-token cross-entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (chunked, transformer.chunked_ce) plus 0.01 x
         the moe layers' load-balance loss, as the reference's: the
@@ -90,11 +93,13 @@ class Model:
         per layer at use, and the ranks that split the batch
         (distributed/sharding.py::BatchRanks), over which the loss's sum
         and count are summed (the vlm's text rows included: its token
-        count is the global batch's) and the moe layers route."""
+        count is the global batch's) and the moe layers route; ``ac`` the
+        activation layout (``forward``)."""
         hidden, _, aux, fmask = self.forward(params, batch,
                                              unembed_mode="none", dot=dot,
                                              kernel=kernel, remat=remat,
-                                             gather=gather, ranks=ranks)
+                                             gather=gather, ranks=ranks,
+                                             ac=ac)
         labels = batch["labels"]
         if fmask is not None:
             hidden = hidden[:, -labels.shape[1]:]
@@ -106,18 +111,19 @@ class Model:
 
     def prefill(self, params, batch, *, cache_layout="ring",
                 unembed_mode="last", dot=None, kernel="auto", gather=None,
-                place=None, ranks=None):
+                place=None, ranks=None, ac=None):
         """(logits, caches) of ``forward(want_cache=True)``. ``gather``,
-        ``place`` and ``ranks`` are the sharded serving steps' hooks
-        (training/sharded_serve.py): the parameters whole per layer at
-        use, each layer's caches cut to this rank's block, and the ranks
-        the batch is split over (transformer.forward, encdec.forward)."""
+        ``place``, ``ranks`` and ``ac`` are the sharded serving steps'
+        hooks (training/sharded_serve.py): the parameters whole per layer
+        at use, each layer's caches cut to this rank's block, the ranks
+        the batch is split over and the activation layout
+        (transformer.forward, encdec.forward)."""
         logits, cache, _, _ = self.forward(params, batch, want_cache=True,
                                            unembed_mode=unembed_mode,
                                            cache_layout=cache_layout,
                                            dot=dot, kernel=kernel,
                                            gather=gather, place=place,
-                                           ranks=ranks)
+                                           ranks=ranks, ac=ac)
         return logits, cache
 
     def unembed(self, params, hidden, *, dot=None, gather=None):

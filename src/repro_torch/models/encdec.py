@@ -31,7 +31,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import ffn_apply, ffn_defs, norm_def, rms_norm
+from repro_torch.models.layers import (WHOLE_ROWS, ffn_apply, ffn_defs,
+                                       norm_def, rms_norm)
 from repro_torch.models.params import PDef, stacked, tree_map
 from repro_torch.models.transformer import _whole, embed_tokens, unembed
 
@@ -147,61 +148,74 @@ def _gathered(p, key: str, gather):
 
 
 # ---------------------------------------------------------------- encoder ----
-def _enc_layer(p, h, cfg, dot, kernel, gather=None):
+def _enc_layer(p, h, cfg, dot, kernel, gather=None, rows=WHOLE_ROWS):
     p = _gathered(p, "enc", gather)
-    a, _ = attn.attention_fwd(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                              "bidir", cfg, None, dot=dot, kernel=kernel)
-    h = h + a
-    f = ffn_apply(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps),
+    a, _ = attn.attention_fwd(
+        p["attn"], rows.whole(rows.norm(h, p["ln1"], cfg.norm_eps)),
+        "bidir", cfg, None, dot=dot, kernel=kernel)
+    h = h + rows.local(a)
+    f = ffn_apply(p["ffn"], rows.whole(rows.norm(h, p["ln2"], cfg.norm_eps)),
                   cfg.activation, dot=dot)
-    return h + f
+    return h + rows.local(f)
 
 
 def encode(params, frames, cfg, *, remat=False, dot=None, kernel="auto",
-           gather=None):
+           gather=None, ac=None):
     """frames (B, S, D) -> the encoder memory (B, S, D). The frames and
     the sinusoid are each rounded to bf16 before the add, as in the
-    reference; ``remat`` runs each layer under a checkpoint."""
+    reference; ``remat`` runs each layer under a checkpoint. ``ac``: the
+    sharded steps' activation layout (transformer.forward's): under
+    seq_tp the layers hold the rank's rows between sub-layers, and the
+    memory is gathered whole before ``enc_norm``."""
     S, D = frames.shape[1:]
     x = frames.to(torch.bfloat16) + \
         sinusoidal(S, D, frames.device).to(torch.bfloat16)
+    rows = WHOLE_ROWS if ac is None else ac.rows(x)
+    x = rows.local(x)
     for i in range(cfg.num_layers):
-        args = (_layer(params["enc"], i), x, cfg, dot, kernel, gather)
+        args = (_layer(params["enc"], i), x, cfg, dot, kernel, gather, rows)
         x = checkpoint(_enc_layer, *args, use_reentrant=False) if remat \
             else _enc_layer(*args)
-    return rms_norm(x, _whole(params, "enc_norm", gather), cfg.norm_eps)
+    return rms_norm(rows.whole(x), _whole(params, "enc_norm", gather),
+                    cfg.norm_eps)
 
 
 # ---------------------------------------------------------------- decoder ----
-def _dec_layer(p, h, mem, cfg, dot, kernel, want_cache, gather=None):
+def _dec_layer(p, h, mem, cfg, dot, kernel, want_cache, gather=None,
+               rows=WHOLE_ROWS):
     p = _gathered(p, "dec", gather)
-    a, sc = attn.attention_fwd(p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                               "global", cfg, None, dot=dot, kernel=kernel)
-    h = h + a
+    a, sc = attn.attention_fwd(
+        p["attn"], rows.whole(rows.norm(h, p["ln1"], cfg.norm_eps)),
+        "global", cfg, None, dot=dot, kernel=kernel)
+    h = h + rows.local(a)
     mk, mv = attn.cross_kv(p["xattn"], mem, dot=dot)
-    c = attn.cross_attention(p["xattn"], rms_norm(h, p["ln_x"],
-                                                  cfg.norm_eps),
-                             mk, mv, cfg, dot=dot, kernel=kernel)
-    h = h + c
-    f = ffn_apply(p["ffn"], rms_norm(h, p["ln2"], cfg.norm_eps),
+    c = attn.cross_attention(
+        p["xattn"], rows.whole(rows.norm(h, p["ln_x"], cfg.norm_eps)), mk,
+        mv, cfg, dot=dot, kernel=kernel)
+    h = h + rows.local(c)
+    f = ffn_apply(p["ffn"], rows.whole(rows.norm(h, p["ln2"], cfg.norm_eps)),
                   cfg.activation, dot=dot)
     cache = {"k": sc["k"], "v": sc["v"], "mk": mk, "mv": mv} \
         if want_cache else None
-    return h + f, cache
+    return h + rows.local(f), cache
 
 
 def decode_fwd(params, mem, tokens, cfg, *, want_cache: bool, remat=False,
                dot=None, unembed_mode: str = "full", kernel="auto",
-               gather=None, place=None):
+               gather=None, place=None, ac=None):
     """Teacher-forced decoder pass over tokens (B, S) against the encoder
-    memory. Returns (logits, or hidden states for unembed_mode "none";
-    caches stacked over layers, or None)."""
+    memory (whole). Returns (logits, or hidden states for unembed_mode
+    "none"; caches stacked over layers, or None). ``ac`` as in
+    ``encode``: the decoder's rows split on their own, and gathered whole
+    before the final norm."""
     x = embed_tokens(params, tokens, cfg, gather)
     x = x + sinusoidal(tokens.shape[1], cfg.d_model, x.device).to(x.dtype)
+    rows = WHOLE_ROWS if ac is None else ac.rows(x)
+    x = rows.local(x)
     caches = []
     for i in range(cfg.num_layers):
         args = (_layer(params["dec"], i), x, mem, cfg, dot, kernel,
-                want_cache, gather)
+                want_cache, gather, rows)
         x, c = checkpoint(_dec_layer, *args, use_reentrant=False) if remat \
             else _dec_layer(*args)
         if want_cache and place is not None:
@@ -209,7 +223,8 @@ def decode_fwd(params, mem, tokens, cfg, *, want_cache: bool, remat=False,
         caches.append(c)
     out = {k: torch.stack([c[k] for c in caches]) for k in caches[0]} \
         if want_cache else None
-    x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
+    x = rms_norm(rows.whole(x), _whole(params, "final_norm", gather),
+                 cfg.norm_eps)
     if unembed_mode == "none":
         return x, out
     if unembed_mode == "last":
@@ -219,16 +234,16 @@ def decode_fwd(params, mem, tokens, cfg, *, want_cache: bool, remat=False,
 
 def forward(params, batch, cfg, *, want_cache: bool, remat=False, dot=None,
             unembed_mode: str = "full", kernel="auto", gather=None,
-            place=None):
+            place=None, ac=None):
     """batch: {frames (B, S, D), tokens (B, S_dec)}. Returns (logits,
     caches, aux 0, None), transformer.forward's signature: no moe loss,
     no loss mask."""
     mem = encode(params, batch["frames"], cfg, remat=remat, dot=dot,
-                 kernel=kernel, gather=gather)
+                 kernel=kernel, gather=gather, ac=ac)
     logits, caches = decode_fwd(params, mem, batch["tokens"], cfg,
                                 want_cache=want_cache, remat=remat, dot=dot,
                                 unembed_mode=unembed_mode, kernel=kernel,
-                                gather=gather, place=place)
+                                gather=gather, place=place, ac=ac)
     return logits, caches, torch.zeros((), dtype=F32, device=mem.device), \
         None
 

@@ -23,6 +23,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.to(F32))).to(x.dtype)
 
 
+class WholeRows:
+    """The rows of a forward's (B, S, D) residual stream, as the model's
+    blocks hold them between sub-layers: here whole on every rank, so
+    ``local`` (a sub-layer's output -> the rows the residual keeps) and
+    ``whole`` (a norm's output -> the rows a sub-layer reads) are
+    identities and ``norm`` is ``rms_norm``. ``make_ac``'s seq_tp splits
+    them over the model axis (distributed/sharding.py::SplitRows)."""
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def norm(self, x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+        return rms_norm(x, scale, eps)
+
+
+WHOLE_ROWS = WholeRows()
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x

@@ -32,8 +32,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (embed_defs, ffn_apply, ffn_defs,
-                                       norm_def, promoted, rms_norm, softcap)
+from repro_torch.models.layers import (WHOLE_ROWS, embed_defs, ffn_apply,
+                                       ffn_defs, norm_def, promoted,
+                                       rms_norm, softcap)
 from repro_torch.models.params import PDef, stacked, tree_map
 
 F32 = torch.float32
@@ -157,35 +158,40 @@ def param_defs(cfg) -> dict:
 SHARED_KIND = {"attn": "global", "moe": False}   # the hybrid's shared block
 
 
-def _ffn_half(p, x, kind, cfg, dot, ranks=None):
+def _ffn_half(p, x, kind, cfg, dot, ranks=None, rows=WHOLE_ROWS):
     """The feed-forward half of a block: (x + f, the moe aux loss or
-    0.0). ``ranks``: the ranks the batch is split over (``forward``)."""
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    0.0). ``ranks``: the ranks the batch is split over, ``rows`` the
+    residual's rows (``forward``): the FFN or the experts run on whole
+    rows."""
+    h = rows.whole(rows.norm(x, p["ln2"], cfg.norm_eps))
     if kind["moe"]:
         f, aux = moe_lib.moe_apply(p["moe"], h, cfg.moe, cfg.activation,
                                    dot=dot, ranks=ranks)
     else:
         f, aux = ffn_apply(p["ffn"], h, cfg.activation, dot=dot), 0.0
+    f = rows.local(f)
     if cfg.sandwich_norm:
-        f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
+        f = rows.norm(f, p["ln2_post"], cfg.norm_eps)
     return x + f, aux
 
 
-def _attn_residual(p, x, a, cfg):
+def _attn_residual(p, x, a, cfg, rows=WHOLE_ROWS):
+    a = rows.local(a)
     if cfg.sandwich_norm:
-        a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
+        a = rows.norm(a, p["ln1_post"], cfg.norm_eps)
     return x + a
 
 
 def _dense_block_fwd(p, x, kind, cfg, positions, dot, kernel, ring=False,
-                     ranks=None):
+                     ranks=None, rows=WHOLE_ROWS):
     """``ring``: a local layer's cache in ring layout (dense decode)
-    instead of chronological (the page pool's)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    instead of chronological (the page pool's). ``rows``: x's rows
+    (``forward``); the attention runs on whole rows."""
+    h = rows.whole(rows.norm(x, p["ln1"], cfg.norm_eps))
     a, cache = attn.attention_fwd(p["attn"], h, kind["attn"], cfg, positions,
                                   dot=dot, kernel=kernel)
-    x, aux = _ffn_half(p, _attn_residual(p, x, a, cfg), kind, cfg, dot,
-                       ranks)
+    x, aux = _ffn_half(p, _attn_residual(p, x, a, cfg, rows), kind, cfg,
+                       dot, ranks, rows)
     if ring and kind["attn"] == "local":
         W = cfg.window_size
         cache = {"k": _to_ring(cache["k"], W), "v": _to_ring(cache["v"], W)}
@@ -222,14 +228,17 @@ def _fuse(u, w, dot):
     return dot(u, w, "fuse") if isinstance(w, dict) else u @ w
 
 
-def _shared_block_fwd(p, x, emb, cfg, positions, dot, kernel):
+def _shared_block_fwd(p, x, emb, cfg, positions, dot, kernel,
+                      rows=WHOLE_ROWS):
     """The hybrid's shared block: x concatenated with the original
     embedding, fused to d_model, one global dense block (through the
-    dense sites of ``dot``), projected back and added to x."""
-    u = _fuse(torch.cat([x, emb], dim=-1), p["fuse_in"], dot)
-    u, cache, _ = _dense_block_fwd(p, u, SHARED_KIND, cfg, positions, dot,
-                                   kernel)
-    return x + _fuse(u, p["fuse_out"], dot), cache
+    dense sites of ``dot``), projected back and added to x. ``rows``: x's
+    and emb's rows (``forward``); both fuse products run on whole
+    rows."""
+    u = _fuse(rows.whole(torch.cat([x, emb], dim=-1)), p["fuse_in"], dot)
+    u, cache, _ = _dense_block_fwd(p, rows.local(u), SHARED_KIND, cfg,
+                                   positions, dot, kernel, rows=rows)
+    return x + rows.local(_fuse(rows.whole(u), p["fuse_out"], dot)), cache
 
 
 def _shared_block_decode(p, x, emb, cache, pos, cfg, dot, place=None):
@@ -246,11 +255,11 @@ def _mamba_layer(p, ln, gather):
     return gather(p, ("mamba",)), gather(ln, ("mamba_ln",))
 
 
-def _mamba_fwd(p, ln, x, cfg, dot, gather=None):
+def _mamba_fwd(p, ln, x, cfg, dot, gather=None, rows=WHOLE_ROWS):
     p, ln = _mamba_layer(p, ln, gather)
-    y, cache = ssm_lib.mamba_block_fwd(p, rms_norm(x, ln, cfg.norm_eps), cfg,
-                                       dot=dot)
-    return x + y, cache
+    y, cache = ssm_lib.mamba_block_fwd(
+        p, rows.whole(rows.norm(x, ln, cfg.norm_eps)), cfg, dot=dot)
+    return x + rows.local(y), cache
 
 
 def _dense_block_decode_paged(p, x, pool_kv, page_table, positions, kind,
@@ -392,7 +401,7 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
 def forward(params, batch, cfg, *, want_cache: bool,
             unembed_mode: str = "full", cache_layout: str = "ring",
             dot=None, kernel: str = "auto", remat: bool = False,
-            gather=None, place=None, ranks=None):
+            gather=None, place=None, ranks=None, ac=None):
     """Full-sequence forward (training and prefill).
 
     unembed_mode: "full" -> logits (B,S,V); "last" -> logits (B,1,V);
@@ -424,6 +433,12 @@ def forward(params, batch, cfg, *, want_cache: bool,
     (distributed/sharding.py::BatchRanks), for the moe layers' global
     capacity, slots and aux loss (models/moe.py); batch is this rank's
     rows.
+    ac: the sharded steps' activation layout
+    (distributed/sharding.py::make_ac): under seq_tp the residual
+    stream's rows split over the model axis between sub-layers
+    (``ac.rows``: the norms on the rank's rows, every sub-layer on whole
+    rows, a remat checkpoint saving the rank's rows); the final norm and
+    the unembedding run on whole rows. None (or ``dp``): whole rows.
     batch: {tokens (B, S)}, and for the vision stub also patches
     (B, S_p, D), which come first: the sequence is S_p + S rows.
     Returns (logits_or_hidden, caches or None, aux, loss_mask): aux
@@ -438,14 +453,18 @@ def forward(params, batch, cfg, *, want_cache: bool,
     x, loss_mask = _assemble_input(params, batch, cfg, gather)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    rows = WHOLE_ROWS if ac is None else ac.rows(x)
+    x = rows.local(x)                 # the reference's ac(x, "resid")
     if cfg.family in ("ssm", "hybrid"):
         x, out_cache = _forward_mamba(params, x, cfg, positions, want_cache,
-                                      dot, kernel, remat, gather, place)
+                                      dot, kernel, remat, gather, place,
+                                      rows)
         aux_total = 0.0
     else:
         x, out_cache, aux_total = _forward_blocks(
             params, x, cfg, positions, want_cache, ring, dot, kernel, remat,
-            gather, place, ranks)
+            gather, place, ranks, rows)
+    x = rows.whole(x)
     x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
     if unembed_mode == "none":
         return x, out_cache, aux_total, loss_mask
@@ -456,10 +475,11 @@ def forward(params, batch, cfg, *, want_cache: bool,
 
 
 def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
-                    kernel, remat, gather=None, place=None, ranks=None):
+                    kernel, remat, gather=None, place=None, ranks=None,
+                    rows=WHOLE_ROWS):
     """The dense, moe and vlm families' layer groups: (x, caches, aux);
-    ``place`` cuts each layer's caches to a rank's block, ``ranks`` as in
-    ``forward``."""
+    ``place`` cuts each layer's caches to a rank's block, ``ranks`` and
+    ``rows`` (x's rows) as in ``forward``."""
     P = period_of(cfg)
     kinds = sublayer_kinds(cfg)
 
@@ -470,7 +490,7 @@ def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
             if gather is not None:
                 p = gather(p, ("blocks", f"sub{j}"))
             h, c, a = _dense_block_fwd(p, h, kinds[j], cfg, positions, dot,
-                                       kernel, ring, ranks)
+                                       kernel, ring, ranks, rows)
             aux = aux + a
             kv.append(c if want_cache else None)
         return h, aux, kv
@@ -500,11 +520,11 @@ def _forward_blocks(params, x, cfg, positions, want_cache, ring, dot,
 
 
 def _forward_mamba(params, x, cfg, positions, want_cache, dot, kernel,
-                   remat, gather=None, place=None):
+                   remat, gather=None, place=None, rows=WHOLE_ROWS):
     """The ssm and hybrid families: every mamba layer in order, the
     hybrid's shared block (on x and the original embedding) before each
-    of its ``hybrid_groups``. ``gather`` and ``place`` as in ``forward``.
-    Returns (x, caches or None)."""
+    of its ``hybrid_groups``. ``gather``, ``place`` and ``rows`` (x's
+    rows) as in ``forward``. Returns (x, caches or None)."""
     emb0 = x
     groups = hybrid_groups(cfg) if cfg.family == "hybrid" \
         else [cfg.num_layers]
@@ -513,14 +533,15 @@ def _forward_mamba(params, x, cfg, positions, want_cache, dot, kernel,
     for size in groups:
         if cfg.family == "hybrid":
             x, sc = _shared_block_fwd(_whole(params, "shared", gather), x,
-                                      emb0, cfg, positions, dot, kernel)
+                                      emb0, cfg, positions, dot, kernel,
+                                      rows)
             if place is not None:
                 sc = {n: place["shared"].block(t) for n, t in sc.items()}
             ks.append(sc["k"])
             vs.append(sc["v"])
         for l in range(layer, layer + size):
             args = (_group(params["mamba"], l), params["mamba_ln"][l], x,
-                    cfg, dot, gather)
+                    cfg, dot, gather, rows)
             x, mc = checkpoint(_mamba_fwd, *args, use_reentrant=False) \
                 if remat else _mamba_fwd(*args)
             if place is not None:

@@ -110,7 +110,7 @@ def train(model, shape, tcfg, *, mesh=None, ac=None, dot=None,
 def _check_layout(model, tcfg, shape, ac, in_shardings):
     """The layout the sharded step takes: the state as the rules place
     it, the batch's rows split as ``ac`` splits them and no other dim (a
-    sequence split would be ``make_ac``'s seq_tp); ``in_shardings``, if
+    sequence split over ``data`` is not ported); ``in_shardings``, if
     given, must be that layout."""
     state = specs_for(steps_lib.abstract_train_state(model, tcfg),
                       steps_lib.train_state_logical_specs(model, tcfg),
@@ -129,5 +129,6 @@ def _check_layout(model, tcfg, shape, ac, in_shardings):
             raise NotImplementedError(
                 f"batch {key!r} split as {spec}: the sharded trainer splits "
                 f"the rows of the global batch only, as make_ac does "
-                f"({rows}); a sequence split is make_ac's seq_tp (ROADMAP "
-                f"Queue 1, item 11f)")
+                f"({rows}); a batch whose sequence splits over data needs a "
+                f"reduce-scatter of the data ranks' gradients at the "
+                f"sequence's gather (ROADMAP Queue 1, item 11j)")

@@ -344,7 +344,8 @@ class ShardedTrainer(StateLayout):
             p.requires_grad_(True)
         loss = self.model.loss(params, batch, remat=self.tcfg.remat,
                                dot=self.dot, kernel=self.kernel,
-                               gather=self.gather, ranks=self.ranks)
+                               gather=self.gather, ranks=self.ranks,
+                               ac=self.ac)
         grads = torch.autograd.grad(loss, leaves)
         for p in leaves:
             p.requires_grad_(False)

@@ -22,8 +22,10 @@ per rank, as the sharded engine and trainer run.
   * The dense cache at rest per ``specs_for(cache_specs(B, T),
     cache_axes)``: ``choose_spec`` gives the sequence the ``model`` axis
     where it divides T, and the kv heads ``model`` only where it does not
-    (distributed/sharding.py::CacheBlock). A spec that splits the
-    sequence over ``data`` (B not split over it) is refused, naming it.
+    (distributed/sharding.py::CacheBlock); where B does not take ``data``
+    the sequence may fall through to it (``(None, None, 'data',
+    'model')``: each data rank holds its slots of every row, over its
+    model rank's kv heads).
     ``pos`` is a scalar, as in the reference's decode cells. The four
     families' caches (``placements``): the dense, moe and vlm families'
     per sub-layer slot; the ssm family's mamba conv windows and states
@@ -32,7 +34,10 @@ per rank, as the sharded engine and trainer run.
     self-attention k/v over decoder slots and its memory's mk/mv over
     encoder frames.
   * Prefill: the rank's rows through ``forward(want_cache=True)`` (ring
-    layout for local layers); each layer's caches are cut to the rank's
+    layout for local layers; under ``make_ac``'s seq_tp the residual's
+    sequence rows split over ``model`` between sub-layers, every
+    sub-layer and so every cache computed on whole rows, as in ``dp``
+    mode); each layer's caches are cut to the rank's
     block as they are made: kv heads made whole over ``model`` (copies),
     then its slots (or its kv heads). Returns the last row's logits of
     the rank's rows and the blocks.
@@ -40,8 +45,8 @@ per rank, as the sharded engine and trainer run.
     where the block holds every head; only the rank whose block holds
     slot ``pos`` (a ring's ``pos % W``) writes it; each rank's softmax
     over its keys, masked by the slots' global indices, then combined
-    over the sequence's axis (``softmax_combine``); ``attn_o`` as
-    ``tp_dot`` gives it.
+    over the sequence's axis, ``model`` or ``data`` (``softmax_combine``);
+    ``attn_o`` as ``tp_dot`` gives it.
 
 No reduction changes order but the combine: on a world of one rank every
 collective is an identity and the steps are the unsharded ones, bit for
@@ -76,20 +81,12 @@ MAMBA = "mamba"                      # the ssm and hybrid state's group
 
 def cache_spec(cfg, B: int, T: int, mesh):
     """The full-rank spec of a (L, B, T, K, hd) dense cache leaf on
-    ``mesh`` (``choose_spec`` on ``cache_axes``); refused where the
-    sequence splits over ``data``."""
-    sizes = shlib.axis_sizes(mesh)
-    spec = shlib.full_rank(shlib.choose_spec(
-        (1, B, T, cfg.num_kv_heads, cfg.resolved_head_dim), KV_AXES, sizes),
-        5)
-    if spec[2] not in (None, MODEL) and any(sizes[a] > 1 for a in
-                                            shlib._as_axes(spec[2])):
-        raise NotImplementedError(
-            f"{cfg.name}: a dense cache of B={B} x T={T} on "
-            f"{' x '.join(f'{a}={n}' for a, n in sizes.items())} has the "
-            f"spec {spec}, its sequence split over {spec[2]!r}: the sharded "
-            f"decode combines a sequence split over 'model' only")
-    return spec
+    ``mesh`` (``choose_spec`` on ``cache_axes``): the sequence over
+    ``model`` where it divides T, else over ``data`` where B does not
+    take ``data`` and it divides T (the reference's ``cache_seq`` rule)."""
+    return shlib.full_rank(shlib.choose_spec(
+        (1, B, T, cfg.num_kv_heads, cfg.resolved_head_dim), KV_AXES,
+        shlib.axis_sizes(mesh)), 5)
 
 
 def cache_groups(cfg, cache):
@@ -277,7 +274,8 @@ class ShardedServeSteps:
         return self.model.prefill(
             params, rows, dot=self.dot, kernel=self.kernel,
             gather=self.gatherer(params), place=place,
-            ranks=shlib.batch_ranks(self.ac, B, self.groups))
+            ranks=shlib.batch_ranks(self.ac, B, self.groups),
+            ac=self.ac.for_batch(B))
 
     def decode(self, params, cache, token, pos):
         """``serve_step(params, cache blocks, global token (B, 1), pos) ->

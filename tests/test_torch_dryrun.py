@@ -29,8 +29,10 @@ block's scores, no (B, H, S, T) tensor. The CLI in a subprocess: a
 full-width gemma2-2b record with every key, its state bytes the
 reference's arithmetic; whisper's prefill cell and mamba2-370m's train
 cell recorded likewise, and a --quant decode cell; ``--ac-mode seq_tp``
-refused naming item 11f; ``--all`` counting refusals apart from
-failures.
+running a decode cell, a --quant cell and ``--all`` over three moe
+cells, its records named apart from dp's; gemma2-2b's ``train_4k`` at
+seq_tp moving more collective bytes than dp's at no higher a live peak;
+``--all`` counting refusals apart from failures.
 """
 import json
 import math
@@ -591,17 +593,21 @@ def test_cli_runs_the_families(arch, shape_name, tmp_path):
                                              "collective")
 
 
-@pytest.mark.parametrize("args,item", [
+@pytest.mark.parametrize("args,name", [
     (("--arch", "gemma2-2b", "--shape", "decode_32k", "--ac-mode", "seq_tp"),
-     "item 11f")],
+     "gemma2-2b__decode_32k__single_seq_tp.json")],
     ids=["seq_tp"])
-def test_cli_refusals_name_their_item(args, item, tmp_path):
+def test_cli_refusals_name_their_item(args, name, tmp_path):
+    """What the port refused once it now runs (``--ac-mode seq_tp``, the
+    refusal of ROADMAP item 11f lifted), its record named apart from the
+    dp cell's."""
     r = _cli(*args, out_dir=tmp_path)
-    assert r.returncode == 0, r.stderr[-4000:]
-    line = [x for x in r.stdout.splitlines() if x.startswith("[refused]")]
-    assert len(line) == 1 and item in line[0], r.stdout
-    assert "0 cells ran, 1 refused, 0 failed" in r.stdout
-    assert not list(tmp_path.iterdir())
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert not [x for x in r.stdout.splitlines()
+                if x.startswith("[refused]")], r.stdout
+    assert "1 cells ran, 0 refused, 0 failed" in r.stdout
+    assert [p.name for p in tmp_path.iterdir()] == [name]
+    assert set(json.loads((tmp_path / name).read_text())) == KEYS
 
 
 def test_cells_runs_the_listed_cells(capsys, tmp_path):
@@ -640,26 +646,28 @@ def test_cli_quant_serves_stored_weights(tmp_path):
 def test_all_counts_refusals_apart_from_failures(monkeypatch, capsys,
                                                  tmp_path):
     """--all prints each refused cell and exits 0; a cell that fails
-    otherwise makes it exit 1. --ac-mode seq_tp is a refusal naming item
-    11f, of train and serving cells alike."""
+    otherwise makes it exit 1. --ac-mode seq_tp, which the port refused
+    (item 11f), runs train and serving cells alike, moe and quantized
+    weights included, each record named ``_seq_tp``."""
     monkeypatch.setattr(dryrun, "assigned_cells", lambda: [
         ("llama4-maverick-400b-a17b", "decode_32k"),
         ("granite-moe-3b-a800m", "train_4k"),
         ("granite-moe-3b-a800m", "prefill_32k")])
     dryrun.main(["--all", "--mesh", "both", "--ac-mode", "seq_tp",
-                 "--out-dir", str(tmp_path)])
+                 "--jobs", "3", "--out-dir", str(tmp_path)])
     out = capsys.readouterr().out
-    refused = [x for x in out.splitlines() if x.startswith("[refused]")]
-    assert len(refused) == 6
-    assert sum("item 11f" in x for x in refused) == 6
-    assert "0 cells ran, 6 refused, 0 failed" in out
-    for shape in ("train_4k", "decode_32k"):
-        dryrun.main(["--arch", "gemma2-2b", "--shape", shape, "--quant",
-                     "w8", "--ac-mode", "seq_tp", "--out-dir",
-                     str(tmp_path)])
-        out = capsys.readouterr().out
-        assert out.startswith("[refused]") and "item 11f" in out
-    assert not list(tmp_path.iterdir())
+    assert not [x for x in out.splitlines() if x.startswith("[refused]")]
+    assert "6 cells ran, 0 refused, 0 failed" in out
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert len(names) == 6 and all(n.endswith("_seq_tp.json")
+                                   for n in names)
+    dryrun.main(["--arch", "gemma2-2b", "--shape", "decode_32k", "--quant",
+                 "w8", "--ac-mode", "seq_tp", "--tag", "_w8", "--out-dir",
+                 str(tmp_path)])
+    out = capsys.readouterr().out
+    assert out.startswith("[ok") and "1 cells ran, 0 refused" in out
+    assert json.loads((tmp_path / "gemma2-2b__decode_32k__single_seq_tp_w8"
+                       ".json").read_text())["weight_bits"] < 16
 
     def broken(*a, **k):
         raise RuntimeError("boom")
@@ -669,3 +677,33 @@ def test_all_counts_refusals_apart_from_failures(monkeypatch, capsys,
     assert e.value.code == 1
     out = capsys.readouterr().out
     assert out.count("[FAIL]") == 3 and "3 FAILURES" in out
+
+
+def test_seq_tp_trades_collective_bytes_for_memory(tmp_path):
+    """gemma2-2b train_4k on the single-pod mesh (16 rows a rank, remat
+    on): under seq_tp each remat checkpoint saves the rank's 1/16 of the
+    residual's rows, and every sub-layer gathers its input's rows and the
+    backward gathers its output's gradient, so the record's collective
+    bytes exceed dp's and its live peak is no higher. Both cells run at
+    once, a CLI subprocess each."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells",
+         "gemma2-2b:train_4k", "--ac-mode", mode, "--out-dir",
+         str(tmp_path), "--force"], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode in ("dp", "seq_tp")]
+    for r in runs:
+        out, err = r.communicate(timeout=300)
+        assert r.returncode == 0, out[-2000:] + err[-4000:]
+    dp, seq = (json.loads((tmp_path / f"gemma2-2b__train_4k__single{t}"
+                                      ".json").read_text())
+               for t in ("", "_seq_tp"))
+
+    def coll(rec):
+        return sum(v for k, v in rec["collectives_per_device"].items()
+                   if k != "coll_count")
+    assert coll(seq) > coll(dp)
+    assert seq["live_bytes_per_device"] <= dp["live_bytes_per_device"]
+    assert seq["dot_flops_per_device"] == dp["dot_flops_per_device"]
+    assert seq["state_bytes_per_device"] == dp["state_bytes_per_device"]

@@ -45,6 +45,19 @@ steps at 40 -> 48 tokens, every rank's logits rows within REF_RTOL of max
 |logit| (measured 1.2e-6; XLA's and torch's fp32 sums in their own
 orders).
 
+``make_ac(mesh, "seq_tp")``'s prefill (the residual's rows split over
+model between sub-layers) at every mesh with model > 1: logits and every
+block bit-identical to the dp prefill's.
+
+A cache whose sequence falls through to data (ROADMAP item 11i), in a
+world of 6 at data=3 x model=2: tiny gemma2-2b, zamba2 and whisper at B
+1 with a self-attention length of 33 (39 after 4 decode steps), which 2
+does not divide and 3 does, split (None, None, 'data', 'model'): the
+prefill's logits and blocks bit-identical to the one-device cache's, the
+decode within DECODE_RTOL of one device (measured 5.2e-7 at most) and
+within REF_RTOL of the reference's jitted steps on 6 forced devices
+(measured 7.3e-7; whisper, bf16 there, within REF_BF16_RTOL: 6.3e-3).
+
 Each world is spawned once (a module fixture) and returns all its cases.
 """
 import json
@@ -114,11 +127,16 @@ def test_cache_specs_are_the_reference_rule(shape, sizes, want):
 
 
 def test_cache_split_over_data_is_refused_by_name():
+    """A cache whose sequence falls through to ``data`` (B not split over
+    it) is taken, as the reference's rule gives it, beside its kv heads
+    over ``model`` where the sequence leaves it (the world of 6 below
+    runs it)."""
     cfg = tiny_config("gemma2-2b")
     assert ssv.cache_spec(cfg, 2, 36, {"data": 2, "model": 2})[2] == "model"
-    with pytest.raises(NotImplementedError,
-                       match=r"spec \(None, None, 'data', None, None\)"):
-        ssv.cache_spec(cfg, 1, 34, {"data": 2, "model": 4})
+    assert ssv.cache_spec(cfg, 1, 34, {"data": 2, "model": 4}) == (
+        None, None, "data", None, None)
+    assert ssv.cache_spec(cfg, 1, 9, {"data": 3, "model": 2}) == (
+        None, None, "data", "model", None)
 
 
 @pytest.mark.parametrize("arch,sizes,dot", [
@@ -295,10 +313,17 @@ def _run(mesh, arch, fp32, B, S, T, control=False):
     ls, blocks = st.make_prefill_step(model, ac=ac)(local,
                                                     {"tokens": tokens})
     place = steps.layout(blocks)
+    # make_ac's seq_tp: the residual's rows split over model between
+    # sub-layers; its prefill is dp's, logits and blocks
+    seq = shlib.make_ac(mesh, "seq_tp")
+    lq, bq = st.make_prefill_step(model, ac=seq)(local, {"tokens": tokens})
     out = {"pre_logits": torch.equal(lw, ls), "pre_blocks": all(
         torch.equal(blocks[j][n], _rows_block(cw[j][n], place[j].spec,
                                               steps))
         for j in cw for n in ("k", "v")),
+        "seq_tp": torch.equal(lq, ls) and all(
+            torch.equal(bq[j][n], blocks[j][n]) for j in cw
+            for n in ("k", "v")),
         "split": {j: (p.split, p.heads_split, p.local_len)
                   for j, p in place.items()}}
     _, whole = st.make_prefill_step(model)(params, {"tokens": tokens})
@@ -488,6 +513,19 @@ def test_prefill_is_bit_identical(label, arch, fp32, request):
 
 @pytest.mark.parametrize("fp32", [True, False], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("label", [c[0] for c in CASES2 + CASES4
+                                   if c[2] > 1])
+def test_seq_tp_prefill_is_the_dp_prefill(label, arch, fp32, request):
+    """The prefill under make_ac(mesh, "seq_tp"): logits and every cache
+    block bit-identical to the dp prefill's on the same mesh (a prompt of
+    28 splits its rows over model; one of 33 does not)."""
+    for r in _results(request, label):
+        if (label, arch, fp32) in r:
+            assert r[(label, arch, fp32)]["seq_tp"], label
+
+
+@pytest.mark.parametrize("fp32", [True, False], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("label", [c[0] for c in CASES2 + CASES4])
 def test_decode_within_tolerance_and_blocks_follow(label, arch, fp32,
                                                    request):
@@ -561,3 +599,238 @@ def test_measured_gaps_are_recorded(world2, world4):
                 if len(k) == 3 and k[2] is True)
     print(json.dumps({"worst_fp32_decode_gap": worst}))
     assert worst <= DECODE_RTOL
+
+
+# ------------------------------------------ a cache split over data (11i) --
+# B = 1 at data=3 x model=2: the batch takes no axis, and a
+# self-attention length that 2 does not divide and 3 does falls through
+# to data, its kv heads over model: (None, None, 'data', 'model'). 33
+# prompt tokens (whisper: its decoder's, over 264 frames) and 4 decode
+# steps in 39 slots; gemma2-2b's 32-slot rings split over model.
+ARCHS6 = ("gemma2-2b", "zamba2-1.2b", "whisper-large-v3")
+S6, T6, STEPS6 = 33, 39, 4
+BF16_REF6 = ("whisper-large-v3",)    # the reference's encoder takes bf16
+REF_BF16_RTOL = 2e-2                 # tests/test_torch_serve_sharded_families
+
+
+def _inputs6(cfg, seed=7):
+    """(prefill batch, decode feed, first decode position), numpy."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(2, 500, (1, S6)).astype(np.int32)}
+    if cfg.is_encdec:
+        batch["frames"] = rng.standard_normal(
+            (1, S6 * cfg.dec_ratio, cfg.d_model)).astype(np.float32)
+    return batch, rng.integers(2, 500, (1, STEPS6)).astype(np.int32), S6
+
+
+def _attn_trees(p):
+    out = []
+    for key in ("blocks", "shared", "enc", "dec"):
+        sub = p.get(key)
+        if sub is None:
+            continue
+        for s in (sub.values() if key == "blocks" else [sub]):
+            out += [s[n] for n in ("attn", "xattn") if n in s]
+    return out
+
+
+def _grow6(model, cache):
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import encdec
+    if model.cfg.is_encdec:
+        return encdec.grow_cache(cache, T6)
+    return _grow_cache(cache, S6, T6)
+
+
+def _run6(mesh, arch, params=None, ref=None):
+    """Prefill + STEPS6 decode steps on ``mesh`` against the unsharded
+    steps (fp32, wq and wk x 1/8), or with ``ref`` the reference's
+    parameters and inputs: every step's logits against its."""
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.training import steps as st
+    model = build_model(tiny_config(arch))
+    if ref is None:
+        params = tree_map(lambda a: a.float(), model.init(
+            torch.Generator().manual_seed(0), "cpu"))
+        for a in _attn_trees(params):
+            for n in ("wq", "wk"):
+                a[n] = a[n] * QK_SCALE
+        batch, feed, n0 = _inputs6(model.cfg)
+    else:
+        params = from_jax_params(ref["params"])
+        batch, feed, n0 = ref["batch"], ref["feed"], S6
+    dtype = next(iter(tree_leaves(params))).dtype
+    batch = {k: torch.from_numpy(v).to(dtype) if v.dtype == np.float32
+             else torch.from_numpy(v) for k, v in batch.items()}
+    feed = torch.from_numpy(feed)
+    ac = shlib.make_ac(mesh)
+    steps = ssv.serve_steps(model, ac)
+    local = steps.shard_params(params)
+    logits, blocks = st.make_prefill_step(model, ac=ac)(local, batch)
+    place = steps.layout(blocks)
+    out = {"specs": {j: getattr(p, "spec", None) for j, p in place.items()}}
+    serve = st.make_serve_step(model, ac=ac)
+    if ref is not None:
+        errs = [rel(logits, torch.from_numpy(ref["prefill"]))]
+        blocks = steps.place_cache(_grow6(model, steps.whole_cache(blocks)))
+        for i in range(STEPS6):
+            lg, blocks = serve(local, blocks, feed[:, i:i + 1],
+                               torch.tensor(n0 + i))
+            errs.append(rel(lg, torch.from_numpy(ref["decode"][i])))
+        return errs
+    lw, cw = st.make_prefill_step(model)(params, batch)
+    groups = ssv.cache_groups(model.cfg, cw)
+    out["pre_logits"] = torch.equal(logits, lw)
+    out["pre_blocks"] = all(
+        torch.equal(b, shlib.local_block(groups[j][n],
+                                         place[j].leaf_spec(n), steps.sizes,
+                                         steps.coords))
+        for j, c in ssv.cache_groups(model.cfg, blocks).items()
+        for n, b in c.items())
+    cw = _grow6(model, cw)
+    blocks = steps.place_cache(cw)
+    out["decode"] = []
+    for i in range(STEPS6):
+        pos = torch.tensor(n0 + i)
+        want, cw = st.make_serve_step(model)(params, cw, feed[:, i:i + 1],
+                                             pos)
+        got, blocks = serve(local, blocks, feed[:, i:i + 1], pos)
+        out["decode"].append(rel(got, want))
+    return out
+
+
+def rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / max(float(b.float().abs().max()), 1e-30))
+
+
+def _world6(rank, world, device, ref_file):
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh(model=2, data=3, device_type="cpu",
+                             backend="gloo")
+    with open(ref_file, "rb") as f:
+        ref = pickle.load(f)
+    return {arch: (_run6(mesh, arch), _run6(mesh, arch, ref=ref[arch]))
+            for arch in ARCHS6}
+
+
+REF6_SCRIPT = """
+import pickle, sys
+import jax
+import jax.numpy as jnp
+import numpy as np
+jax.devices()                     # 8 forced host devices, before the
+from jax.sharding import Mesh     # dry-run module's own device flag
+import repro.launch.dryrun as rd
+from repro.configs import tiny_config
+from repro.configs.base import ShapeConfig, TrainConfig
+from repro.models.api import build_model
+STEPS, QK, BF16 = {STEPS}, {QK}, {BF16!r}
+with open(sys.argv[2], "rb") as f:
+    inputs = pickle.load(f)
+
+
+def attn_trees(p):
+    out = []
+    for key in ("blocks", "shared", "enc", "dec"):
+        sub = p.get(key)
+        if sub is None:
+            continue
+        for s in (sub.values() if key == "blocks" else [sub]):
+            out += [s[n] for n in ("attn", "xattn") if n in s]
+    return out
+
+
+def grow(tree, n, key=""):
+    if isinstance(tree, dict):
+        return {{k: grow(v, n, k if key == "" else key)
+                for k, v in tree.items()}}
+    if tree.ndim == 5 and key not in ("mamba", "mk", "mv") \\
+            and tree.shape[2] == n:
+        return jnp.pad(tree, ((0, 0), (0, 0), (0, {T} - n), (0, 0), (0, 0)))
+    return tree
+
+
+mesh = Mesh(np.asarray(jax.devices()[:6]).reshape(3, 2), ("data", "model"))
+out = {{}}
+for arch, (batch, feed, n0) in inputs.items():
+    model = build_model(tiny_config(arch))
+    r = model.cfg.dec_ratio if model.cfg.is_encdec else 1
+    dtype = jnp.bfloat16 if arch in BF16 else jnp.float32
+    p = jax.tree.map(lambda a: a.astype(dtype),
+                     model.init(jax.random.PRNGKey(0)))
+    for a in attn_trees(p):
+        for n in ("wq", "wk"):
+            a[n] = (a[n].astype(jnp.float32) * QK).astype(dtype)
+    step, args, ins, outs, don, _ = rd.build_step(
+        model, ShapeConfig("p", n0 * r, 1, "prefill"), mesh, TrainConfig())
+    dstep, dargs, dins, douts, ddon, _ = rd.build_step(
+        model, ShapeConfig("d", {T} * r, 1, "decode"), mesh, TrainConfig())
+    with mesh:
+        logits, cache = jax.jit(step, in_shardings=ins, out_shardings=outs)(
+            p, {{k: jnp.asarray(v) for k, v in batch.items()}})
+        cache = grow(cache, n0)
+        f = jax.jit(dstep, in_shardings=dins, out_shardings=douts)
+        dec = []
+        for i in range(STEPS):
+            lg, cache = f(p, cache, jnp.asarray(feed[:, i:i + 1]),
+                          jnp.int32(n0 + i))
+            dec.append(np.asarray(lg, np.float32))
+    out[arch] = {{"params": jax.tree.map(np.asarray, p), "batch": batch,
+                 "feed": feed, "prefill": np.asarray(logits, np.float32),
+                 "decode": dec}}
+with open(sys.argv[1], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def world6(tmp_path_factory):
+    """The reference's jitted sharded steps on 6 of 8 forced host devices
+    at data=3 x model=2 (a subprocess), then the world of 6 gloo ranks,
+    which runs every case of item 11i."""
+    tmp = tmp_path_factory.mktemp("ref6")
+    path, inputs = tmp / "ref.pkl", tmp / "in.pkl"
+    with open(inputs, "wb") as f:
+        pickle.dump({arch: _inputs6(tiny_config(arch)) for arch in ARCHS6},
+                    f)
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count"
+               "=8", JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    script = REF6_SCRIPT.format(STEPS=STEPS6, QK=QK_SCALE, BF16=BF16_REF6,
+                                T=T6)
+    r = subprocess.run([sys.executable, "-c", script, str(path),
+                        str(inputs)], env=env, capture_output=True,
+                       text=True, timeout=400, cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr[-4000:]
+    return spawn(_world6, 6, backend="gloo", timeout_s=WORLD_S,
+                 args=(str(path),))
+
+
+@pytest.mark.parametrize("arch", ARCHS6)
+def test_cache_over_data_prefill_blocks_and_decode(arch, world6):
+    """Item 11i: the self-attention cache (gemma2-2b's global layer,
+    zamba2's shared block, whisper's decoder slots) splits its 33 slots
+    over data and its kv heads over model; each rank's prefill blocks are
+    the one-device cache's blocks bit for bit, its logits too, and 4
+    decode steps (only the rank whose slots hold pos writes it; the
+    softmaxes combined over data) within DECODE_RTOL of the one-device
+    steps."""
+    want = {"gemma2-2b": "sub1", "zamba2-1.2b": "shared",
+            "whisper-large-v3": "self"}[arch]
+    for r in world6:
+        res = r[arch][0]
+        assert res["specs"][want] == (None, None, "data", "model", None)
+        assert res["pre_logits"] and res["pre_blocks"]
+        assert max(res["decode"]) <= DECODE_RTOL, res["decode"]
+
+
+@pytest.mark.parametrize("arch", ARCHS6)
+def test_cache_over_data_matches_the_reference(arch, world6):
+    """The prefill's and every decode step's logits against the
+    reference's jitted sharded steps at data=3 x model=2, within REF_RTOL
+    (whisper, which the reference runs in bf16, within REF_BF16_RTOL)."""
+    tol = REF_BF16_RTOL if arch in BF16_REF6 else REF_RTOL
+    for r in world6:
+        errs = r[arch][1]
+        assert len(errs) == STEPS6 + 1 and max(errs) <= tol, errs

@@ -18,7 +18,11 @@ heads, 2 kv heads) at model=4, where each rank slices its query head's kv
 head from the whole wk/wv, and at model=8, where every rank computes the
 whole attention; and at pod=2 x data=2, the FSDP dims split over both;
 three steps each from the reference's state carried across
-(models/convert.py::from_jax_state).
+(models/convert.py::from_jax_state). ``make_ac(mesh, "seq_tp")`` (the
+residual's rows split over model between sub-layers): which rows a rank
+cuts, and at model=2 and data=2 x model=2 the trainer against dp on the
+same mesh, state and batch, and against the reference's jitted step
+under its own ``make_ac(mesh, "seq_tp")`` on forced host devices.
 
 Tolerances, and why:
   * fp32 (``fp32`` cases): every run's parameters are set to its fp32
@@ -62,6 +66,14 @@ Tolerances, and why:
     compare elementwise: where one run's v code rounds to 0 and the
     other's to 1, the reference's quantizer moves that element by up to
     lr |m_hat| / eps.
+  * seq_tp against dp (fp32): the first loss and every gradient leaf but
+    the norm scales bit-identical (both collectives it adds move data
+    only); the norm scales, whose gradient sums every row and so is
+    summed over model from each rank's rows' share, within GRAD_TOL of
+    each leaf's max |g| (measured 1.8e-7 at most), and the control
+    without that sum misses it by over 100x (measured 0.2-0.8); three
+    steps under the fp32 rules against dp, the one-device port and the
+    reference's seq_tp step.
   * Controls: the model=2 step without the input-side all-reduce of the
     tensor-parallel pair, the data=2 and data=3 steps with the other
     data ranks' gradients dropped (from the reduce-scatter and from the
@@ -107,6 +119,7 @@ from repro_torch.data import pipeline as tdp  # noqa: E402
 from repro_torch.distributed import sharding as shlib  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.models import attention as t_attn  # noqa: E402
+from repro_torch.models import layers as t_layers  # noqa: E402
 from repro_torch.models import encdec as t_ed  # noqa: E402
 from repro_torch.models import transformer as t_tr  # noqa: E402
 from repro_torch.models.api import build_model as t_build  # noqa: E402
@@ -265,30 +278,67 @@ def test_make_ac_rows_are_the_batch_spec(sizes, B):
 
 
 def test_make_ac_modes_and_kinds():
+    """dp leaves every kind but the batch as it is; seq_tp is taken (its
+    row split: ``test_make_ac_seq_tp_splits_the_rows``) and leaves the
+    decode kinds as they are; another mode is refused."""
     ac = shlib.make_ac({"data": 2, "model": 2})
     x = torch.zeros(4, 8, 16)
     for kind in ("resid", "decode_q", "decode_kv", "decode_scores",
                  "moe_buf"):
         assert ac(x, kind) is x
-    with pytest.raises(NotImplementedError, match="item 11f"):
-        shlib.make_ac({"data": 2, "model": 2}, mode="seq_tp")
+    assert ac.rows(x) is t_layers.WHOLE_ROWS
+    seq = shlib.make_ac({"data": 2, "model": 2}, mode="seq_tp")
+    assert seq.mode == "seq_tp"
+    for kind in ("decode_q", "decode_kv", "decode_scores", "moe_buf"):
+        assert seq(x, kind) is x
     with pytest.raises(ValueError, match="mode"):
         shlib.make_ac({"data": 2}, mode="tp")
+
+
+@pytest.mark.parametrize("S", [1, 6, 8, 64])
+@pytest.mark.parametrize("data,tp", [(2, 2), (1, 4), (4, 1)],
+                         ids=["2x2", "model4", "data4"])
+def test_make_ac_seq_tp_splits_the_rows(data, tp, S):
+    """seq_tp's ``"resid"`` cuts a (B, S, D) residual to block
+    coords["model"] of its S rows where the reference's condition holds
+    (model > 1, S divisible by it, S > 1), and leaves it whole otherwise,
+    a tensor of another rank too; ``rows`` gathers the block back to S
+    rows. A batch no axis divides takes the dp layout (``for_batch``)."""
+    from repro_torch.launch.mesh import _mesh, dry_world
+    x = torch.arange(2 * S * 3, dtype=torch.float32).reshape(2, S, 3)
+    split = tp > 1 and S % tp == 0 and S > 1
+    with dry_world(data * tp):
+        ac = shlib.make_ac(_mesh(data, tp, "cpu", 60.0), mode="seq_tp")
+        assert (ac.rows(x) is not t_layers.WHOLE_ROWS) == split
+        flat = x[0]
+        assert ac(flat, "resid") is flat
+        for r in range(tp):
+            ac.coords["model"] = r
+            got = ac(x, "resid")
+            if not split:
+                assert got is x
+                continue
+            n = S // tp
+            assert torch.equal(got, x[:, r * n:(r + 1) * n])
+            assert got.untyped_storage().nbytes() == got.numel() * 4
+            assert tuple(ac.rows(x).whole(got).shape) == tuple(x.shape)
+        assert ac.for_batch(2 * data) is ac
+        assert (ac.for_batch(2 * data + 1).mode == "dp") == (data > 1)
 
 
 @pytest.mark.parametrize("B,ok", [(4, True), (2, True), (1, False)])
 def test_train_refuses_a_batch_it_cannot_split(B, ok):
     """At data=2 the batch's rows split as make_ac splits them; a batch of
     one row would split its sequence (the reference's batch spec gives
-    seq the data axis), which is make_ac's seq_tp. in_shardings may only
-    be the rules' own layout."""
+    seq the data axis), which the port refuses, naming ROADMAP item 11j.
+    in_shardings may only be the rules' own layout."""
     from repro_torch.training.loop import _check_layout
     model = t_build(t_tiny("gemma2-2b"))
     tcfg = _tcfg()
     shape = ShapeConfig("t", 64, B, "train")
     ac = shlib.make_ac({"data": 2, "model": 1})
     if not ok:
-        with pytest.raises(NotImplementedError, match="item 11f"):
+        with pytest.raises(NotImplementedError, match="item 11j"):
             _check_layout(model, tcfg, shape, ac, None)
         return
     _check_layout(model, tcfg, shape, ac, None)
@@ -481,9 +531,10 @@ def _case_setup(model, case):
 
 
 # ------------------------------------------------------------ the worlds --
-def _case(trainer_of, model, case, rank, shape=SHAPE):
-    """A case through the sharded trainer: the first step's gradients
-    (whole) and STEPS steps' metrics and masters (whole, rank 0)."""
+def _case(trainer_of, model, case, rank, shape=SHAPE, steps=None):
+    """A case through the sharded trainer: the first step's loss and
+    gradients (whole) and ``steps`` steps' metrics and masters (whole,
+    rank 0; STEPS, one for int8 moments)."""
     tcfg, state, fp32 = _case_setup(model, case)
     tr = trainer_of(tcfg)
     st = tr.shard(state, tr.specs)
@@ -491,16 +542,19 @@ def _case(trainer_of, model, case, rank, shape=SHAPE):
         tuple(a.shape), s, tr.sizes) for x, a, s in zip(
         tree_leaves(st), tree_leaves(tr.abstract), tr.leaf_specs()))
     b0 = tdp.batch_for_model(model, shape, None, 0, full=True)
-    _, g = tr.grads(st["params"], {k: tr.ac(v, "batch")
-                                   for k, v in b0.items()})
+    loss, g = tr.grads(st["params"], {k: tr.ac(v, "batch")
+                                      for k, v in b0.items()})
     grads = [tr.whole(x, s).float().numpy()
              for x, s in zip(tree_leaves(g), tr.param_specs)]
     rest = sum(x.numel() * x.element_size() for x in tree_leaves(st))
+    if steps is None:
+        steps = 1 if case.startswith("quant") else STEPS
     steps, first = _run_steps(
         tr.step, st, fp32,
         lambda k: tdp.batch_for_model(model, shape, None, k, full=True),
-        tr.host_state, steps=1 if case.startswith("quant") else STEPS)
-    return {"grads": grads, "steps": steps if rank == 0 else None,
+        tr.host_state, steps=steps)
+    return {"loss": float(loss), "grads": grads,
+            "steps": steps if rank == 0 else None,
             "moments": first, "shapes_ok": shapes_ok, "bytes": rest,
             "data_split": [any("data" in (e if isinstance(e, tuple) else (e,))
                                for e in s if e is not None)
@@ -636,6 +690,22 @@ def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE,
             out[case] = _case(trainer_of, model, case, rank, shape)
         elif case == "moe":
             out[case] = _case(trainer_of, model, "fp32", rank)
+        elif case in ("seq_tp", "seq_tp_nosum"):
+            def seq_trainer(tcfg, model=model):
+                return tsh.ShardedTrainer(model, tcfg,
+                                          shlib.make_ac(mesh, "seq_tp"))
+            if case == "seq_tp":
+                out[case] = _case(seq_trainer, model, "fp32", rank, shape)
+                continue
+            # the control: the norm scales' gradient not summed over model
+            norm = shlib.SplitRows.norm
+            shlib.SplitRows.norm = \
+                lambda self, x, scale, eps: t_layers.rms_norm(x, scale, eps)
+            try:
+                out[case] = _case(seq_trainer, model, "fp32", rank, shape,
+                                  steps=0)
+            finally:
+                shlib.SplitRows.norm = norm
         elif case in ("no_tp", "drop", "no_kv_sum", "no_kv_input"):
             out[case] = _control(trainer_of, model, case, rank, shape)
         elif case == "ckpt":
@@ -667,14 +737,16 @@ def world_data2(ckpt_root):
 def world_model2(ckpt_root, world_data2):
     return spawn(_world, 2, backend="gloo", timeout_s=WORLD_S,
                  args=(1, 2, ("fp32", "bf16", "moe", "quant", "no_tp",
-                              "quant256", "restore", "reshard"),
+                              "quant256", "restore", "reshard", "seq_tp",
+                              "seq_tp_nosum"),
                        ckpt_root))
 
 
 @pytest.fixture(scope="module")
 def world4():
     return spawn(_world, 4, backend="gloo", timeout_s=WORLD_S,
-                 args=(2, 2, ("fp32", "bf16"), ""))
+                 args=(2, 2, ("fp32", "bf16", "seq_tp", "seq_tp_nosum"),
+                       ""))
 
 
 @pytest.fixture(scope="module")
@@ -986,3 +1058,128 @@ def test_reshard_state_model2_data2_one_device(world_model2):
             assert r["reshard"]["one"] and all(r["reshard"]["one"])
         else:
             assert r["reshard"]["one"] is None
+
+
+# --------------------------------------------------------------- seq_tp --
+# the norm scales: the one gradient seq_tp sums in another order
+NORM_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "ln_x", "mamba_ln",
+             "final_norm", "enc_norm")
+SEQ_TP_WORLDS = {"model2": (1, 2), "world4": (2, 2)}
+
+SEQ_TP_REF = """
+import pickle, sys
+import jax
+import jax.numpy as jnp
+import numpy as np
+jax.devices()                     # 4 forced host devices, before the
+from jax.sharding import Mesh     # dry-run module's own device flag
+import repro.launch.dryrun as rd
+from repro.configs import tiny_config
+from repro.configs.base import OptimConfig, ShapeConfig, TrainConfig
+from repro.data import pipeline as jdp
+from repro.distributed import sharding as j_sh
+from repro.models.api import build_model
+with open(sys.argv[2], "rb") as f:
+    state0 = pickle.load(f)
+shape = ShapeConfig("t", {S}, {B}, "train")
+model = build_model(tiny_config("gemma2-2b"))
+tcfg = TrainConfig(optim=OptimConfig(lr={LR}, warmup_steps=1,
+                                     total_steps=10))
+out = {{}}
+for data, tp in {MESHES!r}:
+    mesh = Mesh(np.asarray(jax.devices()[:data * tp]).reshape(data, tp),
+                ("data", "model"))
+    ac = j_sh.make_ac(mesh, "seq_tp")
+    step, args, ins, outs, don, _ = rd.build_step(model, shape, mesh, tcfg,
+                                                  ac_mode="seq_tp")
+    state = jax.tree.map(jnp.asarray, state0)
+    b0 = jdp.batch_for_model(model, shape, None, 0)
+    with mesh:
+        g = jax.jit(jax.grad(lambda p: model.loss(p, b0, remat=True, ac=ac)),
+                    in_shardings=(ins[0]["params"],))(state["params"])
+        f = jax.jit(step, in_shardings=ins, out_shardings=outs)
+        steps = []
+        for k in range({STEPS}):
+            state, met = f(state, jdp.batch_for_model(model, shape, None, k))
+            state = {{"params": jax.device_put(state["opt"]["master"],
+                                              ins[0]["params"]),
+                     "opt": state["opt"]}}
+            steps.append(({{n: float(v) for n, v in met.items()}}, [
+                np.asarray(x, np.float32)
+                for x in jax.tree.leaves(state["opt"]["master"])]))
+    out[(data, tp)] = {{"grads": [np.asarray(x, np.float32)
+                                 for x in jax.tree.leaves(g)],
+                       "steps": steps}}
+with open(sys.argv[1], "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_seq_tp(tmp_path_factory):
+    """The reference's jitted make_train_step under make_ac(mesh,
+    "seq_tp"), with build_step's shardings, on 4 forced host devices at
+    model=2 and data=2 x model=2, in a subprocess: the first gradients
+    and STEPS fp32 steps from ``_ref_state``."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+    tmp = tmp_path_factory.mktemp("seq_tp_ref")
+    path, inputs = tmp / "ref.pkl", tmp / "state.pkl"
+    with open(inputs, "wb") as f:
+        pickle.dump(_ref_state("gemma2-2b")[0], f)
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count"
+               "=4", JAX_PLATFORMS="cpu", PYTHONPATH=str(root / "src"))
+    script = SEQ_TP_REF.format(S=SHAPE.seq_len, B=SHAPE.global_batch, LR=LR,
+                               STEPS=STEPS,
+                               MESHES=list(SEQ_TP_WORLDS.values()))
+    r = subprocess.run([sys.executable, "-c", script, str(path),
+                        str(inputs)], env=env, capture_output=True,
+                       text=True, timeout=400, cwd=str(root))
+    assert r.returncode == 0, r.stderr[-4000:]
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _norm_paths():
+    return [p[-1] in NORM_KEYS for p in shlib.leaf_paths(
+        t_build(t_tiny("gemma2-2b")).abstract_params())]
+
+
+@pytest.mark.parametrize("name", list(SEQ_TP_WORLDS))
+def test_seq_tp_is_dp_but_the_norm_scales(name, request):
+    """make_ac(mesh, "seq_tp") against dp on the same mesh, state and
+    batch (fp32): the first loss bit-identical, every gradient leaf but
+    the norm scales bit-identical, the norm scales (each rank's rows'
+    share summed over model) within GRAD_TOL of each leaf's max |g|; the
+    control without that sum misses it by over 100x."""
+    norms = _norm_paths()
+    assert any(norms)
+    for r in request.getfixturevalue(WORLDS[name]):
+        dp, seq, ctrl = r["fp32"], r["seq_tp"], r["seq_tp_nosum"]
+        assert seq["loss"] == dp["loss"] == ctrl["loss"]
+        if r["fp32"]["steps"] is not None:
+            assert seq["steps"][0][0]["loss"] == dp["steps"][0][0]["loss"]
+        for norm, a, b in zip(norms, dp["grads"], seq["grads"]):
+            if norm:
+                assert _grad_err([a], [b]) <= GRAD_TOL
+            else:
+                assert np.array_equal(a, b)
+        miss = max(_grad_err([a], [c]) for norm, a, c in zip(
+            norms, dp["grads"], ctrl["grads"]) if norm)
+        assert miss > 100 * GRAD_TOL
+
+
+@pytest.mark.parametrize("name", list(SEQ_TP_WORLDS))
+def test_seq_tp_steps_match_dp_one_device_and_reference(
+        name, request, one_device, reference_seq_tp):
+    """Three fp32 seq_tp steps under the fp32 rules against the dp steps
+    of the same world, the one-device port and the reference's jitted
+    seq_tp step on as many forced devices."""
+    got = request.getfixturevalue(WORLDS[name])[0]["seq_tp"]
+    _check_fp32(got, request.getfixturevalue(WORLDS[name])[0]["fp32"])
+    _check_fp32(got, one_device["gemma2-2b", "fp32"])
+    _check_fp32(got, reference_seq_tp[SEQ_TP_WORLDS[name]])

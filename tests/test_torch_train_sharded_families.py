@@ -36,6 +36,13 @@ Tolerances, and why (tests/test_torch_train_sharded.py's rules):
     rule.
   * A world of one rank: ``train(mesh=)`` equals ``train()`` bit for bit,
     losses, grad norms and every leaf.
+  * seq_tp (``make_ac(mesh, "seq_tp")``) at model=2, the four families
+    and tiny granite-moe, one fp32 step against dp in the same world
+    (tests/test_torch_train_sharded.py's seq_tp rules): the first loss
+    and every gradient leaf but the norm scales bit-identical (the
+    mamba layers, zamba2's shared block and fuse products, whisper's
+    encoder and cross attention, llava's patch rows and the experts on
+    whole rows), the norm scales within GRAD_TOL.
   * Against the reference: its ``make_train_step`` jitted with
     ``repro.launch.dryrun.build_step``'s shardings on 8 forced host
     devices at data=2 x model=2, in a subprocess, from its own initial
@@ -97,6 +104,12 @@ XATTN_LEAVES = {("dec", "xattn", "wq"), ("dec", "xattn", "wk"),
 XATTN_GRAD_TOL = 1e-3
 # (label, data, model)
 MESHES = {"data2": (2, 1), "model2": (1, 2), "2x2": (2, 2)}
+# trained at model=2 under make_ac(mesh, "seq_tp") beside dp
+MOE = "granite-moe-3b-a800m"
+SEQ_TP_ARCHS = ARCHS + (MOE,)
+# the norm scales: the one gradient seq_tp sums in another order
+NORM_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "ln_x", "mamba_ln",
+             "final_norm", "enc_norm")
 
 
 def _tcfg(microbatches=1, ckpt_dir=""):
@@ -165,11 +178,12 @@ def _one_device(arch, fp32, microbatches=1, zero_rows=None):
 
 
 # ---------------------------------------------------------------- the worlds --
-def _case(mesh, arch, fp32, zero_rows=None):
-    """A case through the sharded trainer: the first step's gradients
-    (whole, fp32 case) and each step's metrics."""
+def _case(mesh, arch, fp32, zero_rows=None, mode="dp"):
+    """A case through the sharded trainer under ``make_ac(mesh, mode)``:
+    the first step's loss and gradients (whole, fp32 case) and each
+    step's metrics."""
     model = build_model(tiny_config(arch))
-    tr = tsh.ShardedTrainer(model, _tcfg(), shlib.make_ac(mesh))
+    tr = tsh.ShardedTrainer(model, _tcfg(), shlib.make_ac(mesh, mode))
     st = tr.shard(_state(model, fp32), tr.specs)
     shapes_ok = all(tuple(x.shape) == shlib.local_shape(
         tuple(a.shape), s, tr.sizes) for x, a, s in zip(
@@ -177,7 +191,8 @@ def _case(mesh, arch, fp32, zero_rows=None):
     out = {"shapes_ok": shapes_ok, "steps": []}
     if fp32:
         b0 = _batch(model, 0, zero_rows)
-        _, g = tr.grads(st["params"], tr.rows(b0))
+        loss, g = tr.grads(st["params"], tr.rows(b0))
+        out["loss"] = float(loss)
         out["grads"] = [tr.whole(x, s).float().numpy()
                         for x, s in zip(tree_leaves(g), tr.param_specs)]
     for k in range(1 if fp32 else STEPS):
@@ -229,6 +244,10 @@ def _world(rank, world, device, data, tp, ckpt_dir, ref_file=None):
     for arch in ARCHS:
         out[(arch, "fp32")] = _case(mesh, arch, True)
         out[(arch, "bf16")] = _case(mesh, arch, False)
+    if data == 1 and tp == 2:
+        out[(MOE, "fp32")] = _case(mesh, MOE, True)
+        for arch in SEQ_TP_ARCHS:
+            out[(arch, "seq_tp")] = _case(mesh, arch, True, mode="seq_tp")
     if data == 2 and tp == 1:
         out["llava_zero"] = _case(mesh, "llava-next-mistral-7b", True,
                                   zero_rows=slice(2, 4))
@@ -443,3 +462,26 @@ def test_measured_gaps_are_recorded(world4, reference):
         out[arch] = (abs(loss - w["loss"]) / w["loss"],
                      abs(norm - w["grad_norm"]) / w["grad_norm"])
     print(json.dumps(out))
+
+
+@pytest.mark.parametrize("arch", SEQ_TP_ARCHS)
+def test_seq_tp_step_is_dp_but_the_norm_scales(arch, world_model2):
+    """One fp32 step at model=2 under make_ac(mesh, "seq_tp") against dp
+    in the same world (tests/test_torch_train_sharded.py's seq_tp rules):
+    the first loss bit-identical, every gradient leaf but the norm scales
+    bit-identical, the norm scales within GRAD_TOL of each leaf's max
+    |g|, the step's loss and grad norm within LOSS_RTOL."""
+    paths = shlib.leaf_paths(build_model(tiny_config(arch))
+                             .abstract_params())
+    assert any(p[-1] in NORM_KEYS for p in paths)
+    for r in world_model2:
+        dp, seq = r[(arch, "fp32")], r[(arch, "seq_tp")]
+        assert seq["loss"] == dp["loss"]
+        for path, a, b in zip(paths, dp["grads"], seq["grads"]):
+            if path[-1] in NORM_KEYS:
+                err = float(np.abs(a - b).max()
+                            / max(np.abs(a).max(), 1e-30))
+                assert err <= GRAD_TOL, (path, err)
+            else:
+                assert np.array_equal(a, b), path
+        _check_fp32(seq, dp, arch)
