@@ -189,7 +189,8 @@ Phases, each fatal on failure:
                 slices of the whole products at the runs' rows (cuBLAS);
                 (a) an NCCL world of 1 rank (launch.mesh.spawn) over the
                 main trace through a model=1 mesh, tokens and every sampled
-                logits row bit-identical to the unsharded engine's; (b) a
+                logits row bit-identical to the unsharded engine's; (b),
+                beside (a), a
                 gloo world of 2 ranks on this card (gathers staged through
                 host memory), model=2: full-width gemma2-2b cut to 2 of
                 its 26 layers on a cut of the main trace (its first 2
@@ -206,7 +207,7 @@ Phases, each fatal on failure:
                 parameter, pool, resident and peak memory against the
                 unsharded engine's, tick times (host-staged, not a speed);
  18. mesh-train — training split over a mesh (training/sharded.py): (a)
-                an NCCL world of 1 rank, full-width gemma2-2b, 3 steps of
+                an NCCL world of 1 rank, full-width gemma2-2b, 2 steps of
                 ``train(mesh=)`` at B 2 x S 4096, losses, grad norms and
                 every leaf of the state bit-identical to the unsharded
                 ``train()``; (b) a gloo world of 2 ranks on this card at
@@ -220,7 +221,8 @@ Phases, each fatal on failure:
                 whole's, its peak and seconds a step, 2 x 2 flash
                 launches a step a rank; (c) tiny gemma2-2b at S = 2048
                 (flash at hd 32) at model=2 and data=2 x model=2 (a gloo
-                world of 4), 3 steps under the same rules, the first
+                world of 4, beside (b)'s world), 3 steps under the same
+                rules, the first
                 through ``train(mesh=)``, which restores a whole
                 checkpoint of the initial state, slicing it on each
                 rank, and writes its own whole (checked bit for bit);
@@ -232,7 +234,17 @@ Phases, each fatal on failure:
                 (d) (b)'s state
                 resharded onto one rank (``reshard_state``), its masters
                 equal to (b)'s, and one step there bit-identical to the
-                unsharded step from the same state;
+                unsharded step from the same state; (e) in (b)'s world,
+                one row of 4096 tokens at data=2, its sequence split
+                over data (2048 rows a rank between sub-layers,
+                ``DataSeqRows``), past ``train(mesh=)``'s layout check,
+                2 steps from (b)'s initial state under the bf16 rules
+                against the one-device run summing the two sequence
+                blocks' bf16 gradients in fp32, and against the plain
+                one-device run within them or twice that control's
+                distance (both run on the card beside the world); each
+                rank's peak, seconds a step and 2 x 2 flash launches a
+                step over the whole sequence;
  19. dryrun   — the dry-run (launch/dryrun.py, roofline/) on meta tensors:
                 (a) the record of phase 12's step (full-width gemma2-2b,
                 B 2 x S 4096, remat on, a mesh of one) beside phase 12's
@@ -337,7 +349,11 @@ Phases, each fatal on failure:
                 LOGIT_RTOL of the one-device prefill of the global batch;
                 2 train steps on uniform random tokens under phase 18's
                 loss and grad-norm rules against the one-device run on
-                the global batch; gemma2-2b at model=2 on int8 and int4
+                the global batch; ``Model.loss`` on one row of 2048
+                tokens, its sequence split over data: every rank's
+                routes, keep and buffer rows equal to the one-device
+                plan in every layer (integers), the loss within phase
+                18's rule; gemma2-2b at model=2 on int8 and int4
                 codes: W8A16/W4A16 launched on the ranks' column slices,
                 each slice's call within the kernel bound of the whole
                 call's columns and of its plain version on the slice
@@ -4131,19 +4147,27 @@ def phase_mesh(kv_policy_file):
         base[run["label"]] = mesh_engine_run(run)
         gc.collect()
         torch.cuda.empty_cache()
-    worlds = {}
-    for runs, n, backend in ((one, 1, "nccl"), (two, MESH_TP, "gloo")):
+    # the two worlds side by side: the gloo world's host-staged gathers
+    # leave the card mostly idle
+    def world(runs, n, backend):
         t0 = time.perf_counter()
         try:
-            worlds[backend] = spawn(mesh_rank, n, backend=backend,
-                                    device="cuda:0", timeout_s=MESH_WORLD_S,
-                                    args=(runs,))
+            res = spawn(mesh_rank, n, backend=backend, device="cuda:0",
+                        timeout_s=MESH_WORLD_S, args=(runs,))
         except WorldFailed as e:
             fail(f"mesh: the {backend} world of {n} failed:\n{e}")
-        print(f"mesh[{backend}]: a world of {n} rank(s) on cuda:0, "
-              f"backend {backend}, {time.perf_counter() - t0:.1f} s "
-              f"(spawn, init and every run)", flush=True)
-        mark(f"phase 17's {backend} world")
+        return res, time.perf_counter() - t0
+    worlds = {}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futures = [(backend, n, pool.submit(world, runs, n, backend))
+                   for runs, n, backend in ((one, 1, "nccl"),
+                                            (two, MESH_TP, "gloo"))]
+        for backend, n, future in futures:
+            worlds[backend], world_s = future.result()
+            print(f"mesh[{backend}]: a world of {n} rank(s) on cuda:0, "
+                  f"backend {backend}, {world_s:.1f} s (spawn, init and "
+                  f"every run; the two worlds side by side)", flush=True)
+            mark(f"phase 17's {backend} world")
     launches = {}
     for runs, backend in ((one, "nccl"), (two, "gloo")):
         ranks = worlds[backend]
@@ -4209,7 +4233,7 @@ def phase_mesh(kv_policy_file):
 
 # --------------------------------------------- phase 18: sharded training --
 # steps of (a) the NCCL world of 1 and (b) the gloo world of 2 (data = 2)
-MT_STEPS_ONE, MT_STEPS_TWO = 3, 2
+MT_STEPS_ONE, MT_STEPS_TWO = 2, 2
 # (b) and (d) keep MT_LAYERS of gemma2-2b's 26 layers, every width whole:
 # their host-staged gloo bytes (a step's gathers and reduce-scatters, the
 # reshard) shrink with the depth, so that the script stays well inside
@@ -4240,6 +4264,10 @@ MT_TINY_QK = 0.125
 # and phase 20(b)'s; the norm scales are the one gradient seq_tp sums in
 # another order (each rank's rows' share, summed over model in fp32)
 MT_SEQ_STEPS = 2
+# (e): one row of TRAIN_S tokens at data=2, the depth cut as (b)'s: no
+# batch axis divides it, so the rules split its sequence over data
+# (DataSeqRows: TRAIN_S / 2 rows a rank between sub-layers)
+MT_SEQ_B = 1
 NORM_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "ln_x", "mamba_ln",
              "final_norm", "enc_norm")
 
@@ -4394,14 +4422,64 @@ def hold_steps(label, got, want, lrs, control=None):
     return "; ".join(lines)
 
 
+def mt_seq_blocks_step(model, tcfg, n):
+    """The one-device train step whose gradient is the fp32 sum of the
+    gradients of each of ``n`` sequence blocks' share of the loss (its
+    rows' next-token losses over the whole sequence's count), each taken
+    alone in the leaves' dtype (bf16): what a sequence split over ``n``
+    data ranks rounds, as microbatches are for a split of the rows."""
+    import torch
+    from repro_torch.models import transformer as t_tr
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.training.steps import run_train_step
+
+    def grad_fn(params, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        hidden = model.forward(params, batch, unembed_mode="none",
+                               remat=tcfg.remat)[0]
+        labels = batch["labels"]
+        S = labels.shape[1]
+        nxt = torch.nn.functional.pad(labels[:, 1:], (0, 1))
+        w = torch.nn.functional.pad(torch.ones(
+            labels[:, 1:].shape, device=labels.device), (0, 1))
+        cnt = w.sum()
+        total, loss = None, 0.0
+        for r in range(n):
+            blk = slice(r * S // n, (r + 1) * S // n)
+            calls = []
+
+            def share(v):       # chunked_ce's data_sum: the sum, then the
+                calls.append(v)     # count, the whole sequence's
+                return v if len(calls) == 1 else cnt
+            part = t_tr.chunked_ce(params, hidden[:, blk], nxt[:, blk],
+                                   model.cfg, loss_mask=w[:, blk],
+                                   data_sum=share, shifted=True)
+            g = torch.autograd.grad(part, leaves, retain_graph=r < n - 1)
+            total = [x.float() for x in g] if total is None else [
+                a.add_(b.float()) for a, b in zip(total, g)]
+            loss = loss + part.detach()
+            del g
+        for p in leaves:
+            p.requires_grad_(False)
+        return loss, tree_unflatten(params, [
+            t.to(p.dtype) for t, p in zip(total, leaves)])
+    return run_train_step(tcfg, grad_fn, lambda g, o: adamw_update(
+        g, o, tcfg.optim))
+
+
 def mt_unsharded(model, shape, steps, qk, ckpt_dir, sample,
-                 microbatches=1, first=0, save_to=()):
+                 microbatches=1, first=0, save_to=(), seq_blocks=0):
     """The one-device port from seed 0 with wq, wk times ``qk`` (the batch
     cut into ``microbatches``) on the batches of steps ``first`` on: each
     step's metrics and its masters' samples (``sample``: whole_samples) or
     whole masters on the host. ``save_to``: checkpoint directories where
     the initial state is first written whole as the checkpoint of step
-    ``first`` - 1 (a run that restores it goes on at ``first``)."""
+    ``first`` - 1 (a run that restores it goes on at ``first``).
+    ``seq_blocks``: the step ``mt_seq_blocks_step`` of that many blocks
+    instead (the control of a sequence split over data)."""
     import dataclasses
     import torch
     from repro_torch.checkpoint.ckpt import save
@@ -4414,7 +4492,8 @@ def mt_unsharded(model, shape, steps, qk, ckpt_dir, sample,
     scale_qk_state(state, qk)
     for d in save_to:
         save(d, first - 1, state, keep=1)
-    step = steps_lib.make_train_step(model, tcfg)
+    step = mt_seq_blocks_step(model, tcfg, seq_blocks) if seq_blocks \
+        else steps_lib.make_train_step(model, tcfg)
     out = []
     for k in range(first, first + steps):
         state, met = step(state, dp.batch_for_model(model, shape, None, k,
@@ -4579,7 +4658,36 @@ def mt_rank_two(rank, world, device, ckpt_dir):
     t_c = time.perf_counter()
     res["c_seq"] = mt_seq_tp(mesh_c)
     res["c_seq_s"] = time.perf_counter() - t_c
+    # (e) one row at data=2: the sequence split over data
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["e"] = mt_seq_data(model, tcfg, tr)
     return res
+
+
+def mt_seq_data(model, tcfg, trainer):
+    """Phase 18(e)'s rank: MT_SEQ_B row of TRAIN_S tokens at data=2
+    through ``trainer`` ((b)'s: the same model, mesh and state layout),
+    after the layout check ``train(mesh=)`` makes (``_check_layout``: the
+    rules' batch spec splits the sequence over data, ``DataSeqRows``),
+    MT_STEPS_TWO steps from (b)'s initial state, seed 0 with wq, wk times
+    QK_SCALE (``mt_sharded_steps``: metrics, flash launches, seconds and
+    masters' samples a step); this rank's peak."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.training.loop import _check_layout
+    shape = ShapeConfig("train", TRAIN_S, MT_SEQ_B, "train")
+    _check_layout(model, tcfg, shape, trainer.ac, None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    scale_qk_state(state, QK_SCALE)
+    state, steps = mt_sharded_steps(trainer, state, model, shape,
+                                    MT_STEPS_TWO, sample=True)
+    del state
+    return {"steps": steps,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "s": trainer.first_rank_float(time.perf_counter() - t0)}
 
 
 def mt_rank_four(rank, world, device, ckpt_dir):
@@ -4616,7 +4724,7 @@ def mt_seq_tp(mesh):
         tr = ShardedTrainer(model, mt_tcfg(""), make_ac(mesh, mode))
         state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
         scale_qk_state(state, MT_TINY_QK)
-        loss, g = tr.grads(state["params"], tr.rows(b0))
+        loss, g = tr.grads(state["params"], *tr.rows(b0))
         _, steps = mt_sharded_steps(tr, state, model, shape, MT_SEQ_STEPS,
                                     sample=False)
         runs[mode] = (float(loss), tree_leaves(g), steps)
@@ -4713,6 +4821,7 @@ def phase_train_mesh(phase12_step_s):
     tiny = build_model(tiny_config("gemma2-2b"))
     shape = ShapeConfig("train", TRAIN_S, TRAIN_B, "train")
     tiny_shape = ShapeConfig("t", MT_TINY_S, MT_TINY_B, "train")
+    seq_shape = ShapeConfig("train", TRAIN_S, MT_SEQ_B, "train")
     state_bytes = sum(math.prod(a.shape) * a.element_size() for a in
                       tree_leaves(abstract_train_state(cut, mt_tcfg(""))))
     flash = 0
@@ -4769,18 +4878,41 @@ def phase_train_mesh(phase12_step_s):
                                   save_to=(f"{tmp}/c2", f"{tmp}/c4")
                                   if m == 1 else ()) for m in (1, 2)}
         base_s = time.perf_counter() - t_b
-        worlds = {}
-        for fn, n_ranks in ((mt_rank_two, 2), (mt_rank_four, 4)):
+        # (e)'s one-device runs, on the card beside the host-staged world
+        # of 2 (a rank's peak 12.7 GB in a rehearsal)
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+
+        def e_baselines():
+            t_e = time.perf_counter()
+            runs = {n: mt_unsharded(cut, seq_shape, MT_STEPS_TWO, QK_SCALE,
+                                    tmp, sample=True,
+                                    seq_blocks=0 if n == 1 else n)
+                    for n in (1, 2)}
+            return runs, time.perf_counter() - t_e
+        e_future = pool.submit(e_baselines)
+        # (c)'s tiny world of 4 beside (b)'s host-staged world of 2
+        worlds_pool = concurrent.futures.ThreadPoolExecutor(2)
+
+        def world(fn, n_ranks):
             t0 = time.perf_counter()
             try:
-                worlds[n_ranks] = spawn(fn, n_ranks, backend="gloo",
-                                        device="cuda:0",
-                                        timeout_s=MT_WORLD_S, args=(tmp,))
+                res = spawn(fn, n_ranks, backend="gloo", device="cuda:0",
+                            timeout_s=MT_WORLD_S, args=(tmp,))
             except WorldFailed as e:
                 fail(f"mesh-train: the gloo world of {n_ranks} failed:\n{e}")
-            print(f"mesh-train: gloo world of {n_ranks} on cuda:0 in "
-                  f"{time.perf_counter() - t0:.1f} s", flush=True)
-            mark(f"phase 18's gloo world of {n_ranks}")
+            return res, time.perf_counter() - t0
+        futures = {n: worlds_pool.submit(world, fn, n)
+                   for fn, n in ((mt_rank_two, 2), (mt_rank_four, 4))}
+        worlds = {}
+        with worlds_pool:
+            for n_ranks in (4, 2):
+                worlds[n_ranks], world_s = futures[n_ranks].result()
+                print(f"mesh-train: gloo world of {n_ranks} on cuda:0 in "
+                      f"{world_s:.1f} s, beside the world of "
+                      f"{6 - n_ranks}", flush=True)
+                mark(f"phase 18's gloo world of {n_ranks}")
+        with pool:
+            want_e, base_e_s = e_future.result()
     two, four = worlds[2], worlds[4]
     lrs = [m["lr"] for m, _ in want_b[1]]
     # (b)
@@ -4885,7 +5017,50 @@ def phase_train_mesh(phase12_step_s):
               f"{line}", flush=True)
     print(f"mesh-train: (c)'s seq_tp runs {two[0]['c_seq_s']:.1f} s in the "
           f"world of 2", flush=True)
+    flash += mt_hold_seq_data([r["e"] for r in two], want_e, base_e_s,
+                              card)
     return flash, [r["rest_bytes"] for r in b]
+
+
+def mt_hold_seq_data(ranks, want, base_s, card):
+    """Phase 18(e): the ranks' steps on one row at data=2 against the
+    one-device run whose gradient sums the two sequence blocks' bf16
+    gradients in fp32 (``mt_seq_blocks_step``) under phase 18's bf16
+    rules (MT_*; losses, grad norms, masters), and against the plain
+    one-device run within them or twice the block run's distance; each
+    rank MT_LAYERS x 2 flash launches a step over the whole TRAIN_S rows
+    (the forward and remat's recompute). Returns the flash launches,
+    summed over ranks."""
+    got = [(s["met"], merge_samples([r["steps"][k]["masters"]
+                                     for r in ranks]))
+           for k, s in enumerate(ranks[0]["steps"])]
+    lrs = [m["lr"] for m, _ in want[1]]
+    line = hold_steps("mesh-train[e] vs the sequence-block run", got,
+                      want[2], lrs)
+    line1 = hold_steps("mesh-train[e] vs unsharded", got, want[1], lrs,
+                       control=want[2])
+    flash = 0
+    for i, r in enumerate(ranks):
+        for k, s in enumerate(r["steps"]):
+            if s["flash"] != MT_LAYERS * 2:
+                fail(f"mesh-train[e]: rank {i} step {k}: {s['flash']} flash "
+                     f"launches, expected {MT_LAYERS * 2}")
+            flash += s["flash"]
+    print(f"mesh-train[e gloo data=2, gemma2-2b {MT_LAYERS} of 26 layers "
+          f"B={MT_SEQ_B} S={TRAIN_S}, the sequence split over data "
+          f"({TRAIN_S // 2} rows a rank), wq, wk x {QK_SCALE}]: against the "
+          f"one-device run summing the two sequence blocks' bf16 gradients "
+          f"in fp32: {line}; against the unsharded run (the control: the "
+          f"block run): {line1}; one-device runs {base_s:.1f} s, beside the "
+          f"world", flush=True)
+    for i, r in enumerate(ranks):
+        print(f"mesh-train[e]: rank {i} peak {r['peak_gb']:.3f} GB; steps "
+              f"{', '.join(f'{s['s']:.2f}' for s in r['steps'])} s "
+              f"(host-staged gloo, not a speed); flash launches a step "
+              f"{[s['flash'] for s in r['steps']]} (forward and remat "
+              f"recompute over the whole {TRAIN_S} rows, {MT_LAYERS} "
+              f"layers); {r['s']:.1f} s ({card})", flush=True)
+    return flash
 
 
 # ------------------------------------------------------------- dry-run ----
@@ -6196,6 +6371,9 @@ MQ_B, MQ_S = 2, 4096            # granite-moe's batch: global C 2048 a layer
 # router seeds on the CPU), as a trained model's chunks drop 0.46-5.36%
 MQ_X_SHIFT = 0.25
 MQ_TRAIN_B, MQ_TRAIN_S, MQ_STEPS = 2, 2048, 2
+# (b)'s one row of MQ_TRAIN_S tokens at data=2: its sequence splits over
+# data (DataSeqRows), every rank routing the whole rows
+MQ_SEQ_B = 1
 MQ_QS, MQ_DECODE = 1024, 2      # gemma2-2b's prompt and steps on codes
 # the fake-quant policy of (b)'s HAQ step: (w_bits, a_bits) a site
 MQ_HAQ = {"attn_q": (4, 16), "attn_k": (6, 16), "attn_v": (5, 16),
@@ -6226,6 +6404,54 @@ def mq_train_batch(cfg, k):
     t = torch.randint(2, cfg.vocab_size, (MQ_TRAIN_B, MQ_TRAIN_S),
                       generator=g, dtype=torch.int32)
     return {"tokens": t.cuda(), "labels": t.clone().cuda()}
+
+
+def mq_seq_plans(model, mesh=None):
+    """granite-moe's plan in every moe layer (models/moe.py::dispatch's
+    idx, keep and dest, in the flat pairs' order, on the host) and the
+    loss of one no-grad ``Model.loss`` over MQ_SEQ_B row of MQ_TRAIN_S
+    uniform random tokens, from seed 0 (wq, wk times QK_SCALE): one
+    device, or through the sharded trainer's hooks over ``mesh``, which
+    split the sequence over data. Also the flash launches and seconds."""
+    import torch
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.training.sharded import ShardedTrainer
+    g = torch.Generator().manual_seed(260)
+    t = torch.randint(2, model.cfg.vocab_size, (MQ_SEQ_B, MQ_TRAIN_S),
+                      generator=g, dtype=torch.int32).cuda()
+    batch = {"tokens": t, "labels": t.clone()}
+    params = ms_params(model, QK_SCALE)
+    hooks = {}
+    if mesh is not None:
+        tr = ShardedTrainer(model, mt_tcfg(""), make_ac(mesh))
+        params = tr.shard(params, tr.specs["params"])
+        batch, ac = tr.rows(batch)
+        hooks = dict(gather=tr.gather, ranks=tr.ranks, ac=ac,
+                     dot=tr.dot)
+    plans, dispatch = [], moe_lib.dispatch
+
+    def record(idx, C, E, **kw):
+        order, keep, dest = dispatch(idx, C, E, **kw)
+        flat_keep, flat_dest = torch.empty_like(keep), torch.empty_like(dest)
+        flat_keep[order], flat_dest[order] = keep, dest
+        plans.append((idx.cpu(), flat_keep.cpu(), flat_dest.cpu()))
+        return order, keep, dest
+    moe_lib.dispatch = record
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            loss = float(model.loss(params, batch, **hooks))
+    finally:
+        moe_lib.dispatch = dispatch
+    out = {"plans": plans, "loss": loss, "s": time.perf_counter() - t0,
+           "flash": all_launches()["flash_attention_fwd"]}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def mq_moe_layer(params):
@@ -6479,6 +6705,7 @@ def mq_rank_one(rank, world, device):
     out["moe_prefill"] = logits.float().cpu()
     del params
     out["moe_train_ref"] = mq_train(moe)
+    out["moe_seq"] = mq_seq_plans(moe)
     gemma = build_model(mq_config("gemma2-2b", MQ_LAYERS))
     prompt, feed = ms_inputs(gemma.cfg, MQ_B, MQ_QS, MQ_DECODE, 252)
     for bits in (8, 4):
@@ -6530,6 +6757,7 @@ def mq_rank_two(rank, world, device):
     t0 = time.perf_counter()
     out["moe_train"] = mq_train(moe, mesh)
     out["moe_train"]["wall"] = time.perf_counter() - t0
+    out["moe_seq"] = mq_seq_plans(moe, mesh)
     mesh = make_serving_mesh(model=2, data=1, device_type="cuda",
                              backend="gloo")
     gemma = build_model(mq_config("gemma2-2b", MQ_LAYERS))
@@ -6718,6 +6946,33 @@ def phase_moe_quant(started=None):
           f"(host-staged gloo, not a speed), peaks "
           + ", ".join(f"{u['moe_train']['peak_gb']:.2f}" for u in two)
           + f" GB; {t['flash']} flash launches a rank ({card})", flush=True)
+    # (b) one row at data=2: the sequence split over data, every rank
+    # routing the whole rows as one device does
+    want = one["moe_seq"]
+    for i, t in enumerate(two):
+        got = t["moe_seq"]
+        if len(got["plans"]) != len(want["plans"]) or not all(
+                torch.equal(a, b) for g, w in zip(got["plans"],
+                                                   want["plans"])
+                for a, b in zip(g, w)):
+            fail(f"moe-quant[b {MOE_ARCH} B={MQ_SEQ_B} S={MQ_TRAIN_S}]: rank "
+                 f"{i}'s routes, keep or slots differ from the one-device "
+                 f"plan")
+        if abs(got["loss"] - want["loss"]) > MT_LOSS_RTOL * abs(want["loss"]):
+            fail(f"moe-quant[b {MOE_ARCH} B={MQ_SEQ_B}]: rank {i}'s loss "
+                 f"{got['loss']} vs {want['loss']}")
+        launches["flash_attention_fwd"] += got["flash"]
+    kept = [int(k.sum()) for _, k, _ in want["plans"]]
+    print(f"moe-quant[b gloo data=2 {MOE_ARCH} {MQ_LAYERS} layers, "
+          f"Model.loss on B={MQ_SEQ_B} S={MQ_TRAIN_S}, the sequence split "
+          f"over data]: every rank's routes, keep and buffer rows equal to "
+          f"the one-device plan in all {len(want['plans'])} layers "
+          f"(integers; pairs kept {kept} of "
+          f"{want['plans'][0][0].numel()} a layer); loss "
+          + ", ".join(f"{t['moe_seq']['loss']:.6f}" for t in two)
+          + f" vs {want['loss']:.6f}; {two[0]['moe_seq']['flash']} flash "
+          f"launches a rank, {two[0]['moe_seq']['s']:.2f} s ({card})",
+          flush=True)
     # (b) stored codes at model=2; the sliced calls checked and timed here,
     # the card to themselves
     from repro_torch.models.api import build_model

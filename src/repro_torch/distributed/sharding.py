@@ -17,8 +17,10 @@ The rules read only a mesh's axis sizes (``axis_sizes``): a
 ``{"data": d, "model": m}`` mapping for pure callers.
 
 ``make_ac`` is the training's and the prefill's activation layout:
-which rows of the global batch a rank computes on, and under ``seq_tp``
-which rows of the sequence it holds between sub-layers (``SplitRows``).
+which rows of the global batch a rank computes on, under ``seq_tp``
+which rows of the sequence it holds between sub-layers (``SplitRows``),
+and, for a training batch whose sequence the rules split over ``data``,
+which of its rows a rank holds and takes the loss on (``DataSeqRows``).
 The collectives at the bottom are what
 the sharded engine and the sharded trainer (training/sharded.py) run:
 all-gathers are pure data movement, and every sum over ranks is taken in
@@ -225,6 +227,11 @@ class ActivationLayout:
       it), where the reference's condition holds: rank 3, ``model`` > 1,
       S divisible by it and S > 1; ``x`` as it is otherwise (a decode
       step's one row, a vision-stub sequence ``model`` does not divide).
+      In the layout of a training batch that no batch axis divides
+      (``whole_batch``: every rank takes the whole batch), the rank's block
+      of the S rows over ``data`` (block ``coords["data"]``) where the
+      reference's batch spec gives ``seq`` the data axis: ``data`` > 1,
+      S divisible by it and S > 1 (``seq_split``; ``DataSeqRows``).
     * ``"decode_q"``, ``"decode_kv"``, ``"decode_scores"``: ``x`` as it
       is. In the reference they hint the decode cells at the partitioner
       (q replicated over ``model``, k, v and the scores split on the
@@ -234,11 +241,15 @@ class ActivationLayout:
     * any other kind (the reference's ``"moe_buf"`` no-op included):
       ``x`` as it is.
 
+    ``whole_batch``: every rank takes the whole global batch of a
+    training step (training/sharded.py::ShardedTrainer.rows, where no
+    batch axis divides its rows), so ``rows`` splits its sequence.
     ``mesh`` is a named ``DeviceMesh`` (or sizes only: every coordinate
-    0, and no seq_tp split, which needs the model axis's group)."""
+    0, and no split of the sequence's rows, which needs the axis's
+    group)."""
 
-    def __init__(self, mesh, mode: str = "dp"):
-        self.mesh, self.mode = mesh, mode
+    def __init__(self, mesh, mode: str = "dp", *, whole_batch: bool = False):
+        self.mesh, self.mode, self.whole_batch = mesh, mode, whole_batch
         self.sizes = axis_sizes(mesh)
         self.coords = mesh_coords(mesh)
 
@@ -252,6 +263,29 @@ class ActivationLayout:
             return "data"
         return None
 
+    def seq_split(self, b: int, s: int) -> bool:
+        """Whether a training step over ``b`` global rows of ``s`` sequence
+        rows splits the sequence over ``data`` (``DataSeqRows``): no batch
+        axis divides ``b``, ``data`` > 1 divides ``s`` and ``s`` > 1, as
+        the reference's ``choose_spec`` of ("batch", "seq") puts ``data``
+        on the sequence. Raises on a mesh whose ``pod`` axis is above 1,
+        where the reference's spec leaves the sequence replicated over pod
+        and the port splits none."""
+        return self.batch_axes(b) is None and self._seq_over_data(s)
+
+    def _seq_over_data(self, s: int) -> bool:
+        data = self.sizes.get("data", 1)
+        if data == 1 or s % data or s == 1:
+            return False
+        if self.sizes.get("pod", 1) > 1:
+            raise NotImplementedError(
+                f"a batch whose rows split over no batch axis, on a mesh "
+                f"with pod={self.sizes['pod']}: the rules split its "
+                f"sequence over data, replicated over the pod axis, which "
+                f"the sharded trainer does not take (a sequence splits over "
+                f"data on a mesh without pod)")
+        return True
+
     def for_batch(self, b: int) -> "ActivationLayout":
         """The layout of a step over a global batch of ``b`` rows: this
         one, or where no batch axis divides ``b`` (every rank takes every
@@ -261,16 +295,24 @@ class ActivationLayout:
             return self
         return ActivationLayout(self.mesh)
 
-    def rows(self, x: torch.Tensor) -> layers.WholeRows:
+    def rows(self, x) -> layers.WholeRows:
         """The row layout of a forward whose residual stream is ``x``
-        (whole): ``SplitRows`` over ``model`` where seq_tp splits it (the
-        ``"resid"`` kind), ``layers.WHOLE_ROWS`` otherwise."""
+        (whole; a tensor or its shape): in a ``whole_batch`` layout
+        ``DataSeqRows`` over ``data`` where the sequence splits there;
+        ``SplitRows`` over ``model`` where seq_tp splits it (the
+        ``"resid"`` kind); ``layers.WHOLE_ROWS`` otherwise."""
+        shape = tuple(x.shape) if isinstance(x, torch.Tensor) else tuple(x)
+        if len(shape) != 3:
+            return layers.WHOLE_ROWS
+        s = shape[1]
+        if self.whole_batch and self.seq_split(shape[0], s):
+            return DataSeqRows(self.mesh.get_group("data"),
+                               self.coords["data"], s)
         tp = self.sizes.get("model", 1)
-        if self.mode != "seq_tp" or x.dim() != 3 or tp == 1 \
-                or x.shape[1] % tp or x.shape[1] == 1:
+        if self.mode != "seq_tp" or tp == 1 or s % tp or s == 1:
             return layers.WHOLE_ROWS
         return SplitRows(self.mesh.get_group("model"), self.coords["model"],
-                         x.shape[1])
+                         s)
 
     def __call__(self, x: torch.Tensor, kind: str) -> torch.Tensor:
         if kind == "resid":
@@ -322,13 +364,95 @@ class SplitRows(layers.WholeRows):
         return layers.rms_norm(x, sum_grad(scale.to(F32), self.group), eps)
 
 
+class DataSeqRows(layers.WholeRows):
+    """The rows of a training forward whose batch's sequence splits over
+    ``data`` (``ActivationLayout.seq_split``): every rank of the data
+    axis's ``group`` takes the whole global batch, and holds its (B, S,
+    D) residual stream as its block ``rank`` of S / n rows between
+    sub-layers, the models' blocks calling
+
+    * ``norm(x, scale, eps)``: ``rms_norm`` on the rank's rows. The
+      scale's gradient is the rank's rows' share, which the trainer's sum
+      over ``data`` adds to the other ranks' with every other parameter's
+      (training/sharded.py), so the norm sums nothing itself;
+    * ``whole(h)`` on a norm's output before a sub-layer (attention, FFN,
+      moe, mamba, a fuse product), which then runs on the whole
+      sequence's rows on every rank: a bf16 all-gather forward; backward,
+      the fp32 reduce-scatter of the ranks' input gradients in
+      group-rank order (``gather_shard`` with ``reduce=True``), as each
+      rank's backward carries only its own rows' loss;
+    * ``local(a)`` on the sub-layer's whole output before the sandwich
+      norm and the residual add (``rows_own``: the backward gives the
+      other ranks' rows zeros, with no collective).
+
+    The final norm, the unembedding and the loss run on the rank's rows
+    (``final``); the loss takes their next-token targets from the whole
+    batch (``targets``), its sum and count summed over ``data``
+    (``BatchRanks.sum``). The moe layers see whole rows and route them as
+    one device does (``route``: no ranks), so every rank computes the
+    whole aux loss; the loss takes its value on every rank and its
+    gradient on the first data rank alone (``once``): the other ranks
+    take it detached, so the sum over ``data`` counts it once, exactly.
+
+    Every gather moves data only, and every sub-layer runs on the whole
+    sequence, so the forward is one device's on every rank. The sums that
+    change order are each gathered activation's input gradient (the
+    reduce-scatter) and each parameter's (the trainer's sum over
+    ``data``), each the ranks' shares added in fp32 in group-rank order,
+    and the loss's sum and count."""
+
+    split_loss = True
+
+    def __init__(self, group, rank: int, length: int):
+        self.group, self.rank, self.length = group, rank, length
+        self.n = length // dist.get_world_size(group)
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        return x if x.shape[1] != self.length \
+            else rows_own(x, self.group, self.rank)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return x if x.shape[1] == self.length \
+            else gather_shard(x, 1, self.group, reduce=True)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def route(self, ranks):
+        return None
+
+    def once(self, aux):
+        if self.rank == 0 or not isinstance(aux, torch.Tensor):
+            return aux
+        return aux.detach()
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rows (dim 1) of a whole (B, S, ...) tensor that
+        takes no gradient (labels, loss weights)."""
+        return t.narrow(1, self.rank * self.n, self.n)
+
+    def targets(self, labels: torch.Tensor, weight: torch.Tensor):
+        """(labels, weights) of the rank's rows' next-token losses, from
+        the whole (B, S) ``labels`` and 0/1 ``weight`` of the sequence's
+        rows: row i predicts row i + 1's label, weighted by row i's
+        weight, and the sequence's last row (the last rank's last)
+        predicts nothing, as the one-device loss's shift by one row
+        (models/transformer.py::chunked_ce) takes them."""
+        nxt = torch.nn.functional.pad(labels[:, 1:], (0, 1))
+        w = torch.nn.functional.pad(weight[:, :-1].to(F32), (0, 1))
+        return self.own(nxt), self.own(w)
+
+
 def make_ac(mesh, mode: str = "dp") -> ActivationLayout:
     """The activation-layout hook for ``mesh`` (``ActivationLayout``).
     ``mode="dp"``: the batch split over the FSDP axes, activations
     replicated over ``model``. ``mode="seq_tp"`` (the reference's
     sequence-parallel TP): also the residual stream's sequence rows split
     over ``model`` between sub-layers (``SplitRows``), the norms run on
-    1/TP of the rows and a remat checkpoint saves 1/TP of the residual."""
+    1/TP of the rows and a remat checkpoint saves 1/TP of the residual.
+    In either mode a training batch no batch axis divides has its
+    sequence split over ``data`` where the rules split it there
+    (``DataSeqRows``)."""
     if mode not in ("dp", "seq_tp"):
         raise ValueError(f"make_ac mode must be 'dp' or 'seq_tp', got "
                          f"{mode!r}")
@@ -760,6 +884,37 @@ def rows_local(x: torch.Tensor, group, rank: int) -> torch.Tensor:
     """seq_tp's cut of a whole (B, S, ...) activation to block ``rank``
     (this rank's in ``group``) of its S / n rows (``_RowsLocal``)."""
     return _RowsLocal.apply(x, group, rank)
+
+
+class _RowsOwn(torch.autograd.Function):
+    """Forward: this rank's block of ``x``'s rows (dim 1), which every
+    rank of the data group holds whole and alike, in storage of its own.
+    Backward: the gradient of the rank's rows, padded with zeros to the
+    whole rows, with no collective. Each data rank's loss is its own
+    rows' share, so its backward has nothing for the other rows; their
+    ranks' gradients reach the sub-layer's input through the
+    reduce-scatter at the gather before it (``DataSeqRows.whole``) and
+    its parameters through the trainer's sum over ``data``. Under seq_tp
+    (``_RowsLocal``) each rank computes its rows of one whole loss, so the
+    whole gradient is its ranks' blocks side by side, gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        n = x.shape[1] // dist.get_world_size(group)
+        ctx.pad = (rank * n, x.shape[1] - (rank + 1) * n)
+        return x.narrow(1, rank * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        pad = (0, 0) * (g.dim() - 2) + ctx.pad
+        return torch.nn.functional.pad(g, pad), None, None
+
+
+def rows_own(x: torch.Tensor, group, rank: int) -> torch.Tensor:
+    """``DataSeqRows``' cut of a whole (B, S, ...) activation to block
+    ``rank`` of its S / n rows (``_RowsOwn``)."""
+    return _RowsOwn.apply(x, group, rank)
 
 
 def rows_whole(x: torch.Tensor, group) -> torch.Tensor:

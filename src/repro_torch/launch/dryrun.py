@@ -52,6 +52,7 @@ the refusal.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import time
@@ -140,9 +141,9 @@ def build_step(model, shape, mesh, tcfg, quant: str = "",
         raise Refused(str(e)) from None
     if shape.kind == "train":
         state = local_tree(trainer.abstract, trainer.specs, mesh)
-        batch = {k: v.clone() for k, v in trainer.rows(
-            model.input_specs(shape)).items()}
-        return trainer.local_step, (state, batch), \
+        rows, ac = trainer.rows(model.input_specs(shape))
+        batch = {k: v.clone() for k, v in rows.items()}
+        return functools.partial(trainer.local_step, ac=ac), (state, batch), \
             [(trainer.abstract, trainer.specs)], 16.0
     defs, weight_bits = model.defs, 16.0
     if quant:

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models import encdec, transformer
 from repro_torch.models import params as plib
+from repro_torch.models.layers import WHOLE_ROWS
 from repro_torch.models.params import tree_map
 
 
@@ -94,20 +95,50 @@ class Model:
         (distributed/sharding.py::BatchRanks), over which the loss's sum
         and count are summed (the vlm's text rows included: its token
         count is the global batch's) and the moe layers route; ``ac`` the
-        activation layout (``forward``)."""
+        activation layout (``forward``).
+
+        Where ``ac`` splits the batch's sequence over data (every rank
+        given the whole batch: distributed/sharding.py::DataSeqRows), the
+        rank's hidden rows are its block of the sequence's (the vision
+        stub's patch and text rows alike), each scored against the next
+        row's label and weighted by its own row's text mask, the last row
+        of the sequence by none; the moe aux loss is the whole batch's on
+        every rank, its gradient taken on the first data rank alone
+        (``DataSeqRows.once``)."""
         hidden, _, aux, fmask = self.forward(params, batch,
                                              unembed_mode="none", dot=dot,
                                              kernel=kernel, remat=remat,
                                              gather=gather, ranks=ranks,
                                              ac=ac)
         labels = batch["labels"]
+        data_sum = None if ranks is None else ranks.sum
+        B, S = labels.shape
+        rows = self._loss_rows(B, S + (batch["patches"].shape[1]
+                                      if "patches" in batch else 0), ac)
+        if rows.split_loss:
+            weight = torch.ones(labels.shape, dtype=torch.float32,
+                                device=labels.device) if fmask is None \
+                else fmask
+            nxt, w = rows.targets(torch.nn.functional.pad(
+                labels, (weight.shape[1] - S, 0)), weight)
+            ce = transformer.chunked_ce(params, hidden, nxt, self.cfg,
+                                        dot=dot, gather=gather,
+                                        loss_mask=w, data_sum=data_sum,
+                                        shifted=True)
+            return ce + 0.01 * rows.once(aux)
         if fmask is not None:
             hidden = hidden[:, -labels.shape[1]:]
         ce = transformer.chunked_ce(params, hidden, labels, self.cfg,
                                     dot=dot, gather=gather,
-                                    data_sum=None if ranks is None
-                                    else ranks.sum)
+                                    data_sum=data_sum)
         return ce + 0.01 * aux
+
+    def _loss_rows(self, B: int, S: int, ac):
+        """The row layout of the loss's (B, S) sequence (the decoder's,
+        or the vision stub's patch and text rows) under ``ac``."""
+        if ac is None:
+            return WHOLE_ROWS
+        return ac.rows((B, S, self.cfg.d_model))
 
     def prefill(self, params, batch, *, cache_layout="ring",
                 unembed_mode="last", dot=None, kernel="auto", gather=None,

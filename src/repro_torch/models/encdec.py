@@ -165,8 +165,10 @@ def encode(params, frames, cfg, *, remat=False, dot=None, kernel="auto",
     the sinusoid are each rounded to bf16 before the add, as in the
     reference; ``remat`` runs each layer under a checkpoint. ``ac``: the
     sharded steps' activation layout (transformer.forward's): under
-    seq_tp the layers hold the rank's rows between sub-layers, and the
-    memory is gathered whole before ``enc_norm``."""
+    seq_tp, or where the frames' sequence splits over data, the layers
+    hold the rank's rows between sub-layers, and the memory is gathered
+    whole before ``enc_norm`` (over data, its gradient reduce-scattered
+    back to the frames' owners)."""
     S, D = frames.shape[1:]
     x = frames.to(torch.bfloat16) + \
         sinusoidal(S, D, frames.device).to(torch.bfloat16)
@@ -207,7 +209,9 @@ def decode_fwd(params, mem, tokens, cfg, *, want_cache: bool, remat=False,
     memory (whole). Returns (logits, or hidden states for unembed_mode
     "none"; caches stacked over layers, or None). ``ac`` as in
     ``encode``: the decoder's rows split on their own, and gathered whole
-    before the final norm."""
+    before the final norm, except where they split over data: the final
+    norm and the unembedding then run on the rank's rows (the loss's,
+    models/api.py::Model.loss)."""
     x = embed_tokens(params, tokens, cfg, gather)
     x = x + sinusoidal(tokens.shape[1], cfg.d_model, x.device).to(x.dtype)
     rows = WHOLE_ROWS if ac is None else ac.rows(x)
@@ -223,7 +227,7 @@ def decode_fwd(params, mem, tokens, cfg, *, want_cache: bool, remat=False,
         caches.append(c)
     out = {k: torch.stack([c[k] for c in caches]) for k in caches[0]} \
         if want_cache else None
-    x = rms_norm(rows.whole(x), _whole(params, "final_norm", gather),
+    x = rms_norm(rows.final(x), _whole(params, "final_norm", gather),
                  cfg.norm_eps)
     if unembed_mode == "none":
         return x, out

@@ -29,7 +29,17 @@ class WholeRows:
     ``local`` (a sub-layer's output -> the rows the residual keeps) and
     ``whole`` (a norm's output -> the rows a sub-layer reads) are
     identities and ``norm`` is ``rms_norm``. ``make_ac``'s seq_tp splits
-    them over the model axis (distributed/sharding.py::SplitRows)."""
+    them over the model axis (distributed/sharding.py::SplitRows), and a
+    batch whose sequence the rules split over data splits them over that
+    axis (``DataSeqRows``).
+
+    ``split_loss``: whether each rank takes the loss on its own rows (a
+    share of the global loss, ``DataSeqRows``); ``final`` gives the rows
+    the final norm and the unembedding run on (whole here) and ``route``
+    the ranks the moe layers route over (models/moe.py's ``ranks``, as
+    given here)."""
+
+    split_loss = False
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         return x
@@ -40,6 +50,12 @@ class WholeRows:
     def norm(self, x: torch.Tensor, scale: torch.Tensor,
              eps: float) -> torch.Tensor:
         return rms_norm(x, scale, eps)
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return self.whole(x)
+
+    def route(self, ranks):
+        return ranks
 
 
 WHOLE_ROWS = WholeRows()

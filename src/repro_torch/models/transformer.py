@@ -356,7 +356,8 @@ def _chunk_ce(w, xc, lc, mc, cfg, dot):
 
 
 def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
-               loss_mask=None, gather=None, data_sum=None):
+               loss_mask=None, gather=None, data_sum=None,
+               shifted: bool = False):
     """Next-token cross-entropy without materializing (B, S, V) logits:
     the unembed and log-sum-exp run per ``chunk`` rows, so peak live
     memory is (B, chunk, V). Where autograd records (training), each chunk
@@ -371,13 +372,19 @@ def chunked_ce(params, hidden, labels, cfg, *, dot=None, chunk: int = 256,
     ``data_sum``: the sum of a scalar over the ranks that split the batch
     (training/sharded.py): the loss sum and the token count are summed
     over them before the division, so the loss is the global batch's
-    mean."""
+    mean. ``shifted``: ``labels`` and ``loss_mask`` (given) are already
+    each hidden row's next-token label and weight (a rank's rows of a
+    sequence split over data, distributed/sharding.py::DataSeqRows), so
+    no row is dropped."""
     w = _unembed_weight(params, cfg, gather)
-    xs = hidden[:, :-1]
-    ls = labels[:, 1:].long()
+    if shifted:
+        xs, ls, mask = hidden, labels.long(), loss_mask.to(F32)
+    else:
+        xs, ls = hidden[:, :-1], labels[:, 1:].long()
     B, n, D = xs.shape
-    mask = torch.ones((B, n), dtype=F32, device=xs.device) \
-        if loss_mask is None else loss_mask[:, 1:].to(F32)
+    if not shifted:
+        mask = torch.ones((B, n), dtype=F32, device=xs.device) \
+            if loss_mask is None else loss_mask[:, 1:].to(F32)
     chunk = min(chunk, n)
     pad = (-n) % chunk
     if pad:
@@ -438,7 +445,12 @@ def forward(params, batch, cfg, *, want_cache: bool,
     stream's rows split over the model axis between sub-layers
     (``ac.rows``: the norms on the rank's rows, every sub-layer on whole
     rows, a remat checkpoint saving the rank's rows); the final norm and
-    the unembedding run on whole rows. None (or ``dp``): whole rows.
+    the unembedding run on whole rows. Where a training batch's sequence
+    splits over data (``DataSeqRows``) the same, over the data axis, but
+    the final norm and the unembedding run on the rank's rows (what the
+    loss takes, models/api.py::Model.loss), the moe layers route the
+    whole rows without ``ranks`` and ``aux`` is the whole batch's on every
+    rank. None (or ``dp``): whole rows.
     batch: {tokens (B, S)}, and for the vision stub also patches
     (B, S_p, D), which come first: the sequence is S_p + S rows.
     Returns (logits_or_hidden, caches or None, aux, loss_mask): aux
@@ -463,8 +475,8 @@ def forward(params, batch, cfg, *, want_cache: bool,
     else:
         x, out_cache, aux_total = _forward_blocks(
             params, x, cfg, positions, want_cache, ring, dot, kernel, remat,
-            gather, place, ranks, rows)
-    x = rows.whole(x)
+            gather, place, rows.route(ranks), rows)
+    x = rows.final(x)
     x = rms_norm(x, _whole(params, "final_norm", gather), cfg.norm_eps)
     if unembed_mode == "none":
         return x, out_cache, aux_total, loss_mask

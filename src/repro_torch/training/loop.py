@@ -14,7 +14,7 @@ from repro_torch.data import pipeline as dp
 from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.distributed.sharding import make_ac, specs_for
 from repro_torch.training import steps as steps_lib
-from repro_torch.training.sharded import ShardedTrainer
+from repro_torch.training.sharded import ShardedTrainer, seq_rows
 
 
 def train(model, shape, tcfg, *, mesh=None, ac=None, dot=None,
@@ -109,26 +109,34 @@ def train(model, shape, tcfg, *, mesh=None, ac=None, dot=None,
 
 def _check_layout(model, tcfg, shape, ac, in_shardings):
     """The layout the sharded step takes: the state as the rules place
-    it, the batch's rows split as ``ac`` splits them and no other dim (a
-    sequence split over ``data`` is not ported); ``in_shardings``, if
-    given, must be that layout."""
+    it, and the batch's rows split as ``ac`` splits them and no other
+    dim, or, where they split over no batch axis, the sequence over
+    ``data`` as the rules' batch spec splits it (each rank then takes the
+    whole batch and the model cuts the sequence: ``DataSeqRows``);
+    ``in_shardings``, if given, must be that layout."""
     state = specs_for(steps_lib.abstract_train_state(model, tcfg),
                       steps_lib.train_state_logical_specs(model, tcfg),
                       ac.mesh)
-    batch = specs_for(model.input_specs(shape),
-                      model.batch_logical_specs(shape), ac.mesh)
+    inputs = model.input_specs(shape)
+    batch = specs_for(inputs, model.batch_logical_specs(shape), ac.mesh)
     if in_shardings is not None and tuple(in_shardings) != (state, batch):
         raise NotImplementedError(
             "in_shardings other than the rules' own (specs_for of "
             "train_state_logical_specs and batch_logical_specs)")
+    B = shape.global_batch // tcfg.microbatches
     rows = ac.batch_axes(shape.global_batch)
-    want = () if rows is None else (rows,)
+    seq = rows is None and ac.seq_split(B, seq_rows(inputs))
     for key, spec in batch.items():
         spec = tuple(spec)
-        if spec[:1] != want or any(a is not None for a in spec[1:]):
+        if seq:       # the sequence (dim 1) over data, or nothing split
+            ok = spec[:1] in ((), (None,)) and all(a is None
+                                                    for a in spec[2:])
+        else:
+            ok = spec[:1] == (() if rows is None else (rows,)) and all(
+                a is None for a in spec[1:])
+        if not ok:
             raise NotImplementedError(
                 f"batch {key!r} split as {spec}: the sharded trainer splits "
-                f"the rows of the global batch only, as make_ac does "
-                f"({rows}); a batch whose sequence splits over data needs a "
-                f"reduce-scatter of the data ranks' gradients at the "
-                f"sequence's gather (ROADMAP Queue 1, item 11j)")
+                f"the rows of the global batch as make_ac does ({rows}), or, "
+                f"where no batch axis divides them, the sequence over data "
+                f"alone")

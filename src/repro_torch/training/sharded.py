@@ -42,6 +42,18 @@ One process per rank, as in the sharded engine (serving/engine/sharded.py):
     ``ranks``): the capacity, the pairs' slots and the aux loss are the
     global microbatch's. A leaf not split over an FSDP axis has its
     gradient summed over that axis after the backward.
+  * A batch whose rows split over no batch axis, on a mesh without a
+    ``pod`` axis above 1, where the rules split its sequence over
+    ``data`` (B 1 or 3 at data=2): every rank takes the whole global
+    (micro)batch, and the model cuts the residual stream to the rank's
+    block of the sequence's rows at the reference's ``ac(x, "resid")``
+    (distributed/sharding.py::DataSeqRows), so positions, RoPE, the
+    local window and the causal mask stay the whole sequence's. Every
+    sub-layer runs on the gathered whole rows; the final norm, the
+    unembedding and the loss on the rank's rows, against the next rows'
+    labels taken from the whole batch. The loss's sum and count are
+    summed over ``data``; the moe layers route the whole rows as one
+    device does, and the aux loss's gradient enters once.
   * AdamW on the shards. The global norm is one sum of per-rank sums of
     squares; a leaf replicated over an axis is counted on one rank of it.
     The update is elementwise. A quantized moment's scales rest whole
@@ -54,6 +66,20 @@ Every sum over ranks is fp32 in group-rank order (distributed/sharding.py),
 so every rank computes the same loss, norm and clip scale. On a mesh of
 one rank every collective is an identity that records nothing, so the
 step is the one-device step, bit for bit.
+
+Exactness under a sequence split over ``data`` (``DataSeqRows``):
+
+  * On a mesh of one rank nothing splits, and the step is the one-device
+    step bit for bit, as above.
+  * The forward is one device's values on every rank: every gather moves
+    data only, and every sub-layer runs on whole rows.
+  * The loss sums the ranks' shares (its sum and its token count) in fp32,
+    in group-rank order.
+  * The sums that change order are each gathered activation's input
+    gradient (the reduce-scatter at the gather before each sub-layer) and
+    each parameter's gradient (the reduce-scatter of a leaf split over
+    ``data``, or the post-backward sum of one that is not): each is the
+    ranks' shares, added in fp32 in group-rank order.
 
 Checkpoints are whole: rank 0 writes the gathered leaves, and a restore
 slices them, so a checkpoint taken on one mesh restores on any other and
@@ -97,6 +123,13 @@ def validate_train_mesh(cfg, mesh, *, what="training") -> None:
 
 def _axes(entry):
     return () if entry is None else shlib._as_axes(entry)
+
+
+def seq_rows(batch) -> int:
+    """The sequence rows of a batch's loss: the tokens' (the decoder's),
+    after the vision stub's patch rows."""
+    return batch["tokens"].shape[1] + (batch["patches"].shape[1]
+                                       if "patches" in batch else 0)
 
 
 class StateLayout:
@@ -206,7 +239,6 @@ class ShardedTrainer(StateLayout):
                            if a not in sum((_axes(e) for e in spec), ()))
                        for spec in self.param_specs]
         self._split = self._last_split()
-        self.local_step = run_train_step(tcfg, self.grads, self.update)
 
     # ------------------------------------------------- quantized moments --
     def _last_split(self) -> list:
@@ -296,26 +328,43 @@ class ShardedTrainer(StateLayout):
     # ----------------------------------------------------------- the step --
     def step(self, state: Dict[str, Any], batch: Dict[str, Any]):
         """``train_step(state, global batch)``: this rank's rows of the
-        batch (``rows``), then the step on them (``local_step``)."""
-        return self.local_step(state, self.rows(batch))
+        batch and their layout (``rows``), then the step on them
+        (``local_step``)."""
+        return self.local_step(state, *self.rows(batch))
 
-    def rows(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """This rank's rows of the global batch, which must split over
-        every FSDP axis of the mesh. In M microbatches, its rows of each
-        of the reference's microbatches (global rows [m B/M, (m+1) B/M)),
-        one after the other, so that ``run_train_step``'s microbatch m on
-        this rank is its block of the reference's."""
+    def local_step(self, state: Dict[str, Any], rows: Dict[str, Any], ac):
+        """The step on this rank's ``rows`` of the global batch, each
+        microbatch's loss run under the layout ``ac`` (``rows``)."""
+        return run_train_step(
+            self.tcfg, lambda params, part: self.grads(params, part, ac),
+            self.update)(state, rows)
+
+    def rows(self, batch: Dict[str, Any]):
+        """(this rank's rows of the global batch, the activation layout
+        its loss runs under). The rows split over every FSDP axis of the
+        mesh: in M microbatches, its rows of each of the reference's
+        microbatches (global rows [m B/M, (m+1) B/M)), one after the
+        other, so that ``run_train_step``'s microbatch m on this rank is
+        its block of the reference's; the layout is ``ac``. Where the
+        rules split a microbatch's sequence over ``data`` instead
+        (``seq_rows``), the whole batch, and a layout of whole batches
+        (``ActivationLayout(whole_batch=True)``): the model cuts the
+        sequence."""
         M = self.tcfg.microbatches
         B = batch["tokens"].shape[0] // M
         split = _axes(self.ac.batch_axes(B))
-        if any(a not in split for a in self.fsdp):
-            raise ValueError(
-                f"a global {'microbatch' if M > 1 else 'batch'} of {B} rows "
-                f"does not split over "
-                f"{' x '.join(f'{a}={self.sizes[a]}' for a in self.fsdp)}")
-        return {k: torch.cat([self.ac(part, "batch")
-                              for part in v.chunk(M)])
-                for k, v in batch.items()}
+        if all(a in split for a in self.fsdp):
+            return {k: torch.cat([self.ac(part, "batch")
+                                  for part in v.chunk(M)])
+                    for k, v in batch.items()}, self.ac
+        if self.ac.seq_split(B, seq_rows(batch)):
+            return batch, shlib.ActivationLayout(self.mesh, whole_batch=True)
+        raise ValueError(
+            f"a global {'microbatch' if M > 1 else 'batch'} of {B} rows "
+            f"does not split over "
+            f"{' x '.join(f'{a}={self.sizes[a]}' for a in self.fsdp)}, and "
+            f"its sequence of {seq_rows(batch)} rows splits over no data "
+            f"ranks (data > 1 dividing it, S > 1)")
 
     def gather(self, tree, path):
         """The model's ``gather`` hook: the subtree at ``path`` whole on
@@ -336,16 +385,17 @@ class ShardedTrainer(StateLayout):
             run(x, p) for x, p in zip(tree_leaves(tree),
                                       shlib.leaves_like(tree, plans))])
 
-    def grads(self, params, batch):
+    def grads(self, params, batch, ac):
         """(global mean loss, this rank's gradient blocks summed over
-        ``data``, each in its leaf's dtype) on this rank's rows."""
+        ``data``, each in its leaf's dtype) on this rank's rows of a
+        (micro)batch under their layout ``ac`` (``rows``)."""
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         loss = self.model.loss(params, batch, remat=self.tcfg.remat,
                                dot=self.dot, kernel=self.kernel,
                                gather=self.gather, ranks=self.ranks,
-                               ac=self.ac)
+                               ac=ac)
         grads = torch.autograd.grad(loss, leaves)
         for p in leaves:
             p.requires_grad_(False)

@@ -423,7 +423,7 @@ def test_microbatch_rows_are_the_references_blocks():
             tr = tsh.ShardedTrainer(model, TrainConfig(microbatches=M), ac)
             for coord in (0, 1):
                 ac.coords = {"data": coord, "model": 0}
-                got = tr.rows({"tokens": x})["tokens"][:, 0]
+                got = tr.rows({"tokens": x})[0]["tokens"][:, 0]
                 want = torch.cat([torch.arange(8).reshape(M, -1)[m].reshape(
                     2, -1)[coord] for m in range(M)])
                 assert torch.equal(got, want), (M, coord)

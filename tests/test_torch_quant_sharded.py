@@ -395,7 +395,7 @@ def _train_world(rank, world, device):
         st = tr.shard(state, tr.specs)
 
         def grads_of(params, tr=tr):
-            _, g = tr.grads(params, _batch(model, 0))
+            _, g = tr.grads(params, _batch(model, 0), tr.ac)
             return [tr.whole(x, s).float().numpy()
                     for x, s in zip(tree_leaves(g), tr.param_specs)]
         try:

@@ -81,6 +81,18 @@ Tolerances, and why:
     of the sliced wk/wv's gradient or without sum_grad on the k/v
     projections' input, must miss the gradient tolerance.
   * Checkpoints, ``reshard_state`` and the world of one: bit for bit.
+  * A batch whose rows split over no batch axis, its sequence split over
+    data (``DataSeqRows``): one row at data=2 and 2 x 2 (dp and seq_tp,
+    which must agree bit for bit there), three rows and two rows in two
+    microbatches at data=2, under the fp32 rules against the one-device
+    port, and at data=2 against the reference's jitted step with its own
+    in_shardings (the grad norm held to its gradients' float64 norm:
+    ``test_seq_split_fp32_matches_one_device_and_reference``); each
+    rank's residual S / data rows and its final hidden rows its block of
+    one device's, bit for bit; bf16 under the bf16 rules against the
+    one-device run that sums the two sequence blocks' bf16 gradients in
+    fp32 (the analogue of the microbatched control); the step with
+    ``DataSeqRows.whole``'s backward a cut must miss.
 
 Each gloo world is spawned once (a module fixture) and returns all of its
 cases. Workers run one intra-op thread, as does this process.
@@ -124,7 +136,8 @@ from repro_torch.models import encdec as t_ed  # noqa: E402
 from repro_torch.models import transformer as t_tr  # noqa: E402
 from repro_torch.models.api import build_model as t_build  # noqa: E402
 from repro_torch.models.convert import DTYPES, from_jax_state  # noqa: E402
-from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.params import (tree_leaves, tree_map,  # noqa: E402
+                                        tree_unflatten)
 from repro_torch.optim import adamw as tadam  # noqa: E402
 from repro_torch.training import sharded as tsh  # noqa: E402
 from repro_torch.training import steps as tsteps  # noqa: E402
@@ -142,6 +155,12 @@ SHAPE = ShapeConfig("t", 64, 4, "train")
 # data=3: tiny gemma2-2b's d 128 does not divide by 3, so no leaf splits
 # over data and every gradient takes the post-backward sum over data
 SHAPE3 = ShapeConfig("t", 64, 6, "train")
+# a batch whose sequence the rules split over data (DataSeqRows): one
+# row at data=2 and at data=2 x model=2, three rows at data=2, and two
+# rows in two microbatches of one at data=2
+SHAPE_B1 = ShapeConfig("t", 64, 1, "train")
+SHAPE_B2 = ShapeConfig("t", 64, 2, "train")
+SHAPE_B3 = ShapeConfig("t", 64, 3, "train")
 QK_SCALE = 0.125
 LR = 1e-3
 LOSS_RTOL = 1e-6
@@ -326,31 +345,87 @@ def test_make_ac_seq_tp_splits_the_rows(data, tp, S):
         assert (ac.for_batch(2 * data + 1).mode == "dp") == (data > 1)
 
 
-@pytest.mark.parametrize("B,ok", [(4, True), (2, True), (1, False)])
-def test_train_refuses_a_batch_it_cannot_split(B, ok):
+@pytest.mark.parametrize("S", [1, 6, 8, 64])
+@pytest.mark.parametrize("B", [1, 2, 3, 4])
+@pytest.mark.parametrize("data,pod", [(2, 1), (4, 1), (2, 2)],
+                         ids=["data2", "data4", "pod2xdata2"])
+def test_make_ac_data_seq_rows(data, pod, B, S):
+    """The layout of a training step over B whole rows on every rank
+    (``whole_batch``, which ``ShardedTrainer.rows`` gives where no batch
+    axis divides B) has ``DataSeqRows`` as its ``rows`` exactly where the
+    reference's choose_spec of ("batch", "seq") puts data on the sequence
+    (``seq_split``), in dp and seq_tp mode alike; ``"resid"`` then cuts
+    block coords["data"] of the S rows, in storage of its own, and
+    ``whole`` gives S rows back. On the pod mesh such a batch is refused
+    by name of the pod axis. The sharded prefill's layout
+    (``for_batch(B)``) and ``make_ac``'s own keep every batch's rows
+    whole."""
+    from repro_torch.launch.mesh import _mesh, dry_world
+    sizes = {"data": data, "model": 1} if pod == 1 else \
+        {"pod": pod, "data": data, "model": 1}
+    spec = tuple(j_sh.choose_spec((B, S), ("batch", "seq"),
+                                  FakeMesh(**sizes)))
+    on_seq = spec[1:2] == ("data",)
+    x = torch.arange(B * S * 3, dtype=torch.float32).reshape(B, S, 3)
+    with dry_world(data * pod):
+        mesh = _mesh(data, 1, "cpu", 60.0, pod=pod)
+        for mode in ("dp", "seq_tp"):
+            made = shlib.make_ac(mesh, mode)
+            assert made.rows(x) is t_layers.WHOLE_ROWS
+            assert made.for_batch(B).rows(x) is t_layers.WHOLE_ROWS
+            ac = shlib.ActivationLayout(mesh, mode, whole_batch=True)
+            if on_seq and pod > 1:
+                with pytest.raises(NotImplementedError, match="pod axis"):
+                    made.seq_split(B, S)
+                with pytest.raises(NotImplementedError, match="pod axis"):
+                    ac.rows(x)
+                continue
+            assert made.seq_split(B, S) == on_seq
+            assert isinstance(ac.rows(x), shlib.DataSeqRows) == on_seq
+            if not on_seq:
+                assert ac(x, "resid") is x
+                continue
+            n = S // data
+            for r in range(data):
+                ac.coords["data"] = r
+                got = ac(x, "resid")
+                assert torch.equal(got, x[:, r * n:(r + 1) * n])
+                assert got.untyped_storage().nbytes() == got.numel() * 4
+                assert tuple(ac.rows(x).whole(got).shape) == tuple(x.shape)
+
+
+@pytest.mark.parametrize("B,rows_split", [(4, True), (2, True), (1, False)])
+def test_train_refuses_a_batch_it_cannot_split(B, rows_split):
     """At data=2 the batch's rows split as make_ac splits them; a batch of
-    one row would split its sequence (the reference's batch spec gives
-    seq the data axis), which the port refuses, naming ROADMAP item 11j.
-    in_shardings may only be the rules' own layout."""
+    one row splits its sequence over data instead, as the reference's
+    batch spec gives seq the data axis (``DataSeqRows``), and is taken,
+    its rules' spec (None, "data"). On a pod=2 x data=2 mesh such a batch
+    is refused by name of the pod axis. in_shardings may only be the
+    rules' own layout."""
+    seq = not rows_split
     from repro_torch.training.loop import _check_layout
     model = t_build(t_tiny("gemma2-2b"))
     tcfg = _tcfg()
     shape = ShapeConfig("t", 64, B, "train")
     ac = shlib.make_ac({"data": 2, "model": 1})
-    if not ok:
-        with pytest.raises(NotImplementedError, match="item 11j"):
-            _check_layout(model, tcfg, shape, ac, None)
-        return
+    assert ac.seq_split(B, shape.seq_len) == seq
     _check_layout(model, tcfg, shape, ac, None)
     rules = (shlib.specs_for(tsteps.abstract_train_state(model, tcfg),
                              tsteps.train_state_logical_specs(model, tcfg),
                              ac.mesh),
              shlib.specs_for(model.input_specs(shape),
                              model.batch_logical_specs(shape), ac.mesh))
+    assert (tuple(rules[1]["tokens"]) == (None, "data")) == seq
     _check_layout(model, tcfg, shape, ac, rules)
-    other = dict(rules[1], tokens=(None, "data"))
+    other = dict(rules[1], tokens=(None, "model"))
     with pytest.raises(NotImplementedError, match="rules' own"):
         _check_layout(model, tcfg, shape, ac, (rules[0], other))
+    pod = shlib.make_ac({"pod": 2, "data": 2, "model": 1})
+    if seq:
+        with pytest.raises(NotImplementedError, match="pod axis"):
+            _check_layout(model, tcfg, shape, pod, None)
+    else:
+        _check_layout(model, tcfg, shape, pod, None)
 
 
 REFUSALS = [("gemma2-2b", dict(expert=2, data=1), None, "pod/data/model"),
@@ -542,8 +617,10 @@ def _case(trainer_of, model, case, rank, shape=SHAPE, steps=None):
         tuple(a.shape), s, tr.sizes) for x, a, s in zip(
         tree_leaves(st), tree_leaves(tr.abstract), tr.leaf_specs()))
     b0 = tdp.batch_for_model(model, shape, None, 0, full=True)
-    loss, g = tr.grads(st["params"], {k: tr.ac(v, "batch")
-                                      for k, v in b0.items()})
+    rows = {k: tr.ac(v, "batch") for k, v in b0.items()}, tr.ac
+    if tr.ac.seq_split(shape.global_batch, shape.seq_len):
+        rows = tr.rows(b0)          # the whole batch, its sequence split
+    loss, g = tr.grads(st["params"], *rows)
     grads = [tr.whole(x, s).float().numpy()
              for x, s in zip(tree_leaves(g), tr.param_specs)]
     rest = sum(x.numel() * x.element_size() for x in tree_leaves(st))
@@ -604,6 +681,40 @@ def _control(trainer_of, model, name, rank, shape=SHAPE):
         return _case(make, model, "fp32", rank, shape)["grads"]
     finally:
         shlib.sum_grad, shlib.reduce_scatter_dim, shlib.kv_slice = saved
+
+
+def _seq_probe(trainer_of, model, shape):
+    """One fp32 forward and loss of the first batch through the trainer's
+    hooks (no gradient): the shapes of the residual each dense block
+    takes on this rank, the rows the unembedding scores, and the final
+    hidden rows."""
+    tcfg, state, _ = _case_setup(model, "fp32")
+    tr = trainer_of(tcfg)
+    st = tr.shard(state, tr.specs)
+    seen = {"resid": set(), "unembed": 0}
+    fwd, ce = t_tr._dense_block_fwd, t_tr._chunk_ce
+
+    def block(p, x, *a, **k):
+        seen["resid"].add(tuple(x.shape))
+        return fwd(p, x, *a, **k)
+
+    def chunk(w, xc, *a):
+        seen["unembed"] += xc.shape[1]
+        return ce(w, xc, *a)
+    t_tr._dense_block_fwd, t_tr._chunk_ce = block, chunk
+    rows, ac = tr.rows(tdp.batch_for_model(model, shape, None, 0,
+                                           full=True))
+    hooks = dict(gather=tr.gather, ranks=tr.ranks, ac=ac,
+                 dot=tr.dot)
+    try:
+        with torch.no_grad():
+            hidden = model.forward(st["params"], rows, unembed_mode="none",
+                                   **hooks)[0]
+            model.loss(st["params"], rows, **hooks)
+    finally:
+        t_tr._dense_block_fwd, t_tr._chunk_ce = fwd, ce
+    return {"resid": sorted(seen["resid"]), "unembed": seen["unembed"],
+            "hidden": hidden.numpy()}
 
 
 def _ckpt_cases(mesh, model, ckpt_dir):
@@ -706,6 +817,9 @@ def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE,
                                   steps=0)
             finally:
                 shlib.SplitRows.norm = norm
+        elif case.startswith("seq_") and case not in ("seq_tp",
+                                                         "seq_tp_nosum"):
+            out[case] = _seq_world_case(case, mesh, trainer_of, model, rank)
         elif case in ("no_tp", "drop", "no_kv_sum", "no_kv_input"):
             out[case] = _control(trainer_of, model, case, rank, shape)
         elif case == "ckpt":
@@ -721,6 +835,41 @@ def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE,
     return out
 
 
+def _seq_world_case(case, mesh, trainer_of, model, rank):
+    """A case of a batch whose sequence splits over data: "seq_fp32" (B 1,
+    with ``_seq_probe``), "seq_b3" (B 3), "seq_micro" (B 2 in two
+    microbatches of one row), "seq_bf16" (B 1), "seq_tp_b1" (B 1 under
+    make_ac(mesh, "seq_tp"), one step) and "seq_cut" (the control:
+    ``DataSeqRows.whole``'s backward a cut, the ranks' input gradients
+    not reduce-scattered; first gradients only)."""
+    if case == "seq_fp32":
+        return dict(_case(trainer_of, model, "fp32", rank, SHAPE_B1),
+                    probe=_seq_probe(trainer_of, model, SHAPE_B1))
+    if case == "seq_b3":
+        return _case(trainer_of, model, "fp32", rank, SHAPE_B3)
+    if case == "seq_micro":
+        def micro(tcfg):
+            return trainer_of(dataclasses.replace(tcfg, microbatches=2))
+        return _case(micro, model, "fp32", rank, SHAPE_B2)
+    if case == "seq_bf16":
+        return _case(trainer_of, model, "bf16", rank, SHAPE_B1)
+    if case == "seq_tp_b1":
+        def seq_trainer(tcfg):
+            return tsh.ShardedTrainer(model, tcfg,
+                                      shlib.make_ac(mesh, "seq_tp"))
+        return _case(seq_trainer, model, "fp32", rank, SHAPE_B1, steps=1)
+    assert case == "seq_cut"
+    whole = shlib.DataSeqRows.whole
+    shlib.DataSeqRows.whole = lambda self, x: x \
+        if x.shape[1] == self.length \
+        else shlib.gather_shard(x, 1, self.group, reduce=False)
+    try:
+        return _case(trainer_of, model, "fp32", rank, SHAPE_B1,
+                     steps=0)["grads"]
+    finally:
+        shlib.DataSeqRows.whole = whole
+
+
 @pytest.fixture(scope="module")
 def ckpt_root(tmp_path_factory):
     return str(tmp_path_factory.mktemp("ckpt"))
@@ -729,7 +878,9 @@ def ckpt_root(tmp_path_factory):
 @pytest.fixture(scope="module")
 def world_data2(ckpt_root):
     return spawn(_world, 2, backend="gloo", timeout_s=WORLD_S,
-                 args=(2, 1, ("fp32", "bf16", "drop", "ckpt", "world1"),
+                 args=(2, 1, ("fp32", "bf16", "drop", "ckpt", "world1",
+                              "seq_fp32", "seq_b3", "seq_micro", "seq_bf16",
+                              "seq_cut"),
                        ckpt_root))
 
 
@@ -745,8 +896,8 @@ def world_model2(ckpt_root, world_data2):
 @pytest.fixture(scope="module")
 def world4():
     return spawn(_world, 4, backend="gloo", timeout_s=WORLD_S,
-                 args=(2, 2, ("fp32", "bf16", "seq_tp", "seq_tp_nosum"),
-                       ""))
+                 args=(2, 2, ("fp32", "bf16", "seq_tp", "seq_tp_nosum",
+                              "seq_fp32", "seq_tp_b1"), ""))
 
 
 @pytest.fixture(scope="module")
@@ -1081,35 +1232,41 @@ from repro.distributed import sharding as j_sh
 from repro.models.api import build_model
 with open(sys.argv[2], "rb") as f:
     state0 = pickle.load(f)
-shape = ShapeConfig("t", {S}, {B}, "train")
 model = build_model(tiny_config("gemma2-2b"))
 tcfg = TrainConfig(optim=OptimConfig(lr={LR}, warmup_steps=1,
                                      total_steps=10))
 out = {{}}
-for data, tp in {MESHES!r}:
+for data, tp, B, mode, key in {RUNS!r}:
+    shape = ShapeConfig("t", {S}, B, "train")
     mesh = Mesh(np.asarray(jax.devices()[:data * tp]).reshape(data, tp),
                 ("data", "model"))
-    ac = j_sh.make_ac(mesh, "seq_tp")
+    ac = j_sh.make_ac(mesh, mode)
     step, args, ins, outs, don, _ = rd.build_step(model, shape, mesh, tcfg,
-                                                  ac_mode="seq_tp")
+                                                  ac_mode=mode)
     state = jax.tree.map(jnp.asarray, state0)
     b0 = jdp.batch_for_model(model, shape, None, 0)
     with mesh:
-        g = jax.jit(jax.grad(lambda p: model.loss(p, b0, remat=True, ac=ac)),
-                    in_shardings=(ins[0]["params"],))(state["params"])
+        gf = jax.jit(jax.grad(lambda p, b: model.loss(p, b, remat=True,
+                                                      ac=ac)),
+                     in_shardings=(ins[0]["params"], ins[1]))
+        g = gf(state["params"], b0)
         f = jax.jit(step, in_shardings=ins, out_shardings=outs)
-        steps = []
+        steps, norm64 = [], []
         for k in range({STEPS}):
-            state, met = f(state, jdp.batch_for_model(model, shape, None, k))
+            bk = jdp.batch_for_model(model, shape, None, k)
+            norm64.append(float(np.sqrt(sum(
+                np.sum(np.square(np.asarray(x, np.float64)))
+                for x in jax.tree.leaves(gf(state["params"], bk))))))
+            state, met = f(state, bk)
             state = {{"params": jax.device_put(state["opt"]["master"],
                                               ins[0]["params"]),
                      "opt": state["opt"]}}
             steps.append(({{n: float(v) for n, v in met.items()}}, [
                 np.asarray(x, np.float32)
                 for x in jax.tree.leaves(state["opt"]["master"])]))
-    out[(data, tp)] = {{"grads": [np.asarray(x, np.float32)
-                                 for x in jax.tree.leaves(g)],
-                       "steps": steps}}
+    out[key] = {{"grads": [np.asarray(x, np.float32)
+                           for x in jax.tree.leaves(g)],
+                 "steps": steps, "norm64": norm64}}
 with open(sys.argv[1], "wb") as f:
     pickle.dump(out, f)
 """
@@ -1119,8 +1276,11 @@ with open(sys.argv[1], "wb") as f:
 def reference_seq_tp(tmp_path_factory):
     """The reference's jitted make_train_step under make_ac(mesh,
     "seq_tp"), with build_step's shardings, on 4 forced host devices at
-    model=2 and data=2 x model=2, in a subprocess: the first gradients
-    and STEPS fp32 steps from ``_ref_state``."""
+    model=2 and data=2 x model=2, and under dp at data=2 on a batch of
+    one row (its spec splits the sequence over data: key "data2_b1"), in
+    a subprocess: the first gradients (the batch given its in_shardings
+    too), STEPS fp32 steps from ``_ref_state`` and, before each, the
+    float64 norm of the gradients at the step's state ("norm64")."""
     import os
     import pickle
     import subprocess
@@ -1133,9 +1293,11 @@ def reference_seq_tp(tmp_path_factory):
     root = Path(__file__).resolve().parents[1]
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count"
                "=4", JAX_PLATFORMS="cpu", PYTHONPATH=str(root / "src"))
-    script = SEQ_TP_REF.format(S=SHAPE.seq_len, B=SHAPE.global_batch, LR=LR,
-                               STEPS=STEPS,
-                               MESHES=list(SEQ_TP_WORLDS.values()))
+    runs = [(d, t, SHAPE.global_batch, "seq_tp", (d, t))
+            for d, t in SEQ_TP_WORLDS.values()] + [
+        (2, 1, SHAPE_B1.global_batch, "dp", "data2_b1")]
+    script = SEQ_TP_REF.format(S=SHAPE.seq_len, LR=LR, STEPS=STEPS,
+                               RUNS=runs)
     r = subprocess.run([sys.executable, "-c", script, str(path),
                         str(inputs)], env=env, capture_output=True,
                        text=True, timeout=400, cwd=str(root))
@@ -1183,3 +1345,184 @@ def test_seq_tp_steps_match_dp_one_device_and_reference(
     _check_fp32(got, request.getfixturevalue(WORLDS[name])[0]["fp32"])
     _check_fp32(got, one_device["gemma2-2b", "fp32"])
     _check_fp32(got, reference_seq_tp[SEQ_TP_WORLDS[name]])
+
+
+# ------------------------------------------- a sequence split over data --
+def _one_device_blocks(arch, n, shape):
+    """The one-device bf16 run whose gradient is the fp32 sum of the
+    gradients of each of ``n`` sequence blocks' share of the loss (its
+    rows' summed losses over the whole sequence's count), each taken
+    alone in the leaves' dtype: what a sequence split over ``n`` data
+    ranks rounds, as microbatches are for a split of the rows."""
+    model = t_build(t_tiny(arch))
+    tcfg, state, fp32 = _case_setup(model, "bf16")
+
+    def grad_fn(params, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        hidden = model.forward(params, batch, unembed_mode="none",
+                               remat=True)[0]
+        labels = batch["labels"]
+        S = labels.shape[1]
+        nxt = torch.nn.functional.pad(labels[:, 1:], (0, 1)).long()
+        w = torch.nn.functional.pad(torch.ones(labels[:, 1:].shape), (0, 1))
+        W = t_tr._unembed_weight(params, model.cfg, None)
+        total, loss = None, 0.0
+        for r in range(n):
+            blk = slice(r * S // n, (r + 1) * S // n)
+            share = t_tr._chunk_ce(W, hidden[:, blk], nxt[:, blk],
+                                   w[:, blk], model.cfg, None) / w.sum()
+            g = torch.autograd.grad(share, leaves, retain_graph=r < n - 1)
+            total = [x.float() for x in g] if total is None else [
+                a + b.float() for a, b in zip(total, g)]
+            loss = loss + share.detach()
+        for p in leaves:
+            p.requires_grad_(False)
+        return loss, tree_unflatten(params, [
+            t.to(p.dtype) for t, p in zip(total, leaves)])
+
+    step = tsteps.run_train_step(tcfg, grad_fn, lambda g, o: tadam.adamw_update(
+        g, o, tcfg.optim))
+    steps, _ = _run_steps(step, state, fp32, lambda k: tdp.batch_for_model(
+        model, shape, None, k, full=True))
+    return {"steps": steps}
+
+
+@pytest.fixture(scope="module")
+def seq_one_device():
+    """The one-device port on the batches whose sequence splits over data:
+    B 1 (fp32, bf16, the bf16 control of two sequence blocks, and the
+    first batch's final hidden rows in fp32), B 3 (fp32) and B 2 in two
+    microbatches (fp32)."""
+    model = t_build(t_tiny("gemma2-2b"))
+    _, state, _ = _case_setup(model, "fp32")
+    b0 = tdp.batch_for_model(model, SHAPE_B1, None, 0, full=True)
+    with torch.no_grad():
+        hidden = model.forward(state["params"], b0, unembed_mode="none")[0]
+    return {"fp32": _one_device("gemma2-2b", "fp32", shape=SHAPE_B1),
+            "b3": _one_device("gemma2-2b", "fp32", shape=SHAPE_B3),
+            "micro": _one_device("gemma2-2b", "fp32", 2, SHAPE_B2),
+            "bf16": _one_device("gemma2-2b", "bf16", shape=SHAPE_B1),
+            "bf16_blocks": _one_device_blocks("gemma2-2b", 2, SHAPE_B1),
+            "hidden": hidden.numpy()}
+
+
+SEQ_WORLDS = {"data2": (2, 1), "world4": (2, 2)}
+
+
+@pytest.mark.parametrize("name", list(SEQ_WORLDS))
+def test_seq_split_fp32_matches_one_device_and_reference(
+        name, request, seq_one_device, reference_seq_tp):
+    """One row of 64 at data=2 (and data=2 x model=2), its sequence split
+    over data: three fp32 steps under the fp32 rules against the
+    one-device port and, at data=2, the reference's jitted step with its
+    own in_shardings (the sequence over data); every rank's first
+    gradients alike and its leaves of their at-rest shapes.
+
+    Against the reference every step's grad norm is held to the float64
+    norm of the reference's gradients at that step's state (``norm64``):
+    at this batch the norm its step reports sits 1.12e-6, 1.25e-6 and
+    6.55e-7 from those at steps 0-2 (its jitted step's own fp32 sums, in
+    XLA's order), the split's within 9e-8 of them. Both distances are
+    printed with -s."""
+    ranks = request.getfixturevalue(WORLDS[name])
+    got = ranks[0]["seq_fp32"]
+    _check_fp32(got, seq_one_device["fp32"])
+    if name == "data2":
+        ref = reference_seq_tp["data2_b1"]
+        exact = dict(ref, steps=[(dict(m, grad_norm=n), mast) for (m, mast), n
+                                 in zip(ref["steps"], ref["norm64"])])
+        _check_fp32(got, exact)
+
+        def rel(steps, norms):
+            return ", ".join(f"{abs(m['grad_norm'] - n) / n:.3g}"
+                             for (m, _), n in zip(steps, norms))
+        print(f"seq split against the reference's float64 grad norms: "
+              f"{rel(got['steps'], ref['norm64'])}; the reference's "
+              f"reported norms against them: "
+              f"{rel(ref['steps'], ref['norm64'])}")
+    for r in ranks:
+        assert r["seq_fp32"]["shapes_ok"]
+        assert all(np.array_equal(a, b) for a, b in zip(
+            r["seq_fp32"]["grads"], got["grads"]))
+
+
+@pytest.mark.parametrize("name", list(SEQ_WORLDS))
+def test_seq_split_rows_are_the_ranks_own(name, request, seq_one_device):
+    """Each rank's residual between sub-layers holds S / data of the
+    sequence's rows, and its unembedding and loss score those rows
+    alone: its final hidden rows are its block of the one-device
+    forward's, bit for bit (every sub-layer runs on the gathered whole
+    rows, so the forward is one device's)."""
+    data, _ = SEQ_WORLDS[name]
+    ranks = request.getfixturevalue(WORLDS[name])
+    n = SHAPE_B1.seq_len // data
+    d = t_tiny("gemma2-2b").d_model
+    want = seq_one_device["hidden"]
+    for i, r in enumerate(ranks):
+        probe = r["seq_fp32"]["probe"]
+        assert probe["resid"] == [(1, n, d)]
+        assert probe["unembed"] == n
+        blk = (i // (len(ranks) // data)) * n
+        assert np.array_equal(probe["hidden"], want[:, blk:blk + n])
+
+
+def test_seq_split_three_rows(world_data2, seq_one_device):
+    """Three rows at data=2: no batch axis divides them, so each rank
+    holds its half of every row's sequence (its tokens are not a
+    contiguous run of the flattened B x S order); three fp32 steps
+    against the one-device port."""
+    got = world_data2[0]["seq_b3"]
+    _check_fp32(got, seq_one_device["b3"])
+    for r in world_data2:
+        assert all(np.array_equal(a, b) for a, b in zip(
+            r["seq_b3"]["grads"], got["grads"]))
+
+
+def test_seq_split_microbatches(world_data2, seq_one_device):
+    """Two rows in two microbatches at data=2: a microbatch's one row
+    splits over no batch axis, so each of the reference's global
+    microbatches splits its sequence over data (every rank given both
+    rows); three fp32 steps against the one-device port in two
+    microbatches."""
+    _check_fp32(world_data2[0]["seq_micro"], seq_one_device["micro"])
+
+
+def test_seq_split_bf16_matches_one_device(world_data2, seq_one_device):
+    """The trainer as train() runs it (bf16) on one row at data=2, under
+    the bf16 rules against the one-device run whose gradient is the fp32
+    sum of each data block's bf16 gradient (``_one_device_blocks``), and
+    against the plain one-device run within the rules or twice the
+    control's distance."""
+    got = world_data2[0]["seq_bf16"]
+    _check_bf16(got, seq_one_device["bf16_blocks"])
+    _check_bf16(got, seq_one_device["bf16"],
+                control=seq_one_device["bf16_blocks"])
+
+
+def test_seq_split_under_seq_tp_is_dp(world4, seq_one_device):
+    """make_ac(mesh, "seq_tp") on one row at data=2 x model=2: the
+    reference's seq_tp constrains nothing at such a batch, so its batch
+    spec decides and the step is dp's (the sequence over data) bit for
+    bit, its first loss and every gradient leaf, and under the fp32 rules
+    against the one-device port."""
+    for r in world4:
+        dp, seq = r["seq_fp32"], r["seq_tp_b1"]
+        assert seq["loss"] == dp["loss"]
+        assert all(np.array_equal(a, b) for a, b in zip(dp["grads"],
+                                                        seq["grads"]))
+    _check_fp32(world4[0]["seq_tp_b1"], seq_one_device["fp32"], steps=1)
+
+
+def test_seq_split_control_misses(world_data2, seq_one_device):
+    """With ``DataSeqRows.whole``'s backward a cut (each rank keeps its
+    own rows' input gradient, the other ranks' shares dropped), the first
+    gradients miss the fp32 tolerance by far (the distance is printed
+    with -s)."""
+    want = seq_one_device["fp32"]["grads"]
+    assert _grad_err(want, world_data2[0]["seq_fp32"]["grads"]) <= GRAD_TOL
+    miss = _grad_err(want, world_data2[0]["seq_cut"])
+    print(f"seq split without the reduce-scatter: {miss:.3g} of a leaf's "
+          f"max |g|")
+    assert miss > 100 * GRAD_TOL
