@@ -367,12 +367,38 @@ Phases, each fatal on failure:
                 one device; (a) starts once phase 21's world of 1 has
                 ended and ends before phase 18, (b) runs after phase
                 21, the card to itself;
+ 23. tables   — the paper's results on the card (src/repro_torch/tables/,
+                examples/torch_*.py): (a) every section of
+                ``python -m repro_torch.tables.run`` (Tables 1-7 and the
+                roofline report) at the reference's sizes, each row printed
+                under the card's name and power limit, every derived number
+                finite, each HAQ best within its budget (or at the
+                back-off's floor), each AMC best within its FLOPs target,
+                Table 2's and Table 5's matrices and flags printed, not
+                gated; (c) the four examples: torch_quickstart (tiny
+                gemma2-2b: 30 steps, checkpoint, restore, generate: 7 x 4
+                paged decode launches), torch_compress_pipeline at its
+                settings (its stage 3 serving through the quant matmul
+                kernels and the paged decode kernel, every launch counted
+                and held to the policy's sites, its logits teacher-forced
+                against the kernels' plain versions under phase 3's rule,
+                the plain fake-quant hook's gap printed),
+                torch_nas_specialize at P23_NAS_STEPS steps and
+                torch_train_lm at P23_LM_STEPS (its loss falling); (a) and
+                (c) run in a spawned child process beside phases 17-18,
+                collected after phase 18; (b) after phase 22, the card to
+                itself, Fig. 4 at full width: granite-3-8b's first six
+                decode sites at M = 1, the bf16 product, W8A16 and W4A16
+                timed on the device beside h100-sxm's roofline prediction,
+                each kernel call held to its plain version (phase 2's
+                bound);
  11. report   — one JSON line with every kernel's launches (flash's summed
                 over phase 12's training run and phases 13-22's paths, the
-                paged kernels' over the main trace, llava's paged steps
-                and phase 17's sharded runs, the quant matmuls' over the
-                engine's weight-quantized trace and phase 22's sharded
-                runs, summed over ranks), error, times.
+                paged kernels' over the main trace, llava's paged steps,
+                phase 17's sharded runs and phase 23's examples, the quant
+                matmuls' over the engine's weight-quantized trace, phase
+                22's sharded runs and phase 23's compress pipeline, summed
+                over ranks), error, times.
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, without a CUDA device or without the repository beside it.
@@ -7031,6 +7057,371 @@ def phase_moe_quant(started=None):
     return launches
 
 
+# ------------------------- phase 23: the paper's tables and examples ----
+# (a) and (c) run in a child process of their own (``Phase23``), started
+# before phase 17 and collected after phase 18: the tables' tiny models and
+# the examples are host-bound loops that leave the card mostly idle, as
+# phases 17-18's host-staged gloo worlds do, so each pays for the other's
+# time. (b) times the card, so it runs in this process after phase 22, the
+# card to itself.
+P23_NAS_STEPS = 20      # examples/torch_nas_specialize.py --steps (80)
+P23_LM_STEPS = 20       # examples/torch_train_lm.py --steps (200)
+P23_TIMEOUT_S = 900.0
+# a HAQ best within its budget to float rounding (the back-off compares
+# the same sum), or at every site's lowest bits where the budget is below
+# what the back-off can reach (core/haq.py::enforce_budget)
+P23_REL = 1e-6
+
+
+def p23_example(name):
+    """The module of examples/<name>.py."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def p23_numbers(derived):
+    """{key: float} of the numbers in a row's ``derived`` (``k=v;...``,
+    units x, xbudget, s and us stripped); flags and architectures left
+    out."""
+    out = {}
+    for kv in derived.split(";"):
+        k, _, v = kv.partition("=")
+        for unit in ("xbudget", "x", "s"):
+            if v.endswith(unit) and v[:-len(unit)].lstrip("+-")[:1] \
+                    .isdigit():
+                v = v[:-len(unit)]
+                break
+        try:
+            out[k] = float(v)
+        except ValueError:
+            pass
+    return out
+
+
+def p23_hold_tables(results):
+    """Phase 23(a)'s checks on tables/run.py's results: every row's
+    us_per_call and derived numbers finite; each HAQ best within its
+    budget (or at the back-off's floor); each AMC best within its FLOPs
+    target. Returns the number of rows."""
+    from repro_torch.core import haq
+    n = 0
+    for tag, res in results.items():
+        for name, us, derived in res["rows"]:
+            nums = p23_numbers(derived)
+            if not math.isfinite(us) or not all(
+                    math.isfinite(v) for v in nums.values()):
+                fail(f"tables[{tag}]: {name} has a non-finite number: "
+                     f"{us}, {derived}")
+            n += 1
+        for best in res["haq"]:
+            floor = all(b == (min(haq.W_BITS), min(haq.A_BITS))
+                        for b in best["policy"].values())
+            if best["resource"] > best["budget"] * (1 + P23_REL) \
+                    and not floor:
+                fail(f"tables[{tag}]: a HAQ best uses {best['resource']!r}"
+                     f" of a budget of {best['budget']!r}")
+        for best, target in res["amc"]:
+            if best["flops_frac"] > target + 1e-6:
+                fail(f"tables[{tag}]: an AMC best keeps "
+                     f"{best['flops_frac']!r} of the FLOPs, target "
+                     f"{target}")
+    return n
+
+
+def p23_quant_dot(policy, mode):
+    """make_quant_dot(policy, use_kernel=True)'s hook with its quant
+    matmuls in ``mode`` ("cuda": the kernels; "ref": their plain
+    versions), as phase 6 runs W8A8 both ways."""
+    from repro_torch.core.quantization import make_quant_dot
+    from repro_torch.kernels import ops as kops
+    fake = make_quant_dot(policy)
+
+    def dot(x, w, name, amax=None):
+        if name in policy and w.dim() == 2 and policy[name][0] <= 8:
+            w_bits, a_bits = policy[name]
+            return kops.quant_matmul(x, w, w_bits=int(w_bits),
+                                     a_bits=int(a_bits), mode=mode)
+        return fake(x, w, name, amax)
+    return dot
+
+
+def p23_teacher_forced(model, params, tokens, S, dot, kernel):
+    """``generate``'s path fed ``tokens`` after the S-token prompt: the
+    prefill, then paged decode steps over the identity page pool; (steps,
+    V) fp32 logits, row i predicting tokens[:, S + i]."""
+    import torch
+    from repro_torch.launch import serve
+    B, T = tokens.shape
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens[:, :S]},
+                                      cache_layout="full", dot=dot,
+                                      kernel=kernel)
+        pool, pt = serve._identity_paged_pool(cache, B, T, PAGE)
+        out = [logits[:, -1].float()]
+        for t in range(S, T - 1):
+            pos = torch.full((B,), t, dtype=torch.int32,
+                             device=tokens.device)
+            logits, pool = model.decode_step_paged(
+                params, pool, pt, tokens[:, t:t + 1], pos, kernel=kernel,
+                dot=dot)
+            out.append(logits[:, 0].float())
+    return torch.cat(out)
+
+
+def p23_expected_quant(cfg, policy, forwards):
+    """The quant matmul launches ``forwards`` forwards through the hook
+    make: every 2-D site of the policy (the FFN's; the attention
+    projections are 3-D, fake-quantized), a kernel by its bits, once a
+    layer."""
+    want = dict.fromkeys(QMM_NAMES + ("quant_matmul_w8a8",), 0)
+    for site in ("ffn_in", "ffn_gate", "ffn_out"):
+        if site not in policy:
+            continue
+        w, a = policy[site]
+        name = "quant_matmul_w4a16" if w <= 4 else \
+            "quant_matmul_w8a8" if a <= 8 else "quant_matmul_w8a16"
+        want[name] += cfg.num_layers * forwards
+    return want
+
+
+def p23_examples():
+    """Phase 23(c): the four examples on the card, each's launches zeroed
+    before it and read after. Returns ({example: launches}, seconds)."""
+    import torch
+    launches, secs = {}, {}
+    runs = (("torch_quickstart", []),
+            ("torch_compress_pipeline", []),
+            ("torch_nas_specialize", ["--steps", str(P23_NAS_STEPS)]),
+            ("torch_train_lm", ["--steps", str(P23_LM_STEPS)]))
+    outs = {}
+    for name, argv in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            if name == "torch_train_lm":
+                argv = argv + ["--ckpt-dir", tmp]
+            torch.cuda.synchronize()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            print(f"# example {name} {' '.join(argv)}", flush=True)
+            outs[name] = p23_example(name).main(argv + ["--device", "cuda"])
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            launches[name] = {k: v for k, v in all_launches().items() if v}
+    # quickstart: 8 tokens from 2 prompts, 7 paged decode steps a layer
+    q = outs["torch_quickstart"]
+    L = q["model"].cfg.num_layers
+    if launches["torch_quickstart"] != {"paged_attention_fwd": 7 * L}:
+        fail(f"examples[quickstart]: launches "
+             f"{launches['torch_quickstart']}, want 7 x {L} paged decode")
+    p23_stage3(outs["torch_compress_pipeline"],
+               launches["torch_compress_pipeline"])
+    nas = outs["torch_nas_specialize"]["search"]
+    if not (math.isfinite(nas["e_lat_us"]) and len(nas["arch"]) == 6):
+        fail(f"examples[nas_specialize]: {nas['arch']}, {nas['e_lat_us']}")
+    lm = outs["torch_train_lm"]
+    h = lm["history"]
+    rounded = {k: round(v, 1) for k, v in secs.items()}
+    print(f"examples: seconds {json.dumps(rounded)}; train_lm loss "
+          f"{h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} over {P23_LM_STEPS} "
+          f"steps at B 8 x 128, {lm['tokens'] / lm['seconds']:.0f} tok/s; "
+          f"nas_specialize ({P23_NAS_STEPS} steps) arch "
+          f"{'|'.join(nas['arch'])}", flush=True)
+    return launches, secs
+
+
+def p23_stage3(out, launches):
+    """compress_pipeline's stage 3 on the card: the quant matmul and paged
+    decode launches its generate makes (8 forwards: the prefill and 7
+    decode steps), and its logits teacher-forced on the served tokens
+    through the kernels against the kernels' plain versions (the same
+    hook, ``mode="ref"``, and the plain paged walk) under phase 3's rule;
+    the kernel path's greedy tokens must be the served ones. Printed
+    beside them: the same policy through the plain fake-quant hook
+    (``use_kernel=False``), which quantizes otherwise (W4A16 keeps x at
+    16 bits where the policy asks fewer; 5-7-bit weights run as int8
+    codes; W8A8's activations per tensor, not PACT), so it is a
+    different model and its gap is not gated."""
+    import torch
+    from repro_torch.core.quantization import make_quant_dot
+    model, params, pol = out["model"], out["pruned"], out["policy"]
+    toks, S = out["tokens"], out["prompt"].shape[1]
+    cfg = model.cfg
+    want = p23_expected_quant(cfg, pol, 8)
+    want["paged_attention_fwd"] = 7 * cfg.num_layers
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want or not any(launches.get(k, 0) for k in QMM_NAMES):
+        fail(f"examples[compress stage 3]: launches {launches}, want "
+             f"{want} (policy {pol}) and W8A16 or W4A16 among them")
+    kern = p23_teacher_forced(model, params, toks, S,
+                              p23_quant_dot(pol, "cuda"), "cuda")
+    plain = p23_teacher_forced(model, params, toks, S,
+                               p23_quant_dot(pol, "ref"), "ref")
+    if not torch.equal(kern.argmax(-1).to(torch.int32), toks[0, S:]):
+        fail(f"examples[compress stage 3]: the kernel path's greedy tokens "
+             f"{kern.argmax(-1).tolist()} are not the served "
+             f"{toks[0, S:].tolist()}")
+    compare_logits("examples[compress stage 3]",
+                   "8 teacher-forced steps, quant matmuls and paged decode",
+                   kern, plain)
+    hook = p23_teacher_forced(model, params, toks, S, make_quant_dot(pol),
+                              "ref")
+    clear = (hook.topk(2, -1).values[:, 0] - hook.topk(2, -1).values[:, 1]
+             ) > LOGIT_RTOL * float(hook.abs().max())
+    same = kern.argmax(-1) == hook.argmax(-1)
+    print(f"examples[compress stage 3]: served tokens "
+          f"{toks[0, S:].tolist()}; policy {json.dumps(pol)}; launches "
+          f"{json.dumps(got)}; the plain fake-quant hook (another "
+          f"quantizer, not gated): max |logit diff| "
+          f"{float((kern - hook).abs().max()):.4g} of |logit| up to "
+          f"{float(hook.abs().max()):.3g}, greedy tokens equal at "
+          f"{int(same.sum())} of {len(same)} steps ({int(clear.sum())} "
+          f"with a top-2 margin past {LOGIT_RTOL})", flush=True)
+
+
+def p23_child():
+    """Phase 23(a) and (c) in a child process: every table section
+    (tables/run.py) at the reference's sizes on the card, then the four
+    examples. Returns {"text": what it printed, "rows", "launches",
+    "seconds"}; a failure raises, its printed text in the message."""
+    import io
+    import os
+    import torch
+    from repro_torch.tables import run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the phases beside it stage their gloo collectives through the host:
+    # its host work (the agents, the launch loops) takes one core, and
+    # only what they leave
+    torch.set_num_threads(1)
+    os.nice(10)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            results, failures = run.run_sections(device="cuda")
+            if failures:
+                fail(f"tables: {len(failures)} sections failed: {failures}")
+            n = p23_hold_tables(results)
+            t_tables = time.perf_counter() - t0
+            launches, secs = p23_examples()
+    except BaseException as e:          # noqa: BLE001
+        raise SystemExit(f"chip_smoke: FAILED: phase 23: {e}\n--- its "
+                         f"output ---\n{buf.getvalue()[-12000:]}") from None
+    return {"text": buf.getvalue(), "rows": n, "launches": launches,
+            "seconds": {"tables": t_tables, **secs,
+                        "all": time.perf_counter() - t0}}
+
+
+class Phase23:
+    """Phase 23(a, c) in a spawned child process (``p23_child``), started
+    by ``start`` and collected by ``result``."""
+
+    def __init__(self):
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        self.t0 = time.perf_counter()
+        self.future = self.pool.submit(p23_child)
+
+    def result(self):
+        """(the child's result, seconds from its start to its collection);
+        the child's failure ends the run."""
+        try:
+            out = self.future.result(timeout=P23_TIMEOUT_S)
+        except concurrent.futures.TimeoutError:
+            for proc in list(self.pool._processes.values()):
+                proc.kill()
+            fail(f"phase 23: the child ran past {P23_TIMEOUT_S} s")
+        finally:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+        return out, time.perf_counter() - self.t0
+
+
+def p23_fig4(card):
+    """Phase 23(b), Fig. 4 at full width: granite-3-8b's first six decode
+    sites, M = 1 bf16 x against the site's whole K x N, the bf16 product
+    (torch.matmul) and the W8A16 and W4A16 kernels on the site's codes,
+    each call timed on the device over cold weight copies and held to its
+    plain version on the same codes (phase 2's bound), printed beside
+    h100-sxm's roofline for one layer's call and for the site's layers
+    (``site.latency``). Returns rows of {site, K, N, ms by kernel,
+    predicted}."""
+    import torch
+    from repro_torch.core.hardware_model import H100_SXM
+    from repro_torch.tables.roofline_report import fig4_sites
+    g = torch.Generator(device="cuda").manual_seed(23)
+    specs = qmm_specs()
+    rows = []
+    for site in fig4_sites():
+        K, N = site.d_in, site.d_out
+        x = torch.randn((1, K), generator=g, device="cuda").bfloat16()
+        w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+        wb = w.bfloat16()
+        copies = max(1, -(-QMM_COLD_BYTES // wb.nbytes))
+        ms = {"bf16": device_ms(torch.matmul, [(x, wb)] + [
+            (x, wb.clone()) for _ in range(copies - 1)])}
+        err = {}
+        for name in ("quant_matmul_w8a16", "quant_matmul_w4a16"):
+            fwd, plain, quantize = specs[name]
+            codes, scale = quantize(w)
+            err[name] = check_qmm(name, fwd, plain, x, codes, scale,
+                                  f"fig4 {site.name} {K} x {N}")
+            fn, _, args = qmm_call(name, x, codes, scale)
+            ms[name] = device_ms(fn, cold_weight_sets(args))
+            del codes, scale
+        pred = {b: site.latency(H100_SXM, b, 16) / site.count * 1e3
+                for b in (16, 8, 4)}
+        rows.append({"site": site.name, "K": K, "N": N, "layers":
+                     site.count, "ms": ms, "pred_ms": pred, "err": err})
+        print(f"fig4[{site.name} {K} x {N}, M = 1]: measured bf16 "
+              f"{ms['bf16']:.4f} ms, W8A16 {ms['quant_matmul_w8a16']:.4f} "
+              f"ms, W4A16 {ms['quant_matmul_w4a16']:.4f} ms a call; "
+              f"h100-sxm roofline predictions (16,16) {pred[16]:.4f}, "
+              f"(8,16) {pred[8]:.4f}, (4,16) {pred[4]:.4f} ms a call, "
+              f"{site.latency(H100_SXM, 16, 16) * 1e3:.4f}, "
+              f"{site.latency(H100_SXM, 8, 16) * 1e3:.4f}, "
+              f"{site.latency(H100_SXM, 4, 16) * 1e3:.4f} ms over its "
+              f"{site.count} layers; measured over predicted "
+              f"{ms['bf16'] / pred[16]:.2f}x, "
+              f"{ms['quant_matmul_w8a16'] / pred[8]:.2f}x, "
+              f"{ms['quant_matmul_w4a16'] / pred[4]:.2f}x; max |err| vs "
+              f"plain W8A16 {err['quant_matmul_w8a16']:.3g}, W4A16 "
+              f"{err['quant_matmul_w4a16']:.3g} ({card})", flush=True)
+        del w, wb
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tables(p23, card):
+    """Phase 23(a, c): collect the child (``Phase23``) and print every
+    table row under the card's line. Returns the launches of the examples'
+    paths, summed: {kernel: n}."""
+    out, secs = p23.result()
+    print(f"tables: {card}; us_per_call as each section's '# <tag>: "
+          f"us_per_call is' line says (measured host time on this card, or "
+          f"an h100 roofline prediction); the sim_lat_us, lat_* and t_* "
+          f"fields are roofline predictions on the h100 targets, never "
+          f"measured", flush=True)
+    for line in out["text"].splitlines():
+        print(f"tables| {line}", flush=True)
+    total = {}
+    for runs in out["launches"].values():
+        for k, v in runs.items():
+            total[k] = total.get(k, 0) + v
+    examples = {k: round(v, 1) for k, v in out["seconds"].items()
+                if k.startswith("torch_")}
+    print(f"tables: phase 23 (a, c) {out['rows']} rows in the child's "
+          f"{out['seconds']['all']:.1f} s (tables "
+          f"{out['seconds']['tables']:.1f} s; examples "
+          f"{json.dumps(examples)}), collected {secs:.1f} s after its "
+          f"start; launches of the examples' paths {json.dumps(total)}",
+          flush=True)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7205,6 +7596,8 @@ def main() -> int:
     # phase 22(a)'s world follows phase 21's world of 1 on the card
     moe_quant = MoeQuant()
     moe_quant.start(after=families.one)
+    # phase 23(a, c)'s child runs beside phases 17-18
+    p23 = Phase23()
     # phase 17: the sharded engine
     t_mesh = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -7224,6 +7617,9 @@ def main() -> int:
           f"flash launches over its sharded runs, summed over ranks "
           f"{mt_flash}", flush=True)
     mark("phase 18")
+    # phase 23(a, c): the paper's tables and the examples, from the child
+    p23_launches = phase_tables(p23, card_line())
+    mark("phase 23 (a, c)")
     # phase 21's gloo world starts here and runs beside phases 19-20
     families.start_two()
     # phase 19: the dry-run and the roofline; (c) after phase 21
@@ -7255,6 +7651,12 @@ def main() -> int:
           f"phase 21; launches of its sharded runs, summed over ranks "
           f"{json.dumps(mq_launches)}", flush=True)
     mark("phase 22")
+    # phase 23(b): Fig. 4 at full width, the card to itself
+    t_fig4 = time.perf_counter()
+    p23_fig4(card_line())
+    print(f"fig4: phase 23(b) in {time.perf_counter() - t_fig4:.1f} s",
+          flush=True)
+    mark("phase 23(b)")
     t_dry = time.perf_counter()
     phase_dryrun_sweep(sweep)
     print(f"dryrun: phase 19(c) waited {time.perf_counter() - t_dry:.1f} s "
@@ -7281,11 +7683,15 @@ def main() -> int:
     # main trace and llava's paged steps)
     launches = dict(launches, paged_attention_fwd=launches[
         "paged_attention_fwd"] + ll["paged"]["paged_attention_fwd"]
-        + mesh_launches["paged_attention_fwd"],
+        + mesh_launches["paged_attention_fwd"]
+        + p23_launches.get("paged_attention_fwd", 0),
         paged_prefill_fwd=launches["paged_prefill_fwd"]
         + mesh_launches["paged_prefill_fwd"])
     q_launches = {k: q_launches[k] + mesh_launches[k] for k in QUANT_KERNELS}
-    w_launches = {k: w_launches[k] + mq_launches[k] for k in QMM_NAMES}
+    w_launches = {k: w_launches[k] + mq_launches[k]
+                  + p23_launches.get(k, 0) for k in QMM_NAMES}
+    g_launches = {"quant_matmul_w8a8": g_launches["quant_matmul_w8a8"]
+                  + p23_launches.get("quant_matmul_w8a8", 0)}
     source_run = {**{k: launches for k in BF16_KERNELS},
                   **{k: q_launches for k in QUANT_KERNELS},
                   "flash_attention_fwd": {

@@ -19,6 +19,16 @@ Targets: the reference's three TPU v5e entries, kept for comparison, and
 ``h100-sxm`` — NVIDIA's data-sheet numbers for one H100 SXM: 989 TFLOP/s
 dense bf16, 1,979 TOP/s int8, 3.35 TB/s of device memory, 80 GiB, NVLink
 at 450 GB/s each way. The port's serving entry points default to it.
+
+Two multi-card targets stand where the reference's paper experiments
+price its pod targets (``V5E_POD``, ``V5E_2POD``), so the tables keep
+three regimes on the port's hardware: ``h100-node8``, the eight cards of
+a DGX H100 over NVLink (450 GB/s each way), and ``h100-2node16``, two
+such nodes whose traffic crosses over one 400 Gb/s NDR InfiniBand port a
+card (``ici_bw`` 50 GB/s), as NVIDIA's DGX H100 data sheet gives them.
+Their per-card terms are ``h100-sxm``'s. Neither is in ``HARDWARES``:
+that registry feeds ``launch/serve.py --hw`` and the admission policy,
+which size one card's pool.
 """
 from __future__ import annotations
 
@@ -54,6 +64,10 @@ V5E_2POD = Hardware("v5e-2pod512", chips=512,
 H100_SXM = Hardware("h100-sxm", chips=1, peak_flops_bf16=989e12,
                     peak_flops_int8=1979e12, hbm_bw=3.35e12, ici_bw=450e9,
                     hbm_bytes=80 * 2**30)
+
+H100_NODE8 = dataclasses.replace(H100_SXM, name="h100-node8", chips=8)
+H100_2NODE16 = dataclasses.replace(H100_SXM, name="h100-2node16", chips=16,
+                                   ici_bw=50e9)   # one NDR port a card
 
 HARDWARES: Dict[str, Hardware] = {h.name: h for h in
                                   (V5E_EDGE, V5E_POD, V5E_2POD, H100_SXM)}
