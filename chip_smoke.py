@@ -230,7 +230,16 @@ Phases, each fatal on failure:
                 beside dp from one state: whether the first loss and
                 every gradient leaf but the norm scales are the same
                 bits (printed), the norm scales' largest relative
-                difference, 2 steps of each under the same rules;
+                difference, 2 steps of each under the same rules; and
+                the world of 4's second mesh, pod=2 x data=2: 2 steps at
+                B 2 (the rows over data alone) and at B 1 (the sequence
+                over data), each held whole over pod, the 4 ranks'
+                metrics the same bits; under the same rules, B 2 against
+                the one-device run in 2 microbatches, B 1 against the
+                same row at data=2 in the world of 2 (its first loss the
+                same bits), and both against the plain run, with the
+                2-microbatch run and the run summing the two sequence
+                blocks' bf16 gradients as the controls;
                 (d) (b)'s state
                 resharded onto one rank (``reshard_state``), its masters
                 equal to (b)'s, and one step there bit-identical to the
@@ -244,7 +253,17 @@ Phases, each fatal on failure:
                 one-device run within them or twice that control's
                 distance (both run on the card beside the world); each
                 rank's peak, seconds a step and 2 x 2 flash launches a
-                step over the whole sequence;
+                step over the whole sequence; (f) in (b)'s world, its
+                second mesh pod=2 x data=1: one row of 4096 tokens at
+                (b)'s cut, held whole over pod (each pod rank computes
+                it, nothing sums over pod), past the layout check: the
+                first loss and gradients and 2 steps, the pod ranks'
+                losses, metrics and sampled gradients and masters the
+                same bits, the first loss and gradients against the
+                one-device run's (bit-identity printed), the steps under
+                the bf16 rules against it; each rank's state at rest
+                (half the whole's), peak, seconds a step and 2 x 2 flash
+                launches a step;
  19. dryrun   — the dry-run (launch/dryrun.py, roofline/) on meta tensors:
                 (a) the record of phase 12's step (full-width gemma2-2b,
                 B 2 x S 4096, remat on, a mesh of one) beside phase 12's
@@ -268,7 +287,14 @@ Phases, each fatal on failure:
                 prefill and decode), then 2 and 2, then gemma2-2b's
                 train_4k and prefill_32k with --ac-mode seq_tp, each
                 printed beside its dp record (live peak, collective
-                bytes, the three terms);
+                bytes, the three terms); and, in a second subprocess
+                started after phase 1 at nice 19, train_4k on the
+                two-pod mesh (--mesh multi) in microbatches below pod x
+                data: gemma2-2b and granite-moe-3b-a800m at
+                --microbatches 16 (16 rows over data alone) and
+                gemma2-2b at 32 (8 rows, the sequence over data), each
+                held whole over pod, 2 and 1 cells run, each record's
+                live peak printed;
  20. mesh-serve — the sharded prefill and serve steps
                 (training/sharded_serve.py): (a) an NCCL world of 1,
                 full-width gemma2-2b, ``make_prefill_step(ac=)`` over B 2
@@ -326,6 +352,11 @@ Phases, each fatal on failure:
                 split on its slots over data and its kv heads over model,
                 the prefill's logits and blocks bit-identical to one
                 device's, 4 decode steps over 15 slots under LOGIT_RTOL;
+                then 2 train steps of one row of 2048 tokens (flash at hd
+                32), which 3 divides in no dim, so data holds it whole:
+                the 6 ranks' metrics and each data rank's sampled masters
+                the same bits, the steps under phase 18's bf16 rules
+                against the one-device run;
                 (a) starts before phase 17 and runs beside its worlds, (b)
                 starts after phase 18 and runs beside phases 19 and 20,
                 (c) beside (b) after phase 20;
@@ -4294,6 +4325,13 @@ MT_SEQ_STEPS = 2
 # batch axis divides it, so the rules split its sequence over data
 # (DataSeqRows: TRAIN_S / 2 rows a rank between sub-layers)
 MT_SEQ_B = 1
+# (f): one row of TRAIN_S tokens on the world of 2's second mesh, pod=2 x
+# data=1 x model=1, the depth cut as (b)'s: the row splits over data (of
+# one), so pod holds it whole (ActivationLayout.replicated_axes) and each
+# pod rank computes it; (c)'s pod=2 x data=2 (the world of 4's second
+# mesh): tiny gemma2-2b at MT_TINY_B rows (over data alone) and at one row
+# (its sequence over data), each whole over pod, MT_POD_STEPS steps
+MT_POD_B, MT_POD_STEPS = 1, 2
 NORM_KEYS = ("ln1", "ln2", "ln1_post", "ln2_post", "ln_x", "mamba_ln",
              "final_norm", "enc_norm")
 
@@ -4398,6 +4436,29 @@ def merge_samples(ranks):
         order = torch.argsort(idx)
         out.append((idx[order], vals[order]))
     return out
+
+
+def merge_replicas(label, ranks):
+    """``merge_samples`` over ranks some of which hold the same block of a
+    leaf (replicas: ranks of an axis that holds the batch whole, or of
+    one a leaf does not split): ranks whose samples cover the same
+    indices must hold the same bits there, fatal otherwise, and count
+    once. Returns the merged samples and how many leaves had replicas."""
+    import torch
+    out, replicated = [], 0
+    for i, parts in enumerate(zip(*ranks)):
+        mine = []
+        for idx, vals in parts:
+            twin = next((p for p in mine if torch.equal(p[0], idx)), None)
+            if twin is None:
+                mine.append((idx, vals))
+            elif not torch.equal(twin[1], vals):
+                fail(f"{label}: leaf {i}: replicas differ at "
+                     f"{int((twin[1] != vals).sum())} of {idx.numel()} "
+                     f"samples")
+        replicated += len(mine) < len(parts)
+        out.extend(merge_samples([[p] for p in mine]))
+    return out, replicated
 
 
 def step_distances(got, want):
@@ -4684,11 +4745,91 @@ def mt_rank_two(rank, world, device, ckpt_dir):
     t_c = time.perf_counter()
     res["c_seq"] = mt_seq_tp(mesh_c)
     res["c_seq_s"] = time.perf_counter() - t_c
+    # (c)'s one row at data=2, which the world of 4's pod=2 x data=2
+    # repeats on each pod rank
+    res["c_b"] = mt_pod_tiny(mesh, labels=("B",))["B"]
     # (e) one row at data=2: the sequence split over data
     gc.collect()
     torch.cuda.empty_cache()
     res["e"] = mt_seq_data(model, tcfg, tr)
+    # (f) one row at pod=2 x data=1: held whole over pod
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["f"] = mt_pod_held(model, tcfg)
     return res
+
+
+def mt_pod_held(model, tcfg):
+    """Phase 18(f)'s rank: MT_POD_B row of TRAIN_S tokens on a pod=2 x
+    data=1 x model=1 mesh of the world of 2, the row held whole over pod
+    (every rank computes it, nothing sums over pod), after the layout
+    check ``train(mesh=)`` makes: the first loss and this rank's samples
+    of the first gradients, then MT_STEPS_TWO steps from seed 0 with wq,
+    wk times QK_SCALE (``mt_sharded_steps``: metrics, flash launches,
+    seconds and masters' samples a step); the axes the step held whole,
+    this rank's bytes at rest and peak."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.loop import _check_layout
+    from repro_torch.training.sharded import ShardedTrainer
+    mesh = _mesh(1, 1, "cuda", MT_WORLD_S, pod=2)
+    tr = ShardedTrainer(model, tcfg, make_ac(mesh))
+    shape = ShapeConfig("train", TRAIN_S, MT_POD_B, "train")
+    _check_layout(model, tcfg, shape, tr.ac, None)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+    scale_qk_state(state, QK_SCALE)
+    rest = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    rows, ac = tr.rows(dp.batch_for_model(model, shape, None, 0, "cuda",
+                                          full=True))
+    reset_all_launches()
+    loss, g = tr.grads(state["params"], rows, ac)
+    first_flash = all_launches()["flash_attention_fwd"]
+    grads = [block_samples(x, tuple(a.shape), s, tr.sizes, tr.coords)
+             for x, a, s in zip(tree_leaves(g),
+                                tree_leaves(tr.abstract["params"]),
+                                tr.param_specs)]
+    del g, rows
+    state, steps = mt_sharded_steps(tr, state, model, shape, MT_STEPS_TWO,
+                                    sample=True)
+    del state
+    return {"held": ac.replicated, "loss": float(loss), "grads": grads,
+            "first_flash": first_flash, "steps": steps, "rest_bytes": rest,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "s": tr.first_rank_float(time.perf_counter() - t0)}
+
+
+def mt_first_grads(model, shape, qk):
+    """The one-device port's first loss and gradients from seed 0 (wq, wk
+    times ``qk``), as the step takes them, each leaf's samples
+    (``sample_index``)."""
+    import torch
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training import steps as steps_lib
+    tcfg = mt_tcfg("")
+    state = steps_lib.init_train_state(
+        model, tcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    scale_qk_state(state, qk)
+    leaves = tree_leaves(state["params"])
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = model.loss(state["params"], dp.batch_for_model(
+        model, shape, None, 0, "cuda", full=True), remat=tcfg.remat)
+    grads = torch.autograd.grad(loss, leaves)
+    out = float(loss.detach()), [
+        (sample_index(tuple(x.shape)),
+         x.reshape(-1)[sample_index(tuple(x.shape)).to(x.device)]
+         .float().cpu()) for x in grads]
+    del state, leaves, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def mt_seq_data(model, tcfg, trainer):
@@ -4722,9 +4863,47 @@ def mt_rank_four(rank, world, device, ckpt_dir):
     from repro_torch.launch.mesh import make_serving_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import _mesh
     mesh = make_serving_mesh(model=2, data=2, device_type="cuda",
                              backend="gloo")
-    return {"c": mt_tiny(mesh, f"{ckpt_dir}/c4"), "c_seq": mt_seq_tp(mesh)}
+    out = {"c": mt_tiny(mesh, f"{ckpt_dir}/c4"), "c_seq": mt_seq_tp(mesh)}
+    out["c_pod"] = mt_pod_tiny(_mesh(2, 1, "cuda", MT_WORLD_S, pod=2))
+    return out
+
+
+def mt_pod_tiny(mesh, labels=("A", "B")):
+    """Phase 18(c)'s pod=2 x data=2 runs on ``mesh``: tiny gemma2-2b (wq,
+    wk times MT_TINY_QK, S = MT_TINY_S) from seed 0, each past the layout
+    check ``train(mesh=)`` makes, MT_POD_STEPS steps (whole masters on
+    rank 0) of layout A, MT_TINY_B rows over data alone, on the batches
+    from step 1 on (as (c)'s one-device runs take them), and of layout B,
+    one row whose sequence splits over data; each held whole over pod.
+    On the world of 2's data=2 mesh, B alone: the step each pod replica
+    repeats. {label: (the axes the step held whole, its steps)}."""
+    import torch
+    from repro_torch.configs import ShapeConfig, tiny_config
+    from repro_torch.data import pipeline as dp
+    from repro_torch.distributed.sharding import make_ac
+    from repro_torch.models.api import build_model
+    from repro_torch.training.loop import _check_layout
+    from repro_torch.training.sharded import ShardedTrainer
+    model = build_model(tiny_config("gemma2-2b"))
+    tcfg = mt_tcfg("")
+    out = {}
+    for label, B, first in (("A", MT_TINY_B, 1), ("B", 1, 0)):
+        if label not in labels:
+            continue
+        shape = ShapeConfig("t", MT_TINY_S, B, "train")
+        tr = ShardedTrainer(model, tcfg, make_ac(mesh))
+        _check_layout(model, tcfg, shape, tr.ac, None)
+        held = tr.rows(dp.batch_for_model(model, shape, None, first,
+                                          "cuda", full=True))[1].replicated
+        state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+        scale_qk_state(state, MT_TINY_QK)
+        _, steps = mt_sharded_steps(tr, state, model, shape, MT_POD_STEPS,
+                                    sample=False, first=first)
+        out[label] = (held, steps)
+    return out
 
 
 def mt_seq_tp(mesh):
@@ -4903,6 +5082,11 @@ def phase_train_mesh(phase12_step_s):
                                   microbatches=m, first=1,
                                   save_to=(f"{tmp}/c2", f"{tmp}/c4")
                                   if m == 1 else ()) for m in (1, 2)}
+        # (c)'s pod=2 x data=2 run at one row: plain, and the two sequence
+        # blocks' bf16 gradients summed in fp32 (as (e))
+        want_pod = {n: mt_unsharded(tiny, ShapeConfig(
+            "t", MT_TINY_S, 1, "train"), MT_POD_STEPS, MT_TINY_QK, tmp,
+            sample=False, seq_blocks=0 if n == 1 else n) for n in (1, 2)}
         base_s = time.perf_counter() - t_b
         # (e)'s one-device runs, on the card beside the host-staged world
         # of 2 (a rank's peak 12.7 GB in a rehearsal)
@@ -4914,6 +5098,8 @@ def phase_train_mesh(phase12_step_s):
                                     tmp, sample=True,
                                     seq_blocks=0 if n == 1 else n)
                     for n in (1, 2)}
+            # (f)'s first loss and gradients (its steps are runs[1]'s)
+            runs["first"] = mt_first_grads(cut, seq_shape, QK_SCALE)
             return runs, time.perf_counter() - t_e
         e_future = pool.submit(e_baselines)
         # (c)'s tiny world of 4 beside (b)'s host-staged world of 2
@@ -5043,9 +5229,150 @@ def phase_train_mesh(phase12_step_s):
               f"{line}", flush=True)
     print(f"mesh-train: (c)'s seq_tp runs {two[0]['c_seq_s']:.1f} s in the "
           f"world of 2", flush=True)
+    flash += mt_hold_pod_tiny([r["c_pod"] for r in four], want_c, want_pod,
+                              [r["c_b"] for r in two], tiny.cfg.num_layers)
     flash += mt_hold_seq_data([r["e"] for r in two], want_e, base_e_s,
                               card)
+    flash += mt_hold_pod_held([r["f"] for r in two], want_e, state_bytes,
+                              card)
     return flash, [r["rest_bytes"] for r in b]
+
+
+def mt_hold_pod_tiny(ranks, want_c, want_pod, data2, layers):
+    """Phase 18(c) at pod=2 x data=2: every rank's metrics the same bits
+    at every step (each pod replica computes its own loss and sums over
+    data alone). Under phase 18's bf16 rules, A against the one-device
+    run in 2 microbatches (the rows as data cuts them), and against the
+    plain run within the rules or twice that control's distance. B
+    against ``data2`` (the same row at data=2, whose step each pod
+    replica repeats: its first loss the same bits, fatal otherwise, its
+    steps under the rules, the grad norm's partial sums grouped
+    otherwise), and against the plain run within the rules or twice the
+    distance of the run summing the two sequence blocks' bf16 gradients
+    in fp32 (phase 18(e)'s control). Each rank ``layers`` x 2 flash
+    launches a step. Returns the flash launches, summed over ranks."""
+    flash = 0
+    for label, plain, split in (("A", want_c[1], want_c[2]),
+                                ("B", want_pod[1], want_pod[2])):
+        tag = f"mesh-train[c pod=2 x data=2 {label}]"
+        runs = [r[label] for r in ranks]
+        for i, (held, steps) in enumerate(runs):
+            if held != ("pod",):
+                fail(f"{tag}: rank {i}'s step held {held} whole, not pod")
+            if [s["met"] for s in steps] != [s["met"] for s in runs[0][1]]:
+                fail(f"{tag}: rank {i}'s metrics differ from rank 0's")
+            for s in steps:
+                if s["flash"] != layers * 2:
+                    fail(f"{tag}: rank {i}: {s['flash']} flash launches a "
+                         f"step")
+                flash += s["flash"]
+        got = [(s["met"], s["masters"]) for s in runs[0][1]]
+        n = len(got)
+        lrs = [m["lr"] for m, _ in plain[:n]]
+        if label == "A":
+            line = "against the one-device run in 2 microbatches: " + \
+                hold_steps(tag, got, split[:n], lrs)
+            rows = f"B={MT_TINY_B}, its rows over data alone"
+        else:
+            for i, (_, steps) in enumerate(data2):
+                for s in steps:
+                    if s["flash"] != layers * 2:
+                        fail(f"{tag}: data=2 rank {i}: {s['flash']} flash "
+                             f"launches a step")
+                    flash += s["flash"]
+            held, steps = data2[0]
+            if held != () or steps[0]["met"]["loss"] != got[0][0]["loss"]:
+                fail(f"{tag}: the first loss {got[0][0]['loss']} is not "
+                     f"data=2's {steps[0]['met']['loss']} (held {held})")
+            line = "against the same row at data=2 (first loss the same " \
+                "bits): " + hold_steps(
+                    f"{tag} vs data=2", got,
+                    [(s["met"], s["masters"]) for s in steps], lrs)
+            rows = "B=1, its sequence over data"
+        line1 = hold_steps(f"{tag} vs unsharded", got, plain[:n], lrs,
+                           control=split[:n])
+        what = "the 2-microbatch run" if label == "A" else \
+            "the run summing the two sequence blocks' bf16 gradients"
+        print(f"{tag}, tiny gemma2-2b {rows} S={MT_TINY_S}, whole over pod]:"
+              f" the 4 ranks' metrics the same bits at every step; {line}; "
+              f"against the plain run (the control: {what}): {line1}",
+              flush=True)
+    return flash
+
+
+def mt_hold_pod_held(ranks, want, state_bytes, card):
+    """Phase 18(f): the two pod ranks' first losses and every step's
+    metrics the same bits, and their sampled first gradients and masters
+    (``merge_replicas``); the first loss and gradients against the
+    one-device run's (bit-identity printed; the loss within phase 18's
+    loss rule), the steps under phase 18's bf16 rules against the
+    one-device run (the row is one device's on each pod rank: no batch
+    split rounds a sum); each rank MT_LAYERS x 2 flash launches a step
+    and in the first gradients, its state at rest half the whole's.
+    Returns the flash launches, summed over ranks."""
+    import torch
+    label = "mesh-train[f]"
+    for i, r in enumerate(ranks):
+        if r["held"] != ("pod",):
+            fail(f"{label}: rank {i}'s step held {r['held']} whole, not pod")
+        seen = [(x["loss"], [s["met"] for s in x["steps"]]) for x in ranks]
+        if seen[i] != seen[0]:
+            fail(f"{label}: the pod ranks' losses or metrics differ: {seen}")
+        if r["rest_bytes"] - 4 != (state_bytes - 4) // 2:
+            fail(f"{label}: rank {i} holds {r['rest_bytes']} bytes at rest, "
+                 f"not half of {state_bytes}")
+    grads, _ = merge_replicas(f"{label} first gradients",
+                              [r["grads"] for r in ranks])
+    w_loss, w_grads = want["first"]
+    if any(not torch.equal(a[0], b[0]) for a, b in zip(grads, w_grads)):
+        fail(f"{label}: the gradient samples cover other elements than the "
+             f"one-device run's")
+    same = ranks[0]["loss"] == w_loss and all(
+        torch.equal(a[1], b[1]) for a, b in zip(grads, w_grads))
+    rel = max(float((a[1] - b[1]).abs().max() / b[1].abs().max().clamp(
+        min=1e-30)) for a, b in zip(grads, w_grads))
+    if abs(ranks[0]["loss"] - w_loss) > MT_LOSS_RTOL * abs(w_loss):
+        fail(f"{label}: first loss {ranks[0]['loss']} vs the one-device "
+             f"{w_loss}")
+    got, shared = [], 0
+    for k, s in enumerate(ranks[0]["steps"]):
+        masters, n = merge_replicas(f"{label} step {k} masters",
+                                    [r["steps"][k]["masters"]
+                                     for r in ranks])
+        shared = max(shared, n)
+        got.append((s["met"], masters))
+    line = hold_steps(f"{label} vs unsharded", got, want[1],
+                      [m["lr"] for m, _ in want[1]])
+    flash = 0
+    for i, r in enumerate(ranks):
+        for k, s in enumerate(r["steps"]):
+            if s["flash"] != MT_LAYERS * 2:
+                fail(f"{label}: rank {i} step {k}: {s['flash']} flash "
+                     f"launches, expected {MT_LAYERS * 2}")
+            flash += s["flash"]
+        if r["first_flash"] != MT_LAYERS * 2:
+            fail(f"{label}: rank {i}: {r['first_flash']} flash launches in "
+                 f"the first gradients")
+        flash += r["first_flash"]
+    same = "bit-identical" if same else "not bit-identical"
+    print(f"mesh-train[f gloo pod=2 x data=1, gemma2-2b {MT_LAYERS} of 26 "
+          f"layers B={MT_POD_B} S={TRAIN_S}, the row whole over pod, wq, wk x "
+          f"{QK_SCALE}]: the pod ranks' first losses, metrics and sampled "
+          f"gradients and masters the same bits ({shared} of "
+          f"{len(got[0][1])} master leaves held alike on both, the others "
+          f"split over pod); the first loss and gradients against the "
+          f"one-device run's: {same} (loss {ranks[0]['loss']:.6f} vs {w_loss:.6f}, gradient samples "
+          f"within {rel:.3g} of a leaf's max); {MT_STEPS_TWO} steps against "
+          f"the one-device run: {line}", flush=True)
+    for i, r in enumerate(ranks):
+        print(f"{label}: rank {i} state at rest "
+              f"{r['rest_bytes'] / 1e9:.3f} GB of the unsharded "
+              f"{state_bytes / 1e9:.3f} GB, peak {r['peak_gb']:.3f} GB; "
+              f"steps {', '.join(f'{s['s']:.2f}' for s in r['steps'])} s "
+              f"(host-staged gloo, not a speed); flash launches a step "
+              f"{[s['flash'] for s in r['steps']]}; {r['s']:.1f} s "
+              f"({card})", flush=True)
+    return flash
 
 
 def mt_hold_seq_data(ranks, want, base_s, card):
@@ -5107,6 +5434,11 @@ DRY_QUANT_CELLS = (("gemma2-2b", "decode_32k"),
                    ("llama4-maverick-400b-a17b", "decode_32k"))
 # and these two under --ac-mode seq_tp, each printed beside its dp record
 DRY_SEQ_TP_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "prefill_32k"))
+# and train_4k on the two-pod mesh in microbatches that pod x data (32)
+# does not divide: rows over data alone (M 16, 16 rows) or the sequence
+# over data (M 32, 8 rows), each held whole over pod; {M: archs}
+DRY_MICRO_CELLS = {16: ("gemma2-2b", "granite-moe-3b-a800m"),
+                   32: ("gemma2-2b",)}
 H100_BF16_FLOPS = 989e12
 
 
@@ -5118,34 +5450,56 @@ def dry_cells():
             or (a, s) in DRY_FAMILY_CELLS]
 
 
-class DrySweep:
-    """Phase 19(c)'s ``python -m repro_torch.launch.dryrun --cells ...
-    --mesh single`` (``dry_cells``), then one ``--quant`` sweep of
-    DRY_QUANT_CELLS a mode of DRY_QUANT, in a subprocess started after
-    phase 16: its cells trace on the host, one at a time, while phases
-    17-22 run (one core of the host's; two at once slowed phases 17-18's
-    host-staged gloo worlds), so it shares the host with no phase that
-    times an eager loop on one process alone; collected after phase 22.
-    Stopped at exit whatever happens in between."""
+def dry_runs():
+    """Phase 19(c)'s sweep, as the dry-run CLI's arguments: ``dry_cells``
+    on the single-pod mesh, then DRY_QUANT_CELLS a mode of DRY_QUANT, then
+    DRY_SEQ_TP_CELLS under seq_tp."""
+    return [["--mesh", "single", "--cells",
+             ",".join(f"{a}:{s}" for a, s in dry_cells())]] + [
+        ["--mesh", "single", "--cells",
+         ",".join(f"{a}:{s}" for a, s in DRY_QUANT_CELLS), "--quant", q,
+         "--tag", f"_{q}"] for q in DRY_QUANT] + [
+        ["--mesh", "single", "--cells",
+         ",".join(f"{a}:{s}" for a, s in DRY_SEQ_TP_CELLS), "--ac-mode",
+         "seq_tp"]]
 
-    def __init__(self):
+
+def dry_micro_runs():
+    """Phase 19(c)'s two-pod microbatched cells (DRY_MICRO_CELLS), as the
+    dry-run CLI's arguments."""
+    return [["--mesh", "multi", "--cells",
+             ",".join(f"{a}:train_4k" for a in archs), "--microbatches",
+             str(m), "--tag", f"_m{m}"]
+            for m, archs in DRY_MICRO_CELLS.items()]
+
+
+class DrySweep:
+    """Dry-run CLI runs (``python -m repro_torch.launch.dryrun --force
+    --jobs DRY_JOBS`` with each of ``runs``' arguments, one after the
+    other) in a subprocess of its own, at ``nice``, one cell at a time, on
+    one host core, collected by ``result``. Phase 19(c)'s ``dry_runs``
+    start after phase 16 and trace while phases 17-22 run (two at once
+    slowed phases 17-18's host-staged gloo worlds), so they share the host
+    with no phase that times an eager loop on one process alone; its
+    ``dry_micro_runs`` (about 300 s of tracing on an 8-core host, more
+    than those phases leave the sweep) start after phase 1 at nice 19,
+    beside phases 1b-16, whose loops run on one process. Both are
+    collected after phase 23(b), and stopped at exit whatever happens in
+    between."""
+
+    def __init__(self, runs, nice=0):
         import atexit
         import os
         import shlex
         self.dir = tempfile.TemporaryDirectory()
-        run = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
-               "single", "--force", "--jobs", str(DRY_JOBS), "--out-dir",
-               self.dir.name, "--cells"]
-        cmds = [run + [",".join(f"{a}:{s}" for a, s in dry_cells())]] + [
-            run + [",".join(f"{a}:{s}" for a, s in DRY_QUANT_CELLS),
-                   "--quant", q, "--tag", f"_{q}"] for q in DRY_QUANT] + [
-            run + [",".join(f"{a}:{s}" for a, s in DRY_SEQ_TP_CELLS),
-                   "--ac-mode", "seq_tp"]]
+        head = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
+                "--jobs", str(DRY_JOBS), "--out-dir", self.dir.name]
         self.proc = subprocess.Popen(
-            ["/bin/sh", "-c", " && ".join(shlex.join(c) for c in cmds)],
+            ["/bin/sh", "-c", " && ".join(shlex.join(head + r)
+                                          for r in runs)],
             cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            start_new_session=True)
+            start_new_session=True, preexec_fn=lambda: os.nice(nice))
         self.t0 = time.perf_counter()
         atexit.register(self.stop)
 
@@ -5212,10 +5566,11 @@ def phase_dryrun(step_s: float, peak_bytes: int, rest_bytes: list) -> None:
           f"measured state at rest {rest_bytes}", flush=True)
 
 
-def phase_dryrun_sweep(sweep: DrySweep) -> None:
-    """Phase 19(c): ``sweep``'s cells, each run, none refused (the module
-    docstring)."""
+def phase_dryrun_sweep(sweep: DrySweep, micro: DrySweep) -> None:
+    """Phase 19(c): ``sweep``'s and ``micro``'s cells, each run, none
+    refused (the module docstring)."""
     rc, out, secs = sweep.result()
+    rc_m, out_m, secs_m = micro.result()
     pairs = {}
     for a, sh in DRY_SEQ_TP_CELLS:
         paths = [Path(sweep.dir.name) / f"{a}__{sh}__single{t}.json"
@@ -5223,7 +5578,8 @@ def phase_dryrun_sweep(sweep: DrySweep) -> None:
         if all(p.exists() for p in paths):
             pairs[(a, sh)] = [json.loads(p.read_text()) for p in paths]
     sweep.stop()
-    for line in out.splitlines():
+    both = f"{out}\n{out_m}"
+    for line in both.splitlines():
         if line.startswith(("[ok", "[FAIL]", "[refused]")) \
                 or "cells ran" in line:
             print(f"dryrun[c] {line}", flush=True)
@@ -5232,18 +5588,34 @@ def phase_dryrun_sweep(sweep: DrySweep) -> None:
           f"single, then --quant {' and '.join(DRY_QUANT)} on "
           f"{', '.join(f'{a} {s}' for a, s in DRY_QUANT_CELLS)}, "
           f"{DRY_JOBS} cells at once, started after phase 16 and collected "
-          f"{secs:.1f} s later", flush=True)
-    if rc != 0:
-        fail(f"dryrun[c]: the sweep exited {rc}:\n{out[-4000:]}")
+          f"{secs:.1f} s later; the two-pod cells started after phase 1 "
+          f"and collected {secs_m:.1f} s later", flush=True)
+    if rc != 0 or rc_m != 0:
+        fail(f"dryrun[c]: the sweeps exited {rc} and {rc_m}:\n"
+             f"{out[-2000:]}\n{out_m[-2000:]}")
     want = [f"{DRY_RAN} cells ran, 0 refused, 0 failed"] + [
         f"{len(DRY_QUANT_CELLS)} cells ran, 0 refused, 0 failed"] \
         * len(DRY_QUANT) + [
-        f"{len(DRY_SEQ_TP_CELLS)} cells ran, 0 refused, 0 failed"]
-    got = [line.split(" in ")[0] for line in out.splitlines()
+        f"{len(DRY_SEQ_TP_CELLS)} cells ran, 0 refused, 0 failed"] + [
+        f"{len(archs)} cells ran, 0 refused, 0 failed"
+        for archs in DRY_MICRO_CELLS.values()]
+    got = [line.split(" in ")[0] for line in both.splitlines()
            if line[:1].isdigit() and " cells ran, " in line]
     if got != want:
         fail(f"dryrun[c]: want {want} (7 train, 16 serving; then the "
-             f"--quant and the seq_tp cells), got {got}:\n{out[-4000:]}")
+             f"--quant, the seq_tp and the microbatched two-pod cells), got "
+             f"{got}:\n{both[-4000:]}")
+    for m, archs in DRY_MICRO_CELLS.items():
+        for a in archs:
+            rec = json.loads((Path(micro.dir.name) /
+                              f"{a}__train_4k__multi_m{m}.json").read_text())
+            print(f"dryrun[c {a} train_4k pod 2 x 16 x 16, {m} microbatches "
+                  f"of {256 // m} rows, whole over pod]: live "
+                  f"{rec['live_bytes_per_device'] / 2**30:.2f} GiB a device, "
+                  f"state {rec['state_bytes_per_device'] / 2**30:.2f} GiB, "
+                  f"dot FLOPs {rec['dot_flops_per_device']:.4e}, traced in "
+                  f"{rec['trace_s']:.1f} s", flush=True)
+    micro.stop()
 
     def coll(rec):
         return sum(v for k, v in rec["collectives_per_device"].items()
@@ -6097,6 +6469,10 @@ def mf_references(inputs):
 # over model, (None, None, 'data', 'model'); CI_STEPS decode steps over
 # the caches grown to CI_T slots (split alike), beside (b)'s world
 CI_S, CI_T, CI_STEPS = 9, 15, 4
+# and then CI_TRAIN_STEPS train steps of one row of MT_TINY_S tokens
+# (flash at hd 32): 3 divides neither the row nor its sequence, so data
+# holds the row whole (ActivationLayout.replicated_axes)
+CI_TRAIN_STEPS = 2
 
 
 def ci_rank_six(rank, world, device, prompt, feed):
@@ -6140,7 +6516,33 @@ def ci_rank_six(rank, world, device, prompt, feed):
         lg, blocks = serve(local, blocks, feed[:, i:i + 1].cuda(),
                            torch.tensor(CI_S + i, device="cuda"))
         out["steps"].append(lg.float().cpu())
+    del local, blocks
+    out["train"] = ci_train(model, ac)
     return out
+
+
+def ci_train(model, ac):
+    """Phase 21(c)'s training: CI_TRAIN_STEPS steps of one row of
+    MT_TINY_S tokens from seed 0 (wq, wk times MT_TINY_QK) through the
+    sharded trainer under ``ac``, past the layout check ``train(mesh=)``
+    makes: the axes the step held whole, each step's metrics, flash
+    launches and masters' samples on this rank (``mt_sharded_steps``)."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import pipeline as dp
+    from repro_torch.training.loop import _check_layout
+    from repro_torch.training.sharded import ShardedTrainer
+    tcfg = mt_tcfg("")
+    shape = ShapeConfig("t", MT_TINY_S, 1, "train")
+    tr = ShardedTrainer(model, tcfg, ac)
+    _check_layout(model, tcfg, shape, ac, None)
+    held = tr.rows(dp.batch_for_model(model, shape, None, 0, "cuda",
+                                      full=True))[1].replicated
+    state = tr.init_state(torch.Generator(device="cuda").manual_seed(0))
+    scale_qk_state(state, MT_TINY_QK)
+    _, steps = mt_sharded_steps(tr, state, model, shape, CI_TRAIN_STEPS,
+                                sample=True)
+    return {"held": held, "steps": steps}
 
 
 def logit_gap(got, want) -> float:
@@ -6215,7 +6617,7 @@ def phase_mesh_families(started=None):
     ranks."""
     import torch
 
-    from repro_torch.configs import tiny_config
+    from repro_torch.configs import ShapeConfig, tiny_config
     from repro_torch.models.api import build_model
 
     card = card_line()
@@ -6232,6 +6634,9 @@ def phase_mesh_families(started=None):
         want_ci = ms_unsharded(tiny, t_params, {"tokens": prompt.cuda()},
                                feed, CI_S)
         del t_params
+        want_ci_train = mt_unsharded(
+            tiny, ShapeConfig("t", MT_TINY_S, 1, "train"), CI_TRAIN_STEPS,
+            MT_TINY_QK, "", sample=True)
         mark("phase 21's unsharded runs")
         two, two_s = started.two.result()
         (one,), one_s = started.one.result()
@@ -6373,6 +6778,48 @@ def phase_mesh_families(started=None):
           f"within {worst:.3g} of max |logit| of the one-device steps "
           f"(tolerance {LOGIT_RTOL}); the world of 6 in {six_s:.1f} s "
           f"({card})", flush=True)
+    flash += ci_hold_train([r["train"] for r in six], want_ci_train,
+                           tiny.cfg.num_layers, card)
+    return flash
+
+
+def ci_hold_train(ranks, want, layers, card):
+    """Phase 21(c)'s training: the step held whole over data on every
+    rank; the ranks' metrics the same bits at every step and the data
+    ranks' sampled masters too (``merge_replicas``: a rank's blocks are
+    its model rank's); the steps under phase 18's bf16 rules against the
+    one-device run (the row is one device's on each data rank); each rank
+    ``layers`` x 2 flash launches a step. Returns the flash launches,
+    summed over ranks."""
+    label = "mesh-families[c train, tiny gemma2-2b B=1 S=" \
+        f"{MT_TINY_S} at data=3 x model=2, the row whole over data]"
+    flash = 0
+    for i, r in enumerate(ranks):
+        if r["held"] != ("data",):
+            fail(f"{label}: rank {i}'s step held {r['held']} whole, not data")
+        if [s["met"] for s in r["steps"]] != \
+                [s["met"] for s in ranks[0]["steps"]]:
+            fail(f"{label}: rank {i}'s metrics differ from rank 0's")
+        for s in r["steps"]:
+            if s["flash"] != layers * 2:
+                fail(f"{label}: rank {i}: {s['flash']} flash launches a step")
+            flash += s["flash"]
+    got, shared = [], 0
+    for k, s in enumerate(ranks[0]["steps"]):
+        masters, n = merge_replicas(f"{label} step {k}",
+                                    [r["steps"][k]["masters"]
+                                     for r in ranks])
+        shared = max(shared, n)
+        got.append((s["met"], masters))
+    line = hold_steps(label, got, want, [m["lr"] for m, _ in want])
+    same = "bit-identical" if got[0][0]["loss"] == want[0][0]["loss"] \
+        else "not bit-identical"
+    print(f"{label}: the 6 ranks' metrics the same bits at every step, the "
+          f"sampled masters of every leaf the same bits on each data rank "
+          f"({shared} of {len(got[0][1])} leaves held alike on several "
+          f"ranks); the first loss {same} to the one-device run's; {CI_TRAIN_STEPS} steps against it: "
+          f"{line}; flash launches a step a rank "
+          f"{[s['flash'] for s in ranks[0]['steps']]} ({card})", flush=True)
     return flash
 
 
@@ -7443,6 +7890,8 @@ def main() -> int:
     print(f"build: {json.dumps(secs)} s of nvcc, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     mark("phase 1")
+    # phase 19(c)'s two-pod cells trace on the host beside phases 1b-16
+    micro = DrySweep(dry_micro_runs(), nice=19)
 
     phase_tiny_kernels()
     with tempfile.TemporaryDirectory() as tmp:
@@ -7589,7 +8038,7 @@ def main() -> int:
     ll = phase_llava()
     mark("phases 15-16")
     # phase 19(c)'s sweep traces on the host while phases 17-21 run
-    sweep = DrySweep()
+    sweep = DrySweep(dry_runs())
     # phase 21's world of 1 starts here and runs beside phase 17's worlds
     families = MeshFamilies()
     families.start_one()
@@ -7658,7 +8107,7 @@ def main() -> int:
           flush=True)
     mark("phase 23(b)")
     t_dry = time.perf_counter()
-    phase_dryrun_sweep(sweep)
+    phase_dryrun_sweep(sweep, micro)
     print(f"dryrun: phase 19(c) waited {time.perf_counter() - t_dry:.1f} s "
           f"for its sweep", flush=True)
     mark("phase 19(c)")

@@ -34,6 +34,7 @@ nothing.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -231,7 +232,8 @@ class ActivationLayout:
       (``whole_batch``: every rank takes the whole batch), the rank's block
       of the S rows over ``data`` (block ``coords["data"]``) where the
       reference's batch spec gives ``seq`` the data axis: ``data`` > 1,
-      S divisible by it and S > 1 (``seq_split``; ``DataSeqRows``).
+      S divisible by it and S > 1 (``seq_split``; ``DataSeqRows``), whole
+      over ``pod``; ``x`` as it is where the spec splits neither.
     * ``"decode_q"``, ``"decode_kv"``, ``"decode_scores"``: ``x`` as it
       is. In the reference they hint the decode cells at the partitioner
       (q replicated over ``model``, k, v and the scores split on the
@@ -243,13 +245,18 @@ class ActivationLayout:
 
     ``whole_batch``: every rank takes the whole global batch of a
     training step (training/sharded.py::ShardedTrainer.rows, where no
-    batch axis divides its rows), so ``rows`` splits its sequence.
+    batch axis divides its rows), so ``rows`` splits its sequence where
+    the rules split it over ``data``. ``replicated``: the FSDP axes that
+    hold the step's (micro)batch whole (``replicated_axes``), which the
+    trainer's backward cuts over and sums over none.
     ``mesh`` is a named ``DeviceMesh`` (or sizes only: every coordinate
     0, and no split of the sequence's rows, which needs the axis's
     group)."""
 
-    def __init__(self, mesh, mode: str = "dp", *, whole_batch: bool = False):
+    def __init__(self, mesh, mode: str = "dp", *, whole_batch: bool = False,
+                 replicated: Tuple[str, ...] = ()):
         self.mesh, self.mode, self.whole_batch = mesh, mode, whole_batch
+        self.replicated = tuple(replicated)
         self.sizes = axis_sizes(mesh)
         self.coords = mesh_coords(mesh)
 
@@ -268,23 +275,33 @@ class ActivationLayout:
         rows splits the sequence over ``data`` (``DataSeqRows``): no batch
         axis divides ``b``, ``data`` > 1 divides ``s`` and ``s`` > 1, as
         the reference's ``choose_spec`` of ("batch", "seq") puts ``data``
-        on the sequence. Raises on a mesh whose ``pod`` axis is above 1,
-        where the reference's spec leaves the sequence replicated over pod
-        and the port splits none."""
-        return self.batch_axes(b) is None and self._seq_over_data(s)
-
-    def _seq_over_data(self, s: int) -> bool:
+        on the sequence. A ``pod`` axis then holds the batch whole
+        (``replicated_axes``)."""
         data = self.sizes.get("data", 1)
-        if data == 1 or s % data or s == 1:
-            return False
-        if self.sizes.get("pod", 1) > 1:
-            raise NotImplementedError(
-                f"a batch whose rows split over no batch axis, on a mesh "
-                f"with pod={self.sizes['pod']}: the rules split its "
-                f"sequence over data, replicated over the pod axis, which "
-                f"the sharded trainer does not take (a sequence splits over "
-                f"data on a mesh without pod)")
-        return True
+        return self.batch_axes(b) is None and data > 1 \
+            and s % data == 0 and s > 1
+
+    def replicated_axes(self, b: int, s: int) -> Tuple[str, ...]:
+        """The FSDP axes above size 1 that hold a training step's global
+        (micro)batch of ``b`` rows of ``s`` sequence rows whole: each that
+        takes neither the rows (``batch_axes``) nor the sequence
+        (``seq_split``). Every rank of such an axis computes the same
+        rows, so the step counts their gradient once (the reference's
+        spec leaves the batch replicated over it, and XLA sums over it
+        nothing)."""
+        taken = _as_axes(self.batch_axes(b) or ()) + (
+            ("data",) if self.seq_split(b, s) else ())
+        return tuple(a for a in FSDP if self.sizes.get(a, 1) > 1
+                     and a not in taken)
+
+    def replicating(self, axes) -> "ActivationLayout":
+        """This layout, for a step whose (micro)batch every rank of
+        ``axes`` holds whole (``replicated``)."""
+        if tuple(axes) == self.replicated:
+            return self
+        out = copy.copy(self)
+        out.replicated = tuple(axes)
+        return out
 
     def for_batch(self, b: int) -> "ActivationLayout":
         """The layout of a step over a global batch of ``b`` rows: this
@@ -298,14 +315,18 @@ class ActivationLayout:
     def rows(self, x) -> layers.WholeRows:
         """The row layout of a forward whose residual stream is ``x``
         (whole; a tensor or its shape): in a ``whole_batch`` layout
-        ``DataSeqRows`` over ``data`` where the sequence splits there;
+        ``DataSeqRows`` over ``data`` where the sequence splits there and
+        the step does not hold its batch whole over ``data`` (whisper's
+        frames, which data divides, beside decoder tokens it does not:
+        the step computes every stream whole on each data rank);
         ``SplitRows`` over ``model`` where seq_tp splits it (the
         ``"resid"`` kind); ``layers.WHOLE_ROWS`` otherwise."""
         shape = tuple(x.shape) if isinstance(x, torch.Tensor) else tuple(x)
         if len(shape) != 3:
             return layers.WHOLE_ROWS
         s = shape[1]
-        if self.whole_batch and self.seq_split(shape[0], s):
+        if self.whole_batch and "data" not in self.replicated \
+                and self.seq_split(shape[0], s):
             return DataSeqRows(self.mesh.get_group("data"),
                                self.coords["data"], s)
         tp = self.sizes.get("model", 1)
@@ -393,6 +414,11 @@ class DataSeqRows(layers.WholeRows):
     whole aux loss; the loss takes its value on every rank and its
     gradient on the first data rank alone (``once``): the other ranks
     take it detached, so the sum over ``data`` counts it once, exactly.
+    On a mesh with a ``pod`` axis above 1 each pod rank holds the same
+    data group's rows, the batch whole over ``pod``
+    (``ActivationLayout.replicated_axes``): the trainer sums nothing over
+    ``pod``, so the first data rank of each pod replica takes the aux
+    gradient, and each replica counts it once.
 
     Every gather moves data only, and every sub-layer runs on the whole
     sequence, so the forward is one device's on every rank. The sums that
@@ -452,7 +478,8 @@ def make_ac(mesh, mode: str = "dp") -> ActivationLayout:
     1/TP of the rows and a remat checkpoint saves 1/TP of the residual.
     In either mode a training batch no batch axis divides has its
     sequence split over ``data`` where the rules split it there
-    (``DataSeqRows``)."""
+    (``DataSeqRows``), and an FSDP axis that takes neither its rows nor
+    its sequence holds it whole (``ActivationLayout.replicated_axes``)."""
     if mode not in ("dp", "seq_tp"):
         raise ValueError(f"make_ac mode must be 'dp' or 'seq_tp', got "
                          f"{mode!r}")

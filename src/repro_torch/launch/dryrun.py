@@ -29,9 +29,12 @@ counterpart.
 
 Train cells run ``ShardedTrainer``'s step (training/sharded.py) on the
 rank's shards of ``abstract_train_state`` and its rows of
-``Model.input_specs``; prefill and decode cells the sharded serving
-steps (training/sharded_serve.py) on the rank's shards of the parameters,
-the global batch or token (of which a step takes the rank's rows) and,
+``Model.input_specs`` (in more than 4 microbatches, the step at 3 and 4
+microbatches of as many rows, extended to M:
+roofline/step_costs.py::count_repeated); prefill and decode cells the
+sharded serving steps (training/sharded_serve.py) on the rank's shards
+of the parameters, the global batch or token (of which a step takes the
+rank's rows) and,
 for decode, the rank's blocks of the dense cache, as the reference's
 ``build_step`` places them: every family, the ssm and hybrid families'
 mamba state and the encoder-decoder's memory included. State bytes are
@@ -52,6 +55,7 @@ the refusal.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import json
@@ -187,7 +191,19 @@ def cell_record(model, shape, mesh, tcfg, *, chips: int, quant: str = "",
                                              quant=quant, ac_mode=ac_mode)
     state_bytes = sum(sharded_bytes_per_device(a, s, mesh)
                       for a, s in held)
-    costs = step_costs.count_step(fn, *args)
+    if shape.kind == "train":       # M microbatches of B / M rows
+        del fn, args
+        M = tcfg.microbatches
+
+        def step_of(m):
+            return build_step(
+                model, dataclasses.replace(
+                    shape, global_batch=m * shape.global_batch // M),
+                mesh, dataclasses.replace(tcfg, microbatches=m),
+                quant=quant, ac_mode=ac_mode)[:2]
+        costs = step_costs.count_repeated(step_of, M)
+    else:
+        costs = step_costs.count_step(fn, *args)
     t_trace = time.time() - t0
     roof = ra.analyze_counted(
         costs, chips, cfg, shape, weight_bits=weight_bits,

@@ -30,6 +30,12 @@ and counts what it dispatches:
     those of them that are argument storages updated in place) come with
     it.
 
+A train step of M microbatches repeats one microbatch's work M times
+(``count_repeated``): on meta tensors each repetition dispatches the same
+ops on the same shapes, so the step is counted at three and four
+microbatches and every count extended linearly to M, as the reference's
+reparse multiplies a while loop's body by its trip count.
+
 Attention must run through the plain versions (``kernel="ref"``,
 kernels/ops.py): a meta tensor lives on no device, and a hand-written
 kernel's work would be invisible to the counter, so the step counts the
@@ -119,3 +125,37 @@ def count_step(fn: Callable, *args) -> Dict[str, Any]:
                   out_bytes=sum(outs.values()),
                   alias_bytes=sum(n for k, n in outs.items() if k in held))
     return totals
+
+
+def count_repeated(step_of: Callable[[int], tuple], n: int) \
+        -> Dict[str, Any]:
+    """``count_step`` of a step that repeats one unit of work ``n`` times
+    (a train step's microbatches), from its counts at ``_AT``'s two
+    repetition counts (``step_of(k)``: the step's (fn, args) at k): every
+    count is linear in the repetitions from the third on, the live peak
+    too, which such a repetition reaches beside the running accumulator,
+    and which then moves with the arguments' bytes alone (the rows of
+    each repetition). The results' bytes (``_RESULTS``) are the step's
+    state and metrics at any count, taken from the larger count's.
+    Exact on meta tensors, as ``count_step`` is; ``n`` at or below
+    ``_AT[1]`` is counted whole."""
+    def count(k):
+        fn, args = step_of(k)
+        return count_step(fn, *args)
+    lo_n, hi_n = _AT
+    if n <= hi_n:
+        return count(n)
+    lo, hi = count(lo_n), count(hi_n)
+    per = dict(hi)
+    for key, v in hi.items():
+        if key not in _RESULTS:
+            per[key] = v + (n - hi_n) * (v - lo[key]) // (hi_n - lo_n)
+    return per
+
+
+# the repetition counts ``count_repeated`` counts at: the first two
+# repetitions differ from the rest (the fp32 accumulator is made on the
+# first), and the live peak settles from the third on
+_AT = (3, 4)
+# ``count_step``'s keys that count the step's results, not its work
+_RESULTS = ("out_bytes", "alias_bytes")

@@ -14,7 +14,7 @@ from repro_torch.data import pipeline as dp
 from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.distributed.sharding import make_ac, specs_for
 from repro_torch.training import steps as steps_lib
-from repro_torch.training.sharded import ShardedTrainer, seq_rows
+from repro_torch.training.sharded import ShardedTrainer
 
 
 def train(model, shape, tcfg, *, mesh=None, ac=None, dot=None,
@@ -32,8 +32,12 @@ def train(model, shape, tcfg, *, mesh=None, ac=None, dot=None,
     ``mesh`` (a named ("data", "model") or ("pod", "data", "model")
     ``DeviceMesh``, every rank of it
     calling ``train``): the state split at rest over the mesh
-    (training/sharded.py), each rank computing its rows of the batch
-    (``ac``, by default ``make_ac(mesh)``). ``in_shardings`` (state
+    (training/sharded.py), each rank computing its rows of each
+    (micro)batch (``ac``, by default ``make_ac(mesh)``), or its block of
+    their sequence where no batch axis divides them and the rules split
+    the sequence over ``data``; an FSDP axis that takes neither holds the
+    (micro)batch whole, and the step counts it once, as the reference's
+    rules place every batch. ``in_shardings`` (state
     specs, batch specs), as the reference's jit takes them, can only be
     the rules' own: ``specs_for`` of ``train_state_logical_specs`` and of
     ``batch_logical_specs``, which is also the default. Logs and ``dt_s``
@@ -112,8 +116,13 @@ def _check_layout(model, tcfg, shape, ac, in_shardings):
     it, and the batch's rows split as ``ac`` splits them and no other
     dim, or, where they split over no batch axis, the sequence over
     ``data`` as the rules' batch spec splits it (each rank then takes the
-    whole batch and the model cuts the sequence: ``DataSeqRows``);
-    ``in_shardings``, if given, must be that layout."""
+    whole batch and the model cuts the sequence: ``DataSeqRows``), or
+    nothing split (each rank takes the whole batch), each input as the
+    rules split its own sequence (whisper's frames over data beside
+    decoder tokens data does not divide); an FSDP axis neither takes
+    holds the batch whole. ``in_shardings``, if given, must be that
+    layout: the reference's dry-run, its one caller, passes the rules'
+    own."""
     state = specs_for(steps_lib.abstract_train_state(model, tcfg),
                       steps_lib.train_state_logical_specs(model, tcfg),
                       ac.mesh)
@@ -123,12 +132,10 @@ def _check_layout(model, tcfg, shape, ac, in_shardings):
         raise NotImplementedError(
             "in_shardings other than the rules' own (specs_for of "
             "train_state_logical_specs and batch_logical_specs)")
-    B = shape.global_batch // tcfg.microbatches
     rows = ac.batch_axes(shape.global_batch)
-    seq = rows is None and ac.seq_split(B, seq_rows(inputs))
     for key, spec in batch.items():
         spec = tuple(spec)
-        if seq:       # the sequence (dim 1) over data, or nothing split
+        if rows is None:      # the sequence (dim 1) over data, or nothing
             ok = spec[:1] in ((), (None,)) and all(a is None
                                                     for a in spec[2:])
         else:
@@ -139,4 +146,4 @@ def _check_layout(model, tcfg, shape, ac, in_shardings):
                 f"batch {key!r} split as {spec}: the sharded trainer splits "
                 f"the rows of the global batch as make_ac does ({rows}), or, "
                 f"where no batch axis divides them, the sequence over data "
-                f"alone")
+                f"or nothing")

@@ -34,26 +34,38 @@ One process per rank, as in the sharded engine (serving/engine/sharded.py):
     hook (HAQ's fake quantization) runs inside ``tp_dot``'s sites, its
     per-channel scale taken over the whole weight.
   * The batch: each rank takes its rows of the global batch (``make_ac``),
-    which must split over every FSDP axis of the mesh; in microbatches,
-    its rows of each of the reference's global microbatches (``rows``).
-    The loss's sum and token count are summed over ``data`` (and
-    ``pod``) before the division, so the loss is the global batch's
-    mean. The moe layers route over the same ranks (models/moe.py's
-    ``ranks``): the capacity, the pairs' slots and the aux loss are the
-    global microbatch's. A leaf not split over an FSDP axis has its
-    gradient summed over that axis after the backward.
-  * A batch whose rows split over no batch axis, on a mesh without a
-    ``pod`` axis above 1, where the rules split its sequence over
-    ``data`` (B 1 or 3 at data=2): every rank takes the whole global
-    (micro)batch, and the model cuts the residual stream to the rank's
-    block of the sequence's rows at the reference's ``ac(x, "resid")``
-    (distributed/sharding.py::DataSeqRows), so positions, RoPE, the
-    local window and the causal mask stay the whole sequence's. Every
-    sub-layer runs on the gathered whole rows; the final norm, the
+    split over ("pod", "data") where that divides them, else over
+    ``data``; in microbatches, its rows of each of the reference's global
+    microbatches (``rows``). The loss's sum and token count are summed
+    over the axes that split the rows before the division, so the loss
+    is the global batch's mean. The moe layers route over the same ranks
+    (models/moe.py's ``ranks``): the capacity, the pairs' slots and the
+    aux loss are the global microbatch's. A leaf not split over an FSDP
+    axis has its gradient summed over that axis after the backward.
+  * A batch whose rows split over no batch axis, where the rules split
+    its sequence over ``data`` (B 1 or 3 at data=2): every rank takes the
+    whole global (micro)batch, and the model cuts the residual stream to
+    the rank's block of the sequence's rows at the reference's ``ac(x,
+    "resid")`` (distributed/sharding.py::DataSeqRows), so positions,
+    RoPE, the local window and the causal mask stay the whole sequence's.
+    Every sub-layer runs on the gathered whole rows; the final norm, the
     unembedding and the loss on the rank's rows, against the next rows'
     labels taken from the whole batch. The loss's sum and count are
     summed over ``data``; the moe layers route the whole rows as one
     device does, and the aux loss's gradient enters once.
+  * An FSDP axis that takes neither the rows nor the sequence (``pod``
+    under rows split over ``data`` alone or under a sequence split over
+    ``data``; ``data`` too where neither its rows nor its sequence divide
+    it) holds the (micro)batch whole: the reference's rule
+    (``ActivationLayout.replicated_axes``, which the layout of ``rows``
+    carries as ``replicated``). Every rank of such an axis computes the
+    same rows from the same gathered weights, so the step counts their
+    gradient once: the gather's backward over the axis is a cut (the
+    rank keeps its block, with no sum, as over ``model``), no leaf's
+    gradient is summed over it, and neither is the loss's sum or count
+    nor the moe layers' routing. A dim split over ("pod", "data") under
+    rows split over ``data`` is gathered over data, then pod; its
+    backward cuts over pod, then reduce-scatters over data.
   * AdamW on the shards. The global norm is one sum of per-rank sums of
     squares; a leaf replicated over an axis is counted on one rank of it.
     The update is elementwise. A quantized moment's scales rest whole
@@ -81,6 +93,13 @@ Exactness under a sequence split over ``data`` (``DataSeqRows``):
     ``data``, or the post-backward sum of one that is not): each is the
     ranks' shares, added in fp32 in group-rank order.
 
+Exactness where an axis holds the batch whole: every rank of it
+computes the same values, bit for bit, and no collective sums over it,
+so the step is the one on the mesh without that axis (rows over
+``data`` alone at pod x data: the data mesh's; nothing split: one
+device's), its gradients and first loss bit for bit; the grad norm sums
+its ranks' partial sums in another grouping.
+
 Checkpoints are whole: rank 0 writes the gathered leaves, and a restore
 slices them, so a checkpoint taken on one mesh restores on any other and
 on one device. ``reshard_state`` (distributed/fault_tolerance.py) moves a
@@ -88,6 +107,7 @@ live state between meshes the same way.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
@@ -232,8 +252,7 @@ class ShardedTrainer(StateLayout):
         tp = self.sizes.get(MODEL, 1)
         self.dot = shlib.tp_dot(self.groups[MODEL], model.cfg, inner=dot) \
             if tp > 1 else dot
-        self.ranks = shlib.BatchRanks([self.groups[a] for a in self.fsdp]) \
-            if self.fsdp else None
+        self.ranks = self.batch_ranks()
         # a leaf replicated over an axis counts in the norm on coordinate 0
         self._owned = [all(self.coords[a] == 0 for a in self.sizes
                            if a not in sum((_axes(e) for e in spec), ()))
@@ -341,36 +360,43 @@ class ShardedTrainer(StateLayout):
 
     def rows(self, batch: Dict[str, Any]):
         """(this rank's rows of the global batch, the activation layout
-        its loss runs under). The rows split over every FSDP axis of the
-        mesh: in M microbatches, its rows of each of the reference's
-        microbatches (global rows [m B/M, (m+1) B/M)), one after the
-        other, so that ``run_train_step``'s microbatch m on this rank is
-        its block of the reference's; the layout is ``ac``. Where the
-        rules split a microbatch's sequence over ``data`` instead
-        (``seq_rows``), the whole batch, and a layout of whole batches
-        (``ActivationLayout(whole_batch=True)``): the model cuts the
-        sequence."""
+        its loss runs under). In M microbatches of B rows, where a batch
+        axis divides B (``batch_axes``): its rows of each of the
+        reference's microbatches (global rows [m B, (m+1) B)), one after
+        the other, so that ``run_train_step``'s microbatch m on this rank
+        is its block of the reference's, under ``ac``. Where none does:
+        the whole batch, under a layout of whole batches
+        (``ActivationLayout(whole_batch=True)``), where the model cuts the
+        sequence if the rules split it over ``data`` (``seq_split``) and
+        keeps every row otherwise. Either layout carries the FSDP axes
+        that hold the microbatch whole (``replicated_axes``)."""
         M = self.tcfg.microbatches
         B = batch["tokens"].shape[0] // M
-        split = _axes(self.ac.batch_axes(B))
-        if all(a in split for a in self.fsdp):
-            return {k: torch.cat([self.ac(part, "batch")
-                                  for part in v.chunk(M)])
-                    for k, v in batch.items()}, self.ac
-        if self.ac.seq_split(B, seq_rows(batch)):
-            return batch, shlib.ActivationLayout(self.mesh, whole_batch=True)
-        raise ValueError(
-            f"a global {'microbatch' if M > 1 else 'batch'} of {B} rows "
-            f"does not split over "
-            f"{' x '.join(f'{a}={self.sizes[a]}' for a in self.fsdp)}, and "
-            f"its sequence of {seq_rows(batch)} rows splits over no data "
-            f"ranks (data > 1 dividing it, S > 1)")
+        S = seq_rows(batch)
+        held = self.ac.replicated_axes(B, S)
+        if self.ac.batch_axes(B) is None and (held or
+                                              self.ac.seq_split(B, S)):
+            return batch, shlib.ActivationLayout(
+                self.mesh, whole_batch=True, replicated=held)
+        return {k: torch.cat([self.ac(part, "batch")
+                              for part in v.chunk(M)])
+                for k, v in batch.items()}, self.ac.replicating(held)
 
-    def gather(self, tree, path):
+    def batch_ranks(self, replicated=()):
+        """The ``BatchRanks`` of the FSDP axes that split a step's rows
+        or sequence: every one but those in ``replicated`` (None where
+        that leaves none)."""
+        axes = [a for a in self.fsdp if a not in replicated]
+        return shlib.BatchRanks([self.groups[a] for a in axes]) \
+            if axes else None
+
+    def gather(self, tree, path, replicated=()):
         """The model's ``gather`` hook: the subtree at ``path`` whole on
-        this rank, with a backward (the module docstring). A path into a
-        stacked subtree holds one layer's views, whose plans count the
-        stacked layer dim (``plan_shift``)."""
+        this rank, with a backward (the module docstring): over ``model``
+        and over the axes in ``replicated`` (those that hold the batch
+        whole) a cut, over the other FSDP axes a reduce-scatter. A path
+        into a stacked subtree holds one layer's views, whose plans count
+        the stacked layer dim (``plan_shift``)."""
         plans = self.plans
         for key in path:
             plans = plans[key]
@@ -378,35 +404,43 @@ class ShardedTrainer(StateLayout):
 
         def run(x, plan):
             for dim, ax in plan:
-                x = shlib.gather_shard(x, dim - shift, self.groups[ax],
-                                       reduce=ax != MODEL)
+                x = shlib.gather_shard(
+                    x, dim - shift, self.groups[ax],
+                    reduce=ax != MODEL and ax not in replicated)
             return x
         return tree_unflatten(tree, [
             run(x, p) for x, p in zip(tree_leaves(tree),
                                       shlib.leaves_like(tree, plans))])
 
     def grads(self, params, batch, ac):
-        """(global mean loss, this rank's gradient blocks summed over
-        ``data``, each in its leaf's dtype) on this rank's rows of a
-        (micro)batch under their layout ``ac`` (``rows``)."""
+        """(global mean loss, this rank's gradient blocks summed over the
+        FSDP axes that split the rows, each in its leaf's dtype) on this
+        rank's rows of a (micro)batch under their layout ``ac``
+        (``rows``), whose ``replicated`` axes hold it whole."""
+        held = ac.replicated
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
+        gather = functools.partial(self.gather, replicated=held) \
+            if held else self.gather
         loss = self.model.loss(params, batch, remat=self.tcfg.remat,
                                dot=self.dot, kernel=self.kernel,
-                               gather=self.gather, ranks=self.ranks,
-                               ac=ac)
+                               gather=gather,
+                               ranks=self.batch_ranks(held) if held
+                               else self.ranks, ac=ac)
         grads = torch.autograd.grad(loss, leaves)
         for p in leaves:
             p.requires_grad_(False)
-        grads = [self.sum_unsplit(g, spec)
+        grads = [self.sum_unsplit(g, spec, held)
                  for g, spec in zip(grads, self.param_specs)]
         return loss.detach(), tree_unflatten(params, grads)
 
-    def sum_unsplit(self, g: torch.Tensor, spec) -> torch.Tensor:
+    def sum_unsplit(self, g: torch.Tensor, spec, replicated=()) -> \
+            torch.Tensor:
         """A leaf's gradient summed over each FSDP axis its spec does not
-        split (each of whose ranks computed it on its own rows)."""
-        split = sum((_axes(e) for e in spec), ())
+        split (each of whose ranks computed it on its own rows), but for
+        those in ``replicated``, whose ranks computed the same rows."""
+        split = sum((_axes(e) for e in spec), ()) + tuple(replicated)
         if DATA in self.fsdp and DATA not in split:
             g = self.sum_over_data(g)
         if POD in self.fsdp and POD not in split:

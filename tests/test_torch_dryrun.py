@@ -8,8 +8,11 @@ FLOPs of tiny gemma2-2b and tiny granite-3-8b train steps, and of their
 prefill (B 8 x S 64) and decode (B 8 over a 64-slot cache) steps, at
 data-only meshes (4, 1) and (8, 1), the reference's ``analyze_hlo`` of
 its compiled step against the port's count on a fake world of the mesh's
-size, within 2% (measured: equal); ``sharded_bytes_per_device`` of the
-tiny train states at (2, 4), (4, 2), (8, 1) and (4, 1), fp32 and int8
+size, within 2% (measured: equal); tiny gemma2-2b's train step at pod=2 x
+data=2 on batches of 2 and 1 rows (held whole over pod) counted as at
+data=2, whose count at 2 rows is the reference's there; a step of M
+microbatches counted at 3 and 4 and extended, equal to the whole count;
+``sharded_bytes_per_device`` of the tiny train states at (2, 4), (4, 2), (8, 1) and (4, 1), fp32 and int8
 moments, equal to the byte. Held against the reference's ``choose_spec``
 arithmetic on a shape-only mesh: the per-device state bytes of the 54
 full-width (cell, mesh) pairs the dry-run runs (the dense families' 8
@@ -117,6 +120,19 @@ for arch in ("gemma2-2b", "granite-3-8b"):
                                       *args).compile().as_text()
                 out["flops"][f"{arch}|{data}|{kind}"] = \
                     analyze_hlo(hlo)["dot_flops"]
+model = build_model(tiny_config("gemma2-2b"))
+for pod in (1, 2):
+    mesh = Mesh(np.asarray(jax.devices()[:2 * pod]).reshape(pod, 2, 1),
+                ("pod", "data", "model"))
+    for B in (2, 1):
+        step, args, in_sh, out_sh, donate, wb = rd.build_step(
+            model, ShapeConfig("t", 64, B, "train"), mesh, TrainConfig())
+        with mesh:
+            hlo = jax.jit(step, in_shardings=in_sh, out_shardings=out_sh,
+                          donate_argnums=donate).lower(
+                              *args).compile().as_text()
+        out["flops"][f"gemma2-2b|pod{pod}|{B}"] = \
+            analyze_hlo(hlo)["dot_flops"]
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 """
@@ -151,6 +167,70 @@ def test_per_device_flops_at_data_only_meshes(arch, data, reference):
         got = step_costs.count_step(fn, *args)["dot_flops"]
     want = reference["flops"][f"{arch}|{data}"]
     assert abs(got - want) <= 0.02 * want
+
+
+@pytest.mark.parametrize("B", [2, 1])
+def test_per_device_flops_held_whole_over_pod(B, reference):
+    """Tiny gemma2-2b on a fake pod=2 x data=2 world at a batch of 2 rows
+    (its rows over data alone) and of 1 row (its sequence over data),
+    each held whole over pod: the port's count equal to its own count at
+    data=2, as each pod rank repeats its data rank's work; at 2 rows that
+    count within 2% of the reference's compiled step at pod=1 x data=2
+    (measured: equal). The reference's compiled step at pod=2 x data=2
+    counts less a device (measured 0.545x the port's at 2 rows, 0.327x
+    at 1): its partitioner spreads the batch that pod holds whole over
+    pod's devices, where the port's trainer repeats it on each (PERF.md
+    section 7). Both ratios are printed with -s. At 1 row the port's
+    data=2 count is the sequence split's (``DataSeqRows``: every
+    sub-layer on the whole rows), not the reference's."""
+    model = t_build(tiny_config("gemma2-2b"))
+    shape = ShapeConfig("t", 64, B, "train")
+    got = {}
+    for pod in (2, 1):
+        with dry_world(2 * pod):
+            mesh = _mesh(2, 1, "cpu", 60.0, pod=pod)
+            fn, args, _, _ = dryrun.build_step(model, shape, mesh,
+                                               _tcfg(False))
+            got[pod] = step_costs.count_step(fn, *args)["dot_flops"]
+    want = {pod: reference["flops"][f"gemma2-2b|pod{pod}|{B}"]
+            for pod in (1, 2)}
+    assert got[2] == got[1]
+    if B == 2:
+        assert abs(got[1] - want[1]) <= 0.02 * want[1], (got, want)
+    print(f"B {B}: the reference's count a device at pod=2 x data=2 "
+          f"{want[2] / got[2]:.3f}x the port's, at data=2 "
+          f"{want[1] / got[1]:.3f}x")
+
+
+@pytest.mark.parametrize("M", [5, 6])
+@pytest.mark.parametrize("pod", [1, 2])
+def test_microbatched_step_counted_at_three_and_four(pod, M):
+    """A train step of M microbatches of 2 rows, counted at 3 and 4 of
+    them and extended to M (``count_repeated``, which the dry-run runs
+    past 4 microbatches), equals the count of the whole step key for key
+    (dot FLOPs, collective bytes and counts, the live peak, argument and
+    output bytes): tiny gemma2-2b on fake worlds at data=2 and at pod=2 x
+    data=2, where each microbatch is held whole over pod. ``alias_bytes``
+    is left out: two counts of one step differ in it by a few hundred
+    bytes (it matches the results' storages to the arguments' by
+    address, and the step replaces entries of an argument's dicts, whose
+    freed storages a result may reuse)."""
+    import dataclasses
+    model = t_build(tiny_config("gemma2-2b"))
+    tcfg = TrainConfig(microbatches=M)
+    with dry_world(2 * pod):
+        mesh = _mesh(2, 1, "cpu", 60.0, pod=pod)
+
+        def step_of(m):
+            return dryrun.build_step(
+                model, ShapeConfig("t", 64, 2 * m, "train"), mesh,
+                dataclasses.replace(tcfg, microbatches=m))[:2]
+        fn, args = step_of(M)
+        whole = step_costs.count_step(fn, *args)
+        got = step_costs.count_repeated(step_of, M)
+    assert got.keys() == whole.keys()
+    assert {k: v for k, v in got.items() if k != "alias_bytes"} == \
+        {k: v for k, v in whole.items() if k != "alias_bytes"}
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])

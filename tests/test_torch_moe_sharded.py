@@ -29,6 +29,11 @@ parameters (models/convert.py):
     tests/test_torch_train_sharded.py (``_check_fp32``): losses and grad
     norms 1e-6, first gradients 1e-5 of each leaf's max, masters within
     2 lr and 1e-3 lr on 99.9%.
+  * At pod=2 x data=2 on 2 rows (over data alone, whole over pod): each
+    pod replica's data ranks route the 2 rows as one device does (the
+    experts, keeps and global slots as integers), both replicas compute
+    the same y and aux bits, and one fp32 training step holds to the
+    reference's jitted step (the aux loss's gradient counted once).
   * The sharded prefill and 4 decode steps at data=2 (one row a rank) on
     the reference's fp32 parameters (wq, wk x 1/8) against the
     reference's ``make_prefill_step``/``make_serve_step`` jitted with its
@@ -59,6 +64,7 @@ from repro.data import pipeline as jdp  # noqa: E402
 from repro.models import moe as j_moe  # noqa: E402
 from repro.models.api import build_model as j_build  # noqa: E402
 from repro.training import steps as jsteps  # noqa: E402
+from repro_torch.configs import TrainConfig as TConfig  # noqa: E402
 from repro_torch.configs import tiny_config as t_tiny  # noqa: E402
 from repro_torch.distributed import sharding as shlib  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
@@ -68,8 +74,8 @@ from repro_torch.training import sharded as tsh  # noqa: E402
 from repro_torch.training.sharded_serve import serve_steps  # noqa: E402
 from test_torch_moe import (AUX_TOL, BF16_Y_TOL, FP32_Y_TOL,  # noqa: E402
                             _as, _moe_case, _ref_routing)
-from test_torch_train_sharded import (SHAPE, STEPS, _case,  # noqa: E402
-                                      _check_fp32, _ref_state)
+from test_torch_train_sharded import (SHAPE, SHAPE_B2,  # noqa: E402
+                                      STEPS, _case, _check_fp32, _ref_state)
 
 torch.set_num_threads(1)
 
@@ -81,7 +87,7 @@ REF_RTOL = 1e-5
 # the worlds' meshes, one after the other in a world: {label: (pod, data,
 # model, cases)}
 WORLDS = ({"data2": (1, 2, 1, ("train", "train_mb2", "serve"))},
-          {"pod2": (2, 2, 1, ()), "2x2": (1, 2, 2, ("train",))})
+          {"pod2": (2, 2, 1, ("train_b2",)), "2x2": (1, 2, 2, ("train",))})
 REF_B, REF_S, REF_STEPS, QK_SCALE = 2, 40, 4, 0.125
 
 
@@ -143,6 +149,27 @@ def _moe_cases(ac, groups, inputs):
     return out
 
 
+def _held_cases(ac, inputs):
+    """The first 2 rows of each fp32 input at pod=2 x data=2: the rows
+    split over data alone and held whole over pod (training/sharded.py),
+    each rank's routed over the ranks the sharded trainer gives that
+    layout; and the one-device plan of the 2 rows."""
+    tr = tsh.ShardedTrainer(t_build(_cfgs()[1]), TConfig(), ac)
+    out = {}
+    for key, (_, _, tp, tx, moe) in inputs.items():
+        if key[1] != "fp32":
+            continue
+        x = tx[:2]
+        held = ac.replicated_axes(*x.shape[:2])
+        ranks = tr.batch_ranks(held)
+        mine = ac(x, "batch")
+        y, aux = t_moe.moe_apply(tp, mine, moe, ranks=ranks)
+        out[key] = {"held": held, "y": y, "aux": aux,
+                    "plan": _plan(tp, mine, moe, ranks),
+                    "whole": _plan(tp, x, moe, None)}
+    return out
+
+
 def _serve_case(mesh, ref_file):
     """The reference's parameters and prompt through the port's sharded
     steps: every step's logits rows against the reference's jitted
@@ -189,6 +216,8 @@ def _mesh_cases(rank, pod, data, tp, cases, inputs, ref_file):
     ac = shlib.make_ac(mesh)
     groups = {a: mesh.get_group(a) for a in shlib.axis_sizes(mesh)}
     out = {"moe": _moe_cases(ac, groups, inputs)} if tp == 1 else {}
+    if pod > 1:
+        out["held"] = _held_cases(ac, inputs)
     model = t_build(_cfgs()[1])
     for case in cases:
         if case.startswith("train"):
@@ -197,6 +226,10 @@ def _mesh_cases(rank, pod, data, tp, cases, inputs, ref_file):
             def trainer_of(tcfg, mb=mb):
                 return tsh.ShardedTrainer(model, dataclasses.replace(
                     tcfg, microbatches=mb), ac)
+            if case == "train_b2":
+                out[case] = _case(trainer_of, model, "fp32", rank, SHAPE_B2,
+                                  steps=1)
+                continue
             out[case] = _case(trainer_of, model, "fp32", rank)
         elif case == "serve":
             out[case] = _serve_case(mesh, ref_file)
@@ -291,22 +324,22 @@ def worlds(inputs, reference_serving):
     return out
 
 
-def _reference_train(microbatches):
+def _reference_train(microbatches, shape=SHAPE, steps=STEPS):
     """The reference's jitted make_train_step at capacity factor CF,
-    STEPS fp32 steps from ``_ref_state``'s state, and its first
-    gradients (tests/test_torch_train_sharded.py::_reference_run)."""
+    ``steps`` fp32 steps at ``shape`` from ``_ref_state``'s state, and its
+    first gradients (tests/test_torch_train_sharded.py::_reference_run)."""
     jm = j_build(_cfgs()[0])
     np_state, jo = _ref_state(ARCH)
     state = jax.tree.map(jnp.asarray, np_state)
     step = jax.jit(jsteps.make_train_step(
         jm, JTrain(optim=jo, microbatches=microbatches)))
-    b0 = jdp.batch_for_model(jm, SHAPE, None, 0)
+    b0 = jdp.batch_for_model(jm, shape, None, 0)
     _, g = jax.jit(jax.value_and_grad(
         lambda p: jm.loss(p, b0, remat=True)))(state["params"])
     out = {"grads": [np.asarray(x, np.float32) for x in jax.tree.leaves(g)],
            "steps": []}
-    for k in range(STEPS):
-        state, met = step(state, jdp.batch_for_model(jm, SHAPE, None, k))
+    for k in range(steps):
+        state, met = step(state, jdp.batch_for_model(jm, shape, None, k))
         state = {"params": state["opt"]["master"], "opt": state["opt"]}
         out["steps"].append(({n: float(v) for n, v in met.items()}, [
             np.asarray(x, np.float32)
@@ -316,7 +349,8 @@ def _reference_train(microbatches):
 
 @pytest.fixture(scope="module")
 def reference_training():
-    return {1: _reference_train(1), 2: _reference_train(2)}
+    return {1: _reference_train(1), 2: _reference_train(2),
+            "b2": _reference_train(1, SHAPE_B2, 1)}
 
 
 # ------------------------------------------------------------- moe_apply --
@@ -408,6 +442,46 @@ def test_training_matches_the_reference(label, case, worlds,
         assert r[case]["shapes_ok"]
         assert all(np.array_equal(a, b) for a, b in zip(r[case]["grads"],
                                                         got["grads"]))
+
+
+def test_training_held_over_pod_matches_the_reference(worlds,
+                                                      reference_training):
+    """Two rows at pod=2 x data=2: the rows split over data alone, the
+    batch whole over pod, so the moe layers route over the data ranks
+    (the global microbatch's capacity and slots) and nothing sums over
+    pod, the aux loss's gradient included (each pod replica's first data
+    rank counts it once). One fp32 step against the reference's jitted
+    step under the fp32 rules; every rank's first gradients and step
+    metrics alike."""
+    ranks = worlds["pod2"]
+    got = ranks[0]["train_b2"]
+    _check_fp32(got, reference_training["b2"], steps=1)
+    for r in ranks:
+        assert r["train_b2"]["shapes_ok"]
+        assert r["train_b2"]["metrics"] == got["metrics"]
+        assert all(np.array_equal(a, b) for a, b in zip(
+            r["train_b2"]["grads"], got["grads"]))
+
+
+@pytest.mark.parametrize("case", ["drop-free", "overflow"])
+def test_moe_held_over_pod_routes_as_one_device(case, worlds):
+    """The same 2 rows through ``moe_apply`` on each rank, routed over the
+    trainer's ranks of that layout (data alone): in each pod replica the
+    data ranks' experts, keeps and global slots, in row order, are the
+    one-device plan of the 2 rows as integers, and both replicas compute
+    the same y and aux bits."""
+    ranks = [r["held"][(case, "fp32")] for r in worlds["pod2"]]
+    for p in range(2):
+        mine = ranks[2 * p:2 * p + 2]
+        assert all(r["held"] == ("pod",) for r in mine)
+        for i in range(3):
+            assert torch.equal(torch.cat([r["plan"][i].reshape(-1)
+                                          for r in mine]),
+                               mine[0]["whole"][i].reshape(-1))
+    for d in range(2):
+        a, b = ranks[d], ranks[2 + d]
+        assert torch.equal(a["y"], b["y"]) and torch.equal(a["aux"],
+                                                           b["aux"])
 
 
 def test_microbatch_rows_are_the_references_blocks():

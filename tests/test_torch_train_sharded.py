@@ -93,6 +93,18 @@ Tolerances, and why:
     one-device run that sums the two sequence blocks' bf16 gradients in
     fp32 (the analogue of the microbatched control); the step with
     ``DataSeqRows.whole``'s backward a cut must miss.
+  * A (micro)batch an FSDP axis holds whole (``HELD``: rows over data
+    alone, a sequence over data, or nothing split, at pod=2 x data=2 and
+    data=3): every rank of that axis computes the same values and
+    nothing sums over it, so the first loss and every gradient leaf are
+    data=2's for the same batch (rows or sequence over data) or the
+    one-device port's (nothing split), bit for bit, and the ranks'
+    metrics the same bits at every step; three fp32 steps under the fp32
+    rules against the one-device port, and (B 2, B 1) the reference's
+    jitted step on pod=2 x data=2 x model=1 forced devices (the grad norm
+    held to its float64 norm, as at data=2); with the backward over the
+    held axis a reduce-scatter and a post-backward sum, the gradients
+    double or triple and miss.
 
 Each gloo world is spawned once (a module fixture) and returns all of its
 cases. Workers run one intra-op thread, as does this process.
@@ -161,6 +173,16 @@ SHAPE3 = ShapeConfig("t", 64, 6, "train")
 SHAPE_B1 = ShapeConfig("t", 64, 1, "train")
 SHAPE_B2 = ShapeConfig("t", 64, 2, "train")
 SHAPE_B3 = ShapeConfig("t", 64, 3, "train")
+# one row of a sequence that data=2 does not divide
+SHAPE_ODD = ShapeConfig("t", 63, 1, "train")
+# a (micro)batch that an FSDP axis holds whole (training/sharded.py), case
+# -> (shape, microbatches). At pod=2 x data=2: the rows over data alone
+# (A: B 2, and B 4 in microbatches of 2), the sequence over data (B: B 1),
+# neither (C: B 1 x S 63), each held whole over pod, over both in C. At
+# data=3, B 2 x S 64 splits over neither (C). At data=2 "held_b2" and
+# "held_m2" are the plain row splits that A at pod=2 x data=2 repeats.
+HELD = {"held_b2": (SHAPE_B2, 1), "held_m2": (SHAPE, 2),
+        "held_b1": (SHAPE_B1, 1), "held_odd": (SHAPE_ODD, 1)}
 QK_SCALE = 0.125
 LR = 1e-3
 LOSS_RTOL = 1e-6
@@ -355,17 +377,22 @@ def test_make_ac_data_seq_rows(data, pod, B, S):
     axis divides B) has ``DataSeqRows`` as its ``rows`` exactly where the
     reference's choose_spec of ("batch", "seq") puts data on the sequence
     (``seq_split``), in dp and seq_tp mode alike; ``"resid"`` then cuts
-    block coords["data"] of the S rows, in storage of its own, and
-    ``whole`` gives S rows back. On the pod mesh such a batch is refused
-    by name of the pod axis. The sharded prefill's layout
-    (``for_batch(B)``) and ``make_ac``'s own keep every batch's rows
-    whole."""
+    block coords["data"] of the S rows, in storage of its own, the same
+    block on every pod rank, and ``whole`` gives S rows back. The axes
+    that hold the batch whole (``replicated_axes``) are the FSDP axes
+    above 1 that the spec gives neither dim: on the pod mesh, pod under a
+    sequence split over data, and both where data takes nothing. The
+    sharded prefill's layout (``for_batch(B)``) and ``make_ac``'s own
+    keep every batch's rows whole."""
     from repro_torch.launch.mesh import _mesh, dry_world
     sizes = {"data": data, "model": 1} if pod == 1 else \
         {"pod": pod, "data": data, "model": 1}
     spec = tuple(j_sh.choose_spec((B, S), ("batch", "seq"),
                                   FakeMesh(**sizes)))
     on_seq = spec[1:2] == ("data",)
+    taken = sum((shlib._as_axes(e) for e in spec if e is not None), ())
+    held = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1
+                 and a not in taken)
     x = torch.arange(B * S * 3, dtype=torch.float32).reshape(B, S, 3)
     with dry_world(data * pod):
         mesh = _mesh(data, 1, "cpu", 60.0, pod=pod)
@@ -373,23 +400,21 @@ def test_make_ac_data_seq_rows(data, pod, B, S):
             made = shlib.make_ac(mesh, mode)
             assert made.rows(x) is t_layers.WHOLE_ROWS
             assert made.for_batch(B).rows(x) is t_layers.WHOLE_ROWS
+            assert made.replicated_axes(B, S) == held
             ac = shlib.ActivationLayout(mesh, mode, whole_batch=True)
-            if on_seq and pod > 1:
-                with pytest.raises(NotImplementedError, match="pod axis"):
-                    made.seq_split(B, S)
-                with pytest.raises(NotImplementedError, match="pod axis"):
-                    ac.rows(x)
-                continue
             assert made.seq_split(B, S) == on_seq
             assert isinstance(ac.rows(x), shlib.DataSeqRows) == on_seq
             if not on_seq:
                 assert ac(x, "resid") is x
                 continue
             n = S // data
-            for r in range(data):
-                ac.coords["data"] = r
+            for r in range(data * pod):
+                ac.coords["data"] = r % data
+                if pod > 1:
+                    ac.coords["pod"] = r // data
                 got = ac(x, "resid")
-                assert torch.equal(got, x[:, r * n:(r + 1) * n])
+                blk = r % data
+                assert torch.equal(got, x[:, blk * n:(blk + 1) * n])
                 assert got.untyped_storage().nbytes() == got.numel() * 4
                 assert tuple(ac.rows(x).whole(got).shape) == tuple(x.shape)
 
@@ -399,9 +424,11 @@ def test_train_refuses_a_batch_it_cannot_split(B, rows_split):
     """At data=2 the batch's rows split as make_ac splits them; a batch of
     one row splits its sequence over data instead, as the reference's
     batch spec gives seq the data axis (``DataSeqRows``), and is taken,
-    its rules' spec (None, "data"). On a pod=2 x data=2 mesh such a batch
-    is refused by name of the pod axis. in_shardings may only be the
-    rules' own layout."""
+    its rules' spec (None, "data"). On a pod=2 x data=2 mesh every one is
+    taken, with the rules' own in_shardings too: each rank of the
+    trainer holds row 2 pod + data of 4 rows, row data of 2 (the batch
+    whole over pod) and the whole row of one, its sequence over data
+    (whole over pod). in_shardings may only be the rules' own layout."""
     seq = not rows_split
     from repro_torch.training.loop import _check_layout
     model = t_build(t_tiny("gemma2-2b"))
@@ -421,11 +448,26 @@ def test_train_refuses_a_batch_it_cannot_split(B, rows_split):
     with pytest.raises(NotImplementedError, match="rules' own"):
         _check_layout(model, tcfg, shape, ac, (rules[0], other))
     pod = shlib.make_ac({"pod": 2, "data": 2, "model": 1})
-    if seq:
-        with pytest.raises(NotImplementedError, match="pod axis"):
-            _check_layout(model, tcfg, shape, pod, None)
-    else:
-        _check_layout(model, tcfg, shape, pod, None)
+    _check_layout(model, tcfg, shape, pod, None)
+    _check_layout(model, tcfg, shape, pod, tuple(
+        shlib.specs_for(a, l, pod.mesh) for a, l in (
+            (tsteps.abstract_train_state(model, tcfg),
+             tsteps.train_state_logical_specs(model, tcfg)),
+            (model.input_specs(shape), model.batch_logical_specs(shape)))))
+    from repro_torch.launch.mesh import _mesh, dry_world
+    batch = tdp.batch_for_model(model, shape, None, 0, full=True)
+    with dry_world(4):
+        tr = tsh.ShardedTrainer(model, tcfg, shlib.make_ac(
+            _mesh(2, 1, "cpu", 60.0, pod=2)))
+        for p in range(2):
+            for d in range(2):
+                tr.ac.coords.update(pod=p, data=d)
+                rows, ac = tr.rows(batch)
+                want = {4: [2 * p + d], 2: [d], 1: [0]}[B]
+                assert torch.equal(rows["tokens"], batch["tokens"][want])
+                assert ac.replicated == ((), ("pod",), ("pod",))[
+                    [4, 2, 1].index(B)]
+                assert ac.whole_batch == seq
 
 
 REFUSALS = [("gemma2-2b", dict(expert=2, data=1), None, "pod/data/model"),
@@ -606,10 +648,16 @@ def _case_setup(model, case):
 
 
 # ------------------------------------------------------------ the worlds --
-def _case(trainer_of, model, case, rank, shape=SHAPE, steps=None):
+def _case(trainer_of, model, case, rank, shape=SHAPE, steps=None,
+          by_rows=False):
     """A case through the sharded trainer: the first step's loss and
-    gradients (whole) and ``steps`` steps' metrics and masters (whole,
-    rank 0; STEPS, one for int8 moments)."""
+    gradients (whole) and ``steps`` steps' metrics (every rank) and
+    masters (whole, rank 0; STEPS, one for int8 moments). The first loss
+    and gradients are those of the rows and layout the step's ``rows``
+    gives this rank; in M > 1 microbatches, of its rows of the whole
+    batch taken as one microbatch (the one-device runs' first
+    gradients), or with ``by_rows`` of its rows of every microbatch under
+    the layout of one."""
     tcfg, state, fp32 = _case_setup(model, case)
     tr = trainer_of(tcfg)
     st = tr.shard(state, tr.specs)
@@ -617,9 +665,8 @@ def _case(trainer_of, model, case, rank, shape=SHAPE, steps=None):
         tuple(a.shape), s, tr.sizes) for x, a, s in zip(
         tree_leaves(st), tree_leaves(tr.abstract), tr.leaf_specs()))
     b0 = tdp.batch_for_model(model, shape, None, 0, full=True)
-    rows = {k: tr.ac(v, "batch") for k, v in b0.items()}, tr.ac
-    if tr.ac.seq_split(shape.global_batch, shape.seq_len):
-        rows = tr.rows(b0)          # the whole batch, its sequence split
+    rows = tr.rows(b0) if by_rows or tr.tcfg.microbatches == 1 else (
+        {k: tr.ac(v, "batch") for k, v in b0.items()}, tr.ac)
     loss, g = tr.grads(st["params"], *rows)
     grads = [tr.whole(x, s).float().numpy()
              for x, s in zip(tree_leaves(g), tr.param_specs)]
@@ -632,6 +679,7 @@ def _case(trainer_of, model, case, rank, shape=SHAPE, steps=None):
         tr.host_state, steps=steps)
     return {"loss": float(loss), "grads": grads,
             "steps": steps if rank == 0 else None,
+            "metrics": [m for m, _ in steps],
             "moments": first, "shapes_ok": shapes_ok, "bytes": rest,
             "data_split": [any("data" in (e if isinstance(e, tuple) else (e,))
                                for e in s if e is not None)
@@ -820,6 +868,8 @@ def _world(rank, world, device, data, tp, cases, ckpt_dir, shape=SHAPE,
         elif case.startswith("seq_") and case not in ("seq_tp",
                                                          "seq_tp_nosum"):
             out[case] = _seq_world_case(case, mesh, trainer_of, model, rank)
+        elif case.startswith("held_"):
+            out[case] = _held_case(case, trainer_of, model, rank)
         elif case in ("no_tp", "drop", "no_kv_sum", "no_kv_input"):
             out[case] = _control(trainer_of, model, case, rank, shape)
         elif case == "ckpt":
@@ -870,6 +920,26 @@ def _seq_world_case(case, mesh, trainer_of, model, rank):
         shlib.DataSeqRows.whole = whole
 
 
+def _held_case(case, trainer_of, model, rank):
+    """A (micro)batch that an FSDP axis holds whole (``HELD``), fp32:
+    ``STEPS`` steps; with "_first", the first loss and gradients alone;
+    with "_sum", those of the control, whose backward over the axes that
+    hold the batch whole is the reduce-scatter and the post-backward sum
+    of an axis that splits it."""
+    name = case.removesuffix("_first").removesuffix("_sum")
+    shape, micro = HELD[name]
+
+    def held_trainer(tcfg):
+        tr = trainer_of(dataclasses.replace(tcfg, microbatches=micro))
+        if case.endswith("_sum"):
+            gather, unsplit = tr.gather, tr.sum_unsplit
+            tr.gather = lambda tree, path, replicated=(): gather(tree, path)
+            tr.sum_unsplit = lambda g, spec, replicated=(): unsplit(g, spec)
+        return tr
+    return _case(held_trainer, model, "fp32", rank, shape,
+                 steps=0 if case != name else None, by_rows=True)
+
+
 @pytest.fixture(scope="module")
 def ckpt_root(tmp_path_factory):
     return str(tmp_path_factory.mktemp("ckpt"))
@@ -880,7 +950,7 @@ def world_data2(ckpt_root):
     return spawn(_world, 2, backend="gloo", timeout_s=WORLD_S,
                  args=(2, 1, ("fp32", "bf16", "drop", "ckpt", "world1",
                               "seq_fp32", "seq_b3", "seq_micro", "seq_bf16",
-                              "seq_cut"),
+                              "seq_cut", "held_b2_first", "held_m2_first"),
                        ckpt_root))
 
 
@@ -920,15 +990,18 @@ def world_model8():
 @pytest.fixture(scope="module")
 def world_pod():
     """pod=2 x data=2 (world 4): the FSDP dims split over ("pod", "data"),
-    the batch's 4 rows one a rank."""
+    the batch's 4 rows one a rank; and the batches held whole over pod
+    (``HELD``) with the control."""
     return spawn(_world, 4, backend="gloo", timeout_s=WORLD_S,
-                 args=(2, 1, ("fp32",), "", SHAPE, 2))
+                 args=(2, 1, ("fp32", "held_b2", "held_m2", "held_b1",
+                              "held_odd", "held_b2_sum"), "", SHAPE, 2))
 
 
 @pytest.fixture(scope="module")
 def world_data3():
     return spawn(_world, 3, backend="gloo", timeout_s=WORLD_S,
-                 args=(3, 1, ("fp32", "drop"), "", SHAPE3))
+                 args=(3, 1, ("fp32", "drop", "held_b2", "held_b2_sum"), "",
+                       SHAPE3))
 
 
 @pytest.fixture(scope="module")
@@ -1236,10 +1309,11 @@ model = build_model(tiny_config("gemma2-2b"))
 tcfg = TrainConfig(optim=OptimConfig(lr={LR}, warmup_steps=1,
                                      total_steps=10))
 out = {{}}
-for data, tp, B, mode, key in {RUNS!r}:
+for pod, data, tp, B, mode, key in {RUNS!r}:
     shape = ShapeConfig("t", {S}, B, "train")
-    mesh = Mesh(np.asarray(jax.devices()[:data * tp]).reshape(data, tp),
-                ("data", "model"))
+    devs = np.asarray(jax.devices()[:pod * data * tp])
+    mesh = Mesh(devs.reshape(pod, data, tp), ("pod", "data", "model")) \
+        if pod > 1 else Mesh(devs.reshape(data, tp), ("data", "model"))
     ac = j_sh.make_ac(mesh, mode)
     step, args, ins, outs, don, _ = rd.build_step(model, shape, mesh, tcfg,
                                                   ac_mode=mode)
@@ -1277,7 +1351,9 @@ def reference_seq_tp(tmp_path_factory):
     """The reference's jitted make_train_step under make_ac(mesh,
     "seq_tp"), with build_step's shardings, on 4 forced host devices at
     model=2 and data=2 x model=2, and under dp at data=2 on a batch of
-    one row (its spec splits the sequence over data: key "data2_b1"), in
+    one row (its spec splits the sequence over data: key "data2_b1") and
+    at pod=2 x data=2 x model=1 on batches that pod holds whole (keys
+    "held_b2": the rows over data; "held_b1": the sequence over data), in
     a subprocess: the first gradients (the batch given its in_shardings
     too), STEPS fp32 steps from ``_ref_state`` and, before each, the
     float64 norm of the gradients at the step's state ("norm64")."""
@@ -1293,9 +1369,11 @@ def reference_seq_tp(tmp_path_factory):
     root = Path(__file__).resolve().parents[1]
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count"
                "=4", JAX_PLATFORMS="cpu", PYTHONPATH=str(root / "src"))
-    runs = [(d, t, SHAPE.global_batch, "seq_tp", (d, t))
+    runs = [(1, d, t, SHAPE.global_batch, "seq_tp", (d, t))
             for d, t in SEQ_TP_WORLDS.values()] + [
-        (2, 1, SHAPE_B1.global_batch, "dp", "data2_b1")]
+        (1, 2, 1, SHAPE_B1.global_batch, "dp", "data2_b1")] + [
+        (2, 2, 1, HELD[k][0].global_batch, "dp", k)
+        for k in ("held_b2", "held_b1")]
     script = SEQ_TP_REF.format(S=SHAPE.seq_len, LR=LR, STEPS=STEPS,
                                RUNS=runs)
     r = subprocess.run([sys.executable, "-c", script, str(path),
@@ -1411,6 +1489,23 @@ def seq_one_device():
 SEQ_WORLDS = {"data2": (2, 1), "world4": (2, 2)}
 
 
+def _check_reference_norm64(got, ref, what):
+    """``got`` under the fp32 rules against the reference's run ``ref``,
+    every step's grad norm held to the float64 norm of the reference's
+    gradients at that step's state (``norm64``); both distances are
+    printed with -s."""
+    _check_fp32(got, dict(ref, steps=[
+        (dict(m, grad_norm=n), mast)
+        for (m, mast), n in zip(ref["steps"], ref["norm64"])]))
+
+    def rel(steps, norms):
+        return ", ".join(f"{abs(m['grad_norm'] - n) / n:.3g}"
+                         for (m, _), n in zip(steps, norms))
+    print(f"{what} against the reference's float64 grad norms: "
+          f"{rel(got['steps'], ref['norm64'])}; the reference's "
+          f"reported norms against them: {rel(ref['steps'], ref['norm64'])}")
+
+
 @pytest.mark.parametrize("name", list(SEQ_WORLDS))
 def test_seq_split_fp32_matches_one_device_and_reference(
         name, request, seq_one_device, reference_seq_tp):
@@ -1430,18 +1525,8 @@ def test_seq_split_fp32_matches_one_device_and_reference(
     got = ranks[0]["seq_fp32"]
     _check_fp32(got, seq_one_device["fp32"])
     if name == "data2":
-        ref = reference_seq_tp["data2_b1"]
-        exact = dict(ref, steps=[(dict(m, grad_norm=n), mast) for (m, mast), n
-                                 in zip(ref["steps"], ref["norm64"])])
-        _check_fp32(got, exact)
-
-        def rel(steps, norms):
-            return ", ".join(f"{abs(m['grad_norm'] - n) / n:.3g}"
-                             for (m, _), n in zip(steps, norms))
-        print(f"seq split against the reference's float64 grad norms: "
-              f"{rel(got['steps'], ref['norm64'])}; the reference's "
-              f"reported norms against them: "
-              f"{rel(ref['steps'], ref['norm64'])}")
+        _check_reference_norm64(got, reference_seq_tp["data2_b1"],
+                                "seq split")
     for r in ranks:
         assert r["seq_fp32"]["shapes_ok"]
         assert all(np.array_equal(a, b) for a, b in zip(
@@ -1524,5 +1609,99 @@ def test_seq_split_control_misses(world_data2, seq_one_device):
     assert _grad_err(want, world_data2[0]["seq_fp32"]["grads"]) <= GRAD_TOL
     miss = _grad_err(want, world_data2[0]["seq_cut"])
     print(f"seq split without the reduce-scatter: {miss:.3g} of a leaf's "
+          f"max |g|")
+    assert miss > 100 * GRAD_TOL
+
+
+# ------------------------------ a (micro)batch an FSDP axis holds whole --
+@pytest.fixture(scope="module")
+def held_one_device(seq_one_device):
+    """The one-device port's fp32 runs of the ``HELD`` cases."""
+    return {"held_b2": _one_device("gemma2-2b", "fp32", shape=SHAPE_B2),
+            "held_m2": _one_device("gemma2-2b", "fp32", 2, SHAPE),
+            "held_b1": seq_one_device["fp32"],
+            "held_odd": _one_device("gemma2-2b", "fp32", shape=SHAPE_ODD)}
+
+
+# the data=2 case whose step pod=2 x data=2 repeats on each pod rank
+AT_DATA2 = {"held_b2": "held_b2_first", "held_m2": "held_m2_first",
+            "held_b1": "seq_fp32"}
+
+
+@pytest.mark.parametrize("case", list(AT_DATA2))
+def test_held_over_pod_is_the_data2_step(case, world_pod, world_data2):
+    """Layouts A (the rows over data alone: B 2, and B 4 in microbatches
+    of 2) and B (B 1, its sequence over data) at pod=2 x data=2: each pod
+    rank computes its data rank's rows from the same gathered weights and
+    nothing sums over pod, so the first loss and every gradient leaf,
+    gathered whole, are the same batch's at data=2, bit for bit (the same
+    two shares summed in the same group-rank order), and the pod replicas'
+    losses and grad norms are the same bits at every step."""
+    for i, r in enumerate(world_pod):
+        got, want = r[case], world_data2[i % 2][AT_DATA2[case]]
+        assert got["loss"] == want["loss"]
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(got["grads"], want["grads"]))
+        assert got["metrics"] == world_pod[0][case]["metrics"]
+        assert got["shapes_ok"]
+
+
+HELD_WORLDS = [("world_pod", c) for c in HELD] + [("world_data3",
+                                                   "held_b2")]
+
+
+@pytest.mark.parametrize("world,case", HELD_WORLDS)
+def test_held_steps_match_one_device(world, case, request, held_one_device):
+    """Every layout an FSDP axis holds whole (A, B and C at pod=2 x
+    data=2, C at data=3): three fp32 steps under the fp32 rules against
+    the one-device port, every rank's first gradients and every step's
+    loss and grad norm alike."""
+    ranks = request.getfixturevalue(world)
+    got = ranks[0][case]
+    _check_fp32(got, held_one_device[case])
+    for r in ranks:
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(r[case]["grads"], got["grads"]))
+        assert r[case]["metrics"] == got["metrics"]
+
+
+@pytest.mark.parametrize("world,case", [("world_pod", "held_odd"),
+                                        ("world_data3", "held_b2")])
+def test_held_whole_is_one_device(world, case, request, held_one_device):
+    """Layout C (no axis splits the rows or the sequence: B 1 x S 63 at
+    pod=2 x data=2, B 2 x S 64 at data=3): every rank computes the whole
+    batch from the gathered weights and nothing sums over data or pod, so
+    the first loss and every gradient leaf are the one-device port's, bit
+    for bit."""
+    want = held_one_device[case]
+    for r in request.getfixturevalue(world):
+        got = r[case]
+        assert got["metrics"][0]["loss"] == want["steps"][0][0]["loss"]
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(got["grads"], want["grads"]))
+
+
+@pytest.mark.parametrize("case", ["held_b2", "held_b1"])
+def test_held_over_pod_matches_reference(case, world_pod, reference_seq_tp):
+    """A (B 2) and B (B 1) at pod=2 x data=2 against the reference's
+    jitted step on pod=2 x data=2 x model=1 forced host devices with its
+    own in_shardings: three fp32 steps under the fp32 rules, the grad
+    norm held to the reference's gradients' float64 norm."""
+    _check_reference_norm64(world_pod[0][case], reference_seq_tp[case],
+                            f"{case} at pod=2 x data=2")
+
+
+@pytest.mark.parametrize("world", ["world_pod", "world_data3"])
+def test_held_control_misses(world, request, held_one_device):
+    """B 2 with the backward over the axes that hold it whole a
+    reduce-scatter and a post-backward sum, as over an axis that splits
+    the rows (pod at pod=2 x data=2, data at data=3): each gradient is
+    doubled or tripled, and the first gradients miss the fp32 tolerance
+    (the distance is printed with -s)."""
+    ranks = request.getfixturevalue(world)
+    want = held_one_device["held_b2"]["grads"]
+    assert _grad_err(want, ranks[0]["held_b2"]["grads"]) <= GRAD_TOL
+    miss = _grad_err(want, ranks[0]["held_b2_sum"]["grads"])
+    print(f"{world} with the held axes summed: {miss:.3g} of a leaf's "
           f"max |g|")
     assert miss > 100 * GRAD_TOL

@@ -65,6 +65,10 @@ Tolerances, and why (tests/test_torch_train_sharded.py's rules):
     (experts, keep, buffer rows) equal to one device's as integers and
     its aux loss's gradient, alone, under the fp32 rule, while the
     control that takes it on every rank counts it twice and misses.
+  * One row at data=2 that data divides in no dim (S 63; whisper's 7
+    decoder tokens), held whole over data, and whisper's 56 frames (which
+    data divides) beside 7 tokens: every family's first loss and
+    gradients the one-device step's, bit for bit.
 
 Each gloo world is spawned once (a module fixture) and returns all of its
 cases. Workers run one intra-op thread, as does this process.
@@ -100,6 +104,15 @@ SHAPE = ShapeConfig("t", 64, 4, "train")
 # one row at data=2: no batch axis divides it, so the rules split its
 # sequence over data (DataSeqRows; whisper's frames and tokens each)
 SHAPE_B1 = ShapeConfig("t", 64, 1, "train")
+# one row that data=2 divides in no dim (mamba2 and zamba2: 63 tokens;
+# whisper: 63 frames and 7 decoder tokens; llava: 15 patch rows and 48
+# tokens, 63 rows): every data rank holds it whole (training/sharded.py)
+SHAPE_ODD = ShapeConfig("t", 63, 1, "train")
+# whisper's 56 frames, which data=2 divides, beside 7 decoder tokens,
+# which it does not: the rules split the frames' sequence over data and
+# leave the tokens whole, and the step holds the row whole over data
+SHAPE_MIXED = ShapeConfig("t", 56, 1, "train")
+WHISPER = "whisper-large-v3"
 QK_SCALE = 0.125
 LR = 1e-3
 STEPS = 2
@@ -166,11 +179,13 @@ def _batch(model, k, zero_rows=None, shape=SHAPE):
 
 
 # --------------------------------------------------------------- one device --
-def _one_device(arch, fp32, microbatches=1, zero_rows=None, shape=SHAPE):
+def _one_device(arch, fp32, microbatches=1, zero_rows=None, shape=SHAPE,
+                remat=False):
     """The port's one-device run: (first step's loss, grad norm and
     gradients (fp32 case), each step's metrics). At ``shape`` B 1 (fp32)
     also the moe layers' plans of the first batch (``_plans``) and the
-    gradients of its moe aux loss alone (``_aux_grads``)."""
+    gradients of its moe aux loss alone (``_aux_grads``). ``remat``: the
+    first gradients as the step takes them (``TrainConfig.remat``)."""
     model = build_model(tiny_config(arch))
     state = _state(model, fp32)
     tcfg = _tcfg(microbatches)
@@ -180,7 +195,8 @@ def _one_device(arch, fp32, microbatches=1, zero_rows=None, shape=SHAPE):
         for p in leaves:
             p.requires_grad_(True)
         loss = model.loss(state["params"], _batch(model, 0, zero_rows,
-                                                  shape))
+                                                  shape), remat=remat)
+        out["loss"] = float(loss.detach())
         out["grads"] = [g.float().numpy()
                         for g in torch.autograd.grad(loss, leaves)]
         for p in leaves:
@@ -389,6 +405,10 @@ def _world(rank, world, device, data, tp, ckpt_dir, ref_file=None):
             out[(arch, "world1")] = _world1(arch, ckpt_dir)
         for arch in ARCHS + (MOE,):     # the sequence split over data
             out[(arch, "b1")] = _case(mesh, arch, True, shape=SHAPE_B1)
+        for arch in ARCHS:              # the row whole over data
+            out[(arch, "odd")] = _case(mesh, arch, True, shape=SHAPE_ODD)
+        out[(WHISPER, "mixed")] = _case(mesh, WHISPER, True,
+                                        shape=SHAPE_MIXED)
     if ref_file:
         with open(ref_file, "rb") as f:
             ref = pickle.load(f)
@@ -523,6 +543,11 @@ def one_device():
                                     zero_rows=slice(2, 4))
     for arch in ARCHS + (MOE,):
         out[(arch, "b1")] = _one_device(arch, True, shape=SHAPE_B1)
+    for arch in ARCHS:
+        out[(arch, "odd")] = _one_device(arch, True, shape=SHAPE_ODD,
+                                         remat=True)
+    out[(WHISPER, "mixed")] = _one_device(WHISPER, True, shape=SHAPE_MIXED,
+                                          remat=True)
     out["whisper_blocks"] = _block_grads("whisper-large-v3", 2, SHAPE_B1)
     return out
 
@@ -753,3 +778,36 @@ def test_seq_split_moe_routes_as_one_device(world_data2, one_device):
                                                got["aux_every_rank"][1])
                     if np.abs(w).max() > 0)
         assert twice > 100 * GRAD_TOL
+
+
+# -------------------------------------------- a row held whole over data --
+@pytest.mark.parametrize("arch,case", [(a, "odd") for a in ARCHS]
+                         + [(WHISPER, "mixed")])
+def test_row_held_whole_over_data_is_one_device(arch, case, world_data2,
+                                                one_device):
+    """One row at data=2 that data divides in no dim (``SHAPE_ODD``:
+    S 63, whisper's 63 frames and 7 decoder tokens, llava's 15 patch rows
+    and 48 tokens), or whose decoder tokens it does not divide beside
+    frames it does (``SHAPE_MIXED``, which ``train(mesh=)``'s layout
+    check takes: the rules split the frames over data): every rank
+    computes the whole row from the gathered weights, its encoder too,
+    and nothing sums over data, so on every rank the first loss and
+    every gradient leaf are the one-device port's, bit for bit, and the
+    step's loss and grad norm are within the fp32 rules."""
+    if case == "mixed":
+        from repro_torch.training.loop import _check_layout
+        model = build_model(tiny_config(arch))
+        sizes = {"data": 2, "model": 1}
+        spec = shlib.specs_for(model.input_specs(SHAPE_MIXED),
+                               model.batch_logical_specs(SHAPE_MIXED), sizes)
+        assert (tuple(spec["frames"])[:2], tuple(spec["tokens"])) == \
+            ((None, "data"), ())
+        _check_layout(model, _tcfg(), SHAPE_MIXED, shlib.make_ac(sizes),
+                      None)
+    want = one_device[(arch, case)]
+    for r in world_data2:
+        got = r[(arch, case)]
+        assert got["shapes_ok"] and got["loss"] == want["loss"]
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(got["grads"], want["grads"]))
+        _check_fp32(got, want, arch)
